@@ -5,21 +5,27 @@
 
 Phases (every failure is recorded and the script exits 1 at the end):
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
-     sparsebit_tpu_torch/csrc and print the build time;
+     sparsebit_tpu_torch/csrc (one nvcc per source, all started together)
+     and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at
      LLaMA-7B INT4-g128 shapes: max error against its tolerance, kernel ms
      (CUDA events, weights cycled over layers so that they come from HBM as
      they do in decode), plain ms, the HBM/peak bound and, where one
-     PyTorch call computes the same function, that call's ms;
+     PyTorch call computes the same function, that call's ms. K4 (the
+     decode megakernel) runs all 32 layers at B = 1, 8, 32 and B = 8
+     paged, S = 512, its KV codes and scales exact;
   3. a small LLaMA on the card against the same weights on the CPU:
      admission logits and teacher-forced decode logits agree;
-  4. serve llama_7b()-shaped random INT4-g128 weights with
-     DecodeEngine(max_batch=8, max_len=512, chunk=8, device="cuda"):
-     8 requests x 32 tokens over several admission buckets; every request
-     gets 32 tokens, every logit row is finite and every kernel launched.
-It prints one JSON line of per-kernel numbers, the card's name and power
-limit, and last {"ok": true, "device": {...}}. It exits non-zero without
-CUDA or without the repository beside it.
+  4. serve llama_7b()-shaped random INT4-g128 weights, one path at a time,
+     every kernel count set to 0 before a path and read after it:
+     DecodeEngine(max_batch=8, max_len=512, chunk=8, device="cuda") on K4
+     (8 requests x 32 tokens; wall ms/step beside K4's device ms/step);
+     the unfused route (FORCE_LAYER_KERNEL = False, K2/K3) at a reduced
+     depth; PagedDecodeEngine(block=128) against the fixed-slot engine on
+     10 requests with a shared 256-token prefix, tokens equal.
+It prints one JSON line of per-kernel and per-path numbers, the card's
+name and power limit, and last {"ok": true, "device": {...}}. It exits
+non-zero without CUDA or without the repository beside it.
 """
 
 import json
@@ -258,6 +264,100 @@ def kernel_checks(stacked, cfg, results):
                "sparsebit_tpu/ops/matvec.py:21", err, tol, ms, pms, bnd, lms,
                "B={} {}->{}".format(Bm, cfg.dim, W.shape[1]))
 
+    k4_checks(stacked, cfg, record, g)
+
+
+def k4_checks(stacked, cfg, record, g):
+    """K4 against its plain version at llama_7b() widths, all 32 layers,
+    S = 512, mixed lengths (rows past the first 128-row block): B = 1, 8
+    and 32 on a contiguous cache, B = 8 on a paged pool with a scrambled
+    block table. The KV codes and scales written must equal the plain
+    version's exactly; the output must agree within 1e-4 of its max."""
+    import torch
+    from sparsebit_tpu_torch.llm.decode import _rope_cos_sin
+    from sparsebit_tpu_torch.ops import layer_fused as LF
+
+    dev = torch.device("cuda")
+    layers = stacked["layers"]
+    lins = [layers[n] for n in ("wqkv", "wo", "w13", "w2")]
+    wargs = [t for ln in lins for t in (ln.packed["s4r"], ln.scales,
+                                        ln.zeros)]
+    norms = (layers["attn_norm"], layers["ffn_norm"])
+    w_bytes = sum(t.numel() * t.element_size() for t in wargs + list(norms))
+    w_count = sum(ln.packed["s4r"].numel() * 2 for ln in lins)
+    S, Hkv, Hq, D = 512, cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
+    Lx = cfg.n_layers
+    gs = lins[0].groupsize
+    rng_pos = torch.Generator().manual_seed(SEED + 4)
+    cases = [(1, False, [300]),
+             (8, False, [0, 17, 100, 255, 300, 411, 480, 511]),
+             (32, False, torch.randint(0, S, (32,),
+                                       generator=rng_pos).tolist()),
+             (8, True, [0, 17, 100, 255, 300, 411, 480, 511])]
+    for B, paged, pos_l in cases:
+        n_chunks = S // 128
+        if paged:
+            n_blocks = B * n_chunks + 4
+            perm = torch.randperm(n_blocks, generator=rng_pos)[:B * n_chunks]
+            bt = perm.reshape(B, n_chunks).to(dev, torch.int32)
+            lead = (Lx, n_blocks, 128)
+        else:
+            bt = None
+            lead = (Lx, B, S)
+        kc = torch.randint(-128, 128, lead + (Hkv, D), dtype=torch.int8,
+                           generator=g, device=dev)
+        vc = torch.randint(-128, 128, lead + (Hkv, D), dtype=torch.int8,
+                           generator=g, device=dev)
+        ksc = torch.empty(lead + (Hkv,), device=dev).uniform_(
+            0.001, 0.05, generator=g).to(torch.bfloat16).float()
+        vsc = torch.empty(lead + (Hkv,), device=dev).uniform_(
+            0.001, 0.05, generator=g).to(torch.bfloat16).float()
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        cos, sin = _rope_cos_sin(cfg, pos)
+        x = torch.randn((B, cfg.dim), generator=g, device=dev).to(
+            torch.bfloat16).float()
+        cache = [kc, vc, ksc, vsc]
+        plain = [t.clone() for t in cache]
+        bt_p = bt if paged else torch.arange(
+            B, dtype=torch.int32, device=dev)[:, None]
+        ws = [tuple(wargs[i:i + 3]) for i in range(0, 12, 3)]
+
+        def run_kernel(i):
+            return LF.fused_decoder_layers(
+                x, pos, cos, sin, *wargs, *norms, *cache, cfg, gs, bt=bt)[0]
+
+        def run_plain(i):
+            return LF._fused_layers_plain(
+                x, pos, cos, sin, ws, *norms, *plain, bt_p, S, gs,
+                cfg.rms_eps, Hq, Hkv)
+
+        out = run_kernel(0)
+        ref = run_plain(0)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b) for a, b in zip(cache, plain))
+        if not exact:
+            fail("K4 B={}{} cache codes/scales differ from the plain "
+                 "version".format(B, " paged" if paged else ""))
+        finite = bool(torch.isfinite(out).all().item())
+        if not finite:
+            fail("K4 B={} output not finite".format(B))
+        err = (out - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()
+        ms = cuda_ms(run_kernel, 10)
+        pms = cuda_ms(run_plain, 1, 0)
+        rows = sum(min(p, S - 1) + 1 for p in pos_l)
+        kv_bytes = Lx * (rows + B) * Hkv * (2 * D + 8)
+        nbytes = w_bytes + kv_bytes + 2 * 4 * B * cfg.dim + 2 * 4 * B * D
+        ops = 2 * B * w_count + Lx * 4 * rows * Hq * D
+        bnd = bound_ms(nbytes, ops, "int8")
+        tag = "K4 B={}{}".format(B, " paged" if paged else "")
+        record(tag, "K4", "sparsebit_tpu_torch/csrc/layer_fused.cu",
+               "sparsebit_tpu/ops/layer_fused.py:213", err, tol, ms, pms,
+               bnd, None, "{} L={} S={} codes {}".format(
+                   tag, Lx, S, "exact" if exact else "DIFFER"))
+        del cache, plain, kc, vc, ksc, vsc
+        torch.cuda.empty_cache()
+
 
 def small_model_check():
     """Phase 3: a small LLaMA served on the card agrees with the same
@@ -331,49 +431,78 @@ def small_model_check():
         fail("small model cuda vs cpu logits err {:.3e}".format(err))
 
 
-def serve_7b(params, cfg):
-    """Phase 4: the engine on 7B widths; returns the launch counts."""
+PROMPT_LENS = [16, 40, 60, 100, 130, 170, 200, 25]
+
+
+def _wrappers():
+    from sparsebit_tpu_torch.ops import attention, ffn_fused, layer_fused
+    from sparsebit_tpu_torch.ops import matvec, quant_matmul
+
+    return {"K1": quant_matmul.quant_matmul_s4,
+            "K2": attention.decode_attention_update,
+            "K3": ffn_fused.ffn_block_fused,
+            "K4": layer_fused.fused_decoder_layers,
+            "K9": matvec.bf16_matvec}
+
+
+def _prompts(cfg, with_prefix_pair=False):
+    """The 8 prompts of PR 1's run (seeded); with_prefix_pair adds A, a
+    256-token prompt, first, and B = A + 40 tokens, last."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    out = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+           for n in PROMPT_LENS]
+    if with_prefix_pair:
+        a = torch.randint(0, cfg.vocab_size, (256,), generator=gen).tolist()
+        b = a + torch.randint(0, cfg.vocab_size, (40,),
+                              generator=gen).tolist()
+        out = [a] + out + [b]
+    return out
+
+
+def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
+          time_k4=False):
+    """Run one engine over ``prompts`` (greedy, n_new tokens each) with
+    every kernel count set to 0 just before and read just after: fails if
+    a kernel of ``expect`` was not launched, a request got another number
+    of tokens or a logit row was not finite. Returns (results, stats)."""
     import torch
     from sparsebit_tpu_torch.llm import decode as Dm
     from sparsebit_tpu_torch.llm import serving as Sv
-    from sparsebit_tpu_torch.ops import attention, ffn_fused, matvec
-    from sparsebit_tpu_torch.ops import quant_matmul
 
-    wrappers = {"K1": quant_matmul.quant_matmul_s4,
-                "K2": attention.decode_attention_update,
-                "K3": ffn_fused.ffn_block_fused,
-                "K9": matvec.bf16_matvec}
-    t0 = time.perf_counter()
-    eng = Sv.DecodeEngine(params, cfg, max_batch=8, max_len=512, chunk=8,
-                          device="cuda")
-    torch.cuda.synchronize()
-    print("engine set-up {:.1f} s".format(time.perf_counter() - t0))
-    finite = []
+    wrappers = _wrappers()
+    finite, chunk_s, k4_ev = [], [], []
     orig_sample = Dm.sample_logits_vec
+    orig_chunk = getattr(Sv, chunk_fn_name)
+    orig_k4 = Dm.fused_decoder_layers
 
     def sample_checked(logits, temps, generator=None):
         finite.append(torch.isfinite(logits).all())
         return orig_sample(logits, temps, generator)
-
-    chunk_s = []
-    orig_chunk = Sv.decode_chunk_scanned
 
     def chunk_timed(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = orig_chunk(*a, **kw)
         torch.cuda.synchronize()
-        chunk_s.append((time.perf_counter() - t, a[-1]))
+        chunk_s.append((time.perf_counter() - t, a[6]))
+        return out
+
+    def k4_timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig_k4(*a, **kw)
+        ev[1].record()
+        k4_ev.append(ev)
         return out
 
     Dm.sample_logits_vec = Sv.sample_logits_vec = sample_checked
-    Sv.decode_chunk_scanned = chunk_timed
-    gen = torch.Generator().manual_seed(SEED + 3)
-    lens = [16, 40, 60, 100, 130, 170, 200, 25]
-    for n in lens:
-        eng.add_request(torch.randint(0, cfg.vocab_size, (n,),
-                                      generator=gen).tolist(),
-                        max_new_tokens=32)
+    setattr(Sv, chunk_fn_name, chunk_timed)
+    if time_k4:
+        Dm.fused_decoder_layers = k4_timed
+    rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -383,33 +512,114 @@ def serve_7b(params, cfg):
         torch.cuda.synchronize()
     finally:
         Dm.sample_logits_vec = Sv.sample_logits_vec = orig_sample
-        Sv.decode_chunk_scanned = orig_chunk
+        setattr(Sv, chunk_fn_name, orig_chunk)
+        Dm.fused_decoder_layers = orig_k4
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    n_tok = sum(len(v) for v in res.values())
-    if len(res) != len(lens) or any(len(v) != 32 for v in res.values()):
-        fail("engine returned {} requests with lengths {}".format(
-            len(res), [len(v) for v in res.values()]))
+    if len(res) != len(prompts) or any(len(res[r]) != n_new for r in rids):
+        fail("{}: {} requests with lengths {}".format(
+            path, len(res), [len(v) for v in res.values()]))
     if not all(bool(f.item()) for f in finite):
-        fail("non-finite logits in the engine run")
-    for k, n in launches.items():
-        if n <= 0:
-            fail("{} was not launched on the main path".format(k))
+        fail("{}: non-finite logits".format(path))
+    for k in expect:
+        if launches[k] <= 0:
+            fail("{} was not launched on the {} path".format(k, path))
     dec_s = sum(t for t, _ in chunk_s)
     steps = sum(n for _, n in chunk_s)
-    print("engine: {} requests, {} tokens, prompts {} (buckets {}), "
-          "run {:.3f} s".format(len(res), n_tok, lens,
-                                sorted({Sv._bucket(n) for n in lens}),
-                                wall), flush=True)
-    print("engine decode: {} chunks, {} steps at B=8, {:.3f} ms/step, "
-          "{:.1f} tok/s (8 slots)".format(
-              len(chunk_s), steps, 1e3 * dec_s / steps,
-              8 * steps / dec_s), flush=True)
-    print("engine launches: {}".format(launches), flush=True)
-    return launches, {"requests": len(res), "tokens": n_tok,
-                      "run_s": wall, "decode_ms_per_step": 1e3 * dec_s / steps,
-                      "decode_tok_s": 8 * steps / dec_s,
-                      "prompt_lens": lens}
+    B = eng.max_batch
+    stats = {"requests": len(res), "tokens": sum(map(len, res.values())),
+             "run_s": wall, "decode_steps": steps,
+             "decode_ms_per_step": 1e3 * dec_s / steps,
+             "decode_tok_s": B * steps / dec_s, "launches": launches}
+    if time_k4:
+        stats["k4_device_ms_per_step"] = sum(
+            a.elapsed_time(b) for a, b in k4_ev) / len(k4_ev)
+    print("{}: {} requests, {} tokens, run {:.3f} s; decode {} steps at "
+          "B={}, {:.3f} ms/step, {:.1f} tok/s{}; launches {}".format(
+              path, stats["requests"], stats["tokens"], wall, steps, B,
+              stats["decode_ms_per_step"], stats["decode_tok_s"],
+              "; K4 device {:.3f} ms/step".format(
+                  stats["k4_device_ms_per_step"]) if time_k4 else "",
+              launches), flush=True)
+    return [res[r] for r in rids], stats
+
+
+def serve_paths(params, cfg):
+    """Phase 4: the engines at 7B widths, one path at a time.
+      main     DecodeEngine on K4 (8 requests x 32 tokens, PR 1's run):
+               ms/step, tok/s, K4 device ms/step beside the wall ms/step;
+      unfused  FORCE_LAYER_KERNEL = False at a reduced depth: K2/K3;
+      paged    PagedDecodeEngine(block 128) and the fixed-slot engine on
+               the same 10 requests (a 256-token shared-prefix pair
+               added), admissions pinned to prefill_at: equal tokens."""
+    import dataclasses
+    import types
+
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.llm import serving as Sv
+
+    out = {}
+    kw = dict(max_batch=8, max_len=512, chunk=8, device="cuda")
+    eng = Sv.DecodeEngine(params, cfg, **kw)
+    if not eng._stacked_chunks:
+        fail("DecodeEngine at 7B is not on the megakernel route")
+    _, out["main"] = drive(eng, _prompts(cfg), "decode_chunk_scanned",
+                           "main (DecodeEngine, K4)",
+                           ("K1", "K4", "K9"), time_k4=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    depth = min(4, cfg.n_layers)
+    cfg_u = dataclasses.replace(cfg, n_layers=depth)
+    params_u = dict(params, layers=params["layers"][:depth])
+    Dm.FORCE_LAYER_KERNEL = False
+    try:
+        eng = Sv.DecodeEngine(params_u, cfg_u, **kw)
+        _, out["unfused"] = drive(
+            eng, _prompts(cfg), "decode_chunk_scanned",
+            "unfused (DecodeEngine, FORCE_LAYER_KERNEL=False, depth {})"
+            .format(depth), ("K1", "K2", "K3", "K9"), n_new=8)
+    finally:
+        Dm.FORCE_LAYER_KERNEL = None
+    out["unfused"]["depth"] = depth
+    del eng
+    torch.cuda.empty_cache()
+
+    prompts = _prompts(cfg, with_prefix_pair=True)
+    eng = Sv.DecodeEngine(params, cfg, **kw)
+    ref, out["fixed_10"] = drive(eng, prompts, "decode_chunk_scanned",
+                                 "fixed-slot, 10 requests",
+                                 ("K1", "K4", "K9"))
+    out["fixed_10"]["prefix_hits"] = eng.prefix_hits
+    del eng
+    torch.cuda.empty_cache()
+    eng = Sv.PagedDecodeEngine(params, cfg, block=128, **kw)
+    eng._prefill_call = types.MethodType(
+        lambda self, tokens, scratch, lasts, offsets: Dm.prefill_at(
+            self.params, tokens, scratch, self.cfg, lasts, offsets), eng)
+    got, out["paged"] = drive(eng, prompts, "decode_chunk_paged",
+                              "paged (PagedDecodeEngine, block 128)",
+                              ("K1", "K4", "K9"))
+    held = sum(1 for r in eng._ref if r > 0)
+    cached = sum(len(e["blocks"]) for e in eng._prefix.values())
+    out["paged"].update(prefix_hits=eng.prefix_hits, blocks_held=held,
+                        blocks_in_prefix_cache=cached,
+                        tokens_equal_fixed_slot=got == ref)
+    print("paged: prefix hits {} (fixed-slot {}), blocks held at the end "
+          "{} (prefix cache {}), tokens equal to the fixed-slot engine's: "
+          "{}".format(eng.prefix_hits, out["fixed_10"]["prefix_hits"], held,
+                      cached, got == ref), flush=True)
+    if got != ref:
+        bad = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+        fail("paged tokens differ from the fixed-slot engine's in "
+             "requests {}".format(bad))
+    if eng.prefix_hits < 1 or held != cached:
+        fail("paged: {} prefix hits, {} blocks held, {} cached".format(
+            eng.prefix_hits, held, cached))
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -449,10 +659,13 @@ def main():
     torch.cuda.empty_cache()
     print("kernel checks {:.1f} s".format(time.perf_counter() - t0))
     small_model_check()
-    launches, engine = serve_7b(params, cfg)
+    engines = serve_paths(params, cfg)
+    # launches of each kernel on its path: K2/K3 on the unfused route,
+    # the others on the main path
     for r in results:
-        r["launches"] = launches[r["kernel"]]
-    print(json.dumps({"kernels": results, "engine": engine,
+        path = "unfused" if r["kernel"] in ("K2", "K3") else "main"
+        r["launches"] = engines[path]["launches"][r["kernel"]]
+    print(json.dumps({"kernels": results, "engines": engines,
                       "card": card}), flush=True)
     print(card, flush=True)
     if failures:

@@ -1,0 +1,580 @@
+// K4: the decode megakernel. One cooperative launch runs the whole
+// decoder backbone for one token per row:
+//     x' = x + Wo(attn(rope(Wqkv(rms_norm(x))), cache))
+//     x  = x' + W2(q8(silu(g) * u)),  [g, u] = W13(q8(rms_norm(x')))
+// for every layer, over an int8 KV cache that is contiguous or paged.
+//
+// Replaces sparsebit_tpu/ops/layer_fused.py:213 _layer_kernel
+// (fused_decoder_layers).
+//
+// The TPU kernel walked one sequential grid through five phases per
+// layer, with every intermediate in VMEM. Hopper blocks run in no order,
+// so here a persistent grid (as many blocks as fit on the card at once,
+// launched with cudaLaunchCooperativeKernel) walks seven phases per layer
+// and meets at a grid-wide barrier (cooperative_groups grid.sync) after
+// each one:
+//   A  attn norm + int8 quant of x, one block per row;
+//   1  Wqkv: W4A8 tiles over the output columns;
+//   2  attention, one work item per (row, kv head): rope, int8 K/V row
+//      quant (bf16-rounded scales) and in-place commit at
+//      min(pos, S_cache - 1), then the int8 attention of the reference's
+//      _flat_attention_rows_int8 for the item's query heads (int8 q,
+//      dp4a scores, f32 softmax, 7-bit probabilities, int32 value mix);
+//      each item raises its row's absmax with atomicMax on float bits;
+//   3  Wo with requantization on load + residual;
+//   C  ffn norm + int8 quant, one block per row;
+//   4  W13 with paired gate/up tiles, silu(g) * u, row absmax;
+//   5  W2 with requantization on load + residual into the carried row.
+// The matmul phases reuse the dp4a tile core of w4a8.cuh and its exact
+// epilogue order. Every float sum is taken in one fixed order (a thread's
+// strided partial, then a 256-wide tree), which the plain version in
+// ops/layer_fused.py repeats, and no multiply-add is contracted: kernel
+// and plain version agree bit for bit.
+// The cache is a pool of blocks: row s of batch row b is row s % block of
+// block bt[b, s / block]; a contiguous cache is B blocks of S rows.
+// Bound on the H100: the weight and qparam stream of all layers (about
+// 3.44 GB at LLaMA-7B INT4-g128) plus the KV rows up to each row's
+// length, over 3.35 TB/s. This first version spends its time elsewhere:
+// no split-K (Wo and W2 give fewer column tiles than there are blocks),
+// byte-wide weight loads, and seven grid barriers per layer.
+#include <cooperative_groups.h>
+
+#include "w4a8.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxD = 256;
+constexpr int kMaxRep = 8;
+constexpr int kMaxBlocksPerSM = 2;
+
+struct Args {
+  const uint8_t *wq, *wo, *w13, *w2;
+  const void *sq, *zq, *so, *zo, *s13, *z13, *s2, *z2;
+  const void *an, *fn;
+  int8_t *k, *v;
+  float *ks, *vs;
+  const int *bt, *pos;
+  const float *cos, *sin;
+  float* x;  // carried rows (B, dim): the input, then each layer's output
+  int8_t* xq;
+  float *xs, *qkv, *aout, *amax_a, *xmid, *act, *amax_g, *sc;
+  int sz_bf16, nw_bf16, L, B, dim, Hq, Hkv, D, F, gs;
+  int n_blocks, block, max_chunks, s_act;
+  float eps, inv_sqrt_d;
+};
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ const void* qp_at(const void* p, size_t i,
+                                             int bf16) {
+  return static_cast<const char*>(p) + i * (bf16 ? 2 : 4);
+}
+
+// Ordered block reductions over all kThreads threads: the plain version's
+// attention.ordered_sum folds the partials in this same tree.
+__device__ float tree_sum(float v, float* red) {
+  const int t = threadIdx.x;
+  red[t] = v;
+  __syncthreads();
+  for (int w = kThreads / 2; w >= 1; w >>= 1) {
+    if (t < w) red[t] = __fadd_rn(red[t], red[t + w]);
+    __syncthreads();
+  }
+  float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+__device__ float tree_max(float v, float* red) {
+  const int t = threadIdx.x;
+  red[t] = v;
+  __syncthreads();
+  for (int w = kThreads / 2; w >= 1; w >>= 1) {
+    if (t < w) red[t] = fmaxf(red[t], red[t + w]);
+    __syncthreads();
+  }
+  float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// xq[row] = int8(rms_norm(xr) * nw), xs[row] its scale; f32 throughout:
+// var = sum(x^2) / dim, xn = (x * (1 / sqrt(var + eps))) * nw.
+__device__ void norm_quant_row(const float* xr, const void* nw, int nw_bf16,
+                               int dim, float eps, int8_t* xq, float* xs,
+                               float* red) {
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < dim; i += kThreads)
+    ss = __fadd_rn(ss, __fmul_rn(xr[i], xr[i]));
+  const float var = __fdiv_rn(tree_sum(ss, red), static_cast<float>(dim));
+  const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < dim; i += kThreads)
+    mx = fmaxf(mx, fabsf(__fmul_rn(__fmul_rn(xr[i], r),
+                                   sbt::load_qparam(nw, i, nw_bf16))));
+  const float scale = sbt::row_scale(tree_max(mx, red));
+  for (int i = threadIdx.x; i < dim; i += kThreads)
+    xq[i] = static_cast<int8_t>(sbt::quant8(
+        __fmul_rn(__fmul_rn(xr[i], r), sbt::load_qparam(nw, i, nw_bf16)),
+        scale));
+  if (threadIdx.x == 0) *xs = scale;
+}
+
+// Cache row index (into the (.., Hkv) scale pool) of logical row s of
+// batch row b, head h, layer li.
+__device__ __forceinline__ size_t cache_row(const Args& a, int li, int b,
+                                            int s, int h) {
+  const int blk = a.bt[b * a.max_chunks + s / a.block];
+  return ((static_cast<size_t>(li) * a.n_blocks + blk) * a.block +
+          s % a.block) * a.Hkv + h;
+}
+
+// rotate-half rope of one head row: x * cos + rot * sin, rot = [-x2, x1]
+__device__ __forceinline__ float rope_at(const float* xr, const float* c,
+                                         const float* s, int d, int D) {
+  const int h = D / 2;
+  const float rot = d < h ? -xr[d + h] : xr[d - h];
+  return __fadd_rn(__fmul_rn(xr[d], c[d]), __fmul_rn(rot, s[d]));
+}
+
+struct AttnSmem {
+  float f[kMaxD];             // the row being quantized (k, v, then q)
+  int8_t krow[kMaxD], vrow[kMaxD];
+  int q8[kMaxRep * kMaxD / 4];  // query codes, 4 per word
+  float qs[kMaxRep];
+  int part[kThreads * 4];     // value-mix partials (groups x D)
+};
+
+// Quantize one head row held in sm.f to int8 with a bf16-rounded scale
+// (kv_cache._quant_heads) into dst_sm and the cache; returns the scale.
+__device__ float quant_kv_row(AttnSmem& sm, int D, int8_t* dst_sm,
+                              int8_t* cache_row_ptr, float* red) {
+  float mx = 0.f;
+  for (int d = threadIdx.x; d < D; d += kThreads)
+    mx = fmaxf(mx, fabsf(sm.f[d]));
+  const float scale = bf16_round(sbt::row_scale(tree_max(mx, red)));
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    const int8_t c = static_cast<int8_t>(sbt::quant8(sm.f[d], scale));
+    dst_sm[d] = c;
+    cache_row_ptr[d] = c;
+  }
+  return scale;
+}
+
+// Work item (b, h) of the attention phase.
+__device__ void attention_item(const Args& a, int li, int b, int h,
+                               AttnSmem& sm, float* red) {
+  const int D = a.D, Hq = a.Hq, Hkv = a.Hkv;
+  const int n_rep = Hq / Hkv;
+  const int HD = Hq * D, KVD = Hkv * D;
+  const int Nq = HD + 2 * KVD;
+  const int len = a.pos[b];
+  const int S_cache = a.max_chunks * a.block;
+  const int lw = min(len, S_cache - 1);
+  const int last = min(len, a.s_act - 1);  // rows [0, last] attend
+  const float* qkv = a.qkv + static_cast<size_t>(b) * Nq;
+  const float* cs = a.cos + static_cast<size_t>(b) * D;
+  const float* sn = a.sin + static_cast<size_t>(b) * D;
+  const int t = threadIdx.x;
+
+  // 1. new K/V rows of this head: rope (k), int8 quant, in-place commit
+  const size_t wrow = cache_row(a, li, b, lw, h);
+  for (int d = t; d < D; d += kThreads)
+    sm.f[d] = rope_at(qkv + HD + h * D, cs, sn, d, D);
+  __syncthreads();
+  const float ksc = quant_kv_row(sm, D, sm.krow, a.k + wrow * D, red);
+  for (int d = t; d < D; d += kThreads) sm.f[d] = qkv[HD + KVD + h * D + d];
+  __syncthreads();
+  const float vsc = quant_kv_row(sm, D, sm.vrow, a.v + wrow * D, red);
+  if (t == 0) {
+    a.ks[wrow] = ksc;
+    a.vs[wrow] = vsc;
+  }
+
+  // 2. the query heads of this kv head: rope, int8 codes, row scales
+  for (int r = 0; r < n_rep; ++r) {
+    const int j = h * n_rep + r;
+    for (int d = t; d < D; d += kThreads)
+      sm.f[d] = rope_at(qkv + j * D, cs, sn, d, D);
+    __syncthreads();
+    float mx = 0.f;
+    for (int d = t; d < D; d += kThreads) mx = fmaxf(mx, fabsf(sm.f[d]));
+    const float qs = fmaxf(tree_max(mx, red), 1e-30f) * (1.0f / 127.0f);
+    for (int w = t; w < D / 4; w += kThreads) {
+      int c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        c[i] = static_cast<int>(
+            fminf(fmaxf(rintf(sm.f[4 * w + i] / qs), -127.f), 127.f));
+      sm.q8[r * (D / 4) + w] = sbt::pack4(c[0], c[1], c[2], c[3]);
+    }
+    if (t == 0) sm.qs[r] = qs;
+    __syncthreads();
+  }
+
+  // 3. scores: one warp per cache row, dp4a over the head's D codes
+  const int lane = t % 32, warp = t / 32;
+  float* scb = a.sc + (static_cast<size_t>(b) * Hq + h * n_rep) * S_cache;
+  for (int s = warp; s <= last; s += kThreads / 32) {
+    const size_t row = cache_row(a, li, b, s, h);
+    const int* kw = reinterpret_cast<const int*>(
+        s == len ? sm.krow : a.k + row * D);
+    int dot[kMaxRep];
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r) dot[r] = 0;
+    for (int w = lane; w < D / 4; w += 32) {
+      const int kv = kw[w];
+#pragma unroll
+      for (int r = 0; r < kMaxRep; ++r)
+        if (r < n_rep) dot[r] = __dp4a(sm.q8[r * (D / 4) + w], kv, dot[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRep; ++r)
+      for (int o = 16; o > 0; o >>= 1)
+        dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], o);
+    if (lane == 0) {
+      const float kscale = s == len ? ksc : a.ks[row];
+      for (int r = 0; r < n_rep; ++r)
+        scb[r * S_cache + s] = __fmul_rn(
+            __fmul_rn(__fmul_rn(static_cast<float>(dot[r]), sm.qs[r]),
+                      kscale),
+            a.inv_sqrt_d);
+    }
+  }
+  __syncthreads();
+
+  // 4. per query head: softmax, 7-bit probabilities, int32 value mix
+  const int DW = D / 4;            // value words per row
+  const int SG = kThreads / DW;    // row groups of the value mix
+  const int wd = t % DW, sg = t / DW;
+  float amax = 0.f;
+  for (int r = 0; r < n_rep; ++r) {
+    float* p = scb + r * S_cache;
+    float m = -1e30f;
+    for (int s = t; s <= last; s += kThreads) m = fmaxf(m, p[s]);
+    m = tree_max(m, red);
+    float den = 0.f, pm = 0.f;
+    for (int s = t; s <= last; s += kThreads) {
+      const float e = expf(__fsub_rn(p[s], m));
+      den = __fadd_rn(den, e);
+      const float vscale =
+          s == len ? vsc : a.vs[cache_row(a, li, b, s, h)];
+      const float p2 = __fmul_rn(e, vscale);
+      p[s] = p2;
+      pm = fmaxf(pm, p2);
+    }
+    den = tree_sum(den, red);
+    const float psc = fmaxf(tree_max(pm, red), 1e-30f) * (1.0f / 127.0f);
+    for (int s = t; s <= last; s += kThreads)
+      p[s] = fminf(fmaxf(rintf(p[s] / psc), 0.f), 127.f);
+    __syncthreads();
+    int acc[4] = {0, 0, 0, 0};
+    for (int s = sg; s <= last; s += SG) {
+      const int p8 = static_cast<int>(p[s]);
+      const int vw = s == len
+          ? reinterpret_cast<const int*>(sm.vrow)[wd]
+          : reinterpret_cast<const int*>(
+                a.v + cache_row(a, li, b, s, h) * D)[wd];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[i] += p8 * static_cast<int>(static_cast<int8_t>(vw >> (8 * i)));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sm.part[sg * D + 4 * wd + i] = acc[i];
+    __syncthreads();
+    const int j = h * n_rep + r;
+    for (int d = t; d < D; d += kThreads) {
+      int tot = 0;
+      for (int g = 0; g < SG; ++g) tot += sm.part[g * D + d];
+      const float o =
+          __fdiv_rn(__fmul_rn(static_cast<float>(tot), psc), den);
+      a.aout[static_cast<size_t>(b) * HD + j * D + d] = o;
+      amax = fmaxf(amax, fabsf(o));
+    }
+    __syncthreads();
+  }
+  amax = tree_max(amax, red);
+  if (t == 0)
+    atomicMax(reinterpret_cast<int*>(a.amax_a) + b, __float_as_int(amax));
+}
+
+template <class P, class G>
+__global__ void __launch_bounds__(kThreads)
+    layers_fused_kernel(Args a) {
+  static_assert(P::THREADS == kThreads && G::THREADS == kThreads,
+                "one block size for every phase");
+  constexpr int BM = P::BM, BN = P::BN, TM = P::TM, TN = P::TN;
+  constexpr int GBN = G::BN, GTM = G::TM, GTN = G::TN;
+  constexpr int GHALF = GBN / 2;
+  static_assert(G::BM == BM && GTN % 2 == 0, "GLU tiles pair gate and up");
+  using TP = sbt::Tile<BM, BN, TM, TN>;
+  using TG = sbt::Tile<BM, GBN, GTM, GTN>;
+  __shared__ float red[kThreads];
+  __shared__ AttnSmem sm;
+  __shared__ int amax_sm[BM];
+  cg::grid_group grid = cg::this_grid();
+
+  const int B = a.B, dim = a.dim, D = a.D, F = a.F, gs = a.gs;
+  const int HD = a.Hq * D, Nq = HD + 2 * a.Hkv * D;
+  const int tx = threadIdx.x % TP::TX, ty = threadIdx.x / TP::TX;
+  const int gtx = threadIdx.x % TG::TX, gty = threadIdx.x / TG::TX;
+  const int bf = a.sz_bf16;
+
+  for (int li = 0; li < a.L; ++li) {
+    const void* an = qp_at(a.an, static_cast<size_t>(li) * dim, a.nw_bf16);
+    const void* fn = qp_at(a.fn, static_cast<size_t>(li) * dim, a.nw_bf16);
+
+    // A: attn norm + quant; zero the attention-out absmax
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      norm_quant_row(a.x + static_cast<size_t>(b) * dim, an, a.nw_bf16, dim,
+                     a.eps, a.xq + static_cast<size_t>(b) * dim, a.xs + b,
+                     red);
+      if (threadIdx.x == 0) a.amax_a[b] = 0.f;
+    }
+    grid.sync();
+
+    // 1: qkv = xs * Wqkv(xq)
+    {
+      const int G = dim / gs;
+      const uint8_t* w = a.wq + static_cast<size_t>(li) * (dim / 2) * Nq;
+      const void* s = qp_at(a.sq, static_cast<size_t>(li) * G * Nq, bf);
+      const void* z = qp_at(a.zq, static_cast<size_t>(li) * G * Nq, bf);
+      for (int tile = blockIdx.x; tile * BN < Nq; tile += gridDim.x) {
+        const sbt::ColPlain cm{tile * BN, Nq};
+        float acc[TM][TN];
+        sbt::w4a8_tile<BM, BN, TM, TN>(sbt::AInt8{a.xq, B, dim}, w, s, z,
+                                       bf, Nq, dim, gs, 0, cm, acc);
+#pragma unroll
+        for (int tm = 0; tm < TM; ++tm) {
+          const int row = ty + tm * TP::TY;
+          if (row >= B) continue;
+#pragma unroll
+          for (int tn = 0; tn < TN; ++tn) {
+            const int col = cm(tx + tn * TP::TX);
+            if (col >= 0)
+              a.qkv[static_cast<size_t>(row) * Nq + col] =
+                  __fmul_rn(acc[tm][tn], a.xs[row]);
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // 2: rope, K/V row commit, int8 attention
+    for (int it = blockIdx.x; it < B * a.Hkv; it += gridDim.x)
+      attention_item(a, li, it / a.Hkv, it % a.Hkv, sm, red);
+    grid.sync();
+
+    // 3: xmid = x + as * Wo(q8(aout))
+    {
+      const int G = HD / gs;
+      const uint8_t* w = a.wo + static_cast<size_t>(li) * (HD / 2) * dim;
+      const void* s = qp_at(a.so, static_cast<size_t>(li) * G * dim, bf);
+      const void* z = qp_at(a.zo, static_cast<size_t>(li) * G * dim, bf);
+      for (int tile = blockIdx.x; tile * BN < dim; tile += gridDim.x) {
+        const sbt::ColPlain cm{tile * BN, dim};
+        float acc[TM][TN];
+        sbt::w4a8_tile<BM, BN, TM, TN>(
+            sbt::AF32Requant{a.aout, a.amax_a, B, HD}, w, s, z, bf, dim, HD,
+            gs, 0, cm, acc);
+#pragma unroll
+        for (int tm = 0; tm < TM; ++tm) {
+          const int row = ty + tm * TP::TY;
+          if (row >= B) continue;
+          const float scale = sbt::row_scale(a.amax_a[row]);
+#pragma unroll
+          for (int tn = 0; tn < TN; ++tn) {
+            const int col = cm(tx + tn * TP::TX);
+            if (col < 0) continue;
+            const size_t o = static_cast<size_t>(row) * dim + col;
+            a.xmid[o] = __fadd_rn(a.x[o], __fmul_rn(acc[tm][tn], scale));
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // C: ffn norm + quant; zero the GLU absmax
+    for (int b = blockIdx.x; b < B; b += gridDim.x) {
+      norm_quant_row(a.xmid + static_cast<size_t>(b) * dim, fn, a.nw_bf16,
+                     dim, a.eps, a.xq + static_cast<size_t>(b) * dim,
+                     a.xs + b, red);
+      if (threadIdx.x == 0) a.amax_g[b] = 0.f;
+    }
+    grid.sync();
+
+    // 4: act = silu(g) * u, [g | u] = xs * W13(xq); row absmax
+    {
+      const int G = dim / gs;
+      const uint8_t* w = a.w13 + static_cast<size_t>(li) * (dim / 2) * 2 * F;
+      const void* s = qp_at(a.s13, static_cast<size_t>(li) * G * 2 * F, bf);
+      const void* z = qp_at(a.z13, static_cast<size_t>(li) * G * 2 * F, bf);
+      for (int tile = blockIdx.x; tile * GHALF < F; tile += gridDim.x) {
+        const int j0 = tile * GHALF;
+        const sbt::ColGLU cm{j0, F, GHALF};
+        if (threadIdx.x < BM) amax_sm[threadIdx.x] = 0;
+        float acc[GTM][GTN];
+        sbt::w4a8_tile<BM, GBN, GTM, GTN>(sbt::AInt8{a.xq, B, dim}, w, s, z,
+                                          bf, 2 * F, dim, gs, 0, cm, acc);
+#pragma unroll
+        for (int tm = 0; tm < GTM; ++tm) {
+          const int rl = gty + tm * TG::TY;
+          if (rl >= B) continue;
+          const float scale = a.xs[rl];
+          float mx = 0.f;
+#pragma unroll
+          for (int tn = 0; tn < GTN / 2; ++tn) {
+            const int j = j0 + gtx + tn * TG::TX;
+            if (j >= F) continue;
+            const float g = __fmul_rn(acc[tm][tn], scale);
+            const float u = __fmul_rn(acc[tm][tn + GTN / 2], scale);
+            const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
+            const float v = __fmul_rn(__fmul_rn(g, sig), u);
+            a.act[static_cast<size_t>(rl) * F + j] = v;
+            mx = fmaxf(mx, fabsf(v));
+          }
+          atomicMax(&amax_sm[rl], __float_as_int(mx));
+        }
+        __syncthreads();
+        if (threadIdx.x < BM && static_cast<int>(threadIdx.x) < B)
+          atomicMax(reinterpret_cast<int*>(a.amax_g) + threadIdx.x,
+                    amax_sm[threadIdx.x]);
+        __syncthreads();
+      }
+    }
+    grid.sync();
+
+    // 5: x = xmid + gs * W2(q8(act))
+    {
+      const int G = F / gs;
+      const uint8_t* w = a.w2 + static_cast<size_t>(li) * (F / 2) * dim;
+      const void* s = qp_at(a.s2, static_cast<size_t>(li) * G * dim, bf);
+      const void* z = qp_at(a.z2, static_cast<size_t>(li) * G * dim, bf);
+      for (int tile = blockIdx.x; tile * BN < dim; tile += gridDim.x) {
+        const sbt::ColPlain cm{tile * BN, dim};
+        float acc[TM][TN];
+        sbt::w4a8_tile<BM, BN, TM, TN>(
+            sbt::AF32Requant{a.act, a.amax_g, B, F}, w, s, z, bf, dim, F, gs,
+            0, cm, acc);
+#pragma unroll
+        for (int tm = 0; tm < TM; ++tm) {
+          const int row = ty + tm * TP::TY;
+          if (row >= B) continue;
+          const float scale = sbt::row_scale(a.amax_g[row]);
+#pragma unroll
+          for (int tn = 0; tn < TN; ++tn) {
+            const int col = cm(tx + tn * TP::TX);
+            if (col < 0) continue;
+            const size_t o = static_cast<size_t>(row) * dim + col;
+            a.x[o] = __fadd_rn(a.xmid[o], __fmul_rn(acc[tm][tn], scale));
+          }
+        }
+      }
+    }
+    grid.sync();
+  }
+}
+
+template <int BM_, int BN_, int TM_, int TN_>
+struct Cfg : sbt::Tile<BM_, BN_, TM_, TN_> {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+};
+
+// Rows <= 8: 8 x 32 tiles (8 x 64 for the paired GLU tiles); up to 64:
+// 64 x 64 tiles. 256 threads either way.
+using SmallP = Cfg<8, 32, 1, 1>;
+using SmallG = Cfg<8, 64, 1, 2>;
+using LargeP = Cfg<64, 64, 4, 4>;
+
+template <class P, class G>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  auto kern = layers_fused_kernel<P, G>;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  const int grid = sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
+  Args copy = a;
+  void* params[] = {&copy};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid),
+                                  dim3(kThreads), params, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Weights: wq (L, dim/2, Nq), wo (L, Hq*D/2, dim), w13 (L, dim/2, 2F),
+// w2 (L, F/2, dim) s4r bytes with (L, K/gs, N) scales/zeros (bf16 when
+// sz_bf16, else f32); an/fn (L, dim) norms (bf16 when nw_bf16). Cache
+// pools k, v (Lc, n_blocks, block, Hkv, D) int8, ks, vs (Lc, n_blocks,
+// block, Hkv) f32, block table bt (B, max_chunks) int32, pos (B,) int32,
+// cos/sin (B, D) f32. x (B, dim) f32 holds the input rows and receives
+// the output. The rest is scratch: xq (B, dim) int8, xs (B),
+// qkv (B, Nq), aout (B, Hq*D), amax_a (B), xmid (B, dim), act (B, F),
+// amax_g (B), sc (B, Hq, max_chunks*block), all f32. B <= 64, D a power
+// of two <= 256, Hq/Hkv <= 8, K dims multiples of 64 and of gs.
+extern "C" int sbt_layers_fused(
+    const void* wq, const void* sq, const void* zq, const void* wo,
+    const void* so, const void* zo, const void* w13, const void* s13,
+    const void* z13, const void* w2, const void* s2, const void* z2,
+    const void* an, const void* fn, void* k, void* v, void* ks, void* vs,
+    const void* bt, const void* pos, const void* cos, const void* sin,
+    void* x, void* xq, void* xs, void* qkv, void* aout, void* amax_a,
+    void* xmid, void* act, void* amax_g, void* sc, int sz_bf16, int nw_bf16,
+    int L, int B, int dim, int Hq, int Hkv, int D, int F, int gs,
+    int n_blocks, int block, int max_chunks, int s_act, float eps,
+    float inv_sqrt_d, void* stream) {
+  if (B < 1 || B > 64 || D > kMaxD || D % 4 || kThreads % (D / 4) ||
+      Hq % Hkv || Hq / Hkv > kMaxRep || s_act < 1 ||
+      s_act > max_chunks * block)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.wq = static_cast<const uint8_t*>(wq);
+  a.wo = static_cast<const uint8_t*>(wo);
+  a.w13 = static_cast<const uint8_t*>(w13);
+  a.w2 = static_cast<const uint8_t*>(w2);
+  a.sq = sq; a.zq = zq; a.so = so; a.zo = zo;
+  a.s13 = s13; a.z13 = z13; a.s2 = s2; a.z2 = z2;
+  a.an = an; a.fn = fn;
+  a.k = static_cast<int8_t*>(k);
+  a.v = static_cast<int8_t*>(v);
+  a.ks = static_cast<float*>(ks);
+  a.vs = static_cast<float*>(vs);
+  a.bt = static_cast<const int*>(bt);
+  a.pos = static_cast<const int*>(pos);
+  a.cos = static_cast<const float*>(cos);
+  a.sin = static_cast<const float*>(sin);
+  a.x = static_cast<float*>(x);
+  a.xq = static_cast<int8_t*>(xq);
+  a.xs = static_cast<float*>(xs);
+  a.qkv = static_cast<float*>(qkv);
+  a.aout = static_cast<float*>(aout);
+  a.amax_a = static_cast<float*>(amax_a);
+  a.xmid = static_cast<float*>(xmid);
+  a.act = static_cast<float*>(act);
+  a.amax_g = static_cast<float*>(amax_g);
+  a.sc = static_cast<float*>(sc);
+  a.sz_bf16 = sz_bf16; a.nw_bf16 = nw_bf16;
+  a.L = L; a.B = B; a.dim = dim; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.F = F;
+  a.gs = gs; a.n_blocks = n_blocks; a.block = block;
+  a.max_chunks = max_chunks; a.s_act = s_act;
+  a.eps = eps; a.inv_sqrt_d = inv_sqrt_d;
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = B <= 8 ? launch<SmallP, SmallG>(a, st)
+                         : launch<LargeP, LargeP>(a, st);
+  return static_cast<int>(e);
+}

@@ -1,27 +1,43 @@
 """Bucketed prefill and the scanned decode loop (port of
-``sparsebit_tpu/llm/decode.py``: ``prefill_at``, ``stack_layers``, the
-unfused branch of ``_forward_scanned_kvs`` (decode.py:464-548),
-``decode_tokens_scanned_kvs``, ``decode_chunk_scanned`` and
-``sample_logits_vec``).
+``sparsebit_tpu/llm/decode.py``: ``prefill_at``, ``prefill_cold_scanned``,
+``stack_layers``, ``_forward_scanned_kvs`` with both its branches,
+``decode_tokens_scanned_kvs``, ``decode_chunk_scanned``,
+``decode_chunk_paged`` and ``sample_logits_vec``).
 
 PyTorch runs eagerly, so ``lax.scan`` over layers and tokens becomes a
 Python loop; the packed weights stay layer-stacked and each kernel reads
 its layer's slice in place. The KV cache is updated in place (the JAX
 functions returned new caches; these return the same, mutated, objects).
-Per decode layer the path runs K1 (wqkv, wo), K2 (int8 row commit +
-attention) and K3 (the FFN block); admission runs K1 at large M and K9
-for the last-token lm_head.
+
+A decode step takes one of two routes, chosen as the reference chooses
+(``_scan_uses_layer_kernel``, decode.py:333):
+- the megakernel branch (decode.py:427-462): the whole backbone as ONE
+  launch of K4 (ops/layer_fused), for fused-wqkv/w13 s4r models;
+- the unfused branch (decode.py:464-548), for models K4 does not take or
+  with ``FORCE_LAYER_KERNEL = False``: per layer K1 (wqkv, wo), K2 (int8
+  row commit + attention) and K3 (the FFN block).
+The predicate does not look at the device: the CPU runs the route that
+the card runs, with the kernels' plain versions. Admission runs K1 at
+large M and K9 for the last-token lm_head.
 """
 
 import torch
 
 from sparsebit_tpu_torch.llm import llama as L
-from sparsebit_tpu_torch.llm.kv_cache import cache_read, cache_update
+from sparsebit_tpu_torch.llm.kv_cache import (
+    _quant_heads,
+    cache_read,
+    cache_update,
+)
 from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
 from sparsebit_tpu_torch.ops.attention import decode_attention_update
 from sparsebit_tpu_torch.ops.ffn_fused import (
     ffn_block_fused,
     ffn_block_supported,
+)
+from sparsebit_tpu_torch.ops.layer_fused import (
+    fused_decoder_layers,
+    fused_layer_supported,
 )
 from sparsebit_tpu_torch.ops.matvec import bf16_matvec, use_matvec
 
@@ -150,6 +166,72 @@ def _stacked_layer_view(layers, li):
     return view
 
 
+# The reference's switch (decode.py:303): None routes by the predicate,
+# False forces the unfused branch, True takes K4 wherever it is supported.
+FORCE_LAYER_KERNEL = None
+
+
+def _u4_k_rows(lin):
+    """Logical K (input rows) of the s4r serving array: row pairs store
+    K/2 rows."""
+    return lin.packed["s4r"].shape[-2] * 2
+
+
+def _layer_kernel_ok(layers, cfg, batch):
+    """True when K4 can run these stacked layers: fused wqkv/wo/w13/w2 s4r
+    QuantLinears with one groupsize, no act-order perm, bias or N padding,
+    within fused_layer_supported."""
+    lins = [layers.get(n) for n in ("wqkv", "wo", "w13", "w2")]
+    if not all(isinstance(ln, QuantLinear) for ln in lins):
+        return False
+    gs = lins[0].groupsize
+    for ln in lins:
+        if "s4r" not in ln.packed or ln.perm is not None \
+                or ln.bias is not None:
+            return False
+        if ln.n_padded != ln.out_features or ln.groupsize != gs:
+            return False
+    if lins[2].out_features != 2 * cfg.ffn_dim:
+        return False
+    return fused_layer_supported(cfg, gs, batch, f_pad=_u4_k_rows(lins[3]))
+
+
+def _scan_uses_layer_kernel(S, layers, cfg, batch):
+    """True when a decode step runs the whole backbone as one K4 launch
+    (decode.py:333-375): single-token steps of a model _layer_kernel_ok
+    takes, unless FORCE_LAYER_KERNEL says otherwise. Unlike the reference
+    it does not ask the device, so the CPU takes the card's route."""
+    if S != 1:
+        return False
+    ok = _layer_kernel_ok(layers, cfg, batch)
+    if FORCE_LAYER_KERNEL is not None:
+        return FORCE_LAYER_KERNEL and ok
+    return ok
+
+
+def _rope_cos_sin(cfg, pos):
+    """Full-width rotate-half rope terms (B, D) at positions pos (B,)
+    (decode.py:434-436)."""
+    inv_freq = L.rope_frequencies(cfg, device=pos.device)
+    angles = pos[:, None].to(torch.float32) * inv_freq
+    return (torch.cat([torch.cos(angles)] * 2, dim=1),
+            torch.cat([torch.sin(angles)] * 2, dim=1))
+
+
+def _backbone_fused(layers, x, pos, k, v, ks, vs, cfg, bt=None,
+                    s_active=None):
+    """The decoder layers of one decode step as one K4 launch: x (B, dim)
+    -> (B, dim) f32 before the final norm; the cache is written in place."""
+    cos, sin = _rope_cos_sin(cfg, pos)
+    w = [layers[n] for n in ("wqkv", "wo", "w13", "w2")]
+    wargs = [t for ln in w for t in (ln.packed["s4r"], ln.scales, ln.zeros)]
+    out, *_ = fused_decoder_layers(
+        x.to(torch.float32), pos, cos, sin, *wargs, layers["attn_norm"],
+        layers["ffn_norm"], k, v, ks, vs, cfg, w[0].groupsize, bt=bt,
+        s_active=s_active)
+    return out
+
+
 def _scan_uses_ffn_kernel(S, layers, cfg, batch):
     """True when the FFN block runs as K3: layer-stacked s4r QuantLinears
     without act-order perm, bias or N padding, w13 = [gate | up] of 2F."""
@@ -175,17 +257,26 @@ def _scan_uses_ffn_kernel(S, layers, cfg, batch):
     return ffn_block_supported(cfg.dim, F, gs, batch)
 
 
-def _forward_scanned_kvs(params, tokens, positions, kvs, cfg):
+def _forward_scanned_kvs(params, tokens, positions, kvs, cfg,
+                         s_active=None):
     """One decode step over stacked layers: tokens (B, 1), positions (B, 1)
     = the rows the new tokens take, kvs the stacked cache tensors (updated
-    in place). Per layer: K1 wqkv, rope, K2 (quantize + commit the new K/V
-    row, attend), K1 wo, K3 FFN. Returns logits (B, 1, V) f32."""
+    in place). Megakernel branch: one K4 launch for the backbone. Unfused
+    branch, per layer: K1 wqkv, rope, K2 (quantize + commit the new K/V
+    row, attend), K1 wo, K3 FFN. ``s_active`` bounds K4's attention rows.
+    Returns logits (B, 1, V) f32."""
     x = params["tok_embed"][tokens.long()]
-    inv_freq = L.rope_frequencies(cfg, device=x.device)
     pos0 = positions[:, 0]
     layers = params["layers"]
     k, v, ks, vs = kvs
     B, S, _ = x.shape
+    if _scan_uses_layer_kernel(S, layers, cfg, B):
+        out = _backbone_fused(layers, x[:, 0], pos0, k, v, ks, vs, cfg,
+                              s_active=s_active)
+        x = L.rms_norm(out[:, None].to(x.dtype), params["norm"],
+                       cfg.rms_eps)
+        return _logits(params["lm_head"], x)
+    inv_freq = L.rope_frequencies(cfg, device=x.device)
     use_ffn_kernel = _scan_uses_ffn_kernel(S, layers, cfg, B)
     for li in range(cfg.n_layers):
         layer = _stacked_layer_view(layers, li)
@@ -228,20 +319,87 @@ def decode_tokens_scanned_kvs(params_stacked, tok0, kvs, length, cfg,
 
 
 def decode_chunk_scanned(params_stacked, tok0, cache, temps, generator, cfg,
-                         n_tokens):
+                         n_tokens, s_active=None):
     """The serving inner loop: n_tokens decode steps over stacked params
     with per-slot temperatures (temps (B,), <= 0 greedy) drawn from
-    ``generator``. Returns (tokens (B, n_tokens), cache)."""
+    ``generator``; ``s_active`` is the megakernel's static context bucket
+    (every active row stays below it through the chunk). Returns (tokens
+    (B, n_tokens), cache)."""
     kvs = _scan_cache(cache)
     tok, length, toks = tok0, cache.length, []
     for _ in range(n_tokens):
         logits = _forward_scanned_kvs(params_stacked, tok[:, None],
-                                      length[:, None], kvs, cfg)
+                                      length[:, None], kvs, cfg,
+                                      s_active=s_active)
         tok = sample_logits_vec(logits[:, 0], temps, generator)
         toks.append(tok)
         length = length + 1
     cache.length = length
     return torch.stack(toks, dim=1), cache
+
+
+def decode_chunk_paged(params_stacked, tok0, pcache, temps, generator, cfg,
+                       n_tokens, s_active=None):
+    """The serving inner loop against a paged cache (kv_cache.PagedKVCache):
+    n_tokens decode steps, each the whole backbone as ONE K4 launch that
+    reads and writes pool blocks through the block table. The table must
+    already cover length + n_tokens rows of every slot. Returns (tokens
+    (B, n_tokens), pcache) with the lengths advanced."""
+    layers = params_stacked["layers"]
+    tok, length, toks = tok0, pcache.length, []
+    for _ in range(n_tokens):
+        x = params_stacked["tok_embed"][tok.long()]  # (B, dim)
+        out = _backbone_fused(layers, x, length, pcache.k, pcache.v,
+                              pcache.k_scale, pcache.v_scale, cfg,
+                              bt=pcache.block_table, s_active=s_active)
+        h = L.rms_norm(out[:, None].to(x.dtype), params_stacked["norm"],
+                       cfg.rms_eps)
+        logits = _logits(params_stacked["lm_head"], h)[:, 0]
+        tok = sample_logits_vec(logits, temps, generator)
+        toks.append(tok)
+        length = length + 1
+    pcache.length = length
+    return torch.stack(toks, dim=1), pcache
+
+
+def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
+    """Cold (offset-0) bucketed prefill over stacked layers: each row
+    attends to its own causal prefix only, with the reference's non-flash
+    causal attention (llama.py:177-178: masked attention_scores); K/V rows
+    [0, S) are int8-quantized into the cache. Semantics of
+    prefill_at(..., offset=0): logits (B, V) f32 at each row's last real
+    token, cache.length = last_idx + 1."""
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    x = params_stacked["tok_embed"][tokens.long()]
+    inv_freq = L.rope_frequencies(cfg, device=dev)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    mask = torch.triu(torch.full((S, S), -1e9, dtype=torch.float32,
+                                 device=dev), diagonal=1)[None, None]
+    layers = params_stacked["layers"]
+    for li in range(cfg.n_layers):
+        layer = _stacked_layer_view(layers, li)
+        h = L.rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q, kk, vv = L.qkv_proj(layer, h, cfg)
+        q = L.apply_rope(q, positions, inv_freq)
+        kk = L.apply_rope(kk, positions, inv_freq)
+        out = L.attention_scores(q, L.repeat_kv(kk, n_rep),
+                                 L.repeat_kv(vv, n_rep), mask)
+        for buf, sbuf, new in ((cache.k, cache.k_scale, kk),
+                               (cache.v, cache.v_scale, vv)):
+            q8, sc = _quant_heads(new)
+            buf[li, :, :S] = q8
+            sbuf[li, :, :S] = sc
+        x = x + layer["wo"](out.reshape(B, S, -1))
+        x = x + L._ffn_block(
+            layer, L.rms_norm(x, layer["ffn_norm"], cfg.rms_eps))
+    x = L.rms_norm(x, params_stacked["norm"], cfg.rms_eps)
+    x_last = x[torch.arange(B, device=dev), last_idx.to(torch.long)]
+    logits = _logits(params_stacked["lm_head"], x_last)
+    cache.length = (last_idx + 1).to(torch.int32)
+    return logits, cache
 
 
 def sample_logits_vec(logits, temps, generator=None):

@@ -1,6 +1,7 @@
 """INT8 KV cache (port of ``sparsebit_tpu/llm/kv_cache.py``: ``KVCache``,
-``init_kv_cache``, ``_quant_heads``/``_dequant_heads``, ``cache_update``
-and ``cache_read``).
+``init_kv_cache``, ``_quant_heads``/``_dequant_heads``, ``cache_update``,
+``cache_read``, ``PagedKVCache``, ``init_paged_kv_cache`` and
+``paged_write_rows``).
 
 The port keeps the cache LAYER-STACKED from the start: k, v (L, B, S,
 n_kv, hd) int8 and k_scale, v_scale (L, B, S, n_kv) f32. ``cache.k[li]``
@@ -8,6 +9,12 @@ is then a view of one layer, as the JAX per-layer list entry was, and the
 scanned decode reads the stacks with no restacking. Updates are in place.
 Quantization: symmetric int8 per (token, head), scale = absmax * (1/127)
 rounded to bf16 before the codes are taken (ops/attention.quant_rows). The int4 mode is not ported yet.
+
+Both engines use ONE layout. A paged pool is k, v (L, n_blocks, block,
+n_kv, hd) int8 with k_scale, v_scale (L, n_blocks, block, n_kv) f32 (the
+reference's pools are bf16 and transposed for Mosaic; the values are the
+same, bf16-rounded); the contiguous cache is the pool of B blocks of S
+rows. The decode megakernel (ops/layer_fused) reads either in place.
 """
 
 from dataclasses import dataclass
@@ -74,3 +81,52 @@ def cache_read(cache, layer_idx, dtype):
         _dequant_heads(cache.k[layer_idx], cache.k_scale[layer_idx], dtype),
         _dequant_heads(cache.v[layer_idx], cache.v_scale[layer_idx], dtype),
     )
+
+
+@dataclass
+class PagedKVCache:
+    k: torch.Tensor  # (L, n_blocks, block, n_kv, hd) int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # (L, n_blocks, block, n_kv) f32
+    v_scale: torch.Tensor
+    block_table: torch.Tensor  # (B, max_chunks) int32 physical block ids
+    length: torch.Tensor  # (B,) int32 rows filled per slot
+
+    @property
+    def block(self):
+        return self.k.shape[2]
+
+
+def init_paged_kv_cache(cfg, batch, n_blocks, block=128, max_chunks=None,
+                        device="cpu"):
+    """Zeroed int8 pools of ``n_blocks`` blocks and an all-zeros block
+    table; max_chunks defaults to ceil(max_seq_len / block)."""
+    if max_chunks is None:
+        max_chunks = -(-cfg.max_seq_len // block)
+    shape = (cfg.n_layers, n_blocks, block, cfg.n_kv_heads, cfg.head_dim)
+    return PagedKVCache(
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape[:4], dtype=torch.float32, device=device),
+        torch.zeros(shape[:4], dtype=torch.float32, device=device),
+        torch.zeros((batch, max_chunks), dtype=torch.int32, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def paged_write_rows(pcache, slot_blocks, rows_k, rows_v, rows_ks, rows_vs,
+                     n_rows):
+    """Write logical rows [0, n_rows) of one slot IN PLACE: row i lands
+    at pool[slot_blocks[i // block], i % block].
+
+    slot_blocks (max_chunks,) int; rows_k/v (L, >= n_rows, n_kv, hd) int8;
+    rows_ks/vs (L, >= n_rows, n_kv) f32. Returns pcache."""
+    dev = pcache.k.device
+    logical = torch.arange(n_rows, device=dev)
+    blk = slot_blocks.to(dev, torch.long)[logical // pcache.block]
+    row = logical % pcache.block
+    pcache.k[:, blk, row] = rows_k[:, :n_rows]
+    pcache.v[:, blk, row] = rows_v[:, :n_rows]
+    pcache.k_scale[:, blk, row] = rows_ks[:, :n_rows]
+    pcache.v_scale[:, blk, row] = rows_vs[:, :n_rows]
+    return pcache

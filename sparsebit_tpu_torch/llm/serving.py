@@ -1,6 +1,8 @@
-"""Continuous-batching decode engine (port of the fixed-slot
-``DecodeEngine`` of ``sparsebit_tpu/llm/serving.py:164-542``).
+"""Continuous-batching decode engines (port of
+``sparsebit_tpu/llm/serving.py``: the fixed-slot ``DecodeEngine``
+(serving.py:164-542) and the paged ``PagedDecodeEngine`` (:634-918)).
 
+``DecodeEngine``:
 - one fixed (max_batch, max_len) INT8 KV cache, layer-stacked;
 - admission: queued prompts grouped per length bucket and prefilled in one
   batched forward (decode.prefill_at) into a reused bucket-sized scratch
@@ -9,14 +11,24 @@
 - exact-prefix cache: admitted prompts' K/V rows are kept (LRU) and a
   prompt that extends a cached one prefills only its tail;
 - decode runs in chunks of ``chunk`` tokens through
-  decode.decode_chunk_scanned (K1, K2 and K3 per layer);
+  decode.decode_chunk_scanned. As in the reference, a model that the
+  decode megakernel takes (``_stacked_chunks``) decodes each token as one
+  K4 launch over a static context bucket (``_context_bucket``); any other
+  model takes the unfused route (K1, K2 and K3 per layer), where the
+  reference would take decode_chunk (K5, not ported yet);
 - slots free on EOS or max-tokens; chunk tokens past a request's budget
   are dropped.
 
-``DecodeEngine(..., device=None)`` runs on CUDA and raises without it;
-pass ``device="cpu"`` for the CPU (the kernels' plain versions). Params
-must already live on that device (llm.convert.params_from_numpy).
-Sampling draws from the engine's own seeded ``torch.Generator``.
+``PagedDecodeEngine`` keeps the same admission and scheduling, over one
+pool of KV blocks shared by all slots: a block allocator with refcounts,
+full prefix blocks shared between requests, a reserved trash block for
+idle slots, and every decode token as one K4 launch through the block
+table (decode.decode_chunk_paged).
+
+Both take ``device=None`` (CUDA, raising without it) or ``device="cpu"``
+(the kernels' plain versions). Params must already live on that device
+(llm.convert.params_from_numpy). Sampling draws from the engine's own
+seeded ``torch.Generator``.
 """
 
 from dataclasses import dataclass, field
@@ -26,12 +38,20 @@ import torch
 
 from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.llm.decode import (
+    _layer_kernel_ok,
+    _scan_uses_layer_kernel,
+    decode_chunk_paged,
     decode_chunk_scanned,
     prefill_at,
+    prefill_cold_scanned,
     sample_logits_vec,
     stack_layers,
 )
-from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+from sparsebit_tpu_torch.llm.kv_cache import (
+    init_kv_cache,
+    init_paged_kv_cache,
+    paged_write_rows,
+)
 from sparsebit_tpu_torch.llm.llama import quantize_llama_params
 from sparsebit_tpu_torch.llm.quant import QuantLinear
 
@@ -78,7 +98,13 @@ class DecodeEngine:
         self.max_len = max_len or cfg.max_seq_len
         self.eos_id = eos_id
         self.chunk = chunk
-        self.cache = self._init_cache(max_batch, self.max_len)
+        self.cache = (None if getattr(self, "_skip_slot_cache", False)
+                      else self._init_cache(max_batch, self.max_len))
+        # decode chunks on the megakernel (one K4 launch per token) when
+        # the model is one it takes: the reference's dispatch
+        # (serving.py:239-251), without its device check
+        self._stacked_chunks = _scan_uses_layer_kernel(
+            1, self.params_stacked["layers"], cfg, max_batch)
         self.slots = [None] * max_batch  # _Request or None
         self.queue = []
         self.next_tok = torch.zeros((max_batch,), dtype=torch.int32,
@@ -89,11 +115,37 @@ class DecodeEngine:
         # prompt tuple -> {"len", "k", "v", "k_scale", "v_scale"}, stacked
         # (L, S_entry, ...) rows; insertion-ordered dict as LRU
         self._prefix_cache_size = prefix_cache_size
+        self._pinned = set()  # prefix keys hit by the admission under way
         self._prefix = {}
         self.prefix_hits = 0
 
     def _init_cache(self, n_rows, n_cols):
         return init_kv_cache(self.cfg, n_rows, n_cols, device=self.device)
+
+    def _prefill_call(self, tokens, scratch, lasts, offsets):
+        return prefill_at(self.params, tokens, scratch, self.cfg, lasts,
+                          offsets)
+
+    def _context_bucket(self, lengths_active, n, chunk_rows=128):
+        """Static attention-row bucket of a decode chunk of n tokens: it
+        covers every active slot's rows through the chunk, in multiples of
+        chunk_rows. The cap is max_len rounded UP to chunk_rows (the
+        reference caps at the raw max_len, fault R1); the kernel wrapper
+        clamps it to the cache."""
+        need = (max(lengths_active) if lengths_active else 0) + n
+        cap = -(-self.max_len // chunk_rows) * chunk_rows
+        return int(min(cap, -(-need // chunk_rows) * chunk_rows))
+
+    def _decode_chunk_call(self, temps, n):
+        s_active = None
+        if self._stacked_chunks:
+            lengths = self.cache.length.cpu().numpy()
+            act = [int(lengths[i]) for i, s in enumerate(self.slots)
+                   if s is not None]
+            s_active = self._context_bucket(act, n)
+        return decode_chunk_scanned(
+            self.params_stacked, self.next_tok, self.cache, temps,
+            self._gen, self.cfg, n, s_active=s_active)
 
     # ---- client API --------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens=64, temperature=0.0):
@@ -149,7 +201,10 @@ class DecodeEngine:
             "v_scale": scratch.v_scale[:, row, :n].clone(),
         }
         while len(self._prefix) > self._prefix_cache_size:
-            self._prefix.pop(next(iter(self._prefix)))
+            key = self._oldest_unpinned()
+            if key is None:
+                break
+            self._prefix.pop(key)
 
     def _seed_rows(self, scratch, entry, row):
         n = min(entry["k"].shape[1], scratch.k.shape[2])
@@ -198,9 +253,9 @@ class DecodeEngine:
         for row, t in enumerate(tails):
             padded[row, : len(t)] = t
         dev = self.device
-        logits, scratch = prefill_at(
-            self.params, torch.as_tensor(padded, device=dev).long(), scratch,
-            self.cfg, torch.as_tensor(lasts, dtype=torch.int32, device=dev),
+        logits, scratch = self._prefill_call(
+            torch.as_tensor(padded, device=dev).long(), scratch,
+            torch.as_tensor(lasts, dtype=torch.int32, device=dev),
             torch.as_tensor(offsets, dtype=torch.int32, device=dev))
         self._scratch[(n, S_scratch)] = scratch  # keep warm for reuse
         temps = torch.as_tensor([r.temperature for _, r, _ in admits],
@@ -217,6 +272,15 @@ class DecodeEngine:
             self.next_tok[slot] = int(first[row])
             req.generated.append(int(first[row]))
         self._splice_group(scratch, slots_g, rows_g, lens_g)
+
+    def _oldest_unpinned(self):
+        """The least recently used prefix entry that no admission of the
+        current round has hit, or None. An admission round resolves every
+        hit before its first group stores new entries; evicting a hit
+        entry meanwhile would lose it (the reference then fails with a
+        KeyError, fault R6)."""
+        return next((k for k in self._prefix if k not in self._pinned),
+                    None)
 
     def _admit_all(self):
         """Admit as many queued prompts as there are free slots, grouped
@@ -236,13 +300,21 @@ class DecodeEngine:
                 Sb, S_scratch = self._admit_shapes(len(req.prompt), 0)
             if pkey:
                 self.prefix_hits += 1
+                self._pinned.add(pkey)
             groups.setdefault((Sb, S_scratch), []).append((slot, req, pkey))
-        for (Sb, S_scratch), admits in groups.items():
-            self._admit_group(admits, Sb, S_scratch)
-            for slot, req, _ in admits:
-                emitted.setdefault(req.rid, []).append(req.generated[-1])
-                self._maybe_finish(slot)
+        try:
+            for (Sb, S_scratch), admits in groups.items():
+                self._admit_group(admits, Sb, S_scratch)
+                for slot, req, _ in admits:
+                    emitted.setdefault(req.rid, []).append(
+                        req.generated[-1])
+                    self._maybe_finish(slot)
+        finally:
+            self._pinned.clear()
         return emitted
+
+    def _slot_len(self, slot):
+        return int(self.cache.length[slot])
 
     def step(self):
         """Admit queued prompts, then run ONE decode chunk for all slots.
@@ -251,21 +323,12 @@ class DecodeEngine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return emitted
-        lengths = self.cache.length.cpu().numpy()
-        headroom = min(self.max_len - int(lengths[i]) for i in active)
+        headroom = min(self.max_len - self._slot_len(i) for i in active)
         n = max(1, min(self.chunk, headroom))
-        # idle slots decode too (their tokens are dropped); restart them at
-        # row 0 so their dead rows never run past the cache (the reference
-        # lets them grow without bound)
-        idle = [i for i, s in enumerate(self.slots) if s is None]
-        if idle:
-            self.cache.length[idle] = 0
         temps = torch.as_tensor(
             [s.temperature if s is not None else 0.0 for s in self.slots],
             dtype=torch.float32, device=self.device)
-        toks, self.cache = decode_chunk_scanned(
-            self.params_stacked, self.next_tok, self.cache, temps, self._gen,
-            self.cfg, n)
+        toks = self._decode_chunk(temps, n)
         toks_np = toks.cpu().numpy()
         self.next_tok = toks[:, -1].contiguous()
         for slot, req in enumerate(self.slots):
@@ -280,14 +343,235 @@ class DecodeEngine:
             self._maybe_finish(slot)
         return emitted
 
-    def _maybe_finish(self, slot):
+    def _decode_chunk(self, temps, n):
+        """One chunk for all slots; returns its tokens (B, n). Idle slots
+        decode too (their tokens are dropped); they restart at row 0 so
+        their dead rows never run past the cache (the reference lets them
+        grow without bound, fault R4)."""
+        idle = [i for i, s in enumerate(self.slots) if s is None]
+        if idle:
+            self.cache.length[idle] = 0
+        toks, self.cache = self._decode_chunk_call(temps, n)
+        return toks
+
+    def _finished(self, slot):
         req = self.slots[slot]
-        if req is None:
-            return
         hit_eos = (self.eos_id is not None and bool(req.generated)
                    and req.generated[-1] == self.eos_id)
         hit_len = len(req.generated) >= req.max_new_tokens
-        full = int(self.cache.length[slot]) + 1 >= self.max_len
-        if hit_eos or hit_len or full:
-            req.done = True
+        full = self._slot_len(slot) + 1 >= self.max_len
+        return hit_eos or hit_len or full
+
+    def _maybe_finish(self, slot):
+        if self.slots[slot] is not None and self._finished(slot):
+            self.slots[slot].done = True
             self.slots[slot] = None
+
+
+class PagedDecodeEngine(DecodeEngine):
+    """Block-table (paged) variant of the engine: one physical pool of
+    ``n_blocks`` blocks of ``block`` rows shared by all slots.
+
+    - short requests hold only the blocks they use;
+    - identical prompt prefixes share their full blocks (refcounted; only
+      the partial tail block is prefilled again);
+    - every decode token is one K4 launch that reads and writes the pool
+      through the block table (decode.decode_chunk_paged);
+    - the last block is a trash target: idle slots decode inside the
+      batch with tables that point only there, so their rows never land
+      in a block a live request owns.
+
+    Needs a model the decode megakernel takes (fused wqkv/w13 4-bit
+    QuantLinears, one groupsize). Cold admissions prefill with
+    decode.prefill_cold_scanned, prefix hits with decode.prefill_at."""
+
+    def __init__(self, params, cfg, max_batch=8, n_blocks=None, block=128,
+                 eos_id=None, seed=0, chunk=8, prefix_cache_size=8,
+                 max_len=None, device=None):
+        max_len = max_len or cfg.max_seq_len
+        if n_blocks is None:
+            n_blocks = max_batch * (-(-max_len // block))
+        self._skip_slot_cache = True  # the pool replaces the slot cache
+        super().__init__(params, cfg, max_batch=max_batch, max_len=max_len,
+                         eos_id=eos_id, seed=seed, chunk=chunk,
+                         prefix_cache_size=prefix_cache_size, device=device)
+        if not _layer_kernel_ok(self.params_stacked["layers"], cfg,
+                                max_batch):
+            raise ValueError(
+                "PagedDecodeEngine needs a model the decode megakernel "
+                "takes: fused wqkv/w13 4-bit s4r QuantLinears with one "
+                "groupsize (ops/layer_fused.fused_layer_supported)")
+        self.block = block
+        self.max_chunks = -(-max_len // block)
+        self.pcache = init_paged_kv_cache(cfg, max_batch, n_blocks, block,
+                                          self.max_chunks,
+                                          device=self.device)
+        self._trash = n_blocks - 1
+        self._free = list(range(n_blocks - 1))
+        self._ref = [0] * n_blocks
+        self._slot_blocks = [[] for _ in range(max_batch)]
+        self._bt = np.full((max_batch, self.max_chunks), self._trash,
+                           np.int32)
+        self._len = np.zeros((max_batch,), np.int64)
+
+    def _slot_len(self, slot):
+        return int(self._len[slot])
+
+    # ---- allocator ---------------------------------------------------------
+    def _alloc_block(self):
+        key = None if self._free else self._oldest_unpinned()
+        while key is not None:
+            self._prefix_evict(key)  # oldest first
+            key = None if self._free else self._oldest_unpinned()
+        if not self._free:
+            raise RuntimeError("KV block pool exhausted")
+        bid = self._free.pop()
+        self._ref[bid] = 1
+        return bid
+
+    def _release_block(self, bid):
+        self._ref[bid] -= 1
+        if self._ref[bid] == 0:
+            self._free.append(bid)
+
+    def _prefix_evict(self, key):
+        for bid in self._prefix.pop(key)["blocks"]:
+            self._release_block(bid)
+
+    def _ensure_blocks(self, slot, n_rows):
+        """Grow ``slot``'s table to cover n_rows logical rows."""
+        blocks = self._slot_blocks[slot]
+        while len(blocks) * self.block < n_rows:
+            bid = self._alloc_block()
+            self._bt[slot, len(blocks)] = bid
+            blocks.append(bid)
+
+    # ---- prefix cache over blocks ------------------------------------------
+    def _prefix_store(self, prompt, scratch_unused, slot, total_len):
+        """Keep the slot's FULL prompt blocks, keyed by the block-truncated
+        prompt (so len(key) is the reusable offset); a hit prefills the
+        partial tail block again rather than copying it."""
+        if self._prefix_cache_size <= 0:
+            return
+        n_full = min(total_len, len(prompt)) // self.block
+        if n_full == 0:
+            return
+        key = tuple(prompt[: n_full * self.block].tolist())
+        if key in self._prefix:
+            # release the old entry's references (the reference pops it
+            # without releasing them, so its blocks never free: fault R5)
+            self._prefix_evict(key)
+        blocks = self._slot_blocks[slot][:n_full]
+        for bid in blocks:
+            self._ref[bid] += 1
+        self._prefix[key] = {"len": n_full * self.block, "blocks": blocks}
+        while len(self._prefix) > self._prefix_cache_size:
+            key = self._oldest_unpinned()
+            if key is None:
+                break
+            self._prefix_evict(key)
+
+    def _seed_from_pool(self, scratch, bids, row):
+        """Copy the shared prefix blocks ``bids`` into rows [0, P) of
+        scratch row ``row``, so the tail prefill attends to them."""
+        pc, P = self.pcache, len(bids) * self.block
+        idx = torch.as_tensor(bids, dtype=torch.long, device=self.device)
+        for src, dst in ((pc.k, scratch.k), (pc.v, scratch.v),
+                         (pc.k_scale, scratch.k_scale),
+                         (pc.v_scale, scratch.v_scale)):
+            dst[:, row, :P] = src[:, idx].reshape(
+                (src.shape[0], P) + src.shape[3:])
+
+    def _scatter_row(self, scratch, row, slot, total_len):
+        """Write rows [0, total_len) of scratch row ``row`` into the
+        slot's pool blocks."""
+        paged_write_rows(
+            self.pcache, torch.as_tensor(self._bt[slot]),
+            scratch.k[:, row], scratch.v[:, row], scratch.k_scale[:, row],
+            scratch.v_scale[:, row], total_len)
+
+    # ---- admission ---------------------------------------------------------
+    def _prefill_call(self, tokens, scratch, lasts, offsets):
+        if not bool(offsets.any()):
+            return prefill_cold_scanned(self.params_stacked, tokens, scratch,
+                                        self.cfg, lasts)
+        return prefill_at(self.params, tokens, scratch, self.cfg, lasts,
+                          offsets)
+
+    def _admit_group(self, admits, Sb, S_scratch):
+        """Batched tail prefill into the contiguous scratch, then the new
+        rows go to freshly allocated pool blocks; prefix hits share the
+        cached full blocks and seed the scratch from them."""
+        n = len(admits)
+        tails, offsets, lasts = [], [], []
+        for _, req, pkey in admits:
+            P = self._prefix[pkey]["len"] if pkey else 0
+            tails.append(req.prompt[P:])
+            offsets.append(P)
+            lasts.append(len(req.prompt) - P - 1)
+        scratch = self._get_scratch(n, S_scratch)
+        for row, (_, _, pkey) in enumerate(admits):
+            if pkey:
+                entry = self._prefix.pop(pkey)
+                self._prefix[pkey] = entry  # LRU refresh
+                self._seed_from_pool(scratch, entry["blocks"], row)
+        padded = np.zeros((n, Sb), np.int32)
+        for row, t in enumerate(tails):
+            padded[row, : len(t)] = t
+        dev = self.device
+        logits, scratch = self._prefill_call(
+            torch.as_tensor(padded, device=dev).long(), scratch,
+            torch.as_tensor(lasts, dtype=torch.int32, device=dev),
+            torch.as_tensor(offsets, dtype=torch.int32, device=dev))
+        self._scratch[(n, S_scratch)] = scratch
+        temps = torch.as_tensor([r.temperature for _, r, _ in admits],
+                                dtype=torch.float32, device=dev)
+        first = sample_logits_vec(logits, temps, self._gen).cpu().numpy()
+        for row, (slot, req, pkey) in enumerate(admits):
+            total_len = offsets[row] + len(tails[row])
+            self._slot_blocks[slot] = []
+            self._bt[slot, :] = self._trash
+            if pkey:
+                for ci, bid in enumerate(self._prefix[pkey]["blocks"]):
+                    self._ref[bid] += 1
+                    self._bt[slot, ci] = bid
+                    self._slot_blocks[slot].append(bid)
+            self._ensure_blocks(slot, total_len)
+            self._scatter_row(scratch, row, slot, total_len)
+            self._len[slot] = total_len
+            self._prefix_store(req.prompt, None, slot, total_len)
+            self.slots[slot] = req
+            self.next_tok[slot] = int(first[row])
+            req.generated.append(int(first[row]))
+
+    # ---- decode ------------------------------------------------------------
+    def _decode_chunk(self, temps, n):
+        """Pre-extend the active tables by the chunk's rows, then one
+        decode_chunk_paged call. Idle slots restart at row 0 of their
+        all-trash tables."""
+        act = [i for i, s in enumerate(self.slots) if s is not None]
+        for i in act:
+            self._ensure_blocks(i, int(self._len[i]) + n)
+        dev = self.device
+        self.pcache.block_table = torch.as_tensor(self._bt, device=dev)
+        self.pcache.length = torch.as_tensor(self._len, dtype=torch.int32,
+                                             device=dev)
+        s_act = min(self.max_chunks * self.block, self._context_bucket(
+            [int(self._len[i]) for i in act], n, chunk_rows=self.block))
+        toks, self.pcache = decode_chunk_paged(
+            self.params_stacked, self.next_tok, self.pcache, temps,
+            self._gen, self.cfg, n, s_active=s_act)
+        for i in act:
+            self._len[i] += n
+        return toks
+
+    def _maybe_finish(self, slot):
+        if self.slots[slot] is None or not self._finished(slot):
+            return
+        self.slots[slot].done = True
+        self.slots[slot] = None
+        for bid in self._slot_blocks[slot]:
+            self._release_block(bid)
+        self._slot_blocks[slot] = []
+        self._bt[slot, :] = self._trash
+        self._len[slot] = 0

@@ -1,5 +1,6 @@
 """Fused INT8 KV-row commit + decode attention (port of
-``sparsebit_tpu/ops/attention.py:decode_attention_update``).
+``sparsebit_tpu/ops/attention.py``: ``decode_attention_update`` and the
+plain form of ``_flat_attention_rows_int8``).
 
 Kernel K2 (``csrc/attention.cu``) replaces ``_attn_update_kernel``
 (attention.py:662). The cache layout is the port's own: k, v (L, B, S,
@@ -7,6 +8,12 @@ Hkv, D) int8 and ks, vs (L, B, S, Hkv) f32 scales, with no lane padding
 of the scale stacks and no ``Hkv % 4`` gate (both were Mosaic tiling
 rules). Where the JAX function returned updated cache arrays, this one
 writes the new row into the caller's tensors in place.
+
+``flat_attention_rows_int8`` is the int8 attention of the decode
+megakernel (K4, ``ops/layer_fused.py``): per-(row, head) int8 q, exact
+int32 scores, a 7-bit probability mix. Its float sums are taken in the
+order of the kernel's 256-thread block reductions (``ordered_sum``), so
+that the kernel and this version agree bit for bit on the card.
 """
 
 import torch
@@ -104,3 +111,81 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
 
 
 decode_attention_update.launches = 0
+
+
+REDUCE_THREADS = 256  # block width of the K4 kernel's reductions
+
+
+def ordered_sum(x):
+    """Sum over the last axis in the order of a 256-thread block
+    reduction: thread t adds elements t, t + 256, ... in turn, then the
+    256 partials fold in a tree (t += t + w for w = 128, 64, ..., 1).
+    The K4 kernel sums in exactly this order, so both agree bit for bit.
+    Zeros pad the axis; adding 0.0 to the non-negative sums used here is
+    exact."""
+    n = x.shape[-1]
+    pad = -n % REDUCE_THREADS
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    rows = x.reshape(x.shape[:-1] + (-1, REDUCE_THREADS))
+    acc = torch.zeros(rows.shape[:-2] + (REDUCE_THREADS,), dtype=x.dtype,
+                      device=x.device)
+    for i in range(rows.shape[-2]):
+        acc = acc + rows[..., i, :]
+    w = REDUCE_THREADS // 2
+    while w >= 1:
+        acc = acc[..., :w] + acc[..., w:2 * w]
+        w //= 2
+    return acc[..., 0]
+
+
+def quant_q_rows(q):
+    """Per-(row, head) int8 query codes of the megakernel's attention
+    (layer_fused.py:552-554): scale max(absmax, 1e-30) * (1/127), codes
+    clipped to +-127. q (..., D) f32 -> (int8 (..., D), f32 (...))."""
+    qs = torch.clamp_min(q.abs().amax(dim=-1), 1e-30) * INV_127
+    q8 = torch.clamp(torch.round(q / qs[..., None]), -127, 127)
+    return q8.to(torch.int8), qs
+
+
+def flat_attention_rows_int8(q8, qsc, k, v, ks, vs, length):
+    """Plain version of ``_flat_attention_rows_int8`` (attention.py:297)
+    over slabs that already hold each row's new K/V at ``length[b]`` (the
+    reference corrects that column from its fresh rows instead; its
+    docstring shows the two are integer-exact).
+
+    q8 (B, H, D) int8 and qsc (B, H) f32 (quant_q_rows); k, v (B, S, Hkv,
+    D) int8 slabs; ks, vs (B, S, Hkv) f32 scales; length (B,) int. Rows
+    s <= length[b] attend; query head j reads kv head j // (H / Hkv).
+
+    scores = int32(q8 . k) * qsc * ks * D^-1/2; p = exp(s - max) over the
+    valid rows; p2 = p * vs; psc = max(max p2, 1e-30) / 127; p8 =
+    clip(round(p2 / psc), 0, 127); out = int32(p8 . v) * psc / sum(p).
+    Returns (B, H, D) f32."""
+    B, H, D = q8.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    n_rep = H // Hkv
+
+    def per_q_head(t):  # (B, S, Hkv, ...) -> (B, S, H, ...)
+        return torch.repeat_interleave(t, n_rep, dim=2)
+
+    kf = per_q_head(k).to(torch.float32)
+    # |q8 . k| <= 127 * 128 * D < 2^24: exact in f32 in any order
+    si = torch.einsum("bhd,bshd->bhs", q8.to(torch.float32), kf)
+    ksq = per_q_head(ks).transpose(1, 2)  # (B, H, S)
+    vsq = per_q_head(vs).transpose(1, 2)
+    valid = (torch.arange(S, device=q8.device)[None, None, :]
+             <= length.to(torch.long)[:, None, None])
+    scores = si * qsc[..., None] * ksq * _inv_sqrt(D)
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
+    denom = ordered_sum(p)[..., None]
+    p2 = p * torch.where(valid, vsq, torch.zeros_like(vsq))
+    psc = torch.clamp_min(p2.amax(dim=-1, keepdim=True), 1e-30) * INV_127
+    p8 = torch.clamp(torch.round(p2 / psc), 0, 127)
+    # int32 value mix: sums reach 127 * 128 * S, past f32's exact range
+    # at long contexts, so f64 (exact) and one rounding to f32
+    vf = per_q_head(v).to(torch.float64)
+    mix = torch.einsum("bhs,bshd->bhd", p8.to(torch.float64), vf)
+    return mix.to(torch.float32) * psc / denom

@@ -1,0 +1,262 @@
+"""Decode megakernel: the whole decoder backbone for one token per row
+(port of ``sparsebit_tpu/ops/layer_fused.py``: ``fused_layer_supported``,
+``fused_decoder_layer`` and ``fused_decoder_layers``).
+
+    x' = x + Wo(attn(rope(Wqkv(rms_norm(x))), cache))          (attn half)
+    out = x' + W2(glu(W13(rms_norm(x'))))                      (ffn half)
+
+Kernel K4 (``csrc/layer_fused.cu``) replaces ``_layer_kernel``
+(layer_fused.py:213): one cooperative launch per decode step runs every
+layer, with grid-wide barriers between the dependent phases of a layer.
+Numerics are the TPU kernel's: x carried in f32 across layers, f32 rms
+norm, per-row int8 quantization before Wqkv, Wo, W13 and W2 (the W4A8
+matmul of ``ops/quant_matmul``), rotate-half rope with full-width cos/sin,
+per-head int8 K/V rows with bf16-rounded scales, and the int8 attention of
+``attention.flat_attention_rows_int8``.
+
+The cache is the port's single layout for both engines: k, v (L, NB, blk,
+Hkv, D) int8 and ks, vs (L, NB, blk, Hkv) f32 scales, where a contiguous
+cache (L, B, S, Hkv, D) is the pool of B blocks of S rows with the block
+table ``[[0], [1], ...]``. Row s of batch row b lives in block
+``bt[b, s // blk]`` at ``s % blk``. The new row of each layer is written
+in place at ``min(pos[b], S_cache - 1)`` before the attention reads it,
+fresh scales included (the TPU kernel committed the scale rows outside).
+
+``_fused_layers_plain`` is the plain version: the tests and the CPU route
+run it; on the card it is only the kernel's yardstick. Its float sums are
+taken in the kernel's order (``attention.ordered_sum``), so kernel and
+plain version agree bit for bit on the card.
+"""
+
+import torch
+
+from sparsebit_tpu_torch.ops import _kernels
+from sparsebit_tpu_torch.ops.attention import (
+    _inv_sqrt,
+    flat_attention_rows_int8,
+    ordered_sum,
+    quant_q_rows,
+    quant_rows,
+)
+from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
+from sparsebit_tpu_torch.ops.quant_matmul import _qmm_s4_plain
+
+MAX_ROWS = 64  # B cap, as the reference (layer_fused.py:965)
+MAX_REP = 8    # query heads per kv head held by one attention work item
+
+
+def fused_layer_supported(cfg, gs, B=1, f_pad=None):
+    """The port's limits for K4 (no Mosaic tiling rules, and no cache
+    length limit): groups of whole 64-row steps, B <= 64, head_dim a power
+    of two in [16, 256], at most 8 query heads per kv head, and an
+    unpadded W2 (f_pad, its input width, == ffn_dim). The weights are
+    4-bit s4r row pairs: the 2/3-bit plane mode is not ported."""
+    dim, F, D = cfg.dim, cfg.ffn_dim, cfg.head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if gs <= 0 or gs % 64 or not 1 <= B <= MAX_ROWS:
+        return False
+    if f_pad not in (None, F):
+        return False
+    if D < 16 or D > 256 or D & (D - 1):
+        return False
+    if Hq % Hkv or Hq // Hkv > MAX_REP:
+        return False
+    return all(K % gs == 0 and K % 64 == 0 for K in (dim, Hq * D, F))
+
+
+def _rope_rows(rows, cos, sin):
+    """Rotate-half rope on (B, H, D) rows with full-width (B, D) cos/sin:
+    rows * cos + rot * sin, rot = [-x2, x1] (layer_fused.py:538-541)."""
+    h = rows.shape[-1] // 2
+    rot = torch.cat([-rows[..., h:], rows[..., :h]], dim=-1)
+    return rows * cos[:, None, :] + rot * sin[:, None, :]
+
+
+def _norm_quant(xf, nw, eps):
+    """f32 rms_norm(xf) * nw (``_norm_row``), then per-row int8 codes and
+    scales (``_quant_rows``)."""
+    var = ordered_sum(xf * xf) / xf.shape[-1]
+    r = 1.0 / torch.sqrt(var + eps)
+    return tokenwise_quant(xf * r[:, None] * nw.to(torch.float32))
+
+
+def _rows_of(bt, block, S):
+    """(block ids, offsets) of logical rows [0, S) of every batch row:
+    (B, S) each."""
+    s = torch.arange(S, device=bt.device)
+    return bt[:, s // block].to(torch.long), (s % block)[None, :].expand(
+        bt.shape[0], S)
+
+
+def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
+                        ks, vs, bt, s_act, gs, eps, Hq, Hkv):
+    """Plain version of K4. ws = ((wq, sq, zq), (wo, so, zo), (w13, s13,
+    z13), (w2, s2, z2)) layer stacks; the cache is updated in place.
+    Returns the post-backbone rows (B, dim) f32."""
+    B = x.shape[0]
+    D = cos.shape[-1]
+    HD, KVD = Hq * D, Hkv * D
+    block = k.shape[2]
+    S_cache = bt.shape[1] * block
+    F = ws[3][0].shape[1] * 2
+    lw = torch.clamp(pos.to(torch.long), max=S_cache - 1)
+    rows = torch.arange(B, device=x.device)
+    blk_w = bt[rows, lw // block].to(torch.long)
+    off_w = lw % block
+    blk_r, off_r = _rows_of(bt, block, s_act)
+    x = x.to(torch.float32)
+    for li in range(attn_norm.shape[0]):
+        (wq, sq, zq), (wo, so, zo), (w13, s13, z13), (w2, s2, z2) = (
+            tuple(t[li] for t in w) for w in ws)
+        xq, xs = _norm_quant(x, attn_norm[li], eps)
+        qkv = _qmm_s4_plain(xq, xs, wq, sq, zq, gs)
+        q = _rope_rows(qkv[:, :HD].reshape(B, Hq, D), cos, sin)
+        kr = _rope_rows(qkv[:, HD:HD + KVD].reshape(B, Hkv, D), cos, sin)
+        vr = qkv[:, HD + KVD:HD + 2 * KVD].reshape(B, Hkv, D)
+        kq, ksc = quant_rows(kr)
+        vq, vsc = quant_rows(vr)
+        k[li, blk_w, off_w] = kq
+        v[li, blk_w, off_w] = vq
+        ks[li, blk_w, off_w] = ksc
+        vs[li, blk_w, off_w] = vsc
+        q8, qs = quant_q_rows(q)
+        attn = flat_attention_rows_int8(
+            q8, qs, k[li, blk_r, off_r], v[li, blk_r, off_r],
+            ks[li, blk_r, off_r], vs[li, blk_r, off_r], pos)
+        a8, a_s = tokenwise_quant(attn.reshape(B, HD))
+        xmid = x + _qmm_s4_plain(a8, a_s, wo, so, zo, gs)
+        xq, xs = _norm_quant(xmid, ffn_norm[li], eps)
+        h = _qmm_s4_plain(xq, xs, w13, s13, z13, gs)
+        g, u = h[:, :F], h[:, F:]
+        a = g * (1.0 / (1.0 + torch.exp(-g))) * u
+        g8, g_s = tokenwise_quant(a)
+        x = xmid + _qmm_s4_plain(g8, g_s, w2, s2, z2, gs)
+    return x
+
+
+_workspaces = {}
+
+
+def _workspace(dev, B, dim, Nq, HD, F, Hq, S_cache):
+    """Scratch of one launch shape on the current stream, allocated once
+    and reused: int8 x codes, their scales, qkv, attention out and its
+    row absmax, x after the attention half, the GLU row and its absmax,
+    and the attention scores (B, Hq, S_cache). Launches on one stream run
+    in order, so they may share it."""
+    key = (str(dev), torch.cuda.current_stream(dev).cuda_stream, B, dim, Nq,
+           HD, F, Hq, S_cache)
+    w = _workspaces.get(key)
+    if w is None:
+        f32 = dict(dtype=torch.float32, device=dev)
+        w = (torch.empty((B, dim), dtype=torch.int8, device=dev),
+             torch.empty((B,), **f32), torch.empty((B, Nq), **f32),
+             torch.empty((B, HD), **f32), torch.empty((B,), **f32),
+             torch.empty((B, dim), **f32), torch.empty((B, F), **f32),
+             torch.empty((B,), **f32), torch.empty((B, Hq, S_cache), **f32))
+        _workspaces[key] = w
+    return w
+
+
+def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
+            s_act, gs, eps, Hq, Hkv):
+    B, dim = out.shape
+    D = cos.shape[-1]
+    L = attn_norm.shape[0]
+    NB, block = k.shape[1], k.shape[2]
+    F = ws[3][0].shape[1] * 2
+    Nq = (Hq + 2 * Hkv) * D
+    HD = Hq * D
+    S_cache = bt.shape[1] * block
+    szt = ws[0][1].dtype
+    flat = [t for w in ws for t in w]
+    if (B > MAX_ROWS or k.dtype != torch.int8 or ks.dtype != torch.float32
+            or k.shape[0] < L or k.shape[3:] != (Hkv, D)
+            or szt not in (torch.float32, torch.bfloat16)
+            or any(w[0].dtype != torch.uint8 for w in ws)
+            or any(t.dtype != szt for w in ws for t in w[1:])
+            or attn_norm.dtype != ffn_norm.dtype
+            or attn_norm.dtype not in (torch.float32, torch.bfloat16)
+            or ws[0][0].shape[1:] != (dim // 2, Nq)
+            or ws[1][0].shape[1:] != (HD // 2, dim)
+            or ws[2][0].shape[1:] != (dim // 2, 2 * F)
+            or ws[3][0].shape[1:] != (F // 2, dim)):
+        raise ValueError("fused_decoder_layers: unsupported operands")
+    _kernels.require_cuda("fused_decoder_layers", out, pos, cos, sin,
+                          attn_norm, ffn_norm, k, v, ks, vs, bt, *flat)
+    scratch = _workspace(out.device, B, dim, Nq, HD, F, Hq, S_cache)
+    p = _kernels.ptr
+    err = _kernels.lib().sbt_layers_fused(
+        *[p(t) for t in flat], p(attn_norm), p(ffn_norm),
+        p(k), p(v), p(ks), p(vs), p(bt), p(pos), p(cos), p(sin), p(out),
+        *[p(t) for t in scratch],
+        int(szt == torch.bfloat16), int(attn_norm.dtype == torch.bfloat16),
+        L, B, dim, Hq, Hkv, D, F, gs, NB, block, bt.shape[1], s_act,
+        eps, _inv_sqrt(D), _kernels.stream())
+    _kernels.check(err, "sbt_layers_fused")
+    fused_decoder_layers.launches += 1
+
+
+def fused_decoder_layers(x, pos, cos, sin,
+                         wq, sq, zq, wo, so, zo, w13, s13, z13, w2, s2, z2,
+                         attn_norm, ffn_norm, k, v, ks, vs,
+                         cfg, gs, bt=None, s_active=None):
+    """The whole backbone for one token per row, in one launch.
+
+    x (B, dim) float -> (out (B, dim) f32 after the last layer, before the
+    final norm, and k, v, ks, vs, updated in place). pos (B,) int32: the
+    row each token takes (== its attended length); cos/sin (B, D) f32
+    full-width rope terms at pos. Weights are layer stacks of ``s4r``
+    row pairs: wq (L, dim/2, (Hq+2Hkv)D), wo (L, HqD/2, dim), w13 (L,
+    dim/2, 2F) = [gate | up], w2 (L, F/2, dim), with (L, K/gs, N) scales
+    and zeros (one dtype, f32 or bf16); attn_norm/ffn_norm (L, dim).
+
+    Caches: contiguous k/v (L, B, S, Hkv, D) int8 with ks/vs (L, B, S,
+    Hkv) f32 when ``bt`` is None, else pools (L, n_blocks, block, Hkv, D)
+    / (L, n_blocks, block, Hkv) and the block table bt (B, n_chunks).
+    ``s_active``: rows [0, s_active) bound the attention (every active
+    pos < s_active); default the whole cache.
+
+    CPU tensors take the plain version; CUDA tensors launch K4."""
+    B = x.shape[0]
+    D = cfg.head_dim
+    if bt is None:
+        if k.shape[1] != B:
+            raise ValueError("contiguous cache rows {} != batch {}".format(
+                k.shape[1], B))
+        bt = torch.arange(B, dtype=torch.int32, device=x.device)[:, None]
+    S_cache = bt.shape[1] * k.shape[2]
+    s_act = S_cache if s_active is None else min(int(s_active), S_cache)
+    ws = ((wq, sq, zq), (wo, so, zo), (w13, s13, z13), (w2, s2, z2))
+    cos = cos.to(torch.float32).contiguous()
+    sin = sin.to(torch.float32).contiguous()
+    if cos.shape != (B, D):
+        raise ValueError("cos/sin must be (B, head_dim)")
+    if x.device.type == "cpu":
+        out = _fused_layers_plain(
+            x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
+            s_act, gs, cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads)
+        return out, k, v, ks, vs
+    out = x.to(torch.float32).clone().contiguous()
+    _launch(out, pos.to(torch.int32).contiguous(), cos, sin, ws, attn_norm,
+            ffn_norm, k, v, ks, vs, bt.to(torch.int32).contiguous(), s_act,
+            gs, cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads)
+    return out, k, v, ks, vs
+
+
+fused_decoder_layers.launches = 0
+
+
+def fused_decoder_layer(x, pos, cos, sin, li,
+                        wq, sq, zq, wo, so, zo, w13, s13, z13, w2, s2, z2,
+                        attn_norm, ffn_norm, k, v, ks, vs, cfg, gs, bt=None,
+                        s_active=None):
+    """One decoder layer ``li`` of the stacks: fused_decoder_layers over
+    one-layer views of the weights and the cache (no copies). Returns
+    (out, k, v, ks, vs) with the whole cache stacks, updated in place."""
+    sl = slice(li, li + 1)
+    out, *_ = fused_decoder_layers(
+        x, pos, cos, sin, wq[sl], sq[sl], zq[sl], wo[sl], so[sl], zo[sl],
+        w13[sl], s13[sl], z13[sl], w2[sl], s2[sl], z2[sl], attn_norm[sl],
+        ffn_norm[sl], k[sl], v[sl], ks[sl], vs[sl], cfg, gs, bt=bt,
+        s_active=s_active)
+    return out, k, v, ks, vs

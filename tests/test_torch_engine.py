@@ -2,10 +2,19 @@
 
 Weights are made once by the JAX package (tiny LLaMA, fused wqkv/w13,
 4-bit g64 RTN), carried across with llm.convert.params_from_numpy, and
-served by both sides. The JAX reference is its own engine with decode
-chunks routed through decode_chunk_scanned on stack_layers params, with
-the fused attention-update and FFN kernels forced on (interpret mode) —
-the unfused scanned branch (decode.py:464-548) that the port implements.
+served by both sides. The engine and decode tests run on both decode
+routes of the scanned decode (the ``route`` parameter):
+
+- "megakernel": the route both engines take by default for this model.
+  The reference is the unmodified JAX DecodeEngine with
+  ``FORCE_LAYER_KERNEL = True`` (its megakernel in interpret mode; on a
+  TPU the switch is not needed), against the port with default routing
+  (K4's plain version).
+- "unfused": the port with ``FORCE_LAYER_KERNEL = False`` (K1, K2, K3 per
+  layer), against ``_ScannedJEngine``: the JAX engine with its decode
+  chunks sent through decode_chunk_scanned on stack_layers params, the
+  attention-update and FFN kernels forced on. The JAX engine never takes
+  this branch (decode.py:464-548) itself, so the test has to ask for it.
 """
 
 import jax
@@ -72,10 +81,18 @@ def model():
     return cfg_j, qparams, cfg_t, tparams
 
 
+ROUTES = ["megakernel", "unfused"]
+
+
 @pytest.fixture
-def forced_kernels(monkeypatch):
-    monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
-    monkeypatch.setattr(JD, "FORCE_FFN_KERNEL", True)
+def forced_kernels(monkeypatch, route):
+    """Both sides on ``route`` (see the module docstring)."""
+    if route == "megakernel":
+        monkeypatch.setattr(JD, "FORCE_LAYER_KERNEL", True)
+    else:
+        monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
+        monkeypatch.setattr(JD, "FORCE_FFN_KERNEL", True)
+        monkeypatch.setattr(TD, "FORCE_LAYER_KERNEL", False)
 
 
 def test_params_from_numpy_roundtrip(model):
@@ -131,7 +148,9 @@ def test_quant_linear_a8_matches_jax(model, layout):
 
 class _ScannedJEngine(JEngine):
     """The JAX engine with every decode chunk on the unfused scanned path
-    (decode_chunk_scanned over stack_layers params)."""
+    (decode_chunk_scanned over stack_layers params): the reference for
+    the port's unfused route, which the JAX engine itself takes for no
+    model."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -149,10 +168,12 @@ def _requests():
             np.concatenate([first, rng.integers(0, 512, 6)])]  # prefix hit
 
 
-def test_engine_tokens_match_jax(model, forced_kernels):
+@pytest.mark.parametrize("route", ROUTES)
+def test_engine_tokens_match_jax(model, forced_kernels, route):
     """Greedy requests over two admission buckets (16, 32) and a prefix
     hit, three slots for four requests: the port's engine emits the JAX
-    reference's tokens exactly.
+    reference's tokens exactly. On the megakernel route the reference is
+    the JAX DecodeEngine itself.
 
     Free-running greedy sequences agree only where no decision is a near
     tie: the two sides differ by bf16 roundings (the reference under jit
@@ -162,8 +183,13 @@ def test_engine_tokens_match_jax(model, forced_kernels):
     of every logit is test_teacher_forced_logits_match_jax."""
     cfg_j, qparams, cfg_t, tparams = model
     kw = dict(max_batch=3, max_len=MAX_LEN, chunk=4)
-    jeng = _ScannedJEngine(qparams, cfg_j, **kw)
+    if route == "megakernel":
+        jeng = JEngine(qparams, cfg_j, **kw)
+        assert jeng._stacked_chunks
+    else:
+        jeng = _ScannedJEngine(qparams, cfg_j, **kw)
     teng = DecodeEngine(tparams, cfg_t, device="cpu", **kw)
+    assert teng._stacked_chunks == (route == "megakernel")
     for r in _requests():
         jeng.add_request(r, max_new_tokens=6)
         teng.add_request(r, max_new_tokens=6)
@@ -174,7 +200,8 @@ def test_engine_tokens_match_jax(model, forced_kernels):
         assert out[rid] == [int(t) for t in ref[rid]], rid
 
 
-def test_teacher_forced_logits_match_jax(model, forced_kernels):
+@pytest.mark.parametrize("route", ROUTES)
+def test_teacher_forced_logits_match_jax(model, forced_kernels, route):
     """prefill_at then six scanned decode steps fed the reference's greedy
     tokens: logits within ATOL, argmax equal where the top-2 margin
     exceeds 2 * ATOL."""
@@ -199,7 +226,8 @@ def test_teacher_forced_logits_match_jax(model, forced_kernels):
                            torch.from_numpy(last), torch.from_numpy(off))
     rows = [(np.asarray(jl, np.float32), tl.numpy())]
     jstk, tstk = JD.stack_layers(jp), TD.stack_layers(tp)
-    jkvs = JD._scan_cache(jc, pad_scales=True)
+    mega = route == "megakernel"
+    jkvs = JD._scan_cache(jc, pad_scales=not mega, flat=mega)
     jlen = jc.length
     fwd = jax.jit(JD._forward_scanned_kvs,
                   static_argnames=("quant_mode", "cfg"))
@@ -224,10 +252,14 @@ def test_teacher_forced_logits_match_jax(model, forced_kernels):
                                       lj.argmax(-1)[decisive])
 
 
-def test_decode_tokens_scanned_kvs_is_greedy_chunk(model):
+@pytest.mark.parametrize("route", ROUTES)
+def test_decode_tokens_scanned_kvs_is_greedy_chunk(model, monkeypatch,
+                                                   route):
     """The greedy multi-token loop over the stacked cache emits what the
     serving chunk emits at temperature 0, and advances the lengths."""
     _, _, cfg_t, tparams = model
+    if route == "unfused":
+        monkeypatch.setattr(TD, "FORCE_LAYER_KERNEL", False)
     tp = TD.stack_layers(TL.quantize_llama_params(
         tparams, lambda p, lin: _serving_layout(lin)
         if isinstance(lin, QuantLinear) else lin, skip=()))
@@ -253,3 +285,24 @@ def test_engine_needs_cuda_unless_cpu_is_asked(model, monkeypatch):
         DecodeEngine(tparams, cfg_t)
     with pytest.raises(RuntimeError):
         DecodeEngine(tparams, cfg_t, device="cuda")
+
+
+def test_prefix_hit_survives_its_admission_round(model):
+    """A prefix hit is resolved before the round's first group stores new
+    entries: with room for one entry, an earlier group's store must not
+    evict the entry a later group hits (the reference raises a KeyError
+    there, fault R6); the LRU evicts an entry nobody hit instead."""
+    _, _, cfg_t, tparams = model
+    eng = DecodeEngine(tparams, cfg_t, max_batch=2, max_len=MAX_LEN,
+                       chunk=4, prefix_cache_size=1, device="cpu")
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, 512, 12)
+    eng.add_request(a, max_new_tokens=2)
+    eng.run()
+    c = eng.add_request(rng.integers(0, 512, 5), max_new_tokens=2)
+    b = eng.add_request(np.concatenate([a, rng.integers(0, 512, 6)]),
+                        max_new_tokens=2)
+    out = eng.run()
+    assert eng.prefix_hits == 1
+    assert len(out[c]) == len(out[b]) == 2
+    assert list(eng._prefix) == [tuple(a.tolist())]

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from sparsebit_tpu_torch.ops import attention as A
+from sparsebit_tpu_torch.llm.llama import llama_tiny
 from sparsebit_tpu_torch.ops import ffn_fused as FF
+from sparsebit_tpu_torch.ops import layer_fused as LF
 from sparsebit_tpu_torch.ops import matvec as MV
 from sparsebit_tpu_torch.ops import quant_matmul as QM
 from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
@@ -102,3 +104,75 @@ def test_k9_kernel_matches_plain(cuda, B):
     out = MV.bf16_matvec(x, w)
     ref = MV._bf16_matvec_plain(x, w)
     assert (out - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+def _k4_operands(dev, B, S, n_blocks=None, Hkv=4, D=128, seed=0):
+    """Tiny K4 operands (4 query heads of D, Hkv kv heads, ffn 384, gs 64,
+    two layers) with a cache of S rows per batch row, or a pool of
+    n_blocks blocks of 128 rows."""
+    dim = 4 * D
+    cfg = llama_tiny(dim=dim, n_heads=4, n_kv_heads=Hkv, ffn_dim=384,
+                     max_seq_len=S)
+    rng = np.random.default_rng(seed)
+    ws = []
+    for K, N in ((dim, dim + 2 * Hkv * D), (dim, dim), (dim, 768),
+                 (384, dim)):
+        w, s, z = _s4(rng, (2,), K, N, 64, dev)
+        ws += [w, s * 2, z]
+    norms = [torch.from_numpy(1 + 0.1 * rng.standard_normal((2, dim))).to(
+        dev, torch.bfloat16) for _ in range(2)]
+    lead = (2, B, S) if n_blocks is None else (2, n_blocks, 128)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randint(-127, 128, lead + (Hkv, D), dtype=torch.int8,
+                      generator=g, device=dev)
+    v = torch.randint(-127, 128, lead + (Hkv, D), dtype=torch.int8,
+                      generator=g, device=dev)
+    ks = (torch.rand(lead + (Hkv,), generator=g, device=dev) * 0.01).to(
+        torch.bfloat16).float()
+    vs = (torch.rand(lead + (Hkv,), generator=g, device=dev) * 0.01).to(
+        torch.bfloat16).float()
+    x = torch.randn((B, dim), generator=g, device=dev)
+    pos = torch.from_numpy(rng.integers(0, S, B).astype(np.int32)).to(dev)
+    pos[0] = min(130, S - 1)  # past the first 128-row block
+    inv = 1.0 / (10000.0 ** (torch.arange(0, D, 2, device=dev) / D))
+    ang = pos[:, None].float() * inv
+    cos = torch.cat([torch.cos(ang)] * 2, 1)
+    sin = torch.cat([torch.sin(ang)] * 2, 1)
+    return cfg, x, pos, cos, sin, ws, norms, [k, v, ks, vs]
+
+
+@pytest.mark.parametrize("B,paged,Hkv,D", [
+    (1, False, 4, 128), (8, False, 4, 128), (8, True, 4, 128),
+    # B > 8 takes the 64-row tiles; Hkv 2 puts two query heads on a kv
+    # head (GQA), Hkv 1 four; D = 64 splits the value mix into 16 row
+    # groups
+    (20, False, 2, 128), (3, True, 2, 64), (4, True, 1, 128)])
+def test_k4_kernel_matches_plain(cuda, B, paged, Hkv, D):
+    """The megakernel against its plain version on the same card: KV codes
+    and scales exact, output within 1e-4 of max |out| (the plain version
+    takes every float sum in the kernel's order; the margin is for an
+    exp or division that rounds otherwise)."""
+    S = 256
+    bt = None
+    n_blocks = None
+    if paged:
+        n_blocks = 2 * B + 3
+        perm = np.random.default_rng(B).permutation(n_blocks)[:2 * B]
+        bt = torch.from_numpy(perm.reshape(B, 2).astype(np.int32)).to(cuda)
+    cfg, x, pos, cos, sin, ws, norms, cache = _k4_operands(
+        cuda, B, S, n_blocks, Hkv, D)
+    plain = [t.clone() for t in cache]
+    before = LF.fused_decoder_layers.launches
+    out, *_ = LF.fused_decoder_layers(x, pos, cos, sin, *ws, *norms, *cache,
+                                      cfg, 64, bt=bt)
+    if bt is None:
+        bt = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    ref = LF._fused_layers_plain(
+        x, pos, cos, sin, [tuple(ws[i:i + 3]) for i in range(0, 12, 3)],
+        *norms, *plain, bt, bt.shape[1] * cache[0].shape[2], 64,
+        cfg.rms_eps, 4, Hkv)
+    torch.cuda.synchronize()
+    assert LF.fused_decoder_layers.launches == before + 1
+    for a, b in zip(cache, plain):
+        assert torch.equal(a, b)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
