@@ -8,30 +8,51 @@ Phases (every failure is recorded and the script exits 1 at the end):
      sparsebit_tpu_torch/csrc (one nvcc per source, all started together)
      and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     LLaMA-7B INT4-g128 shapes: max error against its tolerance, kernel ms
-     (CUDA events, weights cycled over layers so that they come from HBM as
-     they do in decode), plain ms, the HBM/peak bound and, where one
-     PyTorch call computes the same function, that call's ms. K4 (the
-     decode megakernel) runs all 32 layers at B = 1, 8, 32 and B = 8
-     paged, S = 512, its KV codes and scales exact;
+     LLaMA-7B shapes: max error against its tolerance, kernel ms (CUDA
+     events, weights or caches cycled over copies so that they come from
+     HBM as they do in decode), plain ms, the HBM/peak bound and, where one
+     PyTorch call computes the same function, that call's ms. K1-K4 and K9
+     at INT4-g128 serving shapes (K4: all 32 layers at B = 1, 8, 32 and
+     B = 8 paged, its KV codes and scales exact); K8, K6 (2/4/8 bits) and
+     K7 (3 bits, f32 and int8 x) at the 7B unfused shapes, B = 1/8/64; K5
+     at S = 2048, B = 1/8/32, int8 and bf16 caches, and one GQA case;
   3. a small LLaMA on the card against the same weights on the CPU:
      admission logits and teacher-forced decode logits agree;
-  4. serve llama_7b()-shaped random INT4-g128 weights, one path at a time,
-     every kernel count set to 0 before a path and read after it:
-     DecodeEngine(max_batch=8, max_len=512, chunk=8, device="cuda") on K4
-     (8 requests x 32 tokens; wall ms/step beside K4's device ms/step);
-     the unfused route (FORCE_LAYER_KERNEL = False, K2/K3) at a reduced
-     depth; PagedDecodeEngine(block=128) against the fixed-slot engine on
-     10 requests with a shared 256-token prefix, tokens equal.
+  4. the paths, one at a time, every kernel count set to 0 before a path
+     and read after it:
+     generate   decode.generate at llama_7b() widths and 32 layers over
+                random GPTQ INT4-g128 weights in the layout
+                load_quant_checkpoint returns (unfused projections,
+                column planes, f32 qparams, impl "auto", bf16 head, int8
+                KV): B = 1 x 64 greedy tokens, B = 8 x 32, one sampled
+                run and one over a bf16 cache; prefill s, wall ms per
+                decode step and the kernels' device ms per step. One
+                decode_step's logits on the kernels equal the plain
+                versions' on the card;
+     mixed      a 2/3/4/8-bit model at 7B widths, depth 4, written by
+                save_quant_checkpoint and read by load_quant_checkpoint,
+                then generate with impl "auto" (K7, K8) and "a8" (K6, K7);
+     chunk      DecodeEngine on a 4/8-bit model K4 refuses (depth 4):
+                decode_chunk with K1, K6 and K5, no K4;
+     main       DecodeEngine(max_batch=8, max_len=512, chunk=8) on K4 (8
+                requests x 32 tokens; wall ms/step beside K4's device
+                ms/step);
+     unfused    decode_chunk_scanned with FORCE_LAYER_KERNEL = False
+                (K1/K2/K3) at a reduced depth;
+     paged      PagedDecodeEngine(block=128) against the fixed-slot engine
+                on 10 requests with a shared 256-token prefix, tokens
+                equal.
 It prints one JSON line of per-kernel and per-path numbers, the card's
 name and power limit, and last {"ok": true, "device": {...}}. It exits
 non-zero without CUDA or without the repository beside it.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
@@ -109,6 +130,76 @@ def build_random_params(cfg, device, gs=128):
                        device=device) * 0.02).to(torch.bfloat16)
     return {"tok_embed": emb, "layers": layers, "norm": ones,
             "lm_head": DenseLinear(emb.t().contiguous())}
+
+
+UNFUSED = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+
+
+def _linear_shape(cfg, name):
+    hd = cfg.head_dim
+    return {"wq": (cfg.dim, cfg.n_heads * hd),
+            "wk": (cfg.dim, cfg.n_kv_heads * hd),
+            "wv": (cfg.dim, cfg.n_kv_heads * hd),
+            "wo": (cfg.n_heads * hd, cfg.dim),
+            "w1": (cfg.dim, cfg.ffn_dim), "w3": (cfg.dim, cfg.ffn_dim),
+            "w2": (cfg.ffn_dim, cfg.dim)}[name]
+
+
+def random_plane_linear(K, N, bits, g, device, gs=128, copies=None):
+    """A random GPTQ QuantLinear in the container load_quant_checkpoint
+    returns: "w" column planes at 2/4/8 bits or 3-bit low2 + high1, N
+    padded as the JAX package pads it, f32 scales U(0.001, 0.01) * 16 /
+    2^bits and mid-range zeros, impl "auto". ``copies`` adds a leading
+    axis of that many independent copies (for timing from HBM)."""
+    import torch
+    from sparsebit_tpu_torch.llm.quant import QuantLinear
+    from sparsebit_tpu_torch.ops.packing import pallas_n_pad
+
+    lead = () if copies is None else (copies,)
+    Np = N + pallas_n_pad(N, bits)
+
+    def planes(cols):
+        return torch.randint(0, 256, lead + (K, cols), dtype=torch.uint8,
+                             generator=g, device=device)
+
+    if bits == 3:
+        packed = {"low2": planes(Np // 4), "high1": planes(Np // 8)}
+    else:
+        packed = {"w": planes(Np * bits // 8)}
+    G = K // gs
+    s = torch.empty(lead + (G, Np), device=device).uniform_(
+        0.001, 0.01, generator=g) * (16.0 / 2 ** bits)
+    z = torch.full(lead + (G, Np), float(2 ** (bits - 1)), device=device)
+    return QuantLinear(packed, s, z, bits, gs, N)
+
+
+def build_plane_params(cfg, device, bits_of, seed):
+    """Random weights in the checkpoint layout (the one load_quant_checkpoint
+    returns for a GPTQ model): unfused wq/wk/wv/wo/w1/w2/w3 from
+    random_plane_linear at ``bits_of(layer, name)`` bits, g128, bf16 norms,
+    embedding and an untied dense bf16 head, made on the card from a
+    seeded generator."""
+    import torch
+    from sparsebit_tpu_torch.llm.quant import DenseLinear
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    ones = torch.ones(cfg.dim, dtype=torch.bfloat16, device=device)
+    layers = []
+    for li in range(cfg.n_layers):
+        layer = {"attn_norm": ones, "ffn_norm": ones}
+        for name in UNFUSED:
+            K, N = _linear_shape(cfg, name)
+            layer[name] = random_plane_linear(K, N, bits_of(li, name), g,
+                                              device)
+        layers.append(layer)
+
+    def dense(shape):
+        return (torch.randn(shape, generator=g, device=device) * 0.02).to(
+            torch.bfloat16)
+
+    return {"tok_embed": dense((cfg.vocab_size, cfg.dim)), "layers": layers,
+            "norm": ones,
+            "lm_head": DenseLinear(dense((cfg.dim, cfg.vocab_size)))}
 
 
 def kernel_checks(stacked, cfg, results):
@@ -265,6 +356,154 @@ def kernel_checks(stacked, cfg, results):
                "B={} {}->{}".format(Bm, cfg.dim, W.shape[1]))
 
     k4_checks(stacked, cfg, record, g)
+    plane_checks(cfg, record, g)
+    k5_checks(cfg, record, g)
+
+
+def plane_checks(cfg, record, g):
+    """K8 (f32 x, "w" planes), K6 (int8 x, "w" planes) and K7 (3-bit
+    planes, f32 and int8 x) against _qmm_planes_plain at the 7B unfused
+    shapes, B = 1, 8, 64: all three shapes at 4 bits, 4096 -> 11008 at 2
+    and 8 bits (K8, K6) and at 3 bits (K7, N padded to 11264). Tolerance
+    1e-4 of max |out| (tests/test_ops.py:81,115,139); 8 copies of each
+    weight are cycled so that it streams from HBM. No PyTorch call
+    computes a group-quantized matmul, so library_ms is null."""
+    import torch
+    from sparsebit_tpu_torch.ops import quant_matmul as QM
+    from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
+
+    dev = torch.device("cuda")
+    nc = 8
+    src = "sparsebit_tpu_torch/csrc/quant_matmul_planes.cu"
+    rep = {"K8": "sparsebit_tpu/ops/quant_matmul.py:57",
+           "K6": "sparsebit_tpu/ops/quant_matmul.py:844",
+           "K7": "sparsebit_tpu/ops/quant_matmul.py:241"}
+    d, f = cfg.dim, cfg.ffn_dim
+    cases = [(b, K, N) for b in (4,) for K, N in ((d, d), (d, f), (f, d))]
+    cases += [(b, d, f) for b in (2, 8)]
+    cases += [(3, d, f)]
+    for bits, K, N in cases:
+        lin = random_plane_linear(K, N, bits, g, dev, copies=nc)
+        Np, gs, G = lin.n_padded, lin.groupsize, K // lin.groupsize
+        w_bytes = sum(t[0].numel() for t in lin.packed.values())
+        for a8 in (False, True):
+            kern = "K7" if bits == 3 else ("K6" if a8 else "K8")
+            for M in (1, 8, 64):
+                x = torch.randn((M, K), generator=g, device=dev)
+                if a8:
+                    x = tokenwise_quant(x)[0]
+                pk = [{k: v[i] for k, v in lin.packed.items()}
+                      for i in range(nc)]
+
+                def run(i):
+                    c = i % nc
+                    s, z = lin.scales[c], lin.zeros[c]
+                    if bits == 3:
+                        return QM.quant_matmul_3bit(x, pk[c], s, z, gs, Np,
+                                                    a8=a8)
+                    fn = QM.quant_matmul_w_a8 if a8 else QM.quant_matmul_w
+                    return fn(x, pk[c]["w"], s, z, bits, gs, Np)
+
+                def plain(i):
+                    c = i % nc
+                    return QM._qmm_planes_plain(x, pk[c], lin.scales[c],
+                                                lin.zeros[c], bits, gs, Np)
+
+                out, ref = run(0), plain(0)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                tol = 1e-4 * ref.abs().max().item()
+                ms = cuda_ms(run, 20)
+                pms = cuda_ms(plain, 3, 1)
+                nbytes = (w_bytes + 2 * 4 * G * Np + M * K * (1 if a8 else 4)
+                          + 4 * M * Np)
+                bnd = bound_ms(nbytes, 2 * M * K * Np, "int8" if a8 else "f32")
+                shape = "{}-bit {} x{} {}->{}".format(
+                    bits, "int8" if a8 else "f32", M, K, N)
+                named = (K, N) == (d, f) and bits in (3, 4) and M == 8
+                record("{} {}".format(kern, shape) if named else None, kern,
+                       src, rep[kern], err, tol, ms, pms, bnd, None, shape)
+        del lin
+    torch.cuda.empty_cache()
+
+
+def k5_checks(cfg, record, g):
+    """K5 against _decode_attn_plain at S = 2048, H = Hkv = 32, D = 128,
+    B = 1, 8, 32, int8 and bf16 caches with lengths spread across rows, and
+    one GQA case (Hkv = 8); atol 2e-4 (tests/test_attention.py:43). Layer
+    copies of the cache are cycled so that it streams from HBM. The
+    library call is scaled_dot_product_attention over the bf16 cache (a
+    boolean mask for the lengths); SDPA takes no int8 cache with scales, so
+    the int8 cases have none."""
+    import torch
+    from sparsebit_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    S, D, H = 2048, cfg.head_dim, cfg.n_heads
+    cases = [(B, H, q) for B in (1, 8, 32) for q in (True, False)]
+    cases.append((8, 8, True))
+    for B, Hkv, quant in cases:
+        Lc = 8 if B <= 8 else 4
+        shape = (Lc, B, S, Hkv, D)
+        if quant:
+            k = torch.randint(-127, 128, shape, dtype=torch.int8,
+                              generator=g, device=dev)
+            v = torch.randint(-127, 128, shape, dtype=torch.int8,
+                              generator=g, device=dev)
+            ks = torch.empty(shape[:-1], device=dev).uniform_(
+                0.0005, 0.002, generator=g)
+            vs = torch.empty(shape[:-1], device=dev).uniform_(
+                0.001, 0.01, generator=g)
+        else:
+            k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            ks = vs = None
+        q = torch.randn((B, H, D), generator=g, device=dev)
+        length = ((torch.arange(B, device=dev) + 1) * S // B - 1).to(
+            torch.int32)
+
+        def sc(t, li):
+            return None if t is None else t[li]
+
+        def run(i):
+            return A.decode_attention_stacked(q, k, v, ks, vs, i % Lc, length)
+
+        def plain(i):
+            li = i % Lc
+            return A._decode_attn_plain(q, k[li], v[li], sc(ks, li),
+                                        sc(vs, li), length)
+
+        out, ref = run(0), plain(0)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ms = cuda_ms(run, 20)
+        pms = cuda_ms(plain, 3, 1)
+        lms = None
+        if not quant:
+            qb = q.to(torch.bfloat16)[:, :, None]
+            mask = (torch.arange(S, device=dev)[None, :]
+                    <= length[:, None])[:, None, None]
+
+            def lib(i):
+                li = i % Lc
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qb, k[li].transpose(1, 2), v[li].transpose(1, 2),
+                    attn_mask=mask)
+
+            lms = cuda_ms(lib, 20)
+        rows = int(length.sum().item()) + B
+        row_bytes = Hkv * (2 * D + 8) if quant else Hkv * 4 * D
+        nbytes = rows * row_bytes + 2 * 4 * B * H * D + 4 * B
+        bnd = bound_ms(nbytes, 4 * rows * (H // Hkv) * Hkv * D, "f32")
+        tag = "{} B={} S={} H={} Hkv={}".format(
+            "int8" if quant else "bf16", B, S, H, Hkv)
+        named = B == 8
+        record("K5 " + tag if named else None, "K5",
+               "sparsebit_tpu_torch/csrc/decode_attention.cu",
+               "sparsebit_tpu/ops/attention.py:499", err, 2e-4, ms, pms, bnd,
+               lms, tag)
+        del k, v, ks, vs
+    torch.cuda.empty_cache()
 
 
 def k4_checks(stacked, cfg, record, g):
@@ -434,15 +673,36 @@ def small_model_check():
 PROMPT_LENS = [16, 40, 60, 100, 130, 170, 200, 25]
 
 
+_WRAPPERS = {}
+
+
 def _wrappers():
+    """The kernel wrappers by id, as first seen (before any phase patches a
+    module attribute): each counts its launches in ``launches``."""
     from sparsebit_tpu_torch.ops import attention, ffn_fused, layer_fused
     from sparsebit_tpu_torch.ops import matvec, quant_matmul
 
-    return {"K1": quant_matmul.quant_matmul_s4,
+    if _WRAPPERS:
+        return _WRAPPERS
+    _WRAPPERS.update({"K1": quant_matmul.quant_matmul_s4,
             "K2": attention.decode_attention_update,
             "K3": ffn_fused.ffn_block_fused,
             "K4": layer_fused.fused_decoder_layers,
-            "K9": matvec.bf16_matvec}
+            "K5": attention.decode_attention,
+            "K6": quant_matmul.quant_matmul_w_a8,
+            "K7": quant_matmul.quant_matmul_3bit,
+            "K8": quant_matmul.quant_matmul_w,
+            "K9": matvec.bf16_matvec})
+    return _WRAPPERS
+
+
+def _reset_launches():
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def _launches():
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
 def _prompts(cfg, with_prefix_pair=False):
@@ -544,11 +804,321 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
     return [res[r] for r in rids], stats
 
 
+class _Patched:
+    """Replace module attributes for the duration of a ``with`` block."""
+
+    def __init__(self, pairs):
+        self.pairs = pairs  # [(module, name, replacement)]
+        self.saved = []
+
+    def __enter__(self):
+        for mod, name, new in self.pairs:
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, old in reversed(self.saved):
+            setattr(mod, name, old)
+
+
+def plain_versions():
+    """Route the non-scanned decode's kernel wrappers (K1, K5-K8) to their
+    plain versions, on whatever device the tensors are."""
+    from sparsebit_tpu_torch.ops import attention as A
+    from sparsebit_tpu_torch.ops import quant_matmul as QM
+
+    def w(x, wt, s, z, bits, gs, N):
+        return QM._qmm_planes_plain(x.float(), {"w": wt}, s, z, bits, gs, N)
+
+    def w_a8(x8, wt, s, z, bits, gs, N):
+        return QM._qmm_planes_plain(x8, {"w": wt}, s, z, bits, gs, N)
+
+    def three(x, packed, s, z, gs, N, a8=False):
+        x = x if a8 else x.float()
+        return QM._qmm_planes_plain(x, packed, s, z, 3, gs, N)
+
+    def s4(x8, xs, wt, s, z, gs, li=None):
+        if li is not None:
+            wt, s, z = wt[li], s[li], z[li]
+        return QM._qmm_s4_plain(x8, xs, wt, s, z, gs if gs > 0 else
+                                x8.shape[1])
+
+    return _Patched([(QM, "quant_matmul_w", w),
+                     (QM, "quant_matmul_w_a8", w_a8),
+                     (QM, "quant_matmul_3bit", three),
+                     (QM, "quant_matmul_s4", s4),
+                     (A, "decode_attention", A._decode_attn_plain)])
+
+
+class KernelEvents:
+    """CUDA events around every kernel launch while enabled (the kernel
+    library's entry points, reached through ``_kernels.lib()``): the
+    kernels' device ms, summed per decode step by the caller."""
+
+    def __init__(self):
+        from sparsebit_tpu_torch.ops import _kernels
+
+        self.events = []
+        self.on = False
+        real = _kernels.lib
+        timer = self
+
+        class Lib:
+            def __getattr__(self, name):
+                return timer._wrap(getattr(real(), name))
+
+        lib = Lib()
+        self.patch = _Patched([(_kernels, "lib", lambda: lib)])
+
+    def _wrap(self, fn):
+        import torch
+
+        def timed(*a):
+            if not self.on:
+                return fn(*a)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        return timed
+
+    def take_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        self.events = []
+        return ms
+
+
+def _logits_agree(a, b, atol=0.1):
+    """Max |a - b| within atol and equal argmax wherever b's top-2 margin
+    exceeds 2 * atol (the discipline of the small-model check)."""
+    import torch
+
+    err = (a - b).abs().max().item()
+    top2 = torch.topk(b, 2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * atol
+    same = bool((a.argmax(-1)[decisive] == b.argmax(-1)[decisive]).all())
+    return err, err <= atol and same and bool(a.isfinite().all())
+
+
+def step_vs_plain(params, cfg, prompt, tag):
+    """Prefill ``prompt`` on the kernels, then one decode_step from two
+    copies of that cache: on the kernels, and with every wrapper routed to
+    its plain version on the card. Logits within atol 0.1 with equal
+    decisive argmax. Returns the error."""
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+
+    B, S = prompt.shape
+    cache = init_kv_cache(cfg, B, S + 8, device="cuda")
+    logits, cache = Dm.prefill(params, prompt, cache, cfg)
+    tok = logits.argmax(-1).to(torch.int32)
+    twin = init_kv_cache(cfg, B, S + 8, device="cuda")
+    for name in ("k", "v", "k_scale", "v_scale", "length"):
+        getattr(twin, name).copy_(getattr(cache, name))
+    got, _ = Dm.decode_step(params, tok, cache, cfg)
+    with plain_versions():
+        ref, _ = Dm.decode_step(params, tok, twin, cfg)
+    err, ok = _logits_agree(got.float(), ref.float())
+    print("{}: one decode_step on the kernels vs the plain versions on the "
+          "card: max logit err {:.3e} (atol 0.1), {}".format(
+              tag, err, "ok" if ok else "BAD"), flush=True)
+    if not ok:
+        fail("{}: decode_step logits differ from the plain versions' "
+             "(err {:.3e})".format(tag, err))
+    return err
+
+
+def run_generate(params, cfg, prompt, n_new, timer, tag, **kw):
+    """decode.generate with every kernel count set to 0 just before and
+    read just after: prefill s, wall ms per decode step and the timed
+    kernels' device ms per step. Returns (tokens, stats)."""
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+
+    times = {"prefill": 0.0, "steps": 0}
+    finite = []
+    orig_prefill, orig_step = Dm.prefill, Dm.decode_step
+
+    def prefill(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        timer.on = False
+        out = orig_prefill(*a, **k)
+        torch.cuda.synchronize()
+        times["prefill"] += time.perf_counter() - t
+        timer.on = True
+        return out
+
+    def step(*a, **k):
+        out = orig_step(*a, **k)
+        finite.append(torch.isfinite(out[0]).all())
+        times["steps"] += 1
+        return out
+
+    timer.events = []
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Patched([(Dm, "prefill", prefill), (Dm, "decode_step", step)]):
+        toks = Dm.generate(params, prompt, cfg, max_new_tokens=n_new, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timer.on = False
+    dev_ms = timer.take_ms()
+    launches = _launches()
+    n = times["steps"]
+    stats = {"B": prompt.shape[0], "prompt": prompt.shape[1],
+             "new_tokens": n_new, "prefill_s": times["prefill"],
+             "decode_steps": n,
+             "wall_ms_per_step": 1e3 * (wall - times["prefill"]) / n,
+             "kernel_device_ms_per_step": dev_ms / n, "launches": launches}
+    ok = (tuple(toks.shape) == (prompt.shape[0], n_new)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and all(bool(f.item()) for f in finite))
+    print("{}: B={} prompt {} + {} tokens: prefill {:.3f} s, decode {:.3f} "
+          "ms/step wall, kernels {:.3f} ms/step device; launches {}".format(
+              tag, stats["B"], stats["prompt"], n_new, stats["prefill_s"],
+              stats["wall_ms_per_step"], stats["kernel_device_ms_per_step"],
+              launches), flush=True)
+    if not ok:
+        fail("{}: tokens {} not of shape ({}, {}) in the vocabulary, or "
+             "logits not finite".format(tag, tuple(toks.shape),
+                                        prompt.shape[0], n_new))
+    return toks, stats
+
+
+def _expect(tag, launches, want, absent=()):
+    for k in want:
+        if launches[k] <= 0:
+            fail("{} was not launched on the {} path".format(k, tag))
+    for k in absent:
+        if launches[k]:
+            fail("{} was launched {} times on the {} path".format(
+                k, launches[k], tag))
+
+
+def generate_paths(cfg):
+    """Phase 4, this slice's main path and its neighbours.
+      generate  llama_7b() widths, 32 layers, random GPTQ INT4-g128 in
+                the checkpoint layout, impl "auto", int8 KV: B = 1 (64-token
+                prompt, 64 greedy tokens), B = 8 (32 tokens), one sampled
+                run (temperature 0.8, top_k 40, top_p 0.9), and 16 tokens
+                over a bf16 cache; K8 + K5, and one decode_step held to
+                the plain versions;
+      mixed     2/3/4/8-bit linears at 7B widths, depth 4, through
+                save_quant_checkpoint / load_quant_checkpoint (arrays
+                equal), generate with impl "auto" (K7, K8) and "a8" (K6,
+                K7);
+      chunk     DecodeEngine on a 4/8-bit model K4 refuses (depth 4):
+                decode_chunk with K1, K6 and K5, and no K4."""
+    import torch
+    from sparsebit_tpu_torch.llm import llama as L
+    from sparsebit_tpu_torch.llm import serving as Sv
+    from sparsebit_tpu_torch.llm.convert import (
+        load_quant_checkpoint, save_quant_checkpoint)
+    from sparsebit_tpu_torch.llm.quant import QuantLinear
+
+    out = {}
+    timer = KernelEvents()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    with timer.patch:
+        params = build_plane_params(cfg, torch.device("cuda"),
+                                    lambda li, n: 4, SEED + 6)
+        p1 = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                           device="cuda")
+        p8 = torch.randint(0, cfg.vocab_size, (8, 64), generator=gen,
+                           device="cuda")
+        runs = [("generate B=1 greedy", p1, 64, {}),
+                ("generate B=8 greedy", p8, 32, {}),
+                ("generate B=1 sampled", p1, 32,
+                 dict(temperature=0.8, top_k=40, top_p=0.9,
+                      generator=torch.Generator(device="cuda").manual_seed(
+                          SEED + 7))),
+                ("generate B=1 greedy bf16 KV", p1, 16,
+                 dict(kv_quantized=False))]
+        for tag, prompt, n, kw in runs:
+            _, st = run_generate(params, cfg, prompt, n, timer, tag, **kw)
+            _expect(tag, st["launches"], ("K5", "K8"), ("K4",))
+            out[tag] = st
+        out["generate B=1 greedy"]["step_vs_plain_err"] = step_vs_plain(
+            params, cfg, p1, "generate")
+        del params
+        torch.cuda.empty_cache()
+
+        depth = 4
+        cfg_m = dataclasses.replace(cfg, n_layers=depth)
+        bits = (2, 3, 4, 8)
+        params = build_plane_params(
+            cfg_m, torch.device("cuda"),
+            lambda li, n: bits[(li + UNFUSED.index(n)) % 4], SEED + 8)
+        layers_bit = {"layers.{}.{}".format(li, n): bits[(li + j) % 4]
+                      for li in range(depth) for j, n in enumerate(UNFUSED)}
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            save_quant_checkpoint(tmp, params, layers_bit, cfg_m, 128)
+            loaded, cfg_l, bits_l = load_quant_checkpoint(tmp)
+            io_s = time.perf_counter() - t
+        same = bits_l == layers_bit and cfg_l == cfg_m
+        for a, b in zip(params["layers"], loaded["layers"]):
+            for n in UNFUSED:
+                x, y = a[n], b[n]
+                same &= all(torch.equal(x.packed[k], y.packed[k])
+                            for k in x.packed)
+                same &= torch.equal(x.scales, y.scales) and \
+                    torch.equal(x.zeros, y.zeros) and y.impl == "auto"
+        print("mixed: npz checkpoint written and read in {:.1f} s, arrays "
+              "equal {}".format(io_s, same), flush=True)
+        if not same:
+            fail("mixed: the npz round trip changed the model")
+        del params
+        prompt = p8[:2, :32]
+        for impl in ("auto", "a8"):
+            pm = loaded if impl == "auto" else L.quantize_llama_params(
+                loaded, lambda p, lin: (lin._replace(impl="a8")
+                                        if isinstance(lin, QuantLinear)
+                                        else lin), skip=())
+            tag = "mixed impl={} depth {}".format(impl, depth)
+            _, st = run_generate(pm, cfg_m, prompt, 16, timer, tag)
+            _expect(tag, st["launches"], ("K5", "K7") + (
+                ("K8",) if impl == "auto" else ("K6",)), ("K4",))
+            st["step_vs_plain_err"] = step_vs_plain(pm, cfg_m, prompt, tag)
+            out[tag] = st
+        del loaded, pm
+        torch.cuda.empty_cache()
+
+    cfg_c = dataclasses.replace(cfg, n_layers=depth)
+    params = build_plane_params(
+        cfg_c, torch.device("cuda"),
+        lambda li, n: (4, 8)[(li + UNFUSED.index(n)) % 2], SEED + 9)
+    eng = Sv.DecodeEngine(params, cfg_c, max_batch=8, max_len=512, chunk=8,
+                          device="cuda")
+    if eng._stacked_chunks:
+        fail("chunk: DecodeEngine put a model K4 refuses on K4")
+    _, st = drive(eng, _prompts(cfg), "decode_chunk",
+                  "chunk (DecodeEngine on decode_chunk, 4/8-bit, depth "
+                  "{})".format(depth), ("K1", "K5", "K6"), n_new=16)
+    _expect("chunk", st["launches"], (), ("K4",))
+    st["depth"] = depth
+    out["chunk"] = st
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_paths(params, cfg):
     """Phase 4: the engines at 7B widths, one path at a time.
       main     DecodeEngine on K4 (8 requests x 32 tokens, PR 1's run):
                ms/step, tok/s, K4 device ms/step beside the wall ms/step;
-      unfused  FORCE_LAYER_KERNEL = False at a reduced depth: K2/K3;
+      unfused  decode_chunk_scanned with FORCE_LAYER_KERNEL = False at a
+               reduced depth (K1/K2/K3), a route no engine takes itself;
       paged    PagedDecodeEngine(block 128) and the fixed-slot engine on
                the same 10 requests (a 256-token shared-prefix pair
                added), admissions pinned to prefill_at: equal tokens."""
@@ -573,13 +1143,23 @@ def serve_paths(params, cfg):
     depth = min(4, cfg.n_layers)
     cfg_u = dataclasses.replace(cfg, n_layers=depth)
     params_u = dict(params, layers=params["layers"][:depth])
+    class ScannedEngine(Sv.DecodeEngine):
+        """Every decode chunk on decode_chunk_scanned over stack_layers
+        params: with FORCE_LAYER_KERNEL = False the unfused scanned route,
+        which no engine takes by itself."""
+
+        def _decode_chunk_call(self, temps, n):
+            return Sv.decode_chunk_scanned(
+                self.params_stacked, self.next_tok, self.cache, temps,
+                self._gen, self.cfg, n)
+
     Dm.FORCE_LAYER_KERNEL = False
     try:
-        eng = Sv.DecodeEngine(params_u, cfg_u, **kw)
+        eng = ScannedEngine(params_u, cfg_u, **kw)
         _, out["unfused"] = drive(
             eng, _prompts(cfg), "decode_chunk_scanned",
-            "unfused (DecodeEngine, FORCE_LAYER_KERNEL=False, depth {})"
-            .format(depth), ("K1", "K2", "K3", "K9"), n_new=8)
+            "unfused (decode_chunk_scanned, FORCE_LAYER_KERNEL=False, "
+            "depth {})".format(depth), ("K1", "K2", "K3", "K9"), n_new=8)
     finally:
         Dm.FORCE_LAYER_KERNEL = None
     out["unfused"]["depth"] = depth
@@ -645,6 +1225,7 @@ def main():
     print("card: {}".format(card), flush=True)
     t0 = time.perf_counter()
     _kernels.lib()
+    _wrappers()  # the wrappers as imported, before any phase patches them
     print("kernel build + load {:.1f} s".format(time.perf_counter() - t0),
           flush=True)
 
@@ -659,14 +1240,25 @@ def main():
     torch.cuda.empty_cache()
     print("kernel checks {:.1f} s".format(time.perf_counter() - t0))
     small_model_check()
-    engines = serve_paths(params, cfg)
-    # launches of each kernel on its path: K2/K3 on the unfused route,
-    # the others on the main path
+    t0 = time.perf_counter()
+    paths = generate_paths(cfg)
+    print("generate, mixed and chunk paths {:.1f} s".format(
+        time.perf_counter() - t0))
+    paths.update(serve_paths(params, cfg))
+    # launches of each kernel on the path that runs it: K5 and K8 on
+    # generate (this slice's main path), K6 on the engine's decode_chunk
+    # route, K7 on the mixed-precision model (its int8 form with impl
+    # "a8"), K2/K3 on the unfused route, K1, K4 and K9 on the K4 engine
+    where = {"K2": "unfused", "K3": "unfused", "K5": "generate B=8 greedy",
+             "K6": "chunk", "K7": "mixed impl=auto depth 4",
+             "K8": "generate B=8 greedy"}
     for r in results:
-        path = "unfused" if r["kernel"] in ("K2", "K3") else "main"
-        r["launches"] = engines[path]["launches"][r["kernel"]]
-    print(json.dumps({"kernels": results, "engines": engines,
-                      "card": card}), flush=True)
+        r["path"] = where.get(r["kernel"], "main")
+        if r["kernel"] == "K7" and "int8" in r["shape"]:
+            r["path"] = "mixed impl=a8 depth 4"
+        r["launches"] = paths[r["path"]]["launches"][r["kernel"]]
+    print(json.dumps({"kernels": results, "paths": paths, "card": card}),
+          flush=True)
     print(card, flush=True)
     if failures:
         print("{} failure(s)".format(len(failures)), file=sys.stderr)

@@ -1,16 +1,25 @@
-"""Bucketed prefill and the scanned decode loop (port of
-``sparsebit_tpu/llm/decode.py``: ``prefill_at``, ``prefill_cold_scanned``,
-``stack_layers``, ``_forward_scanned_kvs`` with both its branches,
-``decode_tokens_scanned_kvs``, ``decode_chunk_scanned``,
+"""Prefill, decode and generation (port of ``sparsebit_tpu/llm/decode.py``:
+``prefill``, ``prefill_at``, ``decode_step``, ``prepare_params_for_decode``,
+``decode_tokens``, ``decode_chunk``, ``sample_logits``, ``generate``,
+``prefill_cold_scanned``, ``stack_layers``, ``_forward_scanned_kvs`` with
+both its branches, ``decode_tokens_scanned_kvs``, ``decode_chunk_scanned``,
 ``decode_chunk_paged`` and ``sample_logits_vec``).
+
+The non-scanned decode (``decode_step`` and the loops over it) runs the
+layers one by one over per-layer params, each linear through its own
+``impl`` (K8/K7 for "auto", K1/K6/K7 for "a8"), and single-token attention
+through K5 after the new row is committed (``_use_attn_kernel``, as
+decode.py:30-70); other shapes take the reference's dense attention over
+the dequantized cache.
 
 PyTorch runs eagerly, so ``lax.scan`` over layers and tokens becomes a
 Python loop; the packed weights stay layer-stacked and each kernel reads
 its layer's slice in place. The KV cache is updated in place (the JAX
 functions returned new caches; these return the same, mutated, objects).
 
-A decode step takes one of two routes, chosen as the reference chooses
-(``_scan_uses_layer_kernel``, decode.py:333):
+A scanned decode step (``_forward_scanned_kvs``) takes one of two routes,
+chosen as the reference chooses (``_scan_uses_layer_kernel``,
+decode.py:333):
 - the megakernel branch (decode.py:427-462): the whole backbone as ONE
   launch of K4 (ops/layer_fused), for fused-wqkv/w13 s4r models;
 - the unfused branch (decode.py:464-548), for models K4 does not take or
@@ -23,14 +32,20 @@ large M and K9 for the last-token lm_head.
 
 import torch
 
+from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.llm import llama as L
 from sparsebit_tpu_torch.llm.kv_cache import (
     _quant_heads,
     cache_read,
     cache_update,
+    init_kv_cache,
 )
 from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
-from sparsebit_tpu_torch.ops.attention import decode_attention_update
+from sparsebit_tpu_torch.ops.attention import (
+    decode_attention_stacked,
+    decode_attention_supported,
+    decode_attention_update,
+)
 from sparsebit_tpu_torch.ops.ffn_fused import (
     ffn_block_fused,
     ffn_block_supported,
@@ -53,20 +68,42 @@ def _logits(head, x):
     return head(x).to(torch.float32)
 
 
+# The reference's switch (decode.py:27): None routes by the predicate,
+# False forces the dense attention, True takes K5 wherever it is supported.
+FORCE_ATTN_KERNEL = None
+
+
+def _use_attn_kernel(S, quantized, cfg):
+    """True when a step's attention runs as K5 (decode.py:30-39): one token
+    per row and decode_attention_supported. Unlike the reference it does
+    not ask the device, so the CPU takes the card's route."""
+    ok = S == 1 and decode_attention_supported(
+        (1, cfg.n_heads, cfg.head_dim), quantized)
+    if FORCE_ATTN_KERNEL is not None:
+        return FORCE_ATTN_KERNEL and ok
+    return ok
+
+
 def _layer_with_cache(layer, x, cfg, inv_freq, positions, mask, cache, li):
-    """Decoder layer writing the cache and attending over it (the XLA
-    branch of decode.py:51-81: masked attention over the dequantized
-    cache). positions (B, S)."""
+    """Decoder layer writing the cache and attending over it
+    (decode.py:51-81): the new rows are committed first, then K5 over the
+    layer's slab for a single-token step, else masked attention over the
+    dequantized cache. positions (B, S)."""
     h_in = L.rms_norm(x, layer["attn_norm"], cfg.rms_eps)
     B, S, _ = x.shape
     q, k, v = L.qkv_proj(layer, h_in, cfg)
     q = L.apply_rope(q, positions, inv_freq)
     k = L.apply_rope(k, positions, inv_freq)
     cache_update(cache, li, k, v, positions[:, 0])
-    k_all, v_all = cache_read(cache, li, x.dtype)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    out = L.attention_scores(
-        q, L.repeat_kv(k_all, n_rep), L.repeat_kv(v_all, n_rep), mask)
+    if _use_attn_kernel(S, cache.quantized, cfg):
+        out = decode_attention_stacked(
+            q[:, 0], cache.k, cache.v, cache.k_scale, cache.v_scale, li,
+            positions[:, 0])[:, None].to(x.dtype)
+    else:
+        k_all, v_all = cache_read(cache, li, x.dtype)
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        out = L.attention_scores(
+            q, L.repeat_kv(k_all, n_rep), L.repeat_kv(v_all, n_rep), mask)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     x = x + layer["wo"](out)
     return x + L._ffn_block(
@@ -82,6 +119,44 @@ def _backbone_with_cache(params, tokens, positions, mask, cache, cfg):
         x = _layer_with_cache(layer, x, cfg, inv_freq, positions, mask,
                               cache, li)
     return L.rms_norm(x, params["norm"], cfg.rms_eps)
+
+
+def _prompt_mask(S, S_max, device):
+    causal = torch.triu(torch.full((S, S), -1e9, dtype=torch.float32,
+                                   device=device), diagonal=1)
+    return torch.nn.functional.pad(causal, (0, S_max - S),
+                                   value=-1e9)[None, None]
+
+
+def prefill(params, tokens, cache, cfg):
+    """tokens (B, S_prompt) -> (last logits (B, V) f32, cache); the
+    prompt fills rows [0, S) and cache.length grows by S
+    (decode.py:120-134)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    x = _backbone_with_cache(params, tokens, positions,
+                             _prompt_mask(S, cache.k.shape[2], dev), cache,
+                             cfg)
+    logits = _logits(params["lm_head"], x[:, -1])
+    cache.length = (cache.length + S).to(torch.int32)
+    return logits, cache
+
+
+def decode_step(params, tokens, cache, cfg):
+    """tokens (B,) int32 -> (logits (B, V) f32, cache): one token per
+    sequence at its own position cache.length[b] (decode.py:164-180)."""
+    S_max = cache.k.shape[2]
+    positions = cache.length[:, None]
+    valid = (torch.arange(S_max, dtype=torch.int32,
+                          device=tokens.device)[None, :] <= positions)
+    mask = torch.where(valid, 0.0, -1e9).to(torch.float32)[:, None, None]
+    x = _backbone_with_cache(params, tokens[:, None], positions, mask, cache,
+                             cfg)
+    logits = _logits(params["lm_head"], x)
+    cache.length = (cache.length + 1).to(torch.int32)
+    return logits[:, 0], cache
 
 
 def prefill_at(params, tokens, cache, cfg, last_idx, offset):
@@ -410,3 +485,100 @@ def sample_logits_vec(logits, temps, generator=None):
     sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
                                 generator=generator)[:, 0].to(torch.int32)
     return torch.where(temps <= 0.0, greedy, sampled)
+
+
+def prepare_params_for_decode(params):
+    """Every QuantLinear with its ``with_u4`` view (decode.py:864-875), so
+    that a8 linears of 2/3/4 bits take K1."""
+    return L.quantize_llama_params(
+        params, lambda path, lin: (lin.with_u4()
+                                   if isinstance(lin, QuantLinear) else lin),
+        skip=())
+
+
+def decode_tokens(params, tok0, cache, cfg, n_tokens):
+    """Greedy-decode n_tokens (decode.py:878-892). Returns (tokens (B,
+    n_tokens), cache)."""
+    params = prepare_params_for_decode(params)
+    tok, toks = tok0, []
+    for _ in range(n_tokens):
+        logits, cache = decode_step(params, tok, cache, cfg)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), cache
+
+
+def decode_chunk(params, tok0, cache, temps, generator, cfg, n_tokens):
+    """The serving inner loop over per-layer params (decode.py:993-1011):
+    n_tokens decode steps with per-slot temperatures (temps (B,), <= 0
+    greedy) drawn from ``generator``. Returns (tokens (B, n_tokens),
+    cache)."""
+    params = prepare_params_for_decode(params)
+    tok, toks = tok0, []
+    for _ in range(n_tokens):
+        logits, cache = decode_step(params, tok, cache, cfg)
+        tok = sample_logits_vec(logits, temps, generator)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), cache
+
+
+def filter_logits(logits, temperature=1.0, top_k=0, top_p=1.0):
+    """The logits sample_logits draws from (decode.py:1029-1039): past the
+    top_k largest and outside the top_p nucleus they are -inf, the rest
+    divided by the temperature."""
+    if top_k and top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    scaled = logits / max(temperature, 1e-6)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        cutoff_idx = torch.sum(cum < top_p, dim=-1)
+        cutoff = torch.gather(sorted_logits, 1, cutoff_idx[:, None])
+        scaled = torch.where(scaled < cutoff, float("-inf"), scaled)
+    return scaled
+
+
+def sample_logits(logits, generator=None, temperature=1.0, top_k=0,
+                  top_p=1.0):
+    """(B, V) -> (B,) int32 (decode.py:1026-1042); temperature <= 0 is
+    greedy, else a draw from ``generator`` over filter_logits."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(filter_logits(logits, temperature, top_k, top_p),
+                          dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def generate(params, prompt_tokens, cfg, max_new_tokens=32, temperature=0.0,
+             top_k=0, top_p=1.0, kv_quantized=True, max_len=None,
+             generator=None, eos_id=None, device=None):
+    """Host generation loop (decode.py:1045-1080): prefill, then
+    max_new_tokens sampled tokens, each fed to decode_step. A row that
+    emitted ``eos_id`` repeats it, and the loop stops early once every row
+    has. prompt_tokens (B, S); params must live on ``device`` (the card
+    unless the caller names another). Returns (B, n) int32, n <=
+    max_new_tokens."""
+    device = resolve_device(device)
+    if params["tok_embed"].device.type != device.type:
+        raise ValueError("params live on {}, generate runs on {}".format(
+            params["tok_embed"].device, device))
+    tokens = torch.as_tensor(prompt_tokens, device=device).long()
+    B, S = tokens.shape
+    S_max = max_len or min(cfg.max_seq_len, S + max_new_tokens)
+    cache = init_kv_cache(cfg, B, S_max, device=device,
+                          quantized=kv_quantized)
+    logits, cache = prefill(params, tokens, cache, cfg)
+    outs = []
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    for _ in range(max_new_tokens):
+        tok = sample_logits(logits, generator, temperature, top_k, top_p)
+        if eos_id is not None:
+            done = done | (tok == eos_id)
+            tok = torch.where(done, eos_id, tok).to(torch.int32)
+        outs.append(tok)
+        logits, cache = decode_step(params, tok, cache, cfg)
+        if eos_id is not None and bool(done.all()):
+            break
+    return torch.stack(outs, dim=1)

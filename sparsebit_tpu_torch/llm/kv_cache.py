@@ -1,14 +1,16 @@
-"""INT8 KV cache (port of ``sparsebit_tpu/llm/kv_cache.py``: ``KVCache``,
-``init_kv_cache``, ``_quant_heads``/``_dequant_heads``, ``cache_update``,
-``cache_read``, ``PagedKVCache``, ``init_paged_kv_cache`` and
-``paged_write_rows``).
+"""INT8 or bf16 KV cache (port of ``sparsebit_tpu/llm/kv_cache.py``:
+``KVCache``, ``init_kv_cache``, ``_quant_heads``/``_dequant_heads``,
+``cache_update``, ``cache_read``, ``PagedKVCache``, ``init_paged_kv_cache``
+and ``paged_write_rows``).
 
 The port keeps the cache LAYER-STACKED from the start: k, v (L, B, S,
 n_kv, hd) int8 and k_scale, v_scale (L, B, S, n_kv) f32. ``cache.k[li]``
 is then a view of one layer, as the JAX per-layer list entry was, and the
 scanned decode reads the stacks with no restacking. Updates are in place.
 Quantization: symmetric int8 per (token, head), scale = absmax * (1/127)
-rounded to bf16 before the codes are taken (ops/attention.quant_rows). The int4 mode is not ported yet.
+rounded to bf16 before the codes are taken (ops/attention.quant_rows).
+``quantized=False`` keeps k, v in the model's dtype with no scales (None);
+the int4 mode is not ported yet.
 
 Both engines use ONE layout. A paged pool is k, v (L, n_blocks, block,
 n_kv, hd) int8 with k_scale, v_scale (L, n_blocks, block, n_kv) f32 (the
@@ -26,17 +28,31 @@ from sparsebit_tpu_torch.ops.attention import quant_rows
 
 @dataclass
 class KVCache:
-    k: torch.Tensor  # (L, B, S, n_kv, hd) int8
+    k: torch.Tensor  # (L, B, S, n_kv, hd) int8, or the model dtype
     v: torch.Tensor
-    k_scale: torch.Tensor  # (L, B, S, n_kv) f32
+    k_scale: torch.Tensor  # (L, B, S, n_kv) f32, None when not quantized
     v_scale: torch.Tensor
     length: torch.Tensor  # (B,) int32 rows filled per sequence
+    quantized: object = "int8"  # "int8" or False
 
 
-def init_kv_cache(cfg, batch, max_len=None, device="cpu"):
-    """Zeroed int8 cache of ``max_len`` (default cfg.max_seq_len) rows."""
+def init_kv_cache(cfg, batch, max_len=None, device="cpu", quantized=True):
+    """Zeroed cache of ``max_len`` (default cfg.max_seq_len) rows:
+    quantized True/"int8" (int8 codes, f32 scales) or False (bf16, the
+    model's dtype)."""
     S = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    if quantized is True:
+        quantized = "int8"
+    if quantized is False:
+        return KVCache(
+            torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            None, None,
+            torch.zeros((batch,), dtype=torch.int32, device=device), False)
+    if quantized != "int8":
+        raise NotImplementedError(
+            "KV cache mode {!r} is not ported".format(quantized))
     return KVCache(
         torch.zeros(shape, dtype=torch.int8, device=device),
         torch.zeros(shape, dtype=torch.int8, device=device),
@@ -65,9 +81,13 @@ def cache_update(cache, layer_idx, k_new, v_new, positions):
     start = torch.clamp(positions.to(torch.long), max=S - S_new)
     rows = start[:, None] + torch.arange(S_new, device=start.device)[None]
     bidx = torch.arange(B, device=start.device)[:, None]
+    li = layer_idx
+    if not cache.quantized:
+        cache.k[li][bidx, rows] = k_new.to(cache.k.dtype)
+        cache.v[li][bidx, rows] = v_new.to(cache.v.dtype)
+        return cache.k[li], cache.v[li], None, None
     kq, ks = _quant_heads(k_new)
     vq, vs = _quant_heads(v_new)
-    li = layer_idx
     cache.k[li][bidx, rows] = kq
     cache.v[li][bidx, rows] = vq
     cache.k_scale[li][bidx, rows] = ks
@@ -77,6 +97,8 @@ def cache_update(cache, layer_idx, k_new, v_new, positions):
 
 def cache_read(cache, layer_idx, dtype):
     """Full dequantized K, V for a layer: (B, S, n_kv, hd) in ``dtype``."""
+    if not cache.quantized:
+        return cache.k[layer_idx].to(dtype), cache.v[layer_idx].to(dtype)
     return (
         _dequant_heads(cache.k[layer_idx], cache.k_scale[layer_idx], dtype),
         _dequant_heads(cache.v[layer_idx], cache.v_scale[layer_idx], dtype),

@@ -2,9 +2,11 @@
 ``DenseLinear`` and ``QuantLinear``).
 
 Weight convention as in the JAX package: (in_features K, out_features N),
-``x @ w``; group scales/zeros (G, N) along K. ``QuantLinear.__call__`` is
-the W4A8 path (the JAX ``impl="a8"``), the only one the serving engine
-uses. ``LLMQuantizer`` and ``from_dense`` come with the GPTQ port.
+``x @ w``; group scales/zeros (G, N) along K. ``QuantLinear.__call__``
+dispatches on ``impl`` as the reference does (quant.py:487-515): "a8" is
+the W4A8 path (K1, K6, K7), "auto"/"pallas"/"xla" the f32-activation
+``quant_matmul`` (K8, K7 or the dense product). ``LLMQuantizer`` and
+``from_dense`` come with the GPTQ port.
 """
 
 import torch
@@ -18,9 +20,12 @@ from sparsebit_tpu_torch.ops.packing import (
 )
 from sparsebit_tpu_torch.ops.quant_matmul import (
     dequant_weights,
+    quant_matmul,
     quant_matmul_a8,
     quant_matmul_a8_stacked,
 )
+
+IMPLS = ("auto", "pallas", "xla", "a8")
 
 
 class DenseLinear:
@@ -54,10 +59,13 @@ class QuantLinear:
     (the fold layout ``"w"``/``"low2"``/``"high1"`` of pack_columns, or the
     ``"s4r"`` signed row-pair serving layout); scales/zeros (G, N). Leaves
     may carry a leading layer axis (decode.stack_layers), read through
-    ``call_stacked``."""
+    ``call_stacked``. ``impl`` is one of IMPLS."""
 
     def __init__(self, packed, scales, zeros, bits, groupsize, out_features,
-                 bias=None, perm=None):
+                 bias=None, perm=None, impl="auto"):
+        if impl not in IMPLS:
+            raise ValueError("QuantLinear impl {!r} not in {}".format(
+                impl, IMPLS))
         self.packed = packed
         self.scales = scales
         self.zeros = zeros
@@ -66,19 +74,20 @@ class QuantLinear:
         self.out_features = out_features
         self.bias = bias
         self.perm = perm  # act-order input permutation (K,), or None
+        self.impl = impl
 
     def _replace(self, **kw):
         fields = dict(packed=self.packed, scales=self.scales,
                       zeros=self.zeros, bits=self.bits,
                       groupsize=self.groupsize,
                       out_features=self.out_features, bias=self.bias,
-                      perm=self.perm)
+                      perm=self.perm, impl=self.impl)
         fields.update(kw)
         return QuantLinear(**fields)
 
     @classmethod
     def from_codes(cls, codes, scales, zeros, bits, groupsize, bias=None,
-                   perm=None):
+                   perm=None, impl="auto"):
         """Pack integer codes (K, N); N is padded to the JAX package's
         packed-width multiple with columns that dequantize to exactly 0."""
         N = codes.shape[1]
@@ -88,7 +97,7 @@ class QuantLinear:
             scales = torch.nn.functional.pad(scales, (0, pad), value=1.0)
             zeros = torch.nn.functional.pad(zeros, (0, pad))
         return cls(pack_columns(codes, bits), scales, zeros, bits, groupsize,
-                   N, bias, perm)
+                   N, bias, perm, impl)
 
     @property
     def in_features(self):
@@ -124,15 +133,44 @@ class QuantLinear:
         packed["s4r"] = pack_s4_rows(codes)
         return self._replace(packed=packed)
 
+    def with_u4(self):
+        """The port's meaning of the reference's ``with_u4``
+        (quant.py:193-220), which adds a 4-bit codes view so that a8
+        linears take K1: a copy of a 2/3/4-bit fold-layout linear that also
+        carries ``s4r`` (codes < 16 ride signed nibbles; K1 then takes the
+        integer sums the u4 view gave). The fold container stays, so the
+        other impls and ``dequantize`` are unchanged. No-op at 8 bits and
+        where ``s4r`` exists."""
+        if self.bits == 8 or "s4r" in self.packed:
+            return self
+        codes = unpack_columns(self.packed, self.bits, self.n_padded)
+        return self._replace(packed=dict(self.packed, s4r=pack_s4_rows(codes)))
+
+    # the reference's unsigned row pairs (quant.py:246-275) are s4r here;
+    # 8-bit linears keep their "w" container in both
+    with_u4_rows = with_u4
+
     def with_nibble_serving(self):
-        """The ``s4r`` container alone (the serving layout). 4-bit only in
-        this slice: 2/3-bit codes riding s4 nibbles come with the
-        mixed-precision port."""
-        if self.bits != 4:
-            raise NotImplementedError(
-                "nibble serving of {}-bit weights is not ported".format(
-                    self.bits))
-        return self.with_s4_rows(drop_fold=True)
+        """The ``s4r`` container alone, re-tagged bits=4 (quant.py:306-342):
+        2/3-bit codes ride s4 nibbles unchanged, so that a mixed 4/3/2-bit
+        model stacks as one homogeneous 4-bit backbone; the columns are
+        re-padded to the 4-bit multiple. ``dequantize`` is bit-identical."""
+        if self.bits == 4:
+            return self.with_s4_rows(drop_fold=True)
+        if self.bits not in (2, 3):
+            raise ValueError("nibble serving covers bits <= 4, got {}".format(
+                self.bits))
+        nout = self.out_features
+        codes = unpack_columns(self.packed, self.bits, self.n_padded)
+        codes = codes[..., :nout]
+        scales, zeros = self.scales[..., :nout], self.zeros[..., :nout]
+        pad = pallas_n_pad(nout, 4)
+        if pad:
+            codes = torch.nn.functional.pad(codes, (0, pad))
+            scales = torch.nn.functional.pad(scales, (0, pad), value=1.0)
+            zeros = torch.nn.functional.pad(zeros, (0, pad))
+        return self._replace(packed={"s4r": pack_s4_rows(codes)},
+                             scales=scales, zeros=zeros, bits=4)
 
     def with_sz_dtype(self, dtype=torch.bfloat16):
         """Copy with scales/zeros stored in ``dtype`` (bf16 halves the
@@ -154,13 +192,19 @@ class QuantLinear:
         if self.perm is not None:
             x = x[..., self.perm]
         x = self._pad_x(x)
-        out = quant_matmul_a8(x, self.packed, self.scales, self.zeros,
-                              self.bits, self.groupsize, self.n_padded)
+        if self.impl == "a8":
+            out = quant_matmul_a8(x, self.packed, self.scales, self.zeros,
+                                  self.bits, self.groupsize, self.n_padded)
+        else:
+            out = quant_matmul(x, self.packed, self.scales, self.zeros,
+                               self.bits, self.groupsize, self.n_padded,
+                               self.impl)
         return self._finish(out, x.dtype, self.bias)
 
     def call_stacked(self, x, li):
         """Forward of layer ``li`` of a layer-stacked linear: the kernel
-        reads that layer's slice of the stack in place."""
+        reads that layer's slice of the stack in place. W4A8 whatever the
+        impl, as the reference's (quant.py:517-536)."""
         if self.perm is not None:
             x = x[..., self.perm[li]]
         x = self._pad_x(x)

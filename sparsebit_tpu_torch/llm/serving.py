@@ -10,12 +10,12 @@
   the slots;
 - exact-prefix cache: admitted prompts' K/V rows are kept (LRU) and a
   prompt that extends a cached one prefills only its tail;
-- decode runs in chunks of ``chunk`` tokens through
-  decode.decode_chunk_scanned. As in the reference, a model that the
-  decode megakernel takes (``_stacked_chunks``) decodes each token as one
-  K4 launch over a static context bucket (``_context_bucket``); any other
-  model takes the unfused route (K1, K2 and K3 per layer), where the
-  reference would take decode_chunk (K5, not ported yet);
+- decode runs in chunks of ``chunk`` tokens. As in the reference, a model
+  that the decode megakernel takes (``_stacked_chunks``) decodes each
+  token as one K4 launch over a static context bucket
+  (``_context_bucket``, decode.decode_chunk_scanned); any other model
+  takes decode.decode_chunk over the per-layer params (K1 for the nibble
+  layers, K6 for 8-bit ones, K5 for the attention), as serving.py:308-321;
 - slots free on EOS or max-tokens; chunk tokens past a request's budget
   are dropped.
 
@@ -40,6 +40,7 @@ from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.llm.decode import (
     _layer_kernel_ok,
     _scan_uses_layer_kernel,
+    decode_chunk,
     decode_chunk_paged,
     decode_chunk_scanned,
     prefill_at,
@@ -74,9 +75,12 @@ def _bucket(n, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048)):
 
 
 def _serving_layout(lin):
-    """Serving container for one QuantLinear: signed row pairs (2/3-bit
-    codes ride s4 nibbles, re-tagged bits=4) with bf16 qparams."""
-    return lin.with_nibble_serving().with_sz_dtype(torch.bfloat16)
+    """Serving container for one QuantLinear (serving.py:164-189): signed
+    row pairs for bits <= 4 (2/3-bit codes ride s4 nibbles, re-tagged
+    bits=4), the ``"w"`` planes kept at 8 bits, bf16 qparams, impl "a8"."""
+    if lin.bits in (2, 3, 4):
+        lin = lin.with_nibble_serving()
+    return lin.with_sz_dtype(torch.bfloat16)._replace(impl="a8")
 
 
 class DecodeEngine:
@@ -93,7 +97,12 @@ class DecodeEngine:
                                if isinstance(lin, QuantLinear) else lin),
             skip=(),
         )
-        self.params_stacked = stack_layers(self.params)
+        # layers K4 can take are stacked for it; a model it refuses may mix
+        # containers across layers and is served per layer
+        self.params_stacked = None
+        if all(_layer_kernel_ok(lyr, cfg, max_batch)
+               for lyr in self.params["layers"]):
+            self.params_stacked = stack_layers(self.params)
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len
         self.eos_id = eos_id
@@ -103,8 +112,9 @@ class DecodeEngine:
         # decode chunks on the megakernel (one K4 launch per token) when
         # the model is one it takes: the reference's dispatch
         # (serving.py:239-251), without its device check
-        self._stacked_chunks = _scan_uses_layer_kernel(
-            1, self.params_stacked["layers"], cfg, max_batch)
+        self._stacked_chunks = (
+            self.params_stacked is not None and _scan_uses_layer_kernel(
+                1, self.params_stacked["layers"], cfg, max_batch))
         self.slots = [None] * max_batch  # _Request or None
         self.queue = []
         self.next_tok = torch.zeros((max_batch,), dtype=torch.int32,
@@ -137,15 +147,15 @@ class DecodeEngine:
         return int(min(cap, -(-need // chunk_rows) * chunk_rows))
 
     def _decode_chunk_call(self, temps, n):
-        s_active = None
-        if self._stacked_chunks:
-            lengths = self.cache.length.cpu().numpy()
-            act = [int(lengths[i]) for i, s in enumerate(self.slots)
-                   if s is not None]
-            s_active = self._context_bucket(act, n)
+        if not self._stacked_chunks:
+            return decode_chunk(self.params, self.next_tok, self.cache, temps,
+                                self._gen, self.cfg, n)
+        lengths = self.cache.length.cpu().numpy()
+        act = [int(lengths[i]) for i, s in enumerate(self.slots)
+               if s is not None]
         return decode_chunk_scanned(
             self.params_stacked, self.next_tok, self.cache, temps,
-            self._gen, self.cfg, n, s_active=s_active)
+            self._gen, self.cfg, n, s_active=self._context_bucket(act, n))
 
     # ---- client API --------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens=64, temperature=0.0):
@@ -395,8 +405,7 @@ class PagedDecodeEngine(DecodeEngine):
         super().__init__(params, cfg, max_batch=max_batch, max_len=max_len,
                          eos_id=eos_id, seed=seed, chunk=chunk,
                          prefix_cache_size=prefix_cache_size, device=device)
-        if not _layer_kernel_ok(self.params_stacked["layers"], cfg,
-                                max_batch):
+        if self.params_stacked is None:
             raise ValueError(
                 "PagedDecodeEngine needs a model the decode megakernel "
                 "takes: fused wqkv/w13 4-bit s4r QuantLinears with one "

@@ -41,6 +41,11 @@ SIGNATURES = {
     # attention.cu (K2)
     "sbt_attn_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _F, _P],
+    # decode_attention.cu (K5)
+    "sbt_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # quant_matmul_planes.cu (K6, K7, K8)
+    "sbt_qmm_planes": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I, _I,
+                       _I, _I, _P],
     # matvec.cu (K9)
     "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P],
     # layer_fused.cu (K4): 12 weight/qparam stacks, 2 norms, 4 cache

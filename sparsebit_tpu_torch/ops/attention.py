@@ -1,6 +1,11 @@
-"""Fused INT8 KV-row commit + decode attention (port of
-``sparsebit_tpu/ops/attention.py``: ``decode_attention_update`` and the
-plain form of ``_flat_attention_rows_int8``).
+"""Decode attention (port of ``sparsebit_tpu/ops/attention.py``:
+``decode_attention``, ``decode_attention_stacked``,
+``decode_attention_supported``, ``decode_attention_update`` and the plain
+form of ``_flat_attention_rows_int8``).
+
+Kernel K5 (``csrc/decode_attention.cu``) replaces ``_decode_attn_kernel``
+(attention.py:499): f32 attention over an int8 or bf16 cache for the
+non-scanned ``decode_step``.
 
 Kernel K2 (``csrc/attention.cu``) replaces ``_attn_update_kernel``
 (attention.py:662). The cache layout is the port's own: k, v (L, B, S,
@@ -111,6 +116,92 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
 
 
 decode_attention_update.launches = 0
+
+
+def decode_attention_supported(q_shape, quantized):
+    """K5's constraints (attention.py:860-875): one token per step, an
+    int8 or float cache, head_dim a multiple of 128. The reference's
+    ``Hkv % 4|8`` rule is a Mosaic DMA tiling limit (fault R3) that the
+    CUDA kernel does not have."""
+    return quantized in (False, "int8") and q_shape[-1] % 128 == 0
+
+
+def _decode_attn_plain(q, k, v, ks, vs, length):
+    """Plain version of K5, ``_group_attention(f32_dots=True)``'s math
+    (attention.py:46-96): scores = f32(q) . f32(k) * ks * D^-1/2 over rows
+    s <= length[b], softmax, p * vs, then . f32(v) and / sum(p). A float
+    cache has unit scales (ks, vs None). q (B, H, D); k, v (B, S, Hkv, D);
+    ks, vs (B, S, Hkv). Returns (B, H, D) f32."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    n_rep = H // Hkv
+
+    def per_q_head(t):  # (B, S, Hkv, ...) -> (B, S, H, ...)
+        return torch.repeat_interleave(t, n_rep, dim=2)
+
+    kf = per_q_head(k.to(torch.float32))
+    vf = per_q_head(v.to(torch.float32))
+    scores = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), kf)
+    if ks is not None:
+        scores = scores * per_q_head(ks).transpose(1, 2)
+    scores = scores * _inv_sqrt(D)
+    valid = (torch.arange(S, device=q.device)[None, None, :]
+             <= length.to(torch.long)[:, None, None])
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
+    denom = p.sum(dim=-1, keepdim=True)
+    if vs is not None:
+        p = p * per_q_head(vs).transpose(1, 2)
+    return torch.einsum("bhs,bshd->bhd", p, vf) / denom
+
+
+def decode_attention(q, k, v, k_scale, v_scale, length):
+    """K5 wrapper (attention.py:557-598): q (B, H, D) float; k/v (B, S,
+    Hkv, D) int8 with k_scale/v_scale (B, S, Hkv) f32, or bf16 with scales
+    None; length (B,) int32, rows [0, length[b]] attend (the current
+    token's row is already in the cache). Returns (B, H, D) f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return _decode_attn_plain(q, k, v, k_scale, v_scale, length)
+    B, H, D = q.shape
+    Bc, S, Hkv, Dc = k.shape
+    quant = k.dtype == torch.int8
+    if (Bc, Dc) != (B, D) or v.shape != k.shape or v.dtype != k.dtype \
+            or H % Hkv or D % 32 or D > 256 \
+            or k.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError("decode_attention: unsupported operands q {} k {} "
+                         "{}".format(tuple(q.shape), tuple(k.shape), k.dtype))
+    qf = q.to(torch.float32).contiguous()
+    ln = length.to(torch.int32).contiguous()
+    if quant:
+        scales = (k_scale.to(torch.float32).contiguous(),
+                  v_scale.to(torch.float32).contiguous())
+    else:
+        scales = (qf, qf)  # never read for a bf16 cache
+    _kernels.require_cuda("decode_attention", qf, k, v, *scales, ln)
+    out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    err = _kernels.lib().sbt_decode_attention(
+        _kernels.ptr(qf), _kernels.ptr(k), _kernels.ptr(v),
+        _kernels.ptr(scales[0]), _kernels.ptr(scales[1]), _kernels.ptr(ln),
+        _kernels.ptr(out), int(not quant), B, S, Hkv, H, D, _inv_sqrt(D),
+        _kernels.stream())
+    _kernels.check(err, "sbt_decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def decode_attention_stacked(q, k, v, k_scale, v_scale, li, length):
+    """K5 over layer ``li`` of layer-stacked caches (attention.py:601-659):
+    k/v (L, B, S, Hkv, D), scales (L, B, S, Hkv) or None. The layer is a
+    view (a pointer offset), never a copy."""
+    return decode_attention(
+        q, k[li], v[li], None if k_scale is None else k_scale[li],
+        None if v_scale is None else v_scale[li], length)
 
 
 REDUCE_THREADS = 256  # block width of the K4 kernel's reductions

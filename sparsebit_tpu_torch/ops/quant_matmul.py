@@ -1,13 +1,25 @@
-"""W4A8 group-factored matmul over packed 4-bit weights (port of
+"""Group-factored matmuls over packed sub-byte weights (port of
 ``sparsebit_tpu/ops/quant_matmul.py``: ``dequant_weights``,
-``quant_matmul_a8`` and ``quant_matmul_a8_stacked``).
+``quant_matmul``, ``quant_matmul_a8`` and ``quant_matmul_a8_stacked``).
 
-Kernel K1 (``csrc/quant_matmul.cu``) replaces both TPU kernels
-``_qmm_u4_kernel`` (quant_matmul.py:443) and ``_qmm_u4_stacked_kernel``
-(:693): one kernel covers every M from a decode step to an admission
-prefill, and a layer of a stack is a view of the stacked tensors (a
-pointer offset, no copy). Its plain version, ``_qmm_s4_plain``, repeats
-the kernel's arithmetic with one exact f32 matmul per group.
+Two kernel families:
+
+- K1 (``csrc/quant_matmul.cu``) replaces ``_qmm_u4_kernel``
+  (quant_matmul.py:443) and ``_qmm_u4_stacked_kernel`` (:693): int8
+  activations times signed row-pair nibbles (``s4r``), for every M, a
+  layer of a stack being a view (a pointer offset). Its plain version is
+  ``_qmm_s4_plain``.
+- K6, K7 and K8 (``csrc/quant_matmul_planes.cu``) replace
+  ``_qmm_a8_kernel`` (:844), ``_qmm3_kernel`` (:241) and ``_qmm_kernel``
+  (:57): the column-plane fold container (``"w"`` at 2/4/8 bits, 3-bit
+  ``low2`` + ``high1``) with f32 activations (K8, K7) or int8 ones (K6,
+  K7 with ``a8``), at most 64 rows, as the reference's ``_supports_pallas``
+  decides. Their plain version is ``_qmm_planes_plain``.
+
+Every product is ``sum_g s_g * (x_g . C_g - sum(x_g) * z_g)`` with f32
+epilogues over the groups in order. Shapes past the kernels' rule (more
+than 64 rows, an irregular K) take the reference's dense route: the f32
+weight dequantized and one matmul.
 """
 
 import torch
@@ -95,19 +107,254 @@ def quant_matmul_s4(x8, xs, w, scales, zeros, gs, li=None):
 quant_matmul_s4.launches = 0
 
 
+# ---- column-plane kernels K6, K7, K8 ----------------------------------------
+
+# The reference's tile rule (quant_matmul.py:100-138, 204-235). Its numbers
+# are TPU VMEM budgets, kept only so that the port sends exactly the shapes
+# the reference sends to a kernel; the CUDA kernels take any of them.
+_TILE_CELL_BUDGET = 1_600_000
+
+
+def _pick_tiles(K, NP, gs_eff, per_channel):
+    if per_channel:
+        K_BLK = 512
+        while K % K_BLK != 0 and K_BLK > 8:
+            K_BLK //= 2
+        if K % K_BLK != 0:
+            K_BLK = K
+    else:
+        K_BLK = gs_eff
+    NT = NP
+    cands = sorted({d for d in range(128, NP + 1, 128) if NP % d == 0}
+                   | {NP}, reverse=True)
+    for cand in cands:
+        if K_BLK * cand <= _TILE_CELL_BUDGET:
+            NT = cand
+            break
+    else:
+        NT = 128 if NP % 128 == 0 else NP
+    while (not per_channel and K_BLK < 512 and K % (K_BLK * 2) == 0
+           and K_BLK * 2 * NT <= _TILE_CELL_BUDGET):
+        K_BLK *= 2
+    return K_BLK, NT
+
+
+def _lane_ok(blk, dim):
+    return blk == dim or blk % 128 == 0
+
+
+def supports_planes(bits, K, N, gs, B=1):
+    """The reference's ``_supports_pallas`` (quant_matmul.py:210-235): at
+    most 64 rows, whole groups, and packed widths of 128-column
+    multiples. Decided from shapes alone, never from the device."""
+    gs_eff = gs if gs > 0 else K
+    if K % gs_eff != 0 or B > 64:
+        return False
+    if bits == 3:
+        return N % 8 == 0 and (N // 8) % 128 == 0 and _lane_ok(gs_eff, K)
+    if bits not in (2, 4, 8):
+        return False
+    NP = N // (8 // bits if bits != 8 else 1)
+    if NP % 128 != 0:
+        return False
+    K_BLK, NT = _pick_tiles(K, NP, gs_eff, gs <= 0)
+    return _lane_ok(K_BLK, K) and _lane_ok(NT, NP)
+
+
+def _planes3(packed, N):
+    """(low2, high1) of a 3-bit container; the plane-concat ``"pl"``
+    serving array holds them as column slices (quant_matmul.py:293-296)."""
+    if "low2" not in packed and "pl" in packed:
+        NP8 = N // 8
+        return packed["pl"][..., :2 * NP8], packed["pl"][..., 2 * NP8:]
+    return packed["low2"], packed["high1"]
+
+
+def _qmm_planes_plain(x, packed, scales, zeros, bits, gs, N):
+    """Plain version of K6/K7/K8: sum over the groups, in order, of
+    (x_g @ C_g - sum(x_g) * z_g) * s_g in f32. Int8 x (K6, K7 a8) takes
+    the integer dots exactly (f64 holds them; one rounding to f32, as the
+    kernel's int32 -> f32), and 8-bit codes and zeros shift by -128 there,
+    as in _qmm_a8_kernel. Returns f32 (M, N), unscaled."""
+    a8 = x.dtype == torch.int8
+    if bits == 3:
+        lo, hi = _planes3(packed, N)
+        packed = {"low2": lo, "high1": hi}
+    codes = unpack_columns(packed, bits, N)
+    K = codes.shape[0]
+    gs_eff = gs if gs > 0 else K
+    zshift = 128.0 if (a8 and bits == 8) else 0.0
+    dt = torch.float64 if a8 else torch.float32
+    c = codes.to(dt) - zshift
+    xf = x.to(dt)
+    s = scales.to(torch.float32)
+    z = zeros.to(torch.float32) - zshift
+    acc = torch.zeros((x.shape[0], N), dtype=torch.float32, device=x.device)
+    for g in range(K // gs_eff):
+        xg = xf[:, g * gs_eff:(g + 1) * gs_eff]
+        dot = (xg @ c[g * gs_eff:(g + 1) * gs_eff]).to(torch.float32)
+        xsum = xg.sum(dim=1, keepdim=True).to(torch.float32)
+        acc = acc + (dot - xsum * z[g]) * s[g]
+    return acc
+
+
+def _planes_launch(name, x, w_lo, w_hi, scales, zeros, bits, gs, N):
+    """Launch one column-plane kernel. w_lo is the ``"w"`` planes (or the
+    3-bit low2) and w_hi the 3-bit high1; each may be a column slice of a
+    larger row-major array (the ``"pl"`` concat), passed with its row
+    stride."""
+    M, K = x.shape
+    gs_eff = gs if gs > 0 else K
+    zeros = zeros.to(scales.dtype).contiguous()
+    scales = scales.contiguous()
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the int8 tile is read as 4-byte words
+        x = x.clone()
+    _kernels.require_cuda(name, x, scales, zeros)
+    for t in (w_lo, w_hi):
+        if t is not None and (t.device != x.device or t.dtype != torch.uint8
+                              or t.stride(-1) != 1):
+            raise ValueError("{}: packed planes must be uint8 rows on {}"
+                             .format(name, x.device))
+    if x.dtype not in (torch.float32, torch.int8):
+        raise TypeError("{}: x must be f32 or int8".format(name))
+    if scales.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("{}: qparams must be f32 or bf16".format(name))
+    G = 1 if gs <= 0 else K // gs
+    if M > 64 or K % gs_eff or gs_eff % 32 or w_lo.shape[0] != K or \
+            scales.shape != (G, N):
+        raise ValueError(
+            "{}: unsupported shape M={} K={} N={} gs={} s={}".format(
+                name, M, K, N, gs, tuple(scales.shape)))
+    hi = w_lo if w_hi is None else w_hi
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    err = _kernels.lib().sbt_qmm_planes(
+        _kernels.ptr(x), int(x.dtype == torch.int8), _kernels.ptr(w_lo),
+        w_lo.stride(0), _kernels.ptr(hi), hi.stride(0), bits,
+        _kernels.ptr(scales), _kernels.ptr(zeros),
+        int(scales.dtype == torch.bfloat16), _kernels.ptr(out), M, N, K,
+        gs_eff, _kernels.stream())
+    _kernels.check(err, "sbt_qmm_planes")
+    return out
+
+
+def quant_matmul_w(x, w, scales, zeros, bits, gs, N):
+    """K8 wrapper (``_quant_matmul_pallas``): f32 x (M <= 64, K) times the
+    ``"w"`` planes (K, N/p) at 2/4/8 bits; scales/zeros (G, N) f32 or bf16,
+    (1, N) per channel when gs <= 0. Returns f32 (M, N).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    x = x.to(torch.float32)
+    if x.device.type == "cpu":
+        return _qmm_planes_plain(x, {"w": w}, scales, zeros, bits, gs, N)
+    out = _planes_launch("quant_matmul_w", x, w, None, scales, zeros, bits,
+                         gs, N)
+    quant_matmul_w.launches += 1
+    return out
+
+
+quant_matmul_w.launches = 0
+
+
+def quant_matmul_w_a8(x8, w, scales, zeros, bits, gs, N):
+    """K6 wrapper (``_quant_matmul_pallas_a8``): int8 x8 (M <= 64, K) times
+    the ``"w"`` planes at 2/4/8 bits. Returns the UNSCALED f32 (M, N): the
+    caller multiplies by the per-token activation scale."""
+    if x8.device.type == "cpu":
+        return _qmm_planes_plain(x8, {"w": w}, scales, zeros, bits, gs, N)
+    out = _planes_launch("quant_matmul_w_a8", x8, w, None, scales, zeros,
+                         bits, gs, N)
+    quant_matmul_w_a8.launches += 1
+    return out
+
+
+quant_matmul_w_a8.launches = 0
+
+
+def quant_matmul_3bit(x, packed, scales, zeros, gs, N, a8=False):
+    """K7 wrapper (``_quant_matmul_pallas_3bit``): f32 x, or int8 x when
+    ``a8`` (then unscaled), times 3-bit low2 + high1 planes (or the
+    ``"pl"`` concat). N is the padded width, (N/8) % 128 == 0."""
+    x = x if a8 else x.to(torch.float32)
+    lo, hi = _planes3(packed, N)
+    if x.device.type == "cpu":
+        return _qmm_planes_plain(x, {"low2": lo, "high1": hi}, scales,
+                                 zeros, 3, gs, N)
+    out = _planes_launch("quant_matmul_3bit", x, lo, hi, scales, zeros, 3,
+                         gs, N)
+    quant_matmul_3bit.launches += 1
+    return out
+
+
+quant_matmul_3bit.launches = 0
+
+
+def _dense(x, packed, scales, zeros, bits, gs, N):
+    """The reference's dense route: f32 x @ the dequantized f32 weight."""
+    W = dequant_weights(packed, scales, zeros, bits, N, gs)
+    return x.to(torch.float32) @ W
+
+
+def quant_matmul(x, packed, scales, zeros, bits, groupsize, N, impl="auto"):
+    """x (..., K) @ dequant(packed) -> f32 (..., N) (``_qmm_fwd_impl``,
+    quant_matmul.py:1057-1081). impl "auto" takes K8/K7 where
+    supports_planes holds, "pallas" always (a shape the kernel refuses
+    raises), "xla" the dense route; containers without planes are dense."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K)
+    has_planes = bits == 3 or "w" in packed
+    use_kernel = has_planes and (
+        impl == "pallas"
+        or (impl == "auto"
+            and supports_planes(bits, K, N, groupsize, x2.shape[0])))
+    if use_kernel and bits == 3:
+        out = quant_matmul_3bit(x2, packed, scales, zeros, groupsize, N)
+    elif use_kernel:
+        out = quant_matmul_w(x2, packed["w"], scales, zeros, bits,
+                             groupsize, N)
+    else:
+        out = _dense(x2, packed, scales, zeros, bits, groupsize, N)
+    return out.reshape(lead + (N,))
+
+
+def _a8_dispatch(xq, x_scale, packed, scales, zeros, bits, groupsize, N,
+                 li=None):
+    """Route of quant_matmul_a8 (quant_matmul.py:1006-1039): ``s4r`` to
+    K1 (whole groups of a multiple of 64 rows), the plane containers to
+    K6/K7 within supports_planes, the rest (more than 64 rows, irregular
+    K) to the dense product x8 @ dequant(W), which equals the kernels'
+    integer dots and epilogue up to f32 summation order. Returns
+    xs-scaled f32 (M, N)."""
+    K = xq.shape[1]
+    gs_eff = groupsize if groupsize > 0 else K
+    if "s4r" in packed and K % gs_eff == 0 and gs_eff % 64 == 0:
+        return quant_matmul_s4(xq, x_scale, packed["s4r"], scales, zeros,
+                               groupsize, li=li)
+    if li is not None:
+        packed = {k: v[li] for k, v in packed.items()}
+        scales, zeros = scales[li], zeros[li]
+    if (bits == 3 or "w" in packed) and supports_planes(
+            bits, K, N, groupsize, xq.shape[0]):
+        if bits == 3:
+            out = quant_matmul_3bit(xq, packed, scales, zeros, groupsize, N,
+                                    a8=True)
+        else:
+            out = quant_matmul_w_a8(xq, packed["w"], scales, zeros, bits,
+                                    groupsize, N)
+    else:
+        out = _dense(xq, packed, scales, zeros, bits, groupsize, N)
+    return out * x_scale
+
+
 def quant_matmul_a8(x, packed, scales, zeros, bits, groupsize, N):
     """W4A8 matmul: per-token dynamic int8 activations x (..., K) times
-    packed weights -> f32 (..., N). The ``s4r`` serving container goes to
-    K1; any other container is dequantized (CPU oracle only)."""
+    packed weights -> f32 (..., N)."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     xq, x_scale = tokenwise_quant(x.reshape(-1, K).to(torch.float32))
-    if "s4r" in packed:
-        out = quant_matmul_s4(xq, x_scale, packed["s4r"], scales, zeros,
-                              groupsize)
-    else:
-        out = _dense_a8(xq, x_scale, packed, scales, zeros, bits, groupsize,
-                        N)
+    out = _a8_dispatch(xq, x_scale, packed, scales, zeros, bits, groupsize,
+                       N)
     return out.reshape(lead + (N,))
 
 
@@ -119,22 +366,6 @@ def quant_matmul_a8_stacked(x, packed, scales, zeros, li, bits, groupsize,
     lead = x.shape[:-1]
     K = x.shape[-1]
     xq, x_scale = tokenwise_quant(x.reshape(-1, K).to(torch.float32))
-    if "s4r" in packed:
-        out = quant_matmul_s4(xq, x_scale, packed["s4r"], scales, zeros,
-                              groupsize, li=li)
-    else:
-        out = _dense_a8(xq, x_scale, {k: v[li] for k, v in packed.items()},
-                        scales[li], zeros[li], bits, groupsize, N)
+    out = _a8_dispatch(xq, x_scale, packed, scales, zeros, bits, groupsize,
+                       N, li=li)
     return out.reshape(lead + (N,))
-
-
-def _dense_a8(xq, x_scale, packed, scales, zeros, bits, groupsize, N):
-    """x8 @ dequant(W), exactly the kernel's integer dot and epilogue up to
-    f32 summation order. CPU only: on the card every serving container is
-    ``s4r`` and goes through K1."""
-    if xq.device.type != "cpu":
-        raise NotImplementedError(
-            "W4A8 on CUDA needs the s4r container (QuantLinear.with_s4_rows)"
-        )
-    W = dequant_weights(packed, scales, zeros, bits, N, groupsize)
-    return (xq.to(torch.float32) @ W) * x_scale

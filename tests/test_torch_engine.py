@@ -3,18 +3,24 @@
 Weights are made once by the JAX package (tiny LLaMA, fused wqkv/w13,
 4-bit g64 RTN), carried across with llm.convert.params_from_numpy, and
 served by both sides. The engine and decode tests run on both decode
-routes of the scanned decode (the ``route`` parameter):
+routes (the ``route`` parameter):
 
 - "megakernel": the route both engines take by default for this model.
   The reference is the unmodified JAX DecodeEngine with
   ``FORCE_LAYER_KERNEL = True`` (its megakernel in interpret mode; on a
   TPU the switch is not needed), against the port with default routing
   (K4's plain version).
-- "unfused": the port with ``FORCE_LAYER_KERNEL = False`` (K1, K2, K3 per
-  layer), against ``_ScannedJEngine``: the JAX engine with its decode
-  chunks sent through decode_chunk_scanned on stack_layers params, the
-  attention-update and FFN kernels forced on. The JAX engine never takes
-  this branch (decode.py:464-548) itself, so the test has to ask for it.
+- "unfused": the unfused branch of the scanned decode (K1, K2, K3 per
+  layer), which neither engine takes by itself (decode.py:464-548): the
+  port's ``_ScannedTEngine`` with ``FORCE_LAYER_KERNEL = False`` against
+  ``_ScannedJEngine``, both sending their decode chunks through
+  decode_chunk_scanned on stack_layers params, the JAX attention-update
+  and FFN kernels forced on.
+- "chunk": the route both engines take for a model the megakernel
+  refuses (serving.py:308-321), decode_chunk over per-layer params: the
+  port with ``FORCE_LAYER_KERNEL = False`` (K1 and K5's plain versions)
+  against the unmodified JAX DecodeEngine (which takes that route on the
+  CPU) with ``FORCE_ATTN_KERNEL = True`` (its K5 in interpret mode).
 """
 
 import jax
@@ -57,7 +63,8 @@ def jax_tree_to_numpy(tree):
                 "bits": tree.bits, "groupsize": tree.groupsize,
                 "out_features": tree.out_features,
                 "bias": None if tree.bias is None else _np(tree.bias),
-                "perm": None if tree.perm is None else _np(tree.perm)}
+                "perm": None if tree.perm is None else _np(tree.perm),
+                "impl": tree.impl}
     if isinstance(tree, JDense):
         return {"w": _np(tree.w),
                 "bias": None if tree.bias is None else _np(tree.bias)}
@@ -81,7 +88,8 @@ def model():
     return cfg_j, qparams, cfg_t, tparams
 
 
-ROUTES = ["megakernel", "unfused"]
+SCANNED_ROUTES = ["megakernel", "unfused"]
+ROUTES = SCANNED_ROUTES + ["chunk"]
 
 
 @pytest.fixture
@@ -89,10 +97,11 @@ def forced_kernels(monkeypatch, route):
     """Both sides on ``route`` (see the module docstring)."""
     if route == "megakernel":
         monkeypatch.setattr(JD, "FORCE_LAYER_KERNEL", True)
-    else:
-        monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
+        return
+    monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
+    monkeypatch.setattr(TD, "FORCE_LAYER_KERNEL", False)
+    if route == "unfused":
         monkeypatch.setattr(JD, "FORCE_FFN_KERNEL", True)
-        monkeypatch.setattr(TD, "FORCE_LAYER_KERNEL", False)
 
 
 def test_params_from_numpy_roundtrip(model):
@@ -129,7 +138,8 @@ def test_quant_linear_a8_matches_jax(model, layout):
         j = JQuant(j.packed, j.scales, j.zeros, j.bits, j.groupsize,
                    j.out_features, impl="a8")
         ref = j(jnp.asarray(x))
-        out = tparams["layers"][li][name](torch.from_numpy(x))
+        out = tparams["layers"][li][name]._replace(impl="a8")(
+            torch.from_numpy(x))
     elif layout == "stacked":
         j = JD.stack_layers({"layers": qparams["layers"]})["layers"][name]
         j = j_serving_layout(j)
@@ -148,9 +158,8 @@ def test_quant_linear_a8_matches_jax(model, layout):
 
 class _ScannedJEngine(JEngine):
     """The JAX engine with every decode chunk on the unfused scanned path
-    (decode_chunk_scanned over stack_layers params): the reference for
-    the port's unfused route, which the JAX engine itself takes for no
-    model."""
+    (decode_chunk_scanned over stack_layers params), which the JAX engine
+    itself takes for no model."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -161,6 +170,21 @@ class _ScannedJEngine(JEngine):
                                        self.cache, temps, key, self.cfg, n)
 
 
+class _ScannedTEngine(DecodeEngine):
+    """The port's engine with every decode chunk on the scanned path, as
+    _ScannedJEngine (with FORCE_LAYER_KERNEL = False: the unfused
+    branch)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self._stacked = TD.stack_layers(self.params)
+
+    def _decode_chunk_call(self, temps, n):
+        return TD.decode_chunk_scanned(self._stacked, self.next_tok,
+                                       self.cache, temps, self._gen,
+                                       self.cfg, n)
+
+
 def _requests():
     rng = np.random.default_rng(5)
     first = rng.integers(0, 512, 12)
@@ -168,43 +192,96 @@ def _requests():
             np.concatenate([first, rng.integers(0, 512, 6)])]  # prefix hit
 
 
+def _record_decisions(teng, monkeypatch):
+    """rid -> the port engine's logits row behind each token it decided
+    (admission and decode chunks), in order."""
+    from sparsebit_tpu_torch.llm import serving as TS
+
+    rows, order = {}, []  # order: rids of the next sampled rows
+    orig_sample = TD.sample_logits_vec
+
+    def sample(logits, temps, generator=None):
+        for rid, row in zip(order, logits):
+            if rid is not None:
+                rows.setdefault(rid, []).append(row.clone())
+        return orig_sample(logits, temps, generator)
+
+    orig_admit, orig_chunk = teng._admit_group, teng._decode_chunk
+
+    def admit(admits, *a):
+        order[:] = [req.rid for _, req, _ in admits]
+        return orig_admit(admits, *a)
+
+    def chunk(temps, n):
+        order[:] = [s.rid if s is not None else None for s in teng.slots]
+        return orig_chunk(temps, n)
+
+    for mod in (TD, TS):
+        monkeypatch.setattr(mod, "sample_logits_vec", sample)
+    monkeypatch.setattr(teng, "_admit_group", admit)
+    monkeypatch.setattr(teng, "_decode_chunk", chunk)
+    return rows
+
+
+NEAR_TIE = 0.1  # twice the chunk route's logit error against JAX (~0.03)
+
+
 @pytest.mark.parametrize("route", ROUTES)
-def test_engine_tokens_match_jax(model, forced_kernels, route):
+def test_engine_tokens_match_jax(model, forced_kernels, monkeypatch, route):
     """Greedy requests over two admission buckets (16, 32) and a prefix
     hit, three slots for four requests: the port's engine emits the JAX
-    reference's tokens exactly. On the megakernel route the reference is
-    the JAX DecodeEngine itself.
+    reference's tokens. On the megakernel and chunk routes both sides are
+    the engines themselves.
 
     Free-running greedy sequences agree only where no decision is a near
     tie: the two sides differ by bf16 roundings (the reference under jit
     keeps some intermediates in f32), about 0.05 in the logits of this
-    random model, whose top-2 margins are often smaller. The request seed
-    is one whose decisions clear that noise; the margin-gated comparison
-    of every logit is test_teacher_forced_logits_match_jax."""
+    random model, whose top-2 margins are often smaller. On the scanned
+    routes the request seed is one whose decisions clear that noise and
+    the tokens are equal. On the chunk route (f32 attention, whose margins
+    here fall below 0.01) a request's tokens are equal up to its first
+    difference, where the port's logits must hold a near tie between the
+    two tokens, and most tokens agree; the margin-gated comparison of
+    every logit is test_teacher_forced_logits_match_jax."""
     cfg_j, qparams, cfg_t, tparams = model
     kw = dict(max_batch=3, max_len=MAX_LEN, chunk=4)
-    if route == "megakernel":
-        jeng = JEngine(qparams, cfg_j, **kw)
-        assert jeng._stacked_chunks
-    else:
+    if route == "unfused":
         jeng = _ScannedJEngine(qparams, cfg_j, **kw)
-    teng = DecodeEngine(tparams, cfg_t, device="cpu", **kw)
-    assert teng._stacked_chunks == (route == "megakernel")
+        teng = _ScannedTEngine(tparams, cfg_t, device="cpu", **kw)
+    else:
+        jeng = JEngine(qparams, cfg_j, **kw)
+        teng = DecodeEngine(tparams, cfg_t, device="cpu", **kw)
+        assert jeng._stacked_chunks == teng._stacked_chunks == (
+            route == "megakernel")
+    logits = _record_decisions(teng, monkeypatch)
     for r in _requests():
         jeng.add_request(r, max_new_tokens=6)
         teng.add_request(r, max_new_tokens=6)
     ref, out = jeng.run(), teng.run()
     assert teng.prefix_hits == jeng.prefix_hits == 1
     assert sorted(out) == sorted(ref)
+    if route != "chunk":
+        for rid in ref:
+            assert out[rid] == [int(t) for t in ref[rid]], rid
+        return
+    agree = 0
     for rid in ref:
-        assert out[rid] == [int(t) for t in ref[rid]], rid
+        want = [int(t) for t in ref[rid]]
+        assert len(out[rid]) == len(want) == 6
+        for i, (a, b) in enumerate(zip(out[rid], want)):
+            if a != b:
+                row = logits[rid][i]
+                assert row[a] - row[b] <= NEAR_TIE, (rid, i)
+                break
+            agree += 1
+    assert agree >= 12, agree
 
 
 @pytest.mark.parametrize("route", ROUTES)
 def test_teacher_forced_logits_match_jax(model, forced_kernels, route):
-    """prefill_at then six scanned decode steps fed the reference's greedy
-    tokens: logits within ATOL, argmax equal where the top-2 margin
-    exceeds 2 * ATOL."""
+    """prefill_at then six decode steps (scanned, or decode_step on the
+    chunk route) fed the reference's greedy tokens: logits within ATOL,
+    argmax equal where the top-2 margin exceeds 2 * ATOL."""
     cfg_j, qparams, cfg_t, tparams = model
     jp = JL.quantize_llama_params(
         qparams, lambda p, lin: j_serving_layout(lin)
@@ -225,25 +302,33 @@ def test_teacher_forced_logits_match_jax(model, forced_kernels, route):
                            init_kv_cache(cfg_t, B, 32), cfg_t,
                            torch.from_numpy(last), torch.from_numpy(off))
     rows = [(np.asarray(jl, np.float32), tl.numpy())]
-    jstk, tstk = JD.stack_layers(jp), TD.stack_layers(tp)
-    mega = route == "megakernel"
-    jkvs = JD._scan_cache(jc, pad_scales=not mega, flat=mega)
-    jlen = jc.length
-    fwd = jax.jit(JD._forward_scanned_kvs,
-                  static_argnames=("quant_mode", "cfg"))
     tok = rows[0][0].argmax(-1).astype(np.int32)
-    for _ in range(6):
-        pos = jlen[:, None]
-        mask = jnp.where(jnp.arange(32)[None, :] <= pos, 0.0, -1e9)[
-            :, None, None, :]
-        lj, jkvs = fwd(jstk, jnp.asarray(tok)[:, None], pos, mask, jkvs,
-                       quant_mode="int8", cfg=cfg_j)
-        lt = TD._forward_scanned_kvs(
-            tstk, torch.from_numpy(tok)[:, None], tc.length[:, None],
-            TD._scan_cache(tc), cfg_t)
-        jlen, tc.length = jlen + 1, tc.length + 1
-        rows.append((np.asarray(lj[:, 0], np.float32), lt[:, 0].numpy()))
-        tok = rows[-1][0].argmax(-1).astype(np.int32)
+    if route == "chunk":
+        for _ in range(6):
+            lj, jc = JD.decode_step(jp, jnp.asarray(tok), jc, cfg_j)
+            lt, tc = TD.decode_step(tp, torch.from_numpy(tok), tc, cfg_t)
+            rows.append((np.asarray(lj, np.float32), lt.numpy()))
+            tok = rows[-1][0].argmax(-1).astype(np.int32)
+    else:
+        jstk, tstk = JD.stack_layers(jp), TD.stack_layers(tp)
+        mega = route == "megakernel"
+        jkvs = JD._scan_cache(jc, pad_scales=not mega, flat=mega)
+        jlen = jc.length
+        fwd = jax.jit(JD._forward_scanned_kvs,
+                      static_argnames=("quant_mode", "cfg"))
+        for _ in range(6):
+            pos = jlen[:, None]
+            mask = jnp.where(jnp.arange(32)[None, :] <= pos, 0.0, -1e9)[
+                :, None, None, :]
+            lj, jkvs = fwd(jstk, jnp.asarray(tok)[:, None], pos, mask, jkvs,
+                           quant_mode="int8", cfg=cfg_j)
+            lt = TD._forward_scanned_kvs(
+                tstk, torch.from_numpy(tok)[:, None], tc.length[:, None],
+                TD._scan_cache(tc), cfg_t)
+            jlen, tc.length = jlen + 1, tc.length + 1
+            rows.append((np.asarray(lj[:, 0], np.float32),
+                         lt[:, 0].numpy()))
+            tok = rows[-1][0].argmax(-1).astype(np.int32)
     for lj, lt in rows:
         np.testing.assert_allclose(lt, lj, atol=ATOL)
         top2 = np.sort(lj, -1)[:, -2:]
@@ -252,7 +337,7 @@ def test_teacher_forced_logits_match_jax(model, forced_kernels, route):
                                       lj.argmax(-1)[decisive])
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("route", SCANNED_ROUTES)
 def test_decode_tokens_scanned_kvs_is_greedy_chunk(model, monkeypatch,
                                                    route):
     """The greedy multi-token loop over the stacked cache emits what the
@@ -306,3 +391,72 @@ def test_prefix_hit_survives_its_admission_round(model):
     assert eng.prefix_hits == 1
     assert len(out[c]) == len(out[b]) == 2
     assert list(eng._prefix) == [tuple(a.tolist())]
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_serving_layout_matches_jax(bits):
+    """_serving_layout (serving.py:164-189): 2/3/4-bit codes in s4r
+    nibbles re-tagged bits=4 and re-padded, 8-bit keeps its "w" planes;
+    bf16 qparams; impl "a8". The containers equal the reference's."""
+    rng = np.random.default_rng(bits)
+    K, N = 128, 600
+    codes = rng.integers(0, 2 ** bits, (K, N))
+    s = rng.uniform(0.01, 0.1, (2, N)).astype(np.float32)
+    z = rng.integers(0, 2 ** bits, (2, N)).astype(np.float32)
+    j = j_serving_layout(JQuant.from_codes(
+        jnp.asarray(codes), jnp.asarray(s), jnp.asarray(z), bits, 64))
+    t = _serving_layout(params_from_numpy(jax_tree_to_numpy(JQuant.from_codes(
+        jnp.asarray(codes), jnp.asarray(s), jnp.asarray(z), bits, 64)),
+        "cpu"))
+    assert (t.bits, t.impl, t.out_features) == (j.bits, j.impl, N)
+    assert sorted(t.packed) == sorted(j.packed)
+    for k in j.packed:
+        np.testing.assert_array_equal(t.packed[k].numpy(),
+                                      np.asarray(j.packed[k]))
+    np.testing.assert_array_equal(
+        t.scales.view(torch.int16).numpy().view(np.uint16),
+        np.asarray(j.scales).view(np.uint16))
+    np.testing.assert_array_equal(t.dequantize().numpy(),
+                                  np.asarray(j.dequantize()))
+
+
+@pytest.mark.parametrize("route", ["chunk"])
+def test_engine_serves_a_model_k4_refuses(forced_kernels, monkeypatch,
+                                          route):
+    """Fault B: a model the megakernel refuses (unfused projections, a
+    4-bit and an 8-bit layer) decodes on decode_chunk, as the
+    reference's engine does (serving.py:308-321), with the tokens of the
+    JAX DecodeEngine up to near ties (see test_engine_tokens_match_jax)."""
+    from sparsebit_tpu_torch.llm import serving as TS
+
+    cfg_j = JL.llama_tiny(dim=512, n_heads=4, n_kv_heads=4, ffn_dim=512)
+    params = JL.init_llama_params(cfg_j, jax.random.PRNGKey(1))
+    qparams = JL.quantize_llama_params(
+        params, lambda p, lin: JQuant.from_dense(
+            lin.w.astype(jnp.float32), groupsize=64,
+            bits=4 if p.startswith("layers.0.") else 8))
+    cfg_t = TL.llama_tiny(dim=512, n_heads=4, n_kv_heads=4, ffn_dim=512)
+    tparams = params_from_numpy(jax_tree_to_numpy(qparams), "cpu")
+    chunks = []
+    orig = TS.decode_chunk
+    monkeypatch.setattr(TS, "decode_chunk",
+                        lambda *a: chunks.append(1) or orig(*a))
+    kw = dict(max_batch=3, max_len=MAX_LEN, chunk=4)
+    jeng = JEngine(qparams, cfg_j, **kw)
+    teng = DecodeEngine(tparams, cfg_t, device="cpu", **kw)
+    assert not teng._stacked_chunks and teng.params_stacked is None
+    lyr = teng.params["layers"]
+    assert "s4r" in lyr[0]["wq"].packed and "w" in lyr[1]["wq"].packed
+    logits = _record_decisions(teng, monkeypatch)
+    for r in _requests():
+        jeng.add_request(r, max_new_tokens=6)
+        teng.add_request(r, max_new_tokens=6)
+    ref, out = jeng.run(), teng.run()
+    assert chunks and sorted(out) == sorted(ref)
+    for rid in ref:
+        want = [int(t) for t in ref[rid]]
+        assert len(out[rid]) == len(want) == 6
+        for i, (a, b) in enumerate(zip(out[rid], want)):
+            if a != b:
+                assert logits[rid][i][a] - logits[rid][i][b] <= NEAR_TIE
+                break

@@ -20,7 +20,7 @@ from sparsebit_tpu_torch.ops import layer_fused as LF
 from sparsebit_tpu_torch.ops import matvec as MV
 from sparsebit_tpu_torch.ops import quant_matmul as QM
 from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
-from sparsebit_tpu_torch.ops.packing import pack_s4_rows
+from sparsebit_tpu_torch.ops.packing import pack_columns, pack_s4_rows
 
 torch.set_num_threads(1)
 
@@ -176,3 +176,171 @@ def test_k4_kernel_matches_plain(cuda, B, paged, Hkv, D):
     for a, b in zip(cache, plain):
         assert torch.equal(a, b)
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def _planes(rng, bits, K, N, G, dev):
+    codes = rng.integers(0, 2 ** bits, (K, N)).astype(np.uint8)
+    s = rng.uniform(0.001, 0.01, (G, N)).astype(np.float32)
+    z = rng.integers(0, 2 ** bits, (G, N)).astype(np.float32)
+    packed = {k: v.to(dev) for k, v in
+              pack_columns(torch.from_numpy(codes), bits).items()}
+    return packed, torch.from_numpy(s).to(dev), torch.from_numpy(z).to(dev)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("M,gs,sz_bf16", [
+    (1, 128, False), (8, 64, True), (37, -1, False), (64, 128, True)])
+def test_k6_k7_k8_kernels_match_plain(cuda, bits, a8, M, gs, sz_bf16):
+    """K8 (f32 x) / K6 (int8 x) over the "w" planes, K7 over the 3-bit
+    planes, against _qmm_planes_plain: rel 1e-4 of max |out| (f32 sums
+    in another order; the int8 dots are exact)."""
+    rng = np.random.default_rng(bits * 100 + M)
+    K, N = 256, 1024
+    G = K // gs if gs > 0 else 1
+    packed, s, z = _planes(rng, bits, K, N, G, cuda)
+    if sz_bf16:
+        s, z = s.to(torch.bfloat16), z.to(torch.bfloat16)
+    x = torch.randn((M, K), device=cuda)
+    if a8:
+        x = tokenwise_quant(x)[0]
+    if bits == 3:
+        fn = QM.quant_matmul_3bit
+        out = fn(x, packed, s, z, gs, N, a8=a8)
+    else:
+        fn = QM.quant_matmul_w_a8 if a8 else QM.quant_matmul_w
+        out = fn(x, packed["w"], s, z, bits, gs, N)
+    ref = QM._qmm_planes_plain(x, packed, s, z, bits, gs, N)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_k7_reads_the_plane_concat(cuda):
+    """The "pl" serving concat: low2 and high1 are column slices of one
+    array with its own row stride."""
+    rng = np.random.default_rng(7)
+    K, N = 256, 1024
+    packed, s, z = _planes(rng, 3, K, N, 2, cuda)
+    pl = {"pl": torch.cat([packed["low2"], packed["high1"]], dim=1)}
+    x = torch.randn((4, K), device=cuda)
+    out = QM.quant_matmul_3bit(x, pl, s, z, 128, N)
+    ref = QM._qmm_planes_plain(x, packed, s, z, 3, 128, N)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 128), (8, 2, 128), (8, 1, 256)])
+def test_k5_kernel_matches_plain(cuda, quant, H, Hkv, D):
+    """Decode attention over an int8 or bf16 cache, ragged lengths and a
+    layer of a stack: atol 2e-4 (the reference's oracle tolerance)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    L, B, S = 2, 4, 300
+    if quant:
+        k = torch.randint(-127, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                          generator=g, device=cuda)
+        v = torch.randint(-127, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                          generator=g, device=cuda)
+        ks = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.002
+        vs = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.01
+    else:
+        k = torch.randn((L, B, S, Hkv, D), generator=g, device=cuda).to(
+            torch.bfloat16)
+        v = torch.randn((L, B, S, Hkv, D), generator=g, device=cuda).to(
+            torch.bfloat16)
+        ks = vs = None
+    q = torch.randn((B, H, D), generator=g, device=cuda)
+    length = torch.tensor([0, 31, 200, 299], dtype=torch.int32, device=cuda)
+    before = A.decode_attention.launches
+    out = A.decode_attention_stacked(q, k, v, ks, vs, 1, length)
+    ref = A._decode_attn_plain(q, k[1], v[1], None if ks is None else ks[1],
+                               None if vs is None else vs[1], length)
+    torch.cuda.synchronize()
+    assert A.decode_attention.launches == before + 1
+    assert (out - ref).abs().max().item() <= 2e-4
+
+
+def _to(obj, dev):
+    """A params tree (tensors, dicts, lists, linears) on ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: _to(v, dev) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_to(v, dev) for v in obj]
+    if hasattr(obj, "__dict__"):
+        out = obj.__class__.__new__(obj.__class__)
+        out.__dict__ = {k: _to(v, dev) for k, v in obj.__dict__.items()}
+        return out
+    return obj
+
+
+def _decode_rows(params, cfg, prompt, toks=None):
+    """prefill, then three decode_steps fed ``toks`` (or the greedy ones,
+    returned): the logits of each, on the CPU."""
+    from sparsebit_tpu_torch.llm import decode as D
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+
+    dev = params["tok_embed"].device
+    cache = init_kv_cache(cfg, prompt.shape[0], 16, device=dev)
+    lg, cache = D.prefill(params, prompt.to(dev), cache, cfg)
+    out, fed = [lg.cpu()], []
+    for t in range(3):
+        tok = (lg.argmax(-1).to(torch.int32) if toks is None
+               else toks[t].to(dev))
+        fed.append(tok.cpu())
+        lg, cache = D.decode_step(params, tok, cache, cfg)
+        out.append(lg.cpu())
+    return out, fed
+
+
+@pytest.mark.parametrize("impl", ["auto", "a8"])
+def test_decode_step_on_the_card_matches_the_cpu(cuda, impl):
+    """prefill and three decode_steps of a small unfused model with 3/4/8
+    bit linears: on the card through K5-K8, on the CPU through the plain
+    versions. Logits within atol 0.1, argmax equal where the top-2 margin
+    exceeds 0.2 (bf16 activations may round differently when f32 sums are
+    taken in another order)."""
+    from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
+
+    cfg = llama_tiny(dim=512, n_heads=4, n_kv_heads=2, ffn_dim=1024)
+    rng = np.random.default_rng(11)
+    shapes = {"wq": (512, 512), "wk": (512, 256), "wv": (512, 256),
+              "wo": (512, 512), "w1": (512, 1024), "w3": (512, 1024),
+              "w2": (1024, 512)}
+
+    def lin(i, K, N):
+        bits = (3, 4, 8)[i % 3]
+        codes = torch.from_numpy(rng.integers(0, 2 ** bits, (K, N)))
+        s = torch.from_numpy(rng.uniform(0.002, 0.02, (K // 128, N)).astype(
+            np.float32) * 16 / 2 ** bits)
+        z = torch.full((K // 128, N), float(2 ** (bits - 1)))
+        return QuantLinear.from_codes(codes, s, z, bits, 128, impl=impl)
+
+    ones = torch.ones(512, dtype=torch.bfloat16)
+    emb = torch.from_numpy(rng.standard_normal((cfg.vocab_size, 512)).astype(
+        np.float32) * 0.02).to(torch.bfloat16)
+    params = {"tok_embed": emb, "norm": ones,
+              "lm_head": DenseLinear(emb.t().contiguous()),
+              "layers": [dict({n: lin(i + li, *shapes[n])
+                               for i, n in enumerate(shapes)},
+                              attn_norm=ones, ffn_norm=ones)
+                         for li in range(cfg.n_layers)]}
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    launches = {w: w.launches for w in (A.decode_attention, QM.quant_matmul_w,
+                                        QM.quant_matmul_w_a8,
+                                        QM.quant_matmul_3bit)}
+    rows = {}
+    toks = None  # the CPU's greedy tokens, fed to the card as well
+    for dev in ("cpu", cuda):
+        rows[str(dev)], toks = _decode_rows(_to(params, dev), cfg, prompt,
+                                            toks)
+    torch.cuda.synchronize()
+    used = [w for w, n in launches.items() if w.launches > n]
+    want = {A.decode_attention, QM.quant_matmul_3bit,
+            QM.quant_matmul_w if impl == "auto" else QM.quant_matmul_w_a8}
+    assert set(used) == want
+    for a, b in zip(rows[str(cuda)], rows["cpu"]):
+        assert (a - b).abs().max().item() <= 0.1
+        top2 = torch.topk(b, 2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > 0.2
+        assert torch.equal(a.argmax(-1)[decisive], b.argmax(-1)[decisive])
