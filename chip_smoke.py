@@ -13,7 +13,9 @@ Phases (every failure is recorded and the script exits 1 at the end):
      HBM as they do in decode), plain ms, the HBM/peak bound and, where one
      PyTorch call computes the same function, that call's ms. K1-K4 and K9
      at INT4-g128 serving shapes (K4: all 32 layers at B = 1, 8, 32 and
-     B = 8 paged, its KV codes and scales exact); K8, K6 (2/4/8 bits) and
+     B = 8 paged, its KV codes and scales exact; K4's plane mode, "K4p",
+     at 3 and 2 bits, B = 1 and 8, output, codes and scales equal to the
+     plain version's); K8, K6 (2/4/8 bits) and
      K7 (3 bits, f32 and int8 x) at the 7B unfused shapes, B = 1/8/64; K5
      at S = 2048, B = 1/8/32, int8 and bf16 caches, and one GQA case;
   3. a small LLaMA on the card against the same weights on the CPU:
@@ -41,7 +43,17 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 (K1/K2/K3) at a reduced depth;
      paged      PagedDecodeEngine(block=128) against the fixed-slot engine
                 on 10 requests with a shared 256-token prefix, tokens
-                equal.
+                equal;
+     planes     a uniform INT3-g128 model at llama_7b() widths and 32
+                layers (random fused checkpoint-layout weights) through
+                prepare_params_host(sub4="planes") -> stack_layers ->
+                prefill_scanned (64-token prompts) -> decode_tokens_scanned
+                (32 tokens) at B = 1 and 8: K4 in plane mode over a 3N/8
+                wide "pl" stack; the same model under sub4="nibble", the
+                first decode step's logits of both agreeing;
+     segments   a 4-bit + 3-bit stack at 7B widths, depth 4: an s4r launch
+                and a plane launch (li_cache) against one homogeneous
+                nibble launch, within 2e-4 with KV codes equal.
 It prints one JSON line of per-kernel and per-path numbers, the card's
 name and power limit, and last {"ok": true, "device": {...}}. It exits
 non-zero without CUDA or without the repository beside it.
@@ -133,11 +145,14 @@ def build_random_params(cfg, device, gs=128):
 
 
 UNFUSED = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+FUSED = ("wqkv", "wo", "w13", "w2")
 
 
 def _linear_shape(cfg, name):
     hd = cfg.head_dim
-    return {"wq": (cfg.dim, cfg.n_heads * hd),
+    return {"wqkv": (cfg.dim, (cfg.n_heads + 2 * cfg.n_kv_heads) * hd),
+            "w13": (cfg.dim, 2 * cfg.ffn_dim),
+            "wq": (cfg.dim, cfg.n_heads * hd),
             "wk": (cfg.dim, cfg.n_kv_heads * hd),
             "wv": (cfg.dim, cfg.n_kv_heads * hd),
             "wo": (cfg.n_heads * hd, cfg.dim),
@@ -173,12 +188,12 @@ def random_plane_linear(K, N, bits, g, device, gs=128, copies=None):
     return QuantLinear(packed, s, z, bits, gs, N)
 
 
-def build_plane_params(cfg, device, bits_of, seed):
+def build_plane_params(cfg, device, bits_of, seed, names=UNFUSED):
     """Random weights in the checkpoint layout (the one load_quant_checkpoint
-    returns for a GPTQ model): unfused wq/wk/wv/wo/w1/w2/w3 from
-    random_plane_linear at ``bits_of(layer, name)`` bits, g128, bf16 norms,
-    embedding and an untied dense bf16 head, made on the card from a
-    seeded generator."""
+    returns for a GPTQ model): unfused wq/wk/wv/wo/w1/w2/w3 (or, with
+    ``names=FUSED``, fused wqkv/wo/w13/w2) from random_plane_linear at
+    ``bits_of(layer, name)`` bits, g128, bf16 norms, embedding and an
+    untied dense bf16 head, made on the card from a seeded generator."""
     import torch
     from sparsebit_tpu_torch.llm.quant import DenseLinear
 
@@ -187,7 +202,7 @@ def build_plane_params(cfg, device, bits_of, seed):
     layers = []
     for li in range(cfg.n_layers):
         layer = {"attn_norm": ones, "ffn_norm": ones}
-        for name in UNFUSED:
+        for name in names:
             K, N = _linear_shape(cfg, name)
             layer[name] = random_plane_linear(K, N, bits_of(li, name), g,
                                               device)
@@ -356,6 +371,7 @@ def kernel_checks(stacked, cfg, results):
                "B={} {}->{}".format(Bm, cfg.dim, W.shape[1]))
 
     k4_checks(stacked, cfg, record, g)
+    k4_plane_checks(cfg, record, g)
     plane_checks(cfg, record, g)
     k5_checks(cfg, record, g)
 
@@ -513,7 +529,6 @@ def k4_checks(stacked, cfg, record, g):
     block table. The KV codes and scales written must equal the plain
     version's exactly; the output must agree within 1e-4 of its max."""
     import torch
-    from sparsebit_tpu_torch.llm.decode import _rope_cos_sin
     from sparsebit_tpu_torch.ops import layer_fused as LF
 
     dev = torch.device("cuda")
@@ -535,27 +550,12 @@ def k4_checks(stacked, cfg, record, g):
              (8, True, [0, 17, 100, 255, 300, 411, 480, 511])]
     for B, paged, pos_l in cases:
         n_chunks = S // 128
+        bt = n_blocks = None
         if paged:
             n_blocks = B * n_chunks + 4
             perm = torch.randperm(n_blocks, generator=rng_pos)[:B * n_chunks]
             bt = perm.reshape(B, n_chunks).to(dev, torch.int32)
-            lead = (Lx, n_blocks, 128)
-        else:
-            bt = None
-            lead = (Lx, B, S)
-        kc = torch.randint(-128, 128, lead + (Hkv, D), dtype=torch.int8,
-                           generator=g, device=dev)
-        vc = torch.randint(-128, 128, lead + (Hkv, D), dtype=torch.int8,
-                           generator=g, device=dev)
-        ksc = torch.empty(lead + (Hkv,), device=dev).uniform_(
-            0.001, 0.05, generator=g).to(torch.bfloat16).float()
-        vsc = torch.empty(lead + (Hkv,), device=dev).uniform_(
-            0.001, 0.05, generator=g).to(torch.bfloat16).float()
-        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
-        cos, sin = _rope_cos_sin(cfg, pos)
-        x = torch.randn((B, cfg.dim), generator=g, device=dev).to(
-            torch.bfloat16).float()
-        cache = [kc, vc, ksc, vsc]
+        x, pos, cos, sin, cache = _k4_case(cfg, B, pos_l, g, S, bt, n_blocks)
         plain = [t.clone() for t in cache]
         bt_p = bt if paged else torch.arange(
             B, dtype=torch.int32, device=dev)[:, None]
@@ -594,7 +594,110 @@ def k4_checks(stacked, cfg, record, g):
                "sparsebit_tpu/ops/layer_fused.py:213", err, tol, ms, pms,
                bnd, None, "{} L={} S={} codes {}".format(
                    tag, Lx, S, "exact" if exact else "DIFFER"))
-        del cache, plain, kc, vc, ksc, vsc
+        del cache, plain
+        torch.cuda.empty_cache()
+
+
+def _k4_case(cfg, B, pos_l, g, S=512, bt=None, n_blocks=None):
+    """A random int8 cache (contiguous, or a pool of n_blocks blocks of
+    128 rows) with bf16-rounded scales, positions, rope terms and bf16
+    rows x for a K4 call at cfg's widths."""
+    import torch
+    from sparsebit_tpu_torch.llm.decode import _rope_cos_sin
+
+    dev = torch.device("cuda")
+    Hkv, D = cfg.n_kv_heads, cfg.head_dim
+    lead = (cfg.n_layers, B, S) if bt is None else (cfg.n_layers, n_blocks,
+                                                    128)
+    kc = torch.randint(-128, 128, lead + (Hkv, D), dtype=torch.int8,
+                       generator=g, device=dev)
+    vc = torch.randint(-128, 128, lead + (Hkv, D), dtype=torch.int8,
+                       generator=g, device=dev)
+    ksc = torch.empty(lead + (Hkv,), device=dev).uniform_(
+        0.001, 0.05, generator=g).to(torch.bfloat16).float()
+    vsc = torch.empty(lead + (Hkv,), device=dev).uniform_(
+        0.001, 0.05, generator=g).to(torch.bfloat16).float()
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    cos, sin = _rope_cos_sin(cfg, pos)
+    x = torch.randn((B, cfg.dim), generator=g, device=dev).to(
+        torch.bfloat16).float()
+    return x, pos, cos, sin, [kc, vc, ksc, vsc]
+
+
+def k4_plane_checks(cfg, record, g):
+    """K4's plane mode ("K4p", _mm_step_planes) against its plain version
+    at llama_7b() widths, all 32 layers, S = 512: 3 and 2 bits, B = 1 and
+    8, random plane concats over the padded widths (W13 2F = 22016 ->
+    22528 at 3 bits, NP = 2816) with bf16 qparams. Output, KV codes and
+    scales must be equal (tolerance 0): the plain version takes every
+    float sum in the kernel's order. No PyTorch call computes a decoder
+    backbone with a 2/3-bit weight stream (library_ms null, as K4's)."""
+    import torch
+    from sparsebit_tpu_torch.ops import layer_fused as LF
+    from sparsebit_tpu_torch.ops.packing import pallas_n_pad
+
+    dev = torch.device("cuda")
+    Lx, S, gs = cfg.n_layers, 512, 128
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    K_N = [_linear_shape(cfg, n) for n in FUSED]
+    norms = tuple(torch.ones((Lx, cfg.dim), dtype=torch.bfloat16,
+                             device=dev) for _ in range(2))
+    for bits in (3, 2):
+        wargs = []
+        for K, N in K_N:
+            Ns = N + pallas_n_pad(N, bits)
+            width = 3 * Ns // 8 if bits == 3 else Ns // 4
+            s = torch.empty((Lx, K // gs, Ns), device=dev).uniform_(
+                0.001, 0.01, generator=g) * (16.0 / 2 ** bits)
+            wargs += [torch.randint(0, 256, (Lx, K, width), dtype=torch.uint8,
+                                    generator=g, device=dev),
+                      s.to(torch.bfloat16),
+                      torch.full((Lx, K // gs, Ns), float(2 ** (bits - 1)),
+                                 dtype=torch.bfloat16, device=dev)]
+        ws = [tuple(wargs[i:i + 3]) for i in range(0, 12, 3)]
+        w_bytes = sum(t.numel() * t.element_size()
+                      for t in wargs + list(norms))
+        w_count = Lx * sum(K * N for K, N in K_N)
+        for B, pos_l in ((1, [300]),
+                         (8, [0, 17, 100, 255, 300, 411, 480, 511])):
+            x, pos, cos, sin, cache = _k4_case(cfg, B, pos_l, g, S)
+            plain = [t.clone() for t in cache]
+            bt_p = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+
+            def run_kernel(i):
+                return LF.fused_decoder_layers(
+                    x, pos, cos, sin, *wargs, *norms, *cache, cfg, gs,
+                    wbits=bits)[0]
+
+            def run_plain(i):
+                return LF._fused_layers_plain(
+                    x, pos, cos, sin, ws, *norms, *plain, bt_p, S, gs,
+                    cfg.rms_eps, Hq, Hkv, wbits=bits)
+
+            out = run_kernel(0)
+            ref = run_plain(0)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(a, b) for a, b in zip(cache, plain))
+            if not exact:
+                fail("K4p {}-bit B={} cache codes/scales differ from the "
+                     "plain version".format(bits, B))
+            if not bool(torch.isfinite(out).all().item()):
+                fail("K4p {}-bit B={} output not finite".format(bits, B))
+            err = (out - ref).abs().max().item()
+            ms = cuda_ms(run_kernel, 10)
+            pms = cuda_ms(run_plain, 1, 0)
+            rows = sum(min(p, S - 1) + 1 for p in pos_l)
+            kv_bytes = Lx * (rows + B) * Hkv * (2 * D + 8)
+            nbytes = w_bytes + kv_bytes + 2 * 4 * B * cfg.dim + 2 * 4 * B * D
+            ops = 2 * B * w_count + Lx * 4 * rows * Hq * D
+            tag = "K4p {}-bit B={}".format(bits, B)
+            record(tag, "K4p", "sparsebit_tpu_torch/csrc/layer_fused.cu",
+                   "sparsebit_tpu/ops/layer_fused.py:167", err, 0.0, ms, pms,
+                   bound_ms(nbytes, ops, "int8"), None,
+                   "{} L={} S={} codes {}".format(
+                       tag, Lx, S, "exact" if exact else "DIFFER"))
+            del cache, plain
+        del wargs, ws
         torch.cuda.empty_cache()
 
 
@@ -648,7 +751,8 @@ def small_model_check():
             c = tensors[dev + "_cache"]
             lg = Dm._forward_scanned_kvs(
                 tensors[dev + "_stacked"], tok.to(dev)[:, None],
-                c.length[:, None], Dm._scan_cache(c), cfg)
+                c.length[:, None], None, Dm._scan_cache(c), c.quantized,
+                cfg)
             c.length = c.length + 1
             outs[dev] = lg[:, 0].float().cpu()
             tensors[dev].append(outs[dev])
@@ -676,6 +780,22 @@ PROMPT_LENS = [16, 40, 60, 100, 130, 170, 200, 25]
 _WRAPPERS = {}
 
 
+class _PlaneLaunches:
+    """K4's plane-mode count (``fused_decoder_layers.plane_launches``) as
+    a wrapper-like ``launches`` attribute."""
+
+    def __init__(self, k4):
+        self.k4 = k4
+
+    @property
+    def launches(self):
+        return self.k4.plane_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.k4.plane_launches = n
+
+
 def _wrappers():
     """The kernel wrappers by id, as first seen (before any phase patches a
     module attribute): each counts its launches in ``launches``."""
@@ -688,6 +808,7 @@ def _wrappers():
             "K2": attention.decode_attention_update,
             "K3": ffn_fused.ffn_block_fused,
             "K4": layer_fused.fused_decoder_layers,
+            "K4p": _PlaneLaunches(layer_fused.fused_decoder_layers),
             "K5": attention.decode_attention,
             "K6": quant_matmul.quant_matmul_w_a8,
             "K7": quant_matmul.quant_matmul_3bit,
@@ -1202,6 +1323,184 @@ def serve_paths(params, cfg):
     return out
 
 
+def run_scanned(sp, cfg, prompt, n_new, tag):
+    """prefill_scanned (the per-layer branch), one decode_step_scanned and
+    decode_tokens_scanned of n_new greedy tokens over a 128-row int8 cache,
+    every kernel count set to 0 just before and read just after: prefill
+    s, wall ms per decode step and K4's device ms per step (CUDA events).
+    Returns (stats, the first decode step's logits)."""
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+
+    B = prompt.shape[0]
+    cache = init_kv_cache(cfg, B, 128, device="cuda")
+    k4_ev = []
+    orig_k4 = Dm.fused_decoder_layers
+
+    def k4_timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig_k4(*a, **kw)
+        ev[1].record()
+        k4_ev.append(ev)
+        return out
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = Dm.prefill_scanned(sp, prompt, cache, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    first, cache = Dm.decode_step_scanned(
+        sp, logits.argmax(-1).to(torch.int32), cache, cfg)
+    tok = first.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Patched([(Dm, "fused_decoder_layers", k4_timed)]):
+        toks, cache = Dm.decode_tokens_scanned(sp, tok, cache, cfg, n_new)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    stats = {"B": B, "prompt": prompt.shape[1], "new_tokens": n_new,
+             "prefill_s": prefill_s, "wall_ms_per_step": 1e3 * wall / n_new,
+             "k4_device_ms_per_step": (sum(a.elapsed_time(b)
+                                           for a, b in k4_ev) / len(k4_ev)
+                                       if k4_ev else None),
+             "launches": launches}
+    ok = (tuple(toks.shape) == (B, n_new)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and bool(torch.isfinite(first).all())
+          and cache.length.tolist() == [prompt.shape[1] + 1 + n_new] * B)
+    print("{}: B={} prompt {} + {} tokens: prefill {:.3f} s, decode {:.3f} "
+          "ms/step wall, K4 {} ms/step device; launches {}".format(
+              tag, B, prompt.shape[1], n_new, prefill_s,
+              stats["wall_ms_per_step"],
+              "-" if stats["k4_device_ms_per_step"] is None else "{:.3f}"
+              .format(stats["k4_device_ms_per_step"]), launches),
+          flush=True)
+    if not ok:
+        fail("{}: tokens {} not of shape ({}, {}) in the vocabulary, "
+             "logits not finite or lengths {}".format(
+                 tag, tuple(toks.shape), B, n_new, cache.length.tolist()))
+    return stats, first.float()
+
+
+def plane_paths(cfg):
+    """Phase 4, this slice's paths.
+      planes    a uniform INT3-g128 model at llama_7b() widths, 32 layers,
+                random fused checkpoint-layout weights: prepare_params_host
+                (sub4="planes") -> stack_layers -> prefill_scanned ->
+                decode_tokens_scanned at B = 1 and 8 (K4 in plane mode, K7
+                at the B = 1 prefill); then the same model under
+                sub4="nibble" (K4 nibble mode); the first decode step's
+                logits of the two agree on the decisive argmax;
+      segments  layers of 4, 4, 3 and 3 bits at 7B widths (depth 4, cut
+                for time): an s4r launch over layers 0-1 then a plane
+                launch over layers 2-3 (li_cache 2), the f32 rows carried
+                between them, against one homogeneous nibble launch over
+                all four: within 2e-4, KV codes and scales equal."""
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.ops import layer_fused as LF
+
+    out = {}
+    dev = torch.device("cuda")
+    params = build_plane_params(cfg, dev, lambda li, n: 3, SEED + 10,
+                                names=FUSED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    prompts = {B: torch.randint(0, cfg.vocab_size, (B, 64), generator=gen,
+                                device="cuda") for B in (1, 8)}
+    first = {}
+    for sub4 in ("planes", "nibble"):
+        sp = Dm.stack_layers(Dm.prepare_params_host(params, sub4=sub4))
+        w = sp["layers"]["wqkv"]
+        if sub4 == "planes":
+            width = w.packed["pl"].shape[-1]
+            print("planes: wqkv stack {} bytes wide for {} padded columns "
+                  "({} bits), containers {}".format(
+                      width, w.n_padded, w.bits, sorted(w.packed)),
+                  flush=True)
+            if width * 8 != 3 * w.n_padded or set(w.packed) != {"pl"}:
+                fail("planes: the wqkv stack is not the 3N/8-wide plane "
+                     "concat")
+        for B in (1, 8):
+            tag = "{} B={}".format(sub4, B)
+            out[tag], first[tag] = run_scanned(sp, cfg, prompts[B], 32, tag)
+            want = ("K4", "K9") + (("K4p",) if sub4 == "planes" else ())
+            want += ("K7",) if (sub4, B) == ("planes", 1) else ()
+            _expect(tag, out[tag]["launches"], want,
+                    () if sub4 == "planes" else ("K4p",))
+        del sp
+        torch.cuda.empty_cache()
+    del params
+    for B in (1, 8):
+        err, ok = _logits_agree(first["planes B={}".format(B)],
+                                first["nibble B={}".format(B)])
+        out["planes B={}".format(B)]["first_step_vs_nibble_err"] = err
+        print("planes vs nibble, first decode step B={}: max logit err "
+              "{:.3e}, decisive argmax equal: {}".format(B, err, ok),
+              flush=True)
+        if not ok:
+            fail("planes B={}: first decode step differs from the nibble "
+                 "serving (err {:.3e})".format(B, err))
+
+    depth, B, gs = 4, 8, 128
+    cfg_s = dataclasses.replace(cfg, n_layers=depth)
+    bits = (4, 4, 3, 3)
+    layers = build_plane_params(cfg_s, dev, lambda li, n: bits[li],
+                                SEED + 12, names=FUSED)["layers"]
+
+    def stacks(lyrs, conv, key):
+        ws = []
+        for n in FUSED:
+            lins = [conv(lyr[n]).with_sz_dtype(torch.bfloat16)
+                    for lyr in lyrs]
+            ws += [torch.stack([ln.packed[key] for ln in lins]),
+                   torch.stack([ln.scales for ln in lins]),
+                   torch.stack([ln.zeros for ln in lins])]
+        return ws
+
+    homog = stacks(layers, lambda ln: ln.with_nibble_serving(), "s4r")
+    seg4 = stacks(layers[:2], lambda ln: ln.with_s4_rows(drop_fold=True),
+                  "s4r")
+    seg3 = stacks(layers[2:], lambda ln: ln.with_plane_serving(), "pl")
+    an = torch.stack([lyr["attn_norm"] for lyr in layers])
+    fn = torch.stack([lyr["ffn_norm"] for lyr in layers])
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x, pos, cos, sin, cache = _k4_case(
+        cfg_s, B, [0, 17, 100, 255, 300, 411, 480, 511], g)
+    seg_cache = [t.clone() for t in cache]
+    _reset_launches()
+    ref = LF.fused_decoder_layers(x, pos, cos, sin, *homog, an, fn, *cache,
+                                  cfg_s, gs)[0]
+    h = LF.fused_decoder_layers(x, pos, cos, sin, *seg4, an[:2], fn[:2],
+                                *seg_cache, cfg_s, gs, wbits=4,
+                                li_cache=0)[0]
+    h = LF.fused_decoder_layers(h, pos, cos, sin, *seg3, an[2:], fn[2:],
+                                *seg_cache, cfg_s, gs, wbits=3,
+                                li_cache=2)[0]
+    torch.cuda.synchronize()
+    launches = _launches()
+    err = (h - ref).abs().max().item()
+    close = bool(torch.allclose(h, ref, rtol=2e-4, atol=2e-4))
+    exact = all(torch.equal(a, b) for a, b in zip(seg_cache, cache))
+    out["segments"] = {"depth": depth, "B": B, "bits": list(bits),
+                       "max_abs_err": err, "codes_equal": exact,
+                       "launches": launches}
+    print("segments (4,4 | 3,3 bits, depth {}): two launches vs one "
+          "homogeneous nibble launch: max err {:.3e} (rtol = atol = 2e-4: "
+          "{}), KV codes and scales equal: {}; launches {}".format(
+              depth, err, close, exact, launches), flush=True)
+    if not close or not exact:
+        fail("segments: err {:.3e}, codes equal {}".format(err, exact))
+    _expect("segments", launches, ("K4", "K4p"))
+    del layers, homog, seg4, seg3, cache, seg_cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -1245,13 +1544,20 @@ def main():
     print("generate, mixed and chunk paths {:.1f} s".format(
         time.perf_counter() - t0))
     paths.update(serve_paths(params, cfg))
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.update(plane_paths(cfg))
+    print("planes and segments paths {:.1f} s".format(
+        time.perf_counter() - t0))
     # launches of each kernel on the path that runs it: K5 and K8 on
     # generate (this slice's main path), K6 on the engine's decode_chunk
     # route, K7 on the mixed-precision model (its int8 form with impl
-    # "a8"), K2/K3 on the unfused route, K1, K4 and K9 on the K4 engine
+    # "a8"), K2/K3 on the unfused route, K1, K4 and K9 on the K4 engine,
+    # K4's plane mode on the planes path
     where = {"K2": "unfused", "K3": "unfused", "K5": "generate B=8 greedy",
              "K6": "chunk", "K7": "mixed impl=auto depth 4",
-             "K8": "generate B=8 greedy"}
+             "K8": "generate B=8 greedy", "K4p": "planes B=8"}
     for r in results:
         r["path"] = where.get(r["kernel"], "main")
         if r["kernel"] == "K7" and "int8" in r["shape"]:

@@ -95,8 +95,8 @@ __global__ void __launch_bounds__(sbt::Tile<BM, BN, TM, TN>::THREADS)
   const int j0 = blockIdx.x * HALF;
   const sbt::ColGLU cm{j0, F, HALF};
   float acc[TM][TN];
-  sbt::w4a8_tile<BM, BN, TM, TN>(sbt::AInt8{xq, M, K}, w, s, z, sz_bf16,
-                                 2 * F, K, gs, row0, cm, acc);
+  sbt::wtile<BM, BN, TM, TN>(sbt::AInt8{xq, M, K}, sbt::S4Rows{w, 2 * F},
+                             s, z, sz_bf16, 2 * F, K, gs, row0, cm, acc);
   const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
 #pragma unroll
   for (int tm = 0; tm < TM; ++tm) {
@@ -136,8 +136,9 @@ __global__ void __launch_bounds__(sbt::Tile<BM, BN, TM, TN>::THREADS)
   const int row0 = blockIdx.y * BM;
   const sbt::ColPlain cm{static_cast<int>(blockIdx.x) * BN, N};
   float acc[TM][TN];
-  sbt::w4a8_tile<BM, BN, TM, TN>(sbt::AF32Requant{act, amax, M, F}, w, s, z,
-                                 sz_bf16, N, F, gs, row0, cm, acc);
+  sbt::wtile<BM, BN, TM, TN>(sbt::AF32Requant{act, amax, M, F},
+                             sbt::S4Rows{w, N}, s, z, sz_bf16, N, F, gs, row0,
+                             cm, acc);
   const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
 #pragma unroll
   for (int tm = 0; tm < TM; ++tm) {

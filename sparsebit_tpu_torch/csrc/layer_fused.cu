@@ -5,7 +5,9 @@
 // for every layer, over an int8 KV cache that is contiguous or paged.
 //
 // Replaces sparsebit_tpu/ops/layer_fused.py:213 _layer_kernel
-// (fused_decoder_layers).
+// (fused_decoder_layers), in its 4-bit nibble mode (_mm_step, signed row
+// pairs "s4r") and its true-width 2/3-bit plane mode (_mm_step_planes,
+// wbits 2/3: the "pl" concat of ops/packing.pack_planes_serving).
 //
 // The TPU kernel walked one sequential grid through five phases per
 // layer, with every intermediate in VMEM. Hopper blocks run in no order,
@@ -26,18 +28,30 @@
 //   4  W13 with paired gate/up tiles, silu(g) * u, row absmax;
 //   5  W2 with requantization on load + residual into the carried row.
 // The matmul phases reuse the dp4a tile core of w4a8.cuh and its exact
-// epilogue order. Every float sum is taken in one fixed order (a thread's
-// strided partial, then a 256-wide tree), which the plain version in
+// epilogue order. The bit width is a template parameter: BITS 4 reads
+// s4r row pairs (zero - 8 in the epilogue); BITS 2/3 read the plane
+// concat through w4a8.cuh's PlaneRows, whose output column n is byte
+// column n % NP of plane n / NP, with unsigned codes and the zero
+// unshifted. Plane-mode weights may be padded past their logical width
+// (ops/packing.pallas_n_pad, e.g. LLaMA-7B's W13 2F = 22016 -> 22528);
+// the padded width is the row stride of their scales and zeros and sets
+// NP, while every phase computes only the logical columns (the GLU pairs
+// gate j with up F + j, which may lie in different planes).
+// Every float sum is taken in one fixed order (a thread's strided
+// partial, then a 256-wide tree), which the plain version in
 // ops/layer_fused.py repeats, and no multiply-add is contracted: kernel
 // and plain version agree bit for bit.
 // The cache is a pool of blocks: row s of batch row b is row s % block of
 // block bt[b, s / block]; a contiguous cache is B blocks of S rows.
 // Bound on the H100: the weight and qparam stream of all layers (about
-// 3.44 GB at LLaMA-7B INT4-g128) plus the KV rows up to each row's
-// length, over 3.35 TB/s. This first version spends its time elsewhere:
-// no split-K (Wo and W2 give fewer column tiles than there are blocks),
-// byte-wide weight loads, and seven grid barriers per layer.
+// 3.44 GB at LLaMA-7B INT4-g128, 2.66 GB of planes plus bf16 qparams at
+// INT3-g128) plus the KV rows up to each row's length, over 3.35 TB/s.
+// This first version spends its time elsewhere: no split-K (Wo and W2 give fewer column tiles than there are blocks),
+// byte-wide weight loads (four or eight per plane-mode dp4a word), and
+// seven grid barriers per layer.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "w4a8.cuh"
 
@@ -62,6 +76,7 @@ struct Args {
   int8_t* xq;
   float *xs, *qkv, *aout, *amax_a, *xmid, *act, *amax_g, *sc;
   int sz_bf16, nw_bf16, L, B, dim, Hq, Hkv, D, F, gs;
+  int nq_s, no_s, n13_s, n2_s;  // (padded) N: the s/z row strides
   int n_blocks, block, max_chunks, s_act;
   float eps, inv_sqrt_d;
 };
@@ -303,7 +318,28 @@ __device__ void attention_item(const Args& a, int li, int b, int h,
     atomicMax(reinterpret_cast<int*>(a.amax_a) + b, __float_as_int(amax));
 }
 
-template <class P, class G>
+// One layer's weight of a (K, N) linear as a tile-core source: s4r row
+// pairs (K/2, N) at 4 bits, else the plane concat (K, 3N/8) or (K, N/4).
+template <int BITS>
+struct Weights {
+  using Src = std::conditional_t<BITS == 4, sbt::S4Rows,
+                                 sbt::PlaneRows<BITS == 4 ? 2 : BITS>>;
+  __device__ static size_t row_bytes(int N) {
+    return BITS == 4 ? N : (BITS == 3 ? 3 * N / 8 : N / 4);
+  }
+  __device__ static Src at(const uint8_t* w, int li, int K, int N) {
+    const int rows = BITS == 4 ? K / 2 : K;
+    const uint8_t* base =
+        w + static_cast<size_t>(li) * rows * row_bytes(N);
+    if constexpr (BITS == 4)
+      return Src{base, N};
+    else
+      return Src{base, static_cast<int>(row_bytes(N)),
+                 BITS == 3 ? N / 8 : N / 4};
+  }
+};
+
+template <class P, class G, int BITS>
 __global__ void __launch_bounds__(kThreads)
     layers_fused_kernel(Args a) {
   static_assert(P::THREADS == kThreads && G::THREADS == kThreads,
@@ -314,6 +350,7 @@ __global__ void __launch_bounds__(kThreads)
   static_assert(G::BM == BM && GTN % 2 == 0, "GLU tiles pair gate and up");
   using TP = sbt::Tile<BM, BN, TM, TN>;
   using TG = sbt::Tile<BM, GBN, GTM, GTN>;
+  using Wt = Weights<BITS>;
   __shared__ float red[kThreads];
   __shared__ AttnSmem sm;
   __shared__ int amax_sm[BM];
@@ -340,15 +377,15 @@ __global__ void __launch_bounds__(kThreads)
 
     // 1: qkv = xs * Wqkv(xq)
     {
-      const int G = dim / gs;
-      const uint8_t* w = a.wq + static_cast<size_t>(li) * (dim / 2) * Nq;
-      const void* s = qp_at(a.sq, static_cast<size_t>(li) * G * Nq, bf);
-      const void* z = qp_at(a.zq, static_cast<size_t>(li) * G * Nq, bf);
+      const int G = dim / gs, NS = a.nq_s;
+      const auto w = Wt::at(a.wq, li, dim, NS);
+      const void* s = qp_at(a.sq, static_cast<size_t>(li) * G * NS, bf);
+      const void* z = qp_at(a.zq, static_cast<size_t>(li) * G * NS, bf);
       for (int tile = blockIdx.x; tile * BN < Nq; tile += gridDim.x) {
         const sbt::ColPlain cm{tile * BN, Nq};
         float acc[TM][TN];
-        sbt::w4a8_tile<BM, BN, TM, TN>(sbt::AInt8{a.xq, B, dim}, w, s, z,
-                                       bf, Nq, dim, gs, 0, cm, acc);
+        sbt::wtile<BM, BN, TM, TN>(sbt::AInt8{a.xq, B, dim}, w, s, z, bf,
+                                   NS, dim, gs, 0, cm, acc);
 #pragma unroll
         for (int tm = 0; tm < TM; ++tm) {
           const int row = ty + tm * TP::TY;
@@ -372,15 +409,15 @@ __global__ void __launch_bounds__(kThreads)
 
     // 3: xmid = x + as * Wo(q8(aout))
     {
-      const int G = HD / gs;
-      const uint8_t* w = a.wo + static_cast<size_t>(li) * (HD / 2) * dim;
-      const void* s = qp_at(a.so, static_cast<size_t>(li) * G * dim, bf);
-      const void* z = qp_at(a.zo, static_cast<size_t>(li) * G * dim, bf);
+      const int G = HD / gs, NS = a.no_s;
+      const auto w = Wt::at(a.wo, li, HD, NS);
+      const void* s = qp_at(a.so, static_cast<size_t>(li) * G * NS, bf);
+      const void* z = qp_at(a.zo, static_cast<size_t>(li) * G * NS, bf);
       for (int tile = blockIdx.x; tile * BN < dim; tile += gridDim.x) {
         const sbt::ColPlain cm{tile * BN, dim};
         float acc[TM][TN];
-        sbt::w4a8_tile<BM, BN, TM, TN>(
-            sbt::AF32Requant{a.aout, a.amax_a, B, HD}, w, s, z, bf, dim, HD,
+        sbt::wtile<BM, BN, TM, TN>(
+            sbt::AF32Requant{a.aout, a.amax_a, B, HD}, w, s, z, bf, NS, HD,
             gs, 0, cm, acc);
 #pragma unroll
         for (int tm = 0; tm < TM; ++tm) {
@@ -410,17 +447,17 @@ __global__ void __launch_bounds__(kThreads)
 
     // 4: act = silu(g) * u, [g | u] = xs * W13(xq); row absmax
     {
-      const int G = dim / gs;
-      const uint8_t* w = a.w13 + static_cast<size_t>(li) * (dim / 2) * 2 * F;
-      const void* s = qp_at(a.s13, static_cast<size_t>(li) * G * 2 * F, bf);
-      const void* z = qp_at(a.z13, static_cast<size_t>(li) * G * 2 * F, bf);
+      const int G = dim / gs, NS = a.n13_s;
+      const auto w = Wt::at(a.w13, li, dim, NS);
+      const void* s = qp_at(a.s13, static_cast<size_t>(li) * G * NS, bf);
+      const void* z = qp_at(a.z13, static_cast<size_t>(li) * G * NS, bf);
       for (int tile = blockIdx.x; tile * GHALF < F; tile += gridDim.x) {
         const int j0 = tile * GHALF;
         const sbt::ColGLU cm{j0, F, GHALF};
         if (threadIdx.x < BM) amax_sm[threadIdx.x] = 0;
         float acc[GTM][GTN];
-        sbt::w4a8_tile<BM, GBN, GTM, GTN>(sbt::AInt8{a.xq, B, dim}, w, s, z,
-                                          bf, 2 * F, dim, gs, 0, cm, acc);
+        sbt::wtile<BM, GBN, GTM, GTN>(sbt::AInt8{a.xq, B, dim}, w, s, z, bf,
+                                      NS, dim, gs, 0, cm, acc);
 #pragma unroll
         for (int tm = 0; tm < GTM; ++tm) {
           const int rl = gty + tm * TG::TY;
@@ -451,15 +488,15 @@ __global__ void __launch_bounds__(kThreads)
 
     // 5: x = xmid + gs * W2(q8(act))
     {
-      const int G = F / gs;
-      const uint8_t* w = a.w2 + static_cast<size_t>(li) * (F / 2) * dim;
-      const void* s = qp_at(a.s2, static_cast<size_t>(li) * G * dim, bf);
-      const void* z = qp_at(a.z2, static_cast<size_t>(li) * G * dim, bf);
+      const int G = F / gs, NS = a.n2_s;
+      const auto w = Wt::at(a.w2, li, F, NS);
+      const void* s = qp_at(a.s2, static_cast<size_t>(li) * G * NS, bf);
+      const void* z = qp_at(a.z2, static_cast<size_t>(li) * G * NS, bf);
       for (int tile = blockIdx.x; tile * BN < dim; tile += gridDim.x) {
         const sbt::ColPlain cm{tile * BN, dim};
         float acc[TM][TN];
-        sbt::w4a8_tile<BM, BN, TM, TN>(
-            sbt::AF32Requant{a.act, a.amax_g, B, F}, w, s, z, bf, dim, F, gs,
+        sbt::wtile<BM, BN, TM, TN>(
+            sbt::AF32Requant{a.act, a.amax_g, B, F}, w, s, z, bf, NS, F, gs,
             0, cm, acc);
 #pragma unroll
         for (int tm = 0; tm < TM; ++tm) {
@@ -491,9 +528,9 @@ using SmallP = Cfg<8, 32, 1, 1>;
 using SmallG = Cfg<8, 64, 1, 2>;
 using LargeP = Cfg<64, 64, 4, 4>;
 
-template <class P, class G>
+template <class P, class G, int BITS>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = layers_fused_kernel<P, G>;
+  auto kern = layers_fused_kernel<P, G, BITS>;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -515,15 +552,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int BITS>
+cudaError_t launch_rows(const Args& a, cudaStream_t st) {
+  return a.B <= 8 ? launch<SmallP, SmallG, BITS>(a, st)
+                  : launch<LargeP, LargeP, BITS>(a, st);
+}
+
 }  // namespace
 
-// Weights: wq (L, dim/2, Nq), wo (L, Hq*D/2, dim), w13 (L, dim/2, 2F),
-// w2 (L, F/2, dim) s4r bytes with (L, K/gs, N) scales/zeros (bf16 when
-// sz_bf16, else f32); an/fn (L, dim) norms (bf16 when nw_bf16). Cache
-// pools k, v (Lc, n_blocks, block, Hkv, D) int8, ks, vs (Lc, n_blocks,
-// block, Hkv) f32, block table bt (B, max_chunks) int32, pos (B,) int32,
-// cos/sin (B, D) f32. x (B, dim) f32 holds the input rows and receives
-// the output. The rest is scratch: xq (B, dim) int8, xs (B),
+// Weights of wbits 4: wq (L, dim/2, Nq), wo (L, Hq*D/2, dim), w13 (L,
+// dim/2, 2F), w2 (L, F/2, dim) s4r bytes; of wbits 3 or 2: the plane
+// concat (L, K, 3Ns/8) or (L, K, Ns/4) of each, with Ns = nq_s, no_s,
+// n13_s, n2_s >= Nq, dim, 2F, dim the padded widths (equal at 4 bits).
+// Scales/zeros (L, K/gs, Ns) (bf16 when sz_bf16, else f32); an/fn (L,
+// dim) norms (bf16 when nw_bf16). Cache pools k, v (Lc, n_blocks, block,
+// Hkv, D) int8, ks, vs (Lc, n_blocks, block, Hkv) f32, block table bt
+// (B, max_chunks) int32, pos (B,) int32, cos/sin (B, D) f32. x (B, dim)
+// f32 holds the input rows and receives the output. The rest is scratch: xq (B, dim) int8, xs (B),
 // qkv (B, Nq), aout (B, Hq*D), amax_a (B), xmid (B, dim), act (B, F),
 // amax_g (B), sc (B, Hq, max_chunks*block), all f32. B <= 64, D a power
 // of two <= 256, Hq/Hkv <= 8, K dims multiples of 64 and of gs.
@@ -536,11 +581,21 @@ extern "C" int sbt_layers_fused(
     void* x, void* xq, void* xs, void* qkv, void* aout, void* amax_a,
     void* xmid, void* act, void* amax_g, void* sc, int sz_bf16, int nw_bf16,
     int L, int B, int dim, int Hq, int Hkv, int D, int F, int gs,
-    int n_blocks, int block, int max_chunks, int s_act, float eps,
-    float inv_sqrt_d, void* stream) {
+    int wbits, int nq_s, int no_s, int n13_s, int n2_s, int n_blocks,
+    int block, int max_chunks, int s_act, float eps, float inv_sqrt_d,
+    void* stream) {
+  const int Nq = (Hq + 2 * Hkv) * D;
+  const int pmul = wbits == 3 ? 8 : 4;  // plane-mode N multiple
+  const bool widths_ok =
+      wbits == 4 ? (nq_s == Nq && no_s == dim && n13_s == 2 * F &&
+                    n2_s == dim)
+                 : ((wbits == 2 || wbits == 3) && nq_s >= Nq &&
+                    no_s >= dim && n13_s >= 2 * F && n2_s >= dim &&
+                    nq_s % pmul == 0 && no_s % pmul == 0 &&
+                    n13_s % pmul == 0 && n2_s % pmul == 0);
   if (B < 1 || B > 64 || D > kMaxD || D % 4 || kThreads % (D / 4) ||
       Hq % Hkv || Hq / Hkv > kMaxRep || s_act < 1 ||
-      s_act > max_chunks * block)
+      s_act > max_chunks * block || !widths_ok)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.wq = static_cast<const uint8_t*>(wq);
@@ -571,10 +626,12 @@ extern "C" int sbt_layers_fused(
   a.sz_bf16 = sz_bf16; a.nw_bf16 = nw_bf16;
   a.L = L; a.B = B; a.dim = dim; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.F = F;
   a.gs = gs; a.n_blocks = n_blocks; a.block = block;
+  a.nq_s = nq_s; a.no_s = no_s; a.n13_s = n13_s; a.n2_s = n2_s;
   a.max_chunks = max_chunks; a.s_act = s_act;
   a.eps = eps; a.inv_sqrt_d = inv_sqrt_d;
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = B <= 8 ? launch<SmallP, SmallG>(a, st)
-                         : launch<LargeP, LargeP>(a, st);
+  cudaError_t e = wbits == 4   ? launch_rows<4>(a, st)
+                  : wbits == 3 ? launch_rows<3>(a, st)
+                               : launch_rows<2>(a, st);
   return static_cast<int>(e);
 }

@@ -27,8 +27,8 @@ __global__ void __launch_bounds__(sbt::Tile<BM, BN, TM, TN>::THREADS)
   const int row0 = blockIdx.y * BM;
   const sbt::ColPlain cm{static_cast<int>(blockIdx.x) * BN, N};
   float acc[TM][TN];
-  sbt::w4a8_tile<BM, BN, TM, TN>(sbt::AInt8{x8, M, K}, w, s, z, sz_bf16, N,
-                                 K, gs, row0, cm, acc);
+  sbt::wtile<BM, BN, TM, TN>(sbt::AInt8{x8, M, K}, sbt::S4Rows{w, N}, s, z,
+                             sz_bf16, N, K, gs, row0, cm, acc);
   const int tx = threadIdx.x % T::TX, ty = threadIdx.x / T::TX;
 #pragma unroll
   for (int tm = 0; tm < TM; ++tm) {

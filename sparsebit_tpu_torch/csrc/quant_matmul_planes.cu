@@ -5,11 +5,7 @@
 // "w" planes at 2/4/8 bits), :241 _qmm3_kernel (K7, 3-bit low2 + high1
 // planes, f32 or int8 x) and :844 _qmm_a8_kernel (K6, int8 x, "w" planes).
 //
-// Layout (ops/packing.py): with p = 8 / bits codes per byte and NP = N / p,
-// byte [k, c] of "w" holds column j * NP + c at bits j * bits. 3-bit is
-// low2 (K, N/4) plus high1 (K, N/8): output column j * NP8 + c (NP8 = N/8)
-// takes its low two bits from low2 [k, (j % 2) * NP8 + c] >> 2 * (j / 2) and
-// bit 2 from high1 [k, c] >> j. Both may be column slices of one array
+// Layout: planes.cuh. low2 and high1 may be column slices of one array
 // (the "pl" concat), so each comes with its own row stride.
 //
 // Math: out[m, n] = sum_g s_g * (dot_g - xsum_g * z_g), dot_g and xsum_g
@@ -30,6 +26,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "planes.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -49,16 +47,6 @@ struct Planes {
   static constexpr int P = BITS == 3 ? 8 : (BITS == 8 ? 1 : 8 / BITS);
   static constexpr int CU = kCols / P;  // packed columns per block
 };
-
-// Code of output plane j from the low (or only) byte and the high1 byte.
-template <int BITS>
-__device__ __forceinline__ int unpack(uint32_t lo, uint32_t hi, int j) {
-  if (BITS == 8) return static_cast<int>(lo);
-  if (BITS == 3)
-    return static_cast<int>(((lo >> (2 * (j >> 1))) & 3u) |
-                            (((hi >> j) & 1u) << 2));
-  return static_cast<int>((lo >> (j * BITS)) & ((1u << BITS) - 1u));
-}
 
 template <bool A8>
 struct XTile {
@@ -147,8 +135,9 @@ __global__ void __launch_bounds__(kThreads) planes_kernel(
         int cw = 0;
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          int code = unpack<BITS>(wl[4 * c + t], wh[4 * c + t], j) -
-                     static_cast<int>(zshift);
+          int code =
+              sbt::plane_code<BITS>(wl[4 * c + t], wh[4 * c + t], j) -
+              static_cast<int>(zshift);
           cw |= (code & 0xff) << (8 * t);
         }
 #pragma unroll
@@ -158,7 +147,8 @@ __global__ void __launch_bounds__(kThreads) planes_kernel(
     } else {
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
-        const float code = static_cast<float>(unpack<BITS>(wl[kk], wh[kk], j));
+        const float code =
+            static_cast<float>(sbt::plane_code<BITS>(wl[kk], wh[kk], j));
 #pragma unroll
         for (int i = 0; i < MR; ++i)
           dot[i] = __fmaf_rn(x_sm[rg + kRowGroups * i][kk], code, dot[i]);

@@ -1,5 +1,5 @@
-// W4A8 tile core shared by the K1 matmul (quant_matmul.cu) and the fused
-// FFN (ffn_fused.cu).
+// W4A8 tile core shared by the K1 matmul (quant_matmul.cu), the fused FFN
+// (ffn_fused.cu) and the decode megakernel K4 (layer_fused.cu).
 //
 // Math (sparsebit_tpu/ops/quant_matmul.py:443-471, _qmm_u4_kernel): for
 // int8 activations x8 (M, K) and 4-bit codes C (K, N) stored as signed
@@ -20,11 +20,18 @@
 // double buffering). At the end of every group the int32 dots are folded
 // into the f32 accumulators with that group's scale and zero, read once
 // per (group, column) and never past row G-1.
+//
+// The weights come through a source (S4Rows, or K4's PlaneRows for the
+// true-width 2/3-bit "pl" concat) that builds each dp4a word of one
+// column's codes; unsigned plane codes take the zero unshifted:
+//     acc[m, n] = sum_g s_g * (dot_g - xsum_g * z_g).
 #pragma once
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "planes.cuh"
 
 namespace sbt {
 
@@ -112,6 +119,63 @@ struct ColGLU {
   }
 };
 
+// Weight sources of the tile core: load() fetches the raw bytes of codes
+// k..k+3 of weight column n into two registers, decode() makes them one
+// dp4a word of int8 codes (k ascending).
+
+// Signed row pairs ("s4r", (K/2, N) bytes): stored codes are code - 8.
+struct S4Rows {
+  const uint8_t* w;
+  int N;  // row stride in bytes
+  static constexpr bool kSigned = true;
+  __device__ __forceinline__ void load(int k, int n, uint32_t& r0,
+                                       uint32_t& r1) const {
+    const uint8_t* p = w + static_cast<size_t>(k / 2) * N + n;
+    r0 = __ldg(p);
+    r1 = __ldg(p + N);
+  }
+  __device__ __forceinline__ int decode(uint32_t r0, uint32_t r1,
+                                        int) const {
+    return decode_s4_pair(r0, r1);
+  }
+};
+
+// The true-width plane concat "pl" (planes.cuh) of a weight of N (padded)
+// columns: (K, 3N/8) bytes [low2 | high1] at 3 bits, the (K, N/4) fold
+// array at 2 bits. Column n is byte column c = n % NP of plane p = n / NP;
+// unsigned codes.
+template <int BITS>
+struct PlaneRows {
+  const uint8_t* w;
+  int ld;  // row stride in bytes: 3N/8 or N/4
+  int NP;  // columns per plane: N/8 or N/4
+  static constexpr bool kSigned = false;
+  static_assert(BITS == 2 || BITS == 3, "plane rows are 2 or 3 bits");
+  __device__ __forceinline__ static uint32_t column4(const uint8_t* p,
+                                                     int ld) {
+    return __ldg(p) | (static_cast<uint32_t>(__ldg(p + ld)) << 8) |
+           (static_cast<uint32_t>(__ldg(p + 2 * ld)) << 16) |
+           (static_cast<uint32_t>(__ldg(p + 3 * ld)) << 24);
+  }
+  __device__ __forceinline__ void load(int k, int n, uint32_t& r0,
+                                       uint32_t& r1) const {
+    const int p = n / NP, c = n - p * NP;
+    const uint8_t* row = w + static_cast<size_t>(k) * ld;
+    r0 = column4(row + (BITS == 3 ? (p & 1) * NP : 0) + c, ld);
+    r1 = BITS == 3 ? column4(row + 2 * NP + c, ld) : 0u;
+  }
+  __device__ __forceinline__ int decode(uint32_t r0, uint32_t r1,
+                                        int n) const {
+    const int p = n / NP;
+    int c[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      c[t] = plane_code<BITS>((r0 >> (8 * t)) & 0xffu,
+                              (r1 >> (8 * t)) & 0xffu, p);
+    return pack4(c[0], c[1], c[2], c[3]);
+  }
+};
+
 template <int BM, int BN, int TM, int TN>
 struct Tile {
   static constexpr int TX = BN / TN;
@@ -125,12 +189,12 @@ struct Tile {
 };
 
 // Accumulates acc[tm][tn] for rows row0 + ty + tm*TY and tile columns
-// tx + tn*TX. w, s, z already point at the layer; N is the row stride of
-// w (bytes) and of s/z (elements).
-template <int BM, int BN, int TM, int TN, class A, class ColMap>
-__device__ __forceinline__ void w4a8_tile(
-    const A& a, const uint8_t* __restrict__ w, const void* s, const void* z,
-    int sz_bf16, int N, int K, int gs, int row0, const ColMap& cm,
+// tx + tn*TX. src, s, z already point at the layer; N is the row stride
+// of s/z (elements).
+template <int BM, int BN, int TM, int TN, class A, class W, class ColMap>
+__device__ __forceinline__ void wtile(
+    const A& a, const W& src, const void* s, const void* z, int sz_bf16,
+    int N, int K, int gs, int row0, const ColMap& cm,
     float (&acc)[TM][TN]) {
   using T = Tile<BM, BN, TM, TN>;
   __shared__ int xs_sm[BM][KW + 1];
@@ -168,10 +232,7 @@ __device__ __forceinline__ void w4a8_tile(
     for (int i = 0; i < T::WP_T; ++i) {
       int kw = (tid + i * T::THREADS) / BN;
       if (wcol[i] >= 0) {
-        const uint8_t* p =
-            w + static_cast<size_t>(k0 / 2 + 2 * kw) * N + wcol[i];
-        wr0[i] = p[0];
-        wr1[i] = p[N];
+        src.load(k0 + 4 * kw, wcol[i], wr0[i], wr1[i]);
       } else {
         wr0[i] = wr1[i] = 0;
       }
@@ -192,7 +253,8 @@ __device__ __forceinline__ void w4a8_tile(
 #pragma unroll
     for (int i = 0; i < T::WP_T; ++i) {
       int idx = tid + i * T::THREADS;
-      ws_sm[idx % BN][idx / BN] = decode_s4_pair(wr0[i], wr1[i]);
+      ws_sm[idx % BN][idx / BN] =
+          wcol[i] >= 0 ? src.decode(wr0[i], wr1[i], wcol[i]) : 0;
     }
     __syncthreads();
     if (ks + 1 < nk) load(ks + 1);
@@ -218,7 +280,8 @@ __device__ __forceinline__ void w4a8_tile(
         if (col >= 0) {
           size_t off = static_cast<size_t>(g) * N + col;
           sg = load_qparam(s, off, sz_bf16);
-          zg = load_qparam(z, off, sz_bf16) - 8.f;  // s4r stores code-8
+          zg = load_qparam(z, off, sz_bf16);
+          if (W::kSigned) zg -= 8.f;  // s4r stores code - 8
         }
 #pragma unroll
         for (int tm = 0; tm < TM; ++tm) {

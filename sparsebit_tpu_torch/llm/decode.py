@@ -1,8 +1,11 @@
 """Prefill, decode and generation (port of ``sparsebit_tpu/llm/decode.py``:
 ``prefill``, ``prefill_at``, ``decode_step``, ``prepare_params_for_decode``,
 ``decode_tokens``, ``decode_chunk``, ``sample_logits``, ``generate``,
-``prefill_cold_scanned``, ``stack_layers``, ``_forward_scanned_kvs`` with
-both its branches, ``decode_tokens_scanned_kvs``, ``decode_chunk_scanned``,
+``prepare_params_host``, ``stack_layers``, the scanned KVCache API
+``prefill_scanned`` / ``decode_step_scanned`` / ``decode_tokens_scanned``
+over ``_forward_scanned_kvs`` with its three branches,
+``prefill_cold_scanned``, ``prepare_stacked_params_for_decode``,
+``decode_tokens_scanned_kvs``, ``decode_chunk_scanned``,
 ``decode_chunk_paged`` and ``sample_logits_vec``).
 
 The non-scanned decode (``decode_step`` and the loops over it) runs the
@@ -17,15 +20,22 @@ Python loop; the packed weights stay layer-stacked and each kernel reads
 its layer's slice in place. The KV cache is updated in place (the JAX
 functions returned new caches; these return the same, mutated, objects).
 
-A scanned decode step (``_forward_scanned_kvs``) takes one of two routes,
+A scanned step (``_forward_scanned_kvs``) takes one of three branches,
 chosen as the reference chooses (``_scan_uses_layer_kernel``,
-decode.py:333):
+decode.py:333, and ``_scan_uses_update_kernel``, decode.py:290):
 - the megakernel branch (decode.py:427-462): the whole backbone as ONE
-  launch of K4 (ops/layer_fused), for fused-wqkv/w13 s4r models;
+  launch of K4 (ops/layer_fused), for a single-token step over an int8
+  cache of fused-wqkv/w13 models in the 4-bit ``s4r`` container or the
+  true-width 2/3-bit plane concat ``"pl"`` (prepare_params_host(sub4=
+  "planes"));
 - the unfused branch (decode.py:464-548), for models K4 does not take or
-  with ``FORCE_LAYER_KERNEL = False``: per layer K1 (wqkv, wo), K2 (int8
-  row commit + attention) and K3 (the FFN block).
-The predicate does not look at the device: the CPU runs the route that
+  with ``FORCE_LAYER_KERNEL = False``: per layer the stacked linears
+  (K1, K6, K7), K2 (int8 row commit + attention) for a single-token step
+  over an int8 cache, and K3 for an s4r FFN block;
+- the same per-layer walk with the plain attention in place of K2 for a
+  prompt (S > 1) or a bf16 cache: the rows are quantized (int8) and
+  written, the layer's cache dequantized and attended under the mask.
+The predicates do not look at the device: the CPU runs the route that
 the card runs, with the kernels' plain versions. Admission runs K1 at
 large M and K9 for the last-token lm_head.
 """
@@ -35,6 +45,7 @@ import torch
 from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.llm import llama as L
 from sparsebit_tpu_torch.llm.kv_cache import (
+    KVCache,
     _quant_heads,
     cache_read,
     cache_update,
@@ -179,12 +190,23 @@ def prefill_at(params, tokens, cache, cfg, last_idx, offset):
     return logits, cache
 
 
+def _stack_packed(leaves):
+    """Stacked packed containers; a 2-bit ``"w"`` that is the ``"pl"``
+    tensor itself (with_plane_serving) stays one tensor."""
+    aliased = all("pl" in ln.packed and ln.packed.get("w") is ln.packed["pl"]
+                  for ln in leaves)
+    packed = {k: torch.stack([ln.packed[k] for ln in leaves])
+              for k in leaves[0].packed if not (aliased and k == "w")}
+    if aliased:
+        packed["w"] = packed["pl"]
+    return packed
+
+
 def _stack(leaves):
     if isinstance(leaves[0], QuantLinear):
         first = leaves[0]
         return first._replace(
-            packed={k: torch.stack([ln.packed[k] for ln in leaves])
-                    for k in first.packed},
+            packed=_stack_packed(leaves),
             scales=torch.stack([ln.scales for ln in leaves]),
             zeros=torch.stack([ln.zeros for ln in leaves]),
             bias=(None if first.bias is None
@@ -252,36 +274,60 @@ def _u4_k_rows(lin):
     return lin.packed["s4r"].shape[-2] * 2
 
 
+def _pl_serving(lin):
+    """The true-width 2/3-bit plane concat of a QuantLinear
+    (with_plane_serving), or None."""
+    return lin.packed.get("pl")
+
+
 def _layer_kernel_ok(layers, cfg, batch):
-    """True when K4 can run these stacked layers: fused wqkv/wo/w13/w2 s4r
-    QuantLinears with one groupsize, no act-order perm, bias or N padding,
-    within fused_layer_supported."""
+    """True when K4 can run these stacked layers: fused wqkv/wo/w13/w2
+    QuantLinears with one groupsize and no act-order perm or bias, within
+    fused_layer_supported, either all in the plane concat ``"pl"`` at one
+    bit width (preferred, as decode.py:348-362: W2's K is its full row
+    count, and padded N is fine) or all s4r without N padding."""
     lins = [layers.get(n) for n in ("wqkv", "wo", "w13", "w2")]
     if not all(isinstance(ln, QuantLinear) for ln in lins):
         return False
     gs = lins[0].groupsize
     for ln in lins:
-        if "s4r" not in ln.packed or ln.perm is not None \
-                or ln.bias is not None:
-            return False
-        if ln.n_padded != ln.out_features or ln.groupsize != gs:
+        if ln.perm is not None or ln.bias is not None or ln.groupsize != gs:
             return False
     if lins[2].out_features != 2 * cfg.ffn_dim:
         return False
+    if all(_pl_serving(ln) is not None for ln in lins):
+        wb = lins[0].bits
+        if any(ln.bits != wb for ln in lins):
+            return False
+        return fused_layer_supported(cfg, gs, batch,
+                                     f_pad=lins[3].packed["pl"].shape[-2],
+                                     wbits=wb)
+    for ln in lins:
+        if "s4r" not in ln.packed or ln.n_padded != ln.out_features:
+            return False
     return fused_layer_supported(cfg, gs, batch, f_pad=_u4_k_rows(lins[3]))
 
 
-def _scan_uses_layer_kernel(S, layers, cfg, batch):
+def _scan_uses_layer_kernel(S, layers, quant_mode, cfg, batch):
     """True when a decode step runs the whole backbone as one K4 launch
-    (decode.py:333-375): single-token steps of a model _layer_kernel_ok
-    takes, unless FORCE_LAYER_KERNEL says otherwise. Unlike the reference
-    it does not ask the device, so the CPU takes the card's route."""
-    if S != 1:
+    (decode.py:333-375): single-token steps over an int8 cache of a model
+    _layer_kernel_ok takes, unless FORCE_LAYER_KERNEL says otherwise.
+    Unlike the reference it does not ask the device, so the CPU takes the
+    card's route."""
+    if S != 1 or quant_mode != "int8":
         return False
     ok = _layer_kernel_ok(layers, cfg, batch)
     if FORCE_LAYER_KERNEL is not None:
         return FORCE_LAYER_KERNEL and ok
     return ok
+
+
+def _scan_uses_update_kernel(S, quant_mode, cfg):
+    """True when the unfused scanned step attends through K2
+    (decode.py:290-296): one token per row over an int8 cache, where K5's
+    shape rule holds."""
+    return S == 1 and quant_mode == "int8" and _use_attn_kernel(
+        1, quant_mode, cfg)
 
 
 def _rope_cos_sin(cfg, pos):
@@ -299,11 +345,13 @@ def _backbone_fused(layers, x, pos, k, v, ks, vs, cfg, bt=None,
     -> (B, dim) f32 before the final norm; the cache is written in place."""
     cos, sin = _rope_cos_sin(cfg, pos)
     w = [layers[n] for n in ("wqkv", "wo", "w13", "w2")]
-    wargs = [t for ln in w for t in (ln.packed["s4r"], ln.scales, ln.zeros)]
+    plane = _pl_serving(w[0]) is not None
+    key = "pl" if plane else "s4r"
+    wargs = [t for ln in w for t in (ln.packed[key], ln.scales, ln.zeros)]
     out, *_ = fused_decoder_layers(
         x.to(torch.float32), pos, cos, sin, *wargs, layers["attn_norm"],
         layers["ffn_norm"], k, v, ks, vs, cfg, w[0].groupsize, bt=bt,
-        s_active=s_active)
+        s_active=s_active, wbits=w[0].bits if plane else 4)
     return out
 
 
@@ -332,37 +380,60 @@ def _scan_uses_ffn_kernel(S, layers, cfg, batch):
     return ffn_block_supported(cfg.dim, F, gs, batch)
 
 
-def _forward_scanned_kvs(params, tokens, positions, kvs, cfg,
-                         s_active=None):
-    """One decode step over stacked layers: tokens (B, 1), positions (B, 1)
-    = the rows the new tokens take, kvs the stacked cache tensors (updated
-    in place). Megakernel branch: one K4 launch for the backbone. Unfused
-    branch, per layer: K1 wqkv, rope, K2 (quantize + commit the new K/V
-    row, attend), K1 wo, K3 FFN. ``s_active`` bounds K4's attention rows.
-    Returns logits (B, 1, V) f32."""
+def _positions_mask(positions, S_max):
+    """(B, 1, S, S_max) additive mask: row s of batch row b sees cache
+    rows [0, positions[b, s]]."""
+    col = torch.arange(S_max, dtype=torch.int32, device=positions.device)
+    visible = col[None, None, :] <= positions[:, :, None]
+    return torch.where(visible, 0.0, -1e9).to(torch.float32)[:, None]
+
+
+def _forward_scanned_kvs(params, tokens, positions, mask, kvs, quant_mode,
+                         cfg, s_active=None):
+    """One forward over stacked layers (decode.py:410-548): tokens (B, S),
+    positions (B, S) the rows they take, kvs the stacked cache tensors
+    (updated in place) of mode ``quant_mode`` ("int8" or False), ``mask``
+    the additive attention mask (None: each row sees the cache up to its
+    position). Megakernel branch: one K4 launch for the backbone. Else per
+    layer: the stacked linears, rope, then K2 (int8 row commit and
+    attention) or the plain attention, K3 or the plain FFN block.
+    ``s_active`` bounds K4's attention rows. Returns logits (B, 1, V) f32
+    at the last position."""
     x = params["tok_embed"][tokens.long()]
     pos0 = positions[:, 0]
     layers = params["layers"]
     k, v, ks, vs = kvs
     B, S, _ = x.shape
-    if _scan_uses_layer_kernel(S, layers, cfg, B):
+    if _scan_uses_layer_kernel(S, layers, quant_mode, cfg, B):
         out = _backbone_fused(layers, x[:, 0], pos0, k, v, ks, vs, cfg,
                               s_active=s_active)
         x = L.rms_norm(out[:, None].to(x.dtype), params["norm"],
                        cfg.rms_eps)
         return _logits(params["lm_head"], x)
     inv_freq = L.rope_frequencies(cfg, device=x.device)
+    use_update = _scan_uses_update_kernel(S, quant_mode, cfg)
     use_ffn_kernel = _scan_uses_ffn_kernel(S, layers, cfg, B)
+    if not use_update:
+        cache = KVCache(k, v, ks, vs, None, quant_mode)
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        if mask is None:
+            mask = _positions_mask(positions, k.shape[2])
     for li in range(cfg.n_layers):
         layer = _stacked_layer_view(layers, li)
         h = L.rms_norm(x, layer["attn_norm"], cfg.rms_eps)
         q, kk, vv = L.qkv_proj(layer, h, cfg)
         q = L.apply_rope(q, positions, inv_freq)
         kk = L.apply_rope(kk, positions, inv_freq)
-        out = decode_attention_update(
-            q[:, 0], kk[:, 0].to(torch.float32),
-            vv[:, 0].to(torch.float32), k, v, ks, vs, li, pos0,
-        )[:, None].to(x.dtype)
+        if use_update:
+            out = decode_attention_update(
+                q[:, 0], kk[:, 0].to(torch.float32),
+                vv[:, 0].to(torch.float32), k, v, ks, vs, li, pos0,
+            )[:, None].to(x.dtype)
+        else:
+            cache_update(cache, li, kk, vv, pos0)
+            k_all, v_all = cache_read(cache, li, x.dtype)
+            out = L.attention_scores(q, L.repeat_kv(k_all, n_rep),
+                                     L.repeat_kv(v_all, n_rep), mask)
         out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
         x = x + layer["wo"](out)
         if use_ffn_kernel:
@@ -375,22 +446,102 @@ def _forward_scanned_kvs(params, tokens, positions, kvs, cfg,
         else:
             x = x + L._ffn_block(
                 layer, L.rms_norm(x, layer["ffn_norm"], cfg.rms_eps))
-    x = L.rms_norm(x, params["norm"], cfg.rms_eps)
+    x = L.rms_norm(x[:, -1:], params["norm"], cfg.rms_eps)
     return _logits(params["lm_head"], x)
 
 
+def _unscan_cache(cache, kvs):
+    """The KVCache of the stacked tensors ``kvs`` (decode.py:236): the
+    port's cache is stacked and updated in place, so they are its own."""
+    cache.k, cache.v, cache.k_scale, cache.v_scale = kvs
+    return cache
+
+
+def _forward_with_cache_scanned(params, tokens, positions, mask, cache,
+                                cfg):
+    """KVCache wrapper of _forward_scanned_kvs (decode.py:551-568)."""
+    kvs = _scan_cache(cache)
+    logits = _forward_scanned_kvs(params, tokens, positions, mask, kvs,
+                                  cache.quantized, cfg)
+    return logits, _unscan_cache(cache, kvs)
+
+
+def prefill_scanned(params_stacked, tokens, cache, cfg):
+    """prefill over stacked layers (decode.py:571-586): tokens (B, S) fill
+    rows [0, S) of an empty cache through the per-layer branch. Returns
+    (last logits (B, V) f32, cache) with cache.length grown by S."""
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    logits, cache = _forward_with_cache_scanned(
+        params_stacked, tokens, positions,
+        _prompt_mask(S, cache.k.shape[2], dev), cache, cfg)
+    cache.length = (cache.length + S).to(torch.int32)
+    return logits[:, -1], cache
+
+
+def decode_step_scanned(params_stacked, tokens, cache, cfg):
+    """decode_step over stacked layers (decode.py:659-674): tokens (B,) at
+    rows cache.length. Returns (logits (B, V) f32, cache)."""
+    positions = cache.length[:, None]
+    logits, cache = _forward_with_cache_scanned(
+        params_stacked, tokens[:, None], positions,
+        _positions_mask(positions, cache.k.shape[2]), cache, cfg)
+    cache.length = (cache.length + 1).to(torch.int32)
+    return logits[:, 0], cache
+
+
+def prepare_stacked_params_for_decode(params_stacked):
+    """with_u4 on every stacked QuantLinear (decode.py:768-783), so that a8
+    linears of 2/3/4 bits take K1; plane-concat ``"pl"`` linears are left
+    as they are (K4 reads them, and an s4r copy would double their
+    bytes)."""
+
+    def conv(lin):
+        if isinstance(lin, QuantLinear) and _pl_serving(lin) is None:
+            return lin.with_u4()
+        return lin
+
+    layers = dict(params_stacked["layers"])
+    for name in L._LINEAR_NAMES:
+        if name in layers:
+            layers[name] = conv(layers[name])
+    out = dict(params_stacked, layers=layers)
+    if "lm_head" in out:
+        out["lm_head"] = conv(out["lm_head"])
+    return out
+
+
 def decode_tokens_scanned_kvs(params_stacked, tok0, kvs, length, cfg,
-                              n_tokens):
+                              n_tokens, quantized="int8", s_active=None):
     """Greedy multi-token decode over the stacked cache tensors ``kvs``
-    with per-row ``length``. Returns (tokens (B, n), kvs, length)."""
+    (mode ``quantized``) with per-row ``length`` (decode.py:786-814).
+    Returns (tokens (B, n), kvs, length)."""
+    params_stacked = prepare_stacked_params_for_decode(params_stacked)
     tok, toks = tok0, []
     for _ in range(n_tokens):
         logits = _forward_scanned_kvs(params_stacked, tok[:, None],
-                                      length[:, None], kvs, cfg)
+                                      length[:, None], None, kvs, quantized,
+                                      cfg, s_active=s_active)
         tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         toks.append(tok)
         length = length + 1
     return torch.stack(toks, dim=1), kvs, length
+
+
+def decode_tokens_scanned(params_stacked, tok0, cache, cfg, n_tokens,
+                          s_active=None):
+    """Greedy-decode n_tokens over stacked layers and the KVCache
+    (decode.py:817-861); ``s_active`` is K4's static context bucket
+    (max(length) + n_tokens <= s_active). Returns (tokens (B, n_tokens),
+    cache) with the lengths advanced."""
+    toks, kvs, length = decode_tokens_scanned_kvs(
+        params_stacked, tok0, _scan_cache(cache), cache.length, cfg,
+        n_tokens, cache.quantized, s_active)
+    cache = _unscan_cache(cache, kvs)
+    cache.length = length
+    return toks, cache
 
 
 def decode_chunk_scanned(params_stacked, tok0, cache, temps, generator, cfg,
@@ -404,7 +555,8 @@ def decode_chunk_scanned(params_stacked, tok0, cache, temps, generator, cfg,
     tok, length, toks = tok0, cache.length, []
     for _ in range(n_tokens):
         logits = _forward_scanned_kvs(params_stacked, tok[:, None],
-                                      length[:, None], kvs, cfg,
+                                      length[:, None], None, kvs,
+                                      cache.quantized, cfg,
                                       s_active=s_active)
         tok = sample_logits_vec(logits[:, 0], temps, generator)
         toks.append(tok)
@@ -494,6 +646,57 @@ def prepare_params_for_decode(params):
         params, lambda path, lin: (lin.with_u4()
                                    if isinstance(lin, QuantLinear) else lin),
         skip=())
+
+
+def prepare_params_host(params, drop_fold=True, sz_dtype=torch.bfloat16,
+                        head_bits=None, sub4="nibble"):
+    """One-time serving layout of a quantized model (decode.py:677-765),
+    per-layer or stacked: 4-bit linears to signed row pairs
+    (with_s4_rows), 2/3-bit ones to the plane concat (``sub4="planes"``,
+    true width, for K4's plane mode; every linear must then have one bit
+    width) or to s4 nibbles re-tagged 4-bit (``sub4="nibble"``), 8-bit
+    ones unchanged; qparams to ``sz_dtype``. ``head_bits`` quantizes a
+    dense lm_head (round to nearest, per channel, symmetric:
+    QuantLinear.from_dense)."""
+    layers = params["layers"]
+    if sub4 == "planes":
+        lins = (layers.values() if isinstance(layers, dict)
+                else (ln for lyr in layers for ln in lyr.values()))
+        bit_set = {ln.bits for ln in lins if isinstance(ln, QuantLinear)}
+        if len(bit_set) > 1:
+            raise ValueError(
+                "prepare_params_host(sub4='planes') needs uniform bit "
+                "widths across layers, got {}; use sub4='nibble' for mixed "
+                "checkpoints, or serve uniform-bit segments with "
+                "fused_decoder_layers(li_cache=...)".format(sorted(bit_set)))
+
+    def conv(lin):
+        if not isinstance(lin, QuantLinear):
+            return lin
+        if lin.bits == 4:
+            lin = lin.with_s4_rows(drop_fold=drop_fold)
+        elif lin.bits in (2, 3):
+            lin = (lin.with_plane_serving(drop_fold=drop_fold)
+                   if sub4 == "planes" else lin.with_nibble_serving())
+        else:
+            lin = lin.with_u4_rows()
+        if sz_dtype is not None:
+            lin = lin.with_sz_dtype(sz_dtype)
+        return lin
+
+    out = dict(params)
+    if isinstance(layers, dict):
+        out["layers"] = {k: conv(v) for k, v in layers.items()}
+    else:
+        out["layers"] = [{k: conv(v) for k, v in lyr.items()}
+                         for lyr in layers]
+    head = out["lm_head"]
+    if head_bits is not None and isinstance(head, DenseLinear):
+        head = QuantLinear.from_dense(
+            head.w.to(torch.float32), bits=head_bits, groupsize=-1, sym=True,
+            bias=head.bias)
+    out["lm_head"] = conv(head)
+    return out
 
 
 def decode_tokens(params, tok0, cache, cfg, n_tokens):

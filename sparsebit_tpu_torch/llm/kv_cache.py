@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.ops.attention import quant_rows
 
 
@@ -36,10 +37,12 @@ class KVCache:
     quantized: object = "int8"  # "int8" or False
 
 
-def init_kv_cache(cfg, batch, max_len=None, device="cpu", quantized=True):
-    """Zeroed cache of ``max_len`` (default cfg.max_seq_len) rows:
-    quantized True/"int8" (int8 codes, f32 scales) or False (bf16, the
-    model's dtype)."""
+def init_kv_cache(cfg, batch, max_len=None, device=None, quantized=True):
+    """Zeroed cache of ``max_len`` (default cfg.max_seq_len) rows on
+    ``device`` (the card unless the caller names another): quantized
+    True/"int8" (int8 codes, f32 scales) or False (bf16, the model's
+    dtype)."""
+    device = resolve_device(device)
     S = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
     if quantized is True:
@@ -120,9 +123,11 @@ class PagedKVCache:
 
 
 def init_paged_kv_cache(cfg, batch, n_blocks, block=128, max_chunks=None,
-                        device="cpu"):
+                        device=None):
     """Zeroed int8 pools of ``n_blocks`` blocks and an all-zeros block
-    table; max_chunks defaults to ceil(max_seq_len / block)."""
+    table on ``device`` (the card unless the caller names another);
+    max_chunks defaults to ceil(max_seq_len / block)."""
+    device = resolve_device(device)
     if max_chunks is None:
         max_chunks = -(-cfg.max_seq_len // block)
     shape = (cfg.n_layers, n_blocks, block, cfg.n_kv_heads, cfg.head_dim)

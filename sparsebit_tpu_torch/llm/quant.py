@@ -1,12 +1,13 @@
-"""Packed linear containers (port of ``sparsebit_tpu/llm/quant.py``:
-``DenseLinear`` and ``QuantLinear``).
+"""Weight quantizer and packed linear containers (port of
+``sparsebit_tpu/llm/quant.py``: ``LLMQuantizer``, ``DenseLinear`` and
+``QuantLinear``).
 
 Weight convention as in the JAX package: (in_features K, out_features N),
 ``x @ w``; group scales/zeros (G, N) along K. ``QuantLinear.__call__``
 dispatches on ``impl`` as the reference does (quant.py:487-515): "a8" is
 the W4A8 path (K1, K6, K7), "auto"/"pallas"/"xla" the f32-activation
-``quant_matmul`` (K8, K7 or the dense product). ``LLMQuantizer`` and
-``from_dense`` come with the GPTQ port.
+``quant_matmul`` (K8, K7 or the dense product). ``from_dense`` is the
+round-to-nearest quantizer; GPTQ is not ported yet.
 """
 
 import torch
@@ -14,6 +15,7 @@ import torch
 from sparsebit_tpu_torch.ops import matvec as _mv
 from sparsebit_tpu_torch.ops.packing import (
     pack_columns,
+    pack_planes_serving,
     pack_s4_rows,
     pallas_n_pad,
     unpack_columns,
@@ -26,6 +28,69 @@ from sparsebit_tpu_torch.ops.quant_matmul import (
 )
 
 IMPLS = ("auto", "pallas", "xla", "a8")
+
+
+class LLMQuantizer:
+    """Asymmetric (or symmetric) min/max quantizer with integer zeros and
+    an optional MSE shrink-grid search (quant.py:23-84), in f32."""
+
+    def __init__(self, bits=4, sym=False, mse=False, maxshrink=0.8, grid=100,
+                 norm=2.4):
+        self.bits = bits
+        self.sym = sym
+        self.mse = mse
+        self.maxshrink = maxshrink
+        self.grid = grid
+        self.norm = norm
+        self.qmax = 2 ** bits - 1
+
+    def find_params(self, w):
+        """w (..., n, N): the n rows share one (scale, zero) per column ->
+        scale, zero (..., 1, N)."""
+        zero_t = torch.zeros((), dtype=w.dtype, device=w.device)
+        wmin = torch.minimum(w.amin(dim=-2, keepdim=True), zero_t)
+        wmax = torch.maximum(w.amax(dim=-2, keepdim=True), zero_t)
+        if self.sym:
+            wmax = torch.maximum(wmin.abs(), wmax)
+            wmin = -wmax
+        degenerate = (wmin == 0) & (wmax == 0)
+        wmin = torch.where(degenerate, -1.0, wmin)
+        wmax = torch.where(degenerate, 1.0, wmax)
+        if self.mse:
+            return self._mse_search(w, wmin, wmax)
+        return self._params_from_range(wmin, wmax)
+
+    def _params_from_range(self, wmin, wmax):
+        scale = (wmax - wmin) / self.qmax
+        if self.sym:
+            zero = torch.full_like(scale, (self.qmax + 1) / 2.0)
+        else:
+            zero = torch.round(-wmin / scale)
+        return scale, zero
+
+    def _mse_search(self, w, wmin, wmax):
+        """Shrink factors p = 1 - i/grid; per column the p of least
+        sum |dequant - w|^norm (the first one on a tie)."""
+        n = int(self.grid * self.maxshrink)
+        ps = 1.0 - torch.arange(n, dtype=torch.float32,
+                                device=w.device) / self.grid
+        best_loss = best_p = None
+        for p in ps:
+            s, z = self._params_from_range(wmin * p, wmax * p)
+            q = torch.clamp(torch.round(w / s) + z, 0, self.qmax)
+            loss = ((q - z) * s - w).abs().pow(self.norm).sum(
+                dim=-2, keepdim=True)
+            if best_loss is None:
+                best_loss, best_p = loss, torch.full_like(loss, p.item())
+            else:
+                better = loss < best_loss
+                best_loss = torch.where(better, loss, best_loss)
+                best_p = torch.where(better, p, best_p)
+        return self._params_from_range(wmin * best_p, wmax * best_p)
+
+    def codes(self, w, scale, zero):
+        return torch.clamp(torch.round(w / scale) + zero, 0,
+                           self.qmax).to(torch.uint8)
 
 
 class DenseLinear:
@@ -56,8 +121,9 @@ class DenseLinear:
 
 class QuantLinear:
     """Packed low-bit linear: ``packed`` is a dict of uint8 containers
-    (the fold layout ``"w"``/``"low2"``/``"high1"`` of pack_columns, or the
-    ``"s4r"`` signed row-pair serving layout); scales/zeros (G, N). Leaves
+    (the fold layout ``"w"``/``"low2"``/``"high1"`` of pack_columns, the
+    ``"s4r"`` signed row-pair serving layout, or the ``"pl"`` plane concat
+    of 2/3-bit true-width serving); scales/zeros (G, N). Leaves
     may carry a leading layer axis (decode.stack_layers), read through
     ``call_stacked``. ``impl`` is one of IMPLS."""
 
@@ -98,6 +164,24 @@ class QuantLinear:
             zeros = torch.nn.functional.pad(zeros, (0, pad))
         return cls(pack_columns(codes, bits), scales, zeros, bits, groupsize,
                    N, bias, perm, impl)
+
+    @classmethod
+    def from_dense(cls, w, bits=4, groupsize=-1, sym=False, mse=False,
+                   bias=None, impl="auto"):
+        """Round-to-nearest quantization of a dense (K, N) f32 weight with
+        per-group (or per-column, groupsize <= 0) scales and zeros
+        (quant.py:148-163), packed by from_codes."""
+        K, N = w.shape
+        gs = groupsize if groupsize > 0 else K
+        quantizer = LLMQuantizer(bits=bits, sym=sym, mse=mse)
+        w = w.to(torch.float32)
+        scales, zeros = quantizer.find_params(w.reshape(K // gs, gs, N))
+        scales = scales.reshape(K // gs, N)
+        zeros = zeros.reshape(K // gs, N)
+        codes = quantizer.codes(w, torch.repeat_interleave(scales, gs, 0),
+                                torch.repeat_interleave(zeros, gs, 0))
+        return cls.from_codes(codes, scales, zeros, bits, groupsize, bias,
+                              impl=impl)
 
     @property
     def in_features(self):
@@ -171,6 +255,21 @@ class QuantLinear:
             zeros = torch.nn.functional.pad(zeros, (0, pad))
         return self._replace(packed={"s4r": pack_s4_rows(codes)},
                              scales=scales, zeros=zeros, bits=4)
+
+    def with_plane_serving(self, drop_fold=True):
+        """Copy carrying the true-width plane concat ``"pl"``
+        (quant.py:344-370): K4 streams the real 3 (2) bits per weight. At 2
+        bits the plane array is the fold container itself, kept under
+        ``"w"`` as the same tensor, so the per-matmul kernels still find
+        it. No-op at other bits and where ``"pl"`` exists."""
+        if self.bits not in (2, 3) or "pl" in self.packed:
+            return self
+        codes = unpack_columns(self.packed, self.bits, self.n_padded)
+        packed = {} if drop_fold else dict(self.packed)
+        packed["pl"] = pack_planes_serving(codes, self.bits)
+        if self.bits == 2:
+            packed.setdefault("w", packed["pl"])
+        return self._replace(packed=packed)
 
     def with_sz_dtype(self, dtype=torch.bfloat16):
         """Copy with scales/zeros stored in ``dtype`` (bf16 halves the

@@ -26,7 +26,10 @@ idle slots, and every decode token as one K4 launch through the block
 table (decode.decode_chunk_paged).
 
 Both take ``device=None`` (CUDA, raising without it) or ``device="cpu"``
-(the kernels' plain versions). Params must already live on that device
+(the kernels' plain versions), and ``head_bits`` (serving.py:281-289): a
+dense lm_head quantized per channel, symmetric, by round to nearest
+(QuantLinear.from_dense, bf16 qparams; 8 bits halve its stream and take
+K8 at decode). Params must already live on that device
 (llm.convert.params_from_numpy). Sampling draws from the engine's own
 seeded ``torch.Generator``.
 """
@@ -54,7 +57,7 @@ from sparsebit_tpu_torch.llm.kv_cache import (
     paged_write_rows,
 )
 from sparsebit_tpu_torch.llm.llama import quantize_llama_params
-from sparsebit_tpu_torch.llm.quant import QuantLinear
+from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
 
 
 @dataclass
@@ -85,7 +88,8 @@ def _serving_layout(lin):
 
 class DecodeEngine:
     def __init__(self, params, cfg, max_batch=8, max_len=None, eos_id=None,
-                 seed=0, chunk=8, prefix_cache_size=8, device=None):
+                 seed=0, chunk=8, prefix_cache_size=8, device=None,
+                 head_bits=None):
         self.device = resolve_device(device)
         if params["tok_embed"].device.type != self.device.type:
             raise ValueError("params live on {}, engine device is {}".format(
@@ -97,6 +101,11 @@ class DecodeEngine:
                                if isinstance(lin, QuantLinear) else lin),
             skip=(),
         )
+        head = self.params["lm_head"]
+        if head_bits is not None and isinstance(head, DenseLinear):
+            self.params["lm_head"] = QuantLinear.from_dense(
+                head.w.to(torch.float32), bits=head_bits, groupsize=-1,
+                sym=True, bias=head.bias).with_sz_dtype()
         # layers K4 can take are stacked for it; a model it refuses may mix
         # containers across layers and is served per layer
         self.params_stacked = None
@@ -114,7 +123,7 @@ class DecodeEngine:
         # (serving.py:239-251), without its device check
         self._stacked_chunks = (
             self.params_stacked is not None and _scan_uses_layer_kernel(
-                1, self.params_stacked["layers"], cfg, max_batch))
+                1, self.params_stacked["layers"], "int8", cfg, max_batch))
         self.slots = [None] * max_batch  # _Request or None
         self.queue = []
         self.next_tok = torch.zeros((max_batch,), dtype=torch.int32,
@@ -397,14 +406,15 @@ class PagedDecodeEngine(DecodeEngine):
 
     def __init__(self, params, cfg, max_batch=8, n_blocks=None, block=128,
                  eos_id=None, seed=0, chunk=8, prefix_cache_size=8,
-                 max_len=None, device=None):
+                 max_len=None, device=None, head_bits=None):
         max_len = max_len or cfg.max_seq_len
         if n_blocks is None:
             n_blocks = max_batch * (-(-max_len // block))
         self._skip_slot_cache = True  # the pool replaces the slot cache
         super().__init__(params, cfg, max_batch=max_batch, max_len=max_len,
                          eos_id=eos_id, seed=seed, chunk=chunk,
-                         prefix_cache_size=prefix_cache_size, device=device)
+                         prefix_cache_size=prefix_cache_size, device=device,
+                         head_bits=head_bits)
         if self.params_stacked is None:
             raise ValueError(
                 "PagedDecodeEngine needs a model the decode megakernel "

@@ -49,8 +49,8 @@ SIGNATURES = {
     # matvec.cu (K9)
     "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P],
     # layer_fused.cu (K4): 12 weight/qparam stacks, 2 norms, 4 cache
-    # pools, bt, pos, cos, sin, x, 9 scratch buffers; 14 ints, 2 floats
-    "sbt_layers_fused": [_P] * 32 + [_I] * 14 + [_F, _F, _P],
+    # pools, bt, pos, cos, sin, x, 9 scratch buffers; 19 ints, 2 floats
+    "sbt_layers_fused": [_P] * 32 + [_I] * 19 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

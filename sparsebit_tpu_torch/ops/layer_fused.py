@@ -8,6 +8,10 @@
 Kernel K4 (``csrc/layer_fused.cu``) replaces ``_layer_kernel``
 (layer_fused.py:213): one cooperative launch per decode step runs every
 layer, with grid-wide barriers between the dependent phases of a layer.
+It takes the weights in one of two containers (``wbits``): 4-bit signed
+row pairs ``s4r`` (``_mm_step``), or the true-width 2/3-bit plane concat
+``"pl"`` of ops/packing.pack_planes_serving (``_mm_step_planes``), whose
+N may be padded past the logical width (the scales carry it).
 Numerics are the TPU kernel's: x carried in f32 across layers, f32 rms
 norm, per-row int8 quantization before Wqkv, Wo, W13 and W2 (the W4A8
 matmul of ``ops/quant_matmul``), rotate-half rope with full-width cos/sin,
@@ -39,20 +43,24 @@ from sparsebit_tpu_torch.ops.attention import (
     quant_rows,
 )
 from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
+from sparsebit_tpu_torch.ops.packing import unpack_planes_serving
 from sparsebit_tpu_torch.ops.quant_matmul import _qmm_s4_plain
 
 MAX_ROWS = 64  # B cap, as the reference (layer_fused.py:965)
 MAX_REP = 8    # query heads per kv head held by one attention work item
 
 
-def fused_layer_supported(cfg, gs, B=1, f_pad=None):
+def fused_layer_supported(cfg, gs, B=1, f_pad=None, wbits=4):
     """The port's limits for K4 (no Mosaic tiling rules, and no cache
     length limit): groups of whole 64-row steps, B <= 64, head_dim a power
     of two in [16, 256], at most 8 query heads per kv head, and an
-    unpadded W2 (f_pad, its input width, == ffn_dim). The weights are
-    4-bit s4r row pairs: the 2/3-bit plane mode is not ported."""
+    unpadded W2 (f_pad, its input width, == ffn_dim). ``wbits`` 4 takes
+    s4r row pairs, 2 or 3 the plane concat; the same limits hold for
+    both (the reference's plane mode needs only whole groups)."""
     dim, F, D = cfg.dim, cfg.ffn_dim, cfg.head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if wbits not in (2, 3, 4):
+        return False
     if gs <= 0 or gs % 64 or not 1 <= B <= MAX_ROWS:
         return False
     if f_pad not in (None, F):
@@ -88,17 +96,47 @@ def _rows_of(bt, block, S):
         bt.shape[0], S)
 
 
+def _qmm_pl_plain(x8, xs, w, scales, zeros, gs, bits):
+    """Plain version of K4's plane step (``_mm_step_planes``): f32 (M, N)
+    = xs * sum_g s_g * (x8_g @ C_g - xsum_g * z_g) over the unsigned codes
+    C of the plane concat w (K, 3N/8 or N/4), N = scales.shape[-1]; the
+    groups in order, each product exact in f32, as the kernel."""
+    K = x8.shape[1]
+    codes = unpack_planes_serving(w, bits, scales.shape[-1]).to(
+        torch.float32)
+    x = x8.to(torch.float32)
+    s = scales.to(torch.float32)
+    z = zeros.to(torch.float32)
+    acc = torch.zeros((x8.shape[0], codes.shape[-1]), dtype=torch.float32,
+                      device=x8.device)
+    for g in range(K // gs):
+        xg = x[:, g * gs:(g + 1) * gs]
+        dot = xg @ codes[g * gs:(g + 1) * gs]
+        xsum = xg.sum(dim=1, keepdim=True)
+        acc = acc + (dot - xsum * z[g]) * s[g]
+    return acc * xs.reshape(-1, 1)
+
+
+def _mm_plain(wbits):
+    """K4's matmul step for one container: s4r row pairs or planes."""
+    if wbits == 4:
+        return _qmm_s4_plain
+    return lambda x8, xs, w, s, z, gs: _qmm_pl_plain(x8, xs, w, s, z, gs,
+                                                     wbits)
+
+
 def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
-                        ks, vs, bt, s_act, gs, eps, Hq, Hkv):
+                        ks, vs, bt, s_act, gs, eps, Hq, Hkv, wbits=4):
     """Plain version of K4. ws = ((wq, sq, zq), (wo, so, zo), (w13, s13,
-    z13), (w2, s2, z2)) layer stacks; the cache is updated in place.
-    Returns the post-backbone rows (B, dim) f32."""
-    B = x.shape[0]
+    z13), (w2, s2, z2)) layer stacks in the ``wbits`` container; the cache
+    is updated in place. Returns the post-backbone rows (B, dim) f32."""
+    B, dim = x.shape
     D = cos.shape[-1]
     HD, KVD = Hq * D, Hkv * D
     block = k.shape[2]
     S_cache = bt.shape[1] * block
-    F = ws[3][0].shape[1] * 2
+    F = ws[3][0].shape[1] * (2 if wbits == 4 else 1)  # W2's rows
+    mm = _mm_plain(wbits)
     lw = torch.clamp(pos.to(torch.long), max=S_cache - 1)
     rows = torch.arange(B, device=x.device)
     blk_w = bt[rows, lw // block].to(torch.long)
@@ -109,7 +147,7 @@ def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
         (wq, sq, zq), (wo, so, zo), (w13, s13, z13), (w2, s2, z2) = (
             tuple(t[li] for t in w) for w in ws)
         xq, xs = _norm_quant(x, attn_norm[li], eps)
-        qkv = _qmm_s4_plain(xq, xs, wq, sq, zq, gs)
+        qkv = mm(xq, xs, wq, sq, zq, gs)
         q = _rope_rows(qkv[:, :HD].reshape(B, Hq, D), cos, sin)
         kr = _rope_rows(qkv[:, HD:HD + KVD].reshape(B, Hkv, D), cos, sin)
         vr = qkv[:, HD + KVD:HD + 2 * KVD].reshape(B, Hkv, D)
@@ -124,13 +162,13 @@ def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
             q8, qs, k[li, blk_r, off_r], v[li, blk_r, off_r],
             ks[li, blk_r, off_r], vs[li, blk_r, off_r], pos)
         a8, a_s = tokenwise_quant(attn.reshape(B, HD))
-        xmid = x + _qmm_s4_plain(a8, a_s, wo, so, zo, gs)
+        xmid = x + mm(a8, a_s, wo, so, zo, gs)[:, :dim]
         xq, xs = _norm_quant(xmid, ffn_norm[li], eps)
-        h = _qmm_s4_plain(xq, xs, w13, s13, z13, gs)
-        g, u = h[:, :F], h[:, F:]
+        h = mm(xq, xs, w13, s13, z13, gs)
+        g, u = h[:, :F], h[:, F:2 * F]
         a = g * (1.0 / (1.0 + torch.exp(-g))) * u
         g8, g_s = tokenwise_quant(a)
-        x = xmid + _qmm_s4_plain(g8, g_s, w2, s2, z2, gs)
+        x = xmid + mm(g8, g_s, w2, s2, z2, gs)[:, :dim]
     return x
 
 
@@ -157,18 +195,37 @@ def _workspace(dev, B, dim, Nq, HD, F, Hq, S_cache):
     return w
 
 
+def _weight_shapes_ok(ws, K_N, gs, wbits):
+    """Every (w, s, z) stack of logical (K, N): s/z (L, K/gs, Ns) and w
+    (L, K/2, Ns) s4r with Ns == N at 4 bits, or the plane concat (L, K,
+    3Ns/8) / (L, K, Ns/4) with Ns >= N a multiple of 8 / 4."""
+    for (w, s, z), (K, N) in zip(ws, K_N):
+        Ns = s.shape[-1]
+        if s.shape[1:] != (K // gs, Ns) or z.shape != s.shape:
+            return False
+        if wbits == 4:
+            want = (K // 2, N) if Ns == N else None
+        elif Ns < N or Ns % (8 if wbits == 3 else 4):
+            want = None
+        else:
+            want = (K, 3 * Ns // 8 if wbits == 3 else Ns // 4)
+        if w.shape[1:] != want:
+            return False
+    return True
+
+
 def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
-            s_act, gs, eps, Hq, Hkv):
+            s_act, gs, eps, Hq, Hkv, F, wbits):
     B, dim = out.shape
     D = cos.shape[-1]
     L = attn_norm.shape[0]
     NB, block = k.shape[1], k.shape[2]
-    F = ws[3][0].shape[1] * 2
     Nq = (Hq + 2 * Hkv) * D
     HD = Hq * D
     S_cache = bt.shape[1] * block
     szt = ws[0][1].dtype
     flat = [t for w in ws for t in w]
+    K_N = ((dim, Nq), (HD, dim), (dim, 2 * F), (F, dim))
     if (B > MAX_ROWS or k.dtype != torch.int8 or ks.dtype != torch.float32
             or k.shape[0] < L or k.shape[3:] != (Hkv, D)
             or szt not in (torch.float32, torch.bfloat16)
@@ -176,10 +233,7 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
             or any(t.dtype != szt for w in ws for t in w[1:])
             or attn_norm.dtype != ffn_norm.dtype
             or attn_norm.dtype not in (torch.float32, torch.bfloat16)
-            or ws[0][0].shape[1:] != (dim // 2, Nq)
-            or ws[1][0].shape[1:] != (HD // 2, dim)
-            or ws[2][0].shape[1:] != (dim // 2, 2 * F)
-            or ws[3][0].shape[1:] != (F // 2, dim)):
+            or not _weight_shapes_ok(ws, K_N, gs, wbits)):
         raise ValueError("fused_decoder_layers: unsupported operands")
     _kernels.require_cuda("fused_decoder_layers", out, pos, cos, sin,
                           attn_norm, ffn_norm, k, v, ks, vs, bt, *flat)
@@ -190,35 +244,47 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
         p(k), p(v), p(ks), p(vs), p(bt), p(pos), p(cos), p(sin), p(out),
         *[p(t) for t in scratch],
         int(szt == torch.bfloat16), int(attn_norm.dtype == torch.bfloat16),
-        L, B, dim, Hq, Hkv, D, F, gs, NB, block, bt.shape[1], s_act,
-        eps, _inv_sqrt(D), _kernels.stream())
+        L, B, dim, Hq, Hkv, D, F, gs, wbits, *[w[1].shape[-1] for w in ws],
+        NB, block, bt.shape[1], s_act, eps, _inv_sqrt(D), _kernels.stream())
     _kernels.check(err, "sbt_layers_fused")
     fused_decoder_layers.launches += 1
+    if wbits != 4:
+        fused_decoder_layers.plane_launches += 1
 
 
 def fused_decoder_layers(x, pos, cos, sin,
                          wq, sq, zq, wo, so, zo, w13, s13, z13, w2, s2, z2,
                          attn_norm, ffn_norm, k, v, ks, vs,
-                         cfg, gs, bt=None, s_active=None):
+                         cfg, gs, bt=None, s_active=None, wbits=4,
+                         li_cache=0):
     """The whole backbone for one token per row, in one launch.
 
     x (B, dim) float -> (out (B, dim) f32 after the last layer, before the
     final norm, and k, v, ks, vs, updated in place). pos (B,) int32: the
     row each token takes (== its attended length); cos/sin (B, D) f32
-    full-width rope terms at pos. Weights are layer stacks of ``s4r``
-    row pairs: wq (L, dim/2, (Hq+2Hkv)D), wo (L, HqD/2, dim), w13 (L,
-    dim/2, 2F) = [gate | up], w2 (L, F/2, dim), with (L, K/gs, N) scales
-    and zeros (one dtype, f32 or bf16); attn_norm/ffn_norm (L, dim).
+    full-width rope terms at pos. Weights are layer stacks (L, ...) with
+    (L, K/gs, Ns) scales and zeros (one dtype, f32 or bf16) and
+    attn_norm/ffn_norm (L, dim); w13 = [gate | up]. ``wbits`` 4: ``s4r``
+    row pairs wq (L, dim/2, (Hq+2Hkv)D), wo (L, HqD/2, dim), w13 (L,
+    dim/2, 2F), w2 (L, F/2, dim), Ns the logical N. ``wbits`` 3 or 2: the
+    plane concat (L, K, 3Ns/8) or (L, K, Ns/4) of each, Ns >= N the
+    padded width (pallas_n_pad).
 
-    Caches: contiguous k/v (L, B, S, Hkv, D) int8 with ks/vs (L, B, S,
-    Hkv) f32 when ``bt`` is None, else pools (L, n_blocks, block, Hkv, D)
-    / (L, n_blocks, block, Hkv) and the block table bt (B, n_chunks).
+    Caches: contiguous k/v (Lc, B, S, Hkv, D) int8 with ks/vs (Lc, B, S,
+    Hkv) f32 when ``bt`` is None, else pools (Lc, n_blocks, block, Hkv, D)
+    / (Lc, n_blocks, block, Hkv) and the block table bt (B, n_chunks).
+    Weight layer l reads and writes cache layer ``li_cache`` + l (a view:
+    a mixed-precision stack runs as one launch per uniform segment).
     ``s_active``: rows [0, s_active) bound the attention (every active
     pos < s_active); default the whole cache.
 
-    CPU tensors take the plain version; CUDA tensors launch K4."""
+    CPU tensors take the plain version; CUDA tensors launch K4 (counted
+    in ``launches``, plane-mode launches also in ``plane_launches``)."""
     B = x.shape[0]
     D = cfg.head_dim
+    L = attn_norm.shape[0]
+    caches = (k, v, ks, vs)
+    kv = [t[li_cache:li_cache + L] for t in caches]
     if bt is None:
         if k.shape[1] != B:
             raise ValueError("contiguous cache rows {} != batch {}".format(
@@ -233,23 +299,24 @@ def fused_decoder_layers(x, pos, cos, sin,
         raise ValueError("cos/sin must be (B, head_dim)")
     if x.device.type == "cpu":
         out = _fused_layers_plain(
-            x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
-            s_act, gs, cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads)
-        return out, k, v, ks, vs
+            x, pos, cos, sin, ws, attn_norm, ffn_norm, *kv, bt, s_act, gs,
+            cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads, wbits)
+        return (out,) + caches
     out = x.to(torch.float32).clone().contiguous()
     _launch(out, pos.to(torch.int32).contiguous(), cos, sin, ws, attn_norm,
-            ffn_norm, k, v, ks, vs, bt.to(torch.int32).contiguous(), s_act,
-            gs, cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads)
-    return out, k, v, ks, vs
+            ffn_norm, *kv, bt.to(torch.int32).contiguous(), s_act, gs,
+            cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim, wbits)
+    return (out,) + caches
 
 
 fused_decoder_layers.launches = 0
+fused_decoder_layers.plane_launches = 0  # of those, in plane mode
 
 
 def fused_decoder_layer(x, pos, cos, sin, li,
                         wq, sq, zq, wo, so, zo, w13, s13, z13, w2, s2, z2,
                         attn_norm, ffn_norm, k, v, ks, vs, cfg, gs, bt=None,
-                        s_active=None):
+                        s_active=None, wbits=4):
     """One decoder layer ``li`` of the stacks: fused_decoder_layers over
     one-layer views of the weights and the cache (no copies). Returns
     (out, k, v, ks, vs) with the whole cache stacks, updated in place."""
@@ -257,6 +324,6 @@ def fused_decoder_layer(x, pos, cos, sin, li,
     out, *_ = fused_decoder_layers(
         x, pos, cos, sin, wq[sl], sq[sl], zq[sl], wo[sl], so[sl], zo[sl],
         w13[sl], s13[sl], z13[sl], w2[sl], s2[sl], z2[sl], attn_norm[sl],
-        ffn_norm[sl], k[sl], v[sl], ks[sl], vs[sl], cfg, gs, bt=bt,
-        s_active=s_active)
+        ffn_norm[sl], k, v, ks, vs, cfg, gs, bt=bt, s_active=s_active,
+        wbits=wbits, li_cache=li)
     return out, k, v, ks, vs

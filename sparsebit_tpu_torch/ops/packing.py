@@ -1,6 +1,6 @@
 """Sub-byte weight packing (port of ``sparsebit_tpu/ops/packing.py``).
 
-Two layouts, bit-identical to the JAX package's:
+Three layouts, bit-identical to the JAX package's:
 
 - the canonical fold layout ("column planes"): b-bit codes packed along the
   output (N) axis, ``byte[k, c]`` holds ``q[k, c + j*(N//p)]`` at bit
@@ -10,6 +10,9 @@ Two layouts, bit-identical to the JAX package's:
   even row in the low nibble. ``s4r`` stores ``code - 8`` as a signed
   nibble (``pack_u4_rows(codes) ^ 0x88``); the W4A8 kernels decode it with
   an arithmetic shift and use ``zero - 8`` in their epilogue.
+- the plane-concat serving layout ``"pl"`` (true-width 2/3-bit): the fold
+  planes as one array per linear, [low2 | high1] (K, 3N/8) at 3 bits and
+  the fold array itself (K, N/4) at 2 bits.
 """
 
 import torch
@@ -53,43 +56,41 @@ def pallas_n_pad(N, bits):
 
 
 def pack_columns(q, bits):
-    """Pack integer codes q (K, N) in [0, 2^bits) along N (fold layout).
+    """Pack integer codes q (..., K, N) in [0, 2^bits) along N (fold
+    layout); leading axes (a layer stack) pass through.
 
     Returns a dict of uint8 tensors: bits 8 -> {"w": (K, N)}, 4 -> {"w":
     (K, N//2)}, 2 -> {"w": (K, N//4)}, 3 -> {"low2": (K, N//4), "high1":
     (K, N//8)}."""
-    K, N = q.shape
+    lead, N = q.shape[:-1], q.shape[-1]
     q = q.to(torch.uint8)
+
+    def fold(codes, p, width):
+        planes = codes.reshape(lead + (p, N // p))
+        out = torch.zeros(lead + (N // p,), dtype=torch.uint8,
+                          device=q.device)
+        for j in range(p):
+            out |= planes[..., j, :] << (j * width)
+        return out
+
     if bits == 8:
         return {"w": q}
     if bits in (4, 2):
         p = 8 // bits
         if N % p:
             raise ValueError("N={} not divisible by fold {}".format(N, p))
-        planes = q.reshape(K, p, N // p)
-        out = torch.zeros((K, N // p), dtype=torch.uint8, device=q.device)
-        for j in range(p):
-            out |= planes[:, j, :] << (j * bits)
-        return {"w": out}
+        return {"w": fold(q, p, bits)}
     if bits == 3:
         if N % 8:
             raise ValueError("3-bit packing needs N divisible by 8")
-        low_planes = (q & 3).reshape(K, 4, N // 4)
-        low2 = torch.zeros((K, N // 4), dtype=torch.uint8, device=q.device)
-        for j in range(4):
-            low2 |= low_planes[:, j, :] << (j * 2)
-        high_planes = ((q >> 2) & 1).reshape(K, 8, N // 8)
-        high1 = torch.zeros((K, N // 8), dtype=torch.uint8, device=q.device)
-        for j in range(8):
-            high1 |= high_planes[:, j, :] << j
-        return {"low2": low2, "high1": high1}
+        return {"low2": fold(q & 3, 4, 2), "high1": fold((q >> 2) & 1, 8, 1)}
     raise ValueError("unsupported bits: {}".format(bits))
 
 
 def unpack_columns(packed, bits, N):
     """Inverse of pack_columns -> uint8 codes (..., K, N); leading axes (a
     layer stack) pass through. A 4-bit ``s4r``/``u4r`` row-pair container
-    alone is unpacked too."""
+    or a 2/3-bit ``"pl"`` plane concat alone is unpacked too."""
     if bits == 8:
         return packed["w"]
     if bits == 4 and "w" not in packed:
@@ -97,6 +98,9 @@ def unpack_columns(packed, bits, N):
             return unpack_s4_rows(packed["s4r"])
         if "u4r" in packed:
             return unpack_u4_rows(packed["u4r"])
+    if bits in (2, 3) and "pl" in packed and "w" not in packed \
+            and "low2" not in packed:
+        return unpack_planes_serving(packed["pl"], bits, N)
     if bits in (4, 2):
         p = 8 // bits
         w = packed["w"]
@@ -113,4 +117,27 @@ def unpack_columns(packed, bits, N):
             [(high1 >> j) & 1 for j in range(8)], dim=-2
         ).reshape(lead + (N,))
         return low | (high << 2)
+    raise ValueError("unsupported bits: {}".format(bits))
+
+
+def pack_planes_serving(codes, bits):
+    """The true-width serving concat of the fold planes (packing.py:221):
+    3 bits -> (K, 3N/8) [low2 (K, N/4) | high1 (K, N/8)] columns; 2 bits ->
+    the (K, N/4) fold array as it is."""
+    packed = pack_columns(codes, bits)
+    if bits == 3:
+        return torch.cat([packed["low2"], packed["high1"]], dim=-1)
+    if bits == 2:
+        return packed["w"]
+    raise ValueError("plane serving covers bits 2/3, got {}".format(bits))
+
+
+def unpack_planes_serving(pl, bits, N):
+    """Inverse of pack_planes_serving -> uint8 codes (..., K, N)."""
+    if bits == 3:
+        NP = N // 8
+        return unpack_columns(
+            {"low2": pl[..., :2 * NP], "high1": pl[..., 2 * NP:]}, 3, N)
+    if bits == 2:
+        return unpack_columns({"w": pl}, 2, N)
     raise ValueError("unsupported bits: {}".format(bits))

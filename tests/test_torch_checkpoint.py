@@ -141,7 +141,7 @@ def test_jax_checkpoint_loads_in_the_port(checkpoint):
     jl, jc = JD.prefill(jparams, jnp.asarray(prompt), j_init(jcfg, 2, 16),
                         jcfg)
     tl, tc = TD.prefill(tparams, torch.from_numpy(prompt).long(),
-                        init_kv_cache(tcfg, 2, 16), tcfg)
+                        init_kv_cache(tcfg, 2, 16, device="cpu"), tcfg)
     rows = [(np.asarray(jl, np.float32), tl.numpy())]
     tok = rows[0][0].argmax(-1).astype(np.int32)
     jl, _ = JD.decode_step(jparams, jnp.asarray(tok), jc, jcfg)

@@ -75,7 +75,8 @@ def test_teacher_forced_decode_step_matches_jax(model, attn_kernel,
     cfg_j, qparams, cfg_t, tparams = model
     prompt = _prompt()
     jc = j_init(cfg_j, 2, 32, kv_quantized)
-    tc = init_kv_cache(cfg_t, 2, 32, quantized=kv_quantized)
+    tc = init_kv_cache(cfg_t, 2, 32, device="cpu",
+                       quantized=kv_quantized)
     jl, jc = JD.prefill(qparams, jnp.asarray(prompt), jc, cfg_j)
     tl, tc = TD.prefill(tparams, torch.from_numpy(prompt).long(), tc, cfg_t)
     rows = [(np.asarray(jl, np.float32), tl.numpy())]
@@ -108,7 +109,7 @@ def test_decode_step_takes_k5_and_k8(model, monkeypatch):
                         count("attn", TA._decode_attn_plain))
     monkeypatch.setattr(TQ, "_qmm_planes_plain",
                         count("k8", TQ._qmm_planes_plain))
-    tc = init_kv_cache(cfg_t, 2, 16)
+    tc = init_kv_cache(cfg_t, 2, 16, device="cpu")
     tc.length = torch.tensor([3, 9], dtype=torch.int32)
     TD.decode_step(tparams, torch.tensor([1, 2], dtype=torch.int32), tc,
                    cfg_t)
@@ -142,7 +143,7 @@ def test_generate_greedy_matches_jax(model, attn_kernel):
     np.testing.assert_array_equal(
         np.asarray(JD.generate(qparams, jnp.asarray(prompt), cfg_j,
                                max_new_tokens=n)), ref)
-    tc = init_kv_cache(cfg_t, 2, prompt.shape[1] + n)
+    tc = init_kv_cache(cfg_t, 2, prompt.shape[1] + n, device="cpu")
     lt, tc = TD.prefill(tparams, torch.from_numpy(prompt).long(), tc, cfg_t)
     err = np.abs(lt.numpy() - rows[0]).max()
     for t in range(n - 1):
@@ -224,7 +225,7 @@ def test_decode_chunk_is_the_decode_step_loop(model):
     tok0 = torch.tensor([3, 77], dtype=torch.int32)
     caches = []
     for _ in range(3):
-        c = init_kv_cache(cfg_t, 2, 16)
+        c = init_kv_cache(cfg_t, 2, 16, device="cpu")
         c.length = torch.tensor([0, 5], dtype=torch.int32)
         caches.append(c)
     toks, c0 = TD.decode_chunk(tparams, tok0, caches[0], torch.zeros(2),

@@ -299,7 +299,7 @@ def test_teacher_forced_logits_match_jax(model, forced_kernels, route):
     jl, jc = JD.prefill_at(jp, jnp.asarray(toks), j_init(cfg_j, B, 32),
                            cfg_j, jnp.asarray(last), jnp.asarray(off))
     tl, tc = TD.prefill_at(tp, torch.from_numpy(toks),
-                           init_kv_cache(cfg_t, B, 32), cfg_t,
+                           init_kv_cache(cfg_t, B, 32, device="cpu"), cfg_t,
                            torch.from_numpy(last), torch.from_numpy(off))
     rows = [(np.asarray(jl, np.float32), tl.numpy())]
     tok = rows[0][0].argmax(-1).astype(np.int32)
@@ -324,7 +324,7 @@ def test_teacher_forced_logits_match_jax(model, forced_kernels, route):
                            quant_mode="int8", cfg=cfg_j)
             lt = TD._forward_scanned_kvs(
                 tstk, torch.from_numpy(tok)[:, None], tc.length[:, None],
-                TD._scan_cache(tc), cfg_t)
+                None, TD._scan_cache(tc), "int8", cfg_t)
             jlen, tc.length = jlen + 1, tc.length + 1
             rows.append((np.asarray(lj[:, 0], np.float32),
                          lt[:, 0].numpy()))
@@ -351,7 +351,7 @@ def test_decode_tokens_scanned_kvs_is_greedy_chunk(model, monkeypatch,
     tok0 = torch.tensor([3, 77], dtype=torch.int32)
     caches = []
     for _ in range(2):
-        c = init_kv_cache(cfg_t, 2, 16)
+        c = init_kv_cache(cfg_t, 2, 16, device="cpu")
         c.length = torch.tensor([0, 5], dtype=torch.int32)
         caches.append(c)
     toks, _, length = TD.decode_tokens_scanned_kvs(

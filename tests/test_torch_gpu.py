@@ -344,3 +344,109 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda, impl):
         top2 = torch.topk(b, 2, dim=-1).values
         decisive = (top2[:, 0] - top2[:, 1]) > 0.2
         assert torch.equal(a.argmax(-1)[decisive], b.argmax(-1)[decisive])
+
+
+def _k4_plane_operands(dev, B, S, bits, n_blocks=None, seed=0):
+    """The tiny K4 operands with every linear in the true-width plane
+    concat at ``bits`` (N padded as the JAX package pads it: Wqkv 1536 ->
+    2048 at 3 bits, W13 768 -> 1024) and bf16 qparams."""
+    from sparsebit_tpu_torch.ops.packing import (pack_planes_serving,
+                                                 pallas_n_pad)
+
+    cfg, x, pos, cos, sin, _, norms, cache = _k4_operands(dev, B, S,
+                                                          n_blocks,
+                                                          seed=seed)
+    rng = np.random.default_rng(seed + 50)
+    ws = []
+    for K, N in ((512, 1536), (512, 512), (512, 768), (384, 512)):
+        Np = N + pallas_n_pad(N, bits)
+        codes = torch.from_numpy(rng.integers(0, 2 ** bits, (2, K, Np)).astype(
+            np.uint8))
+        s = torch.from_numpy(rng.uniform(0.002, 0.02, (2, K // 64, Np)).astype(
+            np.float32)).to(torch.bfloat16)
+        z = torch.from_numpy(rng.integers(0, 2 ** bits, (2, K // 64, Np)
+                                          ).astype(np.float32)).to(
+            torch.bfloat16)
+        ws += [pack_planes_serving(codes, bits).to(dev), s.to(dev), z.to(dev)]
+    return cfg, x, pos, cos, sin, ws, norms, cache
+
+
+@pytest.mark.parametrize("bits", [3, 2])
+@pytest.mark.parametrize("B,paged", [(1, False), (8, False), (8, True)])
+def test_k4_plane_mode_matches_plain(cuda, bits, B, paged):
+    """K4's plane mode against its plain version on the same card: output,
+    KV codes and scales bit for bit (every float sum in one order)."""
+    S, bt, n_blocks = 256, None, None
+    if paged:
+        n_blocks = 2 * B + 3
+        perm = np.random.default_rng(B).permutation(n_blocks)[:2 * B]
+        bt = torch.from_numpy(perm.reshape(B, 2).astype(np.int32)).to(cuda)
+    cfg, x, pos, cos, sin, ws, norms, cache = _k4_plane_operands(
+        cuda, B, S, bits, n_blocks)
+    plain = [t.clone() for t in cache]
+    before = LF.fused_decoder_layers.launches
+    out, *_ = LF.fused_decoder_layers(x, pos, cos, sin, *ws, *norms, *cache,
+                                      cfg, 64, bt=bt, wbits=bits)
+    if bt is None:
+        bt = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    ref = LF._fused_layers_plain(
+        x, pos, cos, sin, [tuple(ws[i:i + 3]) for i in range(0, 12, 3)],
+        *norms, *plain, bt, bt.shape[1] * cache[0].shape[2], 64,
+        cfg.rms_eps, 4, 4, wbits=bits)
+    torch.cuda.synchronize()
+    assert LF.fused_decoder_layers.launches == before + 1
+    for a, b in zip(cache, plain):
+        assert torch.equal(a, b)
+    assert torch.equal(out, ref)
+
+
+def test_decode_step_scanned_planes_on_the_card_matches_the_cpu(cuda):
+    """An int3 model served as planes (prepare_params_host(sub4="planes")):
+    prefill_scanned and three decode_step_scanned on the card (K4 in plane
+    mode) and on the CPU (the plain versions), the CPU's greedy tokens fed
+    to both: logits within atol 0.1, argmax equal where the top-2 margin
+    exceeds 0.2."""
+    from sparsebit_tpu_torch.llm import decode as D
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+    from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
+
+    cfg = llama_tiny(dim=512, n_heads=4, n_kv_heads=4, ffn_dim=384)
+    rng = np.random.default_rng(12)
+
+    def lin(K, N):
+        w = rng.standard_normal((K, N)).astype(np.float32) * 0.05
+        return QuantLinear.from_dense(torch.from_numpy(w), bits=3,
+                                      groupsize=64)
+
+    emb = torch.from_numpy(rng.standard_normal((cfg.vocab_size, 512)).astype(
+        np.float32) * 0.02).to(torch.bfloat16)
+    ones = torch.ones(512, dtype=torch.bfloat16)
+    params = {"tok_embed": emb, "norm": ones,
+              "lm_head": DenseLinear(emb.t().contiguous()),
+              "layers": [{"wqkv": lin(512, 1536), "wo": lin(512, 512),
+                          "w13": lin(512, 768), "w2": lin(384, 512),
+                          "attn_norm": ones, "ffn_norm": ones}
+                         for _ in range(cfg.n_layers)]}
+    stacked = D.stack_layers(D.prepare_params_host(params, sub4="planes"))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    rows, toks = {}, None
+    before = LF.fused_decoder_layers.launches
+    for dev in ("cpu", cuda):
+        p = _to(stacked, dev)
+        cache = init_kv_cache(cfg, 2, 16, device=dev)
+        lg, cache = D.prefill_scanned(p, prompt.to(dev), cache, cfg)
+        out, fed = [lg.cpu()], []
+        for t in range(3):
+            tok = (lg.argmax(-1).to(torch.int32) if toks is None
+                   else toks[t].to(dev))
+            fed.append(tok.cpu())
+            lg, cache = D.decode_step_scanned(p, tok, cache, cfg)
+            out.append(lg.cpu())
+        rows[str(dev)], toks = out, fed
+    torch.cuda.synchronize()
+    assert LF.fused_decoder_layers.launches == before + 3
+    for a, b in zip(rows[str(cuda)], rows["cpu"]):
+        assert (a - b).abs().max().item() <= 0.1
+        top2 = torch.topk(b, 2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > 0.2
+        assert torch.equal(a.argmax(-1)[decisive], b.argmax(-1)[decisive])

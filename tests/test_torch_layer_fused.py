@@ -317,14 +317,16 @@ def _tiny_model_layers(F=384):
 
 def test_route_predicate(monkeypatch):
     """A fused s4r model takes the megakernel route on the CPU as on the
-    card; FORCE_LAYER_KERNEL = False sends it to the unfused route, and
-    a shape K4 does not take (B > 64) stays unfused."""
+    card, over an int8 cache only; FORCE_LAYER_KERNEL = False sends it to
+    the unfused route, and a shape K4 does not take (B > 64) stays
+    unfused."""
     cfg, layers = _tiny_model_layers()
-    assert TD._scan_uses_layer_kernel(1, layers, cfg, 8)
-    assert not TD._scan_uses_layer_kernel(4, layers, cfg, 8)
-    assert not TD._scan_uses_layer_kernel(1, layers, cfg, 65)
+    assert TD._scan_uses_layer_kernel(1, layers, "int8", cfg, 8)
+    assert not TD._scan_uses_layer_kernel(1, layers, False, cfg, 8)
+    assert not TD._scan_uses_layer_kernel(4, layers, "int8", cfg, 8)
+    assert not TD._scan_uses_layer_kernel(1, layers, "int8", cfg, 65)
     monkeypatch.setattr(TD, "FORCE_LAYER_KERNEL", False)
-    assert not TD._scan_uses_layer_kernel(1, layers, cfg, 8)
+    assert not TD._scan_uses_layer_kernel(1, layers, "int8", cfg, 8)
     assert TD._layer_kernel_ok(layers, cfg, 8)
 
 
