@@ -70,6 +70,7 @@ import time
 H100_HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 SEED = 0
+K5_ENTRY = "sbt_decode_attention"  # K5's C entry point (KernelEvents names)
 
 failures = []
 
@@ -102,6 +103,38 @@ def cuda_ms(fn, iters, warmup=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters):
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed, so that the host's time to issue them is not
+    counted (beside cuda_ms, which times the calls as issued). None, with
+    the reason printed, where a call cannot be captured."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(2):
+                fn(i)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(iters):
+                fn(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+    except RuntimeError as e:
+        print("graph timing unavailable: {}".format(e), flush=True)
+        return None
 
 
 def bound_ms(nbytes, ops, kind):
@@ -232,14 +265,24 @@ def kernel_checks(stacked, cfg, results):
     Lx = cfg.n_layers
 
     def record(name, kernel, src, replaces, err, tol, ms, plain_ms,
-               bnd, lib_ms, shape):
+               bnd, lib_ms, shape, gms=None):
         ok = err <= tol
+        # share of the bound reached (bound / ms) and ms over the library's
+        frac = bnd[0] / ms
+        vs_lib = None if lib_ms is None else ms / lib_ms
         print("{:<4} {:<34} err {:.3e} tol {:.3e} {} | {:.4f} ms "
-              "plain {:.4f} ms bound {:.4f} ms ({}) lib {}".format(
+              "plain {:.4f} ms bound {:.4f} ms ({}, {:.1%} of it) lib "
+              "{}".format(
                   kernel, shape, err, tol, "ok" if ok else "BAD", ms,
-                  plain_ms, bnd[0], bnd[1],
-                  "-" if lib_ms is None else "{:.4f} ms".format(lib_ms)),
+                  plain_ms, bnd[0], bnd[1], frac,
+                  "-" if lib_ms is None else "{:.4f} ms (kernel/lib "
+                  "{:.2f}x)".format(lib_ms, vs_lib)),
               flush=True)
+        if gms:  # device ms from graph replay: kernel, library
+            print("{:<4} {:<34} device (graph replay) {} ms, lib {} "
+                  "ms".format(kernel, shape, *("-" if t is None else
+                                                "{:.4f}".format(t)
+                                                for t in gms)), flush=True)
         if not ok:
             fail("{} {} error {:.3e} > {:.3e}".format(kernel, shape, err,
                                                       tol))
@@ -249,7 +292,10 @@ def kernel_checks(stacked, cfg, results):
                 "source": src, "replaces": replaces, "shape": shape,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+                "bound_frac": frac, "ms_over_library": vs_lib,
             })
+            if gms:
+                results[-1].update(device_ms=gms[0], library_device_ms=gms[1])
 
     # K1 at M in {1, 8, 64, 512} on the four 7B matmuls
     k1_src = "sparsebit_tpu_torch/csrc/quant_matmul.cu"
@@ -362,13 +408,15 @@ def kernel_checks(stacked, cfg, results):
         ms = cuda_ms(lambda i: MV.bf16_matvec(x, W), 20)
         pms = cuda_ms(lambda i: MV._bf16_matvec_plain(x, W), 5, 1)
         lms = cuda_ms(lambda i: torch.matmul(x, W), 20)
+        gms = (graph_ms(lambda i: MV.bf16_matvec(x, W), 20),
+               graph_ms(lambda i: torch.matmul(x, W), 20))
         nbytes = 2 * cfg.dim * W.shape[1] + 2 * Bm * cfg.dim \
             + 4 * Bm * W.shape[1]
         bnd = bound_ms(nbytes, 2 * Bm * cfg.dim * W.shape[1], "bf16")
-        record("K9 B={}".format(Bm) if Bm == 8 else None, "K9",
+        record("K9 B={}".format(Bm), "K9",
                "sparsebit_tpu_torch/csrc/matvec.cu",
                "sparsebit_tpu/ops/matvec.py:21", err, tol, ms, pms, bnd, lms,
-               "B={} {}->{}".format(Bm, cfg.dim, W.shape[1]))
+               "B={} {}->{}".format(Bm, cfg.dim, W.shape[1]), gms)
 
     k4_checks(stacked, cfg, record, g)
     k4_plane_checks(cfg, record, g)
@@ -494,7 +542,7 @@ def k5_checks(cfg, record, g):
         err = (out - ref).abs().max().item()
         ms = cuda_ms(run, 20)
         pms = cuda_ms(plain, 3, 1)
-        lms = None
+        lms = lib = None
         if not quant:
             qb = q.to(torch.bfloat16)[:, :, None]
             mask = (torch.arange(S, device=dev)[None, :]
@@ -507,6 +555,7 @@ def k5_checks(cfg, record, g):
                     attn_mask=mask)
 
             lms = cuda_ms(lib, 20)
+        gms = (graph_ms(run, 20), None if lib is None else graph_ms(lib, 20))
         rows = int(length.sum().item()) + B
         row_bytes = Hkv * (2 * D + 8) if quant else Hkv * 4 * D
         nbytes = rows * row_bytes + 2 * 4 * B * H * D + 4 * B
@@ -517,7 +566,7 @@ def k5_checks(cfg, record, g):
         record("K5 " + tag if named else None, "K5",
                "sparsebit_tpu_torch/csrc/decode_attention.cu",
                "sparsebit_tpu/ops/attention.py:499", err, 2e-4, ms, pms, bnd,
-               lms, tag)
+               lms, tag, gms)
         del k, v, ks, vs
     torch.cuda.empty_cache()
 
@@ -843,11 +892,13 @@ def _prompts(cfg, with_prefix_pair=False):
 
 
 def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
-          time_k4=False):
+          time_k4=False, timer=None):
     """Run one engine over ``prompts`` (greedy, n_new tokens each) with
     every kernel count set to 0 just before and read just after: fails if
     a kernel of ``expect`` was not launched, a request got another number
-    of tokens or a logit row was not finite. Returns (results, stats)."""
+    of tokens or a logit row was not finite. With a KernelEvents ``timer``
+    (patched in), the kernels of the decode chunks are timed: their device
+    ms per step, and K5's. Returns (results, stats)."""
     import torch
     from sparsebit_tpu_torch.llm import decode as Dm
     from sparsebit_tpu_torch.llm import serving as Sv
@@ -865,7 +916,11 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
     def chunk_timed(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        if timer is not None:
+            timer.on = True
         out = orig_chunk(*a, **kw)
+        if timer is not None:
+            timer.on = False
         torch.cuda.synchronize()
         chunk_s.append((time.perf_counter() - t, a[6]))
         return out
@@ -884,6 +939,8 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
     if time_k4:
         Dm.fused_decoder_layers = k4_timed
     rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    if timer is not None:
+        timer.events = []
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -915,6 +972,14 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
     if time_k4:
         stats["k4_device_ms_per_step"] = sum(
             a.elapsed_time(b) for a, b in k4_ev) / len(k4_ev)
+    if timer is not None:
+        dev_ms, by = timer.take_ms()
+        stats["kernel_device_ms_per_step"] = dev_ms / steps
+        stats["k5_device_ms_per_step"] = by.get(K5_ENTRY, 0.0) / steps
+        print("{}: K5 {:.4f} ms/step device of the decode kernels' "
+              "{:.3f}".format(path, stats["k5_device_ms_per_step"],
+                              stats["kernel_device_ms_per_step"]),
+              flush=True)
     print("{}: {} requests, {} tokens, run {:.3f} s; decode {} steps at "
           "B={}, {:.3f} ms/step, {:.1f} tok/s{}; launches {}".format(
               path, stats["requests"], stats["tokens"], wall, steps, B,
@@ -959,6 +1024,13 @@ def plain_versions():
         x = x if a8 else x.float()
         return QM._qmm_planes_plain(x, packed, s, z, 3, gs, N)
 
+    def attn(q, k, v, ks, vs, length, li=None):
+        if li is not None:
+            k, v = k[li], v[li]
+            ks = None if ks is None else ks[li]
+            vs = None if vs is None else vs[li]
+        return A._decode_attn_plain(q, k, v, ks, vs, length)
+
     def s4(x8, xs, wt, s, z, gs, li=None):
         if li is not None:
             wt, s, z = wt[li], s[li], z[li]
@@ -969,7 +1041,7 @@ def plain_versions():
                      (QM, "quant_matmul_w_a8", w_a8),
                      (QM, "quant_matmul_3bit", three),
                      (QM, "quant_matmul_s4", s4),
-                     (A, "decode_attention", A._decode_attn_plain)])
+                     (A, "decode_attention", attn)])
 
 
 class KernelEvents:
@@ -987,12 +1059,12 @@ class KernelEvents:
 
         class Lib:
             def __getattr__(self, name):
-                return timer._wrap(getattr(real(), name))
+                return timer._wrap(name, getattr(real(), name))
 
         lib = Lib()
         self.patch = _Patched([(_kernels, "lib", lambda: lib)])
 
-    def _wrap(self, fn):
+    def _wrap(self, name, fn):
         import torch
 
         def timed(*a):
@@ -1003,17 +1075,21 @@ class KernelEvents:
             ev[0].record()
             out = fn(*a)
             ev[1].record()
-            self.events.append(ev)
+            self.events.append((name, ev))
             return out
         return timed
 
     def take_ms(self):
+        """(total device ms, {C entry point: device ms}) since the last
+        take."""
         import torch
 
         torch.cuda.synchronize()
-        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        by = {}
+        for name, (a, b) in self.events:
+            by[name] = by.get(name, 0.0) + a.elapsed_time(b)
         self.events = []
-        return ms
+        return sum(by.values()), by
 
 
 def _logits_agree(a, b, atol=0.1):
@@ -1093,14 +1169,16 @@ def run_generate(params, cfg, prompt, n_new, timer, tag, **kw):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     timer.on = False
-    dev_ms = timer.take_ms()
+    dev_ms, by = timer.take_ms()
     launches = _launches()
     n = times["steps"]
     stats = {"B": prompt.shape[0], "prompt": prompt.shape[1],
              "new_tokens": n_new, "prefill_s": times["prefill"],
              "decode_steps": n,
              "wall_ms_per_step": 1e3 * (wall - times["prefill"]) / n,
-             "kernel_device_ms_per_step": dev_ms / n, "launches": launches}
+             "kernel_device_ms_per_step": dev_ms / n,
+             "k5_device_ms_per_step": by.get(K5_ENTRY, 0.0) / n,
+             "launches": launches}
     ok = (tuple(toks.shape) == (prompt.shape[0], n_new)
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
           and all(bool(f.item()) for f in finite))
@@ -1109,6 +1187,9 @@ def run_generate(params, cfg, prompt, n_new, timer, tag, **kw):
               tag, stats["B"], stats["prompt"], n_new, stats["prefill_s"],
               stats["wall_ms_per_step"], stats["kernel_device_ms_per_step"],
               launches), flush=True)
+    print("{}: K5 {:.4f} ms/step device of the kernels' {:.3f}".format(
+        tag, stats["k5_device_ms_per_step"],
+        stats["kernel_device_ms_per_step"]), flush=True)
     if not ok:
         fail("{}: tokens {} not of shape ({}, {}) in the vocabulary, or "
              "logits not finite".format(tag, tuple(toks.shape),
@@ -1215,17 +1296,18 @@ def generate_paths(cfg):
         del loaded, pm
         torch.cuda.empty_cache()
 
-    cfg_c = dataclasses.replace(cfg, n_layers=depth)
-    params = build_plane_params(
-        cfg_c, torch.device("cuda"),
-        lambda li, n: (4, 8)[(li + UNFUSED.index(n)) % 2], SEED + 9)
-    eng = Sv.DecodeEngine(params, cfg_c, max_batch=8, max_len=512, chunk=8,
-                          device="cuda")
-    if eng._stacked_chunks:
-        fail("chunk: DecodeEngine put a model K4 refuses on K4")
-    _, st = drive(eng, _prompts(cfg), "decode_chunk",
-                  "chunk (DecodeEngine on decode_chunk, 4/8-bit, depth "
-                  "{})".format(depth), ("K1", "K5", "K6"), n_new=16)
+        cfg_c = dataclasses.replace(cfg, n_layers=depth)
+        params = build_plane_params(
+            cfg_c, torch.device("cuda"),
+            lambda li, n: (4, 8)[(li + UNFUSED.index(n)) % 2], SEED + 9)
+        eng = Sv.DecodeEngine(params, cfg_c, max_batch=8, max_len=512,
+                              chunk=8, device="cuda")
+        if eng._stacked_chunks:
+            fail("chunk: DecodeEngine put a model K4 refuses on K4")
+        _, st = drive(eng, _prompts(cfg), "decode_chunk",
+                      "chunk (DecodeEngine on decode_chunk, 4/8-bit, depth "
+                      "{})".format(depth), ("K1", "K5", "K6"), n_new=16,
+                      timer=timer)
     _expect("chunk", st["launches"], (), ("K4",))
     st["depth"] = depth
     out["chunk"] = st

@@ -13,6 +13,7 @@ Nothing here runs at import: the CPU tests import every module.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -42,12 +43,14 @@ SIGNATURES = {
     "sbt_attn_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _F, _P],
     # decode_attention.cu (K5)
-    "sbt_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # (+ scratch: split partials, rows per split)
+    "sbt_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P, _P, _I, _P],
     # quant_matmul_planes.cu (K6, K7, K8)
     "sbt_qmm_planes": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I, _I,
                        _I, _I, _P],
     # matvec.cu (K9)
-    "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P],
+    # (+ scratch: K-split partials, splits)
+    "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # layer_fused.cu (K4): 12 weight/qparam stacks, 2 norms, 4 cache
     # pools, bt, pos, cos, sin, x, 9 scratch buffers; 19 ints, 2 floats
     "sbt_layers_fused": [_P] * 32 + [_I] * 19 + [_F, _F, _P],
@@ -152,6 +155,18 @@ def stream():
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device):
+    """Streaming multiprocessors of a CUDA device (grid sizing)."""
+    return _sm_count(device.index if device.index is not None else 0)
 
 
 def require_cuda(name, *tensors):

@@ -5,7 +5,9 @@ form of ``_flat_attention_rows_int8``).
 
 Kernel K5 (``csrc/decode_attention.cu``) replaces ``_decode_attn_kernel``
 (attention.py:499): f32 attention over an int8 or bf16 cache for the
-non-scanned ``decode_step``.
+non-scanned ``decode_step``, as flash-decoding splits of the rows and a
+merge in split order (``_decode_attn_split_plain`` is that algorithm on
+the CPU).
 
 Kernel K2 (``csrc/attention.cu``) replaces ``_attn_update_kernel``
 (attention.py:662). The cache layout is the port's own: k, v (L, B, S,
@@ -21,12 +23,15 @@ order of the kernel's 256-thread block reductions (``ordered_sum``), so
 that the kernel and this version agree bit for bit on the card.
 """
 
+import functools
+
 import torch
 
 from sparsebit_tpu_torch.ops import _kernels
 from sparsebit_tpu_torch.ops.int8_matmul import INV_127
 
 
+@functools.lru_cache(maxsize=None)
 def _inv_sqrt(D):
     """1/sqrt(D) rounded once to f32, as the reference's Python scalar."""
     return torch.tensor(1.0 / (D ** 0.5), dtype=torch.float32).item()
@@ -156,23 +161,113 @@ def _decode_attn_plain(q, k, v, ks, vs, length):
     return torch.einsum("bhs,bshd->bhd", p, vf) / denom
 
 
-def decode_attention(q, k, v, k_scale, v_scale, length):
+def rows_per_split(B, S, Hkv, n_rep, sms):
+    """K5's rows a block (a flash-decoding split): 256, halved down to 64
+    until the grid (Hkv x query groups of up to 8 heads, B, splits) holds
+    at least two blocks per SM."""
+    blocks = B * Hkv * -(-n_rep // 8)
+    R = 256
+    while R > 64 and blocks * -(-S // R) < 2 * sms:
+        R //= 2
+    return R
+
+
+def _decode_attn_split_plain(q, k, v, ks, vs, length, rows_per_split,
+                             tile_rows=None):
+    """K5's split algorithm on the CPU, its oracle: the rows cut into
+    splits of ``rows_per_split``; each split yields (m, l, acc) by an
+    online softmax over its rows in tiles of ``tile_rows`` (default: one
+    tile): running max m, sum l rescaled by e^(m_old - m_new), accumulator
+    of (p * vs) . v rescaled alike (the kernel's warps each run one over
+    their passes of the split and merge in warp order the same way); the
+    splits merge in split order, m = max m_j, l = sum e^(m_j - m) l_j, out
+    = sum e^(m_j - m) acc_j / l. A split wholly past length[b] has m =
+    -inf and weight 0. Same operands and result as _decode_attn_plain."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    n_rep = H // Hkv
+    tile_rows = tile_rows or rows_per_split
+
+    def per_q_head(t):  # (B, S, Hkv, ...) -> (B, S, H, ...)
+        return torch.repeat_interleave(t, n_rep, dim=2)
+
+    kf = per_q_head(k.to(torch.float32))
+    vf = per_q_head(v.to(torch.float32))
+    scores = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), kf)
+    if ks is not None:
+        scores = scores * per_q_head(ks).transpose(1, 2)
+    scores = scores * _inv_sqrt(D)
+    vsq = None if vs is None else per_q_head(vs).transpose(1, 2)
+    last = torch.clamp(length.to(torch.long), max=S - 1)[:, None, None]
+    dev = q.device
+    ms, ls, accs = [], [], []
+    for s0 in range(0, S, rows_per_split):
+        m = torch.full((B, H), float("-inf"), device=dev)
+        l = torch.zeros((B, H), device=dev)
+        acc = torch.zeros((B, H, D), device=dev)
+        for t0 in range(s0, min(s0 + rows_per_split, S), tile_rows):
+            rows = slice(t0, min(t0 + tile_rows, s0 + rows_per_split, S))
+            valid = torch.arange(S, device=dev)[rows][None, None, :] <= last
+            sc = torch.where(valid, scores[..., rows],
+                             torch.full_like(scores[..., rows],
+                                             float("-inf")))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            # a tile (hence a split) wholly past the length keeps m = -inf
+            safe = torch.where(torch.isfinite(m_new), m_new,
+                               torch.zeros_like(m_new))
+            p = torch.where(valid, torch.exp(sc - safe[..., None]),
+                            torch.zeros_like(sc))
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - safe),
+                                torch.zeros_like(m))
+            l = l * alpha + p.sum(dim=-1)
+            if vsq is not None:
+                p = p * vsq[..., rows]
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhs,bshd->bhd", p, vf[:, rows])
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    m_all = torch.stack(ms).amax(dim=0)
+    l_out = torch.zeros((B, H), device=dev)
+    out = torch.zeros((B, H, D), device=dev)
+    for m_j, l_j, acc_j in zip(ms, ls, accs):
+        w = torch.where(torch.isfinite(m_j), torch.exp(m_j - m_all),
+                        torch.zeros_like(m_j))
+        l_out = l_out + w * l_j
+        out = out + w[..., None] * acc_j
+    return out / l_out[..., None]
+
+
+def decode_attention(q, k, v, k_scale, v_scale, length, li=None):
     """K5 wrapper (attention.py:557-598): q (B, H, D) float; k/v (B, S,
     Hkv, D) int8 with k_scale/v_scale (B, S, Hkv) f32, or bf16 with scales
     None; length (B,) int32, rows [0, length[b]] attend (the current
-    token's row is already in the cache). Returns (B, H, D) f32.
+    token's row is already in the cache). With ``li``, k/v (and the
+    scales) are layer stacks (L, B, S, Hkv, D) and layer li is read in
+    place. Returns (B, H, D) f32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (flash-decoding splits of ``rows_per_split`` rows, then their merge;
+    ``_decode_attn_split_plain`` is its CPU oracle). The kernel copies
+    cache rows 16 bytes at a time: k and v must be 16-byte aligned."""
     if q.device.type == "cpu":
+        if li is not None:
+            k, v = k[li], v[li]
+            k_scale = None if k_scale is None else k_scale[li]
+            v_scale = None if v_scale is None else v_scale[li]
         return _decode_attn_plain(q, k, v, k_scale, v_scale, length)
     B, H, D = q.shape
-    Bc, S, Hkv, Dc = k.shape
+    Bc, S, Hkv, Dc = k.shape[-4:]
     quant = k.dtype == torch.int8
     if (Bc, Dc) != (B, D) or v.shape != k.shape or v.dtype != k.dtype \
             or H % Hkv or D % 32 or D > 256 \
+            or k.dim() != (4 if li is None else 5) \
+            or (li is not None and not 0 <= li < k.shape[0]) \
             or k.dtype not in (torch.int8, torch.bfloat16):
         raise ValueError("decode_attention: unsupported operands q {} k {} "
-                         "{}".format(tuple(q.shape), tuple(k.shape), k.dtype))
+                         "{} li {}".format(tuple(q.shape), tuple(k.shape),
+                                           k.dtype, li))
     qf = q.to(torch.float32).contiguous()
     ln = length.to(torch.int32).contiguous()
     if quant:
@@ -181,11 +276,26 @@ def decode_attention(q, k, v, k_scale, v_scale, length):
     else:
         scales = (qf, qf)  # never read for a bf16 cache
     _kernels.require_cuda("decode_attention", qf, k, v, *scales, ln)
+
+    def at(t):  # layer li of a stack: a pointer offset, never a view
+        if li is None or t is qf:
+            return t.data_ptr()
+        return t.data_ptr() + li * t.stride(0) * t.element_size()
+
+    kp, vp = at(k), at(v)
+    if (D * k.element_size()) % 16 or kp % 16 or vp % 16:
+        raise ValueError("decode_attention: k and v rows must be 16-byte "
+                         "aligned")
+    R = rows_per_split(B, S, Hkv, H // Hkv, _kernels.sm_count(q.device))
+    splits = -(-S // R)
     out = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    # split partials: acc (B, H, splits, D), then (m, l) (B, H, splits, 2)
+    part = torch.empty((B * H * splits * (D + 2),), dtype=torch.float32,
+                       device=q.device)
     err = _kernels.lib().sbt_decode_attention(
-        _kernels.ptr(qf), _kernels.ptr(k), _kernels.ptr(v),
-        _kernels.ptr(scales[0]), _kernels.ptr(scales[1]), _kernels.ptr(ln),
-        _kernels.ptr(out), int(not quant), B, S, Hkv, H, D, _inv_sqrt(D),
+        qf.data_ptr(), kp, vp, at(scales[0]), at(scales[1]), ln.data_ptr(),
+        out.data_ptr(), int(not quant), B, S, Hkv, H, D, _inv_sqrt(D),
+        part.data_ptr(), part.data_ptr() + 4 * B * H * splits * D, R,
         _kernels.stream())
     _kernels.check(err, "sbt_decode_attention")
     decode_attention.launches += 1
@@ -197,11 +307,9 @@ decode_attention.launches = 0
 
 def decode_attention_stacked(q, k, v, k_scale, v_scale, li, length):
     """K5 over layer ``li`` of layer-stacked caches (attention.py:601-659):
-    k/v (L, B, S, Hkv, D), scales (L, B, S, Hkv) or None. The layer is a
-    view (a pointer offset), never a copy."""
-    return decode_attention(
-        q, k[li], v[li], None if k_scale is None else k_scale[li],
-        None if v_scale is None else v_scale[li], length)
+    k/v (L, B, S, Hkv, D), scales (L, B, S, Hkv) or None. The layer is read
+    in place (a pointer offset), never copied."""
+    return decode_attention(q, k, v, k_scale, v_scale, length, li=li)
 
 
 REDUCE_THREADS = 256  # block width of the K4 kernel's reductions

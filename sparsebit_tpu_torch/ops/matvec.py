@@ -2,19 +2,32 @@
 ``sparsebit_tpu/ops/matvec.py``: ``bf16_matvec`` and ``use_matvec``).
 
 Kernel K9 (``csrc/matvec.cu``) replaces ``_mv_kernel`` (matvec.py:21): it
-streams the bf16 head once per call at B <= 8 rows. The plain version is
-the same product with f32 accumulation.
+streams the bf16 head once per call at B <= 8 rows, 16 bytes a lane, with
+K split across the blocks (``k_splits``) and the splits' partial sums
+added in split order. The plain version is the same product with f32
+accumulation.
 """
 
 import torch
 
 from sparsebit_tpu_torch.ops import _kernels
 
+MAX_RANGE = 1024  # K rows per block: x of the range sits in shared memory
+COLS = 256  # columns per block
+
 
 def matvec_supported(B, K, N):
-    """The port's gate: at most 8 rows (x sits in shared memory) and an
-    even N (two bf16 columns per lane)."""
+    """The port's gate: at most 8 rows (one register tile per batch row)
+    and an even N (the reference's rule; the kernel itself also takes an
+    odd one)."""
     return 1 <= B <= 8 and N % 2 == 0 and K > 0
+
+
+def k_splits(K, N, sms):
+    """Blocks along K: enough that the grid holds two blocks per SM, and
+    no block's K range longer than MAX_RANGE."""
+    tiles = -(-N // COLS)
+    return min(K, max(-(-2 * sms // tiles), -(-K // MAX_RANGE)))
 
 
 def _bf16_matvec_plain(x, w):
@@ -26,7 +39,9 @@ def bf16_matvec(x, w):
     """x (B, K) any float dtype; w (K, N) bf16. Returns (B, N) f32: x is
     cast to bf16 first (matvec.py:72), products and sums are f32.
 
-    CPU tensors take the plain version; CUDA tensors launch K9."""
+    CPU tensors take the plain version; CUDA tensors launch K9. A W whose
+    pointer or row stride is not 16-byte aligned takes the kernel's
+    narrow-load path."""
     if x.device.type == "cpu":
         return _bf16_matvec_plain(x, w)
     B, K = x.shape
@@ -35,10 +50,13 @@ def bf16_matvec(x, w):
         raise ValueError("bf16_matvec: needs bf16 w, B <= 8, even N")
     xb = x.to(torch.bfloat16).contiguous()
     _kernels.require_cuda("bf16_matvec", xb, w)
+    splits = k_splits(K, N, _kernels.sm_count(x.device))
     out = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, B, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else out)
     err = _kernels.lib().sbt_bf16_matvec(
         _kernels.ptr(xb), _kernels.ptr(w), _kernels.ptr(out), B, K, N,
-        _kernels.stream())
+        _kernels.ptr(part), splits, _kernels.stream())
     _kernels.check(err, "sbt_bf16_matvec")
     bf16_matvec.launches += 1
     return out

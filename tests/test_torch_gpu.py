@@ -106,6 +106,36 @@ def test_k9_kernel_matches_plain(cuda, B):
     assert (out - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("B", range(1, 9))
+def test_k9_ragged_n_matches_plain(cuda, B):
+    """N = 1002 (N % 8 != 0: the narrow-load path) and K = 4160 (ranges
+    that do not divide K): rel 1e-3 of max |out|, and equal bits on a
+    second call (the splits are added in a fixed order)."""
+    g = torch.Generator(device=cuda).manual_seed(B)
+    x = torch.randn((B, 4160), generator=g, device=cuda)
+    w = (torch.randn((4160, 1002), generator=g, device=cuda) * 0.05).to(
+        torch.bfloat16)
+    out = MV.bf16_matvec(x, w)
+    ref = MV._bf16_matvec_plain(x, w)
+    assert (out - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+    assert torch.equal(out, MV.bf16_matvec(x, w))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_k9_unaligned_w_matches_plain(cuda, offset):
+    """A contiguous W view whose pointer is not 16-byte aligned (2, 4 or 8
+    bytes past it), N % 8 == 0: the kernel takes its narrow-load path and
+    agrees with the plain version (rel 1e-3 of max |out|)."""
+    K, N, B = 1024, 2048, 8
+    flat = (torch.randn((K * N + 8,), device=cuda) * 0.05).to(torch.bfloat16)
+    w = flat[offset:offset + K * N].view(K, N)
+    assert w.is_contiguous() and w.data_ptr() % 16
+    x = torch.randn((B, K), device=cuda)
+    out = MV.bf16_matvec(x, w)
+    ref = MV._bf16_matvec_plain(x, w)
+    assert (out - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
 def _k4_operands(dev, B, S, n_blocks=None, Hkv=4, D=128, seed=0):
     """Tiny K4 operands (4 query heads of D, Hkv kv heads, ffn 384, gs 64,
     two layers) with a cache of S rows per batch row, or a pool of
@@ -257,6 +287,47 @@ def test_k5_kernel_matches_plain(cuda, quant, H, Hkv, D):
     torch.cuda.synchronize()
     assert A.decode_attention.launches == before + 1
     assert (out - ref).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("H,Hkv,D", [(8, 1, 256), (4, 4, 32), (4, 4, 64),
+                                     (16, 2, 128), (12, 1, 128)])
+def test_k5_split_edges_match_plain(cuda, quant, H, Hkv, D):
+    """K5's flash-decoding splits at their edges: S = 700 (a ragged last
+    split), lengths 0, 1, 300 and S - 1 (splits wholly past the length),
+    query-head groups of 1-8 heads (n_rep 12: a group of 8 and one of 4):
+    atol 2e-4 against the plain version and the split oracle, and equal
+    bits on a second call."""
+    g = torch.Generator(device=cuda).manual_seed(D + H)
+    L, B, S = 2, 4, 700
+    if quant:
+        k = torch.randint(-127, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                          generator=g, device=cuda)
+        v = torch.randint(-127, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                          generator=g, device=cuda)
+        ks = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.002
+        vs = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.01
+    else:
+        k = torch.randn((L, B, S, Hkv, D), generator=g, device=cuda).to(
+            torch.bfloat16)
+        v = torch.randn((L, B, S, Hkv, D), generator=g, device=cuda).to(
+            torch.bfloat16)
+        ks = vs = None
+    q = torch.randn((B, H, D), generator=g, device=cuda)
+    length = torch.tensor([0, 1, 300, S - 1], dtype=torch.int32, device=cuda)
+    out = A.decode_attention_stacked(q, k, v, ks, vs, 1, length)
+    again = A.decode_attention_stacked(q, k, v, ks, vs, 1, length)
+    sc = (lambda t: None if t is None else t[1])
+    ref = A._decode_attn_plain(q, k[1], v[1], sc(ks), sc(vs), length)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    R = A.rows_per_split(B, S, Hkv, H // Hkv, sms)
+    oracle = A._decode_attn_split_plain(q, k[1], v[1], sc(ks), sc(vs),
+                                        length, R)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 2e-4
+    assert (out - oracle).abs().max().item() <= 2e-4
+    assert torch.equal(out, again)
 
 
 def _to(obj, dev):
