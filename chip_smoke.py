@@ -73,6 +73,7 @@ SEED = 0
 K5_ENTRY = "sbt_decode_attention"  # K5's C entry point (KernelEvents names)
 
 failures = []
+probes = {}  # measurements that are no kernel's: printed in the JSON line
 
 
 def fail(msg):
@@ -428,10 +429,15 @@ def plane_checks(cfg, record, g):
     """K8 (f32 x, "w" planes), K6 (int8 x, "w" planes) and K7 (3-bit
     planes, f32 and int8 x) against _qmm_planes_plain at the 7B unfused
     shapes, B = 1, 8, 64: all three shapes at 4 bits, 4096 -> 11008 at 2
-    and 8 bits (K8, K6) and at 3 bits (K7, N padded to 11264). Tolerance
-    1e-4 of max |out| (tests/test_ops.py:81,115,139); 8 copies of each
-    weight are cycled so that it streams from HBM. No PyTorch call
-    computes a group-quantized matmul, so library_ms is null."""
+    and 8 bits (K8, K6) and at 3 bits (K7, N padded to 11264); then the
+    split-K edges: 11008 -> 4096 at 3 bits (86 groups in uneven splits),
+    the per-channel 8-bit head 4096 -> 32000 (one group: no split) and
+    B = 37. Tolerance 1e-4 of max |out| (tests/test_ops.py:81,115,139);
+    a second call must give equal bits (the K splits are added in split
+    order); 8 copies of each weight are cycled so that it streams from
+    HBM; a second time per case from a CUDA-graph replay (device time,
+    without the wrapper's host cost). No PyTorch call computes a
+    group-quantized matmul, so library_ms is null."""
     import torch
     from sparsebit_tpu_torch.ops import quant_matmul as QM
     from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
@@ -443,16 +449,21 @@ def plane_checks(cfg, record, g):
            "K6": "sparsebit_tpu/ops/quant_matmul.py:844",
            "K7": "sparsebit_tpu/ops/quant_matmul.py:241"}
     d, f = cfg.dim, cfg.ffn_dim
-    cases = [(b, K, N) for b in (4,) for K, N in ((d, d), (d, f), (f, d))]
-    cases += [(b, d, f) for b in (2, 8)]
-    cases += [(3, d, f)]
-    for bits, K, N in cases:
-        lin = random_plane_linear(K, N, bits, g, dev, copies=nc)
-        Np, gs, G = lin.n_padded, lin.groupsize, K // lin.groupsize
+    cases = [(b, K, N, 128, (1, 8, 64))
+             for b in (4,) for K, N in ((d, d), (d, f), (f, d))]
+    cases += [(b, d, f, 128, (1, 8, 64)) for b in (2, 8)]
+    cases += [(3, d, f, 128, (1, 8, 64))]
+    cases += [(3, f, d, 128, (8, 37)), (8, d, cfg.vocab_size, -1, (8,))]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for bits, K, N, gsz, Ms in cases:
+        lin = random_plane_linear(K, N, bits, g, dev, gs=gsz if gsz > 0
+                                  else K, copies=nc)
+        Np, gs = lin.n_padded, gsz
+        G = K // lin.groupsize
         w_bytes = sum(t[0].numel() for t in lin.packed.values())
         for a8 in (False, True):
             kern = "K7" if bits == 3 else ("K6" if a8 else "K8")
-            for M in (1, 8, 64):
+            for M in Ms:
                 x = torch.randn((M, K), generator=g, device=dev)
                 if a8:
                     x = tokenwise_quant(x)[0]
@@ -474,19 +485,27 @@ def plane_checks(cfg, record, g):
                                                 lin.zeros[c], bits, gs, Np)
 
                 out, ref = run(0), plain(0)
+                again = run(0)
                 torch.cuda.synchronize()
                 err = (out - ref).abs().max().item()
                 tol = 1e-4 * ref.abs().max().item()
+                splits = QM.planes_plan(bits, M, K, Np, gs, sms)[3]
+                if not torch.equal(out, again):
+                    fail("{} {}-bit M={} {}->{}: two calls differ ({} K "
+                         "splits)".format(kern, bits, M, K, N, splits))
                 ms = cuda_ms(run, 20)
                 pms = cuda_ms(plain, 3, 1)
+                gms = (graph_ms(run, 20), None)
                 nbytes = (w_bytes + 2 * 4 * G * Np + M * K * (1 if a8 else 4)
                           + 4 * M * Np)
                 bnd = bound_ms(nbytes, 2 * M * K * Np, "int8" if a8 else "f32")
-                shape = "{}-bit {} x{} {}->{}".format(
-                    bits, "int8" if a8 else "f32", M, K, N)
+                shape = "{}-bit {} x{} {}->{}{} ({} splits)".format(
+                    bits, "int8" if a8 else "f32", M, K, N,
+                    " per channel" if gs <= 0 else "", splits)
                 named = (K, N) == (d, f) and bits in (3, 4) and M == 8
                 record("{} {}".format(kern, shape) if named else None, kern,
-                       src, rep[kern], err, tol, ms, pms, bnd, None, shape)
+                       src, rep[kern], err, tol, ms, pms, bnd, None, shape,
+                       gms)
         del lin
     torch.cuda.empty_cache()
 
@@ -504,9 +523,10 @@ def k5_checks(cfg, record, g):
 
     dev = torch.device("cuda")
     S, D, H = 2048, cfg.head_dim, cfg.n_heads
-    cases = [(B, H, q) for B in (1, 8, 32) for q in (True, False)]
-    cases.append((8, 8, True))
-    for B, Hkv, quant in cases:
+    cases = [(B, H, q) for B in (1, 8, 32) for q in ("int8", "bf16")]
+    cases += [(8, 8, "int8"), (8, H, "f32")]
+    for B, Hkv, kind in cases:
+        quant = kind == "int8"
         Lc = 8 if B <= 8 else 4
         shape = (Lc, B, S, Hkv, D)
         if quant:
@@ -519,8 +539,9 @@ def k5_checks(cfg, record, g):
             vs = torch.empty(shape[:-1], device=dev).uniform_(
                 0.001, 0.01, generator=g)
         else:
-            k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
-            v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+            dt = torch.bfloat16 if kind == "bf16" else torch.float32
+            k = torch.randn(shape, generator=g, device=dev).to(dt)
+            v = torch.randn(shape, generator=g, device=dev).to(dt)
             ks = vs = None
         q = torch.randn((B, H, D), generator=g, device=dev)
         length = ((torch.arange(B, device=dev) + 1) * S // B - 1).to(
@@ -544,7 +565,7 @@ def k5_checks(cfg, record, g):
         pms = cuda_ms(plain, 3, 1)
         lms = lib = None
         if not quant:
-            qb = q.to(torch.bfloat16)[:, :, None]
+            qb = q.to(k.dtype)[:, :, None]
             mask = (torch.arange(S, device=dev)[None, :]
                     <= length[:, None])[:, None, None]
 
@@ -557,11 +578,11 @@ def k5_checks(cfg, record, g):
             lms = cuda_ms(lib, 20)
         gms = (graph_ms(run, 20), None if lib is None else graph_ms(lib, 20))
         rows = int(length.sum().item()) + B
-        row_bytes = Hkv * (2 * D + 8) if quant else Hkv * 4 * D
+        row_bytes = (Hkv * (2 * D + 8) if quant
+                     else Hkv * 2 * D * k.element_size())
         nbytes = rows * row_bytes + 2 * 4 * B * H * D + 4 * B
         bnd = bound_ms(nbytes, 4 * rows * (H // Hkv) * Hkv * D, "f32")
-        tag = "{} B={} S={} H={} Hkv={}".format(
-            "int8" if quant else "bf16", B, S, H, Hkv)
+        tag = "{} B={} S={} H={} Hkv={}".format(kind, B, S, H, Hkv)
         named = B == 8
         record("K5 " + tag if named else None, "K5",
                "sparsebit_tpu_torch/csrc/decode_attention.cu",
@@ -639,6 +660,8 @@ def k4_checks(stacked, cfg, record, g):
         ops = 2 * B * w_count + Lx * 4 * rows * Hq * D
         bnd = bound_ms(nbytes, ops, "int8")
         tag = "K4 B={}{}".format(B, " paged" if paged else "")
+        if not paged:
+            k4_phases(tag, run_kernel, Lx, 4)
         record(tag, "K4", "sparsebit_tpu_torch/csrc/layer_fused.cu",
                "sparsebit_tpu/ops/layer_fused.py:213", err, tol, ms, pms,
                bnd, None, "{} L={} S={} codes {}".format(
@@ -740,6 +763,7 @@ def k4_plane_checks(cfg, record, g):
             nbytes = w_bytes + kv_bytes + 2 * 4 * B * cfg.dim + 2 * 4 * B * D
             ops = 2 * B * w_count + Lx * 4 * rows * Hq * D
             tag = "K4p {}-bit B={}".format(bits, B)
+            k4_phases(tag, run_kernel, Lx, bits)
             record(tag, "K4p", "sparsebit_tpu_torch/csrc/layer_fused.cu",
                    "sparsebit_tpu/ops/layer_fused.py:167", err, 0.0, ms, pms,
                    bound_ms(nbytes, ops, "int8"), None,
@@ -748,6 +772,53 @@ def k4_plane_checks(cfg, record, g):
             del cache, plain
         del wargs, ws
         torch.cuda.empty_cache()
+    grid_barrier_probe()
+
+
+def k4_phases(tag, run_kernel, L, wbits):
+    """One more K4 launch with its phase trace on: the mean ms a layer of
+    each phase (block 0's device clock after each grid barrier, so a
+    phase's time includes the wait for its slowest block)."""
+    import torch
+    from sparsebit_tpu_torch.ops import layer_fused as LF
+
+    LF.fused_decoder_layers.trace = torch.zeros(
+        (L, LF.TRACE_MARKS), dtype=torch.int64, device="cuda")
+    try:
+        run_kernel(0)
+        torch.cuda.synchronize()
+        ph = LF.phase_ms(LF.fused_decoder_layers.trace, L, wbits)
+    finally:
+        LF.fused_decoder_layers.trace = None
+    probes["phase ms a layer, " + tag] = ph
+    print("{} phases, ms a layer: {} (sum {:.4f})".format(
+        tag, ", ".join("{} {:.4f}".format(k, v) for k, v in ph.items()),
+        sum(ph.values())), flush=True)
+
+
+def grid_barrier_probe():
+    """The cost of one grid barrier of K4's persistent grid (plane mode
+    adds one a layer, between W13 and the GLU): a cooperative launch of
+    n barriers and nothing else, n = 2000 against n = 0, CUDA events."""
+    import ctypes
+
+    import torch
+    from sparsebit_tpu_torch.ops import _kernels
+
+    for wbits, B in ((3, 1), (3, 8), (4, 8)):
+        grid = ctypes.c_int(0)
+
+        def launch(n):
+            _kernels.check(_kernels.lib().sbt_grid_sync_probe(
+                n, wbits, B, ctypes.addressof(grid), _kernels.stream()),
+                "sbt_grid_sync_probe")
+
+        t = {n: cuda_ms(lambda i: launch(n), 5) for n in (0, 2000)}
+        us = 1e3 * (t[2000] - t[0]) / 2000
+        probes["grid barrier us, {}-bit B={}".format(wbits, B)] = us
+        print("grid barrier of K4's grid ({}-bit, B={}, {} blocks): {:.3f} "
+              "us each; 32 layers x 1 barrier = {:.4f} ms a step".format(
+                  wbits, B, grid.value, us, 32 * us * 1e-3), flush=True)
 
 
 def small_model_check():
@@ -1645,8 +1716,8 @@ def main():
         if r["kernel"] == "K7" and "int8" in r["shape"]:
             r["path"] = "mixed impl=a8 depth 4"
         r["launches"] = paths[r["path"]]["launches"][r["kernel"]]
-    print(json.dumps({"kernels": results, "paths": paths, "card": card}),
-          flush=True)
+    print(json.dumps({"kernels": results, "paths": paths, "probes": probes,
+                      "card": card}), flush=True)
     print(card, flush=True)
     if failures:
         print("{} failure(s)".format(len(failures)), file=sys.stderr)

@@ -1,5 +1,6 @@
 // K5: single-token GQA decode attention over an int8 (per-row, per-head
-// f32 scales) or bf16 KV cache, masked to rows [0, length[b]].
+// f32 scales) or a float (bf16, f16 or f32) KV cache, masked to rows
+// [0, length[b]].
 //
 // Replaces sparsebit_tpu/ops/attention.py:499 _decode_attn_kernel
 // (decode_attention, :557; decode_attention_stacked, :601): the
@@ -7,12 +8,12 @@
 //     score[s] = (q . k[s]) * ks[s] * D^-1/2       (f32, s <= length)
 //     p[s] = exp(score[s] - max), den = sum p
 //     out = sum_s (p[s] * vs[s]) * v[s] / den
-// with q and the cache values taken to f32 exactly (a bf16 cache has unit
-// scales). The layer-stacked form is the same kernel on a pointer offset.
+// with q and the cache values taken to f32 exactly (a float cache has
+// unit scales). The layer-stacked form is the same kernel on a pointer offset.
 //
 // Bound on the H100: the cache bytes of rows [0, length[b]] (2 * D bytes
 // a row and head for int8 plus 8 bytes of scales; 4 * D for bf16) over
-// 3.35 TB/s. The f32 work is small, but each int8 code costs a byte
+// 3.35 TB/s (2 * D * elt bytes for a float cache). The f32 work is small, but each int8 code costs a byte
 // permute and an add to become f32 and each row a few shuffles, so the
 // issue rate matters as well as the bytes. Design (flash-decoding):
 //   - the rows are split across blocks: grid (Hkv * groups, B, splits),
@@ -43,7 +44,9 @@
 // Shared memory is the lanes' rings, whatever S is.
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -63,12 +66,22 @@ __device__ __forceinline__ void cp_wait() {
 // A 16-byte chunk of cache values as f32, exactly: 16 int8 codes (each
 // byte, offset to unsigned, spliced into the mantissa of 2^23 by one byte
 // permute, then 2^23 + 128 subtracted: no int-to-float conversion, which
-// runs at a sixteenth of the FMA rate) or 8 bf16 values (a shift or a
-// mask).
+// runs at a sixteenth of the FMA rate), 8 bf16 values (a shift or a
+// mask), 8 f16 values (a conversion each) or 4 f32 values (as they are).
 template <class T>
 __device__ __forceinline__ void chunk_f32(const uint4& u, float* f) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  if constexpr (sizeof(T) == 1) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(w[i]);
+  } else if constexpr (std::is_same<T, __half>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 h = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      f[2 * i] = h.x;
+      f[2 * i + 1] = h.y;
+    }
+  } else if constexpr (sizeof(T) == 1) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const uint32_t b = w[i] ^ 0x80808080u;
@@ -474,7 +487,8 @@ cudaError_t launch_group(int n_rep, const void* q, const void* k,
 }  // namespace
 
 // q (B, H, D) f32; k, v (B, S, Hkv, D) int8 (ks, vs (B, S, Hkv) f32) or
-// bf16 (bf16_cache; ks, vs ignored), already offset to a layer of a stack,
+// float (kv_type 1 bf16, 2 f16, 3 f32; ks, vs ignored; 0 is int8),
+// already offset to a layer of a stack,
 // 16-byte aligned; length (B,) int32, rows [0, length[b]] attend (clamped
 // to S - 1); out (B, H, D) f32. D % 32 == 0, D <= 256, H % Hkv == 0.
 // inv_sqrt_d is 1/sqrt(D) rounded once to f32, as the reference's Python
@@ -483,23 +497,25 @@ cudaError_t launch_group(int n_rep, const void* q, const void* k,
 extern "C" int sbt_decode_attention(const void* q, const void* k,
                                     const void* v, const void* ks,
                                     const void* vs, const void* length,
-                                    void* out, int bf16_cache, int B, int S,
+                                    void* out, int kv_type, int B, int S,
                                     int Hkv, int H, int D, float inv_sqrt_d,
                                     void* part_acc, void* part_ml,
                                     int rows_per_split, void* stream) {
   if (D % 32 || D > 256 || H % Hkv || S < 1 || rows_per_split < 1 ||
+      kv_type < 0 || kv_type > 3 ||
       reinterpret_cast<uintptr_t>(k) % 16 ||
       reinterpret_cast<uintptr_t>(v) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int n_rep = H / Hkv;
-  cudaError_t e =
-      bf16_cache
-          ? launch_group<__nv_bfloat16, false>(
-                n_rep, q, k, v, ks, vs, length, out, part_acc, part_ml, B, S,
-                Hkv, H, D, inv_sqrt_d, rows_per_split, st)
-          : launch_group<int8_t, true>(
-                n_rep, q, k, v, ks, vs, length, out, part_acc, part_ml, B, S,
-                Hkv, H, D, inv_sqrt_d, rows_per_split, st);
+#define SBT_K5(T, QUANT)                                                    \
+  launch_group<T, QUANT>(n_rep, q, k, v, ks, vs, length, out, part_acc,    \
+                         part_ml, B, S, Hkv, H, D, inv_sqrt_d,              \
+                         rows_per_split, st)
+  cudaError_t e = kv_type == 0   ? SBT_K5(int8_t, true)
+                  : kv_type == 1 ? SBT_K5(__nv_bfloat16, false)
+                  : kv_type == 2 ? SBT_K5(__half, false)
+                                 : SBT_K5(float, false);
+#undef SBT_K5
   return static_cast<int>(e);
 }

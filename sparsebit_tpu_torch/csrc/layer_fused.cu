@@ -23,16 +23,33 @@
 //      _flat_attention_rows_int8 for the item's query heads (int8 q,
 //      dp4a scores, f32 softmax, 7-bit probabilities, int32 value mix);
 //      each item raises its row's absmax with atomicMax on float bits;
-//   3  Wo with requantization on load + residual;
+//   3  Wo with requantization on load + residual (plane mode: the int8
+//      rows first and a grid barrier; then Wo's K in two halves and a
+//      barrier before the halves are added);
 //   C  ffn norm + int8 quant, one block per row;
-//   4  W13 with paired gate/up tiles, silu(g) * u, row absmax;
-//   5  W2 with requantization on load + residual into the carried row.
+//   4  W13 with paired gate/up tiles, silu(g) * u, row absmax (plane
+//      mode: W13 into a [gate | up] scratch row, a grid barrier, then the
+//      GLU and the row absmax);
+//   5  W2 with requantization on load + residual into the carried row
+//      (plane mode: as Wo).
 // The matmul phases reuse the dp4a tile core of w4a8.cuh and its exact
 // epilogue order. The bit width is a template parameter: BITS 4 reads
 // s4r row pairs (zero - 8 in the epilogue); BITS 2/3 read the plane
-// concat through w4a8.cuh's PlaneRows, whose output column n is byte
-// column n % NP of plane n / NP, with unsigned codes and the zero
-// unshifted. Plane-mode weights may be padded past their logical width
+// concat through w4a8.cuh's ptile: output column n is byte column n % NP
+// of plane n / NP, with unsigned codes and the zero unshifted, and a tile
+// is W byte columns x all P planes (3 bits: 8, 2 bits: 4), so every byte
+// of the stream is read once and decoded into P dp4a words. The tile's
+// weight bytes and its int8 x rows stream through a cp.async ring, so
+// plane mode hands every matmul int8 rows in memory: Wo's and W2's inputs
+// are quantized by the whole grid before them (one more barrier each).
+// Gate column j and up column F + j of W13 lie in different byte columns,
+// so plane mode pairs them through a scratch row after one more grid
+// barrier. Wo and W2 (N = dim) give fewer column tiles than there are
+// blocks, so each tile's K is split in two halves, added in group order
+// after a barrier (plane_phase): twelve barriers a layer against the s4r
+// mode's seven. At B <= 8, Wqkv takes 8 x 64 tiles, W13 8 x 128 (one
+// round of tiles), Wo and W2 8 x 32.
+// Plane-mode weights may be padded past their logical width
 // (ops/packing.pallas_n_pad, e.g. LLaMA-7B's W13 2F = 22016 -> 22528);
 // the padded width is the row stride of their scales and zeros and sets
 // NP, while every phase computes only the logical columns (the GLU pairs
@@ -46,9 +63,13 @@
 // Bound on the H100: the weight and qparam stream of all layers (about
 // 3.44 GB at LLaMA-7B INT4-g128, 2.66 GB of planes plus bf16 qparams at
 // INT3-g128) plus the KV rows up to each row's length, over 3.35 TB/s.
-// This first version spends its time elsewhere: no split-K (Wo and W2 give fewer column tiles than there are blocks),
-// byte-wide weight loads (four or eight per plane-mode dp4a word), and
-// seven grid barriers per layer.
+// The s4r mode spends its time elsewhere: one 64-row step at a time per
+// tile with its load latency exposed, no split-K (Wo and W2 give fewer
+// column tiles than there are blocks), byte-wide weight loads, and seven
+// grid barriers per layer. Plane mode keeps NST - 1 steps in flight,
+// copies 4-16 bytes a row and splits Wo's and W2's K, and pays for its
+// decode and barriers in each 64-row step instead (chip_smoke.py's phase
+// trace shows where).
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -63,6 +84,7 @@ constexpr int kThreads = 256;
 constexpr int kMaxD = 256;
 constexpr int kMaxRep = 8;
 constexpr int kMaxBlocksPerSM = 2;
+constexpr int kMarks = 16;  // trace stamps a layer (s4r: 8, planes: 13)
 
 struct Args {
   const uint8_t *wq, *wo, *w13, *w2;
@@ -75,6 +97,15 @@ struct Args {
   float* x;  // carried rows (B, dim): the input, then each layer's output
   int8_t* xq;
   float *xs, *qkv, *aout, *amax_a, *xmid, *act, *amax_g, *sc;
+  float* h13;  // plane mode: [gate | up] rows (B, 2F) before the GLU
+  // or null: block 0 stamps %globaltimer (ns) at each layer's start and
+  // after each of its barriers, trace[li * kMarks + i] (chip_smoke.py
+  // reads the phase times from it)
+  unsigned long long* trace;
+  int8_t* aq;  // plane mode: q8(aout) (B, Hq*D), then q8(act) (B, F)
+  // plane mode: Wo's and W2's first-half sums (B, dim), then the second
+  // half's group terms (G - G0, B, dim)
+  float* part;
   int sz_bf16, nw_bf16, L, B, dim, Hq, Hkv, D, F, gs;
   int nq_s, no_s, n13_s, n2_s;  // (padded) N: the s/z row strides
   int n_blocks, block, max_chunks, s_act;
@@ -339,6 +370,100 @@ struct Weights {
   }
 };
 
+template <int BM_, int BN_, int TM_, int TN_>
+struct Cfg : sbt::Tile<BM_, BN_, TM_, TN_> {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+};
+
+// Rows <= 8: 8 x 32 tiles (8 x 64 for the paired GLU tiles; plane mode:
+// 8 x 64 for Wqkv, 8 x 128 for W13, 8 x 32 for Wo and W2); up to 64: 64 x
+// 64 tiles. 256 threads either way.
+using SmallP = Cfg<8, 32, 1, 1>;
+using SmallG = Cfg<8, 64, 1, 2>;
+using SmallW = Cfg<8, 128, 1, 4>;
+using LargeP = Cfg<64, 64, 4, 4>;
+
+// One matmul phase of plane mode with C's tiles: every tile of this
+// block over the padded width NS of a plane-concat weight (K rows, logical
+// width N), each tile W = BN / P byte columns x all P planes (sbt::ptile)
+// over the int8 rows x (B, K); epi(row, col, sum) for every row < B and
+// logical column col. With split (Wo and W2, whose N gives fewer tiles
+// than there are blocks) each tile's K is halved: the first half's block
+// sums groups [0, G0) in order into a.part, the second half's block
+// writes each later group's term, and after one more barrier (sync) every
+// output adds the terms to the first half's sum in group order: the
+// sequential sum, bit for bit, on twice the blocks.
+template <class C, int BITS, class Sync, class Epi>
+__device__ __forceinline__ void plane_phase(const int8_t* x, const uint8_t* w,
+                                            const void* s, const void* z,
+                                            int li, int K, int NS, int N,
+                                            const Args& a, uint8_t* smem,
+                                            bool split, const Sync& sync,
+                                            const Epi& epi) {
+  using TC = sbt::Tile<C::BM, C::BN, C::TM, C::TN>;
+  const auto src = Weights<BITS>::at(w, li, K, NS);
+  const int G = K / a.gs, G0 = split ? (G + 1) / 2 : G;
+  const void* sl = qp_at(s, static_cast<size_t>(li) * G * NS, a.sz_bf16);
+  const void* zl = qp_at(z, static_cast<size_t>(li) * G * NS, a.sz_bf16);
+  constexpr int W = C::BN / Weights<BITS>::Src::P;
+  // the widest copy (at most W bytes) that every row start and NP allow
+  int vec = W > 16 ? 16 : W;
+  while (vec > 1 && (reinterpret_cast<uintptr_t>(src.w) % vec ||
+                     src.ld % vec || src.NP % vec))
+    vec = vec == 4 ? 1 : vec / 2;
+  const int tx = threadIdx.x % TC::TX, ty = threadIdx.x / TC::TX;
+  const int tiles = (src.NP + W - 1) / W;
+  const size_t BN_ = static_cast<size_t>(a.B) * N;
+  float* terms = a.part + BN_;
+  for (int item = blockIdx.x; item < (split ? 2 : 1) * tiles;
+       item += gridDim.x) {
+    const int tile = item % tiles, h = item / tiles;
+    if (h && G0 == G) continue;  // one group: no second half
+    const sbt::ColPlanes cm{tile * W, W, src.NP, N};
+    float acc[C::TM][C::TN];
+    sbt::ptile<C::BM, C::BN, C::TM, C::TN>(
+        x, a.B, src, vec, sl, zl, a.sz_bf16, NS, K, a.gs, h ? G0 : 0,
+        h ? G : G0, h ? terms : nullptr, cm, smem, acc);
+    if (h) continue;
+#pragma unroll
+    for (int tm = 0; tm < C::TM; ++tm) {
+      const int row = ty + tm * TC::TY;
+      if (row >= a.B) continue;
+#pragma unroll
+      for (int tn = 0; tn < C::TN; ++tn) {
+        const int col = cm(tx + tn * TC::TX);
+        if (col < 0) continue;
+        if (split)
+          a.part[static_cast<size_t>(row) * N + col] = acc[tm][tn];
+        else
+          epi(row, col, acc[tm][tn]);
+      }
+    }
+  }
+  if (!split) return;
+  sync();
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.B * N;
+       i += gridDim.x * kThreads) {
+    float v = a.part[i];
+    for (int g = 0; g < G - G0; ++g) v = __fadd_rn(v, terms[g * BN_ + i]);
+    epi(i / N, i % N, v);
+  }
+}
+
+// dst (B, K) int8 = q8(src (B, K) f32) against each row's absmax, four
+// codes a word, the whole grid striding over the words: AF32Requant's
+// codes, which the s4r tiles make on load and the plane tiles stream.
+__device__ void quant_rows_grid(const float* src, const float* amax, int B,
+                                int K, int8_t* dst) {
+  const sbt::AF32Requant q{src, amax, B, K};
+  const int kw = K / 4;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < B * kw;
+       i += gridDim.x * kThreads) {
+    const int row = i / kw;
+    reinterpret_cast<int*>(dst)[i] = q.word(row, 4 * (i - row * kw));
+  }
+}
+
 template <class P, class G, int BITS>
 __global__ void __launch_bounds__(kThreads)
     layers_fused_kernel(Args a) {
@@ -351,6 +476,15 @@ __global__ void __launch_bounds__(kThreads)
   using TP = sbt::Tile<BM, BN, TM, TN>;
   using TG = sbt::Tile<BM, GBN, GTM, GTN>;
   using Wt = Weights<BITS>;
+  // plane mode's W13 tiles: 8 x 128 at B <= 8 (one round of tiles)
+  using W13 = std::conditional_t<P::BM <= 8, SmallW, G>;
+  constexpr int PB = BITS == 4 ? 2 : BITS;  // (no plane tiles at 4 bits)
+  constexpr int kPlaneP = sbt::PlaneSmem<P::BM, P::BN, PB>::BYTES;
+  constexpr int kPlaneG = sbt::PlaneSmem<G::BM, G::BN, PB>::BYTES;
+  constexpr int kPlaneW = sbt::PlaneSmem<W13::BM, W13::BN, PB>::BYTES;
+  constexpr int kPlanePG = kPlaneP > kPlaneG ? kPlaneP : kPlaneG;
+  __shared__ __align__(16) uint8_t plane_sm[
+      BITS == 4 ? 16 : (kPlanePG > kPlaneW ? kPlanePG : kPlaneW)];
   __shared__ float red[kThreads];
   __shared__ AttnSmem sm;
   __shared__ int amax_sm[BM];
@@ -363,6 +497,20 @@ __global__ void __launch_bounds__(kThreads)
   const int bf = a.sz_bf16;
 
   for (int li = 0; li < a.L; ++li) {
+    int mark = 0;
+    auto stamp = [&]() {
+      if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+        unsigned long long t;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+        a.trace[li * kMarks + mark] = t;
+      }
+      ++mark;
+    };
+    auto sync = [&]() {
+      grid.sync();
+      stamp();
+    };
+    stamp();
     const void* an = qp_at(a.an, static_cast<size_t>(li) * dim, a.nw_bf16);
     const void* fn = qp_at(a.fn, static_cast<size_t>(li) * dim, a.nw_bf16);
 
@@ -373,10 +521,17 @@ __global__ void __launch_bounds__(kThreads)
                      red);
       if (threadIdx.x == 0) a.amax_a[b] = 0.f;
     }
-    grid.sync();
+    sync();
 
     // 1: qkv = xs * Wqkv(xq)
-    {
+    if constexpr (BITS != 4) {
+      plane_phase<G, BITS>(a.xq, a.wq, a.sq, a.zq, li, dim, a.nq_s, Nq, a,
+                           plane_sm, false, sync,
+                           [&](int row, int col, float v) {
+                             a.qkv[static_cast<size_t>(row) * Nq + col] =
+                                 __fmul_rn(v, a.xs[row]);
+                           });
+    } else {
       const int G = dim / gs, NS = a.nq_s;
       const auto w = Wt::at(a.wq, li, dim, NS);
       const void* s = qp_at(a.sq, static_cast<size_t>(li) * G * NS, bf);
@@ -400,15 +555,27 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    grid.sync();
+    sync();
 
     // 2: rope, K/V row commit, int8 attention
     for (int it = blockIdx.x; it < B * a.Hkv; it += gridDim.x)
       attention_item(a, li, it / a.Hkv, it % a.Hkv, sm, red);
-    grid.sync();
+    sync();
 
-    // 3: xmid = x + as * Wo(q8(aout))
-    {
+    // 3: xmid = x + as * Wo(q8(aout)); plane mode quantizes aout first
+    if constexpr (BITS != 4) {
+      quant_rows_grid(a.aout, a.amax_a, B, HD, a.aq);
+      sync();
+      plane_phase<P, BITS>(a.aq, a.wo, a.so, a.zo, li, HD, a.no_s, dim, a,
+                           plane_sm, true, sync,
+                           [&](int row, int col, float v) {
+                             const size_t o =
+                                 static_cast<size_t>(row) * dim + col;
+                             a.xmid[o] = __fadd_rn(
+                                 a.x[o],
+                                 __fmul_rn(v, sbt::row_scale(a.amax_a[row])));
+                           });
+    } else {
       const int G = HD / gs, NS = a.no_s;
       const auto w = Wt::at(a.wo, li, HD, NS);
       const void* s = qp_at(a.so, static_cast<size_t>(li) * G * NS, bf);
@@ -434,7 +601,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    grid.sync();
+    sync();
 
     // C: ffn norm + quant; zero the GLU absmax
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
@@ -443,10 +610,37 @@ __global__ void __launch_bounds__(kThreads)
                      a.xs + b, red);
       if (threadIdx.x == 0) a.amax_g[b] = 0.f;
     }
-    grid.sync();
+    sync();
 
-    // 4: act = silu(g) * u, [g | u] = xs * W13(xq); row absmax
-    {
+    // 4: act = silu(g) * u, [g | u] = xs * W13(xq); row absmax. Plane
+    // mode: gate j and up F + j lie in different byte columns, so [g | u]
+    // goes through h13 and a barrier, then the GLU pairs them.
+    if constexpr (BITS != 4) {
+      const int F2 = 2 * F;
+      plane_phase<W13, BITS>(a.xq, a.w13, a.s13, a.z13, li, dim, a.n13_s,
+                             F2, a, plane_sm, false, sync,
+                             [&](int row, int col, float v) {
+                             a.h13[static_cast<size_t>(row) * F2 + col] =
+                                 __fmul_rn(v, a.xs[row]);
+                           });
+      sync();
+      if (threadIdx.x < BM) amax_sm[threadIdx.x] = 0;
+      __syncthreads();
+      for (int i = blockIdx.x * kThreads + threadIdx.x; i < B * F;
+           i += gridDim.x * kThreads) {
+        const int rl = i / F, j = i - rl * F;
+        const float g = a.h13[static_cast<size_t>(rl) * F2 + j];
+        const float u = a.h13[static_cast<size_t>(rl) * F2 + F + j];
+        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
+        const float v = __fmul_rn(__fmul_rn(g, sig), u);
+        a.act[static_cast<size_t>(rl) * F + j] = v;
+        atomicMax(&amax_sm[rl], __float_as_int(fabsf(v)));
+      }
+      __syncthreads();
+      if (threadIdx.x < BM && static_cast<int>(threadIdx.x) < B)
+        atomicMax(reinterpret_cast<int*>(a.amax_g) + threadIdx.x,
+                  amax_sm[threadIdx.x]);
+    } else {
       const int G = dim / gs, NS = a.n13_s;
       const auto w = Wt::at(a.w13, li, dim, NS);
       const void* s = qp_at(a.s13, static_cast<size_t>(li) * G * NS, bf);
@@ -484,10 +678,22 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();
       }
     }
-    grid.sync();
+    sync();
 
-    // 5: x = xmid + gs * W2(q8(act))
-    {
+    // 5: x = xmid + gs * W2(q8(act)); plane mode quantizes act first
+    if constexpr (BITS != 4) {
+      quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
+      sync();
+      plane_phase<P, BITS>(a.aq, a.w2, a.s2, a.z2, li, F, a.n2_s, dim, a,
+                           plane_sm, true, sync,
+                           [&](int row, int col, float v) {
+                             const size_t o =
+                                 static_cast<size_t>(row) * dim + col;
+                             a.x[o] = __fadd_rn(
+                                 a.xmid[o],
+                                 __fmul_rn(v, sbt::row_scale(a.amax_g[row])));
+                           });
+    } else {
       const int G = F / gs, NS = a.n2_s;
       const auto w = Wt::at(a.w2, li, F, NS);
       const void* s = qp_at(a.s2, static_cast<size_t>(li) * G * NS, bf);
@@ -513,24 +719,15 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    grid.sync();
+    sync();
   }
 }
 
-template <int BM_, int BN_, int TM_, int TN_>
-struct Cfg : sbt::Tile<BM_, BN_, TM_, TN_> {
-  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
-};
 
-// Rows <= 8: 8 x 32 tiles (8 x 64 for the paired GLU tiles); up to 64:
-// 64 x 64 tiles. 256 threads either way.
-using SmallP = Cfg<8, 32, 1, 1>;
-using SmallG = Cfg<8, 64, 1, 2>;
-using LargeP = Cfg<64, 64, 4, 4>;
-
-template <class P, class G, int BITS>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = layers_fused_kernel<P, G, BITS>;
+// Blocks of the persistent grid of kernel kern: as many as fit on the
+// card at once, at most kMaxBlocksPerSM an SM.
+template <class Kern>
+cudaError_t grid_size(Kern kern, int* grid) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -543,7 +740,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                                                     0);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  const int grid = sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
+  *grid = sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
+  return cudaSuccess;
+}
+
+// n grid barriers and nothing else: the cost of one barrier of K4's grid
+// (chip_smoke.py times it).
+__global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int n) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n; ++i) grid.sync();
+}
+
+template <class P, class G, int BITS>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  auto kern = layers_fused_kernel<P, G, BITS>;
+  int grid = 0;
+  cudaError_t e = grid_size(kern, &grid);
+  if (e != cudaSuccess) return e;
   Args copy = a;
   void* params[] = {&copy};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid),
@@ -570,8 +783,11 @@ cudaError_t launch_rows(const Args& a, cudaStream_t st) {
 // (B, max_chunks) int32, pos (B,) int32, cos/sin (B, D) f32. x (B, dim)
 // f32 holds the input rows and receives the output. The rest is scratch: xq (B, dim) int8, xs (B),
 // qkv (B, Nq), aout (B, Hq*D), amax_a (B), xmid (B, dim), act (B, F),
-// amax_g (B), sc (B, Hq, max_chunks*block), all f32. B <= 64, D a power
-// of two <= 256, Hq/Hkv <= 8, K dims multiples of 64 and of gs.
+// amax_g (B), sc (B, Hq, max_chunks*block) and, in plane mode, h13 (B,
+// 2F) and part (B, dim, 1 + max(Hq*D, F) / gs / 2), all f32, and aq (B,
+// max(Hq*D, F)) int8. trace: null, or (L, 16) u64 phase stamps
+// (Args::trace). B <= 64, D a power of two <= 256,
+// Hq/Hkv <= 8, K dims multiples of 64 and of gs.
 extern "C" int sbt_layers_fused(
     const void* wq, const void* sq, const void* zq, const void* wo,
     const void* so, const void* zo, const void* w13, const void* s13,
@@ -579,7 +795,8 @@ extern "C" int sbt_layers_fused(
     const void* an, const void* fn, void* k, void* v, void* ks, void* vs,
     const void* bt, const void* pos, const void* cos, const void* sin,
     void* x, void* xq, void* xs, void* qkv, void* aout, void* amax_a,
-    void* xmid, void* act, void* amax_g, void* sc, int sz_bf16, int nw_bf16,
+    void* xmid, void* act, void* amax_g, void* sc, void* h13, void* aq,
+    void* part, void* trace, int sz_bf16, int nw_bf16,
     int L, int B, int dim, int Hq, int Hkv, int D, int F, int gs,
     int wbits, int nq_s, int no_s, int n13_s, int n2_s, int n_blocks,
     int block, int max_chunks, int s_act, float eps, float inv_sqrt_d,
@@ -623,6 +840,10 @@ extern "C" int sbt_layers_fused(
   a.act = static_cast<float*>(act);
   a.amax_g = static_cast<float*>(amax_g);
   a.sc = static_cast<float*>(sc);
+  a.h13 = static_cast<float*>(h13);
+  a.aq = static_cast<int8_t*>(aq);
+  a.part = static_cast<float*>(part);
+  a.trace = static_cast<unsigned long long*>(trace);
   a.sz_bf16 = sz_bf16; a.nw_bf16 = nw_bf16;
   a.L = L; a.B = B; a.dim = dim; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.F = F;
   a.gs = gs; a.n_blocks = n_blocks; a.block = block;
@@ -634,4 +855,26 @@ extern "C" int sbt_layers_fused(
                   : wbits == 3 ? launch_rows<3>(a, st)
                                : launch_rows<2>(a, st);
   return static_cast<int>(e);
+}
+
+// n_syncs grid barriers on the grid K4 launches for wbits (2, 3 or 4) and
+// B rows; *grid receives its block count.
+extern "C" int sbt_grid_sync_probe(int n_syncs, int wbits, int B, void* grid,
+                                   void* stream) {
+  int g = 0;
+  cudaError_t e =
+      B <= 8 ? (wbits == 4   ? grid_size(layers_fused_kernel<SmallP, SmallG, 4>, &g)
+                : wbits == 3 ? grid_size(layers_fused_kernel<SmallP, SmallG, 3>, &g)
+                             : grid_size(layers_fused_kernel<SmallP, SmallG, 2>, &g))
+             : (wbits == 4   ? grid_size(layers_fused_kernel<LargeP, LargeP, 4>, &g)
+                : wbits == 3 ? grid_size(layers_fused_kernel<LargeP, LargeP, 3>, &g)
+                             : grid_size(layers_fused_kernel<LargeP, LargeP, 2>, &g));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *static_cast<int*>(grid) = g;
+  void* params[] = {&n_syncs};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(grid_sync_probe_kernel), dim3(g),
+      dim3(kThreads), params, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

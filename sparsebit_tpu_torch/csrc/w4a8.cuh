@@ -21,9 +21,12 @@
 // into the f32 accumulators with that group's scale and zero, read once
 // per (group, column) and never past row G-1.
 //
-// The weights come through a source (S4Rows, or K4's PlaneRows for the
-// true-width 2/3-bit "pl" concat) that builds each dp4a word of one
-// column's codes; unsigned plane codes take the zero unshifted:
+// The s4r weights come through a source (S4Rows) that builds each dp4a
+// word of one column's codes. K4's true-width 2/3-bit "pl" concat
+// (PlaneRows) goes through ptile, the same product with a plane-aware
+// tile (its columns span all planes of a run of byte columns, each byte
+// read once and decoded into the words of all its planes) fed by a
+// cp.async ring; unsigned plane codes take the zero unshifted:
 //     acc[m, n] = sum_g s_g * (dot_g - xsum_g * z_g).
 #pragma once
 
@@ -143,36 +146,26 @@ struct S4Rows {
 // The true-width plane concat "pl" (planes.cuh) of a weight of N (padded)
 // columns: (K, 3N/8) bytes [low2 | high1] at 3 bits, the (K, N/4) fold
 // array at 2 bits. Column n is byte column c = n % NP of plane p = n / NP;
-// unsigned codes.
+// unsigned codes. Byte column c of array a of row k (3 bits: a = 0 the even
+// planes' low2, 1 the odd planes', 2 high1) is w[k * ld + a * NP + c].
 template <int BITS>
 struct PlaneRows {
   const uint8_t* w;
   int ld;  // row stride in bytes: 3N/8 or N/4
-  int NP;  // columns per plane: N/8 or N/4
-  static constexpr bool kSigned = false;
+  int NP;  // byte columns (columns per plane): N/8 or N/4
   static_assert(BITS == 2 || BITS == 3, "plane rows are 2 or 3 bits");
-  __device__ __forceinline__ static uint32_t column4(const uint8_t* p,
-                                                     int ld) {
-    return __ldg(p) | (static_cast<uint32_t>(__ldg(p + ld)) << 8) |
-           (static_cast<uint32_t>(__ldg(p + 2 * ld)) << 16) |
-           (static_cast<uint32_t>(__ldg(p + 3 * ld)) << 24);
-  }
-  __device__ __forceinline__ void load(int k, int n, uint32_t& r0,
-                                       uint32_t& r1) const {
-    const int p = n / NP, c = n - p * NP;
-    const uint8_t* row = w + static_cast<size_t>(k) * ld;
-    r0 = column4(row + (BITS == 3 ? (p & 1) * NP : 0) + c, ld);
-    r1 = BITS == 3 ? column4(row + 2 * NP + c, ld) : 0u;
-  }
-  __device__ __forceinline__ int decode(uint32_t r0, uint32_t r1,
-                                        int n) const {
-    const int p = n / NP;
-    int c[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      c[t] = plane_code<BITS>((r0 >> (8 * t)) & 0xffu,
-                              (r1 >> (8 * t)) & 0xffu, p);
-    return pack4(c[0], c[1], c[2], c[3]);
+  static constexpr int P = BITS == 3 ? 8 : 4;   // planes
+  static constexpr int NA = BITS == 3 ? 3 : 1;  // byte arrays a row
+};
+
+// Tile column t of a plane tile over byte columns [c0, c0 + W): plane
+// t / W, byte column c0 + t % W; -1 past NP or past the logical width N.
+struct ColPlanes {
+  int c0, W, NP, N;
+  __device__ __forceinline__ int operator()(int t) const {
+    const int p = t / W, c = c0 + t % W;
+    const int n = p * NP + c;
+    return (c < NP && n < N) ? n : -1;
   }
 };
 
@@ -297,6 +290,172 @@ __device__ __forceinline__ void wtile(
       if (tid < BM) xsum_sm[tid] = 0;
     }
   }
+}
+
+// ptile's shared memory for a BM x BN plane tile (W = BN / P byte
+// columns): a ring of NST stages, each the raw weight bytes [NA][BK][W]
+// and the int8 x rows [BM][BK] of one 64-row step, then the decoded dp4a
+// words [BN][KW + 1].
+template <int BM, int BN, int BITS>
+struct PlaneSmem {
+  using Src = PlaneRows<BITS>;
+  static constexpr int W = BN / Src::P;
+  static constexpr int WB = Src::NA * BK * W;  // weight bytes a stage
+  static constexpr int STAGE = WB + BM * BK;
+  static constexpr int FIT = 20480 / STAGE;  // stages in 20 KB
+  static constexpr int NST = FIT < 3 ? 3 : (FIT > 8 ? 8 : FIT);
+  static constexpr int WORDS = NST * STAGE;  // offset of the words
+  static constexpr int BYTES = WORDS + BN * (KW + 1) * 4;
+};
+
+// The wtile product over a plane concat with a plane-aware tile: its BN
+// columns are W = BN / P byte columns x all P planes (ColPlanes), so each
+// weight byte is read once. Int8 x rows x (M <= BM used, row stride K)
+// and the tile's weight bytes stream through a cp.async ring of NST
+// stages (NST - 1 in flight ahead of the one being read), vec bytes a
+// copy (16, 8 or 4, dividing W; 1 where the rows are not so aligned).
+// Each step, the thread of (byte column, k word) unit decodes the four
+// rows of its byte column into the dp4a words of its P columns; the dot
+// products and the group epilogue are wtile's, in wtile's order. A thread
+// whose rows are all past M skips the dot products (at B = 1, seven of
+// the eight row warps), and each thread sums its own rows' x codes.
+// Groups [g0, g1) of the K / gs: with terms null, acc is their sum in
+// group order from 0; else acc stays 0 and group g's f32 term goes to
+// terms[((g - g0) * M + row) * cm.N + col], so that a caller can add
+// them to the sum of the groups before g0 in order, exactly.
+template <int BM, int BN, int TM, int TN, int BITS>
+__device__ __forceinline__ void ptile(
+    const int8_t* x, int M, const PlaneRows<BITS>& src, int vec,
+    const void* s, const void* z, int sz_bf16, int N, int K, int gs, int g0,
+    int g1, float* terms, const ColPlanes& cm, uint8_t* smem,
+    float (&acc)[TM][TN]) {
+  using T = Tile<BM, BN, TM, TN>;
+  using Sm = PlaneSmem<BM, BN, BITS>;
+  constexpr int P = PlaneRows<BITS>::P, NA = PlaneRows<BITS>::NA;
+  constexpr int W = Sm::W, NST = Sm::NST;
+  static_assert(W * P == BN && W % 4 == 0, "whole 4-byte copies a row");
+  int* ws_sm = reinterpret_cast<int*>(smem + Sm::WORDS);
+  const int tid = threadIdx.x;
+  const int tx = tid % T::TX, ty = tid / T::TX;
+  const int spg = gs / BK, ks0 = g0 * spg, nk = (g1 - g0) * spg;
+  const bool live = ty < M;  // some row of this thread is a real row
+  int idot[TM][TN], xsum[TM];
+  float sg[TN], zg[TN];
+#pragma unroll
+  for (int tm = 0; tm < TM; ++tm) {
+    xsum[tm] = 0;
+#pragma unroll
+    for (int tn = 0; tn < TN; ++tn) {
+      acc[tm][tn] = 0.f;
+      idot[tm][tn] = 0;
+    }
+  }
+  __syncthreads();  // the previous tile has read the ring and the words
+
+  const int lw = __ffs(W / vec) - 1;  // 2^lw copies a weight row
+  auto issue = [&](int st) {
+    uint8_t* sw = smem + (st % NST) * Sm::STAGE;
+    const int k0 = (ks0 + st) * BK;
+    const int n_w = NA * BK << lw;
+    for (int i = tid; i < n_w + BM * (BK / 16); i += T::THREADS) {
+      if (i < n_w) {
+        const int ar = i >> lw, c = (i & ((1 << lw) - 1)) * vec;  // (a, row)
+        const int ra = ar / BK, r = ar % BK;
+        copy_chunk(sw + ar * W + c,
+                   src.w + static_cast<size_t>(k0 + r) * src.ld +
+                       ra * src.NP + cm.c0 + c,
+                   vec, cm.c0 + c < src.NP);
+      } else {
+        const int j = i - n_w, m = j / (BK / 16), c = (j % (BK / 16)) * 16;
+        copy_chunk(sw + Sm::WB + m * BK + c,
+                   reinterpret_cast<const uint8_t*>(x) +
+                       static_cast<size_t>(m < M ? m : 0) * K + k0 + c,
+                   16, m < M);
+      }
+    }
+  };
+
+  for (int st = 0; st < NST - 1; ++st) {
+    if (st < nk) issue(st);
+    cp_commit();
+  }
+  for (int ks = 0; ks < nk; ++ks) {
+    cp_wait<NST - 2>();
+    __syncthreads();  // step ks is in; step ks - 1 is read by all
+    if (ks + NST - 1 < nk) issue(ks + NST - 1);
+    cp_commit();
+    const uint8_t* sw = smem + (ks % NST) * Sm::STAGE;
+    const uint8_t* sx = sw + Sm::WB;
+    const int g = g0 + ks / spg;
+    if (ks % spg == 0) {  // a group starts: its qparams, read at its end
+#pragma unroll
+      for (int tn = 0; tn < TN; ++tn) {
+        const int col = cm(tx + tn * T::TX);
+        sg[tn] = zg[tn] = 0.f;
+        if (col >= 0) {
+          const size_t off = static_cast<size_t>(g) * N + col;
+          sg[tn] = load_qparam(s, off, sz_bf16);
+          zg[tn] = load_qparam(z, off, sz_bf16);
+        }
+      }
+    }
+    // (byte column, k word) units
+    for (int u = tid; u < W * KW; u += T::THREADS) {
+      const int uc = u % W, ukw = u / W;
+      uint32_t r[NA];
+#pragma unroll
+      for (int ra = 0; ra < NA; ++ra)
+        r[ra] = rows4(sw + (ra * BK + 4 * ukw) * W + uc, W);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        ws_sm[(p * W + uc) * (KW + 1) + ukw] = plane_word<BITS>(
+            r[BITS == 3 ? (p & 1) : 0], BITS == 3 ? r[NA - 1] : 0u, p);
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int kw = 0; kw < KW; ++kw) {
+        int av[TM];
+#pragma unroll
+        for (int tm = 0; tm < TM; ++tm) {
+          av[tm] = *reinterpret_cast<const int*>(
+              sx + (ty + tm * T::TY) * BK + 4 * kw);
+          xsum[tm] = __dp4a(av[tm], 0x01010101, xsum[tm]);
+        }
+#pragma unroll
+        for (int tn = 0; tn < TN; ++tn) {
+          const int b = ws_sm[(tx + tn * T::TX) * (KW + 1) + kw];
+#pragma unroll
+          for (int tm = 0; tm < TM; ++tm)
+            idot[tm][tn] = __dp4a(av[tm], b, idot[tm][tn]);
+        }
+      }
+    }
+    if ((ks + 1) % spg == 0) {  // the group ends: fold it in
+#pragma unroll
+      for (int tm = 0; tm < TM; ++tm) {
+        const float xs = static_cast<float>(xsum[tm]);
+        const int row = ty + tm * T::TY;
+#pragma unroll
+        for (int tn = 0; tn < TN; ++tn) {
+          const float d = static_cast<float>(idot[tm][tn]);
+          const float t =
+              __fmul_rn(__fsub_rn(d, __fmul_rn(xs, zg[tn])), sg[tn]);
+          if (terms == nullptr) {
+            acc[tm][tn] = __fadd_rn(acc[tm][tn], t);
+          } else {
+            const int col = cm(tx + tn * T::TX);
+            if (row < M && col >= 0)
+              terms[(static_cast<size_t>(g - g0) * M + row) * cm.N + col] =
+                  t;
+          }
+          idot[tm][tn] = 0;
+        }
+        xsum[tm] = 0;
+      }
+    }
+  }
+  cp_wait<0>();
 }
 
 }  // namespace sbt

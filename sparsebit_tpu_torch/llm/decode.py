@@ -89,7 +89,8 @@ def _use_attn_kernel(S, quantized, cfg):
     per row and decode_attention_supported. Unlike the reference it does
     not ask the device, so the CPU takes the card's route."""
     ok = S == 1 and decode_attention_supported(
-        (1, cfg.n_heads, cfg.head_dim), quantized)
+        (1, cfg.n_heads, cfg.head_dim), quantized,
+        n_kv_heads=cfg.n_kv_heads)
     if FORCE_ATTN_KERNEL is not None:
         return FORCE_ATTN_KERNEL and ok
     return ok
@@ -593,7 +594,8 @@ def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
     """Cold (offset-0) bucketed prefill over stacked layers: each row
     attends to its own causal prefix only, with the reference's non-flash
     causal attention (llama.py:177-178: masked attention_scores); K/V rows
-    [0, S) are int8-quantized into the cache. Semantics of
+    [0, S) are int8-quantized into the cache, or written as they are in
+    the cache's dtype when it is not quantized. Semantics of
     prefill_at(..., offset=0): logits (B, V) f32 at each row's last real
     token, cache.length = last_idx + 1."""
     B, S = tokens.shape
@@ -616,6 +618,9 @@ def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
                                  L.repeat_kv(vv, n_rep), mask)
         for buf, sbuf, new in ((cache.k, cache.k_scale, kk),
                                (cache.v, cache.v_scale, vv)):
+            if not cache.quantized:
+                buf[li, :, :S] = new.to(buf.dtype)
+                continue
             q8, sc = _quant_heads(new)
             buf[li, :, :S] = q8
             sbuf[li, :, :S] = sc
@@ -756,7 +761,7 @@ def sample_logits(logits, generator=None, temperature=1.0, top_k=0,
 
 def generate(params, prompt_tokens, cfg, max_new_tokens=32, temperature=0.0,
              top_k=0, top_p=1.0, kv_quantized=True, max_len=None,
-             generator=None, eos_id=None, device=None):
+             generator=None, eos_id=None, *, device=None):
     """Host generation loop (decode.py:1045-1080): prefill, then
     max_new_tokens sampled tokens, each fed to decode_step. A row that
     emitted ``eos_id`` repeats it, and the loop stops early once every row

@@ -37,11 +37,11 @@ class KVCache:
     quantized: object = "int8"  # "int8" or False
 
 
-def init_kv_cache(cfg, batch, max_len=None, device=None, quantized=True):
+def init_kv_cache(cfg, batch, max_len=None, quantized=True, *, device=None):
     """Zeroed cache of ``max_len`` (default cfg.max_seq_len) rows on
     ``device`` (the card unless the caller names another): quantized
-    True/"int8" (int8 codes, f32 scales) or False (bf16, the model's
-    dtype)."""
+    True/"int8" (int8 codes, f32 scales) or False (the model's dtype,
+    cfg.torch_dtype). The positional order is the reference's."""
     device = resolve_device(device)
     S = max_len or cfg.max_seq_len
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
@@ -122,7 +122,7 @@ class PagedKVCache:
         return self.k.shape[2]
 
 
-def init_paged_kv_cache(cfg, batch, n_blocks, block=128, max_chunks=None,
+def init_paged_kv_cache(cfg, batch, n_blocks, block=128, max_chunks=None, *,
                         device=None):
     """Zeroed int8 pools of ``n_blocks`` blocks and an all-zeros block
     table on ``device`` (the card unless the caller names another);

@@ -3,7 +3,8 @@
 (serving.py:164-542) and the paged ``PagedDecodeEngine`` (:634-918)).
 
 ``DecodeEngine``:
-- one fixed (max_batch, max_len) INT8 KV cache, layer-stacked;
+- one fixed (max_batch, max_len) KV cache, layer-stacked: int8, or the
+  model's float dtype with ``kv_quantized=False``;
 - admission: queued prompts grouped per length bucket and prefilled in one
   batched forward (decode.prefill_at) into a reused bucket-sized scratch
   cache, logits taken at each row's last real token, rows then copied into
@@ -25,8 +26,12 @@ full prefix blocks shared between requests, a reserved trash block for
 idle slots, and every decode token as one K4 launch through the block
 table (decode.decode_chunk_paged).
 
-Both take ``device=None`` (CUDA, raising without it) or ``device="cpu"``
-(the kernels' plain versions), and ``head_bits`` (serving.py:281-289): a
+Both take the reference's positional parameters, then the keyword-only
+``device=None`` (CUDA, raising without it) or ``device="cpu"`` (the
+kernels' plain versions). ``DecodeEngine``'s ``kv_quantized`` picks the
+slot cache: True/"int8", or False for the model's float dtype, which
+decodes on decode_chunk (K4 reads int8 only); "int4" is not ported and
+raises NotImplementedError. Both take ``head_bits`` (serving.py:281-289): a
 dense lm_head quantized per channel, symmetric, by round to nearest
 (QuantLinear.from_dense, bf16 qparams; 8 bits halve its stream and take
 K8 at decode). Params must already live on that device
@@ -70,6 +75,9 @@ class _Request:
     done: bool = False
 
 
+_KV_FIELDS = ("k", "v", "k_scale", "v_scale")  # scales None: a float cache
+
+
 def _bucket(n, buckets=(16, 32, 64, 128, 256, 512, 1024, 2048)):
     for b in buckets:
         if n <= b:
@@ -87,9 +95,9 @@ def _serving_layout(lin):
 
 
 class DecodeEngine:
-    def __init__(self, params, cfg, max_batch=8, max_len=None, eos_id=None,
-                 seed=0, chunk=8, prefix_cache_size=8, device=None,
-                 head_bits=None):
+    def __init__(self, params, cfg, max_batch=8, max_len=None,
+                 kv_quantized=True, eos_id=None, seed=0, chunk=8,
+                 prefix_cache_size=8, head_bits=None, *, device=None):
         self.device = resolve_device(device)
         if params["tok_embed"].device.type != self.device.type:
             raise ValueError("params live on {}, engine device is {}".format(
@@ -114,6 +122,7 @@ class DecodeEngine:
             self.params_stacked = stack_layers(self.params)
         self.max_batch = max_batch
         self.max_len = max_len or cfg.max_seq_len
+        self.kv_quantized = kv_quantized
         self.eos_id = eos_id
         self.chunk = chunk
         self.cache = (None if getattr(self, "_skip_slot_cache", False)
@@ -122,7 +131,8 @@ class DecodeEngine:
         # the model is one it takes: the reference's dispatch
         # (serving.py:239-251), without its device check
         self._stacked_chunks = (
-            self.params_stacked is not None and _scan_uses_layer_kernel(
+            self.params_stacked is not None
+            and kv_quantized in (True, "int8") and _scan_uses_layer_kernel(
                 1, self.params_stacked["layers"], "int8", cfg, max_batch))
         self.slots = [None] * max_batch  # _Request or None
         self.queue = []
@@ -139,7 +149,8 @@ class DecodeEngine:
         self.prefix_hits = 0
 
     def _init_cache(self, n_rows, n_cols):
-        return init_kv_cache(self.cfg, n_rows, n_cols, device=self.device)
+        return init_kv_cache(self.cfg, n_rows, n_cols, self.kv_quantized,
+                             device=self.device)
 
     def _prefill_call(self, tokens, scratch, lasts, offsets):
         return prefill_at(self.params, tokens, scratch, self.cfg, lasts,
@@ -212,13 +223,11 @@ class DecodeEngine:
         key = tuple(prompt.tolist())
         self._prefix.pop(key, None)  # refresh the LRU position
         n = min(_bucket(total_len), scratch.k.shape[2])
-        self._prefix[key] = {
-            "len": total_len,
-            "k": scratch.k[:, row, :n].clone(),
-            "v": scratch.v[:, row, :n].clone(),
-            "k_scale": scratch.k_scale[:, row, :n].clone(),
-            "v_scale": scratch.v_scale[:, row, :n].clone(),
-        }
+        self._prefix[key] = {"len": total_len}
+        for name in _KV_FIELDS:
+            t = getattr(scratch, name)
+            self._prefix[key][name] = (None if t is None
+                                       else t[:, row, :n].clone())
         while len(self._prefix) > self._prefix_cache_size:
             key = self._oldest_unpinned()
             if key is None:
@@ -227,10 +236,9 @@ class DecodeEngine:
 
     def _seed_rows(self, scratch, entry, row):
         n = min(entry["k"].shape[1], scratch.k.shape[2])
-        scratch.k[:, row, :n] = entry["k"][:, :n]
-        scratch.v[:, row, :n] = entry["v"][:, :n]
-        scratch.k_scale[:, row, :n] = entry["k_scale"][:, :n]
-        scratch.v_scale[:, row, :n] = entry["v_scale"][:, :n]
+        for name in _KV_FIELDS:
+            if entry[name] is not None:
+                getattr(scratch, name)[:, row, :n] = entry[name][:, :n]
 
     def _splice_group(self, scratch, slots, rows, lengths):
         """Copy the admitted scratch rows [0, min(S_scratch, S_max)) into
@@ -239,10 +247,10 @@ class DecodeEngine:
         sl = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         rw = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         c = self.cache
-        c.k[:, sl, :n] = scratch.k[:, rw, :n]
-        c.v[:, sl, :n] = scratch.v[:, rw, :n]
-        c.k_scale[:, sl, :n] = scratch.k_scale[:, rw, :n]
-        c.v_scale[:, sl, :n] = scratch.v_scale[:, rw, :n]
+        for name in _KV_FIELDS:
+            dst = getattr(c, name)
+            if dst is not None:
+                dst[:, sl, :n] = getattr(scratch, name)[:, rw, :n]
         c.length[sl] = torch.as_tensor(lengths, dtype=torch.int32,
                                        device=self.device)
 
@@ -406,7 +414,7 @@ class PagedDecodeEngine(DecodeEngine):
 
     def __init__(self, params, cfg, max_batch=8, n_blocks=None, block=128,
                  eos_id=None, seed=0, chunk=8, prefix_cache_size=8,
-                 max_len=None, device=None, head_bits=None):
+                 max_len=None, head_bits=None, *, device=None):
         max_len = max_len or cfg.max_seq_len
         if n_blocks is None:
             n_blocks = max_batch * (-(-max_len // block))

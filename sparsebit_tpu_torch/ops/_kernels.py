@@ -46,14 +46,19 @@ SIGNATURES = {
     # (+ scratch: split partials, rows per split)
     "sbt_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P, _P, _I, _P],
     # quant_matmul_planes.cu (K6, K7, K8)
-    "sbt_qmm_planes": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I, _I,
-                       _I, _I, _P],
+    # (+ the plan: rows a thread, byte columns a block, groups a K split;
+    # scratch: the split partials)
+    "sbt_qmm_planes": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P] + [_I] * 7
+    + [_P, _P],
     # matvec.cu (K9)
     # (+ scratch: K-split partials, splits)
     "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # layer_fused.cu (K4): 12 weight/qparam stacks, 2 norms, 4 cache
-    # pools, bt, pos, cos, sin, x, 9 scratch buffers; 19 ints, 2 floats
-    "sbt_layers_fused": [_P] * 32 + [_I] * 19 + [_F, _F, _P],
+    # pools, bt, pos, cos, sin, x, 12 scratch buffers, the phase trace;
+    # 19 ints, 2 floats
+    "sbt_layers_fused": [_P] * 36 + [_I] * 19 + [_F, _F, _P],
+    # (+ a probe: n grid barriers on K4's grid for wbits, B; grid size out)
+    "sbt_grid_sync_probe": [_I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -4,7 +4,8 @@
 form of ``_flat_attention_rows_int8``).
 
 Kernel K5 (``csrc/decode_attention.cu``) replaces ``_decode_attn_kernel``
-(attention.py:499): f32 attention over an int8 or bf16 cache for the
+(attention.py:499): f32 attention over an int8 or float (bf16, f16, f32)
+cache for the
 non-scanned ``decode_step``, as flash-decoding splits of the rows and a
 merge in split order (``_decode_attn_split_plain`` is that algorithm on
 the CPU).
@@ -29,6 +30,14 @@ import torch
 
 from sparsebit_tpu_torch.ops import _kernels
 from sparsebit_tpu_torch.ops.int8_matmul import INV_127
+
+
+# The kernels' gates: K5 takes these cache dtypes (its C entry's kv_type is
+# the index) and head_dim <= 256; K2 (int8 only) the same head_dim and at
+# most 32 query heads per kv head.
+K5_CACHE_DTYPES = (torch.int8, torch.bfloat16, torch.float16, torch.float32)
+K5_MAX_HEAD_DIM = 256
+K2_MAX_REP = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,7 +108,8 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
         return _attn_update_plain(q, k_new, v_new, k, v, ks, vs, li, length)
     B, H, D = q.shape
     L, Bc, S, Hkv, Dc = k.shape
-    if (Bc, Dc) != (B, D) or H % Hkv or H // Hkv > 32 or D > 256 or \
+    if (Bc, Dc) != (B, D) or H % Hkv or H // Hkv > K2_MAX_REP or \
+            D > K5_MAX_HEAD_DIM or \
             k.dtype != torch.int8 or ks.dtype != torch.float32 or \
             not 0 <= li < L:
         raise ValueError("decode_attention_update: unsupported operands")
@@ -123,12 +133,17 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
 decode_attention_update.launches = 0
 
 
-def decode_attention_supported(q_shape, quantized):
-    """K5's constraints (attention.py:860-875): one token per step, an
-    int8 or float cache, head_dim a multiple of 128. The reference's
-    ``Hkv % 4|8`` rule is a Mosaic DMA tiling limit (fault R3) that the
-    CUDA kernel does not have."""
-    return quantized in (False, "int8") and q_shape[-1] % 128 == 0
+def decode_attention_supported(q_shape, quantized, n_kv_heads=None):
+    """The reference's route rule (attention.py:860-875): one token per
+    step, an int8 or float cache, head_dim a multiple of 128; narrowed to
+    what K5 and K2 take: head_dim <= 256 and, with ``n_kv_heads``, at most
+    32 query heads per kv head. The reference's ``Hkv % 4|8`` rule is a
+    Mosaic DMA tiling limit (fault R3) that the CUDA kernels do not
+    have. Any float cache dtype passes: K5 reads bf16, f16 and f32."""
+    D = q_shape[-1]
+    if quantized not in (False, "int8") or D % 128 or D > K5_MAX_HEAD_DIM:
+        return False
+    return n_kv_heads is None or q_shape[-2] // n_kv_heads <= K2_MAX_REP
 
 
 def _decode_attn_plain(q, k, v, ks, vs, length):
@@ -239,10 +254,26 @@ def _decode_attn_split_plain(q, k, v, ks, vs, length, rows_per_split,
     return out / l_out[..., None]
 
 
+def k5_check(q, k, v, li=None):
+    """K5's gate on shapes and dtypes, the wrapper's first step on the
+    card: raises ValueError for operands the kernel does not take. q (B,
+    H, D); k, v (B, S, Hkv, D), or (L, B, S, Hkv, D) stacks with ``li``."""
+    B, H, D = q.shape
+    Bc, S, Hkv, Dc = k.shape[-4:]
+    if (Bc, Dc) != (B, D) or v.shape != k.shape or v.dtype != k.dtype \
+            or H % Hkv or D % 32 or D > K5_MAX_HEAD_DIM \
+            or k.dim() != (4 if li is None else 5) \
+            or (li is not None and not 0 <= li < k.shape[0]) \
+            or k.dtype not in K5_CACHE_DTYPES:
+        raise ValueError("decode_attention: unsupported operands q {} k {} "
+                         "{} li {}".format(tuple(q.shape), tuple(k.shape),
+                                           k.dtype, li))
+
+
 def decode_attention(q, k, v, k_scale, v_scale, length, li=None):
     """K5 wrapper (attention.py:557-598): q (B, H, D) float; k/v (B, S,
-    Hkv, D) int8 with k_scale/v_scale (B, S, Hkv) f32, or bf16 with scales
-    None; length (B,) int32, rows [0, length[b]] attend (the current
+    Hkv, D) int8 with k_scale/v_scale (B, S, Hkv) f32, or bf16, f16 or f32
+    with scales None; length (B,) int32, rows [0, length[b]] attend (the current
     token's row is already in the cache). With ``li``, k/v (and the
     scales) are layer stacks (L, B, S, Hkv, D) and layer li is read in
     place. Returns (B, H, D) f32.
@@ -257,24 +288,17 @@ def decode_attention(q, k, v, k_scale, v_scale, length, li=None):
             k_scale = None if k_scale is None else k_scale[li]
             v_scale = None if v_scale is None else v_scale[li]
         return _decode_attn_plain(q, k, v, k_scale, v_scale, length)
+    k5_check(q, k, v, li)
     B, H, D = q.shape
     Bc, S, Hkv, Dc = k.shape[-4:]
     quant = k.dtype == torch.int8
-    if (Bc, Dc) != (B, D) or v.shape != k.shape or v.dtype != k.dtype \
-            or H % Hkv or D % 32 or D > 256 \
-            or k.dim() != (4 if li is None else 5) \
-            or (li is not None and not 0 <= li < k.shape[0]) \
-            or k.dtype not in (torch.int8, torch.bfloat16):
-        raise ValueError("decode_attention: unsupported operands q {} k {} "
-                         "{} li {}".format(tuple(q.shape), tuple(k.shape),
-                                           k.dtype, li))
     qf = q.to(torch.float32).contiguous()
     ln = length.to(torch.int32).contiguous()
     if quant:
         scales = (k_scale.to(torch.float32).contiguous(),
                   v_scale.to(torch.float32).contiguous())
     else:
-        scales = (qf, qf)  # never read for a bf16 cache
+        scales = (qf, qf)  # never read for a float cache
     _kernels.require_cuda("decode_attention", qf, k, v, *scales, ln)
 
     def at(t):  # layer li of a stack: a pointer offset, never a view
@@ -294,7 +318,8 @@ def decode_attention(q, k, v, k_scale, v_scale, length, li=None):
                        device=q.device)
     err = _kernels.lib().sbt_decode_attention(
         qf.data_ptr(), kp, vp, at(scales[0]), at(scales[1]), ln.data_ptr(),
-        out.data_ptr(), int(not quant), B, S, Hkv, H, D, _inv_sqrt(D),
+        out.data_ptr(), K5_CACHE_DTYPES.index(k.dtype), B, S, Hkv, H, D,
+        _inv_sqrt(D),
         part.data_ptr(), part.data_ptr() + 4 * B * H * splits * D, R,
         _kernels.stream())
     _kernels.check(err, "sbt_decode_attention")

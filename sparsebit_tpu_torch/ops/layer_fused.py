@@ -175,14 +175,17 @@ def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
 _workspaces = {}
 
 
-def _workspace(dev, B, dim, Nq, HD, F, Hq, S_cache):
+def _workspace(dev, B, dim, Nq, HD, F, Hq, S_cache, gs, planes):
     """Scratch of one launch shape on the current stream, allocated once
     and reused: int8 x codes, their scales, qkv, attention out and its
     row absmax, x after the attention half, the GLU row and its absmax,
-    and the attention scores (B, Hq, S_cache). Launches on one stream run
-    in order, so they may share it."""
+    the attention scores (B, Hq, S_cache) and, in plane mode, the [gate |
+    up] rows (B, 2F) before the GLU, the int8 rows of Wo's and W2's
+    inputs (B, max(HD, F)) and their split sums: the first half's sum and
+    the second half's group terms (1 + max(HD, F) / gs / 2, B, dim).
+    Launches on one stream run in order, so they may share it."""
     key = (str(dev), torch.cuda.current_stream(dev).cuda_stream, B, dim, Nq,
-           HD, F, Hq, S_cache)
+           HD, F, Hq, S_cache, gs, planes)
     w = _workspaces.get(key)
     if w is None:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -190,7 +193,12 @@ def _workspace(dev, B, dim, Nq, HD, F, Hq, S_cache):
              torch.empty((B,), **f32), torch.empty((B, Nq), **f32),
              torch.empty((B, HD), **f32), torch.empty((B,), **f32),
              torch.empty((B, dim), **f32), torch.empty((B, F), **f32),
-             torch.empty((B,), **f32), torch.empty((B, Hq, S_cache), **f32))
+             torch.empty((B,), **f32), torch.empty((B, Hq, S_cache), **f32),
+             torch.empty((B, 2 * F) if planes else (1,), **f32),
+             torch.empty((B, max(HD, F)) if planes else (1,),
+                         dtype=torch.int8, device=dev),
+             torch.empty(((1 + max(HD, F) // gs // 2) * B * dim,)
+                         if planes else (1,), **f32))
         _workspaces[key] = w
     return w
 
@@ -212,6 +220,40 @@ def _weight_shapes_ok(ws, K_N, gs, wbits):
         if w.shape[1:] != want:
             return False
     return True
+
+
+TRACE_MARKS = 16  # stamps a layer in a phase trace (csrc kMarks)
+# The phases between a layer's stamps, in order (start, then one stamp
+# after each grid barrier), for s4r and for plane mode.
+TRACE_PHASES = {
+    4: ("attn norm", "Wqkv", "attention", "Wo", "ffn norm", "W13 + GLU",
+        "W2"),
+    "planes": ("attn norm", "Wqkv", "attention", "q8(attn)", "Wo",
+               "Wo sum", "ffn norm", "W13", "GLU", "q8(act)", "W2",
+               "W2 sum"),
+}
+
+
+def _trace(L, dev):
+    """The launch's trace pointer: fused_decoder_layers.trace, an int64
+    (>= L, TRACE_MARKS) tensor on the card, or null (no stamps)."""
+    t = fused_decoder_layers.trace
+    if t is None:
+        return None
+    if t.dtype != torch.int64 or t.device != dev or t.shape[0] < L or \
+            t.shape[1:] != (TRACE_MARKS,) or not t.is_contiguous():
+        raise ValueError("fused_decoder_layers.trace: int64 (L, {}) on {} "
+                         "required".format(TRACE_MARKS, dev))
+    return _kernels.ptr(t)
+
+
+def phase_ms(trace, L, wbits):
+    """Mean ms a layer of each phase from a trace the kernel filled:
+    {phase: ms}, the phases of TRACE_PHASES."""
+    names = TRACE_PHASES[4 if wbits == 4 else "planes"]
+    t = trace[:L, :len(names) + 1].to(torch.float64).cpu()
+    d = (t[:, 1:] - t[:, :-1]).mean(0) * 1e-6
+    return dict(zip(names, d.tolist()))
 
 
 def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
@@ -237,12 +279,13 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
         raise ValueError("fused_decoder_layers: unsupported operands")
     _kernels.require_cuda("fused_decoder_layers", out, pos, cos, sin,
                           attn_norm, ffn_norm, k, v, ks, vs, bt, *flat)
-    scratch = _workspace(out.device, B, dim, Nq, HD, F, Hq, S_cache)
+    scratch = _workspace(out.device, B, dim, Nq, HD, F, Hq, S_cache, gs,
+                         wbits != 4)
     p = _kernels.ptr
     err = _kernels.lib().sbt_layers_fused(
         *[p(t) for t in flat], p(attn_norm), p(ffn_norm),
         p(k), p(v), p(ks), p(vs), p(bt), p(pos), p(cos), p(sin), p(out),
-        *[p(t) for t in scratch],
+        *[p(t) for t in scratch], _trace(L, out.device),
         int(szt == torch.bfloat16), int(attn_norm.dtype == torch.bfloat16),
         L, B, dim, Hq, Hkv, D, F, gs, wbits, *[w[1].shape[-1] for w in ws],
         NB, block, bt.shape[1], s_act, eps, _inv_sqrt(D), _kernels.stream())
@@ -311,6 +354,10 @@ def fused_decoder_layers(x, pos, cos, sin,
 
 fused_decoder_layers.launches = 0
 fused_decoder_layers.plane_launches = 0  # of those, in plane mode
+# None, or an int64 (L, TRACE_MARKS) CUDA tensor: each launch then stamps
+# the device clock (ns) at every layer's start and after each barrier
+# (phase_ms reads it; chip_smoke.py prints the breakdown)
+fused_decoder_layers.trace = None
 
 
 def fused_decoder_layer(x, pos, cos, sin, li,

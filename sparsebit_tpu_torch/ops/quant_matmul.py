@@ -22,6 +22,8 @@ than 64 rows, an irregular K) take the reference's dense route: the f32
 weight dequantized and one matmul.
 """
 
+import functools
+
 import torch
 
 from sparsebit_tpu_torch.ops import _kernels
@@ -198,6 +200,73 @@ def _qmm_planes_plain(x, packed, scales, zeros, bits, gs, N):
     return acc
 
 
+def _qmm_planes_split_plain(x, packed, scales, zeros, bits, gs, N, gps):
+    """K6/K7/K8's own algorithm on the CPU, their oracle: the groups cut
+    into K splits of ``gps`` groups; in a split each group adds, in order,
+    s_g * (x_g . (C_g - z_g)) in f32 for f32 x, or s_g * (dot_g - xsum_g *
+    z_g) from the exact integer sums for int8 x (8-bit codes and zeros
+    shifted by -128); the splits' partials are then added in split order.
+    Same operands and result as _qmm_planes_plain."""
+    a8 = x.dtype == torch.int8
+    if bits == 3:
+        lo, hi = _planes3(packed, N)
+        packed = {"low2": lo, "high1": hi}
+    codes = unpack_columns(packed, bits, N)
+    K = codes.shape[0]
+    gs_eff = gs if gs > 0 else K
+    zshift = 128.0 if (a8 and bits == 8) else 0.0
+    s = scales.to(torch.float32)
+    z = zeros.to(torch.float32) - zshift
+    G = K // gs_eff
+    out = None
+    for g0 in range(0, G, gps):
+        acc = torch.zeros((x.shape[0], N), dtype=torch.float32,
+                          device=x.device)
+        for g in range(g0, min(G, g0 + gps)):
+            rows = slice(g * gs_eff, (g + 1) * gs_eff)
+            c = codes[rows]
+            if a8:
+                xg = x[:, rows].to(torch.float64)
+                dot = (xg @ (c.to(torch.float64) - zshift)).to(torch.float32)
+                xsum = xg.sum(dim=1, keepdim=True).to(torch.float32)
+                acc = acc + (dot - xsum * z[g]) * s[g]
+            else:
+                cz = c.to(torch.float32) - z[g]
+                acc = acc + (x[:, rows].to(torch.float32) @ cz) * s[g]
+        out = acc if out is None else out + acc
+    return out
+
+
+PLANES_THREADS = 256  # block width of K6/K7/K8
+
+
+def _pow2_at_least(n):
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def planes_plan(bits, M, K, N, gs, sms):
+    """K6/K7/K8's launch plan (``csrc/quant_matmul_planes.cu``): rows a
+    thread MR (P * MR <= 32 f32 accumulators a thread, at most 8), byte
+    columns a block CB (256 threads = CB byte columns x 256 / CB row
+    groups of MR rows covering M), and gps groups a K split, splits
+    chosen so that column tiles x splits reach two blocks an SM where the
+    groups allow. Returns (MR, CB, gps, splits)."""
+    P = 8 if bits == 3 else (1 if bits == 8 else 8 // bits)
+    gs_eff = gs if gs > 0 else K
+    MR = min(_pow2_at_least(M), 32 // P, 8)
+    RG = _pow2_at_least(-(-M // MR))
+    CB = PLANES_THREADS // RG
+    tiles = -(-(N // P) // CB)
+    G = K // gs_eff
+    want = min(G, max(1, -(-2 * sms // tiles)))
+    gps = G // want
+    return MR, CB, gps, -(-G // gps)
+
+
 def _planes_launch(name, x, w_lo, w_hi, scales, zeros, bits, gs, N):
     """Launch one column-plane kernel. w_lo is the ``"w"`` planes (or the
     3-bit low2) and w_hi the 3-bit high1; each may be a column slice of a
@@ -227,13 +296,17 @@ def _planes_launch(name, x, w_lo, w_hi, scales, zeros, bits, gs, N):
             "{}: unsupported shape M={} K={} N={} gs={} s={}".format(
                 name, M, K, N, gs, tuple(scales.shape)))
     hi = w_lo if w_hi is None else w_hi
+    MR, CB, gps, splits = planes_plan(bits, M, K, N, gs_eff,
+                                      _kernels.sm_count(x.device))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+            if splits > 1 else out)
     err = _kernels.lib().sbt_qmm_planes(
         _kernels.ptr(x), int(x.dtype == torch.int8), _kernels.ptr(w_lo),
         w_lo.stride(0), _kernels.ptr(hi), hi.stride(0), bits,
         _kernels.ptr(scales), _kernels.ptr(zeros),
         int(scales.dtype == torch.bfloat16), _kernels.ptr(out), M, N, K,
-        gs_eff, _kernels.stream())
+        gs_eff, MR, CB, gps, _kernels.ptr(part), _kernels.stream())
     _kernels.check(err, "sbt_qmm_planes")
     return out
 

@@ -258,6 +258,121 @@ def test_k7_reads_the_plane_concat(cuda):
     assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
+def _planes_case(rng, bits, K, N, gs, dev, sz_bf16):
+    """Random codes of a K x N weight (N the padded width) in the "w" or
+    low2/high1 planes, f32 or bf16 qparams (gs <= 0: per channel)."""
+    G = K // gs if gs > 0 else 1
+    packed, s, z = _planes(rng, bits, K, N, G, dev)
+    if sz_bf16:
+        s, z = s.to(torch.bfloat16), z.to(torch.bfloat16)
+    return packed, s, z
+
+
+def _planes_call(x, packed, s, z, bits, gs, N, a8):
+    if bits == 3:
+        return QM.quant_matmul_3bit(x, packed, s, z, gs, N, a8=a8)
+    fn = QM.quant_matmul_w_a8 if a8 else QM.quant_matmul_w
+    return fn(x, packed["w"], s, z, bits, gs, N)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_k6_k7_k8_split_k_match_plain(cuda, bits, a8, M):
+    """K split across blocks (K = 2048, 16 groups of 128, N = 1408 (3-bit:
+    11 x 128 byte columns, as LLaMA's padded W13 is 22 x 128) so that the
+    plan splits K): rel 1e-4 of max |out| against the plain version, and
+    equal bits on a second call (the partials are added in split order)."""
+    rng = np.random.default_rng(bits * 10 + M)
+    K, N, gs = 2048, 1408 if bits == 3 else 1024, 128
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert QM.planes_plan(bits, M, K, N, gs, sms)[3] > 1
+    packed, s, z = _planes_case(rng, bits, K, N, gs, cuda, M == 8)
+    x = torch.randn((M, K), device=cuda)
+    if a8:
+        x = tokenwise_quant(x)[0]
+    out = _planes_call(x, packed, s, z, bits, gs, N, a8)
+    again = _planes_call(x, packed, s, z, bits, gs, N, a8)
+    ref = QM._qmm_planes_plain(x, packed, s, z, bits, gs, N)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("offset,pad", [(1, 0), (2, 0), (4, 0), (8, 0),
+                                        (0, 1), (0, 4), (0, 8)])
+def test_k6_k7_k8_unaligned_planes_match_plain(cuda, bits, offset, pad):
+    """Weight rows whose base pointer (offset bytes past 16) or row stride
+    (pad bytes past the packed width) is not 16-byte aligned: the same
+    kernel with narrower copies (8 or 4 bytes, or byte loads). f32 and
+    int8 x, M = 8: rel 1e-4 of max |out|."""
+    rng = np.random.default_rng(bits + 7 * offset + pad)
+    K, N, gs = 512, 1024, 128
+    packed, s, z = _planes_case(rng, bits, K, N, gs, cuda, False)
+    moved = {}
+    for key, w in packed.items():
+        flat = torch.zeros((K * (w.shape[1] + pad) + offset + 16,),
+                           dtype=torch.uint8, device=cuda)
+        view = flat[offset:offset + K * (w.shape[1] + pad)].view(
+            K, w.shape[1] + pad)[:, :w.shape[1]]
+        view.copy_(w)
+        moved[key] = view
+    assert all(t.data_ptr() % 16 or t.stride(0) % 16 for t in moved.values())
+    for a8 in (False, True):
+        x = torch.randn((8, K), device=cuda)
+        if a8:
+            x = tokenwise_quant(x)[0]
+        out = _planes_call(x, moved, s, z, bits, gs, N, a8)
+        ref = QM._qmm_planes_plain(x, packed, s, z, bits, gs, N)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max().item() <= \
+            1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_k7_padded_plane_concat_matches_plain(cuda, a8, M):
+    """K7 over the "pl" concat of a padded width (N 1000 -> 1024, the
+    columns past 1000 computed and ignored by the caller), low2 and high1
+    column slices with the concat's row stride, bf16 qparams, K split:
+    rel 1e-4 of max |out| on the logical columns."""
+    from sparsebit_tpu_torch.ops.packing import pallas_n_pad
+
+    rng = np.random.default_rng(M + 3)
+    K, gs = 2048, 128
+    Np = 1000 + pallas_n_pad(1000, 3)
+    packed, s, z = _planes_case(rng, 3, K, Np, gs, cuda, True)
+    pl = {"pl": torch.cat([packed["low2"], packed["high1"]], dim=1)}
+    x = torch.randn((M, K), device=cuda)
+    if a8:
+        x = tokenwise_quant(x)[0]
+    out = QM.quant_matmul_3bit(x, pl, s, z, gs, Np, a8=a8)[:, :1000]
+    ref = QM._qmm_planes_plain(x, packed, s, z, 3, gs, Np)[:, :1000]
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("H,Hkv,D", [(4, 4, 128), (8, 2, 128), (8, 1, 256),
+                                     (12, 1, 64)])
+def test_k5_float_caches_match_plain(cuda, dtype, H, Hkv, D):
+    """K5 over an f16 or f32 cache (an unquantized cache of an f16 or f32
+    model), ragged lengths, a layer of a stack: atol 2e-4."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    L, B, S = 2, 4, 300
+    k = torch.randn((L, B, S, Hkv, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((L, B, S, Hkv, D), generator=g, device=cuda).to(dtype)
+    q = torch.randn((B, H, D), generator=g, device=cuda)
+    length = torch.tensor([0, 31, 200, 299], dtype=torch.int32, device=cuda)
+    before = A.decode_attention.launches
+    out = A.decode_attention_stacked(q, k, v, None, None, 1, length)
+    ref = A._decode_attn_plain(q, k[1], v[1], None, None, length)
+    torch.cuda.synchronize()
+    assert A.decode_attention.launches == before + 1
+    assert (out - ref).abs().max().item() <= 2e-4
+
+
 @pytest.mark.parametrize("quant", [True, False])
 @pytest.mark.parametrize("H,Hkv,D", [(4, 4, 128), (8, 2, 128), (8, 1, 256)])
 def test_k5_kernel_matches_plain(cuda, quant, H, Hkv, D):
@@ -417,10 +532,11 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda, impl):
         assert torch.equal(a.argmax(-1)[decisive], b.argmax(-1)[decisive])
 
 
-def _k4_plane_operands(dev, B, S, bits, n_blocks=None, seed=0):
+def _k4_plane_operands(dev, B, S, bits, n_blocks=None, seed=0, extra=None):
     """The tiny K4 operands with every linear in the true-width plane
     concat at ``bits`` (N padded as the JAX package pads it: Wqkv 1536 ->
-    2048 at 3 bits, W13 768 -> 1024) and bf16 qparams."""
+    2048 at 3 bits, W13 768 -> 1024; or by ``extra`` columns) and bf16
+    qparams."""
     from sparsebit_tpu_torch.ops.packing import (pack_planes_serving,
                                                  pallas_n_pad)
 
@@ -430,7 +546,7 @@ def _k4_plane_operands(dev, B, S, bits, n_blocks=None, seed=0):
     rng = np.random.default_rng(seed + 50)
     ws = []
     for K, N in ((512, 1536), (512, 512), (512, 768), (384, 512)):
-        Np = N + pallas_n_pad(N, bits)
+        Np = N + (pallas_n_pad(N, bits) if extra is None else extra)
         codes = torch.from_numpy(rng.integers(0, 2 ** bits, (2, K, Np)).astype(
             np.uint8))
         s = torch.from_numpy(rng.uniform(0.002, 0.02, (2, K // 64, Np)).astype(
@@ -443,7 +559,8 @@ def _k4_plane_operands(dev, B, S, bits, n_blocks=None, seed=0):
 
 
 @pytest.mark.parametrize("bits", [3, 2])
-@pytest.mark.parametrize("B,paged", [(1, False), (8, False), (8, True)])
+@pytest.mark.parametrize("B,paged", [(1, False), (8, False), (8, True),
+                                     (20, False)])
 def test_k4_plane_mode_matches_plain(cuda, bits, B, paged):
     """K4's plane mode against its plain version on the same card: output,
     KV codes and scales bit for bit (every float sum in one order)."""
@@ -466,6 +583,28 @@ def test_k4_plane_mode_matches_plain(cuda, bits, B, paged):
         cfg.rms_eps, 4, 4, wbits=bits)
     torch.cuda.synchronize()
     assert LF.fused_decoder_layers.launches == before + 1
+    for a, b in zip(cache, plain):
+        assert torch.equal(a, b)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("bits,extra", [(3, 8), (3, 32), (2, 4), (2, 16)])
+def test_k4_plane_mode_narrow_copies_match_plain(cuda, bits, extra):
+    """K4's plane mode over widths padded by ``extra`` columns only, so
+    that a row's byte columns NP are odd (copies of single bytes) or a
+    multiple of 4 but not of the tile's 8 or 16 (4-byte copies): output,
+    KV codes and scales bit for bit against the plain version, B = 8."""
+    B, S = 8, 256
+    cfg, x, pos, cos, sin, ws, norms, cache = _k4_plane_operands(
+        cuda, B, S, bits, extra=extra)
+    plain = [t.clone() for t in cache]
+    out, *_ = LF.fused_decoder_layers(x, pos, cos, sin, *ws, *norms, *cache,
+                                      cfg, 64, wbits=bits)
+    bt = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    ref = LF._fused_layers_plain(
+        x, pos, cos, sin, [tuple(ws[i:i + 3]) for i in range(0, 12, 3)],
+        *norms, *plain, bt, S, 64, cfg.rms_eps, 4, 4, wbits=bits)
+    torch.cuda.synchronize()
     for a, b in zip(cache, plain):
         assert torch.equal(a, b)
     assert torch.equal(out, ref)

@@ -133,3 +133,54 @@ def test_with_u4_sends_a8_linears_to_k1(bits):
     assert "s4r" in u4.packed and set(lin.packed) < set(u4.packed)
     xt = torch.from_numpy(x)
     _close(u4(xt).numpy(), lin(xt).numpy())
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("gps", [1, 3])
+def test_split_k_oracle_matches_jax_kernel(bits, a8, gps):
+    """K6/K7/K8's algorithm (_qmm_planes_split_plain: K split at group
+    boundaries, f32 x as x . (C - z) per group, partials added in split
+    order) against the JAX kernels in interpret mode, 4 groups of 64 rows
+    cut into splits of 1 or 3 groups, B = 8."""
+    q, s, z, x = _operands(bits, 64, 8, bits * 7 + gps)
+    jp = j_pack(jnp.asarray(q), bits)
+    tp = pack_columns(torch.from_numpy(q), bits)
+    jx = jnp.asarray(x)
+    if a8:
+        jx = j_tokenwise(jx)[0]
+    js, jz = jnp.asarray(s), jnp.asarray(z)
+    with pltpu.force_tpu_interpret_mode():
+        if bits == 3:
+            ref = JQ._quant_matmul_pallas_3bit(jx, jp, js, jz, 64, N, a8=a8)
+        elif a8:
+            ref = JQ._quant_matmul_pallas_a8(jx, jp["w"], js, jz, bits, 64, N)
+        else:
+            ref = JQ._quant_matmul_pallas(jx, jp["w"], js, jz, bits, 64, N)
+    out = TQ._qmm_planes_split_plain(
+        torch.from_numpy(np.asarray(jx)), tp, torch.from_numpy(s),
+        torch.from_numpy(z), bits, 64, N, gps)
+    _close(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 8, 37, 64])
+@pytest.mark.parametrize("K,N,gs", [(4096, 4096, 128), (4096, 11008, 128),
+                                    (11008, 4096, 128), (4096, 32000, -1)])
+def test_planes_plan_fills_the_card(bits, M, K, N, gs):
+    """The launch plan of K6/K7/K8 at LLaMA-7B shapes on a 132-SM card:
+    256 threads of CB byte columns x row groups of MR rows that cover M,
+    at most 32 accumulators a thread, splits of whole groups that cover
+    K, and at least two blocks an SM wherever the groups allow it."""
+    from sparsebit_tpu_torch.ops.packing import pallas_n_pad
+
+    N = N + pallas_n_pad(N, bits)
+    P = 8 if bits == 3 else (1 if bits == 8 else 8 // bits)
+    MR, CB, gps, splits = TQ.planes_plan(bits, M, K, N, gs, 132)
+    RG = TQ.PLANES_THREADS // CB
+    assert CB * RG == TQ.PLANES_THREADS and MR * RG >= M
+    assert MR in (1, 2, 4, 8) and MR * P <= 32 and 16 <= CB <= 256
+    G = K // gs if gs > 0 else 1
+    assert (splits - 1) * gps < G <= splits * gps
+    tiles = -(-(N // P) // CB)
+    assert tiles * splits >= 2 * 132 or splits == G
