@@ -5,8 +5,10 @@
 
 Phases (every failure is recorded and the script exits 1 at the end):
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
-     sparsebit_tpu_torch/csrc (one nvcc per source, all started together)
-     and print the build time;
+     sparsebit_tpu_torch/csrc (one nvcc per source, all started together,
+     and one more for a copy of K4 built with -DSBT_PHASE_TRACE, whose
+     phase times and grid-barrier probe phase 2 prints) and print the
+     build time;
   2. hold each kernel against its plain PyTorch version on the card at
      LLaMA-7B shapes: max error against its tolerance, kernel ms (CUDA
      events, weights or caches cycled over copies so that they come from
@@ -661,7 +663,7 @@ def k4_checks(stacked, cfg, record, g):
         bnd = bound_ms(nbytes, ops, "int8")
         tag = "K4 B={}{}".format(B, " paged" if paged else "")
         if not paged:
-            k4_phases(tag, run_kernel, Lx, 4)
+            k4_phases(tag, run_kernel, Lx)
         record(tag, "K4", "sparsebit_tpu_torch/csrc/layer_fused.cu",
                "sparsebit_tpu/ops/layer_fused.py:213", err, tol, ms, pms,
                bnd, None, "{} L={} S={} codes {}".format(
@@ -763,7 +765,7 @@ def k4_plane_checks(cfg, record, g):
             nbytes = w_bytes + kv_bytes + 2 * 4 * B * cfg.dim + 2 * 4 * B * D
             ops = 2 * B * w_count + Lx * 4 * rows * Hq * D
             tag = "K4p {}-bit B={}".format(bits, B)
-            k4_phases(tag, run_kernel, Lx, bits)
+            k4_phases(tag, run_kernel, Lx)
             record(tag, "K4p", "sparsebit_tpu_torch/csrc/layer_fused.cu",
                    "sparsebit_tpu/ops/layer_fused.py:167", err, 0.0, ms, pms,
                    bound_ms(nbytes, ops, "int8"), None,
@@ -775,21 +777,99 @@ def k4_plane_checks(cfg, record, g):
     grid_barrier_probe()
 
 
-def k4_phases(tag, run_kernel, L, wbits):
-    """One more K4 launch with its phase trace on: the mean ms a layer of
-    each phase (block 0's device clock after each grid barrier, so a
-    phase's time includes the wait for its slowest block)."""
-    import torch
-    from sparsebit_tpu_torch.ops import layer_fused as LF
+_traced = {}  # the phase-trace build of K4: "proc", "path", then "lib"
 
-    LF.fused_decoder_layers.trace = torch.zeros(
-        (L, LF.TRACE_MARKS), dtype=torch.int64, device="cuda")
+
+def start_traced_k4_build():
+    """Start nvcc on csrc/layer_fused.cu with -DSBT_PHASE_TRACE, beside the
+    kernel library's own build: a separate library whose K4 stamps its
+    phases and which adds the grid-barrier probe (the shipped library has
+    neither). Its own nvcc process, so it builds in parallel."""
+    import hashlib
+
+    from sparsebit_tpu_torch.ops import _kernels
+
+    src = _kernels.CSRC / "layer_fused.cu"
+    flags = (*_kernels.ARCH_FLAGS, *_kernels.NVCC_FLAGS, "-DSBT_PHASE_TRACE")
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sorted(_kernels.CSRC.glob("*.cuh")) + [src]:
+        h.update(p.read_bytes())
+    path = _kernels.BUILD_DIR / "libsbt_k4_trace_{}.so".format(
+        h.hexdigest()[:16])
+    _traced["path"] = path
+    if path.exists():
+        return
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(".so.tmp{}".format(os.getpid()))
+    _traced["tmp"] = tmp
+    _traced["proc"] = subprocess.Popen(
+        [_kernels._nvcc(), *flags, "-I", str(_kernels.CSRC), "-shared",
+         "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def traced_k4_lib():
+    """The phase-trace build of K4, loaded (waits for nvcc); None, with a
+    failure recorded, if it did not build."""
+    import ctypes
+
+    from sparsebit_tpu_torch.ops import _kernels
+
+    if "lib" in _traced:
+        return _traced["lib"]
+    proc = _traced.pop("proc", None)
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail("phase-trace build of layer_fused.cu: " + out[-2000:])
+            _traced["lib"] = None
+            return None
+        os.replace(_traced["tmp"], _traced["path"])
+    lib = ctypes.CDLL(str(_traced["path"]))
+    lib.sbt_layers_fused.argtypes = _kernels.SIGNATURES["sbt_layers_fused"]
+    lib.sbt_layers_fused.restype = ctypes.c_int
+    lib.sbt_phase_trace_set.argtypes = [ctypes.c_void_p]
+    lib.sbt_phase_trace_set.restype = ctypes.c_int
+    lib.sbt_phase_name.argtypes = [ctypes.c_int]
+    lib.sbt_phase_name.restype = ctypes.c_char_p
+    lib.sbt_phase_marks.restype = ctypes.c_int
+    lib.sbt_grid_sync_probe.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 2
+    lib.sbt_grid_sync_probe.restype = ctypes.c_int
+    _traced["lib"] = lib
+    return lib
+
+
+def k4_phases(tag, run_kernel, L):
+    """One more K4 launch, from the phase-trace build: the mean ms a layer
+    of each phase (block 0's device clock after each grid barrier, so a
+    phase's time includes the wait for its slowest block). The kernel
+    names each phase it stamps."""
+    import torch
+    from sparsebit_tpu_torch.ops import _kernels
+
+    lib = traced_k4_lib()
+    if lib is None:
+        return
+    buf = torch.zeros((L, lib.sbt_phase_marks(), 2), dtype=torch.int64,
+                      device="cuda")
+    shipped = _kernels.lib
+    _kernels.check(lib.sbt_phase_trace_set(buf.data_ptr()),
+                   "sbt_phase_trace_set")
+    _kernels.lib = lambda: lib
     try:
         run_kernel(0)
         torch.cuda.synchronize()
-        ph = LF.phase_ms(LF.fused_decoder_layers.trace, L, wbits)
     finally:
-        LF.fused_decoder_layers.trace = None
+        _kernels.lib = shipped
+        _kernels.check(lib.sbt_phase_trace_set(None), "sbt_phase_trace_set")
+    ph = {}
+    for row in buf.cpu().tolist():
+        for (_, t0), (pid, t1) in zip(row, row[1:]):
+            if pid == 0:
+                break
+            name = lib.sbt_phase_name(pid).decode()
+            ph[name] = ph.get(name, 0.0) + (t1 - t0) * 1e-6 / L
     probes["phase ms a layer, " + tag] = ph
     print("{} phases, ms a layer: {} (sum {:.4f})".format(
         tag, ", ".join("{} {:.4f}".format(k, v) for k, v in ph.items()),
@@ -799,17 +879,20 @@ def k4_phases(tag, run_kernel, L, wbits):
 def grid_barrier_probe():
     """The cost of one grid barrier of K4's persistent grid (plane mode
     adds one a layer, between W13 and the GLU): a cooperative launch of
-    n barriers and nothing else, n = 2000 against n = 0, CUDA events."""
+    n barriers and nothing else, n = 2000 against n = 0, CUDA events,
+    from the phase-trace build."""
     import ctypes
 
-    import torch
     from sparsebit_tpu_torch.ops import _kernels
 
+    lib = traced_k4_lib()
+    if lib is None:
+        return
     for wbits, B in ((3, 1), (3, 8), (4, 8)):
         grid = ctypes.c_int(0)
 
         def launch(n):
-            _kernels.check(_kernels.lib().sbt_grid_sync_probe(
+            _kernels.check(lib.sbt_grid_sync_probe(
                 n, wbits, B, ctypes.addressof(grid), _kernels.stream()),
                 "sbt_grid_sync_probe")
 
@@ -1676,6 +1759,7 @@ def main():
     card = card_line()
     print("card: {}".format(card), flush=True)
     t0 = time.perf_counter()
+    start_traced_k4_build()
     _kernels.lib()
     _wrappers()  # the wrappers as imported, before any phase patches them
     print("kernel build + load {:.1f} s".format(time.perf_counter() - t0),
@@ -1729,4 +1813,10 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if "proc" in _traced:  # a phase-trace build never waited for
+            _traced["proc"].kill()
+            _traced["proc"].wait()
+    sys.exit(rc)

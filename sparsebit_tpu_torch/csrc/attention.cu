@@ -25,7 +25,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 512;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -63,13 +63,14 @@ __global__ void __launch_bounds__(kThreads) attn_update_kernel(
     int8_t* __restrict__ vc, float* __restrict__ ks, float* __restrict__ vs,
     const int* __restrict__ length, float* __restrict__ out, int li, int B,
     int S, int Hkv, int H, int D, float inv_sqrt_d) {
-  extern __shared__ float p_sm[];  // (n_rep, S) scores, then bf16(p*vs)
+  // (n_rep, S) scores, then bf16(p*vs); then the n_rep softmax sums
+  extern __shared__ float p_sm[];
   __shared__ int8_t krow[kMaxD], vrow[kMaxD];
   __shared__ float red[kThreads / 32];
-  __shared__ float stat_d[32];
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int n_rep = H / Hkv;
+  float* stat_d = p_sm + static_cast<size_t>(n_rep) * S;
   const int len = length[b];
   const size_t lb = static_cast<size_t>(li) * B + b;  // (layer, row) index
   const float* knr = kn + (static_cast<size_t>(b) * Hkv + h) * D;
@@ -156,7 +157,8 @@ __global__ void __launch_bounds__(kThreads) attn_update_kernel(
 
 // q (B, H, D) f32; kn, vn (B, Hkv, D) f32; k, v (L, B, S, Hkv, D) int8 and
 // ks, vs (L, B, S, Hkv) f32 updated in place at [li, b, length[b]];
-// length (B,) int32 < S; out (B, H, D) f32. D <= 256, n_rep <= 32.
+// length (B,) int32 < S; out (B, H, D) f32. D <= 512; the scores of the
+// n_rep query heads, n_rep * (S + 1) f32, fit in shared memory.
 // inv_sqrt_d is 1/sqrt(D) rounded once to f32, as the reference's scalar.
 extern "C" int sbt_attn_update(const void* q, const void* kn, const void* vn,
                                void* k, void* v, void* ks, void* vs,
@@ -164,7 +166,8 @@ extern "C" int sbt_attn_update(const void* q, const void* kn, const void* vn,
                                int S, int Hkv, int H, int D, float inv_sqrt_d,
                                void* stream) {
   const int n_rep = H / Hkv;
-  const size_t smem = static_cast<size_t>(n_rep) * S * sizeof(float);
+  if (D > kMaxD || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(n_rep) * (S + 1) * sizeof(float);
   if (smem > 40 * 1024) {  // with the static arrays, past the 48 KB default
     cudaError_t e = cudaFuncSetAttribute(
         attn_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -24,7 +24,8 @@
 //   - each of the block's 4 warps is an independent worker over every
 //     4th pass of the split's rows: a lane holds a 16-byte chunk of a row
 //     (int8 D = 128 is 8 lanes a row and 4 rows a pass; narrower chunks
-//     for groups of 4 or 8 heads keep the accumulators in registers) and
+//     for groups of 4 or 8 heads keep the accumulators in registers; a
+//     row of more than 32 chunks, up to D = 512, takes 2 or 4 a lane) and
 //     copies its K and V chunks with cp.async into its own shared-memory
 //     ring 8 passes ahead, reading back only what it copied: no barrier
 //     in the loop, 32 KB of K and V in flight a block;
@@ -53,6 +54,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxD = 512;  // head_dim: a row is at most 4 chunks a lane
 
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -446,8 +448,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// NU = 2 chunks a lane where one chunk a lane leaves a row wider than a
-// warp (the narrow chunks of 8-head groups at D > 128).
+// NU = 2 or 4 chunks a lane where one chunk a lane leaves a row wider
+// than a warp (narrow chunks of larger groups, or D > 256); only the NU a
+// row of up to kMaxD values can need are instantiated.
 template <class T, bool QUANT, int RG>
 cudaError_t launch_nu(int D, const void* q, const void* k, const void* v,
                       const void* ks, const void* vs, const void* length,
@@ -455,13 +458,26 @@ cudaError_t launch_nu(int D, const void* q, const void* k, const void* v,
                       int Hkv, int H, float inv_sqrt_d, int rows_per_split,
                       cudaStream_t st) {
   constexpr int CB = chunk_bytes<T, RG>();
-  if (D * static_cast<int>(sizeof(T)) > 32 * CB)
-    return launch<T, QUANT, RG, 2>(q, k, v, ks, vs, length, out, part_acc,
-                                   part_ml, B, S, Hkv, H, D, inv_sqrt_d,
-                                   rows_per_split, st);
-  return launch<T, QUANT, RG, 1>(q, k, v, ks, vs, length, out, part_acc,
-                                 part_ml, B, S, Hkv, H, D, inv_sqrt_d,
-                                 rows_per_split, st);
+  constexpr int kMaxChunks = kMaxD * static_cast<int>(sizeof(T)) / CB;
+  const int chunks = D * static_cast<int>(sizeof(T)) / CB;  // a row's
+#define SBT_NU(NU)                                                          \
+  return launch<T, QUANT, RG, NU>(q, k, v, ks, vs, length, out, part_acc,   \
+                                  part_ml, B, S, Hkv, H, D, inv_sqrt_d,     \
+                                  rows_per_split, st)
+  if constexpr (kMaxChunks > 64) {
+    if (chunks > 64) {
+      if (chunks % 4) return cudaErrorInvalidValue;
+      SBT_NU(4);
+    }
+  }
+  if constexpr (kMaxChunks > 32) {
+    if (chunks > 32) {
+      if (chunks % 2) return cudaErrorInvalidValue;
+      SBT_NU(2);
+    }
+  }
+  SBT_NU(1);
+#undef SBT_NU
 }
 
 template <class T, bool QUANT>
@@ -490,7 +506,7 @@ cudaError_t launch_group(int n_rep, const void* q, const void* k,
 // float (kv_type 1 bf16, 2 f16, 3 f32; ks, vs ignored; 0 is int8),
 // already offset to a layer of a stack,
 // 16-byte aligned; length (B,) int32, rows [0, length[b]] attend (clamped
-// to S - 1); out (B, H, D) f32. D % 32 == 0, D <= 256, H % Hkv == 0.
+// to S - 1); out (B, H, D) f32. D % 32 == 0, D <= 512, H % Hkv == 0.
 // inv_sqrt_d is 1/sqrt(D) rounded once to f32, as the reference's Python
 // scalar. Scratch: part_acc (B, H, splits, D) and part_ml (B, H, splits,
 // 2) f32 with splits = ceil(S / rows_per_split).
@@ -501,7 +517,7 @@ extern "C" int sbt_decode_attention(const void* q, const void* k,
                                     int Hkv, int H, int D, float inv_sqrt_d,
                                     void* part_acc, void* part_ml,
                                     int rows_per_split, void* stream) {
-  if (D % 32 || D > 256 || H % Hkv || S < 1 || rows_per_split < 1 ||
+  if (D % 32 || D > kMaxD || H % Hkv || S < 1 || rows_per_split < 1 ||
       kv_type < 0 || kv_type > 3 ||
       reinterpret_cast<uintptr_t>(k) % 16 ||
       reinterpret_cast<uintptr_t>(v) % 16)

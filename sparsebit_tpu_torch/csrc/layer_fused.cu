@@ -68,8 +68,8 @@
 // column tiles than there are blocks), byte-wide weight loads, and seven
 // grid barriers per layer. Plane mode keeps NST - 1 steps in flight,
 // copies 4-16 bytes a row and splits Wo's and W2's K, and pays for its
-// decode and barriers in each 64-row step instead (chip_smoke.py's phase
-// trace shows where).
+// decode and barriers in each 64-row step instead (the phase trace of a
+// build with -DSBT_PHASE_TRACE, which chip_smoke.py makes, shows where).
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -84,7 +84,37 @@ constexpr int kThreads = 256;
 constexpr int kMaxD = 256;
 constexpr int kMaxRep = 8;
 constexpr int kMaxBlocksPerSM = 2;
-constexpr int kMarks = 16;  // trace stamps a layer (s4r: 8, planes: 13)
+
+// The phases of a layer, each named at the grid barrier that ends it.
+enum Phase : int {
+  kStart = 1, kAttnNorm, kWqkv, kAttention, kQ8Attn, kWo, kWoSum, kFfnNorm,
+  kW13, kW13Glu, kGlu, kQ8Act, kW2, kW2Sum, kPhaseEnd
+};
+
+#ifdef SBT_PHASE_TRACE
+// The phase trace, compiled only into a build with -DSBT_PHASE_TRACE
+// (chip_smoke.py makes one beside the kernel library): block 0 stamps
+// %globaltimer (ns) and the phase that just ended at each layer's start
+// and after each grid barrier, into (L, kMarks) pairs (phase, ns) of the
+// buffer sbt_phase_trace_set gave it; sbt_phase_name names the phases.
+constexpr int kMarks = 16;  // stamps a layer at most (plane mode: 13)
+const char* const kPhaseNames[kPhaseEnd] = {
+    "", "start", "attn norm", "Wqkv", "attention", "q8(attn)", "Wo",
+    "Wo sum", "ffn norm", "W13", "W13 + GLU", "GLU", "q8(act)", "W2",
+    "W2 sum"};
+__device__ unsigned long long* g_trace;
+
+__device__ __forceinline__ void stamp(int li, int mark, Phase done) {
+  if (g_trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    unsigned long long* at =
+        g_trace + 2 * (static_cast<size_t>(li) * kMarks + mark);
+    at[0] = static_cast<unsigned long long>(done);
+    at[1] = t;
+  }
+}
+#endif
 
 struct Args {
   const uint8_t *wq, *wo, *w13, *w2;
@@ -98,10 +128,6 @@ struct Args {
   int8_t* xq;
   float *xs, *qkv, *aout, *amax_a, *xmid, *act, *amax_g, *sc;
   float* h13;  // plane mode: [gate | up] rows (B, 2F) before the GLU
-  // or null: block 0 stamps %globaltimer (ns) at each layer's start and
-  // after each of its barriers, trace[li * kMarks + i] (chip_smoke.py
-  // reads the phase times from it)
-  unsigned long long* trace;
   int8_t* aq;  // plane mode: q8(aout) (B, Hq*D), then q8(act) (B, F)
   // plane mode: Wo's and W2's first-half sums (B, dim), then the second
   // half's group terms (G - G0, B, dim)
@@ -497,20 +523,18 @@ __global__ void __launch_bounds__(kThreads)
   const int bf = a.sz_bf16;
 
   for (int li = 0; li < a.L; ++li) {
+#ifdef SBT_PHASE_TRACE
     int mark = 0;
-    auto stamp = [&]() {
-      if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-        unsigned long long t;
-        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-        a.trace[li * kMarks + mark] = t;
-      }
-      ++mark;
-    };
-    auto sync = [&]() {
+    stamp(li, mark++, kStart);
+#endif
+    auto sync = [&](Phase done) {
       grid.sync();
-      stamp();
+#ifdef SBT_PHASE_TRACE
+      stamp(li, mark++, done);
+#else
+      (void)done;
+#endif
     };
-    stamp();
     const void* an = qp_at(a.an, static_cast<size_t>(li) * dim, a.nw_bf16);
     const void* fn = qp_at(a.fn, static_cast<size_t>(li) * dim, a.nw_bf16);
 
@@ -521,12 +545,12 @@ __global__ void __launch_bounds__(kThreads)
                      red);
       if (threadIdx.x == 0) a.amax_a[b] = 0.f;
     }
-    sync();
+    sync(kAttnNorm);
 
     // 1: qkv = xs * Wqkv(xq)
     if constexpr (BITS != 4) {
       plane_phase<G, BITS>(a.xq, a.wq, a.sq, a.zq, li, dim, a.nq_s, Nq, a,
-                           plane_sm, false, sync,
+                           plane_sm, false, [] {},
                            [&](int row, int col, float v) {
                              a.qkv[static_cast<size_t>(row) * Nq + col] =
                                  __fmul_rn(v, a.xs[row]);
@@ -555,19 +579,19 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    sync();
+    sync(kWqkv);
 
     // 2: rope, K/V row commit, int8 attention
     for (int it = blockIdx.x; it < B * a.Hkv; it += gridDim.x)
       attention_item(a, li, it / a.Hkv, it % a.Hkv, sm, red);
-    sync();
+    sync(kAttention);
 
     // 3: xmid = x + as * Wo(q8(aout)); plane mode quantizes aout first
     if constexpr (BITS != 4) {
       quant_rows_grid(a.aout, a.amax_a, B, HD, a.aq);
-      sync();
+      sync(kQ8Attn);
       plane_phase<P, BITS>(a.aq, a.wo, a.so, a.zo, li, HD, a.no_s, dim, a,
-                           plane_sm, true, sync,
+                           plane_sm, true, [&] { sync(kWo); },
                            [&](int row, int col, float v) {
                              const size_t o =
                                  static_cast<size_t>(row) * dim + col;
@@ -601,7 +625,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    sync();
+    sync(BITS != 4 ? kWoSum : kWo);
 
     // C: ffn norm + quant; zero the GLU absmax
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
@@ -610,7 +634,7 @@ __global__ void __launch_bounds__(kThreads)
                      a.xs + b, red);
       if (threadIdx.x == 0) a.amax_g[b] = 0.f;
     }
-    sync();
+    sync(kFfnNorm);
 
     // 4: act = silu(g) * u, [g | u] = xs * W13(xq); row absmax. Plane
     // mode: gate j and up F + j lie in different byte columns, so [g | u]
@@ -618,12 +642,12 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (BITS != 4) {
       const int F2 = 2 * F;
       plane_phase<W13, BITS>(a.xq, a.w13, a.s13, a.z13, li, dim, a.n13_s,
-                             F2, a, plane_sm, false, sync,
+                             F2, a, plane_sm, false, [] {},
                              [&](int row, int col, float v) {
                              a.h13[static_cast<size_t>(row) * F2 + col] =
                                  __fmul_rn(v, a.xs[row]);
                            });
-      sync();
+      sync(kW13);
       if (threadIdx.x < BM) amax_sm[threadIdx.x] = 0;
       __syncthreads();
       for (int i = blockIdx.x * kThreads + threadIdx.x; i < B * F;
@@ -678,14 +702,14 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();
       }
     }
-    sync();
+    sync(BITS != 4 ? kGlu : kW13Glu);
 
     // 5: x = xmid + gs * W2(q8(act)); plane mode quantizes act first
     if constexpr (BITS != 4) {
       quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
-      sync();
+      sync(kQ8Act);
       plane_phase<P, BITS>(a.aq, a.w2, a.s2, a.z2, li, F, a.n2_s, dim, a,
-                           plane_sm, true, sync,
+                           plane_sm, true, [&] { sync(kW2); },
                            [&](int row, int col, float v) {
                              const size_t o =
                                  static_cast<size_t>(row) * dim + col;
@@ -719,7 +743,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    sync();
+    sync(BITS != 4 ? kW2Sum : kW2);
   }
 }
 
@@ -742,13 +766,6 @@ cudaError_t grid_size(Kern kern, int* grid) {
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
   *grid = sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
   return cudaSuccess;
-}
-
-// n grid barriers and nothing else: the cost of one barrier of K4's grid
-// (chip_smoke.py times it).
-__global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int n) {
-  cg::grid_group grid = cg::this_grid();
-  for (int i = 0; i < n; ++i) grid.sync();
 }
 
 template <class P, class G, int BITS>
@@ -785,8 +802,7 @@ cudaError_t launch_rows(const Args& a, cudaStream_t st) {
 // qkv (B, Nq), aout (B, Hq*D), amax_a (B), xmid (B, dim), act (B, F),
 // amax_g (B), sc (B, Hq, max_chunks*block) and, in plane mode, h13 (B,
 // 2F) and part (B, dim, 1 + max(Hq*D, F) / gs / 2), all f32, and aq (B,
-// max(Hq*D, F)) int8. trace: null, or (L, 16) u64 phase stamps
-// (Args::trace). B <= 64, D a power of two <= 256,
+// max(Hq*D, F)) int8. B <= 64, D a power of two <= 256,
 // Hq/Hkv <= 8, K dims multiples of 64 and of gs.
 extern "C" int sbt_layers_fused(
     const void* wq, const void* sq, const void* zq, const void* wo,
@@ -796,7 +812,7 @@ extern "C" int sbt_layers_fused(
     const void* bt, const void* pos, const void* cos, const void* sin,
     void* x, void* xq, void* xs, void* qkv, void* aout, void* amax_a,
     void* xmid, void* act, void* amax_g, void* sc, void* h13, void* aq,
-    void* part, void* trace, int sz_bf16, int nw_bf16,
+    void* part, int sz_bf16, int nw_bf16,
     int L, int B, int dim, int Hq, int Hkv, int D, int F, int gs,
     int wbits, int nq_s, int no_s, int n13_s, int n2_s, int n_blocks,
     int block, int max_chunks, int s_act, float eps, float inv_sqrt_d,
@@ -843,7 +859,6 @@ extern "C" int sbt_layers_fused(
   a.h13 = static_cast<float*>(h13);
   a.aq = static_cast<int8_t*>(aq);
   a.part = static_cast<float*>(part);
-  a.trace = static_cast<unsigned long long*>(trace);
   a.sz_bf16 = sz_bf16; a.nw_bf16 = nw_bf16;
   a.L = L; a.B = B; a.dim = dim; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.F = F;
   a.gs = gs; a.n_blocks = n_blocks; a.block = block;
@@ -856,6 +871,31 @@ extern "C" int sbt_layers_fused(
                                : launch_rows<2>(a, st);
   return static_cast<int>(e);
 }
+
+#ifdef SBT_PHASE_TRACE
+namespace {
+
+// n grid barriers and nothing else: the cost of one barrier of K4's grid.
+__global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int n) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n; ++i) grid.sync();
+}
+
+}  // namespace
+
+// buf: (L, 16) pairs (phase, ns) of u64, zeroed, that every later K4
+// launch fills (Phase names the phase that ended at each stamp), or null
+// to stop.
+extern "C" int sbt_phase_trace_set(void* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_trace, &buf, sizeof(buf)));
+}
+
+// The name of phase id (Phase), or null past the last.
+extern "C" const char* sbt_phase_name(int id) {
+  return id > 0 && id < kPhaseEnd ? kPhaseNames[id] : nullptr;
+}
+
+extern "C" int sbt_phase_marks() { return kMarks; }
 
 // n_syncs grid barriers on the grid K4 launches for wbits (2, 3 or 4) and
 // B rows; *grid receives its block count.
@@ -878,3 +918,4 @@ extern "C" int sbt_grid_sync_probe(int n_syncs, int wbits, int B, void* grid,
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // SBT_PHASE_TRACE

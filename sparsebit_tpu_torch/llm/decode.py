@@ -89,8 +89,7 @@ def _use_attn_kernel(S, quantized, cfg):
     per row and decode_attention_supported. Unlike the reference it does
     not ask the device, so the CPU takes the card's route."""
     ok = S == 1 and decode_attention_supported(
-        (1, cfg.n_heads, cfg.head_dim), quantized,
-        n_kv_heads=cfg.n_kv_heads)
+        (1, cfg.n_heads, cfg.head_dim), quantized)
     if FORCE_ATTN_KERNEL is not None:
         return FORCE_ATTN_KERNEL and ok
     return ok

@@ -54,11 +54,8 @@ SIGNATURES = {
     # (+ scratch: K-split partials, splits)
     "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # layer_fused.cu (K4): 12 weight/qparam stacks, 2 norms, 4 cache
-    # pools, bt, pos, cos, sin, x, 12 scratch buffers, the phase trace;
-    # 19 ints, 2 floats
-    "sbt_layers_fused": [_P] * 36 + [_I] * 19 + [_F, _F, _P],
-    # (+ a probe: n grid barriers on K4's grid for wbits, B; grid size out)
-    "sbt_grid_sync_probe": [_I, _I, _I, _P, _P],
+    # pools, bt, pos, cos, sin, x, 12 scratch buffers; 19 ints, 2 floats
+    "sbt_layers_fused": [_P] * 35 + [_I] * 19 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

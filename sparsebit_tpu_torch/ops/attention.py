@@ -33,11 +33,12 @@ from sparsebit_tpu_torch.ops.int8_matmul import INV_127
 
 
 # The kernels' gates: K5 takes these cache dtypes (its C entry's kv_type is
-# the index) and head_dim <= 256; K2 (int8 only) the same head_dim and at
-# most 32 query heads per kv head.
+# the index) and head_dim <= 512; K2 (int8 only) the same head_dim, with
+# the scores of a kv head's query heads, n_rep * (S + 1) f32, in shared
+# memory (227 KB a block on the H100, less K2's static 2 KB).
 K5_CACHE_DTYPES = (torch.int8, torch.bfloat16, torch.float16, torch.float32)
-K5_MAX_HEAD_DIM = 256
-K2_MAX_REP = 32
+K5_MAX_HEAD_DIM = 512
+K2_MAX_SCORES = (227 * 1024 - 2048) // 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,6 +95,22 @@ def _attn_update_plain(q, k_new, v_new, k, v, ks, vs, li, length):
     return out / denom
 
 
+def k2_check(q, k, ks, li):
+    """K2's gate on shapes and dtypes, the wrapper's first step on the
+    card: raises ValueError for operands the kernel does not take. q (B,
+    H, D); k (L, B, S, Hkv, D) int8; ks (L, B, S, Hkv) f32."""
+    B, H, D = q.shape
+    L, Bc, S, Hkv, Dc = k.shape
+    if (Bc, Dc) != (B, D) or H % Hkv or D > K5_MAX_HEAD_DIM or \
+            H // Hkv * (S + 1) > K2_MAX_SCORES or \
+            k.dtype != torch.int8 or ks.dtype != torch.float32 or \
+            not 0 <= li < L:
+        raise ValueError("decode_attention_update: unsupported operands q "
+                         "{} k {} {} li {}".format(tuple(q.shape),
+                                                   tuple(k.shape), k.dtype,
+                                                   li))
+
+
 def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
     """One launch per layer: per-head INT8 quantization of the new K/V rows,
     their commit IN PLACE at ``[li, b, length[b]]`` of the caller's cache
@@ -106,13 +123,9 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
     CPU tensors take the plain version; CUDA tensors launch K2."""
     if q.device.type == "cpu":
         return _attn_update_plain(q, k_new, v_new, k, v, ks, vs, li, length)
+    k2_check(q, k, ks, li)
     B, H, D = q.shape
     L, Bc, S, Hkv, Dc = k.shape
-    if (Bc, Dc) != (B, D) or H % Hkv or H // Hkv > K2_MAX_REP or \
-            D > K5_MAX_HEAD_DIM or \
-            k.dtype != torch.int8 or ks.dtype != torch.float32 or \
-            not 0 <= li < L:
-        raise ValueError("decode_attention_update: unsupported operands")
     qf = q.to(torch.float32).contiguous()
     kf = k_new.to(torch.float32).contiguous()
     vf = v_new.to(torch.float32).contiguous()
@@ -133,17 +146,14 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
 decode_attention_update.launches = 0
 
 
-def decode_attention_supported(q_shape, quantized, n_kv_heads=None):
+def decode_attention_supported(q_shape, quantized):
     """The reference's route rule (attention.py:860-875): one token per
-    step, an int8 or float cache, head_dim a multiple of 128; narrowed to
-    what K5 and K2 take: head_dim <= 256 and, with ``n_kv_heads``, at most
-    32 query heads per kv head. The reference's ``Hkv % 4|8`` rule is a
-    Mosaic DMA tiling limit (fault R3) that the CUDA kernels do not
-    have. Any float cache dtype passes: K5 reads bf16, f16 and f32."""
-    D = q_shape[-1]
-    if quantized not in (False, "int8") or D % 128 or D > K5_MAX_HEAD_DIM:
-        return False
-    return n_kv_heads is None or q_shape[-2] // n_kv_heads <= K2_MAX_REP
+    step, an int8 or float cache (K5 reads bf16, f16 and f32), head_dim a
+    multiple of 128. The reference's ``Hkv % 4|8`` rule is a Mosaic DMA
+    tiling limit (fault R3) that the CUDA kernels do not have. K5 and K2
+    take head_dim up to 512 and any GQA ratio; past 512 their wrappers
+    raise on the card, where the reference's kernel would run."""
+    return quantized in (False, "int8") and q_shape[-1] % 128 == 0
 
 
 def _decode_attn_plain(q, k, v, ks, vs, length):
@@ -273,8 +283,8 @@ def k5_check(q, k, v, li=None):
 def decode_attention(q, k, v, k_scale, v_scale, length, li=None):
     """K5 wrapper (attention.py:557-598): q (B, H, D) float; k/v (B, S,
     Hkv, D) int8 with k_scale/v_scale (B, S, Hkv) f32, or bf16, f16 or f32
-    with scales None; length (B,) int32, rows [0, length[b]] attend (the current
-    token's row is already in the cache). With ``li``, k/v (and the
+    with scales None; length (B,) int32, rows [0, length[b]] attend (the
+    current token's row is already in the cache). With ``li``, k/v (and the
     scales) are layer stacks (L, B, S, Hkv, D) and layer li is read in
     place. Returns (B, H, D) f32.
 

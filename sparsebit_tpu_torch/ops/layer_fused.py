@@ -222,40 +222,6 @@ def _weight_shapes_ok(ws, K_N, gs, wbits):
     return True
 
 
-TRACE_MARKS = 16  # stamps a layer in a phase trace (csrc kMarks)
-# The phases between a layer's stamps, in order (start, then one stamp
-# after each grid barrier), for s4r and for plane mode.
-TRACE_PHASES = {
-    4: ("attn norm", "Wqkv", "attention", "Wo", "ffn norm", "W13 + GLU",
-        "W2"),
-    "planes": ("attn norm", "Wqkv", "attention", "q8(attn)", "Wo",
-               "Wo sum", "ffn norm", "W13", "GLU", "q8(act)", "W2",
-               "W2 sum"),
-}
-
-
-def _trace(L, dev):
-    """The launch's trace pointer: fused_decoder_layers.trace, an int64
-    (>= L, TRACE_MARKS) tensor on the card, or null (no stamps)."""
-    t = fused_decoder_layers.trace
-    if t is None:
-        return None
-    if t.dtype != torch.int64 or t.device != dev or t.shape[0] < L or \
-            t.shape[1:] != (TRACE_MARKS,) or not t.is_contiguous():
-        raise ValueError("fused_decoder_layers.trace: int64 (L, {}) on {} "
-                         "required".format(TRACE_MARKS, dev))
-    return _kernels.ptr(t)
-
-
-def phase_ms(trace, L, wbits):
-    """Mean ms a layer of each phase from a trace the kernel filled:
-    {phase: ms}, the phases of TRACE_PHASES."""
-    names = TRACE_PHASES[4 if wbits == 4 else "planes"]
-    t = trace[:L, :len(names) + 1].to(torch.float64).cpu()
-    d = (t[:, 1:] - t[:, :-1]).mean(0) * 1e-6
-    return dict(zip(names, d.tolist()))
-
-
 def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
             s_act, gs, eps, Hq, Hkv, F, wbits):
     B, dim = out.shape
@@ -285,7 +251,7 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
     err = _kernels.lib().sbt_layers_fused(
         *[p(t) for t in flat], p(attn_norm), p(ffn_norm),
         p(k), p(v), p(ks), p(vs), p(bt), p(pos), p(cos), p(sin), p(out),
-        *[p(t) for t in scratch], _trace(L, out.device),
+        *[p(t) for t in scratch],
         int(szt == torch.bfloat16), int(attn_norm.dtype == torch.bfloat16),
         L, B, dim, Hq, Hkv, D, F, gs, wbits, *[w[1].shape[-1] for w in ws],
         NB, block, bt.shape[1], s_act, eps, _inv_sqrt(D), _kernels.stream())
@@ -354,10 +320,6 @@ def fused_decoder_layers(x, pos, cos, sin,
 
 fused_decoder_layers.launches = 0
 fused_decoder_layers.plane_launches = 0  # of those, in plane mode
-# None, or an int64 (L, TRACE_MARKS) CUDA tensor: each launch then stamps
-# the device clock (ns) at every layer's start and after each barrier
-# (phase_ms reads it; chip_smoke.py prints the breakdown)
-fused_decoder_layers.trace = None
 
 
 def fused_decoder_layer(x, pos, cos, sin, li,

@@ -250,20 +250,23 @@ def _pow2_at_least(n):
 @functools.lru_cache(maxsize=None)
 def planes_plan(bits, M, K, N, gs, sms):
     """K6/K7/K8's launch plan (``csrc/quant_matmul_planes.cu``): rows a
-    thread MR (P * MR <= 32 f32 accumulators a thread, at most 8), byte
-    columns a block CB (256 threads = CB byte columns x 256 / CB row
-    groups of MR rows covering M), and gps groups a K split, splits
-    chosen so that column tiles x splits reach two blocks an SM where the
-    groups allow. Returns (MR, CB, gps, splits)."""
+    thread MR (up to 8), byte columns a block CB (256 threads = CB byte
+    columns x 256 / CB row groups of MR rows covering M), and gps groups a
+    K split: splits enough that column tiles x splits reach two blocks an
+    SM where the groups allow, and none longer than 512 rows.
+    ``planes_plan_sweep.py`` timed the plans on an H100: with many rows
+    (M = 64, 32 byte columns a block) 512-row splits were the fastest at
+    2, 3 and 4 bits, and 8 rows a thread beat 4 at 3 bits (P * MR = 64
+    accumulators) at M = 8 and 64. Returns (MR, CB, gps, splits)."""
     P = 8 if bits == 3 else (1 if bits == 8 else 8 // bits)
     gs_eff = gs if gs > 0 else K
-    MR = min(_pow2_at_least(M), 32 // P, 8)
+    MR = min(_pow2_at_least(M), 8)
     RG = _pow2_at_least(-(-M // MR))
     CB = PLANES_THREADS // RG
     tiles = -(-(N // P) // CB)
     G = K // gs_eff
     want = min(G, max(1, -(-2 * sms // tiles)))
-    gps = G // want
+    gps = max(1, min(G // want, 512 // gs_eff))
     return MR, CB, gps, -(-G // gps)
 
 

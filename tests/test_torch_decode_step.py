@@ -9,6 +9,21 @@ decode attention kernel in interpret mode; on its own CPU branch it
 would dequantize the cache to bf16, another arithmetic), the port with its
 plain versions (K8 for the linears, K5 for the attention).
 
+Faults E-H of the port, against the JAX package where they meet it:
+- E: K5 takes every dtype an unquantized cache can have (bf16, f16, f32,
+  as cfg.dtype says), so the route that sends such a cache to K5 agrees
+  with the kernel's gate; an f32 model decodes over an f32 cache as the
+  JAX package does with its decode attention kernel.
+- F: the route predicate is the reference's (head_dim a multiple of 128,
+  any GQA ratio); K5 and K2 take head_dim up to 512, so a head_dim of
+  384 decodes through K5 as the JAX package does through its kernel, and
+  past 512 the kernels' gates refuse the shape (on the card the wrappers
+  raise; they never give way to the plain version there).
+- G: prefill_cold_scanned writes the raw rows of a float cache (the paged
+  engine's cold admission), as the JAX package does.
+- H: init_kv_cache, DecodeEngine and PagedDecodeEngine take the
+  reference's positional parameters; ``device`` is keyword-only.
+
 Tolerance: logits within ATOL 0.1, argmax equal where the top-2 margin
 exceeds 2 * ATOL, as tests/test_torch_engine.py: bf16 activations round
 differently when f32 sums are taken in another order.
@@ -24,10 +39,17 @@ from sparsebit_tpu.llm import decode as JD
 from sparsebit_tpu.llm import llama as JL
 from sparsebit_tpu.llm.kv_cache import init_kv_cache as j_init
 from sparsebit_tpu.llm.quant import QuantLinear as JQuant
+from sparsebit_tpu.llm.serving import DecodeEngine as JEngine
+from sparsebit_tpu.llm.serving import PagedDecodeEngine as JPaged
 from sparsebit_tpu_torch.llm import decode as TD
 from sparsebit_tpu_torch.llm import llama as TL
 from sparsebit_tpu_torch.llm.convert import params_from_numpy
-from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+from sparsebit_tpu_torch.llm.kv_cache import (
+    init_kv_cache,
+    init_paged_kv_cache,
+)
+from sparsebit_tpu_torch.llm.serving import DecodeEngine, PagedDecodeEngine
+from sparsebit_tpu_torch.ops import attention as A
 
 from test_torch_engine import jax_tree_to_numpy
 
@@ -247,3 +269,247 @@ def test_generate_needs_cuda_unless_cpu_is_asked(model, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         TD.generate(tparams, _prompt(), cfg_t, max_new_tokens=2)
+
+
+# ---- faults E-H ----------------------------------------------------------
+
+def _fault_models(bits=4, fused=False, **cfg_kw):
+    """A tiny LLaMA quantized by the JAX package (g64 RTN), and the same
+    arrays in the port."""
+    kw = dict(dim=512, n_heads=4, n_kv_heads=4, ffn_dim=384, max_seq_len=64,
+              n_layers=2)
+    kw.update(cfg_kw)
+    cfg_j = JL.llama_tiny(**kw)
+    params = JL.init_llama_params(cfg_j, jax.random.PRNGKey(3))
+    if fused:
+        params = JL.fuse_llama_params(params)
+    jq = JL.quantize_llama_params(params, lambda p, lin: JQuant.from_dense(
+        lin.w.astype(jnp.float32), bits=bits, groupsize=64))
+    return cfg_j, jq, TL.llama_tiny(**kw), params_from_numpy(
+        jax_tree_to_numpy(jq), "cpu")
+
+
+def _fault_prompt(B=2, S=6, seed=4):
+    return np.random.default_rng(seed).integers(0, 512, (B, S)).astype(
+        np.int32)
+
+
+def _fault_decode_pair(models, kv_quantized, n=3):
+    """prefill then n teacher-forced decode_steps on both sides (the JAX
+    greedy tokens fed to both): the rows of logits."""
+    cfg_j, jq, cfg_t, tq = models
+    prompt = _fault_prompt()
+    jc = j_init(cfg_j, 2, 16, kv_quantized)
+    tc = init_kv_cache(cfg_t, 2, 16, kv_quantized, device="cpu")
+    jl, jc = JD.prefill(jq, jnp.asarray(prompt), jc, cfg_j)
+    tl, tc = TD.prefill(tq, torch.from_numpy(prompt), tc, cfg_t)
+    rows = [(np.asarray(jl, np.float32), tl.float().numpy())]
+    for _ in range(n):
+        tok = rows[-1][0].argmax(-1).astype(np.int32)
+        jl, jc = JD.decode_step(jq, jnp.asarray(tok), jc, cfg_j)
+        tl, tc = TD.decode_step(tq, torch.from_numpy(tok), tc, cfg_t)
+        rows.append((np.asarray(jl, np.float32), tl.float().numpy()))
+    return rows, tc
+
+
+# ---- E ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,quantized", [
+    ("bfloat16", True), ("bfloat16", False), ("float16", False),
+    ("float32", False)])
+def test_k5_gate_agrees_with_the_route(dtype, quantized):
+    """Fault E: for every cache init_kv_cache makes (int8, or the model's
+    bf16, f16 or f32), the route sends a single-token step to K5 exactly
+    when K5's gate takes the cache."""
+    cfg = TL.llama_tiny(dim=256, n_heads=2, n_kv_heads=2, dtype=dtype)
+    cache = init_kv_cache(cfg, 2, 16, quantized, device="cpu")
+    q = torch.zeros((2, cfg.n_heads, cfg.head_dim))
+    assert TD._use_attn_kernel(1, cache.quantized, cfg)
+    A.k5_check(q, cache.k, cache.v, li=1)
+    assert cache.k.dtype == (torch.int8 if quantized else cfg.torch_dtype)
+
+
+def test_f32_cache_decode_matches_jax(monkeypatch):
+    """Fault E: an f32 model (the reference fixture's dtype) over an f32
+    cache: prefill and three decode_steps, the port's K5 (plain version
+    here) against the JAX decode attention kernel in interpret mode."""
+    monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
+    models = _fault_models(n_kv_heads=8, n_heads=8, dim=1024,
+                           dtype="float32")
+    seen = []
+    real = A.decode_attention
+
+    def spy(q, k, *a, **kw):
+        seen.append(k.dtype)
+        return real(q, k, *a, **kw)
+
+    monkeypatch.setattr(TD, "decode_attention_stacked",
+                        lambda q, k, v, ks, vs, li, ln: spy(q, k, v, ks, vs,
+                                                            ln, li=li))
+    rows, tc = _fault_decode_pair(models, False)
+    _check_rows(rows)
+    assert tc.k.dtype == torch.float32 and tc.k_scale is None
+    assert seen and set(seen) == {torch.float32}
+
+
+# ---- F ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("D,Hq,Hkv", [
+    (128, 4, 4), (256, 2, 2), (384, 2, 2), (512, 1, 1), (128, 64, 1),
+    (640, 1, 1), (64, 8, 8)])
+def test_route_mirrors_the_kernel_gates(D, Hq, Hkv):
+    """Fault F: decode_attention_supported (the route of K5 and K2) is the
+    reference's rule, a head_dim multiple of 128 at any GQA ratio; K5's
+    and K2's gates take every such shape up to head_dim 512 and refuse
+    larger ones."""
+    cfg = TL.llama_tiny(dim=Hq * D, n_heads=Hq, n_kv_heads=Hkv)
+    routed = D % 128 == 0
+    assert TD._use_attn_kernel(1, "int8", cfg) is routed
+    assert TD._use_attn_kernel(1, False, cfg) is routed
+    assert TD._scan_uses_update_kernel(1, "int8", cfg) is routed
+    q = torch.zeros((2, Hq, D))
+    k = torch.zeros((3, 2, 8, Hkv, D), dtype=torch.int8)
+    ks = torch.zeros((3, 2, 8, Hkv))
+    if D <= A.K5_MAX_HEAD_DIM:
+        A.k5_check(q, k[1], k[1])
+        A.k2_check(q, k, ks, 1)
+    else:
+        with pytest.raises(ValueError):
+            A.k5_check(q, k[1], k[1])
+        with pytest.raises(ValueError):
+            A.k2_check(q, k, ks, 1)
+
+
+def test_k2_gate_bounds_the_scores_in_shared_memory():
+    """K2 holds the scores of a kv head's query heads, n_rep * (S + 1)
+    f32, in shared memory: its gate takes the largest S that fits and
+    refuses the next."""
+    n_rep = 32
+    S = A.K2_MAX_SCORES // n_rep - 1
+    q = torch.zeros((1, n_rep, 128))
+    for rows, ok in ((S, True), (S + 1, False)):
+        k = torch.zeros((1, 1, rows, 1, 128), dtype=torch.int8)
+        ks = torch.zeros((1, 1, rows, 1))
+        if ok:
+            A.k2_check(q, k, ks, 0)
+        else:
+            with pytest.raises(ValueError):
+                A.k2_check(q, k, ks, 0)
+
+
+def test_head_dim_384_decodes_through_k5(monkeypatch):
+    """Fault F: a head_dim of 384 (a multiple of 128, past K5's old 256)
+    takes the reference's route: every decode step attends through K5
+    (its plain version here), and the logits match the JAX package's,
+    whose decode attention kernel runs in interpret mode."""
+    monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
+    seen = []
+    real = TD.decode_attention_stacked
+
+    def spy(q, *a):
+        seen.append(q.shape[-1])
+        return real(q, *a)
+
+    monkeypatch.setattr(TD, "decode_attention_stacked", spy)
+    models = _fault_models(dim=1536, n_heads=4, n_kv_heads=4)
+    assert models[2].head_dim == 384
+    rows, _ = _fault_decode_pair(models, True)
+    _check_rows(rows)
+    assert seen and set(seen) == {384}
+
+
+# ---- G ----------------------------------------------------------------------
+
+def test_prefill_cold_scanned_over_a_bf16_cache_matches_jax():
+    """Fault G: the paged engine's cold admission (prefill_cold_scanned)
+    over a bf16 cache writes the raw K/V rows, as the JAX package does:
+    logits at each row's last real token within ATOL, and the written
+    rows of every layer within 5e-2, a few bf16 ulps of rows near 1
+    (activations that round differently in bf16 through the layers)."""
+    cfg_j, jq, cfg_t, tq = _fault_models(fused=True)
+    jp = JD.stack_layers(JD.prepare_params_host(jq))
+    tp = TD.stack_layers(TD.prepare_params_host(tq))
+    prompt = _fault_prompt(S=8)
+    last = np.array([7, 4], np.int32)
+    jc = j_init(cfg_j, 2, 16, False)
+    tc = init_kv_cache(cfg_t, 2, 16, False, device="cpu")
+    jl, jc = JD.prefill_cold_scanned(jp, jnp.asarray(prompt), jc, cfg_j,
+                                     jnp.asarray(last))
+    tl, tc = TD.prefill_cold_scanned(tp, torch.from_numpy(prompt), tc,
+                                     cfg_t, torch.from_numpy(last))
+    _check_rows([(np.asarray(jl, np.float32), tl.float().numpy())])
+    assert tc.k_scale is None and tc.k.dtype == torch.bfloat16
+    assert tc.length.tolist() == (last + 1).tolist()
+    for li in range(cfg_t.n_layers):
+        for jt, tt in ((jc.k, tc.k), (jc.v, tc.v)):
+            j_rows = np.asarray(jt[li].astype(jnp.float32))
+            t_rows = tt[li].float().numpy()
+            np.testing.assert_allclose(t_rows[:, :8], j_rows[:, :8],
+                                       atol=5e-2)
+            assert not t_rows[:, 8:].any()
+
+
+# ---- H ----------------------------------------------------------------------
+
+def test_positional_parameters_match_the_reference():
+    """Fault H: the same positional arguments mean the same thing in both
+    packages: init_kv_cache(cfg, batch, max_len, quantized),
+    DecodeEngine(params, cfg, max_batch, max_len, kv_quantized, eos_id,
+    seed, chunk) and PagedDecodeEngine(params, cfg, max_batch, n_blocks,
+    block, eos_id); ``device`` is keyword-only."""
+    cfg_j, jq, cfg_t, tq = _fault_models(fused=True)
+    jc = j_init(cfg_j, 2, 16, False)
+    tc = init_kv_cache(cfg_t, 2, 16, False, device="cpu")
+    assert tc.quantized is False and jc.quantized is False
+    assert tc.k.dtype == torch.bfloat16 and jc.k[0].dtype == jnp.bfloat16
+    assert tuple(tc.k.shape[1:]) == jc.k[0].shape
+    with pytest.raises(TypeError):
+        init_kv_cache(cfg_t, 2, 16, True, "cpu")
+    with pytest.raises(TypeError):
+        init_paged_kv_cache(cfg_t, 2, 4, 16, None, "cpu")
+
+    je = JEngine(jq, cfg_j, 2, 32, False, 7, 3, 4)
+    te = DecodeEngine(tq, cfg_t, 2, 32, False, 7, 3, 4, device="cpu")
+    for e in (je, te):
+        assert (e.max_batch, e.max_len, e.kv_quantized, e.eos_id,
+                e.chunk) == (2, 32, False, 7, 4)
+    assert te.cache.k.dtype == torch.bfloat16 and te.cache.k_scale is None
+    assert not te._stacked_chunks  # K4 reads an int8 cache only
+    jp = JPaged(jq, cfg_j, 2, 9, 16, 7)
+    tp = PagedDecodeEngine(tq, cfg_t, 2, 9, 16, 7, device="cpu")
+    for e in (jp, tp):
+        assert (e.block, e.eos_id, e.pcache.k.shape[1]) == (16, 7, 9)
+    with pytest.raises(TypeError):
+        DecodeEngine(tq, cfg_t, 2, 32, True, None, 0, 8, 8, None, "cpu")
+    with pytest.raises(NotImplementedError):
+        DecodeEngine(tq, cfg_t, 2, 32, "int4", device="cpu")
+
+
+def test_engine_over_a_bf16_slot_cache_matches_jax(monkeypatch):
+    """DecodeEngine(kv_quantized=False): admission (prefill_at) and the
+    decode_chunk route over a bf16 slot cache, with a prefix-cache hit
+    whose entry has no scales: the admission logits against the JAX
+    engine's, and every request served in full."""
+    import sparsebit_tpu.llm.serving as JS
+    import sparsebit_tpu_torch.llm.serving as TS
+
+    cfg_j, jq, cfg_t, tq = _fault_models(fused=True)
+    logits = {"jax": [], "torch": []}
+    for name, mod in (("jax", JS), ("torch", TS)):
+        def spy(*a, _real=mod.prefill_at, _got=logits[name], **k):
+            out = _real(*a, **k)
+            _got.append(np.asarray(out[0], np.float32))
+            return out
+
+        monkeypatch.setattr(mod, "prefill_at", spy)
+    prompts = [_fault_prompt(1, 6, seed=s)[0].tolist() for s in (1, 2)]
+    prompts.append(prompts[0] + [5, 9, 11])  # a prefix hit on the first
+    for eng in (JEngine(jq, cfg_j, 2, 32, False),
+                DecodeEngine(tq, cfg_t, 2, 32, False, device="cpu")):
+        assert getattr(eng, "kv_quantized", None) is False
+        rids = [eng.add_request(p, max_new_tokens=4) for p in prompts]
+        res = eng.run()
+        assert [len(res[r]) for r in rids] == [4, 4, 4]
+        assert eng.prefix_hits == 1
+    assert len(logits["jax"]) == len(logits["torch"]) >= 2
+    _check_rows(list(zip(logits["jax"], logits["torch"])))

@@ -80,6 +80,34 @@ def test_k2_kernel_matches_plain(cuda):
     assert (out - ref).abs().max().item() <= 2e-3
 
 
+@pytest.mark.parametrize("H,Hkv,D,S", [(2, 2, 384, 64), (4, 2, 512, 64),
+                                       (64, 1, 128, 300)])
+def test_k2_wide_heads_match_plain(cuda, H, Hkv, D, S):
+    """K2 at head_dim 384 and 512 and at 64 query heads per kv head (the
+    reference's route admits them): codes and scales bit-exact, out atol
+    2e-3."""
+    g = torch.Generator(device=cuda).manual_seed(D + H)
+    L, B = 2, 3
+    k = torch.randint(-128, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                      generator=g, device=cuda)
+    v = torch.randint(-128, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                      generator=g, device=cuda)
+    ks = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.05
+    vs = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.05
+    q = torch.randn((B, H, D), generator=g, device=cuda)
+    kn = torch.randn((B, Hkv, D), generator=g, device=cuda)
+    vn = torch.randn((B, Hkv, D), generator=g, device=cuda)
+    length = torch.tensor([0, 7, S - 1], dtype=torch.int32, device=cuda)
+    plain = [t.clone() for t in (k, v, ks, vs)]
+    before = A.decode_attention_update.launches
+    out = A.decode_attention_update(q, kn, vn, k, v, ks, vs, 1, length)
+    ref = A._attn_update_plain(q, kn, vn, *plain, 1, length)
+    assert A.decode_attention_update.launches == before + 1
+    for a, b in zip((k, v, ks, vs), plain):
+        assert torch.equal(a, b)
+    assert (out - ref).abs().max().item() <= 2e-3
+
+
 @pytest.mark.parametrize("B", [1, 8, 20])
 def test_k3_kernel_matches_plain(cuda, B):
     """atol 2e-2 x max |out|: a requantized code may flip at a rounding
@@ -281,12 +309,15 @@ def _planes_call(x, packed, s, z, bits, gs, N, a8):
 def test_k6_k7_k8_split_k_match_plain(cuda, bits, a8, M):
     """K split across blocks (K = 2048, 16 groups of 128, N = 1408 (3-bit:
     11 x 128 byte columns, as LLaMA's padded W13 is 22 x 128) so that the
-    plan splits K): rel 1e-4 of max |out| against the plain version, and
-    equal bits on a second call (the partials are added in split order)."""
+    plan splits K): rel 1e-4 of max |out| against the plain version and
+    against the split oracle (_qmm_planes_split_plain at the plan's
+    groups a split: f32 x as x . (C - z) per group, partials added in
+    split order), and equal bits on a second call."""
     rng = np.random.default_rng(bits * 10 + M)
     K, N, gs = 2048, 1408 if bits == 3 else 1024, 128
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert QM.planes_plan(bits, M, K, N, gs, sms)[3] > 1
+    gps, splits = QM.planes_plan(bits, M, K, N, gs, sms)[2:]
+    assert splits > 1
     packed, s, z = _planes_case(rng, bits, K, N, gs, cuda, M == 8)
     x = torch.randn((M, K), device=cuda)
     if a8:
@@ -294,8 +325,11 @@ def test_k6_k7_k8_split_k_match_plain(cuda, bits, a8, M):
     out = _planes_call(x, packed, s, z, bits, gs, N, a8)
     again = _planes_call(x, packed, s, z, bits, gs, N, a8)
     ref = QM._qmm_planes_plain(x, packed, s, z, bits, gs, N)
+    oracle = QM._qmm_planes_split_plain(x, packed, s, z, bits, gs, N, gps)
     torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    tol = 1e-4 * ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= tol
+    assert (out - oracle).abs().max().item() <= tol
     assert torch.equal(out, again)
 
 
@@ -355,10 +389,11 @@ def test_k7_padded_plane_concat_matches_plain(cuda, a8, M):
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
 @pytest.mark.parametrize("H,Hkv,D", [(4, 4, 128), (8, 2, 128), (8, 1, 256),
-                                     (12, 1, 64)])
+                                     (12, 1, 64), (4, 1, 384), (8, 1, 512)])
 def test_k5_float_caches_match_plain(cuda, dtype, H, Hkv, D):
     """K5 over an f16 or f32 cache (an unquantized cache of an f16 or f32
-    model), ragged lengths, a layer of a stack: atol 2e-4."""
+    model), ragged lengths, a layer of a stack, head_dim up to 512 (4
+    chunks a lane): atol 2e-4."""
     g = torch.Generator(device=cuda).manual_seed(6)
     L, B, S = 2, 4, 300
     k = torch.randn((L, B, S, Hkv, D), generator=g, device=cuda).to(dtype)
@@ -406,13 +441,15 @@ def test_k5_kernel_matches_plain(cuda, quant, H, Hkv, D):
 
 @pytest.mark.parametrize("quant", [True, False])
 @pytest.mark.parametrize("H,Hkv,D", [(8, 1, 256), (4, 4, 32), (4, 4, 64),
-                                     (16, 2, 128), (12, 1, 128)])
+                                     (16, 2, 128), (12, 1, 128), (8, 1, 384),
+                                     (2, 2, 384), (2, 2, 512)])
 def test_k5_split_edges_match_plain(cuda, quant, H, Hkv, D):
     """K5's flash-decoding splits at their edges: S = 700 (a ragged last
     split), lengths 0, 1, 300 and S - 1 (splits wholly past the length),
-    query-head groups of 1-8 heads (n_rep 12: a group of 8 and one of 4):
-    atol 2e-4 against the plain version and the split oracle, and equal
-    bits on a second call."""
+    query-head groups of 1-8 heads (n_rep 12: a group of 8 and one of 4),
+    head_dim 384 and 512 (2 or 4 chunks a lane): atol 2e-4 against the
+    plain version and the split oracle, and equal bits on a second
+    call."""
     g = torch.Generator(device=cuda).manual_seed(D + H)
     L, B, S = 2, 4, 700
     if quant:

@@ -351,28 +351,3 @@ def test_one_layer_at_a_time_matches_the_backbone(weights):
     np.testing.assert_array_equal(h.numpy(), whole.numpy())
     for a, b in zip(cache, c_whole):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-
-
-@pytest.mark.parametrize("wbits", [4, 3])
-def test_phase_trace_reads_the_stamps(wbits):
-    """phase_ms turns a launch's stamps (ns, one row a layer: the layer's
-    start, then one after each grid barrier) into the mean ms a layer of
-    each named phase; s4r has 7 phases, plane mode 12. A trace that is not
-    int64 (L, TRACE_MARKS) is refused before any launch."""
-    names = TLF.TRACE_PHASES[4 if wbits == 4 else "planes"]
-    L = 3
-    steps = torch.arange(1, len(names) + 1, dtype=torch.int64) * 1000
-    t = torch.zeros((L, TLF.TRACE_MARKS), dtype=torch.int64)
-    for li in range(L):  # layer li's phase i takes (i + 1) * (li + 1) us
-        t[li, 1:len(names) + 1] = torch.cumsum(steps * (li + 1), 0)
-    ph = TLF.phase_ms(t, L, wbits)
-    assert list(ph) == list(names)
-    for i, v in enumerate(ph.values()):
-        assert abs(v - (i + 1) * 2e-3) < 1e-12  # mean of 1, 2, 3 x
-    TLF.fused_decoder_layers.trace = torch.zeros((L, 3), dtype=torch.int64)
-    try:
-        with pytest.raises(ValueError):
-            TLF._trace(L, torch.device("cpu"))
-    finally:
-        TLF.fused_decoder_layers.trace = None
-    assert TLF._trace(L, torch.device("cpu")) is None

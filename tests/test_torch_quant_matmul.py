@@ -170,8 +170,9 @@ def test_split_k_oracle_matches_jax_kernel(bits, a8, gps):
 def test_planes_plan_fills_the_card(bits, M, K, N, gs):
     """The launch plan of K6/K7/K8 at LLaMA-7B shapes on a 132-SM card:
     256 threads of CB byte columns x row groups of MR rows that cover M,
-    at most 32 accumulators a thread, splits of whole groups that cover
-    K, and at least two blocks an SM wherever the groups allow it."""
+    at most 8 rows a thread, splits of whole groups that cover K, none
+    longer than 512 rows, and at least two blocks an SM wherever the
+    groups allow it."""
     from sparsebit_tpu_torch.ops.packing import pallas_n_pad
 
     N = N + pallas_n_pad(N, bits)
@@ -179,8 +180,9 @@ def test_planes_plan_fills_the_card(bits, M, K, N, gs):
     MR, CB, gps, splits = TQ.planes_plan(bits, M, K, N, gs, 132)
     RG = TQ.PLANES_THREADS // CB
     assert CB * RG == TQ.PLANES_THREADS and MR * RG >= M
-    assert MR in (1, 2, 4, 8) and MR * P <= 32 and 16 <= CB <= 256
+    assert MR in (1, 2, 4, 8) and 16 <= CB <= 256
     G = K // gs if gs > 0 else 1
     assert (splits - 1) * gps < G <= splits * gps
+    assert gps == 1 or gps * gs <= 512
     tiles = -(-(N // P) // CB)
     assert tiles * splits >= 2 * 132 or splits == G
