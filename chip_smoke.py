@@ -14,8 +14,12 @@ Phases (every failure is recorded and the script exits 1 at the end):
      events, weights or caches cycled over copies so that they come from
      HBM as they do in decode), plain ms, the HBM/peak bound and, where one
      PyTorch call computes the same function, that call's ms. K1-K4 and K9
-     at INT4-g128 serving shapes (K4: all 32 layers at B = 1, 8, 32 and
-     B = 8 paged, its KV codes and scales exact; K4's plane mode, "K4p",
+     at INT4-g128 serving shapes (K1 on the four fused linears at M = 1,
+     8, 16, 32, 64, 128, 512 and 768, bit-equal to the plain version in
+     its plan's order, eager and graph-replay ms, with torch._int_mm at
+     M = 512 timed as context only; K4: all 32 layers at B = 1, 8, 32 and
+     B = 8 paged, output, KV codes and scales exact, its phase trace at
+     B = 1, 8 and 32; K4's plane mode, "K4p",
      at 3 and 2 bits, B = 1 and 8, output, codes and scales equal to the
      plain version's); K8, K6 (2/4/8 bits) and
      K7 (3 bits, f32 and int8 x) at the 7B unfused shapes, B = 1/8/64; K5
@@ -40,7 +44,9 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 decode_chunk with K1, K6 and K5, no K4;
      main       DecodeEngine(max_batch=8, max_len=512, chunk=8) on K4 (8
                 requests x 32 tokens; wall ms/step beside K4's device
-                ms/step);
+                ms/step; the admission: host s around the prefill_at
+                groups, K1's device ms inside them, K1's launches by
+                shape);
      unfused    decode_chunk_scanned with FORCE_LAYER_KERNEL = False
                 (K1/K2/K3) at a reduced depth;
      paged      PagedDecodeEngine(block=128) against the fixed-slot engine
@@ -300,36 +306,46 @@ def kernel_checks(stacked, cfg, results):
             if gms:
                 results[-1].update(device_ms=gms[0], library_device_ms=gms[1])
 
-    # K1 at M in {1, 8, 64, 512} on the four 7B matmuls
+    # K1 on the four 7B matmuls at the decode rows (M = 1, 8, 64: K1s on
+    # the chunk and unfused routes, the streaming tile) and at the main
+    # cell's admission rows (M = 16, 32, 128, 768: its prefill_at groups;
+    # 512 kept from earlier runs; the tensor-core admission tile past 64):
+    # bit-equal to the plain version in the kernel's order (k1_plan), eager
+    # and graph-replay (device) ms
     k1_src = "sparsebit_tpu_torch/csrc/quant_matmul.cu"
-    # decode reads a layer of the stack (K1s); admission one linear (K1)
-    k1_rep = {8: "sparsebit_tpu/ops/quant_matmul.py:693",
-              512: "sparsebit_tpu/ops/quant_matmul.py:443"}
-    for wname in ("wqkv", "wo", "w13", "w2"):
+    for wname in FUSED:
         ql = layers[wname]
         w, s, z = ql.packed["s4r"], ql.scales, ql.zeros
+        gs = ql.groupsize
         K, N = w.shape[1] * 2, w.shape[2]
-        G = K // ql.groupsize
-        for M in (1, 8, 64, 512):
+        G = K // gs
+        for M in (1, 8, 16, 32, 64, 128, 512, 768):
             x = torch.randn((M, K), generator=g, device=dev)
             x8, xs = tokenwise_quant(x)
-            out = QM.quant_matmul_s4(x8, xs, w, s, z, ql.groupsize, li=0)
-            ref = QM._qmm_s4_plain(x8, xs, w[0], s[0], z[0], ql.groupsize)
+            tile, gps = QM.k1_plan(M, K, N, gs)
+            out = QM.quant_matmul_s4(x8, xs, w, s, z, gs, li=0)
+            ref = QM._qmm_s4_plain(x8, xs, w[0], s[0], z[0], gs, gps)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
-            tol = 1e-4 * ref.abs().max().item()
-            ms = cuda_ms(lambda i: QM.quant_matmul_s4(
-                x8, xs, w, s, z, ql.groupsize, li=i % Lx), 20)
+
+            def run(i):
+                return QM.quant_matmul_s4(x8, xs, w, s, z, gs, li=i % Lx)
+
+            ms = cuda_ms(run, 20)
+            gms = (graph_ms(run, 20), None)
             pms = cuda_ms(lambda i: QM._qmm_s4_plain(
-                x8, xs, w[i % Lx], s[i % Lx], z[i % Lx], ql.groupsize), 3, 1)
+                x8, xs, w[i % Lx], s[i % Lx], z[i % Lx], gs, gps), 3, 1)
             nbytes = M * K + 4 * M + K * N // 2 + 2 * G * N * 2 + 4 * M * N
             bnd = bound_ms(nbytes, 2 * M * K * N, "int8")
-            name = ("K1 {} M={}".format(wname, M)
-                    if (M == 8 and wname in ("wqkv", "wo"))
-                    or (M == 512 and wname == "w13") else None)
-            record(name, "K1", k1_src, k1_rep.get(M), err, tol, ms, pms, bnd,
-                   None,
-                   "{} {}x{}->{} ".format(wname, M, K, N))
+            # decode reads a layer of the stack (K1s); admission one linear
+            rep_at = ("sparsebit_tpu/ops/quant_matmul.py:693" if M <= 64
+                      else "sparsebit_tpu/ops/quant_matmul.py:443")
+            record("K1 {} M={}".format(wname, M), "K1", k1_src, rep_at, err,
+                   0.0, ms, pms, bnd, None, "{} {}x{}->{} {}{}".format(
+                       wname, M, K, N, tile,
+                       "" if tile == "admit" else " gps {}".format(gps)),
+                   gms)
+    int_mm_probe(g)
 
     # K2 at B=8, S=512, Hkv=H=32, D=128, mixed lengths, 8 cache layers
     B, S, H, Hkv, D, Lc = 8, 512, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
@@ -425,6 +441,31 @@ def kernel_checks(stacked, cfg, results):
     k4_plane_checks(cfg, record, g)
     plane_checks(cfg, record, g)
     k5_checks(cfg, record, g)
+
+
+def int_mm_probe(g):
+    """Context only, no kernel's yardstick: torch._int_mm, PyTorch's own
+    int8 tensor-core GEMM (int32 out, no group epilogue: not K1's
+    function), at K1's largest admission product, M = 512, 4096 -> 22016,
+    eager and graph-replay ms. The port never calls it."""
+    import torch
+
+    dev = torch.device("cuda")
+    a = torch.randint(-128, 128, (512, 4096), dtype=torch.int8,
+                      generator=g, device=dev)
+    b = torch.randint(-128, 128, (22016, 4096), dtype=torch.int8,
+                      generator=g, device=dev).t()
+    try:
+        ms = cuda_ms(lambda i: torch._int_mm(a, b), 20)
+    except RuntimeError as e:  # a library call, timed for context only
+        print("torch._int_mm unavailable: {}".format(e), flush=True)
+        return
+    dms = graph_ms(lambda i: torch._int_mm(a, b), 20)
+    probes["torch._int_mm M=512 4096->22016 ms (context)"] = ms
+    probes["torch._int_mm M=512 4096->22016 device ms (context)"] = dms
+    print("context: torch._int_mm int8 M=512 4096->22016 (no group "
+          "epilogue) {:.4f} ms, device {}".format(
+              ms, "-" if dms is None else "{:.4f}".format(dms)), flush=True)
 
 
 def plane_checks(cfg, record, g):
@@ -598,8 +639,10 @@ def k4_checks(stacked, cfg, record, g):
     """K4 against its plain version at llama_7b() widths, all 32 layers,
     S = 512, mixed lengths (rows past the first 128-row block): B = 1, 8
     and 32 on a contiguous cache, B = 8 on a paged pool with a scrambled
-    block table. The KV codes and scales written must equal the plain
-    version's exactly; the output must agree within 1e-4 of its max."""
+    block table. The KV codes and scales written and the output must equal
+    the plain version's exactly (tolerance 0): the plain version takes
+    every float sum in the kernel's order, its s4r matmuls in the kernel's
+    K-split order."""
     import torch
     from sparsebit_tpu_torch.ops import layer_fused as LF
 
@@ -653,7 +696,7 @@ def k4_checks(stacked, cfg, record, g):
         if not finite:
             fail("K4 B={} output not finite".format(B))
         err = (out - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item()
+        tol = 0.0
         ms = cuda_ms(run_kernel, 10)
         pms = cuda_ms(run_plain, 1, 0)
         rows = sum(min(p, S - 1) + 1 for p in pos_l)
@@ -1052,13 +1095,43 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
     a kernel of ``expect`` was not launched, a request got another number
     of tokens or a logit row was not finite. With a KernelEvents ``timer``
     (patched in), the kernels of the decode chunks are timed: their device
-    ms per step, and K5's. Returns (results, stats)."""
+    ms per step, and K5's; and the admissions: host s around each
+    ``_prefill_call`` (a prefill_at group) and K1's device ms inside, with
+    K1's launches by shape over the whole run. Returns (results,
+    stats)."""
     import torch
     from sparsebit_tpu_torch.llm import decode as Dm
     from sparsebit_tpu_torch.llm import serving as Sv
+    from sparsebit_tpu_torch.ops import quant_matmul as QM
 
     wrappers = _wrappers()
-    finite, chunk_s, k4_ev = [], [], []
+    finite, chunk_s, k4_ev, admit = [], [], [], []
+    k1_shapes = {}
+    orig_prefill = eng._prefill_call
+    orig_k1 = QM.quant_matmul_s4
+
+    def prefill_timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if timer is not None:
+            timer.on = True
+        out = orig_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        evs = []
+        if timer is not None:
+            timer.on = False
+            evs, timer.events = timer.events, []
+        admit.append((time.perf_counter() - t, evs))
+        return out
+
+    def k1_counted(x8, xs, w, *a, li=None, **kw):
+        key = "M={} {}->{}".format(x8.shape[0], x8.shape[1], w.shape[-1])
+        k1_shapes[key] = k1_shapes.get(key, 0) + 1
+        return orig_k1(x8, xs, w, *a, li=li, **kw)
+
+    # the wrapper counts its launches on its module attribute: this one
+    # while patched in, added to the wrapper's own count after the run
+    k1_counted.launches = 0
     orig_sample = Dm.sample_logits_vec
     orig_chunk = getattr(Sv, chunk_fn_name)
     orig_k4 = Dm.fused_decoder_layers
@@ -1090,6 +1163,8 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
 
     Dm.sample_logits_vec = Sv.sample_logits_vec = sample_checked
     setattr(Sv, chunk_fn_name, chunk_timed)
+    eng._prefill_call = prefill_timed
+    QM.quant_matmul_s4 = k1_counted
     if time_k4:
         Dm.fused_decoder_layers = k4_timed
     rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
@@ -1106,6 +1181,9 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
         Dm.sample_logits_vec = Sv.sample_logits_vec = orig_sample
         setattr(Sv, chunk_fn_name, orig_chunk)
         Dm.fused_decoder_layers = orig_k4
+        QM.quant_matmul_s4 = orig_k1
+        orig_k1.launches += k1_counted.launches
+        eng._prefill_call = orig_prefill
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     if len(res) != len(prompts) or any(len(res[r]) != n_new for r in rids):
@@ -1126,7 +1204,20 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
     if time_k4:
         stats["k4_device_ms_per_step"] = sum(
             a.elapsed_time(b) for a, b in k4_ev) / len(k4_ev)
+    stats["k1_launches_by_shape"] = k1_shapes
+    stats["admission_groups"] = len(admit)
+    stats["admission_s"] = sum(a[0] for a in admit)
     if timer is not None:
+        adm_k1 = 0.0
+        for _, evs in admit:
+            for name, (ea, eb) in evs:
+                if name == "sbt_qmm_s4":
+                    adm_k1 += ea.elapsed_time(eb)
+        stats["admission_k1_device_ms"] = adm_k1
+        print("{}: admission {} prefill_at groups, {:.4f} s host, K1 "
+              "device {:.3f} ms inside; K1 launches by shape {}".format(
+                  path, len(admit), stats["admission_s"], adm_k1,
+                  k1_shapes), flush=True)
         dev_ms, by = timer.take_ms()
         stats["kernel_device_ms_per_step"] = dev_ms / steps
         stats["k5_device_ms_per_step"] = by.get(K5_ENTRY, 0.0) / steps
@@ -1188,8 +1279,10 @@ def plain_versions():
     def s4(x8, xs, wt, s, z, gs, li=None):
         if li is not None:
             wt, s, z = wt[li], s[li], z[li]
-        return QM._qmm_s4_plain(x8, xs, wt, s, z, gs if gs > 0 else
-                                x8.shape[1])
+        M, K = x8.shape
+        gs = gs if gs > 0 else K
+        return QM._qmm_s4_plain(x8, xs, wt, s, z, gs,
+                                QM.k1_plan(M, K, wt.shape[-1], gs)[1])
 
     return _Patched([(QM, "quant_matmul_w", w),
                      (QM, "quant_matmul_w_a8", w_a8),
@@ -1491,9 +1584,11 @@ def serve_paths(params, cfg):
     eng = Sv.DecodeEngine(params, cfg, **kw)
     if not eng._stacked_chunks:
         fail("DecodeEngine at 7B is not on the megakernel route")
-    _, out["main"] = drive(eng, _prompts(cfg), "decode_chunk_scanned",
-                           "main (DecodeEngine, K4)",
-                           ("K1", "K4", "K9"), time_k4=True)
+    timer = KernelEvents()
+    with timer.patch:
+        _, out["main"] = drive(eng, _prompts(cfg), "decode_chunk_scanned",
+                               "main (DecodeEngine, K4)",
+                               ("K1", "K4", "K9"), time_k4=True, timer=timer)
     del eng
     torch.cuda.empty_cache()
 

@@ -12,9 +12,9 @@
 // The TPU kernel walked one sequential grid through five phases per
 // layer, with every intermediate in VMEM. Hopper blocks run in no order,
 // so here a persistent grid (as many blocks as fit on the card at once,
-// launched with cudaLaunchCooperativeKernel) walks seven phases per layer
-// and meets at a grid-wide barrier (cooperative_groups grid.sync) after
-// each one:
+// launched with cudaLaunchCooperativeKernel) walks the phases of each
+// layer and meets at a grid-wide barrier (cooperative_groups grid.sync)
+// after each one:
 //   A  attn norm + int8 quant of x, one block per row;
 //   1  Wqkv: W4A8 tiles over the output columns;
 //   2  attention, one work item per (row, kv head): rope, int8 K/V row
@@ -23,18 +23,21 @@
 //      _flat_attention_rows_int8 for the item's query heads (int8 q,
 //      dp4a scores, f32 softmax, 7-bit probabilities, int32 value mix);
 //      each item raises its row's absmax with atomicMax on float bits;
-//   3  Wo with requantization on load + residual (plane mode: the int8
-//      rows first and a grid barrier; then Wo's K in two halves and a
-//      barrier before the halves are added);
+//   3  the int8 rows of the attention output (the whole grid, a
+//      barrier), then Wo + residual;
 //   C  ffn norm + int8 quant, one block per row;
-//   4  W13 with paired gate/up tiles, silu(g) * u, row absmax (plane
-//      mode: W13 into a [gate | up] scratch row, a grid barrier, then the
-//      GLU and the row absmax);
-//   5  W2 with requantization on load + residual into the carried row
-//      (plane mode: as Wo).
-// The matmul phases reuse the dp4a tile core of w4a8.cuh and its exact
-// epilogue order. The bit width is a template parameter: BITS 4 reads
-// s4r row pairs (zero - 8 in the epilogue); BITS 2/3 read the plane
+//   4  W13, a barrier, then silu(g) * u and the row absmax;
+//   5  the int8 rows of the GLU output, a barrier, then W2 + residual
+//      into the carried row.
+// Each matmul ends with a barrier and a pass that adds its K splits (s4r
+// mode: every matmul; plane mode: Wo and W2's two halves) before its
+// epilogue. The bit width is a template parameter. BITS 4 reads s4r row
+// pairs (zero - 8 in the epilogue) through w4a8.cuh's s4tile, the int8
+// tensor-core tile K1 also runs: each matmul's (column tile, K split)
+// items stream 8 KB weight stages through a cp.async ring, the plan
+// (gq, go, g13, g2 groups a split, ops/quant_matmul.s4_plan) a function
+// of (K, N, gs) only, so B = 1 and batched rows agree bit for bit; the
+// splits' partials are added in split order. BITS 2/3 read the plane
 // concat through w4a8.cuh's ptile: output column n is byte column n % NP
 // of plane n / NP, with unsigned codes and the zero unshifted, and a tile
 // is W byte columns x all P planes (3 bits: 8, 2 bits: 4), so every byte
@@ -46,9 +49,9 @@
 // so plane mode pairs them through a scratch row after one more grid
 // barrier. Wo and W2 (N = dim) give fewer column tiles than there are
 // blocks, so each tile's K is split in two halves, added in group order
-// after a barrier (plane_phase): twelve barriers a layer against the s4r
-// mode's seven. At B <= 8, Wqkv takes 8 x 64 tiles, W13 8 x 128 (one
-// round of tiles), Wo and W2 8 x 32.
+// after a barrier (plane_phase): twelve barriers a layer (s4r mode:
+// thirteen). At B <= 8, Wqkv takes 8 x 64 tiles, W13 8 x 128 (one round
+// of tiles), Wo and W2 8 x 32.
 // Plane-mode weights may be padded past their logical width
 // (ops/packing.pallas_n_pad, e.g. LLaMA-7B's W13 2F = 22016 -> 22528);
 // the padded width is the row stride of their scales and zeros and sets
@@ -63,13 +66,16 @@
 // Bound on the H100: the weight and qparam stream of all layers (about
 // 3.44 GB at LLaMA-7B INT4-g128, 2.66 GB of planes plus bf16 qparams at
 // INT3-g128) plus the KV rows up to each row's length, over 3.35 TB/s.
-// The s4r mode spends its time elsewhere: one 64-row step at a time per
-// tile with its load latency exposed, no split-K (Wo and W2 give fewer
-// column tiles than there are blocks), byte-wide weight loads, and seven
-// grid barriers per layer. Plane mode keeps NST - 1 steps in flight,
-// copies 4-16 bytes a row and splits Wo's and W2's K, and pays for its
-// decode and barriers in each 64-row step instead (the phase trace of a
-// build with -DSBT_PHASE_TRACE, which chip_smoke.py makes, shows where).
+// The s4r mode keeps 4 stages of 8 KB in flight a block, decodes two
+// nibbles a byte with two logic ops into the tensor cores' operand, and
+// fills the grid with K splits; its matmuls still run at about three
+// times their byte bound (the decode, mma and group fold of a stage take
+// longer than the stage's share of HBM time), and the attention phase is
+// now the largest at B >= 8.
+// Plane mode keeps NST - 1 steps in flight, copies 4-16 bytes a row and
+// splits Wo's and W2's K, and pays for its dp4a decode and barriers in
+// each 64-row step (the phase trace of a build with -DSBT_PHASE_TRACE,
+// which chip_smoke.py makes, shows where).
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -83,12 +89,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxD = 256;
 constexpr int kMaxRep = 8;
+constexpr int kMaxRows = 64;  // B
 constexpr int kMaxBlocksPerSM = 2;
 
 // The phases of a layer, each named at the grid barrier that ends it.
 enum Phase : int {
-  kStart = 1, kAttnNorm, kWqkv, kAttention, kQ8Attn, kWo, kWoSum, kFfnNorm,
-  kW13, kW13Glu, kGlu, kQ8Act, kW2, kW2Sum, kPhaseEnd
+  kStart = 1, kAttnNorm, kWqkv, kWqkvSum, kAttention, kQ8Attn, kWo, kWoSum,
+  kFfnNorm, kW13, kGlu, kQ8Act, kW2, kW2Sum, kPhaseEnd
 };
 
 #ifdef SBT_PHASE_TRACE
@@ -97,11 +104,10 @@ enum Phase : int {
 // %globaltimer (ns) and the phase that just ended at each layer's start
 // and after each grid barrier, into (L, kMarks) pairs (phase, ns) of the
 // buffer sbt_phase_trace_set gave it; sbt_phase_name names the phases.
-constexpr int kMarks = 16;  // stamps a layer at most (plane mode: 13)
+constexpr int kMarks = 16;  // stamps a layer at most (s4r mode: 14)
 const char* const kPhaseNames[kPhaseEnd] = {
-    "", "start", "attn norm", "Wqkv", "attention", "q8(attn)", "Wo",
-    "Wo sum", "ffn norm", "W13", "W13 + GLU", "GLU", "q8(act)", "W2",
-    "W2 sum"};
+    "", "start", "attn norm", "Wqkv", "Wqkv sum", "attention", "q8(attn)",
+    "Wo", "Wo sum", "ffn norm", "W13", "GLU", "q8(act)", "W2", "W2 sum"};
 __device__ unsigned long long* g_trace;
 
 __device__ __forceinline__ void stamp(int li, int mark, Phase done) {
@@ -128,12 +134,14 @@ struct Args {
   int8_t* xq;
   float *xs, *qkv, *aout, *amax_a, *xmid, *act, *amax_g, *sc;
   float* h13;  // plane mode: [gate | up] rows (B, 2F) before the GLU
-  int8_t* aq;  // plane mode: q8(aout) (B, Hq*D), then q8(act) (B, F)
+  int8_t* aq;  // q8(aout) (B, Hq*D), then q8(act) (B, F)
   // plane mode: Wo's and W2's first-half sums (B, dim), then the second
-  // half's group terms (G - G0, B, dim)
+  // half's group terms (G - G0, B, dim); s4r mode: each matmul's K-split
+  // partials (splits, B, N)
   float* part;
   int sz_bf16, nw_bf16, L, B, dim, Hq, Hkv, D, F, gs;
   int nq_s, no_s, n13_s, n2_s;  // (padded) N: the s/z row strides
+  int gq, go, g13, g2;          // s4r mode: groups a K split of each
   int n_blocks, block, max_chunks, s_act;
   float eps, inv_sqrt_d;
 };
@@ -375,24 +383,15 @@ __device__ void attention_item(const Args& a, int li, int b, int h,
     atomicMax(reinterpret_cast<int*>(a.amax_a) + b, __float_as_int(amax));
 }
 
-// One layer's weight of a (K, N) linear as a tile-core source: s4r row
-// pairs (K/2, N) at 4 bits, else the plane concat (K, 3N/8) or (K, N/4).
+// One layer's plane concat of a (K, N) linear, (K, 3N/8) or (K, N/4), as
+// ptile's source.
 template <int BITS>
 struct Weights {
-  using Src = std::conditional_t<BITS == 4, sbt::S4Rows,
-                                 sbt::PlaneRows<BITS == 4 ? 2 : BITS>>;
-  __device__ static size_t row_bytes(int N) {
-    return BITS == 4 ? N : (BITS == 3 ? 3 * N / 8 : N / 4);
-  }
+  using Src = sbt::PlaneRows<BITS>;
   __device__ static Src at(const uint8_t* w, int li, int K, int N) {
-    const int rows = BITS == 4 ? K / 2 : K;
-    const uint8_t* base =
-        w + static_cast<size_t>(li) * rows * row_bytes(N);
-    if constexpr (BITS == 4)
-      return Src{base, N};
-    else
-      return Src{base, static_cast<int>(row_bytes(N)),
-                 BITS == 3 ? N / 8 : N / 4};
+    const int ld = BITS == 3 ? 3 * N / 8 : N / 4;
+    return Src{w + static_cast<size_t>(li) * K * ld, ld,
+               BITS == 3 ? N / 8 : N / 4};
   }
 };
 
@@ -408,6 +407,10 @@ using SmallP = Cfg<8, 32, 1, 1>;
 using SmallG = Cfg<8, 64, 1, 2>;
 using SmallW = Cfg<8, 128, 1, 4>;
 using LargeP = Cfg<64, 64, 4, 4>;
+// s4r mode's tensor-core tiles (sbt::s4tile): 16 x 256 at B <= 16, 64 x
+// 128 up to 64 rows; a ring of 6 stages, 2 read a block barrier.
+using S4Small = sbt::S4Cfg<16, 256, 1, 8, 6, 2>;
+using S4Large = sbt::S4Cfg<64, 128, 2, 4, 6, 2>;
 
 // One matmul phase of plane mode with C's tiles: every tile of this
 // block over the padded width NS of a plane-concat weight (K rows, logical
@@ -477,8 +480,8 @@ __device__ __forceinline__ void plane_phase(const int8_t* x, const uint8_t* w,
 }
 
 // dst (B, K) int8 = q8(src (B, K) f32) against each row's absmax, four
-// codes a word, the whole grid striding over the words: AF32Requant's
-// codes, which the s4r tiles make on load and the plane tiles stream.
+// codes a word, the whole grid striding over the words (AF32Requant's
+// codes): the int8 rows Wo's and W2's tiles stream.
 __device__ void quant_rows_grid(const float* src, const float* amax, int B,
                                 int K, int8_t* dst) {
   const sbt::AF32Requant q{src, amax, B, K};
@@ -490,18 +493,69 @@ __device__ void quant_rows_grid(const float* src, const float* amax, int B,
   }
 }
 
-template <class P, class G, int BITS>
+// One matmul phase of s4r mode with the tensor-core tile C (sbt::s4tile):
+// items (column tile, K split) over the grid, each writing its split's
+// partial sum of groups [p * gps, (p + 1) * gps) in order to a.part[p];
+// after a grid barrier (sync) every output adds the partials in split
+// order, then epi(row, col, sum). The plain version repeats that order
+// (ops/quant_matmul._qmm_s4_plain with the plan's gps).
+template <class C, class Sync, class Sum>
+__device__ __forceinline__ void s4_phase(const int8_t* x, const uint8_t* w,
+                                         const void* s, const void* z,
+                                         int li, int K, int N, int gps,
+                                         const Args& a, uint8_t* smem,
+                                         const Sync& sync, const Sum& sum) {
+  const int G = K / a.gs, splits = (G + gps - 1) / gps;
+  const int tiles = (N + C::BN - 1) / C::BN;
+  const int es = a.sz_bf16 ? 2 : 4;
+  const uint8_t* wl = w + static_cast<size_t>(li) * (K / 2) * N;
+  const void* sl = qp_at(s, static_cast<size_t>(li) * G * N, a.sz_bf16);
+  const void* zl = qp_at(z, static_cast<size_t>(li) * G * N, a.sz_bf16);
+  const int vec_w = sbt::copy_width(wl, N);
+  const int vec_q = min(sbt::copy_width(sl, static_cast<size_t>(N) * es),
+                        sbt::copy_width(zl, static_cast<size_t>(N) * es));
+  const size_t BN_ = static_cast<size_t>(a.B) * N;
+  const sbt::S4Out<C> o;
+  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
+    const int tile = item % tiles, p = item / tiles;
+    const int g0 = p * gps, col0 = tile * C::BN;
+    float acc[C::MT][C::NT][4];
+    sbt::s4tile<C>(x, a.B, K, wl, N, vec_w, sl, zl, a.sz_bf16, N, vec_q,
+                   a.gs, g0, min(G, g0 + gps), col0, N, smem, acc);
+#pragma unroll
+    for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = o.row(mt, r), col = col0 + o.col(j, r);
+          if (row < a.B && col < N)
+            a.part[p * BN_ + static_cast<size_t>(row) * N + col] =
+                acc[mt][j][r];
+        }
+  }
+  sync();
+  sum([&](size_t i) {  // output i = row * N + col of the split sums
+    float v = a.part[i];
+    for (int p = 1; p < splits; ++p) v = __fadd_rn(v, a.part[p * BN_ + i]);
+    return v;
+  });
+}
+
+// For every output i < n, over the whole grid: f(i).
+template <class F>
+__device__ __forceinline__ void grid_for(size_t n, const F& f) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * kThreads)
+    f(i);
+}
+
+template <class P, class G, int BITS, class S4>
 __global__ void __launch_bounds__(kThreads)
     layers_fused_kernel(Args a) {
-  static_assert(P::THREADS == kThreads && G::THREADS == kThreads,
+  static_assert(P::THREADS == kThreads && G::THREADS == kThreads &&
+                    S4::THREADS == kThreads,
                 "one block size for every phase");
-  constexpr int BM = P::BM, BN = P::BN, TM = P::TM, TN = P::TN;
-  constexpr int GBN = G::BN, GTM = G::TM, GTN = G::TN;
-  constexpr int GHALF = GBN / 2;
-  static_assert(G::BM == BM && GTN % 2 == 0, "GLU tiles pair gate and up");
-  using TP = sbt::Tile<BM, BN, TM, TN>;
-  using TG = sbt::Tile<BM, GBN, GTM, GTN>;
-  using Wt = Weights<BITS>;
   // plane mode's W13 tiles: 8 x 128 at B <= 8 (one round of tiles)
   using W13 = std::conditional_t<P::BM <= 8, SmallW, G>;
   constexpr int PB = BITS == 4 ? 2 : BITS;  // (no plane tiles at 4 bits)
@@ -511,16 +565,14 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kPlanePG = kPlaneP > kPlaneG ? kPlaneP : kPlaneG;
   __shared__ __align__(16) uint8_t plane_sm[
       BITS == 4 ? 16 : (kPlanePG > kPlaneW ? kPlanePG : kPlaneW)];
+  extern __shared__ __align__(16) uint8_t s4_sm[];  // s4r: S4::BYTES
   __shared__ float red[kThreads];
   __shared__ AttnSmem sm;
-  __shared__ int amax_sm[BM];
+  __shared__ int amax_sm[kMaxRows];
   cg::grid_group grid = cg::this_grid();
 
-  const int B = a.B, dim = a.dim, D = a.D, F = a.F, gs = a.gs;
+  const int B = a.B, dim = a.dim, D = a.D, F = a.F, F2 = 2 * F;
   const int HD = a.Hq * D, Nq = HD + 2 * a.Hkv * D;
-  const int tx = threadIdx.x % TP::TX, ty = threadIdx.x / TP::TX;
-  const int gtx = threadIdx.x % TG::TX, gty = threadIdx.x / TG::TX;
-  const int bf = a.sz_bf16;
 
   for (int li = 0; li < a.L; ++li) {
 #ifdef SBT_PHASE_TRACE
@@ -548,84 +600,48 @@ __global__ void __launch_bounds__(kThreads)
     sync(kAttnNorm);
 
     // 1: qkv = xs * Wqkv(xq)
+    const auto qkv_out = [&](int row, int col, float v) {
+      a.qkv[static_cast<size_t>(row) * Nq + col] = __fmul_rn(v, a.xs[row]);
+    };
     if constexpr (BITS != 4) {
       plane_phase<G, BITS>(a.xq, a.wq, a.sq, a.zq, li, dim, a.nq_s, Nq, a,
-                           plane_sm, false, [] {},
-                           [&](int row, int col, float v) {
-                             a.qkv[static_cast<size_t>(row) * Nq + col] =
-                                 __fmul_rn(v, a.xs[row]);
-                           });
+                           plane_sm, false, [] {}, qkv_out);
+      sync(kWqkv);
     } else {
-      const int G = dim / gs, NS = a.nq_s;
-      const auto w = Wt::at(a.wq, li, dim, NS);
-      const void* s = qp_at(a.sq, static_cast<size_t>(li) * G * NS, bf);
-      const void* z = qp_at(a.zq, static_cast<size_t>(li) * G * NS, bf);
-      for (int tile = blockIdx.x; tile * BN < Nq; tile += gridDim.x) {
-        const sbt::ColPlain cm{tile * BN, Nq};
-        float acc[TM][TN];
-        sbt::wtile<BM, BN, TM, TN>(sbt::AInt8{a.xq, B, dim}, w, s, z, bf,
-                                   NS, dim, gs, 0, cm, acc);
-#pragma unroll
-        for (int tm = 0; tm < TM; ++tm) {
-          const int row = ty + tm * TP::TY;
-          if (row >= B) continue;
-#pragma unroll
-          for (int tn = 0; tn < TN; ++tn) {
-            const int col = cm(tx + tn * TP::TX);
-            if (col >= 0)
-              a.qkv[static_cast<size_t>(row) * Nq + col] =
-                  __fmul_rn(acc[tm][tn], a.xs[row]);
-          }
-        }
-      }
+      s4_phase<S4>(a.xq, a.wq, a.sq, a.zq, li, dim, Nq, a.gq, a, s4_sm,
+                   [&] { sync(kWqkv); }, [&](const auto& split_sum) {
+                     grid_for(static_cast<size_t>(B) * Nq, [&](size_t i) {
+                       qkv_out(i / Nq, i % Nq, split_sum(i));
+                     });
+                   });
+      sync(kWqkvSum);
     }
-    sync(kWqkv);
 
     // 2: rope, K/V row commit, int8 attention
     for (int it = blockIdx.x; it < B * a.Hkv; it += gridDim.x)
       attention_item(a, li, it / a.Hkv, it % a.Hkv, sm, red);
     sync(kAttention);
 
-    // 3: xmid = x + as * Wo(q8(aout)); plane mode quantizes aout first
+    // 3: xmid = x + as * Wo(q8(aout)), the int8 rows quantized first
+    quant_rows_grid(a.aout, a.amax_a, B, HD, a.aq);
+    sync(kQ8Attn);
+    const auto wo_out = [&](int row, int col, float v) {
+      const size_t o = static_cast<size_t>(row) * dim + col;
+      a.xmid[o] =
+          __fadd_rn(a.x[o], __fmul_rn(v, sbt::row_scale(a.amax_a[row])));
+    };
     if constexpr (BITS != 4) {
-      quant_rows_grid(a.aout, a.amax_a, B, HD, a.aq);
-      sync(kQ8Attn);
       plane_phase<P, BITS>(a.aq, a.wo, a.so, a.zo, li, HD, a.no_s, dim, a,
-                           plane_sm, true, [&] { sync(kWo); },
-                           [&](int row, int col, float v) {
-                             const size_t o =
-                                 static_cast<size_t>(row) * dim + col;
-                             a.xmid[o] = __fadd_rn(
-                                 a.x[o],
-                                 __fmul_rn(v, sbt::row_scale(a.amax_a[row])));
-                           });
+                           plane_sm, true, [&] { sync(kWo); }, wo_out);
     } else {
-      const int G = HD / gs, NS = a.no_s;
-      const auto w = Wt::at(a.wo, li, HD, NS);
-      const void* s = qp_at(a.so, static_cast<size_t>(li) * G * NS, bf);
-      const void* z = qp_at(a.zo, static_cast<size_t>(li) * G * NS, bf);
-      for (int tile = blockIdx.x; tile * BN < dim; tile += gridDim.x) {
-        const sbt::ColPlain cm{tile * BN, dim};
-        float acc[TM][TN];
-        sbt::wtile<BM, BN, TM, TN>(
-            sbt::AF32Requant{a.aout, a.amax_a, B, HD}, w, s, z, bf, NS, HD,
-            gs, 0, cm, acc);
-#pragma unroll
-        for (int tm = 0; tm < TM; ++tm) {
-          const int row = ty + tm * TP::TY;
-          if (row >= B) continue;
-          const float scale = sbt::row_scale(a.amax_a[row]);
-#pragma unroll
-          for (int tn = 0; tn < TN; ++tn) {
-            const int col = cm(tx + tn * TP::TX);
-            if (col < 0) continue;
-            const size_t o = static_cast<size_t>(row) * dim + col;
-            a.xmid[o] = __fadd_rn(a.x[o], __fmul_rn(acc[tm][tn], scale));
-          }
-        }
-      }
+      s4_phase<S4>(a.aq, a.wo, a.so, a.zo, li, HD, dim, a.go, a, s4_sm,
+                   [&] { sync(kWo); }, [&](const auto& split_sum) {
+                     grid_for(static_cast<size_t>(B) * dim, [&](size_t i) {
+                       wo_out(i / dim, i % dim, split_sum(i));
+                     });
+                   });
     }
-    sync(BITS != 4 ? kWoSum : kWo);
+    sync(kWoSum);
 
     // C: ffn norm + quant; zero the GLU absmax
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
@@ -636,122 +652,79 @@ __global__ void __launch_bounds__(kThreads)
     }
     sync(kFfnNorm);
 
-    // 4: act = silu(g) * u, [g | u] = xs * W13(xq); row absmax. Plane
-    // mode: gate j and up F + j lie in different byte columns, so [g | u]
-    // goes through h13 and a barrier, then the GLU pairs them.
+    // 4: [g | u] = xs * W13(xq), then act = silu(g) * u and its row absmax
+    // after a barrier (gate j and up F + j lie in different tiles).
+    const auto glu = [&](const auto& gate_up) {
+      if (static_cast<int>(threadIdx.x) < B) amax_sm[threadIdx.x] = 0;
+      __syncthreads();
+      grid_for(static_cast<size_t>(B) * F, [&](size_t i) {
+        const int rl = static_cast<int>(i / F), j = static_cast<int>(i % F);
+        float g, u;
+        gate_up(rl, j, g, u);
+        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
+        const float v = __fmul_rn(__fmul_rn(g, sig), u);
+        a.act[i] = v;
+        atomicMax(&amax_sm[rl], __float_as_int(fabsf(v)));
+      });
+      __syncthreads();
+      if (static_cast<int>(threadIdx.x) < B)
+        atomicMax(reinterpret_cast<int*>(a.amax_g) + threadIdx.x,
+                  amax_sm[threadIdx.x]);
+    };
     if constexpr (BITS != 4) {
-      const int F2 = 2 * F;
       plane_phase<W13, BITS>(a.xq, a.w13, a.s13, a.z13, li, dim, a.n13_s,
                              F2, a, plane_sm, false, [] {},
                              [&](int row, int col, float v) {
-                             a.h13[static_cast<size_t>(row) * F2 + col] =
-                                 __fmul_rn(v, a.xs[row]);
-                           });
+                               a.h13[static_cast<size_t>(row) * F2 + col] =
+                                   __fmul_rn(v, a.xs[row]);
+                             });
       sync(kW13);
-      if (threadIdx.x < BM) amax_sm[threadIdx.x] = 0;
-      __syncthreads();
-      for (int i = blockIdx.x * kThreads + threadIdx.x; i < B * F;
-           i += gridDim.x * kThreads) {
-        const int rl = i / F, j = i - rl * F;
-        const float g = a.h13[static_cast<size_t>(rl) * F2 + j];
-        const float u = a.h13[static_cast<size_t>(rl) * F2 + F + j];
-        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
-        const float v = __fmul_rn(__fmul_rn(g, sig), u);
-        a.act[static_cast<size_t>(rl) * F + j] = v;
-        atomicMax(&amax_sm[rl], __float_as_int(fabsf(v)));
-      }
-      __syncthreads();
-      if (threadIdx.x < BM && static_cast<int>(threadIdx.x) < B)
-        atomicMax(reinterpret_cast<int*>(a.amax_g) + threadIdx.x,
-                  amax_sm[threadIdx.x]);
+      glu([&](int rl, int j, float& g, float& u) {
+        g = a.h13[static_cast<size_t>(rl) * F2 + j];
+        u = a.h13[static_cast<size_t>(rl) * F2 + F + j];
+      });
     } else {
-      const int G = dim / gs, NS = a.n13_s;
-      const auto w = Wt::at(a.w13, li, dim, NS);
-      const void* s = qp_at(a.s13, static_cast<size_t>(li) * G * NS, bf);
-      const void* z = qp_at(a.z13, static_cast<size_t>(li) * G * NS, bf);
-      for (int tile = blockIdx.x; tile * GHALF < F; tile += gridDim.x) {
-        const int j0 = tile * GHALF;
-        const sbt::ColGLU cm{j0, F, GHALF};
-        if (threadIdx.x < BM) amax_sm[threadIdx.x] = 0;
-        float acc[GTM][GTN];
-        sbt::wtile<BM, GBN, GTM, GTN>(sbt::AInt8{a.xq, B, dim}, w, s, z, bf,
-                                      NS, dim, gs, 0, cm, acc);
-#pragma unroll
-        for (int tm = 0; tm < GTM; ++tm) {
-          const int rl = gty + tm * TG::TY;
-          if (rl >= B) continue;
-          const float scale = a.xs[rl];
-          float mx = 0.f;
-#pragma unroll
-          for (int tn = 0; tn < GTN / 2; ++tn) {
-            const int j = j0 + gtx + tn * TG::TX;
-            if (j >= F) continue;
-            const float g = __fmul_rn(acc[tm][tn], scale);
-            const float u = __fmul_rn(acc[tm][tn + GTN / 2], scale);
-            const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
-            const float v = __fmul_rn(__fmul_rn(g, sig), u);
-            a.act[static_cast<size_t>(rl) * F + j] = v;
-            mx = fmaxf(mx, fabsf(v));
-          }
-          atomicMax(&amax_sm[rl], __float_as_int(mx));
-        }
-        __syncthreads();
-        if (threadIdx.x < BM && static_cast<int>(threadIdx.x) < B)
-          atomicMax(reinterpret_cast<int*>(a.amax_g) + threadIdx.x,
-                    amax_sm[threadIdx.x]);
-        __syncthreads();
-      }
+      s4_phase<S4>(a.xq, a.w13, a.s13, a.z13, li, dim, F2, a.g13, a, s4_sm,
+                   [&] { sync(kW13); }, [&](const auto& split_sum) {
+                     glu([&](int rl, int j, float& g, float& u) {
+                       const size_t at = static_cast<size_t>(rl) * F2 + j;
+                       g = __fmul_rn(split_sum(at), a.xs[rl]);
+                       u = __fmul_rn(split_sum(at + F), a.xs[rl]);
+                     });
+                   });
     }
-    sync(BITS != 4 ? kGlu : kW13Glu);
+    sync(kGlu);
 
-    // 5: x = xmid + gs * W2(q8(act)); plane mode quantizes act first
+    // 5: x = xmid + gs * W2(q8(act)), the int8 rows quantized first
+    quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
+    sync(kQ8Act);
+    const auto w2_out = [&](int row, int col, float v) {
+      const size_t o = static_cast<size_t>(row) * dim + col;
+      a.x[o] =
+          __fadd_rn(a.xmid[o], __fmul_rn(v, sbt::row_scale(a.amax_g[row])));
+    };
     if constexpr (BITS != 4) {
-      quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
-      sync(kQ8Act);
       plane_phase<P, BITS>(a.aq, a.w2, a.s2, a.z2, li, F, a.n2_s, dim, a,
-                           plane_sm, true, [&] { sync(kW2); },
-                           [&](int row, int col, float v) {
-                             const size_t o =
-                                 static_cast<size_t>(row) * dim + col;
-                             a.x[o] = __fadd_rn(
-                                 a.xmid[o],
-                                 __fmul_rn(v, sbt::row_scale(a.amax_g[row])));
-                           });
+                           plane_sm, true, [&] { sync(kW2); }, w2_out);
     } else {
-      const int G = F / gs, NS = a.n2_s;
-      const auto w = Wt::at(a.w2, li, F, NS);
-      const void* s = qp_at(a.s2, static_cast<size_t>(li) * G * NS, bf);
-      const void* z = qp_at(a.z2, static_cast<size_t>(li) * G * NS, bf);
-      for (int tile = blockIdx.x; tile * BN < dim; tile += gridDim.x) {
-        const sbt::ColPlain cm{tile * BN, dim};
-        float acc[TM][TN];
-        sbt::wtile<BM, BN, TM, TN>(
-            sbt::AF32Requant{a.act, a.amax_g, B, F}, w, s, z, bf, NS, F, gs,
-            0, cm, acc);
-#pragma unroll
-        for (int tm = 0; tm < TM; ++tm) {
-          const int row = ty + tm * TP::TY;
-          if (row >= B) continue;
-          const float scale = sbt::row_scale(a.amax_g[row]);
-#pragma unroll
-          for (int tn = 0; tn < TN; ++tn) {
-            const int col = cm(tx + tn * TP::TX);
-            if (col < 0) continue;
-            const size_t o = static_cast<size_t>(row) * dim + col;
-            a.x[o] = __fadd_rn(a.xmid[o], __fmul_rn(acc[tm][tn], scale));
-          }
-        }
-      }
+      s4_phase<S4>(a.aq, a.w2, a.s2, a.z2, li, F, dim, a.g2, a, s4_sm,
+                   [&] { sync(kW2); }, [&](const auto& split_sum) {
+                     grid_for(static_cast<size_t>(B) * dim, [&](size_t i) {
+                       w2_out(i / dim, i % dim, split_sum(i));
+                     });
+                   });
     }
-    sync(BITS != 4 ? kW2Sum : kW2);
+    sync(kW2Sum);
   }
 }
 
 
 // Blocks of the persistent grid of kernel kern: as many as fit on the
 // card at once, at most kMaxBlocksPerSM an SM.
+// smem: its dynamic shared memory, allowed past 48 KB first, so that the
+// occupancy query sees the launch's own size.
 template <class Kern>
-cudaError_t grid_size(Kern kern, int* grid) {
+cudaError_t grid_size(Kern kern, int smem, int* grid) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -760,32 +733,61 @@ cudaError_t grid_size(Kern kern, int* grid) {
   if (!coop) return cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    0);
+                                                    smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorLaunchOutOfResources;
   *grid = sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
   return cudaSuccess;
 }
 
-template <class P, class G, int BITS>
+// The dynamic shared memory of K4: s4r mode's ring (plane mode's tiles
+// use static shared memory).
+template <int BITS, class S4>
+constexpr int kDynSmem = BITS == 4 ? S4::BYTES : 0;
+
+template <class P, class G, int BITS, class S4>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = layers_fused_kernel<P, G, BITS>;
+  auto kern = layers_fused_kernel<P, G, BITS, S4>;
+  constexpr int smem = kDynSmem<BITS, S4>;
   int grid = 0;
-  cudaError_t e = grid_size(kern, &grid);
+  cudaError_t e = grid_size(kern, smem, &grid);
   if (e != cudaSuccess) return e;
   Args copy = a;
   void* params[] = {&copy};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(grid),
-                                  dim3(kThreads), params, 0, stream);
+                                  dim3(kThreads), params, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+// The instantiation for wbits and B rows: plane mode by B <= 8, s4r mode
+// by B <= 16 (its tiles are m16 tiles).
+template <int BITS, class F>
+cudaError_t with_kernel(int B, const F& f) {
+  if constexpr (BITS == 4)
+    return B <= 16 ? f.template operator()<SmallP, SmallG, 4, S4Small>()
+                   : f.template operator()<LargeP, LargeP, 4, S4Large>();
+  else
+    return B <= 8 ? f.template operator()<SmallP, SmallG, BITS, S4Small>()
+                  : f.template operator()<LargeP, LargeP, BITS, S4Large>();
+}
+
+struct Launcher {
+  const Args& a;
+  cudaStream_t st;
+  template <class P, class G, int BITS, class S4>
+  cudaError_t operator()() const {
+    return launch<P, G, BITS, S4>(a, st);
+  }
+};
+
 template <int BITS>
 cudaError_t launch_rows(const Args& a, cudaStream_t st) {
-  return a.B <= 8 ? launch<SmallP, SmallG, BITS>(a, st)
-                  : launch<LargeP, LargeP, BITS>(a, st);
+  return with_kernel<BITS>(a.B, Launcher{a, st});
 }
 
 }  // namespace
@@ -800,10 +802,12 @@ cudaError_t launch_rows(const Args& a, cudaStream_t st) {
 // (B, max_chunks) int32, pos (B,) int32, cos/sin (B, D) f32. x (B, dim)
 // f32 holds the input rows and receives the output. The rest is scratch: xq (B, dim) int8, xs (B),
 // qkv (B, Nq), aout (B, Hq*D), amax_a (B), xmid (B, dim), act (B, F),
-// amax_g (B), sc (B, Hq, max_chunks*block) and, in plane mode, h13 (B,
-// 2F) and part (B, dim, 1 + max(Hq*D, F) / gs / 2), all f32, and aq (B,
-// max(Hq*D, F)) int8. B <= 64, D a power of two <= 256,
-// Hq/Hkv <= 8, K dims multiples of 64 and of gs.
+// amax_g (B), sc (B, Hq, max_chunks*block), part and, in plane mode, h13
+// (B, 2F), all f32, and aq (B, max(Hq*D, F)) int8. part: plane mode (B,
+// dim, 1 + max(Hq*D, F) / gs / 2); s4r mode max over the four matmuls of
+// (splits, B, N), splits = ceil(K / gs / g) for gq, go, g13, g2 groups a
+// K split of Wqkv, Wo, W13, W2 (ops/quant_matmul.s4_plan). B <= 64, D a
+// power of two <= 256, Hq/Hkv <= 8, K dims multiples of 64 and of gs.
 extern "C" int sbt_layers_fused(
     const void* wq, const void* sq, const void* zq, const void* wo,
     const void* so, const void* zo, const void* w13, const void* s13,
@@ -814,7 +818,8 @@ extern "C" int sbt_layers_fused(
     void* xmid, void* act, void* amax_g, void* sc, void* h13, void* aq,
     void* part, int sz_bf16, int nw_bf16,
     int L, int B, int dim, int Hq, int Hkv, int D, int F, int gs,
-    int wbits, int nq_s, int no_s, int n13_s, int n2_s, int n_blocks,
+    int wbits, int nq_s, int no_s, int n13_s, int n2_s, int gq, int go,
+    int g13, int g2, int n_blocks,
     int block, int max_chunks, int s_act, float eps, float inv_sqrt_d,
     void* stream) {
   const int Nq = (Hq + 2 * Hkv) * D;
@@ -828,7 +833,8 @@ extern "C" int sbt_layers_fused(
                     n13_s % pmul == 0 && n2_s % pmul == 0);
   if (B < 1 || B > 64 || D > kMaxD || D % 4 || kThreads % (D / 4) ||
       Hq % Hkv || Hq / Hkv > kMaxRep || s_act < 1 ||
-      s_act > max_chunks * block || !widths_ok)
+      s_act > max_chunks * block || !widths_ok ||
+      (wbits == 4 && (gq < 1 || go < 1 || g13 < 1 || g2 < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.wq = static_cast<const uint8_t*>(wq);
@@ -863,6 +869,7 @@ extern "C" int sbt_layers_fused(
   a.L = L; a.B = B; a.dim = dim; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.F = F;
   a.gs = gs; a.n_blocks = n_blocks; a.block = block;
   a.nq_s = nq_s; a.no_s = no_s; a.n13_s = n13_s; a.n2_s = n2_s;
+  a.gq = gq; a.go = go; a.g13 = g13; a.g2 = g2;
   a.max_chunks = max_chunks; a.s_act = s_act;
   a.eps = eps; a.inv_sqrt_d = inv_sqrt_d;
   auto st = static_cast<cudaStream_t>(stream);
@@ -874,6 +881,16 @@ extern "C" int sbt_layers_fused(
 
 #ifdef SBT_PHASE_TRACE
 namespace {
+
+// The grid size of an instantiation of K4, into *g.
+struct GridOf {
+  int* g;
+  template <class P, class G, int BITS, class S4>
+  cudaError_t operator()() const {
+    return grid_size(layers_fused_kernel<P, G, BITS, S4>,
+                     kDynSmem<BITS, S4>, g);
+  }
+};
 
 // n grid barriers and nothing else: the cost of one barrier of K4's grid.
 __global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int n) {
@@ -902,13 +919,10 @@ extern "C" int sbt_phase_marks() { return kMarks; }
 extern "C" int sbt_grid_sync_probe(int n_syncs, int wbits, int B, void* grid,
                                    void* stream) {
   int g = 0;
-  cudaError_t e =
-      B <= 8 ? (wbits == 4   ? grid_size(layers_fused_kernel<SmallP, SmallG, 4>, &g)
-                : wbits == 3 ? grid_size(layers_fused_kernel<SmallP, SmallG, 3>, &g)
-                             : grid_size(layers_fused_kernel<SmallP, SmallG, 2>, &g))
-             : (wbits == 4   ? grid_size(layers_fused_kernel<LargeP, LargeP, 4>, &g)
-                : wbits == 3 ? grid_size(layers_fused_kernel<LargeP, LargeP, 3>, &g)
-                             : grid_size(layers_fused_kernel<LargeP, LargeP, 2>, &g));
+  const GridOf f{&g};
+  cudaError_t e = wbits == 4   ? with_kernel<4>(B, f)
+                  : wbits == 3 ? with_kernel<3>(B, f)
+                               : with_kernel<2>(B, f);
   if (e != cudaSuccess) return static_cast<int>(e);
   *static_cast<int*>(grid) = g;
   void* params[] = {&n_syncs};

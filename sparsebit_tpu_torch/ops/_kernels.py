@@ -32,8 +32,8 @@ _F = ctypes.c_float
 
 # C signatures: every function returns cudaError_t as int
 SIGNATURES = {
-    # quant_matmul.cu (K1)
-    "sbt_qmm_s4": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # quant_matmul.cu (K1) (+ groups a K split, its partials' scratch)
+    "sbt_qmm_s4": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
     # ffn_fused.cu (K3)
     "sbt_ffn_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "sbt_ffn_w13_glu": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
@@ -54,8 +54,9 @@ SIGNATURES = {
     # (+ scratch: K-split partials, splits)
     "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # layer_fused.cu (K4): 12 weight/qparam stacks, 2 norms, 4 cache
-    # pools, bt, pos, cos, sin, x, 12 scratch buffers; 19 ints, 2 floats
-    "sbt_layers_fused": [_P] * 35 + [_I] * 19 + [_F, _F, _P],
+    # pools, bt, pos, cos, sin, x, 12 scratch buffers; 23 ints (the s4r
+    # K-split plan among them), 2 floats
+    "sbt_layers_fused": [_P] * 35 + [_I] * 23 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -44,7 +44,7 @@ from sparsebit_tpu_torch.ops.attention import (
 )
 from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
 from sparsebit_tpu_torch.ops.packing import unpack_planes_serving
-from sparsebit_tpu_torch.ops.quant_matmul import _qmm_s4_plain
+from sparsebit_tpu_torch.ops.quant_matmul import _qmm_s4_plain, s4_plan
 
 MAX_ROWS = 64  # B cap, as the reference (layer_fused.py:965)
 MAX_REP = 8    # query heads per kv head held by one attention work item
@@ -118,9 +118,11 @@ def _qmm_pl_plain(x8, xs, w, scales, zeros, gs, bits):
 
 
 def _mm_plain(wbits):
-    """K4's matmul step for one container: s4r row pairs or planes."""
+    """K4's matmul step for one container: s4r row pairs in the kernel's
+    K-split order (``s4_plan``), or planes."""
     if wbits == 4:
-        return _qmm_s4_plain
+        return lambda x8, xs, w, s, z, gs: _qmm_s4_plain(
+            x8, xs, w, s, z, gs, s4_plan(x8.shape[1], w.shape[-1], gs))
     return lambda x8, xs, w, s, z, gs: _qmm_pl_plain(x8, xs, w, s, z, gs,
                                                      wbits)
 
@@ -175,30 +177,45 @@ def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
 _workspaces = {}
 
 
+def s4_splits(K_N, gs):
+    """(gps, splits) of K4's four s4r matmuls (Wqkv, Wo, W13, W2) of
+    logical (K, N): the streaming tile's K-split plan."""
+    out = []
+    for K, N in K_N:
+        gps = s4_plan(K, N, gs)
+        out.append((gps, -(-(K // gs) // gps)))
+    return out
+
+
 def _workspace(dev, B, dim, Nq, HD, F, Hq, S_cache, gs, planes):
     """Scratch of one launch shape on the current stream, allocated once
     and reused: int8 x codes, their scales, qkv, attention out and its
     row absmax, x after the attention half, the GLU row and its absmax,
-    the attention scores (B, Hq, S_cache) and, in plane mode, the [gate |
-    up] rows (B, 2F) before the GLU, the int8 rows of Wo's and W2's
-    inputs (B, max(HD, F)) and their split sums: the first half's sum and
-    the second half's group terms (1 + max(HD, F) / gs / 2, B, dim).
-    Launches on one stream run in order, so they may share it."""
+    the attention scores (B, Hq, S_cache), in plane mode the [gate | up]
+    rows (B, 2F) before the GLU, the int8 rows of Wo's and W2's inputs
+    (B, max(HD, F)), and the split sums: in plane mode Wo's and W2's
+    first half's sum and second half's group terms (1 + max(HD, F) / gs /
+    2, B, dim), in s4r mode each matmul's K-split partials (splits, B,
+    N). Launches on one stream run in order, so they may share it."""
     key = (str(dev), torch.cuda.current_stream(dev).cuda_stream, B, dim, Nq,
            HD, F, Hq, S_cache, gs, planes)
     w = _workspaces.get(key)
     if w is None:
         f32 = dict(dtype=torch.float32, device=dev)
+        if planes:
+            n_part = (1 + max(HD, F) // gs // 2) * B * dim
+        else:
+            K_N = ((dim, Nq), (HD, dim), (dim, 2 * F), (F, dim))
+            n_part = max(sp * B * N for (_, sp), (_, N) in
+                         zip(s4_splits(K_N, gs), K_N))
         w = (torch.empty((B, dim), dtype=torch.int8, device=dev),
              torch.empty((B,), **f32), torch.empty((B, Nq), **f32),
              torch.empty((B, HD), **f32), torch.empty((B,), **f32),
              torch.empty((B, dim), **f32), torch.empty((B, F), **f32),
              torch.empty((B,), **f32), torch.empty((B, Hq, S_cache), **f32),
              torch.empty((B, 2 * F) if planes else (1,), **f32),
-             torch.empty((B, max(HD, F)) if planes else (1,),
-                         dtype=torch.int8, device=dev),
-             torch.empty(((1 + max(HD, F) // gs // 2) * B * dim,)
-                         if planes else (1,), **f32))
+             torch.empty((B, max(HD, F)), dtype=torch.int8, device=dev),
+             torch.empty((n_part,), **f32))
         _workspaces[key] = w
     return w
 
@@ -254,7 +271,7 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
         *[p(t) for t in scratch],
         int(szt == torch.bfloat16), int(attn_norm.dtype == torch.bfloat16),
         L, B, dim, Hq, Hkv, D, F, gs, wbits, *[w[1].shape[-1] for w in ws],
-        NB, block, bt.shape[1], s_act, eps, _inv_sqrt(D), _kernels.stream())
+        *[gps for gps, _ in s4_splits(K_N, gs)], NB, block, bt.shape[1], s_act, eps, _inv_sqrt(D), _kernels.stream())
     _kernels.check(err, "sbt_layers_fused")
     fused_decoder_layers.launches += 1
     if wbits != 4:

@@ -7,8 +7,10 @@ Two kernel families:
 - K1 (``csrc/quant_matmul.cu``) replaces ``_qmm_u4_kernel``
   (quant_matmul.py:443) and ``_qmm_u4_stacked_kernel`` (:693): int8
   activations times signed row-pair nibbles (``s4r``), for every M, a
-  layer of a stack being a view (a pointer offset). Its plain version is
-  ``_qmm_s4_plain``.
+  layer of a stack being a view (a pointer offset), on the int8 tensor
+  cores: K split at group boundaries at M <= 64 (``s4_plan``), the groups
+  in order above (``k1_plan``). Its plain version is ``_qmm_s4_plain``,
+  in the kernel's split order.
 - K6, K7 and K8 (``csrc/quant_matmul_planes.cu``) replace
   ``_qmm_a8_kernel`` (:844), ``_qmm3_kernel`` (:241) and ``_qmm_kernel``
   (:57): the column-plane fold container (``"w"`` at 2/4/8 bits, 3-bit
@@ -48,24 +50,69 @@ def dequant_weights(packed, scales, zeros, bits, N, gs):
     return (codes - z) * s
 
 
-def _qmm_s4_plain(x8, xs, w, scales, zeros, gs):
-    """Plain version of K1: f32 (M, N) = xs * sum_g s_g * (x8_g @ (C_g - 8)
-    - xsum_g * (z_g - 8)). Every group product is exact in f32 (|x8 * c| <=
-    128 * 8 and a group sum stays below 2^24); the groups are added in
-    order, as the kernel does."""
+def _qmm_s4_plain(x8, xs, w, scales, zeros, gs, gps=None):
+    """Plain version of K1 and of K4's 4-bit matmuls: f32 (M, N) = xs *
+    sum_g s_g * (x8_g @ (C_g - 8) - xsum_g * (z_g - 8)). Every group
+    product is exact in f32 (|x8 * c| <= 128 * 8 and a group sum stays
+    below 2^24). The groups are cut into K splits of ``gps`` groups (None:
+    one split); each split adds its group terms in order from 0, and the
+    splits' partials are added in split order, as the kernels do. gps = 1
+    and one split give the same bits: the sequential sum of the groups."""
     K = x8.shape[1]
+    G = K // gs
+    gps = G if gps is None else gps
     codes = unpack_s4_rows(w).to(torch.float32) - 8.0  # stored nibbles
     x = x8.to(torch.float32)
     s = scales.to(torch.float32)
     z = zeros.to(torch.float32) - 8.0
-    acc = torch.zeros((x8.shape[0], w.shape[-1]), dtype=torch.float32,
-                      device=x8.device)
-    for g in range(K // gs):
-        xg = x[:, g * gs:(g + 1) * gs]
-        dot = xg @ codes[g * gs:(g + 1) * gs]
-        xsum = xg.sum(dim=1, keepdim=True)
-        acc = acc + (dot - xsum * z[g]) * s[g]
-    return acc * xs.reshape(-1, 1)
+    out = None
+    for g0 in range(0, G, gps):
+        acc = torch.zeros((x8.shape[0], w.shape[-1]), dtype=torch.float32,
+                          device=x8.device)
+        for g in range(g0, min(G, g0 + gps)):
+            xg = x[:, g * gs:(g + 1) * gs]
+            dot = xg @ codes[g * gs:(g + 1) * gs]
+            xsum = xg.sum(dim=1, keepdim=True)
+            acc = acc + (dot - xsum * z[g]) * s[g]
+        out = acc if out is None else out + acc
+    return out * xs.reshape(-1, 1)
+
+
+# The s4r streaming tile's K split (csrc/quant_matmul.cu, K4's s4r phases
+# in csrc/layer_fused.cu): the plan balances column tiles of S4_BN
+# columns x K splits over S4_GRID blocks, two an SM of an H100's 132. Both
+# are constants: the plan is a function of (K, N, gs) alone, never of the
+# rows or of the card, so that B = 1 and batched decode agree row for row.
+S4_BN = 256
+S4_GRID = 264
+K1_STREAM_MAX_M = 64  # K1 splits K up to here (decode), not above
+
+
+@functools.lru_cache(maxsize=None)
+def s4_plan(K, N, gs):
+    """Groups a K split of the s4r streaming tile: of every gps in 1..G,
+    the one with the fewest rounds of S4_GRID blocks x (gps + 1) groups of
+    time (a split's ring fill counted as one group), ties to fewer splits.
+    Splits cover the G = K / gs groups at group boundaries, the last one
+    possibly shorter."""
+    G = K // gs
+    tiles = -(-N // S4_BN)
+    best = None
+    for gps in range(1, G + 1):
+        splits = -(-G // gps)
+        cost = (-(-tiles * splits // S4_GRID) * (gps + 1), splits)
+        if best is None or cost < best[0]:
+            best = (cost, gps)
+    return best[1]
+
+
+def k1_plan(M, K, N, gs):
+    """K1's K split, from the shape alone: ("stream", gps) at M <=
+    K1_STREAM_MAX_M (decode: few column tiles, so K is split to fill the
+    card), else ("admit", G), the groups in order."""
+    if M <= K1_STREAM_MAX_M:
+        return "stream", s4_plan(K, N, gs)
+    return "admit", K // gs
 
 
 def quant_matmul_s4(x8, xs, w, scales, zeros, gs, li=None):
@@ -80,11 +127,14 @@ def quant_matmul_s4(x8, xs, w, scales, zeros, gs, li=None):
     M, K = x8.shape
     N = w.shape[-1]
     gs = gs if gs > 0 else K
+    gps = k1_plan(M, K, N, gs)[1] if K % gs == 0 else None
     if x8.device.type == "cpu":
-        return _qmm_s4_plain(x8, xs, w, scales, zeros, gs)
+        return _qmm_s4_plain(x8, xs, w, scales, zeros, gs, gps)
     zeros = zeros.to(scales.dtype)
     xs = xs.reshape(M).to(torch.float32).contiguous()
     x8 = x8.contiguous()
+    if x8.data_ptr() % 16:  # the x rows stream in 16-byte copies
+        x8 = x8.clone()
     _kernels.require_cuda("quant_matmul_s4", x8, xs, w, scales, zeros)
     if x8.dtype != torch.int8 or w.dtype != torch.uint8:
         raise TypeError("quant_matmul_s4: x8 int8 and w uint8 required")
@@ -96,11 +146,14 @@ def quant_matmul_s4(x8, xs, w, scales, zeros, gs, li=None):
             "quant_matmul_s4: unsupported shape K={} N={} gs={} w={} s={}"
             .format(K, N, gs, tuple(w.shape), tuple(scales.shape)))
     out = torch.empty((M, N), dtype=torch.float32, device=x8.device)
+    splits = -(-(K // gs) // gps)
+    part = (torch.empty((splits, M, N), dtype=torch.float32,
+                        device=x8.device) if splits > 1 else out)
     err = _kernels.lib().sbt_qmm_s4(
         _kernels.ptr(x8), _kernels.ptr(xs), _kernels.ptr(w),
         _kernels.ptr(scales), _kernels.ptr(zeros),
         int(scales.dtype == torch.bfloat16), _kernels.ptr(out),
-        M, N, K, gs, _kernels.stream())
+        M, N, K, gs, gps, _kernels.ptr(part), _kernels.stream())
     _kernels.check(err, "sbt_qmm_s4")
     quant_matmul_s4.launches += 1
     return out

@@ -43,19 +43,31 @@ def _s4(rng, lead, K, N, gs, dev):
     return pack_s4_rows(codes).to(dev), s.to(dev), z.to(dev)
 
 
-@pytest.mark.parametrize("M", [1, 8, 33, 130])
-@pytest.mark.parametrize("K,N", [(256, 320), (384, 200)])
-def test_k1_kernel_matches_plain(cuda, M, K, N):
-    """rel 1e-4 of max |out|: f32 group sums in another order. N = 200
-    exercises the ragged column edge, M = 33/130 the row edge."""
-    rng = np.random.default_rng(M + K)
-    w, s, z = _s4(rng, (2,), K, N, 128, cuda)
+@pytest.mark.parametrize("M", [1, 8, 33, 64, 65, 128, 200, 770])
+@pytest.mark.parametrize("K,N", [(256, 320), (384, 200), (4096, 4096)])
+@pytest.mark.parametrize("gs,sz_bf16", [(64, False), (128, True)])
+def test_k1_kernel_matches_plain(cuda, M, K, N, gs, sz_bf16):
+    """Bit-equal to the plain version in the kernel's order (k1_plan: the
+    streaming tile's K split up to M = 64, the groups in order above), and
+    within rel 1e-5 of max |out| of the sequential group order. M = 64 /
+    65 straddle the crossover, 770 is ragged at the admission tile's 128
+    rows, N = 200 the column edge (8-byte copies), 4096 x 4096 a shape
+    whose plan splits (gps 2 at gs 128)."""
+    rng = np.random.default_rng(M + K + gs)
+    w, s, z = _s4(rng, (2,), K, N, gs, cuda)
+    if not sz_bf16:
+        s, z = s.float(), z.float()
     x8, xs = tokenwise_quant(torch.randn((M, K), device=cuda))
     before = QM.quant_matmul_s4.launches
-    out = QM.quant_matmul_s4(x8, xs, w, s, z, 128, li=1)
-    ref = QM._qmm_s4_plain(x8, xs, w[1], s[1], z[1], 128)
+    out = QM.quant_matmul_s4(x8, xs, w, s, z, gs, li=1)
+    gps = QM.k1_plan(M, K, N, gs)[1]
+    ref = QM._qmm_s4_plain(x8, xs, w[1], s[1], z[1], gs, gps)
+    seq = QM._qmm_s4_plain(x8, xs, w[1], s[1], z[1], gs)
+    torch.cuda.synchronize()
     assert QM.quant_matmul_s4.launches == before + 1
-    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(out, ref)
+    assert (out - seq).abs().max().item() <= 1e-5 * seq.abs().max().item()
+    assert torch.equal(out, QM.quant_matmul_s4(x8, xs, w, s, z, gs, li=1))
 
 
 def test_k2_kernel_matches_plain(cuda):
@@ -164,17 +176,18 @@ def test_k9_unaligned_w_matches_plain(cuda, offset):
     assert (out - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
 
 
-def _k4_operands(dev, B, S, n_blocks=None, Hkv=4, D=128, seed=0):
-    """Tiny K4 operands (4 query heads of D, Hkv kv heads, ffn 384, gs 64,
+def _k4_operands(dev, B, S, n_blocks=None, Hkv=4, D=128, seed=0, F=384,
+                 H=4):
+    """Tiny K4 operands (H query heads of D, Hkv kv heads, ffn F, gs 64,
     two layers) with a cache of S rows per batch row, or a pool of
     n_blocks blocks of 128 rows."""
-    dim = 4 * D
-    cfg = llama_tiny(dim=dim, n_heads=4, n_kv_heads=Hkv, ffn_dim=384,
+    dim = H * D
+    cfg = llama_tiny(dim=dim, n_heads=H, n_kv_heads=Hkv, ffn_dim=F,
                      max_seq_len=S)
     rng = np.random.default_rng(seed)
     ws = []
-    for K, N in ((dim, dim + 2 * Hkv * D), (dim, dim), (dim, 768),
-                 (384, dim)):
+    for K, N in ((dim, dim + 2 * Hkv * D), (dim, dim), (dim, 2 * F),
+                 (F, dim)):
         w, s, z = _s4(rng, (2,), K, N, 64, dev)
         ws += [w, s * 2, z]
     norms = [torch.from_numpy(1 + 0.1 * rng.standard_normal((2, dim))).to(
@@ -199,17 +212,22 @@ def _k4_operands(dev, B, S, n_blocks=None, Hkv=4, D=128, seed=0):
     return cfg, x, pos, cos, sin, ws, norms, [k, v, ks, vs]
 
 
-@pytest.mark.parametrize("B,paged,Hkv,D", [
-    (1, False, 4, 128), (8, False, 4, 128), (8, True, 4, 128),
-    # B > 8 takes the 64-row tiles; Hkv 2 puts two query heads on a kv
-    # head (GQA), Hkv 1 four; D = 64 splits the value mix into 16 row
-    # groups
-    (20, False, 2, 128), (3, True, 2, 64), (4, True, 1, 128)])
-def test_k4_kernel_matches_plain(cuda, B, paged, Hkv, D):
-    """The megakernel against its plain version on the same card: KV codes
-    and scales exact, output within 1e-4 of max |out| (the plain version
-    takes every float sum in the kernel's order; the margin is for an
-    exp or division that rounds otherwise)."""
+@pytest.mark.parametrize("B,paged,Hkv,D,F", [
+    (1, False, 4, 128, 384), (8, False, 4, 128, 384),
+    (8, True, 4, 128, 384),
+    # B = 9..16 take the s4r tile's one m16 tile, B > 16 its 64-row
+    # tiles; Hkv 2 puts two query heads on a kv head (GQA), Hkv 1 four;
+    # D = 64 splits the value mix into 16 row groups; F = 320 gives W2 5
+    # groups (an odd count for every split)
+    (9, False, 4, 128, 384), (20, False, 2, 128, 384),
+    (32, False, 4, 128, 384), (3, True, 2, 64, 384),
+    (4, True, 1, 128, 384), (8, False, 4, 128, 320),
+    (32, True, 2, 128, 320)])
+def test_k4_kernel_matches_plain(cuda, B, paged, Hkv, D, F):
+    """The megakernel against its plain version on the same card: output,
+    KV codes and scales bit-equal (the plain version takes every float
+    sum in the kernel's order, its s4r matmuls in the kernel's K-split
+    order)."""
     S = 256
     bt = None
     n_blocks = None
@@ -218,7 +236,7 @@ def test_k4_kernel_matches_plain(cuda, B, paged, Hkv, D):
         perm = np.random.default_rng(B).permutation(n_blocks)[:2 * B]
         bt = torch.from_numpy(perm.reshape(B, 2).astype(np.int32)).to(cuda)
     cfg, x, pos, cos, sin, ws, norms, cache = _k4_operands(
-        cuda, B, S, n_blocks, Hkv, D)
+        cuda, B, S, n_blocks, Hkv, D, F=F)
     plain = [t.clone() for t in cache]
     before = LF.fused_decoder_layers.launches
     out, *_ = LF.fused_decoder_layers(x, pos, cos, sin, *ws, *norms, *cache,
@@ -233,7 +251,30 @@ def test_k4_kernel_matches_plain(cuda, B, paged, Hkv, D):
     assert LF.fused_decoder_layers.launches == before + 1
     for a, b in zip(cache, plain):
         assert torch.equal(a, b)
-    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_k4_b1_row_equals_batched_row(cuda, wide):
+    """Row 0 of a B = 8 launch equals the B = 1 launch of that row bit
+    for bit (output and its cache row): the s4r plan reads no batch size.
+    wide: dim 2048, ffn 2816, where the plan splits Wqkv, W13 and W2."""
+    kw = dict(H=16, Hkv=4, F=2816) if wide else {}
+    cfg, x, pos, cos, sin, ws, norms, cache = _k4_operands(cuda, 8, 256,
+                                                           **kw)
+    if wide:
+        K_N = ((2048, 3072), (2048, 2048), (2048, 5632), (2816, 2048))
+        assert sum(1 < gps < K // 64 for (gps, _), (K, _) in
+                   zip(LF.s4_splits(K_N, 64), K_N)) >= 2
+    one = [t[:, :1].clone() for t in cache]
+    out8, *_ = LF.fused_decoder_layers(x, pos, cos, sin, *ws, *norms,
+                                       *cache, cfg, 64)
+    out1, *_ = LF.fused_decoder_layers(x[:1], pos[:1], cos[:1], sin[:1],
+                                       *ws, *norms, *one, cfg, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(out8[:1], out1)
+    for a, b in zip(one, cache):
+        assert torch.equal(a[:, 0], b[:, 0])
 
 
 def _planes(rng, bits, K, N, G, dev):

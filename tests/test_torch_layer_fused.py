@@ -23,6 +23,7 @@ from sparsebit_tpu_torch.llm import llama as TL
 from sparsebit_tpu_torch.llm.quant import QuantLinear
 from sparsebit_tpu_torch.ops import attention as TA
 from sparsebit_tpu_torch.ops import layer_fused as TLF
+from sparsebit_tpu_torch.ops import quant_matmul as QM
 from sparsebit_tpu_torch.ops.packing import pack_s4_rows
 
 torch.set_num_threads(1)
@@ -351,3 +352,81 @@ def test_one_layer_at_a_time_matches_the_backbone(weights):
     np.testing.assert_array_equal(h.numpy(), whole.numpy())
     for a, b in zip(cache, c_whole):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---- K4's plain version where its K-split plan splits ---------------------
+
+
+def test_s4_splits_read_no_batch_size():
+    """K4's four s4r matmuls take s4_plan(K, N, gs): no batch size, no
+    card (the reference's contract that a row decodes alike alone and in
+    a batch rests on it)."""
+    K_N = ((4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096))
+    plans = [(QM.s4_plan(k, n, 128), -(-(k // 128) // QM.s4_plan(k, n, 128)))
+             for k, n in K_N]
+    assert TLF.s4_splits(K_N, 128) == plans
+    assert any(1 < gps < k // 128 for (gps, _), (k, _) in zip(plans, K_N))
+
+
+def test_fused_layers_split_plain_matches_jax():
+    """One layer at dim 1024, ffn 2816, gs 64, where W13's plan splits
+    (gps 2 of 16 groups): the port's plain K4 (every s4r matmul in split
+    order) against the JAX megakernel in interpret mode, output within
+    the reference's oracle tolerance, KV codes and scales equal."""
+    gs, S_, D_ = 64, 256, 128
+    kw = dict(dim=1024, n_heads=8, n_kv_heads=8, ffn_dim=2816,
+              max_seq_len=S_)
+    cfg_t, cfg_j = TL.llama_tiny(**kw), JL.llama_tiny(**kw)
+    dim, F, H = cfg_t.dim, cfg_t.ffn_dim, cfg_t.n_heads
+    K_N = ((dim, 3 * dim), (dim, dim), (dim, 2 * F), (F, dim))
+    assert any(1 < gps < K // gs
+               for (gps, _), (K, _) in zip(TLF.s4_splits(K_N, gs), K_N))
+    rng = np.random.default_rng(4)
+    ws = []
+    for K, N in K_N:
+        codes = rng.integers(0, 16, (1, K, N)).astype(np.uint8)
+        ws.append((pack_s4_rows(torch.from_numpy(codes)),
+                   _bf16(rng.uniform(0.002, 0.02, (1, K // gs, N))),
+                   _bf16(rng.integers(4, 12, (1, K // gs, N)))))
+    an = torch.from_numpy((1 + 0.1 * rng.standard_normal((1, dim))).astype(
+        np.float32))
+    fn = torch.from_numpy((1 + 0.1 * rng.standard_normal((1, dim))).astype(
+        np.float32))
+    B = 2
+    k = rng.integers(-127, 128, (1, B, S_, H, D_)).astype(np.int8)
+    v = rng.integers(-127, 128, (1, B, S_, H, D_)).astype(np.int8)
+    ks = _bf16(rng.uniform(0.001, 0.01, (1, B, S_, H))).float()
+    vs = _bf16(rng.uniform(0.001, 0.01, (1, B, S_, H))).float()
+    x = rng.standard_normal((B, dim)).astype(np.float32)
+    pos = np.array([9, 140], np.int32)
+    inv = JL.rope_frequencies(cfg_j)
+    ang = jnp.asarray(pos)[:, None].astype(jnp.float32) * inv
+    cos = np.asarray(jnp.concatenate([jnp.cos(ang)] * 2, 1))
+    sin = np.asarray(jnp.concatenate([jnp.sin(ang)] * 2, 1))
+
+    cache = [torch.from_numpy(k.copy()), torch.from_numpy(v.copy()),
+             ks.clone(), vs.clone()]
+    tout, *tcache = TLF.fused_decoder_layers(
+        torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(cos),
+        torch.from_numpy(sin), *[t for w in ws for t in w], an, fn, *cache,
+        cfg_t, gs)
+    flat = []
+    for w, s, z in ws:
+        flat += [jnp.asarray(w.numpy()),
+                 jnp.asarray(s.float().numpy()).astype(jnp.bfloat16),
+                 jnp.asarray(z.float().numpy()).astype(jnp.bfloat16)]
+    jks = jnp.swapaxes(jnp.asarray(ks.numpy()), 2, 3).astype(jnp.bfloat16)
+    jvs = jnp.swapaxes(jnp.asarray(vs.numpy()), 2, 3).astype(jnp.bfloat16)
+    run = jax.jit(lambda: JLF.fused_decoder_layers(
+        jnp.asarray(x), jnp.asarray(pos), jnp.asarray(cos),
+        jnp.asarray(sin), *flat, jnp.asarray(an.numpy()),
+        jnp.asarray(fn.numpy()), jnp.asarray(k), jnp.asarray(v), jks, jvs,
+        cfg_j, gs, interpret=True, signed=True))
+    jout, jk, jv, jks, jvs = run()
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=RTOL,
+                               atol=ATOL)
+    jback = [np.asarray(jk), np.asarray(jv),
+             np.asarray(jnp.swapaxes(jks, 2, 3).astype(jnp.float32)),
+             np.asarray(jnp.swapaxes(jvs, 2, 3).astype(jnp.float32))]
+    for t, j in zip(tcache, jback):
+        np.testing.assert_array_equal(t.numpy(), j)

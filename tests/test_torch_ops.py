@@ -134,6 +134,108 @@ def test_k1_stacked_plain_matches_pallas(M):
                                atol=2e-4)
 
 
+# ---- K1's K-split plan and the plain version in its split order ---------
+# The CUDA tile splits K at group boundaries and adds the splits' partials
+# in split order; _qmm_s4_plain(gps=...) repeats that order, so kernel and
+# plain version agree bit for bit on the card.
+
+
+def _s4_operands(rng, M, K, N, gs):
+    codes = rng.integers(0, 16, (K, N)).astype(np.uint8)
+    x8 = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    s = rng.uniform(0.002, 0.02, (K // gs, N)).astype(np.float32)
+    z = rng.integers(4, 12, (K // gs, N)).astype(np.float32)
+    return x8, pk.pack_s4_rows(_t(codes)), s, z
+
+
+@pytest.mark.parametrize("K,N,gs", [
+    (256, 320, 64), (4096, 12288, 128), (4096, 4096, 128),
+    (4096, 22016, 128), (11008, 4096, 128), (1024, 5632, 64),
+    (2816, 2048, 64), (384, 200, 128)])
+def test_s4_plan_covers_k_at_group_boundaries(K, N, gs):
+    """gps groups a split, 1 <= gps <= G: the splits start at multiples of
+    gps groups and the last one ends at G (it may be shorter)."""
+    G = K // gs
+    gps = QM.s4_plan(K, N, gs)
+    splits = -(-G // gps)
+    assert 1 <= gps <= G
+    assert (splits - 1) * gps < G <= splits * gps
+    starts = [p * gps * gs for p in range(splits)]
+    assert all(k % gs == 0 and k < K for k in starts)
+
+
+def test_k1_plan_reads_no_batch_size():
+    """The plan is a function of (K, N, gs): K1 takes the same gps at every
+    M up to the crossover, and the groups in order above it."""
+    K, N, gs = 4096, 4096, 128
+    gps = QM.s4_plan(K, N, gs)
+    assert 1 < gps < K // gs  # this shape splits
+    for M in (1, 8, 33, QM.K1_STREAM_MAX_M):
+        assert QM.k1_plan(M, K, N, gs) == ("stream", gps)
+    for M in (QM.K1_STREAM_MAX_M + 1, 512, 770):
+        assert QM.k1_plan(M, K, N, gs) == ("admit", K // gs)
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("sz", ["f32", "bf16"])
+def test_k1_split_plain_matches_pallas(M, sz):
+    """At a shape the plan splits (K = 1024, gs 64: 16 groups, gps 2),
+    the wrapper's plain version on the CPU is _qmm_s4_plain in split
+    order, bit for bit, and agrees with the JAX kernel (interpret mode)
+    at test_k1_plain_matches_pallas' tolerance (rtol/atol 2e-4: f32 sums
+    over the groups in another order); gps = 1 is the sequential sum
+    exactly."""
+    K, N, gs = 1024, 4352, 64
+    gps = QM.s4_plan(K, N, gs)
+    assert 1 < gps < K // gs
+    x8, w, s, z = _s4_operands(np.random.default_rng(M), M, K, N, gs)
+    if sz == "bf16":
+        js, ts = _bf16_pair(s)
+        jz, tz = _bf16_pair(z)
+    else:
+        js, jz, ts, tz = jnp.asarray(s), jnp.asarray(z), _t(s), _t(z)
+    xs = torch.ones((M, 1))
+    out = QM.quant_matmul_s4(_t(x8), xs, w, ts, tz, gs)
+    split = QM._qmm_s4_plain(_t(x8), xs, w, ts, tz, gs, gps)
+    assert torch.equal(out, split)
+    assert torch.equal(QM._qmm_s4_plain(_t(x8), xs, w, ts, tz, gs, 1),
+                       QM._qmm_s4_plain(_t(x8), xs, w, ts, tz, gs))
+    ref = _quant_matmul_pallas_u4(
+        jnp.asarray(x8), jnp.asarray(w.numpy()), js, jz, gs, N,
+        interpret=True, signed=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("M", [64, 65])
+def test_k1_crossover_plain(M):
+    """Either side of K1's crossover the CPU route is the plain version
+    in its tile's order: the split at M = 64, the groups in order at
+    M = 65; both within 2e-4 of the sequential order."""
+    K, N, gs = 1024, 4352, 64
+    x8, w, s, z = _s4_operands(np.random.default_rng(M), M, K, N, gs)
+    xs = torch.full((M, 1), 0.01)
+    out = QM.quant_matmul_s4(_t(x8), xs, w, _t(s), _t(z), gs)
+    tile, gps = QM.k1_plan(M, K, N, gs)
+    assert tile == ("stream" if M <= 64 else "admit")
+    assert torch.equal(out, QM._qmm_s4_plain(_t(x8), xs, w, _t(s), _t(z),
+                                             gs, gps))
+    seq = QM._qmm_s4_plain(_t(x8), xs, w, _t(s), _t(z), gs)
+    np.testing.assert_allclose(out.numpy(), seq.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_k1_split_plain_rows_independent_of_batch():
+    """Row 0 of an 8-row call equals the 1-row call bit for bit at a
+    split shape: the split order does not depend on M."""
+    K, N, gs = 1024, 4352, 64
+    x8, w, s, z = _s4_operands(np.random.default_rng(3), 8, K, N, gs)
+    xs = torch.full((8, 1), 0.02)
+    out8 = QM.quant_matmul_s4(_t(x8), xs, w, _t(s), _t(z), gs)
+    out1 = QM.quant_matmul_s4(_t(x8[:1]), xs[:1], w, _t(s), _t(z), gs)
+    assert torch.equal(out8[:1], out1)
+
+
 # ---- K2: int8 row commit + decode attention -------------------------------
 
 
