@@ -23,7 +23,11 @@ Phases (every failure is recorded and the script exits 1 at the end):
      at 3 and 2 bits, B = 1 and 8, output, codes and scales equal to the
      plain version's); K8, K6 (2/4/8 bits) and
      K7 (3 bits, f32 and int8 x) at the 7B unfused shapes, B = 1/8/64; K5
-     at S = 2048, B = 1/8/32, int8 and bf16 caches, and one GQA case;
+     at S = 2048, B = 1/8/32, int8 and bf16 caches, and one GQA case; K10
+     (flash causal attention) against flash_attention_plain, bf16 H=32
+     hd=128 at B=1 S=2048 and B=8 S=512, hd 64 and 256 at S=1024, ragged
+     S = 2047 and 100, f32 at S=512 and Hkv=8, with SDPA (is_causal) timed
+     beside it as a yardstick;
   3. a small LLaMA on the card against the same weights on the CPU:
      admission logits and teacher-forced decode logits agree;
   4. the paths, one at a time, every kernel count set to 0 before a path
@@ -52,6 +56,18 @@ Phases (every failure is recorded and the script exits 1 at the end):
      paged      PagedDecodeEngine(block=128) against the fixed-slot engine
                 on 10 requests with a shared 256-token prefix, tokens
                 equal;
+     paged_cold PagedDecodeEngine(block=128) on its own admissions: 4
+                requests of 1000-2000 tokens x 16 new tokens, every
+                admission cold (prefill_cold_scanned: K10, K1, K9), decode
+                on K4; admission s (with K1's and K10's device ms inside)
+                and tok/s;
+     prefill    prefill_cold_scanned (K10) at 32 layers, B=1 S=2048 and
+                B=8 S=512, against the same call on the masked route and
+                against prefill_at (masked scores over the int8 cache):
+                wall s, K10's and K1's device ms, K10 launches (32 a
+                call), peak memory of each; K10 held to its plain version
+                on every layer's operands, logits agree, layer 0's KV
+                codes equal;
      planes     a uniform INT3-g128 model at llama_7b() widths and 32
                 layers (random fused checkpoint-layout weights) through
                 prepare_params_host(sub4="planes") -> stack_layers ->
@@ -61,7 +77,11 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 first decode step's logits of both agreeing;
      segments   a 4-bit + 3-bit stack at 7B widths, depth 4: an s4r launch
                 and a plane launch (li_cache) against one homogeneous
-                nibble launch, within 2e-4 with KV codes equal.
+                nibble launch, within 2e-4 with KV codes equal;
+     eval       eval.perplexity(seqlen=2048, batch=1) over the generate
+                path's model on a seeded two-window stream (2047-token
+                windows through K10), s a window and K10's device ms; the
+                log-perplexity within 1e-3 relative of the masked route.
 It prints one JSON line of per-kernel and per-path numbers, the card's
 name and power limit, and last {"ok": true, "device": {...}}. It exits
 non-zero without CUDA or without the repository beside it.
@@ -441,6 +461,7 @@ def kernel_checks(stacked, cfg, results):
     k4_plane_checks(cfg, record, g)
     plane_checks(cfg, record, g)
     k5_checks(cfg, record, g)
+    k10_checks(cfg, record, g)
 
 
 def int_mm_probe(g):
@@ -632,6 +653,84 @@ def k5_checks(cfg, record, g):
                "sparsebit_tpu/ops/attention.py:499", err, 2e-4, ms, pms, bnd,
                lms, tag, gms)
         del k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
+K10_ENTRY = "sbt_flash_attention"  # K10's C entry point
+
+
+def k10_tol(ref, v):
+    """K10 against flash_attention_plain: both round the same f32 values,
+    which differ in their last bits by the order of the dot products. bf16:
+    one ulp of the output's rounding (2^-7 of max |ref|) plus P rounded to
+    bf16 on the other side of a midpoint (at most 2^-8 of a key's weight
+    times its v row, summed: 2^-8 of max |v|), with a factor 2 on the
+    latter; f32: 1e-5 of the same sum."""
+    import torch
+
+    r, w = ref.float().abs().max().item(), v.float().abs().max().item()
+    return (r + w) * (2.0 ** -7 if ref.dtype == torch.bfloat16 else 1e-5)
+
+
+def k10_checks(cfg, record, g):
+    """K10 against flash_attention_plain (the same tiles and order in
+    eager torch) on the card, causal, operands in the port's (B, S, H, hd)
+    layout read through strides: bf16 H=32 hd=128 at B=1 S=2048 (the
+    2048-token prefill) and B=8 S=512 (a full 512 admission bucket), hd 64
+    and 256 at S=1024 (H = dim / hd), ragged S = 2047 (a perplexity
+    window) and 100, f32 at S=512, and Hkv=8 at S=2048. Tolerance:
+    k10_tol. Kernel ms (CUDA events), device ms (graph
+    replay), plain ms; the library call is scaled_dot_product_attention
+    (is_causal) on the same operands, timed as a yardstick only. Bound:
+    q, k, v, out once against 4 B H hd S(S+1)/2 operations."""
+    import torch
+    import torch.nn.functional as F
+    from sparsebit_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    hd0, H0 = cfg.head_dim, cfg.n_heads
+    cases = [("bf16", 1, 2048, H0, H0, hd0), ("bf16", 8, 512, H0, H0, hd0),
+             ("bf16", 1, 1024, cfg.dim // 64, cfg.dim // 64, 64),
+             ("bf16", 1, 1024, cfg.dim // 256, cfg.dim // 256, 256),
+             ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
+             ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0)]
+    for kind, B, S, H, Hkv, D in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+
+        def make(h):
+            return torch.randn((B, S, h, D), generator=g, device=dev).to(
+                dt).transpose(1, 2)
+
+        q, k, v = make(H), make(Hkv), make(Hkv)
+        scale = D ** -0.5
+        out = FA.flash_attention(q, k, v, causal=True, sm_scale=scale)
+        ref = FA.flash_attention_plain(q, k, v, causal=True, sm_scale=scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = k10_tol(ref, v)
+
+        def run(i):
+            return FA.flash_attention(q, k, v, causal=True, sm_scale=scale)
+
+        def lib(i):
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale, enable_gqa=Hkv < H)
+
+        ms = cuda_ms(run, 20)
+        pms = cuda_ms(lambda i: FA.flash_attention_plain(
+            q, k, v, causal=True, sm_scale=scale), 3, 1)
+        lms = cuda_ms(lib, 20)
+        gms = (graph_ms(run, 20), graph_ms(lib, 20))
+        esz = q.element_size()
+        nbytes = esz * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+        bnd = bound_ms(nbytes, 4 * B * H * D * S * (S + 1) // 2, kind)
+        tag = "{} B={} S={} H={} Hkv={} hd={}".format(kind, B, S, H, Hkv, D)
+        record("K10 " + tag, "K10",
+               "sparsebit_tpu_torch/csrc/flash_attention.cu",
+               "sparsebit_tpu/llm/llama.py:155 -> jax/experimental/pallas/"
+               "ops/tpu/flash_attention.py:342", err, tol, ms, pms, bnd, lms,
+               tag, gms)
+        del q, k, v, out, ref
     torch.cuda.empty_cache()
 
 
@@ -1046,7 +1145,7 @@ def _wrappers():
     """The kernel wrappers by id, as first seen (before any phase patches a
     module attribute): each counts its launches in ``launches``."""
     from sparsebit_tpu_torch.ops import attention, ffn_fused, layer_fused
-    from sparsebit_tpu_torch.ops import matvec, quant_matmul
+    from sparsebit_tpu_torch.ops import flash_attention, matvec, quant_matmul
 
     if _WRAPPERS:
         return _WRAPPERS
@@ -1059,7 +1158,8 @@ def _wrappers():
             "K6": quant_matmul.quant_matmul_w_a8,
             "K7": quant_matmul.quant_matmul_3bit,
             "K8": quant_matmul.quant_matmul_w,
-            "K9": matvec.bf16_matvec})
+            "K9": matvec.bf16_matvec,
+            "K10": flash_attention.flash_attention})
     return _WRAPPERS
 
 
@@ -1208,16 +1308,18 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
     stats["admission_groups"] = len(admit)
     stats["admission_s"] = sum(a[0] for a in admit)
     if timer is not None:
-        adm_k1 = 0.0
+        adm = {"sbt_qmm_s4": 0.0, K10_ENTRY: 0.0}
         for _, evs in admit:
             for name, (ea, eb) in evs:
-                if name == "sbt_qmm_s4":
-                    adm_k1 += ea.elapsed_time(eb)
-        stats["admission_k1_device_ms"] = adm_k1
-        print("{}: admission {} prefill_at groups, {:.4f} s host, K1 "
-              "device {:.3f} ms inside; K1 launches by shape {}".format(
-                  path, len(admit), stats["admission_s"], adm_k1,
-                  k1_shapes), flush=True)
+                if name in adm:
+                    adm[name] += ea.elapsed_time(eb)
+        stats["admission_k1_device_ms"] = adm["sbt_qmm_s4"]
+        stats["admission_k10_device_ms"] = adm[K10_ENTRY]
+        print("{}: admission {} _prefill_call groups, {:.4f} s host, K1 "
+              "device {:.3f} ms and K10 {:.3f} ms inside; K1 launches by "
+              "shape {}".format(path, len(admit), stats["admission_s"],
+                                adm["sbt_qmm_s4"], adm[K10_ENTRY],
+                                k1_shapes), flush=True)
         dev_ms, by = timer.take_ms()
         stats["kernel_device_ms_per_step"] = dev_ms / steps
         stats["k5_device_ms_per_step"] = by.get(K5_ENTRY, 0.0) / steps
@@ -1651,7 +1753,236 @@ def serve_paths(params, cfg):
             eng.prefix_hits, held, cached))
     del eng
     torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    lens = (1000, 1400, 1700, 2000)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    max_len = -(-(max(lens) + 16) // 128) * 128
+    eng = Sv.PagedDecodeEngine(params, cfg, max_batch=len(lens), block=128,
+                               max_len=max_len, chunk=8, device="cuda")
+    timer = KernelEvents()
+    with timer.patch:
+        _, out["paged_cold"] = drive(
+            eng, prompts, "decode_chunk_paged",
+            "paged_cold (PagedDecodeEngine, block 128, its own cold "
+            "admissions)", ("K1", "K4", "K9", "K10"), n_new=16, timer=timer)
+    out["paged_cold"].update(prompt_lens=list(lens), max_len=max_len,
+                             prefix_hits=eng.prefix_hits)
+    if eng.prefix_hits:
+        fail("paged_cold: {} prefix hits, all admissions should be "
+             "cold".format(eng.prefix_hits))
+    del eng
+    torch.cuda.empty_cache()
     return out
+
+
+def prefill_paths(params, cfg):
+    """Phase 4, path prefill: the paged engine's cold admission,
+    prefill_cold_scanned over the stacked INT4-g128 s4r weights at 7B
+    widths (as the engines serve them: W4A8 linears), 32 layers, into an
+    int8 scratch cache, at B=1 S=2048 and B=8 S=512 (ragged last tokens):
+    K10 for every layer's attention, K1 for the linears, K9 for the
+    last-token head. Beside it, on the same prompt, the masked routes:
+      masked      the same function with llama._flash_ok patched to False
+                  (the (S, S) mask and f32 scores of attention_scores over
+                  the raw K/V rows: the port's route before K10);
+      prefill_at  the admission route of prefix hits (a (B, S, S_max)
+                  mask and f32 scores over the dequantized int8 cache).
+    Each route runs once to warm up, then timed: wall s, K10's and K1's
+    device ms inside (CUDA events around each launch), launches, and the
+    peak device memory above the resident weights and cache. Checks: in
+    the flash route's warm-up call, every layer's K10 output against
+    flash_attention_plain on the operands the path gave it (k10_tol, as
+    phase 2); the logits of all three routes agree (atol 0.1, equal
+    decisive argmax); layer 0's KV codes are equal in all three (they
+    precede any attention). Later layers' codes are reported, not held
+    within 1: this seeded random model amplifies any rounding of the
+    attention (layer 0's FFN writes rows of magnitude ~1e3, so the next
+    layer's softmax is near one-hot with near ties), which flash and
+    masked plain versions show on the CPU as well."""
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.llm import llama as L
+    from sparsebit_tpu_torch.llm import serving as Sv
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+    from sparsebit_tpu_torch.llm.quant import QuantLinear
+    from sparsebit_tpu_torch.ops import flash_attention as FA
+
+    def k10_held(log):
+        """L.flash_attention that holds each K10 output to the plain
+        version on the same operands, appending (error, tolerance)."""
+        def held(q, k, v, **kw):
+            out = FA.flash_attention(q, k, v, **kw)
+            ref = FA.flash_attention_plain(q, k, v, **kw)
+            log.append(((out.float() - ref.float()).abs().max().item(),
+                        k10_tol(ref, v)))
+            return out
+        return held
+
+    params = L.quantize_llama_params(
+        params, lambda path, lin: (Sv._serving_layout(lin)
+                                   if isinstance(lin, QuantLinear) else lin),
+        skip=())
+    stacked = Dm.stack_layers(params)
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    timer = KernelEvents()
+    for B, S in ((1, 2048), (8, 512)):
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        last = (S - 1 - 37 * torch.arange(B, device="cuda")).to(torch.int32)
+        zeros = torch.zeros(B, dtype=torch.int32, device="cuda")
+
+        def call(route, cache, patch=()):
+            if route == "prefill_at":
+                return Dm.prefill_at(params, tokens, cache, cfg, last, zeros)
+            if route == "masked":
+                patch = [(L, "_flash_ok", lambda q: False)]
+            with _Patched(patch):
+                return Dm.prefill_cold_scanned(stacked, tokens, cache, cfg,
+                                               last)
+
+        runs, held = {}, []
+        for route in ("flash", "masked", "prefill_at"):
+            call(route, init_kv_cache(cfg, B, S, True, device="cuda"),
+                 [(L, "flash_attention", k10_held(held))])
+            cache = init_kv_cache(cfg, B, S, True, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _reset_launches()
+            timer.events = []
+            with timer.patch:
+                timer.on = True
+                t0 = time.perf_counter()
+                logits, cache = call(route, cache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                timer.on = False
+                dev_ms, by = timer.take_ms()
+            launches = _launches()
+            st = {"B": B, "S": S, "route": route, "wall_s": wall,
+                  "kernel_device_ms": dev_ms,
+                  "k10_device_ms": by.get(K10_ENTRY, 0.0),
+                  "k1_device_ms": by.get("sbt_qmm_s4", 0.0),
+                  "peak_bytes_above_resident":
+                      torch.cuda.max_memory_allocated() - base,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "launches": launches}
+            print("prefill {} B={} S={}: {:.4f} s wall, K10 {:.3f} ms, K1 "
+                  "{:.3f} ms device inside; peak {:.3f} GB above the "
+                  "resident {:.3f} GB; launches {}".format(
+                      route, B, S, wall, st["k10_device_ms"],
+                      st["k1_device_ms"],
+                      st["peak_bytes_above_resident"] / 1e9, base / 1e9,
+                      launches), flush=True)
+            runs[route] = (logits, cache, st)
+        tag = "prefill B={} S={}".format(B, S)
+        lf, cf, sf = runs["flash"]
+        _expect(tag, sf["launches"], ("K1", "K9", "K10"))
+        k10 = {r: runs[r][2]["launches"]["K10"] for r in runs}
+        if k10 != {"flash": cfg.n_layers, "masked": 0, "prefill_at": 0}:
+            fail("{}: K10 launches by route {} (want {} on the flash route "
+                 "only)".format(tag, k10, cfg.n_layers))
+        bad = [li for li, (e, t) in enumerate(held) if e > t]
+        worst = max((e for e, _ in held), default=float("nan"))
+        print("{}: K10 vs plain on each layer's operands: max err {:.3e} "
+              "(tol >= {:.3e}) over {} layers: {}".format(
+                  tag, worst, min((t for _, t in held), default=float("nan")),
+                  len(held), "ok" if not bad and len(held) == cfg.n_layers
+                  else "BAD"), flush=True)
+        if bad or len(held) != cfg.n_layers:
+            fail("{}: K10 differs from its plain version in layers {} (of "
+                 "{} checked)".format(tag, bad, len(held)))
+        sf["k10_vs_plain"] = held
+        for route in ("masked", "prefill_at"):
+            lo, co, so = runs[route]
+            err, ok = _logits_agree(lf, lo)
+            diffs = [max((a[li, :, :S].int() - b[li, :, :S].int()).abs()
+                         .max().item() for a, b in ((cf.k, co.k),
+                                                    (cf.v, co.v)))
+                     for li in range(cfg.n_layers)]
+            print("{}: flash vs {} logits max err {:.3e} (atol 0.1) {}; KV "
+                  "codes of layer 0 {}; max code diff by layer {}".format(
+                      tag, route, err, "ok" if ok else "BAD",
+                      "equal" if diffs[0] == 0 else "DIFFER", diffs),
+                  flush=True)
+            if not ok:
+                fail("{}: flash and {} logits differ (err {:.3e})".format(
+                    tag, route, err))
+            if diffs[0]:
+                fail("{}: flash and {} layer-0 KV codes differ by {}".format(
+                    tag, route, diffs[0]))
+            sf[route] = dict(so, logits_err_vs_flash=err,
+                             kv_code_diff_by_layer=diffs)
+        out[tag] = sf
+        del runs, lf, cf, lo, co
+        torch.cuda.empty_cache()
+    del params, stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_path(cfg):
+    """Phase 4, path eval: perplexity(seqlen=2048, batch=1) over random
+    INT4-g128 weights in the checkpoint layout (the generate path's
+    model), on a seeded two-window token stream: each window feeds the
+    backbone 2047 tokens (ragged, fault R7) and every layer's attention is
+    K10; the linears take the dense route at M = 2047, as the reference's
+    XLA path. s a window, K10's device ms inside and its launches; the
+    log-perplexity within 1e-3 relative of the same call on the masked
+    route (llama._flash_ok patched to False)."""
+    import numpy as np
+    import torch
+    from sparsebit_tpu_torch.llm import eval as Ev
+    from sparsebit_tpu_torch.llm import llama as L
+
+    params = build_plane_params(cfg, torch.device("cuda"), lambda li, n: 4,
+                                SEED + 6)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    stream = torch.randint(0, cfg.vocab_size, (2 * 2048 + 7,),
+                           generator=gen).numpy()
+    timer = KernelEvents()
+    res = {}
+    for route in ("flash", "masked"):
+        patch = [] if route == "flash" else [(L, "_flash_ok",
+                                              lambda q: False)]
+        _reset_launches()
+        with timer.patch, _Patched(patch):
+            torch.cuda.synchronize()
+            timer.events = []
+            timer.on = True
+            t0 = time.perf_counter()
+            ppl = Ev.perplexity(params, stream, cfg, seqlen=2048, batch=1,
+                                device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            timer.on = False
+            _, by = timer.take_ms()
+        res[route] = {"ppl": ppl, "s_per_window": wall / 2,
+                      "k10_device_ms": by.get(K10_ENTRY, 0.0),
+                      "launches": _launches()}
+        print("eval {}: perplexity {:.6f} over 2 windows of 2048, {:.3f} s "
+              "a window, K10 {:.3f} ms device inside; launches {}".format(
+                  route, ppl, wall / 2, res[route]["k10_device_ms"],
+                  res[route]["launches"]), flush=True)
+    f, m = res["flash"], res["masked"]
+    rel = abs(np.log(f["ppl"]) - np.log(m["ppl"])) / abs(np.log(m["ppl"]))
+    print("eval: log-perplexity flash vs masked rel {:.3e} (tol 1e-3)".format(
+        rel), flush=True)
+    if not (np.isfinite(f["ppl"]) and rel <= 1e-3):
+        fail("eval: log-perplexity {} vs masked {} (rel {:.3e})".format(
+            f["ppl"], m["ppl"], rel))
+    if f["launches"]["K10"] != 2 * cfg.n_layers or m["launches"]["K10"]:
+        fail("eval: K10 launched {} times (want {}), {} on the masked "
+             "route".format(f["launches"]["K10"], 2 * cfg.n_layers,
+                            m["launches"]["K10"]))
+    f.update(masked=m, log_ppl_rel_vs_masked=rel)
+    del params
+    torch.cuda.empty_cache()
+    return {"eval": f}
 
 
 def run_scanned(sp, cfg, prompt, n_new, tag):
@@ -1875,21 +2206,31 @@ def main():
     paths = generate_paths(cfg)
     print("generate, mixed and chunk paths {:.1f} s".format(
         time.perf_counter() - t0))
+    t0 = time.perf_counter()
     paths.update(serve_paths(params, cfg))
+    print("main, unfused, paged and paged_cold paths {:.1f} s".format(
+        time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(prefill_paths(params, cfg))
+    print("prefill paths {:.1f} s".format(time.perf_counter() - t0))
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     paths.update(plane_paths(cfg))
     print("planes and segments paths {:.1f} s".format(
         time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(eval_path(cfg))
+    print("eval path {:.1f} s".format(time.perf_counter() - t0))
     # launches of each kernel on the path that runs it: K5 and K8 on
     # generate (this slice's main path), K6 on the engine's decode_chunk
     # route, K7 on the mixed-precision model (its int8 form with impl
     # "a8"), K2/K3 on the unfused route, K1, K4 and K9 on the K4 engine,
-    # K4's plane mode on the planes path
+    # K4's plane mode on the planes path, K10 on the 2048-token cold prefill
     where = {"K2": "unfused", "K3": "unfused", "K5": "generate B=8 greedy",
              "K6": "chunk", "K7": "mixed impl=auto depth 4",
-             "K8": "generate B=8 greedy", "K4p": "planes B=8"}
+             "K8": "generate B=8 greedy", "K4p": "planes B=8",
+             "K10": "prefill B=1 S=2048"}
     for r in results:
         r["path"] = where.get(r["kernel"], "main")
         if r["kernel"] == "K7" and "int8" in r["shape"]:

@@ -37,7 +37,9 @@ decode.py:333, and ``_scan_uses_update_kernel``, decode.py:290):
   written, the layer's cache dequantized and attended under the mask.
 The predicates do not look at the device: the CPU runs the route that
 the card runs, with the kernels' plain versions. Admission runs K1 at
-large M and K9 for the last-token lm_head.
+large M and K9 for the last-token lm_head; a cold admission
+(``prefill_cold_scanned``) attends through K10 (llama.causal_attention),
+which alone routes by the device, as the reference's ``_flash_ok`` does.
 """
 
 import torch
@@ -590,11 +592,12 @@ def decode_chunk_paged(params_stacked, tok0, pcache, temps, generator, cfg,
 
 
 def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
-    """Cold (offset-0) bucketed prefill over stacked layers: each row
-    attends to its own causal prefix only, with the reference's non-flash
-    causal attention (llama.py:177-178: masked attention_scores); K/V rows
-    [0, S) are int8-quantized into the cache, or written as they are in
-    the cache's dtype when it is not quantized. Semantics of
+    """Cold (offset-0) bucketed prefill over stacked layers, the paged
+    engine's cold admission (decode.py:589-640): each row attends to its
+    own causal prefix only, through L.causal_attention (K10 on the card:
+    no (S, S) scores), so nothing of the cache is read; K/V rows [0, S)
+    are int8-quantized into the cache, or written as they are in the
+    cache's dtype when it is not quantized. Semantics of
     prefill_at(..., offset=0): logits (B, V) f32 at each row's last real
     token, cache.length = last_idx + 1."""
     B, S = tokens.shape
@@ -603,9 +606,6 @@ def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
         B, S)
     x = params_stacked["tok_embed"][tokens.long()]
     inv_freq = L.rope_frequencies(cfg, device=dev)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    mask = torch.triu(torch.full((S, S), -1e9, dtype=torch.float32,
-                                 device=dev), diagonal=1)[None, None]
     layers = params_stacked["layers"]
     for li in range(cfg.n_layers):
         layer = _stacked_layer_view(layers, li)
@@ -613,8 +613,7 @@ def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
         q, kk, vv = L.qkv_proj(layer, h, cfg)
         q = L.apply_rope(q, positions, inv_freq)
         kk = L.apply_rope(kk, positions, inv_freq)
-        out = L.attention_scores(q, L.repeat_kv(kk, n_rep),
-                                 L.repeat_kv(vv, n_rep), mask)
+        out = L.causal_attention(q, kk, vv)
         for buf, sbuf, new in ((cache.k, cache.k_scale, kk),
                                (cache.v, cache.v_scale, vv)):
             if not cache.quantized:

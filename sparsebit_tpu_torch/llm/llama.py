@@ -1,6 +1,7 @@
-"""LLaMA building blocks (port of ``sparsebit_tpu/llm/llama.py``: config,
-``rms_norm``, rope, ``repeat_kv``, ``attention_scores``, ``qkv_proj`` and
-``_ffn_block``).
+"""Functional LLaMA (port of ``sparsebit_tpu/llm/llama.py``): configs,
+``init_llama_params``, the building blocks, causal attention (flash on the
+card), the decoder layer, the full-sequence forward (``llama_backbone``,
+``llama_forward``, ``llama_loss``) and the parameter transforms.
 
 Parameters are plain dicts as in the JAX package: ``tok_embed`` (V, D),
 ``norm`` (D,), ``lm_head`` (a DenseLinear or QuantLinear) and ``layers``,
@@ -12,6 +13,10 @@ layer-stacked leaves). Activations are (B, S, D); attention heads
 from dataclasses import dataclass
 
 import torch
+
+from sparsebit_tpu_torch import resolve_device
+from sparsebit_tpu_torch.llm.quant import DenseLinear
+from sparsebit_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 
 
 @dataclass(frozen=True)
@@ -40,6 +45,11 @@ def llama_7b():
     return LlamaConfig()
 
 
+def llama_13b():
+    return LlamaConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=40,
+                       ffn_dim=13824)
+
+
 def llama_tiny(**kw):
     """Test-scale config."""
     d = dict(
@@ -48,6 +58,48 @@ def llama_tiny(**kw):
     )
     d.update(kw)
     return LlamaConfig(**d)
+
+
+def init_llama_params(cfg, generator=None, scale=0.02, *, device=None):
+    """Random weights in the JAX package's tree (llama.py:66-101): N(0,
+    scale) linears and embedding drawn in f32 and cast to cfg.dtype, unit
+    norms, an untied head. The draws come from ``generator`` (default: a
+    generator on ``device`` seeded 0) on its own device, in the reference's
+    order (per layer wq, wk, wv, wo, w1, w3, w2; then the embedding and the
+    head); the tensors land on ``device`` (default the card)."""
+    dev = resolve_device(device)
+    g = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    dt = cfg.torch_dtype
+    hd, n_kv = cfg.head_dim, cfg.n_kv_heads
+
+    def normal(shape):
+        x = torch.randn(shape, generator=g, device=g.device) * scale
+        return x.to(device=dev, dtype=dt)
+
+    def ones():
+        return torch.ones((cfg.dim,), dtype=dt, device=dev)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        wq = normal((cfg.dim, cfg.n_heads * hd))
+        wk = normal((cfg.dim, n_kv * hd))
+        wv = normal((cfg.dim, n_kv * hd))
+        wo = normal((cfg.n_heads * hd, cfg.dim))
+        w1 = normal((cfg.dim, cfg.ffn_dim))
+        w3 = normal((cfg.dim, cfg.ffn_dim))
+        w2 = normal((cfg.ffn_dim, cfg.dim))
+        layers.append({
+            "attn_norm": ones(), "wq": DenseLinear(wq),
+            "wk": DenseLinear(wk), "wv": DenseLinear(wv),
+            "wo": DenseLinear(wo), "ffn_norm": ones(),
+            "w1": DenseLinear(w1), "w3": DenseLinear(w3),
+            "w2": DenseLinear(w2),
+        })
+    tok_embed = normal((cfg.vocab_size, cfg.dim))
+    lm_head = DenseLinear(normal((cfg.dim, cfg.vocab_size)))
+    return {"tok_embed": tok_embed, "layers": layers, "norm": ones(),
+            "lm_head": lm_head}
 
 
 def rms_norm(x, weight, eps):
@@ -100,6 +152,36 @@ def attention_scores(q, k, v, mask):
     return out.to(q.dtype)
 
 
+def _flash_ok(q):
+    """The route to K10 (llama.py:145-152): q (B, S, H, hd) on the card
+    with a head_dim K10 takes, at any S >= 1. The reference's S % 128 == 0
+    and S >= 128 are the TPU kernel's block rule (fault R7), not a limit
+    of the model: K10 masks a ragged last tile."""
+    return q.device.type == "cuda" and q.shape[-1] in HEAD_DIMS
+
+
+def causal_attention(q, k, v):
+    """Causal self-attention for prefill and scoring (llama.py:155-178):
+    q (B, S, H, hd), k/v (B, S, Hkv, hd) with Hkv dividing H (the
+    reference's callers repeat the kv heads first; here K10 reads kv head
+    h // n_rep itself and the masked branch repeats them). K10 where
+    ``_flash_ok`` holds, over bf16 operands for a bf16 model and f32
+    otherwise, as the reference; else the masked attention_scores."""
+    B, S, H, hd = q.shape
+    if _flash_ok(q):
+        dt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+        out = flash_attention(
+            q.transpose(1, 2).to(dt), k.transpose(1, 2).to(dt),
+            v.transpose(1, 2).to(dt), causal=True,
+            sm_scale=float(hd) ** -0.5)
+        return out.transpose(1, 2).to(q.dtype)
+    n_rep = H // k.shape[2]
+    mask = torch.triu(torch.full((S, S), -1e9, dtype=torch.float32,
+                                 device=q.device), diagonal=1)[None, None]
+    return attention_scores(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
+                            mask)
+
+
 def qkv_proj(layer, x, cfg):
     """(q, k, v) heads from a fused ``wqkv`` or separate wq/wk/wv."""
     B, S, _ = x.shape
@@ -124,6 +206,93 @@ def _ffn_block(layer, x):
         return layer["w2"](torch.nn.functional.silu(g) * u)
     return layer["w2"](
         torch.nn.functional.silu(layer["w1"](x)) * layer["w3"](x))
+
+
+def _attn_block(layer, x, cfg, inv_freq, positions, mask, kv=None):
+    """Returns (attn_out, (k, v) for the cache). Without a mask or past
+    kv the attention is causal_attention (K10 on the card)."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(layer, x, cfg)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    k_all, v_all = kv if kv is not None else (k, v)
+    if kv is None and mask is None:
+        out = causal_attention(q, k_all, v_all)
+    else:
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        out = attention_scores(q, repeat_kv(k_all, n_rep),
+                               repeat_kv(v_all, n_rep), mask)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return layer["wo"](out), (k, v)
+
+
+def decoder_layer(layer, x, cfg, inv_freq, positions, mask, kv=None):
+    h, new_kv = _attn_block(
+        layer, rms_norm(x, layer["attn_norm"], cfg.rms_eps), cfg, inv_freq,
+        positions, mask, kv)
+    x = x + h
+    x = x + _ffn_block(layer, rms_norm(x, layer["ffn_norm"], cfg.rms_eps))
+    return x, new_kv
+
+
+def llama_backbone(params, tokens, cfg, return_kv=False):
+    """tokens (B, S) int -> final-norm hidden states (B, S, D). Causal, no
+    cache: every layer's attention is causal_attention (K10 on the card).
+    Split from llama_forward so that evaluation applies the lm_head in
+    sequence chunks (eval._window_nll_chunked)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    x = params["tok_embed"][tokens.long()]
+    inv_freq = rope_frequencies(cfg, device=dev)
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S)
+    kvs = []
+    for layer in params["layers"]:
+        x, kv = decoder_layer(layer, x, cfg, inv_freq, positions, None)
+        if return_kv:
+            kvs.append(kv)
+    x = rms_norm(x, params["norm"], cfg.rms_eps)
+    return (x, kvs) if return_kv else x
+
+
+def llama_forward(params, tokens, cfg, return_kv=False):
+    """tokens (B, S) int -> f32 logits (B, S, V). Causal, no cache."""
+    if return_kv:
+        x, kvs = llama_backbone(params, tokens, cfg, return_kv=True)
+        return params["lm_head"](x).to(torch.float32), kvs
+    x = llama_backbone(params, tokens, cfg)
+    return params["lm_head"](x).to(torch.float32)
+
+
+def llama_loss(params, tokens, cfg):
+    """Mean next-token cross-entropy of tokens (B, S)."""
+    logits = llama_forward(params, tokens[:, :-1], cfg)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+    return nll.mean()
+
+
+def fuse_llama_params(params):
+    """Dense wq/wk/wv -> wqkv and w1/w3 -> w13 (llama.py:285-316): the
+    columns are concatenated, missing biases as zeros."""
+
+    def cat(lins):
+        w = torch.cat([lin.w for lin in lins], dim=1)
+        if all(lin.bias is None for lin in lins):
+            return DenseLinear(w)
+        return DenseLinear(w, torch.cat([
+            lin.bias if lin.bias is not None
+            else torch.zeros((lin.w.shape[1],), dtype=w.dtype,
+                             device=w.device) for lin in lins]))
+
+    out = dict(params)
+    out["layers"] = [{
+        "attn_norm": layer["attn_norm"], "ffn_norm": layer["ffn_norm"],
+        "wqkv": cat([layer["wq"], layer["wk"], layer["wv"]]),
+        "wo": layer["wo"], "w13": cat([layer["w1"], layer["w3"]]),
+        "w2": layer["w2"],
+    } for layer in params["layers"]]
+    return out
 
 
 _LINEAR_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "wqkv", "w13")

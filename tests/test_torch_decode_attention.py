@@ -4,17 +4,34 @@ interpret mode: int8 and bf16 caches, GQA n_rep 1/2/4, ragged lengths.
 
 Tolerance 2e-4, the reference's own oracle (tests/test_attention.py:43):
 f32 dots and softmax sums taken in another order.
+
+At the end, K10's plain version (ops/flash_attention.flash_attention_plain,
+what the wrapper runs for CPU tensors) against JAX's bundled flash
+attention kernel in interpret mode (force_tpu_interpret_mode) and, at
+ragged S the TPU kernel does not take, against the JAX package's masked
+causal_attention. Tolerances: f32 1e-5 (dots and sums in another order);
+bf16 1.6e-2, one bf16 ulp of outputs in [2, 4): the TPU kernel rounds P
+after dividing by l at a one-tile S and before it otherwise, the port
+always before.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu.flash_attention import (
+    flash_attention as j_flash)
 
+from sparsebit_tpu.llm import llama as JL
 from sparsebit_tpu.ops.attention import decode_attention as j_attn
 from sparsebit_tpu.ops.attention import (
     decode_attention_stacked as j_attn_stacked)
+from sparsebit_tpu_torch.llm import llama as TL
 from sparsebit_tpu_torch.ops import attention as TA
+from sparsebit_tpu_torch.ops import flash_attention as TF
 
 torch.set_num_threads(1)
 
@@ -162,3 +179,120 @@ def test_kernel_grid_sizing():
     assert TM.k_splits(4096, 32000, 132) == 4
     assert TM.k_splits(11008, 1002, 132) == 66
     assert TM.k_splits(64, 256, 132) == 64
+
+
+# ---- K10: flash attention ----------------------------------------------------
+
+FLASH_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}
+_JDT = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
+
+
+def _qkv(shape, kv_heads, dtype, seed):
+    """q (B, H, S, D) and k, v with kv_heads heads, seeded numpy normals
+    rounded to dtype once; returned as (jax arrays, torch tensors)."""
+    B, H, S, D = shape
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, h, S, D)).astype(np.float32)
+            for h in (H, kv_heads, kv_heads)]
+    ts = [torch.from_numpy(a).to(dtype) for a in arrs]
+    js = [jnp.asarray(t.float().numpy(), _JDT[dtype]) for t in ts]
+    return js, ts
+
+
+def _j_flash(jq, jk, jv, causal, sm_scale):
+    with pltpu.force_tpu_interpret_mode():
+        out = j_flash(jq, jk, jv, causal=causal, sm_scale=sm_scale)
+        return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,S,D", [(1, 2, 128, 64), (2, 2, 256, 64),
+                                     (1, 4, 128, 128), (2, 2, 256, 128),
+                                     (1, 2, 128, 256), (1, 2, 256, 256)])
+def test_flash_plain_matches_jax_flash_kernel(dtype, B, H, S, D):
+    """Causal, sm_scale 1/sqrt(D) as llama.causal_attention passes it."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), H, dtype, S + D + B)
+    ref = _j_flash(jq, jk, jv, True, D ** -0.5)
+    out = TF.flash_attention(tq, tk, tv, causal=True, sm_scale=D ** -0.5)
+    assert out.dtype == dtype and out.shape == (B, H, S, D)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hkv", [1, 2])
+def test_flash_plain_gqa_matches_jax_flash_kernel(dtype, Hkv):
+    """k/v with Hkv < H heads: query head h reads kv head h // (H / Hkv),
+    as JAX's kernel over jnp.repeat'ed kv heads."""
+    H, S, D = 4, 128, 128
+    (jq, jk, jv), (tq, tk, tv) = _qkv((1, H, S, D), Hkv, dtype, 50 + Hkv)
+    rep = H // Hkv
+    ref = _j_flash(jq, jnp.repeat(jk, rep, axis=1),
+                   jnp.repeat(jv, rep, axis=1), True, D ** -0.5)
+    out = TF.flash_attention(tq, tk, tv, causal=True, sm_scale=D ** -0.5)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_plain_non_causal_matches_jax_flash_kernel(dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 2, 256, 64), 2, dtype, 60)
+    ref = _j_flash(jq, jk, jv, False, 0.125)
+    out = TF.flash_attention(tq, tk, tv, causal=False, sm_scale=0.125)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,D", [(100, 128), (200, 64), (1, 128)])
+def test_flash_plain_ragged_matches_jax_masked_attention(dtype, S, D):
+    """S not a multiple of the tile (fault R7: the TPU kernel refuses it,
+    K10 masks the ragged tile): the port's flash route against the JAX
+    package's masked causal_attention on the CPU, (B, S, H, D) layout,
+    GQA 4 -> 2."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((2, 4, S, D), 2, dtype, S + D)
+    sw = (lambda a: jnp.swapaxes(a, 1, 2))
+    ref = JL.causal_attention(sw(jq), JL.repeat_kv(sw(jk), 2),
+                              JL.repeat_kv(sw(jv), 2))
+    out = TF.flash_attention(tq, tk, tv, causal=True, sm_scale=D ** -0.5)
+    np.testing.assert_allclose(out.transpose(1, 2).float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), rtol=0,
+                               atol=FLASH_TOL[dtype])
+
+
+def test_flash_check_refuses_what_k10_does_not_take():
+    """The wrapper's gate on the card: head_dim outside 64/128/256, f16,
+    mixed dtypes, mismatched or non-dividing kv heads, a strided last
+    dimension (checked before the device, so CPU tensors show it)."""
+    def t(shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype)
+
+    q = t((1, 4, 16, 128))
+    cases = [
+        ((t((1, 4, 16, 96)),) * 3, "head_dim"),
+        ((t((1, 4, 16, 128), torch.float16),) * 3, "bf16 or f32"),
+        ((q, t((1, 4, 16, 128), torch.float32), q), "bf16 or f32"),
+        ((q, t((1, 3, 16, 128)), t((1, 3, 16, 128))), "do not match"),
+        ((q, t((1, 4, 8, 128)), t((1, 4, 8, 128))), "do not match"),
+        ((t((1, 4, 16, 256))[..., ::2], q, q), "strides"),
+    ]
+    for args, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            TF.flash_check(*args)
+
+
+def test_flash_route_ignores_the_tpu_block_rule():
+    """llama._flash_ok: never for CPU tensors (the masked route, as the
+    JAX package's CPU route); on the card for head_dim 64/128/256 at any
+    S, ragged or short (fault R7), and not for head_dim 96."""
+    def q(S, hd, device):
+        return types.SimpleNamespace(shape=(1, S, 4, hd),
+                                     device=torch.device(device))
+
+    assert not TL._flash_ok(torch.zeros((1, 128, 4, 128)))
+    for S in (1, 100, 127, 2047, 2048):
+        for hd in TF.HEAD_DIMS:
+            assert TL._flash_ok(q(S, hd, "cuda"))
+    assert not TL._flash_ok(q(2048, 96, "cuda"))
+    assert TF.block_k(torch.bfloat16) == 64
+    assert TF.block_k(torch.float32) == 32

@@ -24,24 +24,38 @@ Faults E-H of the port, against the JAX package where they meet it:
 - H: init_kv_cache, DecodeEngine and PagedDecodeEngine take the
   reference's positional parameters; ``device`` is keyword-only.
 
+At the end, the rest of llama.py and eval.py: llama_forward / llama_loss
+on the masked route (both packages on the CPU) and on the flash route
+(the port's _flash_ok patched to skip its device test, so its CPU tensors
+take K10's plain version; the JAX package's patched to skip its backend
+test, its flash kernel run under force_tpu_interpret_mode),
+prefill_cold_scanned on the flash route, perplexity on both routes and
+both head_chunk modes, and init_llama_params / fuse_llama_params /
+llama_13b against the JAX package's.
+
 Tolerance: logits within ATOL 0.1, argmax equal where the top-2 margin
 exceeds 2 * ATOL, as tests/test_torch_engine.py: bf16 activations round
 differently when f32 sums are taken in another order.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from sparsebit_tpu.llm import decode as JD
+from sparsebit_tpu.llm import eval as JE
 from sparsebit_tpu.llm import llama as JL
 from sparsebit_tpu.llm.kv_cache import init_kv_cache as j_init
 from sparsebit_tpu.llm.quant import QuantLinear as JQuant
 from sparsebit_tpu.llm.serving import DecodeEngine as JEngine
 from sparsebit_tpu.llm.serving import PagedDecodeEngine as JPaged
 from sparsebit_tpu_torch.llm import decode as TD
+from sparsebit_tpu_torch.llm import eval as TE
 from sparsebit_tpu_torch.llm import llama as TL
 from sparsebit_tpu_torch.llm.convert import params_from_numpy
 from sparsebit_tpu_torch.llm.kv_cache import (
@@ -513,3 +527,193 @@ def test_engine_over_a_bf16_slot_cache_matches_jax(monkeypatch):
         assert eng.prefix_hits == 1
     assert len(logits["jax"]) == len(logits["torch"]) >= 2
     _check_rows(list(zip(logits["jax"], logits["torch"])))
+
+
+# ---- the full-sequence forward, perplexity and the parameter helpers --------
+
+LOSS_RTOL = 1e-3  # mean NLL over B*S tokens: bf16 activations, f32 sums
+
+
+@pytest.fixture(scope="module")
+def dense_tiny():
+    """llama_tiny (head_dim 64, GQA 4 -> 2) with the JAX package's random
+    bf16 weights, in both packages."""
+    cfg_j = JL.llama_tiny()
+    jp = JL.init_llama_params(cfg_j, jax.random.PRNGKey(0))
+    return cfg_j, jp, TL.llama_tiny(), params_from_numpy(
+        jax_tree_to_numpy(jp), "cpu")
+
+
+@pytest.fixture(params=["masked", "flash"])
+def route(request, monkeypatch):
+    """"masked": both packages' CPU route. "flash": the port's _flash_ok
+    without its device test and the JAX package's without its backend
+    test (its flash kernel needs S % 128 == 0), JAX's kernel in interpret
+    mode; jit caches cleared so no trace of the other route is reused."""
+    if request.param == "flash":
+        monkeypatch.setattr(TL, "_flash_ok",
+                            lambda q: q.shape[-1] in (64, 128, 256))
+        monkeypatch.setattr(JL, "_flash_ok", lambda q: (
+            q.shape[1] % 128 == 0 and q.shape[-1] in (64, 128, 256)))
+        jax.clear_caches()
+        with pltpu.force_tpu_interpret_mode():
+            yield request.param
+        jax.clear_caches()
+    else:
+        yield request.param
+
+
+def _tokens(B, S, seed):
+    return np.random.default_rng(seed).integers(0, 512, (B, S)).astype(
+        np.int32)
+
+
+def test_llama_forward_and_loss_match_jax(dense_tiny, route):
+    """B = 2, S = 128: logits within ATOL with equal decisive argmax, the
+    loss within LOSS_RTOL."""
+    cfg_j, jp, cfg_t, tp = dense_tiny
+    toks = _tokens(2, 129, 11)
+    jl = np.asarray(JL.llama_forward(jp, jnp.asarray(toks[:, :-1]), cfg_j))
+    tl = TL.llama_forward(tp, torch.from_numpy(toks[:, :-1]), cfg_t)
+    assert tl.dtype == torch.float32 and tl.shape == (2, 128, 512)
+    _check_rows([(jl.reshape(-1, 512), tl.reshape(-1, 512).numpy())])
+    j_loss = float(JL.llama_loss(jp, jnp.asarray(toks), cfg_j))
+    t_loss = float(TL.llama_loss(tp, torch.from_numpy(toks), cfg_t))
+    assert abs(t_loss - j_loss) <= LOSS_RTOL * abs(j_loss)
+
+
+def test_llama_backbone_returns_the_layers_kv(dense_tiny):
+    """return_kv: each layer's post-rope k and raw v, (B, S, Hkv, hd)."""
+    cfg_j, jp, cfg_t, tp = dense_tiny
+    toks = _tokens(1, 16, 12)
+    jx, jkv = JL.llama_backbone(jp, jnp.asarray(toks), cfg_j, return_kv=True)
+    tx, tkv = TL.llama_backbone(tp, torch.from_numpy(toks), cfg_t,
+                                return_kv=True)
+    assert len(tkv) == cfg_t.n_layers
+    np.testing.assert_allclose(tx.float().numpy(),
+                               np.asarray(jx.astype(jnp.float32)), atol=ATOL)
+    for (jk, jv), (tk, tv) in zip(jkv, tkv):
+        assert tuple(tk.shape) == jk.shape == (1, 16, 2, 64)
+        np.testing.assert_allclose(tv.float().numpy(),
+                                   np.asarray(jv.astype(jnp.float32)),
+                                   atol=5e-2)
+
+
+def test_prefill_cold_scanned_flash_route_matches_jax(route):
+    """The paged engine's cold admission over an int8 cache at S = 128,
+    ragged last rows: logits at the last real tokens within ATOL; layer
+    0's KV codes and scales equal (same inputs, same arithmetic); a later
+    layer's dequantized rows within 5e-2 (the bf16 rows' tolerance of the
+    fault G test) plus one int8 step of the row (its requantization)."""
+    cfg_j, jq, cfg_t, tq = _fault_models(fused=True)
+    jp = JD.stack_layers(JD.prepare_params_host(jq))
+    tp = TD.stack_layers(TD.prepare_params_host(tq))
+    prompt = _fault_prompt(S=128, seed=7)
+    last = np.array([127, 90], np.int32)
+    jc = j_init(cfg_j, 2, 128, True)
+    tc = init_kv_cache(cfg_t, 2, 128, True, device="cpu")
+    jl, jc = JD.prefill_cold_scanned(jp, jnp.asarray(prompt), jc, cfg_j,
+                                     jnp.asarray(last))
+    tl, tc = TD.prefill_cold_scanned(tp, torch.from_numpy(prompt), tc,
+                                     cfg_t, torch.from_numpy(last))
+    _check_rows([(np.asarray(jl, np.float32), tl.float().numpy())])
+    assert tc.length.tolist() == (last + 1).tolist()
+    for jt, tt, js, ts in ((jc.k, tc.k, jc.k_scale, tc.k_scale),
+                           (jc.v, tc.v, jc.v_scale, tc.v_scale)):
+        np.testing.assert_array_equal(tt[0].numpy(), np.asarray(jt[0]))
+        np.testing.assert_array_equal(ts[0].numpy(), np.asarray(js[0]))
+        for li in range(1, cfg_t.n_layers):
+            j_s, t_s = np.asarray(js[li]), ts[li].numpy()
+            j_rows = np.asarray(jt[li]).astype(np.float32) * j_s[..., None]
+            t_rows = tt[li].numpy().astype(np.float32) * t_s[..., None]
+            step = np.maximum(j_s, t_s)[..., None]
+            assert (np.abs(t_rows - j_rows) <= 5e-2 + step).all()
+
+
+@pytest.mark.parametrize("head_chunk", [0, 48])
+def test_perplexity_matches_jax(dense_tiny, route, head_chunk):
+    """Three 129-token windows two at a time (a full and a one-window
+    batch), the lm_head whole or in 48-token slices (a ragged last
+    slice): perplexity within LOSS_RTOL of its log."""
+    cfg_j, jp, cfg_t, tp = dense_tiny
+    stream = _tokens(1, 3 * 129 + 5, 13)[0]
+    j_ppl = JE.perplexity(jp, stream, cfg_j, seqlen=129, batch=2,
+                          head_chunk=head_chunk)
+    t_ppl = TE.perplexity(tp, stream, cfg_t, seqlen=129, batch=2,
+                          head_chunk=head_chunk, device="cpu")
+    assert abs(np.log(t_ppl) - np.log(j_ppl)) <= LOSS_RTOL * np.log(j_ppl)
+
+
+def test_perplexity_needs_cuda_unless_cpu_is_asked(dense_tiny, monkeypatch):
+    _, _, cfg_t, tp = dense_tiny
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        TE.perplexity(tp, np.zeros(300, np.int32), cfg_t, seqlen=129)
+
+
+def test_fuse_llama_params_is_exact(dense_tiny):
+    """wqkv / w13 are the columns of wq|wk|wv and w1|w3, bit for bit, as
+    the JAX package fuses them; biases are carried (zeros where absent)."""
+    cfg_j, jp, _, tp = dense_tiny
+    jf = params_from_numpy(jax_tree_to_numpy(JL.fuse_llama_params(jp)),
+                           "cpu")
+    tf = TL.fuse_llama_params(tp)
+    assert set(tf) == set(jf)
+    for jl_, tl_ in zip(jf["layers"], tf["layers"]):
+        assert set(tl_) == set(jl_) == {"attn_norm", "ffn_norm", "wqkv",
+                                        "wo", "w13", "w2"}
+        for name in ("wqkv", "w13"):
+            assert torch.equal(tl_[name].w, jl_[name].w)
+            assert tl_[name].bias is None
+    layer = dict(tp["layers"][0])
+    bias = torch.arange(layer["wk"].w.shape[1], dtype=torch.bfloat16)
+    layer["wk"] = TL.DenseLinear(layer["wk"].w, bias)
+    fused = TL.fuse_llama_params(dict(tp, layers=[layer]))["layers"][0]
+    nq, nk = layer["wq"].w.shape[1], layer["wk"].w.shape[1]
+    b = fused["wqkv"].bias
+    assert torch.equal(b[nq:nq + nk], bias)
+    assert not b[:nq].any() and not b[nq + nk:].any()
+
+
+def test_llama_13b_and_init_params_match_jax(monkeypatch):
+    """llama_13b field for field; init_llama_params with the JAX package's
+    keys, shapes and dtypes (f32 and bf16 configs), the same draws for one
+    generator seed, others for another, and the card by default."""
+    j13, t13 = JL.llama_13b(), TL.llama_13b()
+    assert dataclasses.asdict(t13) == dataclasses.asdict(j13)
+    for dtype in ("bfloat16", "float32"):
+        cfg_j = JL.llama_tiny(dtype=dtype, n_layers=2)
+        cfg_t = TL.llama_tiny(dtype=dtype, n_layers=2)
+        jp = params_from_numpy(jax_tree_to_numpy(JL.init_llama_params(
+            cfg_j, jax.random.PRNGKey(1))), "cpu")
+        tp = TL.init_llama_params(cfg_t, torch.Generator().manual_seed(4),
+                                  device="cpu")
+        assert set(tp) == set(jp)
+        for tl_, jl_ in zip(tp["layers"], jp["layers"]):
+            assert set(tl_) == set(jl_)
+        leaves = [("tok_embed", tp["tok_embed"], jp["tok_embed"]),
+                  ("norm", tp["norm"], jp["norm"]),
+                  ("lm_head", tp["lm_head"].w, jp["lm_head"].w)]
+        for li, (tl_, jl_) in enumerate(zip(tp["layers"], jp["layers"])):
+            for name in tl_:
+                tv, jv = tl_[name], jl_[name]
+                if not isinstance(tv, torch.Tensor):
+                    tv, jv = tv.w, jv.w
+                leaves.append(("{}.{}".format(li, name), tv, jv))
+        for name, tv, jv in leaves:
+            assert tv.shape == jv.shape and tv.dtype == jv.dtype, name
+            assert tv.dtype == cfg_t.torch_dtype, name
+        assert torch.equal(tp["norm"], torch.ones(cfg_t.dim,
+                                                  dtype=cfg_t.torch_dtype))
+        w = tp["layers"][0]["wq"].w.float()
+        assert 0.015 < w.std().item() < 0.025  # N(0, 0.02)
+    again = TL.init_llama_params(cfg_t, torch.Generator().manual_seed(4),
+                                 device="cpu")
+    other = TL.init_llama_params(cfg_t, torch.Generator().manual_seed(5),
+                                 device="cpu")
+    assert torch.equal(again["layers"][1]["w2"].w, tp["layers"][1]["w2"].w)
+    assert torch.equal(again["tok_embed"], tp["tok_embed"])
+    assert not torch.equal(other["tok_embed"], tp["tok_embed"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        TL.init_llama_params(cfg_t)

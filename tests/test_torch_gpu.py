@@ -16,6 +16,7 @@ import torch
 from sparsebit_tpu_torch.ops import attention as A
 from sparsebit_tpu_torch.llm.llama import llama_tiny
 from sparsebit_tpu_torch.ops import ffn_fused as FF
+from sparsebit_tpu_torch.ops import flash_attention as FA
 from sparsebit_tpu_torch.ops import layer_fused as LF
 from sparsebit_tpu_torch.ops import matvec as MV
 from sparsebit_tpu_torch.ops import quant_matmul as QM
@@ -738,3 +739,98 @@ def test_decode_step_scanned_planes_on_the_card_matches_the_cpu(cuda):
         top2 = torch.topk(b, 2, dim=-1).values
         decisive = (top2[:, 0] - top2[:, 1]) > 0.2
         assert torch.equal(a.argmax(-1)[decisive], b.argmax(-1)[decisive])
+
+
+def _flash_tol(ref, v):
+    """The kernel and the plain version round the same f32 values, which
+    differ in their last bits by the order of the dot products. bf16: one
+    ulp of the output's rounding (2^-7 of max |ref|) plus P rounded to
+    bf16 on the other side of a midpoint (at most 2^-8 of max |v|, doubled);
+    f32: 1e-5 of the same sum. chip_smoke.k10_tol is the same bound."""
+    r, w = ref.float().abs().max().item(), v.float().abs().max().item()
+    return (r + w) * (2.0 ** -7 if ref.dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,D,layout", [
+    (1, 8, 8, 512, 128, "bshd"), (2, 4, 4, 256, 128, "bhsd"),
+    (1, 4, 4, 256, 64, "bshd"), (1, 4, 4, 256, 256, "bshd"),
+    (2, 4, 4, 100, 128, "bshd"), (1, 4, 4, 2047, 128, "bhsd"),
+    (1, 2, 2, 1, 64, "bhsd"), (1, 32, 8, 256, 128, "bshd")])
+def test_k10_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, layout):
+    """K10 against flash_attention_plain on the same operands: the
+    7B-shaped head dims, ragged S (100, 2047, 1), GQA 32 -> 8, and both
+    the JAX layout and the port's (B, S, H, D) activations transposed as
+    views (read through strides, no copy)."""
+    g = torch.Generator(device=cuda).manual_seed(S + D + H)
+
+    def make(h):
+        shape = (B, S, h, D) if layout == "bshd" else (B, h, S, D)
+        t = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        return t.transpose(1, 2) if layout == "bshd" else t
+
+    q, k, v = make(H), make(Hkv), make(Hkv)
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, causal=True, sm_scale=D ** -0.5)
+    ref = FA.flash_attention_plain(q, k, v, causal=True, sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, H, S, D)
+    assert out.stride() == q.stride()  # written in q's layout
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= _flash_tol(ref, v)
+    assert torch.equal(out, FA.flash_attention(q, k, v, causal=True,
+                                               sm_scale=D ** -0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k10_non_causal_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((1, 4, 200, 128), generator=g,
+                           device=cuda).to(dtype) for _ in range(3))
+    out = FA.flash_attention(q, k, v, causal=False, sm_scale=0.1)
+    ref = FA.flash_attention_plain(q, k, v, causal=False, sm_scale=0.1)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= _flash_tol(
+        ref, v)
+
+
+def test_k10_wrapper_raises_on_what_it_does_not_take(cuda):
+    """head_dim 96, f16 and a strided last dimension raise on the card;
+    nothing falls back to the plain version."""
+    before = FA.flash_attention.launches
+    q = torch.zeros((1, 4, 64, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_attention(q, q, q)
+    h = torch.zeros((1, 4, 64, 128), dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        FA.flash_attention(h, h, h)
+    w = torch.zeros((1, 4, 64, 256), dtype=torch.bfloat16,
+                    device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="strides"):
+        FA.flash_attention(w, w, w)
+    assert FA.flash_attention.launches == before
+
+
+def test_causal_attention_on_the_card_takes_k10(cuda):
+    """llama.causal_attention on a CUDA query: K10 at a ragged S with kv
+    heads not repeated, against the masked route on the same card (f32
+    scores and probabilities: within two bf16 ulps of the largest output
+    plus P's bf16 rounding, 2e-2)."""
+    from sparsebit_tpu_torch.llm import llama as TL
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((2, 100, 4, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, 100, 2, 128), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    before = FA.flash_attention.launches
+    out = TL.causal_attention(q, k, v)
+    mask = torch.triu(torch.full((100, 100), -1e9, device=cuda),
+                      diagonal=1)[None, None]
+    ref = TL.attention_scores(q, TL.repeat_kv(k, 2), TL.repeat_kv(v, 2),
+                              mask)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
