@@ -1,5 +1,5 @@
-// K10: flash attention forward, out = softmax(q kᵀ · sm_scale) v, causal
-// or not, never holding the (S, S) scores.
+// K10: causal flash attention forward, out = softmax(q kᵀ · sm_scale) v,
+// never holding the (S, S) scores.
 //
 // Replaces JAX's bundled Pallas TPU kernel that
 // sparsebit_tpu/llm/llama.py:155 causal_attention calls on the TPU:
@@ -55,7 +55,7 @@ struct Args {
   const void* v;
   void* o;
   long long qs[3], ks[3], vs[3], os[3];  // element strides: batch, head, row
-  int S, n_rep, causal;
+  int S, n_rep;
   float sm_scale;
 };
 
@@ -148,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* kg = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[1];
   const T* vg = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[1];
   const int n_all = (S + BN - 1) / BN;
-  const int n_kt = a.causal ? min(qt + 1, n_all) : n_all;  // BM == BN
+  const int n_kt = min(qt + 1, n_all);  // BM == BN
 
   load_tile<T, D, BM>(sq, qg, a.qs[2], q0, S);
   load_tile<T, D, BN>(sk, kg, a.ks[2], 0, S);
@@ -210,7 +210,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // scale, mask, online softmax (rows g and g + 8 of the warp)
-    const bool need_mask = (a.causal && j == qt) || (j + 1) * BN > S;
+    const bool need_mask = j == qt || (j + 1) * BN > S;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -220,7 +220,7 @@ __global__ void __launch_bounds__(kThreads)
         if (need_mask) {
           const int row = q0 + wrow + g + (e >> 1) * 8;
           const int col = j * BN + nt * 8 + 2 * t + (e & 1);
-          if (col >= S || (a.causal && col > row)) x = -INFINITY;
+          if (col >= S || col > row) x = -INFINITY;
         }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -333,7 +333,7 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Args a) {
   const float* vg = static_cast<const float*>(a.v) + b * a.vs[0] +
                     hk * a.vs[1];
   const int n_all = (S + BN - 1) / BN;
-  const int n_kt = a.causal ? min(qt + 1, n_all) : n_all;
+  const int n_kt = min(qt + 1, n_all);
 
   load_tile<float, D, BM>(sq, qg, a.qs[2], q0, S);
   load_tile<float, D, BN>(sk, kg, a.ks[2], 0, S);
@@ -385,12 +385,12 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Args a) {
       }
     }
 
-    const bool need_mask = (a.causal && j == qt) || (j + 1) * BN > S;
+    const bool need_mask = j == qt || (j + 1) * BN > S;
     const int col = j * BN + lane;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float x = s[r] * a.sm_scale;
-      if (need_mask && (col >= S || (a.causal && col > q0 + wrow + r)))
+      if (need_mask && (col >= S || col > q0 + wrow + r))
         x = -INFINITY;
       float mx = x;
 #pragma unroll
@@ -476,7 +476,7 @@ bool aligned(const void* p) {
 // contiguous; every row 16-byte aligned.
 extern "C" int sbt_flash_attention(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
-    int H, int Hkv, int S, int D, int causal, float sm_scale, long long q_sb,
+    int H, int Hkv, int S, int D, float sm_scale, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, void* stream) {
@@ -502,7 +502,6 @@ extern "C" int sbt_flash_attention(
   }
   a.S = S;
   a.n_rep = H / Hkv;
-  a.causal = causal;
   a.sm_scale = sm_scale;
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = D == 64    ? launch_d<64>(dtype, B, H, a, st)

@@ -10,6 +10,7 @@ layer-stacked leaves). Activations are (B, S, D); attention heads
 (B, S, H, hd).
 """
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -172,14 +173,19 @@ def causal_attention(q, k, v):
         dt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
         out = flash_attention(
             q.transpose(1, 2).to(dt), k.transpose(1, 2).to(dt),
-            v.transpose(1, 2).to(dt), causal=True,
-            sm_scale=float(hd) ** -0.5)
+            v.transpose(1, 2).to(dt), sm_scale=float(hd) ** -0.5)
         return out.transpose(1, 2).to(q.dtype)
     n_rep = H // k.shape[2]
-    mask = torch.triu(torch.full((S, S), -1e9, dtype=torch.float32,
-                                 device=q.device), diagonal=1)[None, None]
     return attention_scores(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep),
-                            mask)
+                            _causal_mask(S, q.device))
+
+
+@functools.lru_cache(maxsize=4)
+def _causal_mask(S, device):
+    """The masked branch's (1, 1, S, S) additive causal mask, built once a
+    length and device rather than once a layer."""
+    return torch.triu(torch.full((S, S), -1e9, dtype=torch.float32,
+                                 device=device), diagonal=1)[None, None]
 
 
 def qkv_proj(layer, x, cfg):

@@ -58,9 +58,9 @@ SIGNATURES = {
     # pools, bt, pos, cos, sin, x, 12 scratch buffers; 23 ints (the s4r
     # K-split plan among them), 2 floats
     "sbt_layers_fused": [_P] * 35 + [_I] * 23 + [_F, _F, _P],
-    # flash_attention.cu (K10): q, k, v, out; dtype, B, H, Hkv, S, D,
-    # causal; sm_scale; the four tensors' (batch, head, row) strides
-    "sbt_flash_attention": [_P] * 4 + [_I] * 7 + [_F] + [_L] * 12 + [_P],
+    # flash_attention.cu (K10): q, k, v, out; dtype, B, H, Hkv, S, D;
+    # sm_scale; the four tensors' (batch, head, row) strides
+    "sbt_flash_attention": [_P] * 4 + [_I] * 6 + [_F] + [_L] * 12 + [_P],
 }
 
 _lock = threading.Lock()

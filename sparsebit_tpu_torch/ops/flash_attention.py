@@ -5,9 +5,9 @@
 Kernel K10 (``csrc/flash_attention.cu``) replaces
 ``_flash_attention_kernel_single_batch`` (flash_attention.py:342) and
 ``..._single_step`` (:484), launched from ``_flash_attention_impl``
-(:758): softmax(q kᵀ · sm_scale) v with an online softmax over key tiles,
-never holding the (S, S) scores. bf16 operands run on the tensor cores,
-f32 ones on FFMA; scores and sums are f32 either way.
+(:758): causal softmax(q kᵀ · sm_scale) v with an online softmax over key
+tiles, never holding the (S, S) scores. bf16 operands run on the tensor
+cores, f32 ones on FFMA; scores and sums are f32 either way.
 
 ``flash_attention_plain`` is the same arithmetic in eager torch, in the
 kernel's order: key tiles of the kernel's width (``block_k``), a running
@@ -36,9 +36,10 @@ def block_k(dtype):
     return 64 if dtype == torch.bfloat16 else 32
 
 
-def flash_attention_plain(q, k, v, *, causal=True, sm_scale=1.0):
-    """q (B, H, S, D), k/v (B, Hkv, S, D) with Hkv dividing H (query head h
-    reads kv head h // (H // Hkv)). Returns (B, H, S, D) in q's dtype."""
+def flash_attention_plain(q, k, v, *, sm_scale=1.0):
+    """Causal. q (B, H, S, D), k/v (B, Hkv, S, D) with Hkv dividing H
+    (query head h reads kv head h // (H // Hkv)). Returns (B, H, S, D) in
+    q's dtype."""
     B, H, S, D = q.shape
     n_rep = H // k.shape[1]
     if n_rep > 1:
@@ -54,9 +55,8 @@ def flash_attention_plain(q, k, v, *, causal=True, sm_scale=1.0):
     for j0 in range(0, S, bk):
         j1 = min(j0 + bk, S)
         s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * sm_scale
-        if causal:
-            cols = torch.arange(j0, j1, device=q.device)[None, :]
-            s = s.masked_fill(cols > rows, float("-inf"))
+        cols = torch.arange(j0, j1, device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         shift = torch.where(m_new == float("-inf"), 0.0, m_new)
         alpha = torch.exp(m - shift)
@@ -68,6 +68,36 @@ def flash_attention_plain(q, k, v, *, causal=True, sm_scale=1.0):
         m = m_new
     inv = torch.where(l == 0.0, 1.0, 1.0 / l)
     return (acc * inv[..., None]).to(q.dtype)
+
+
+def flash_tolerance(q, k, v, ref, *, sm_scale=1.0):
+    """Per-element bound on |K10 - ref|, ref = flash_attention_plain(q, k,
+    v) on the same operands: (B, H, S, D) f32. The two round the same f32
+    values, which differ in their last bits by the order of the dots and
+    sums, so each element is held to its own scale:
+      - the output's rounding, one ulp: eps |ref| (eps of the output's
+        dtype, 2^-7 for bf16);
+      - P rounded to V's dtype on the other side of a midpoint: a key's
+        weight p_j / l moves by at most eps of itself, bounded by the row's
+        largest weight max_j p_j / l and the kv head's largest |v|;
+      - f32 sums in another order: 2^-17 of that largest |v|.
+    A dropped or mis-rescaled key tile moves a late row by about the
+    tile's share of its weights, far above the bound."""
+    B, H, S, D = q.shape
+    n_rep = H // k.shape[1]
+    eps = torch.finfo(ref.dtype).eps
+    vmax = v.float().abs().amax(dim=(2, 3)).repeat_interleave(n_rep, dim=1)
+    cols = torch.arange(S, device=q.device)
+    above = cols[None, :] > cols[:, None]
+    pmax = torch.empty((B, H, S), device=q.device)
+    for b in range(B):  # one batch row's (H, S, S) scores at a time
+        kb = k[b].float().repeat_interleave(n_rep, dim=0)
+        s = torch.matmul(q[b].float(), kb.transpose(-1, -2)) * sm_scale
+        s.masked_fill_(above, float("-inf"))
+        pmax[b] = torch.exp(s.amax(dim=-1) - torch.logsumexp(s, dim=-1))
+        del s
+    w = vmax[:, :, None, None]
+    return eps * ref.float().abs() + (eps * pmax[..., None] + 2.0 ** -17) * w
 
 
 def _strides(t):
@@ -108,25 +138,25 @@ def flash_check(q, k, v):
                              q.device, k.device, v.device))
 
 
-def flash_attention(q, k, v, *, causal=True, sm_scale=1.0):
-    """softmax(q kᵀ · sm_scale) v in JAX's layout: q (B, H, S, D), k/v
-    (B, Hkv, S, D) with Hkv dividing H. Returns (B, H, S, D) in q's dtype.
+def flash_attention(q, k, v, *, sm_scale=1.0):
+    """Causal softmax(q kᵀ · sm_scale) v in JAX's layout: q (B, H, S, D),
+    k/v (B, Hkv, S, D) with Hkv dividing H. Returns (B, H, S, D) in q's
+    dtype.
 
     CPU tensors take the plain version; CUDA tensors launch K10, which
     reads the operands through their strides (the port's (B, S, H, D)
     activations, transposed as views, are not copied) and raises on what
     it does not take (``flash_check``)."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale)
+        return flash_attention_plain(q, k, v, sm_scale=sm_scale)
     flash_check(q, k, v)
     B, H, S, D = q.shape
     out = torch.empty_like(q)  # q's strides where q is dense
     err = _kernels.lib().sbt_flash_attention(
         _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
-        _DTYPES[q.dtype], B, H, k.shape[1], S, D, int(bool(causal)),
-        float(sm_scale), *_strides(q), *_strides(k), *_strides(v),
-        *_strides(out), _kernels.stream())
+        _DTYPES[q.dtype], B, H, k.shape[1], S, D, float(sm_scale),
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        _kernels.stream())
     _kernels.check(err, "sbt_flash_attention")
     flash_attention.launches += 1
     return out

@@ -12,7 +12,8 @@ ragged S the TPU kernel does not take, against the JAX package's masked
 causal_attention. Tolerances: f32 1e-5 (dots and sums in another order);
 bf16 1.6e-2, one bf16 ulp of outputs in [2, 4): the TPU kernel rounds P
 after dividing by l at a one-tile S and before it otherwise, the port
-always before.
+always before. The bound K10 itself is held to on the card
+(flash_tolerance, per element) is checked here against planted faults.
 """
 
 import types
@@ -199,9 +200,9 @@ def _qkv(shape, kv_heads, dtype, seed):
     return js, ts
 
 
-def _j_flash(jq, jk, jv, causal, sm_scale):
+def _j_flash(jq, jk, jv, sm_scale):
     with pltpu.force_tpu_interpret_mode():
-        out = j_flash(jq, jk, jv, causal=causal, sm_scale=sm_scale)
+        out = j_flash(jq, jk, jv, causal=True, sm_scale=sm_scale)
         return np.asarray(out.astype(jnp.float32))
 
 
@@ -212,8 +213,8 @@ def _j_flash(jq, jk, jv, causal, sm_scale):
 def test_flash_plain_matches_jax_flash_kernel(dtype, B, H, S, D):
     """Causal, sm_scale 1/sqrt(D) as llama.causal_attention passes it."""
     (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), H, dtype, S + D + B)
-    ref = _j_flash(jq, jk, jv, True, D ** -0.5)
-    out = TF.flash_attention(tq, tk, tv, causal=True, sm_scale=D ** -0.5)
+    ref = _j_flash(jq, jk, jv, D ** -0.5)
+    out = TF.flash_attention(tq, tk, tv, sm_scale=D ** -0.5)
     assert out.dtype == dtype and out.shape == (B, H, S, D)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
                                atol=FLASH_TOL[dtype])
@@ -228,17 +229,8 @@ def test_flash_plain_gqa_matches_jax_flash_kernel(dtype, Hkv):
     (jq, jk, jv), (tq, tk, tv) = _qkv((1, H, S, D), Hkv, dtype, 50 + Hkv)
     rep = H // Hkv
     ref = _j_flash(jq, jnp.repeat(jk, rep, axis=1),
-                   jnp.repeat(jv, rep, axis=1), True, D ** -0.5)
-    out = TF.flash_attention(tq, tk, tv, causal=True, sm_scale=D ** -0.5)
-    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
-                               atol=FLASH_TOL[dtype])
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_plain_non_causal_matches_jax_flash_kernel(dtype):
-    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 2, 256, 64), 2, dtype, 60)
-    ref = _j_flash(jq, jk, jv, False, 0.125)
-    out = TF.flash_attention(tq, tk, tv, causal=False, sm_scale=0.125)
+                   jnp.repeat(jv, rep, axis=1), D ** -0.5)
+    out = TF.flash_attention(tq, tk, tv, sm_scale=D ** -0.5)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
                                atol=FLASH_TOL[dtype])
 
@@ -254,10 +246,66 @@ def test_flash_plain_ragged_matches_jax_masked_attention(dtype, S, D):
     sw = (lambda a: jnp.swapaxes(a, 1, 2))
     ref = JL.causal_attention(sw(jq), JL.repeat_kv(sw(jk), 2),
                               JL.repeat_kv(sw(jv), 2))
-    out = TF.flash_attention(tq, tk, tv, causal=True, sm_scale=D ** -0.5)
+    out = TF.flash_attention(tq, tk, tv, sm_scale=D ** -0.5)
     np.testing.assert_allclose(out.transpose(1, 2).float().numpy(),
                                np.asarray(ref.astype(jnp.float32)), rtol=0,
                                atol=FLASH_TOL[dtype])
+
+
+def _biased_attention(q, k, v, sm_scale, bias):
+    """Causal softmax attention in f32 with an additive (S, S) score bias
+    (-inf drops a key): a planted fault for flash_tolerance."""
+    S = q.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    above = torch.ones((S, S), dtype=torch.bool).triu(1)
+    s = (s + bias).masked_fill(above, float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("fault,share", [("far_tile", 1.0),
+                                         ("rescaled_tile", 1.0),
+                                         ("diagonal", 0.85)])
+def test_flash_tolerance_rejects_planted_faults(fault, share):
+    """The per-element bound K10 is held to (flash_tolerance) against
+    planted faults at bf16 S = 512: key tile 0 skipped where it lies two
+    or more tiles below the diagonal (rows >= 128) and key tile 0's
+    weights mis-rescaled by e^0.5 (a stale running max) are caught in
+    every row they touch; each row missing its own key (the diagonal mask
+    off by one) in most rows (not where that key's weight is within P's
+    rounding). A correct attention in another order, f32 softmax with P
+    not rounded, stays within the bound."""
+    B, H, S, D = 1, 4, 512, 128
+    _, (q, k, v) = _qkv((B, H, S, D), H, torch.bfloat16, 70)
+    scale = D ** -0.5
+    ref = TF.flash_attention_plain(q, k, v, sm_scale=scale)
+    tol = TF.flash_tolerance(q, k, v, ref, sm_scale=scale)
+
+    def over(bias):
+        out = _biased_attention(q, k, v, scale, bias)
+        return ((out.float() - ref.float()).abs() > tol).any(dim=-1)
+
+    assert not over(torch.zeros((S, S))).any()
+    bias = torch.zeros((S, S))
+    first = 1 if fault == "diagonal" else 128
+    if fault == "diagonal":
+        idx = torch.arange(1, S)
+        bias[idx, idx] = float("-inf")
+    else:
+        bias[first:, :64] = float("-inf") if fault == "far_tile" else 0.5
+    assert over(bias)[..., first:].float().mean().item() >= share
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_tolerance_admits_one_ulp(dtype):
+    """Every output element one ulp further from zero (the output's own
+    rounding on the other side of a midpoint) stays within the bound."""
+    _, (q, k, v) = _qkv((2, 4, 200, 64), 2, dtype, 71)
+    ref = TF.flash_attention_plain(q, k, v, sm_scale=0.125)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    nudged = (ref.view(bits) + 1).view(dtype)
+    assert not torch.equal(nudged, ref)
+    tol = TF.flash_tolerance(q, k, v, ref, sm_scale=0.125)
+    assert ((nudged.float() - ref.float()).abs() <= tol).all()
 
 
 def test_flash_check_refuses_what_k10_does_not_take():
