@@ -28,7 +28,14 @@ Phases (every failure is recorded and the script exits 1 at the end):
      hd=128 at B=1 S=2048 and B=8 S=512, hd 64 and 256 at S=1024, ragged
      S = 2047 and 100, f32 at S=512 and Hkv=8, each element within its own
      bound (flash_tolerance), which must reject planted key-tile faults at
-     S = 2048, with SDPA (is_causal) timed beside it as a yardstick;
+     S = 2048, with SDPA (is_causal) timed beside it as a yardstick; K11
+     (dK, dV) and K12 (dQ), the flash backward, against their plain
+     versions at the same shapes with B=4 S=512 (the qlora path's) in
+     place of B=8 S=512, over K10's own log-sum-exp (itself within 2^-14
+     of the plain version's), each element within its own bound
+     (flash_bwd_tolerance), which must reject planted faults at B=4
+     S=512 (a skipped query tile, dS without di, a skipped diagonal
+     tile), with SDPA's backward timed beside them;
   3. a small LLaMA on the card against the same weights on the CPU:
      admission logits and teacher-forced decode logits agree;
   4. the paths, one at a time, every kernel count set to 0 before a path
@@ -84,7 +91,17 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 two-window stream (2047-token windows through K10), K10
                 held to its plain version on every layer's operands, s a
                 window and K10's device ms; the log-perplexity within 1e-3
-                relative of the masked route.
+                relative of the masked route;
+     qlora      QLoRA training (qlora_train_step) at llama_7b() widths and
+                32 layers over random INT4-g128 weights in the checkpoint
+                layout (activations O(1)), r = 8 adapters on wq/wv, AdamW
+                lr 3e-4, B = 4 x 513 tokens, with the dense and the int8
+                backward: every layer's K11/K12 held to the plain
+                versions, 4 timed steps (wall s split into forward and
+                backward, tok/s, K10/K11/K12 device ms and launches, 32
+                each a step, peak memory), one step's loss and adapter
+                gradients against the plain versions, the backbone
+                bit-equal after the steps.
 It prints one JSON line of per-kernel and per-path numbers, the card's
 name and power limit, and last {"ok": true, "device": {...}}. It exits
 non-zero without CUDA or without the repository beside it.
@@ -491,6 +508,7 @@ def kernel_checks(stacked, cfg, results):
     plane_checks(cfg, record, g)
     k5_checks(cfg, record, g)
     k10_checks(cfg, record, g)
+    k11_k12_checks(cfg, record, g)
 
 
 def int_mm_probe(g):
@@ -823,6 +841,199 @@ def k10_checks(cfg, record, g):
                "ops/tpu/flash_attention.py:342", err, None, ms, pms, bnd,
                lms, tag, gms, ratio=ratio)
         del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+
+K11_ENTRY, K12_ENTRY = "sbt_flash_bwd_dkv", "sbt_flash_bwd_dq"
+FLASH_SRC = "sparsebit_tpu_torch/csrc/flash_attention.cu"
+FLASH_JAX = ("sparsebit_tpu/llm/llama.py:155 -> jax/experimental/pallas/ops/"
+             "tpu/flash_attention.py:")
+
+
+def bwd_within(got, ref, tol):
+    """(max abs error, the largest error over its element's own bound)
+    over pairs of gradients."""
+    errs = [(a.float() - b.float()).abs() for a, b in zip(got, ref)]
+    return (max(e.max().item() for e in errs),
+            max((e / t).max().item() for e, t in zip(errs, tol)))
+
+
+def bwd_planted(q, k, v, lse, do, di, scale, fault):
+    """The backward as whole (S, S) f32 matrices, P and dS rounded to the
+    operands' dtype, with a planted fault: "skip_q_tile" (K11 skips query
+    tile 2, rows 128-191, for key tile 0), "no_di" (dS without its di term,
+    in K11 and K12) or "no_diag_tile" (K12 skips each row's own key tile).
+    kv heads summed over their query heads. Returns (dq, dk, dv) f32."""
+    import torch
+
+    f32 = torch.float32
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    kf = k.to(f32).repeat_interleave(rep, dim=1)
+    vf = v.to(f32).repeat_interleave(rep, dim=1)
+    qf, dof = q.to(f32), do.to(f32)
+    above = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s.masked_fill_(above, float("-inf")) - lse[..., None])
+    del s
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    if fault != "no_di":
+        dp -= di[..., None]
+    ds = (dp * p * scale).to(q.dtype).to(f32)
+    del dp
+    p = p.to(q.dtype).to(f32)
+    pk, dsk, dsq = p, ds, ds
+    if fault == "skip_q_tile":
+        pk, dsk = p.clone(), ds.clone()
+        pk[..., 128:192, 0:64] = 0.0
+        dsk[..., 128:192, 0:64] = 0.0
+    if fault == "no_diag_tile":
+        dsq = ds.clone()
+        for t0 in range(0, S, 64):
+            dsq[..., t0:t0 + 64, t0:t0 + 64] = 0.0
+
+    def kv_sum(t):
+        return t.reshape(B, Hkv, rep, S, D).sum(dim=2)
+
+    return (torch.matmul(dsq, kf),
+            kv_sum(torch.matmul(dsk.transpose(-1, -2), qf)),
+            kv_sum(torch.matmul(pk.transpose(-1, -2), dof)))
+
+
+def bwd_planted_shares(q, k, v, lse, do, di, refs, tols, scale):
+    """Planted faults held to the same bounds as K11/K12
+    (flash_bwd_tolerance): {fault: {gradient: share of the rows it
+    touches with an element over the bound}} (key tile 0's dK/dV rows for
+    a skipped query tile, every row for dS without di, the rows past the
+    first tile for a skipped diagonal tile)."""
+    S = q.shape[2]
+    names = ("dq", "dk", "dv")
+    out = {}
+    for fault, touched, rows in (
+            ("skip_q_tile", ("dk", "dv"), slice(0, 64)),
+            ("no_di", ("dq", "dk"), slice(0, S)),
+            ("no_diag_tile", ("dq",), slice(64, S))):
+        bad = dict(zip(names, bwd_planted(q, k, v, lse, do, di, scale,
+                                          fault)))
+        out[fault] = {}
+        for i, n in enumerate(names):
+            if n in touched:
+                over = ((bad[n] - refs[i].float()).abs() > tols[i]).any(
+                    dim=-1)
+                out[fault][n] = over[..., rows].float().mean().item()
+        del bad
+    return out
+
+
+def k11_k12_checks(cfg, record, g):
+    """K11 (dK, dV) and K12 (dQ) against their plain versions on the card,
+    causal, operands in the port's (B, S, H, hd) layout read through
+    strides, the kernels' own lse (K10's, itself held to the plain
+    version's within 2^-14) and di given to both: bf16 H=32 hd=128 at
+    B=4 S=512 (the qlora path's shape) and B=1 S=2048, hd 64 and 256 at
+    S=1024, ragged S = 2047 and 100, f32 at S=512, and Hkv=8 at S=2048.
+    Tolerance: each element within its own bound (flash_bwd_tolerance);
+    on the first case the same bounds must reject planted faults
+    (bwd_planted_shares: every touched row of a skipped query tile, and
+    at least 95 % of those of a dS without di and of a skipped diagonal
+    tile). Kernel ms (CUDA events), device ms (graph replay), plain ms;
+    the library call is SDPA's backward (is_causal: dq, dk, dv together),
+    timed as a yardstick only. Bounds: K11 4 and K12 3 causal-half
+    products of 2 B H hd S(S+1)/2 operations at the bf16 (or f32) peak,
+    against q, k, v, dO, lse, di read once and the gradients written
+    once."""
+    import torch
+    import torch.nn.functional as F
+    from sparsebit_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    hd0, H0 = cfg.head_dim, cfg.n_heads
+    cases = [("bf16", 4, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, H0, hd0),
+             ("bf16", 1, 1024, cfg.dim // 64, cfg.dim // 64, 64),
+             ("bf16", 1, 1024, cfg.dim // 256, cfg.dim // 256, 256),
+             ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
+             ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0)]
+    for kind, B, S, H, Hkv, D in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+
+        def make(h):
+            return torch.randn((B, S, h, D), generator=g, device=dev).to(
+                dt).transpose(1, 2)
+
+        q, k, v, do = make(H), make(Hkv), make(Hkv), make(H)
+        scale = D ** -0.5
+        tag = "{} B={} S={} H={} Hkv={} hd={}".format(kind, B, S, H, Hkv, D)
+        out, lse = FA.flash_attention_fwd(q, k, v, sm_scale=scale)
+        ref, ref_lse = FA.flash_attention_plain(q, k, v, sm_scale=scale,
+                                                return_lse=True)
+        lse_err = (lse - ref_lse).abs().max().item()
+        _, out_ratio = k10_within(out, ref, q, k, v, scale)
+        print("K10 with lse {}: lse max err {:.3e} (tol 2^-14), out worst "
+              "err/tol {:.3f}".format(tag, lse_err, out_ratio), flush=True)
+        if not (lse_err <= 2.0 ** -14 and out_ratio <= 1.0):
+            fail("K10 with lse {}: lse err {:.3e}, out err/tol {:.3f}"
+                 .format(tag, lse_err, out_ratio))
+        di = FA.flash_di(out, do)
+        dk, dv = FA.flash_attention_dkv(q, k, v, lse, do, di, sm_scale=scale)
+        dq = FA.flash_attention_dq(q, k, v, lse, do, di, sm_scale=scale)
+        pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, lse, do, di,
+                                          sm_scale=scale)
+        pdq = FA.flash_bwd_dq_plain(q, k, v, lse, do, di, sm_scale=scale)
+        torch.cuda.synchronize()
+        tq, tk, tv = FA.flash_bwd_tolerance(q, k, v, lse, do, di, pdq, pdk,
+                                            pdv, sm_scale=scale)
+        e11 = bwd_within((dk, dv), (pdk, pdv), (tk, tv))
+        e12 = bwd_within((dq,), (pdq,), (tq,))
+        if (B, S, H, Hkv) == (4, 512, H0, H0):
+            shares = bwd_planted_shares(q, k, v, lse, do, di,
+                                        (pdq, pdk, pdv), (tq, tk, tv), scale)
+            print("K11/K12 planted faults at {}: share of touched rows "
+                  "over the bound {}".format(tag, shares), flush=True)
+            probes["k11_k12_planted_faults"] = shares
+            if min(shares["skip_q_tile"].values()) < 1.0 or min(
+                    min(shares[f].values()) for f in
+                    ("no_di", "no_diag_tile")) < 0.95:
+                fail("K11/K12's bound passes a planted fault: {}".format(
+                    shares))
+        del tq, tk, tv, pdq, pdk, pdv, dq, dk, dv
+
+        def dkv(i):
+            return FA.flash_attention_dkv(q, k, v, lse, do, di,
+                                          sm_scale=scale)
+
+        def dqk(i):
+            return FA.flash_attention_dq(q, k, v, lse, do, di,
+                                         sm_scale=scale)
+
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=True, scale=scale, enable_gqa=Hkv < H)
+
+        def lib(i):
+            return torch.autograd.grad(lib_out, (qr, kr, vr), do,
+                                       retain_graph=True)
+
+        ms = (cuda_ms(dkv, 20), cuda_ms(dqk, 20))
+        pms = (cuda_ms(lambda i: FA.flash_bwd_dkv_plain(
+            q, k, v, lse, do, di, sm_scale=scale), 3, 1),
+            cuda_ms(lambda i: FA.flash_bwd_dq_plain(
+                q, k, v, lse, do, di, sm_scale=scale), 3, 1))
+        lms = cuda_ms(lib, 20)
+        glib = graph_ms(lib, 20)
+        gms = ((graph_ms(dkv, 20), glib), (graph_ms(dqk, 20), glib))
+        esz = q.element_size()
+        half = B * H * D * S * (S + 1)  # 2 B H hd S(S+1)/2
+        q_b, kv_b = esz * B * H * S * D, esz * B * Hkv * S * D
+        stats_b = 8 * B * H * S  # lse and di, f32
+        bounds = (bound_ms(2 * q_b + 4 * kv_b + stats_b, 4 * half, kind),
+                  bound_ms(3 * q_b + 2 * kv_b + stats_b, 3 * half, kind))
+        for i, (kid, (err, ratio), off) in enumerate(
+                (("K11", e11, "796"), ("K12", e12, "1146"))):
+            record("{} {}".format(kid, tag), kid, FLASH_SRC,
+                   FLASH_JAX + off, err, None, ms[i], pms[i], bounds[i],
+                   lms, tag, gms[i], ratio=ratio)
+        del q, k, v, do, out, ref, lse, di, qr, kr, vr, lib_out
     torch.cuda.empty_cache()
 
 
@@ -1251,7 +1462,9 @@ def _wrappers():
             "K7": quant_matmul.quant_matmul_3bit,
             "K8": quant_matmul.quant_matmul_w,
             "K9": matvec.bf16_matvec,
-            "K10": flash_attention.flash_attention})
+            "K10": flash_attention.flash_attention,
+            "K11": flash_attention.flash_attention_dkv,
+            "K12": flash_attention.flash_attention_dq})
     return _WRAPPERS
 
 
@@ -2106,6 +2319,239 @@ def eval_path(cfg):
     return {"eval": f}
 
 
+QLORA_STEPS = 4
+# the adapters' gradients on the kernels against the plain versions:
+# (relative norm, cosine) by backward mode. Dense: bf16 activations whose
+# last bits differ where the kernels' sums run in another order. int8: the
+# backward also requantizes each g row per token, so where those bits
+# differ a code moves by one; that is the noise the reference bounds its
+# int8 gradients by against f32 (tests/test_llm.py:276-277).
+QLORA_GRAD_TOL = {"dense": (0.05, 0.999), "int8": (0.15, 0.99)}
+
+
+def _tensors(tree):
+    """Every tensor of a params tree, linears' fields included."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    if hasattr(tree, "__dict__"):
+        return _tensors(tree.__dict__)
+    return []
+
+
+def bwd_held(log):
+    """A stand-in for flash_attention.flash_attention_bwd that holds each
+    K11/K12 call to the plain versions on the same operands (K10's lse,
+    the call's di), appending (max error, worst error over its bound) of
+    K11 and of K12 to ``log``."""
+    from sparsebit_tpu_torch.ops import flash_attention as FA
+
+    real = FA.flash_attention_bwd
+
+    def held(q, k, v, out, lse, do, *, sm_scale):
+        dq, dk, dv = real(q, k, v, out, lse, do, sm_scale=sm_scale)
+        do = do.to(q.dtype)
+        di = FA.flash_di(out, do)
+        pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, lse, do, di,
+                                          sm_scale=sm_scale)
+        pdq = FA.flash_bwd_dq_plain(q, k, v, lse, do, di, sm_scale=sm_scale)
+        tq, tk, tv = FA.flash_bwd_tolerance(q, k, v, lse, do, di, pdq, pdk,
+                                            pdv, sm_scale=sm_scale)
+        log.append((bwd_within((dk, dv), (pdk, pdv), (tk, tv)),
+                    bwd_within((dq,), (pdq,), (tq,))))
+        return dq, dk, dv
+    return held
+
+
+def plain_flash():
+    """Route K10 (with its lse), K11 and K12 to their plain versions, on
+    whatever device the tensors are."""
+    from sparsebit_tpu_torch.ops import flash_attention as FA
+
+    def fwd(q, k, v, *, sm_scale):
+        return FA.flash_attention_plain(q, k, v, sm_scale=sm_scale,
+                                        return_lse=True)
+
+    return _Patched([(FA, "flash_attention_fwd", fwd),
+                     (FA, "flash_attention_dkv", FA.flash_bwd_dkv_plain),
+                     (FA, "flash_attention_dq", FA.flash_bwd_dq_plain)])
+
+
+def _lora_grads(lora):
+    import torch
+
+    return torch.cat([lora[k][n].grad.reshape(-1).float() for k in
+                      sorted(lora) for n in ("lora_A", "lora_B")])
+
+
+def qlora_path(cfg):
+    """Phase 4, path qlora (this slice's main path): QLoRA training at
+    llama_7b() widths and 32 layers. The frozen backbone is random INT4-g128
+    in the checkpoint layout (unfused column-plane linears, f32 qparams,
+    impl "auto", a bf16 head; ``unit`` scales, so that activations stay
+    O(1) and gradients reach through every attention), wrapped by
+    wrap_llama_lora(r=8, alpha=16) on wq and wv; AdamW at lr 3e-4 with
+    optax.adamw's weight decay (qlora.adamw); B = 4 windows of 513 seeded
+    tokens (S = 512 after the shift). Each backward mode, the dense one
+    (g @ dequant(W)^T) and prepare_train's int8 one, runs:
+      1. a warm-up loss and backward with every K11/K12 call held to the
+         plain versions on the operands the path gave it (bwd_held,
+         flash_bwd_tolerance), 32 each;
+      2. QLORA_STEPS timed qlora_train_steps, every kernel count set to 0
+         just before each and read just after: wall s split into forward,
+         backward and the optimiser step, tokens/s, K10/K11/K12 device
+         ms (CUDA events around each launch) and launches (32 each a
+         step), peak memory above the resident weights, adapters and
+         optimiser state, the loss of each step;
+      3. the adapters' gradients at the trained state on the kernels and
+         with K10/K11/K12 routed to their plain versions (plain_flash):
+         loss within 1e-3 relative, gradients within QLORA_GRAD_TOL's
+         relative norm and cosine for the mode;
+      4. every backbone tensor bit-equal to its copy from before the
+         steps, every adapter tensor moved, each loss finite."""
+    import torch
+    from sparsebit_tpu_torch.llm import qlora as Q
+    from sparsebit_tpu_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    params = Q.wrap_llama_lora(
+        build_plane_params(cfg, dev, lambda li, n: 4, SEED + 6, unit=True),
+        r=8, alpha=16.0,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 14))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 513), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 15))
+    n_tok = tokens.shape[0] * (tokens.shape[1] - 1)
+    timer = KernelEvents()
+    out = {}
+    for mode in ("dense", "int8"):
+        tag = "qlora {}".format(mode)
+        t0 = time.perf_counter()
+        p = params if mode == "dense" else Q.prepare_train(params)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        lora = {k: {n: t.detach().clone() for n, t in v.items()}
+                for k, v in Q.extract_lora(p).items()}
+        lora0 = [t.clone() for t in _tensors(lora)]
+        backbone = [t.clone() for t in _tensors(p)]
+        opt = Q.adamw(lora, 3e-4)
+
+        held = []
+        with _Patched([(FA, "flash_attention_bwd", bwd_held(held))]):
+            Q.qlora_loss_fn(lora, p, tokens, cfg).backward()
+        torch.cuda.synchronize()
+        bad = [i for i, ((_, r11), (_, r12)) in enumerate(held)
+               if r11 > 1.0 or r12 > 1.0]
+        worst = (max((h[0][1] for h in held), default=float("nan")),
+                 max((h[1][1] for h in held), default=float("nan")))
+        print("{}: K11/K12 vs plain on each layer's operands over {} calls: "
+              "worst err/tol {:.3f} / {:.3f}: {}".format(
+                  tag, len(held), *worst,
+                  "ok" if not bad and len(held) == cfg.n_layers else "BAD"),
+              flush=True)
+        if bad or len(held) != cfg.n_layers:
+            fail("{}: K11/K12 differ from their plain versions in calls {} "
+                 "(of {} checked, {} wanted)".format(tag, bad, len(held),
+                                                     cfg.n_layers))
+
+        steps = []
+        for step in range(QLORA_STEPS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _reset_launches()
+            timer.events = []
+            with timer.patch:
+                timer.on = True
+                t0 = time.perf_counter()
+                opt.zero_grad(set_to_none=True)
+                loss = Q.qlora_loss_fn(lora, p, tokens, cfg)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                loss.backward()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                opt.step()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                timer.on = False
+                _, by = timer.take_ms()
+            launches = _launches()
+            st = {"loss": loss.item(), "wall_s": t3 - t0,
+                  "forward_s": t1 - t0, "backward_s": t2 - t1,
+                  "optimizer_s": t3 - t2, "tokens_per_s": n_tok / (t3 - t0),
+                  "k10_device_ms": by.get(K10_ENTRY, 0.0),
+                  "k11_device_ms": by.get(K11_ENTRY, 0.0),
+                  "k12_device_ms": by.get(K12_ENTRY, 0.0),
+                  "peak_bytes_above_resident":
+                      torch.cuda.max_memory_allocated() - base,
+                  "resident_bytes": base, "launches": launches}
+            print("{} step {}: loss {:.6f}; {:.4f} s wall (forward {:.4f}, "
+                  "backward {:.4f}, step {:.4f}), {:.1f} tok/s; K10 {:.3f} / "
+                  "K11 {:.3f} / K12 {:.3f} ms device; peak {:.3f} GB above "
+                  "the resident {:.3f} GB; launches {}".format(
+                      tag, step, st["loss"], st["wall_s"], st["forward_s"],
+                      st["backward_s"], st["optimizer_s"],
+                      st["tokens_per_s"], st["k10_device_ms"],
+                      st["k11_device_ms"], st["k12_device_ms"],
+                      st["peak_bytes_above_resident"] / 1e9, base / 1e9,
+                      launches), flush=True)
+            got = {k: launches[k] for k in ("K10", "K11", "K12")}
+            if got != dict.fromkeys(got, cfg.n_layers):
+                fail("{} step {}: launches {} (want {} each)".format(
+                    tag, step, got, cfg.n_layers))
+            if not torch.isfinite(loss):
+                fail("{} step {}: loss {}".format(tag, step, loss.item()))
+            steps.append(st)
+
+        grads = {}
+        for route in ("kernels", "plain"):
+            opt.zero_grad(set_to_none=True)
+            with (plain_flash() if route == "plain" else _Patched([])):
+                loss = Q.qlora_loss_fn(lora, p, tokens, cfg)
+                loss.backward()
+            grads[route] = (loss.item(), _lora_grads(lora))
+        (lk, gk), (lp, gp) = grads["kernels"], grads["plain"]
+        rel = ((gk - gp).norm() / gp.norm()).item()
+        cos = (gk @ gp / (gk.norm() * gp.norm())).item()
+        loss_rel = abs(lk - lp) / abs(lp)
+        tol_rel, tol_cos = QLORA_GRAD_TOL[mode]
+        print("{}: one step on the kernels vs the plain versions: loss {:.6f}"
+              " / {:.6f} (rel {:.3e}, tol 1e-3); adapter gradients rel {:.3e} "
+              "(tol {}), cos {:.6f} (tol {})".format(
+                  tag, lk, lp, loss_rel, rel, tol_rel, cos, tol_cos),
+              flush=True)
+        if not (loss_rel <= 1e-3 and rel <= tol_rel and cos >= tol_cos):
+            fail("{}: kernels and plain versions differ (loss rel {:.3e}, "
+                 "gradients rel {:.3e}, cos {:.6f})".format(
+                     tag, loss_rel, rel, cos))
+        same = all(torch.equal(a, b) for a, b in zip(backbone, _tensors(p)))
+        moved = all(not torch.equal(a, b) for a, b in zip(lora0,
+                                                          _tensors(lora)))
+        print("{}: backbone bit-equal after the steps {}; every adapter "
+              "tensor moved {}".format(tag, same, moved), flush=True)
+        if not (same and moved):
+            fail("{}: backbone changed ({}) or an adapter did not move ({})"
+                 .format(tag, not same, not moved))
+        out[tag] = {"steps": steps, "prepare_train_s": prep_s,
+                    "launches": {k: sum(s["launches"][k] for s in steps)
+                                 for k in steps[0]["launches"]},
+                    "k11_k12_vs_plain": held, "loss_vs_plain_rel": loss_rel,
+                    "grad_vs_plain_rel": rel, "grad_vs_plain_cos": cos}
+        del p, lora, lora0, backbone, opt, grads, gk, gp, loss
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+
+
 def run_scanned(sp, cfg, prompt, n_new, tag):
     """prefill_scanned (the per-layer branch), one decode_step_scanned and
     decode_tokens_scanned of n_new greedy tokens over a 128-row int8 cache,
@@ -2343,15 +2789,20 @@ def main():
     t0 = time.perf_counter()
     paths.update(eval_path(cfg))
     print("eval path {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(qlora_path(cfg))
+    print("qlora path {:.1f} s".format(time.perf_counter() - t0))
     # launches of each kernel on the path that runs it: K5 and K8 on
     # generate (this slice's main path), K6 on the engine's decode_chunk
     # route, K7 on the mixed-precision model (its int8 form with impl
     # "a8"), K2/K3 on the unfused route, K1, K4 and K9 on the K4 engine,
-    # K4's plane mode on the planes path, K10 on the 2048-token cold prefill
+    # K4's plane mode on the planes path, K10 on the 2048-token cold
+    # prefill, K11 and K12 on QLoRA training (the dense backward's 4 steps)
     where = {"K2": "unfused", "K3": "unfused", "K5": "generate B=8 greedy",
              "K6": "chunk", "K7": "mixed impl=auto depth 4",
              "K8": "generate B=8 greedy", "K4p": "planes B=8",
-             "K10": "prefill B=1 S=2048"}
+             "K10": "prefill B=1 S=2048", "K11": "qlora dense",
+             "K12": "qlora dense"}
     for r in results:
         r["path"] = where.get(r["kernel"], "main")
         if r["kernel"] == "K7" and "int8" in r["shape"]:

@@ -5,8 +5,12 @@
 arrays and plain metadata, so this module needs nothing of JAX:
 
 - a QuantLinear is ``{"packed": {name: uint8 array}, "scales", "zeros",
-  "bits", "groupsize", "out_features", "bias", "perm", "impl"}``;
+  "bits", "groupsize", "out_features", "bias", "perm", "impl"}``, with
+  ``"bwd_wq"`` and ``"bwd_scale"`` after the JAX package's
+  ``prepare_backward``;
 - a DenseLinear is ``{"w", "bias"}``;
+- a LoraLinear (QLoRA) is ``{"base": a linear, "lora_A", "lora_B",
+  "alpha", "dropout"}``;
 - any other array is a plain tensor (norms, embeddings).
 
 bf16 arrays travel as their ``uint16`` bit pattern: every uint16 array in
@@ -28,6 +32,7 @@ import torch
 
 from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.llm import llama as L
+from sparsebit_tpu_torch.llm.qlora import LoraLinear
 from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
 
 _CONFIG_KEYS = ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
@@ -53,7 +58,15 @@ def params_from_numpy(tree, device):
             int(tree["bits"]), int(tree["groupsize"]),
             int(tree["out_features"]), _tensor(tree.get("bias"), device),
             _tensor(tree.get("perm"), device), tree.get("impl", "auto"),
+            _tensor(tree.get("bwd_wq"), device),
+            _tensor(tree.get("bwd_scale"), device),
         )
+    if isinstance(tree, dict) and "lora_A" in tree:
+        return LoraLinear(params_from_numpy(tree["base"], device),
+                          _tensor(tree["lora_A"], device),
+                          _tensor(tree["lora_B"], device),
+                          float(tree.get("alpha", 16.0)),
+                          float(tree.get("dropout", 0.0)))
     if isinstance(tree, dict) and set(tree) <= {"w", "bias"} and "w" in tree:
         return DenseLinear(_tensor(tree["w"], device),
                            _tensor(tree.get("bias"), device))

@@ -6,8 +6,12 @@ Weight convention as in the JAX package: (in_features K, out_features N),
 ``x @ w``; group scales/zeros (G, N) along K. ``QuantLinear.__call__``
 dispatches on ``impl`` as the reference does (quant.py:487-515): "a8" is
 the W4A8 path (K1, K6, K7), "auto"/"pallas"/"xla" the f32-activation
-``quant_matmul`` (K8, K7 or the dense product). ``from_dense`` is the
-round-to-nearest quantizer; GPTQ is not ported yet.
+``quant_matmul`` (K8, K7 or the dense product); after ``prepare_backward``
+every impl takes ``quant_matmul_a8bwd`` (the int8 backward of QLoRA).
+``from_dense`` is the round-to-nearest quantizer; GPTQ is not ported yet.
+Both linears differentiate in x: QuantLinear through its
+autograd.Functions (no weight gradients), DenseLinear through plain
+autograd.
 """
 
 import torch
@@ -22,9 +26,11 @@ from sparsebit_tpu_torch.ops.packing import (
 )
 from sparsebit_tpu_torch.ops.quant_matmul import (
     dequant_weights,
+    prepare_a8_backward,
     quant_matmul,
     quant_matmul_a8,
     quant_matmul_a8_stacked,
+    quant_matmul_a8bwd,
 )
 
 IMPLS = ("auto", "pallas", "xla", "a8")
@@ -111,7 +117,7 @@ class DenseLinear:
         return self.w.shape[1]
 
     def __call__(self, x):
-        if _mv.use_matvec(x, self.w, self.bias):
+        if _mv.use_matvec(x, self.w, self.bias) and not x.requires_grad:
             return _mv.matvec(x, self.w)
         out = torch.matmul(x, self.w.to(x.dtype))
         if self.bias is not None:
@@ -128,7 +134,8 @@ class QuantLinear:
     ``call_stacked``. ``impl`` is one of IMPLS."""
 
     def __init__(self, packed, scales, zeros, bits, groupsize, out_features,
-                 bias=None, perm=None, impl="auto"):
+                 bias=None, perm=None, impl="auto", bwd_wq=None,
+                 bwd_scale=None):
         if impl not in IMPLS:
             raise ValueError("QuantLinear impl {!r} not in {}".format(
                 impl, IMPLS))
@@ -141,13 +148,18 @@ class QuantLinear:
         self.bias = bias
         self.perm = perm  # act-order input permutation (K,), or None
         self.impl = impl
+        # the int8 backward's W^T, requantized per input channel
+        # (prepare_backward), or None: dx then takes the f32 weight
+        self.bwd_wq = bwd_wq
+        self.bwd_scale = bwd_scale
 
     def _replace(self, **kw):
         fields = dict(packed=self.packed, scales=self.scales,
                       zeros=self.zeros, bits=self.bits,
                       groupsize=self.groupsize,
                       out_features=self.out_features, bias=self.bias,
-                      perm=self.perm, impl=self.impl)
+                      perm=self.perm, impl=self.impl, bwd_wq=self.bwd_wq,
+                      bwd_scale=self.bwd_scale)
         fields.update(kw)
         return QuantLinear(**fields)
 
@@ -287,11 +299,26 @@ class QuantLinear:
             W = W[torch.argsort(self.perm), :]
         return W
 
+    def prepare_backward(self):
+        """Copy carrying the per-input-channel int8 requantized W^T
+        (quant.py:469-485, the reference's prepare_backward_scales): the
+        forward is unchanged, dx runs on the int8 product instead of the
+        f32 dequantized weight. Computed once at train-prep."""
+        bwd_wq, bwd_scale = prepare_a8_backward(
+            self.packed, self.scales, self.zeros, self.bits, self.n_padded,
+            self.groupsize)
+        return self._replace(bwd_wq=bwd_wq, bwd_scale=bwd_scale)
+
     def __call__(self, x):
         if self.perm is not None:
             x = x[..., self.perm]
         x = self._pad_x(x)
-        if self.impl == "a8":
+        if self.bwd_wq is not None:  # whatever the impl (quant.py:491-498)
+            out = quant_matmul_a8bwd(x, self.packed, self.scales, self.zeros,
+                                     self.bwd_wq, self.bwd_scale, self.bits,
+                                     self.groupsize, self.n_padded,
+                                     self.impl)
+        elif self.impl == "a8":
             out = quant_matmul_a8(x, self.packed, self.scales, self.zeros,
                                   self.bits, self.groupsize, self.n_padded)
         else:

@@ -58,9 +58,14 @@ SIGNATURES = {
     # pools, bt, pos, cos, sin, x, 12 scratch buffers; 23 ints (the s4r
     # K-split plan among them), 2 floats
     "sbt_layers_fused": [_P] * 35 + [_I] * 23 + [_F, _F, _P],
-    # flash_attention.cu (K10): q, k, v, out; dtype, B, H, Hkv, S, D;
-    # sm_scale; the four tensors' (batch, head, row) strides
-    "sbt_flash_attention": [_P] * 4 + [_I] * 6 + [_F] + [_L] * 12 + [_P],
+    # flash_attention.cu (K10): q, k, v, out, lse (or null); dtype, B, H,
+    # Hkv, S, D; sm_scale; q, k, v, out's (batch, head, row) strides
+    "sbt_flash_attention": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 12 + [_P],
+    # (K11): q, k, v, dO, lse, di, dk, dv; as K10; q, k, v, dO, dk, dv's
+    # strides
+    "sbt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F] + [_L] * 18 + [_P],
+    # (K12): q, k, v, dO, lse, di, dq; as K10; q, k, v, dO, dq's strides
+    "sbt_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F] + [_L] * 15 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,25 +1,40 @@
-"""Flash attention forward (port of JAX's bundled
-``jax/experimental/pallas/ops/tpu/flash_attention.py``, the kernel that
-``sparsebit_tpu/llm/llama.py:155 causal_attention`` calls on the TPU).
+"""Flash attention, forward and backward (port of JAX's bundled
+``jax/experimental/pallas/ops/tpu/flash_attention.py``, the kernels that
+``sparsebit_tpu/llm/llama.py:155 causal_attention`` calls on the TPU,
+the backward ones through ``jax.grad`` of the training loss).
 
 Kernel K10 (``csrc/flash_attention.cu``) replaces
 ``_flash_attention_kernel_single_batch`` (flash_attention.py:342) and
 ``..._single_step`` (:484), launched from ``_flash_attention_impl``
 (:758): causal softmax(q kᵀ · sm_scale) v with an online softmax over key
 tiles, never holding the (S, S) scores. bf16 operands run on the tensor
-cores, f32 ones on FFMA; scores and sums are f32 either way.
+cores, f32 ones on FFMA; scores and sums are f32 either way. For the
+backward it also writes each row's log-sum-exp (the reference saves m
+and l, :682/:789; P = exp(s - m) / l = exp(s - lse)) through a pointer
+that is null on every serving and eval path.
 
-``flash_attention_plain`` is the same arithmetic in eager torch, in the
-kernel's order: key tiles of the kernel's width (``block_k``), a running
-max and sum, P rounded to V's dtype before PV, the accumulator rescaled by
-exp(m_old - m_new) a tile and divided by l once at the end (a row with
-l = 0 stays 0). The kernel skips causal tiles above the diagonal; here
-such a tile is wholly masked, which adds exactly nothing (its P is 0 and
-its rescale 1), so the two agree to the rounding of their dot products.
+K11 replaces ``_flash_attention_dkv_kernel`` (:796, launched at :1121):
+dV = Pᵀ dO and dK = dSᵀ Q for a key tile, over the query tiles from the
+diagonal down and, under GQA, over the kv head's query heads in order, so
+each kv head's gradient is its query heads' sum. K12 replaces
+``_flash_attention_dq_kernel`` (:1146, launched at :1456): dQ = dS K over
+the key tiles up to the diagonal. Both compute P = exp(s · sm_scale -
+lse) under the causal mask, dP = dO Vᵀ and dS = (dP - di) P · sm_scale
+with di = sum(O · dO) (a torch op, as the reference's XLA one, :273), P
+and dS rounded to the operands' dtype before their products, f32
+accumulators. ``flash_attention`` is a ``torch.autograd.Function`` over
+them when an operand requires a gradient.
 
-The backward kernels of the JAX module (dK/dV at :1121, dQ at :1456) are
-reached only through ``jax.grad`` of the training loss; they come with
-training.
+The plain versions are the same arithmetic in eager torch, in the
+kernels' order: ``flash_attention_plain`` takes key tiles of the kernel's
+width (``block_k``), a running max and sum, P rounded to V's dtype before
+PV, the accumulator rescaled by exp(m_old - m_new) a tile and divided by
+l once at the end (a row with l = 0 stays 0). The kernel skips causal
+tiles above the diagonal; here such a tile is wholly masked, which adds
+exactly nothing (its P is 0 and its rescale 1), so the two agree to the
+rounding of their dot products. ``flash_bwd_dkv_plain`` and
+``flash_bwd_dq_plain`` (together ``flash_attention_bwd_plain``) walk the
+same key tiles and round P and dS where the kernels do.
 """
 
 import torch
@@ -36,10 +51,12 @@ def block_k(dtype):
     return 64 if dtype == torch.bfloat16 else 32
 
 
-def flash_attention_plain(q, k, v, *, sm_scale=1.0):
+def flash_attention_plain(q, k, v, *, sm_scale=1.0, return_lse=False):
     """Causal. q (B, H, S, D), k/v (B, Hkv, S, D) with Hkv dividing H
     (query head h reads kv head h // (H // Hkv)). Returns (B, H, S, D) in
-    q's dtype."""
+    q's dtype and, with ``return_lse``, each row's f32 log-sum-exp of its
+    scaled scores, m + log(l) (B, H, S), as K10 writes it for the
+    backward."""
     B, H, S, D = q.shape
     n_rep = H // k.shape[1]
     if n_rep > 1:
@@ -67,7 +84,85 @@ def flash_attention_plain(q, k, v, *, sm_scale=1.0):
         acc = alpha[..., None] * acc + pv
         m = m_new
     inv = torch.where(l == 0.0, 1.0, 1.0 / l)
-    return (acc * inv[..., None]).to(q.dtype)
+    out = (acc * inv[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
+
+
+def flash_di(out, do):
+    """di = sum_d O * dO in f32 (B, H, S): the backward's row term, a torch
+    op as the reference's XLA reduction (flash_attention.py:273)."""
+    return (out.to(torch.float32) * do.to(torch.float32)).sum(dim=-1)
+
+
+def _bwd_tiles(q, k, v, lse, do, di, sm_scale):
+    """The backward's key tiles in K11/K12's width (``block_k``): for each,
+    (j0, j1, P, dS) in f32, P = exp(s · sm_scale - lse) under the causal
+    mask and dS = (dP - di) P · sm_scale with dP = dO V_jᵀ, the
+    reference's order of operations (flash_attention.py:890-914), over
+    every query head (kv heads repeated)."""
+    B, H, S, D = q.shape
+    n_rep = H // k.shape[1]
+    kf = k.to(torch.float32).repeat_interleave(n_rep, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(n_rep, dim=1)
+    qf, dof = q.to(torch.float32), do.to(torch.float32)
+    rows = torch.arange(S, device=q.device)[:, None]
+    bk = block_k(q.dtype)
+    for j0 in range(0, S, bk):
+        j1 = min(j0 + bk, S)
+        s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * sm_scale
+        cols = torch.arange(j0, j1, device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, float("-inf"))
+        p = torch.exp(s - lse[..., None])
+        dp = torch.matmul(dof, vf[:, :, j0:j1].transpose(-1, -2))
+        yield j0, j1, p, (dp - di[..., None]) * p * sm_scale
+
+
+def _by_kv_head(t, Hkv):
+    """(B, H, S, X) -> (B, Hkv, n_rep * S, X): a kv head's query heads'
+    rows in head order, the order K11 sums them in."""
+    B, H, S, X = t.shape
+    return t.reshape(B, Hkv, (H // Hkv) * S, X)
+
+
+def flash_bwd_dkv_plain(q, k, v, lse, do, di, *, sm_scale=1.0):
+    """K11's plain version: (dK, dV) in k's dtype, (B, Hkv, S, D). A key
+    tile at a time: dV_j = Pᵀ dO and dK_j = dSᵀ Q in f32 with P and dS
+    rounded to dO's dtype first, summed over the kv head's query heads in
+    head order (GQA)."""
+    Hkv = k.shape[1]
+    qg = _by_kv_head(q.to(torch.float32), Hkv)
+    dog = _by_kv_head(do.to(torch.float32), Hkv)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale):
+        pr = _by_kv_head(p.to(do.dtype).to(torch.float32), Hkv)
+        dsr = _by_kv_head(ds.to(do.dtype).to(torch.float32), Hkv)
+        dv[:, :, j0:j1] = torch.matmul(pr.transpose(-1, -2), dog)
+        dk[:, :, j0:j1] = torch.matmul(dsr.transpose(-1, -2), qg)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, lse, do, di, *, sm_scale=1.0):
+    """K12's plain version: dQ in q's dtype, (B, H, S, D): the key tiles in
+    order, dQ += dS K_j in f32 with dS rounded to K's dtype first."""
+    n_rep = q.shape[1] // k.shape[1]
+    kf = k.to(torch.float32).repeat_interleave(n_rep, dim=1)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for j0, j1, _, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale):
+        dq = dq + torch.matmul(ds.to(k.dtype).to(torch.float32),
+                               kf[:, :, j0:j1])
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, *, sm_scale=1.0):
+    """The backward of causal flash attention in K11/K12's order and
+    rounding points (the reference's _flash_attention_bwd,
+    flash_attention.py:254-318, over the log-sum-exp instead of m and l):
+    returns (dq, dk, dv), dk/dv summed over each kv head's query heads."""
+    di = flash_di(out, do)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, lse, do, di, sm_scale=sm_scale)
+    return flash_bwd_dq_plain(q, k, v, lse, do, di, sm_scale=sm_scale), \
+        dk, dv
 
 
 def flash_tolerance(q, k, v, ref, *, sm_scale=1.0):
@@ -100,10 +195,76 @@ def flash_tolerance(q, k, v, ref, *, sm_scale=1.0):
     return eps * ref.float().abs() + (eps * pmax[..., None] + 2.0 ** -17) * w
 
 
+def flash_bwd_tolerance(q, k, v, lse, do, di, dq, dk, dv, *,
+                        sm_scale=1.0):
+    """Per-element bounds on |K12 - dq| and |K11 - (dk, dv)|, the
+    references being the plain versions on the same operands (lse and di
+    included): (tol_dq, tol_dk, tol_dv) in f32. Both round the same f32
+    values at the same points; their dots and sums run in other orders:
+      - the output's rounding, one ulp: eps |ref| (eps of the operands'
+        dtype, 2^-7 for bf16);
+      - P (for dV) or dS (for dK, dQ) rounded on the other side of a
+        midpoint: one term of the sum moves by eps of itself. Two such
+        flips anywhere in an element's sum are bounded by 2 eps times the
+        root sum of squares of its terms (sqrt(sum_i (P_ij dO_id)^2) for
+        dV), which is at least the sum of its two largest terms over
+        sqrt(2);
+      - f32 sums in another order, in the products and in dP before dS
+        is formed: 2^-16 of the sum of the terms' magnitudes, with |dS|
+        widened by sm_scale P (|dO| |V_j| + |di|), dP's own magnitudes.
+    A dropped query tile, a dS without its di term or a skipped diagonal
+    key tile moves its elements by a sum of random-signed terms a few
+    times the root sum of squares, well above the bound."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    n_rep = H // Hkv
+    eps = torch.finfo(q.dtype).eps
+    f32 = torch.float32
+    qa = q.to(f32).abs()
+    doa = do.to(f32).abs()
+    ka = k.to(f32).abs().repeat_interleave(n_rep, dim=1)
+    va = v.to(f32).abs().repeat_interleave(n_rep, dim=1)
+    qg, q2g = _by_kv_head(qa, Hkv), _by_kv_head(qa * qa, Hkv)
+    dog, do2g = _by_kv_head(doa, Hkv), _by_kv_head(doa * doa, Hkv)
+    sum_dv = torch.zeros(k.shape, dtype=f32, device=q.device)
+    rss_dv = torch.zeros_like(sum_dv)
+    sum_dk = torch.zeros_like(sum_dv)
+    rss_dk = torch.zeros_like(sum_dv)
+    sum_dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+    rss_dq = torch.zeros_like(sum_dq)
+    for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale):
+        kj, vj = ka[:, :, j0:j1], va[:, :, j0:j1]
+        a = ds.abs() + sm_scale * p * (
+            torch.matmul(doa, vj.transpose(-1, -2)) + di.abs()[..., None])
+        pg, ag = _by_kv_head(p, Hkv), _by_kv_head(a, Hkv)
+        sum_dv[:, :, j0:j1] = torch.matmul(pg.transpose(-1, -2), dog)
+        rss_dv[:, :, j0:j1] = torch.matmul((pg * pg).transpose(-1, -2),
+                                           do2g)
+        sum_dk[:, :, j0:j1] = torch.matmul(ag.transpose(-1, -2), qg)
+        ds2 = _by_kv_head(ds * ds, Hkv)
+        rss_dk[:, :, j0:j1] = torch.matmul(ds2.transpose(-1, -2), q2g)
+        sum_dq += torch.matmul(a, kj)
+        rss_dq += torch.matmul(ds * ds, kj * kj)
+
+    def bound(ref, rss, total):
+        return (eps * ref.to(f32).abs() + 2 * eps * rss.sqrt()
+                + 2.0 ** -16 * total)
+
+    return (bound(dq, rss_dq, sum_dq), bound(dk, rss_dk, sum_dk),
+            bound(dv, rss_dv, sum_dv))
+
+
 def _strides(t):
     """(batch, head, row) element strides; a dimension of size 1 has
     none."""
     return [0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+
+
+def _strides_ok(t):
+    """The last dimension contiguous and every row 16-byte aligned."""
+    per = 16 // t.element_size()
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and \
+        not any(s % per for s in _strides(t))
 
 
 def flash_check(q, k, v):
@@ -124,10 +285,8 @@ def flash_check(q, k, v):
         raise ValueError("flash_attention: needs bf16 or f32 q, k, v of one "
                          "dtype (got {}, {}, {})".format(q.dtype, k.dtype,
                                                           v.dtype))
-    per = 16 // q.element_size()
     for t in (q, k, v):
-        if t.stride(3) != 1 or t.data_ptr() % 16 or \
-                any(s % per for s in _strides(t)):
+        if not _strides_ok(t):
             raise ValueError("flash_attention: strides {} not taken (the "
                              "last dimension contiguous, rows 16-byte "
                              "aligned)".format(tuple(t.stride())))
@@ -138,6 +297,132 @@ def flash_check(q, k, v):
                              q.device, k.device, v.device))
 
 
+def _k10(q, k, v, sm_scale, lse):
+    """Launch K10, writing each row's log-sum-exp into ``lse`` unless it
+    is None (the serving and eval paths pass None: a null pointer)."""
+    flash_check(q, k, v)
+    B, H, S, D = q.shape
+    out = torch.empty_like(q)  # q's strides where q is dense
+    err = _kernels.lib().sbt_flash_attention(
+        _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
+        None if lse is None else _kernels.ptr(lse), _DTYPES[q.dtype], B, H,
+        k.shape[1], S, D, float(sm_scale), *_strides(q), *_strides(k),
+        *_strides(v), *_strides(out), _kernels.stream())
+    _kernels.check(err, "sbt_flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_fwd(q, k, v, *, sm_scale=1.0):
+    """K10 with the backward's statistics: (out, lse), lse (B, H, S) f32
+    the log-sum-exp of each row's scaled scores. CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, sm_scale=sm_scale,
+                                     return_lse=True)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _k10(q, k, v, sm_scale, lse), lse
+
+
+def _bwd_operands(q, k, v, do, lse, di):
+    """The backward kernels' operands: q, k, v as K10 took them (checked
+    again), dO in q's dtype and shape; any of them whose strides the
+    kernels do not take is made contiguous (never a fallback to the plain
+    version); lse and di (B, H, S) f32, contiguous."""
+    if do.shape != q.shape:
+        raise ValueError("flash_attention backward: dO {} is not q's shape "
+                         "{}".format(tuple(do.shape), tuple(q.shape)))
+    ts = [t if _strides_ok(t) else t.contiguous()
+          for t in (q, k, v, do.to(q.dtype))]
+    flash_check(*ts[:3])
+    if ts[3].device != q.device:
+        raise ValueError("flash_attention backward: dO on {}, q on {}"
+                         .format(ts[3].device, q.device))
+    stats = [t.to(device=q.device, dtype=torch.float32).contiguous()
+             for t in (lse, di)]
+    for t in stats:
+        if t.shape != q.shape[:3]:
+            raise ValueError("flash_attention backward: statistics {} are "
+                             "not (B, H, S) {}".format(tuple(t.shape),
+                                                       tuple(q.shape[:3])))
+    return ts + stats
+
+
+def flash_attention_dkv(q, k, v, lse, do, di, *, sm_scale=1.0):
+    """K11 wrapper: (dK, dV) of causal flash attention, (B, Hkv, S, D) in
+    k's dtype and strides, each kv head's gradients summed over its query
+    heads. lse from flash_attention_fwd, di = flash_di(out, dO). CPU
+    tensors take the plain version; CUDA tensors launch K11."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, lse, do, di, sm_scale=sm_scale)
+    q, k, v, do, lse, di = _bwd_operands(q, k, v, do, lse, di)
+    B, H, S, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _kernels.lib().sbt_flash_bwd_dkv(
+        *map(_kernels.ptr, (q, k, v, do, lse, di, dk, dv)), _DTYPES[q.dtype],
+        B, H, k.shape[1], S, D, float(sm_scale),
+        *[s for t in (q, k, v, do, dk, dv) for s in _strides(t)],
+        _kernels.stream())
+    _kernels.check(err, "sbt_flash_bwd_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_dq(q, k, v, lse, do, di, *, sm_scale=1.0):
+    """K12 wrapper: dQ of causal flash attention, (B, H, S, D) in q's
+    dtype and strides. CPU tensors take the plain version; CUDA tensors
+    launch K12."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, lse, do, di, sm_scale=sm_scale)
+    q, k, v, do, lse, di = _bwd_operands(q, k, v, do, lse, di)
+    B, H, S, D = q.shape
+    dq = torch.empty_like(q)
+    err = _kernels.lib().sbt_flash_bwd_dq(
+        *map(_kernels.ptr, (q, k, v, do, lse, di, dq)), _DTYPES[q.dtype],
+        B, H, k.shape[1], S, D, float(sm_scale),
+        *[s for t in (q, k, v, do, dq) for s in _strides(t)],
+        _kernels.stream())
+    _kernels.check(err, "sbt_flash_bwd_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, sm_scale=1.0):
+    """The backward of ``flash_attention`` (the reference's
+    _flash_attention_bwd, flash_attention.py:254-318): di as a torch op,
+    then K11 (dK, dV) and K12 (dQ). Returns (dq, dk, dv)."""
+    do = do.to(q.dtype)
+    di = flash_di(out, do)
+    dk, dv = flash_attention_dkv(q, k, v, lse, do, di, sm_scale=sm_scale)
+    return flash_attention_dq(q, k, v, lse, do, di, sm_scale=sm_scale), \
+        dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K10 forward with the rows' log-sum-exp saved; the backward looks
+    ``flash_attention_bwd`` up at call time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, sm_scale=1.0):
     """Causal softmax(q kᵀ · sm_scale) v in JAX's layout: q (B, H, S, D),
     k/v (B, Hkv, S, D) with Hkv dividing H. Returns (B, H, S, D) in q's
@@ -146,20 +431,15 @@ def flash_attention(q, k, v, *, sm_scale=1.0):
     CPU tensors take the plain version; CUDA tensors launch K10, which
     reads the operands through their strides (the port's (B, S, H, D)
     activations, transposed as views, are not copied) and raises on what
-    it does not take (``flash_check``)."""
+    it does not take (``flash_check``). When an operand requires a
+    gradient, the call is a ``torch.autograd.Function`` whose K10 also
+    writes the rows' log-sum-exp and whose backward is K11 and K12;
+    otherwise K10 runs without that output."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale=sm_scale)
-    flash_check(q, k, v)
-    B, H, S, D = q.shape
-    out = torch.empty_like(q)  # q's strides where q is dense
-    err = _kernels.lib().sbt_flash_attention(
-        _kernels.ptr(q), _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(out),
-        _DTYPES[q.dtype], B, H, k.shape[1], S, D, float(sm_scale),
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-        _kernels.stream())
-    _kernels.check(err, "sbt_flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _k10(q, k, v, sm_scale, None)
 
 
 flash_attention.launches = 0

@@ -1,7 +1,13 @@
-"""Per-token dynamic int8 activation quantization (port of
-``sparsebit_tpu/ops/int8_matmul.py:tokenwise_quant``). It feeds every W4A8
-matmul; on the card it is a handful of elementwise PyTorch ops, as it was
-a fused XLA reduction on the TPU."""
+"""Per-token dynamic int8 activation quantization and the int8 matmul of
+the QLoRA path (port of ``sparsebit_tpu/ops/int8_matmul.py``:
+``tokenwise_quant``, ``int8_gemm``, ``int8_matmul_dynamic`` and
+``requantize_per_input_channel``).
+
+The reference leaves all of it to XLA: a fused reduction for the
+quantization and an int8 dot with int32 accumulation. On the card the
+quantization is a handful of elementwise PyTorch ops and ``int8_gemm`` is
+``torch._int_mm``; on the CPU it is an exact integer product.
+"""
 
 import torch
 
@@ -18,4 +24,79 @@ def tokenwise_quant(x, eps=1e-8):
     absmax = x.abs().amax(dim=-1, keepdim=True)
     scale = torch.clamp_min(absmax, eps) * INV_127
     q = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def int8_gemm(xq, wq):
+    """int8 (..., K) x int8 (K, N) -> int32 (..., N) (int8_matmul.py:47).
+
+    CPU tensors take an exact product (f64 holds every sum: |127 * 128 *
+    K| < 2^53). CUDA tensors go to ``torch._int_mm``, which needs more
+    than 16 rows and K, N multiples of 8; a shape it refuses raises."""
+    lead = xq.shape[:-1]
+    K = xq.shape[-1]
+    x2 = xq.reshape(-1, K)
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError("int8_gemm: int8 operands required (got {}, {})"
+                        .format(xq.dtype, wq.dtype))
+    if wq.shape[0] != K:
+        raise ValueError("int8_gemm: x {} and w {} do not match".format(
+            tuple(xq.shape), tuple(wq.shape)))
+    if xq.device.type == "cpu":
+        out = (x2.to(torch.float64) @ wq.to(torch.float64)).to(torch.int32)
+    else:
+        M, N = x2.shape[0], wq.shape[1]
+        if M <= 16 or K % 8 or N % 8:
+            raise ValueError(
+                "int8_gemm: torch._int_mm takes M > 16 and K, N multiples "
+                "of 8 (got M={} K={} N={})".format(M, K, N))
+        out = torch._int_mm(x2.contiguous(), wq.contiguous())
+    return out.reshape(lead + (wq.shape[1],))
+
+
+def int8_dx(g, bwd_wq, bwd_scale, dtype):
+    """dx = tokenwise-int8(g) @ bwd_wq, rescaled by g's per-token scale and
+    the weight's per-input-channel scale, in ``dtype`` (int8_matmul.py:77
+    and quant_matmul.py:1152-1158)."""
+    gq, g_scale = tokenwise_quant(g)
+    return (int8_gemm(gq, bwd_wq).to(torch.float32) * g_scale
+            * bwd_scale).to(dtype)
+
+
+class _Int8MatmulDynamic(torch.autograd.Function):
+    """The reference's custom_vjp (int8_matmul.py:56-93): dx on the int8
+    path, no weight gradients."""
+
+    @staticmethod
+    def forward(ctx, x, wq, w_scale, bwd_wq, bwd_scale):
+        ctx.x_dtype = x.dtype
+        ctx.bwd = (bwd_wq, bwd_scale)
+        xq, x_scale = tokenwise_quant(x)
+        return int8_gemm(xq, wq).to(torch.float32) * x_scale * w_scale
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd_wq, bwd_scale = ctx.bwd
+        return (int8_dx(g, bwd_wq, bwd_scale, ctx.x_dtype), None, None,
+                None, None)
+
+
+def int8_matmul_dynamic(x, wq, w_scale, bwd_wq, bwd_scale):
+    """x (..., K) f32/bf16 @ int8 weights wq (K, N) -> (..., N) f32.
+
+    w_scale: (1, N) or () symmetric per-output-channel weight scale.
+    bwd_wq: (N, K) int8, the weight requantized per input channel for the
+    backward product, with bwd_scale (1, K). The gradient reaches x only."""
+    return _Int8MatmulDynamic.apply(x, wq, w_scale, bwd_wq, bwd_scale)
+
+
+def requantize_per_input_channel(wq, w_scale):
+    """(K, N) int8 + (1, N) scale -> the transposed (N, K) int8 weight and
+    its (1, K) per-input-channel scale for the backward product
+    (int8_matmul.py:96-104; codes clipped to [-128, 127] as written
+    there)."""
+    wt = (wq.to(torch.float32) * w_scale).t().contiguous()  # (N, K)
+    absmax = wt.abs().amax(dim=0, keepdim=True)
+    scale = torch.clamp_min(absmax, 1e-8) * INV_127
+    q = torch.clamp(torch.round(wt / scale), -128, 127).to(torch.int8)
     return q, scale.to(torch.float32)

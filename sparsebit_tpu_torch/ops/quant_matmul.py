@@ -22,6 +22,12 @@ Every product is ``sum_g s_g * (x_g . C_g - sum(x_g) * z_g)`` with f32
 epilogues over the groups in order. Shapes past the kernels' rule (more
 than 64 rows, an irregular K) take the reference's dense route: the f32
 weight dequantized and one matmul.
+
+Gradients (QLoRA, the backbone frozen): ``quant_matmul`` and
+``quant_matmul_a8bwd`` are ``torch.autograd.Function``s when x requires a
+gradient, with the reference's backward rules (dx only: g @ dequant(W)^T
+in f32, or the int8 product against ``prepare_a8_backward``'s weight);
+``quant_matmul_a8`` has none, as in the reference.
 """
 
 import functools
@@ -29,7 +35,11 @@ import functools
 import torch
 
 from sparsebit_tpu_torch.ops import _kernels
-from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
+from sparsebit_tpu_torch.ops.int8_matmul import (
+    INV_127,
+    int8_dx,
+    tokenwise_quant,
+)
 from sparsebit_tpu_torch.ops.packing import unpack_columns, unpack_s4_rows
 
 
@@ -424,7 +434,7 @@ def _dense(x, packed, scales, zeros, bits, gs, N):
     return x.to(torch.float32) @ W
 
 
-def quant_matmul(x, packed, scales, zeros, bits, groupsize, N, impl="auto"):
+def _qmm_fwd_impl(x, packed, scales, zeros, bits, groupsize, N, impl):
     """x (..., K) @ dequant(packed) -> f32 (..., N) (``_qmm_fwd_impl``,
     quant_matmul.py:1057-1081). impl "auto" takes K8/K7 where
     supports_planes holds, "pallas" always (a shape the kernel refuses
@@ -445,6 +455,80 @@ def quant_matmul(x, packed, scales, zeros, bits, groupsize, N, impl="auto"):
     else:
         out = _dense(x2, packed, scales, zeros, bits, groupsize, N)
     return out.reshape(lead + (N,))
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """``quant_matmul``'s custom_vjp (quant_matmul.py:1046-1106): the
+    backward is dx = g @ dequant(W)^T in f32, cast to x's dtype, and no
+    weight gradients (the backbone is frozen). Only the packed weight is
+    kept for the backward; the f32 W is dequantized there and freed."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, zeros, bits, groupsize, N, impl):
+        ctx.w = (packed, scales, zeros, bits, groupsize, N)
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        return _qmm_fwd_impl(x, packed, scales, zeros, bits, groupsize, N,
+                             impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        packed, scales, zeros, bits, groupsize, N = ctx.w
+        W = dequant_weights(packed, scales, zeros, bits, N, groupsize)
+        dx = (g.reshape(-1, N).to(torch.float32) @ W.t()).reshape(
+            ctx.x_shape).to(ctx.x_dtype)
+        return dx, None, None, None, None, None, None, None
+
+
+def quant_matmul(x, packed, scales, zeros, bits, groupsize, N, impl="auto"):
+    """x (..., K) @ dequant(packed) -> f32 (..., N); differentiable in x
+    (``_QuantMatmul``) when x requires a gradient; otherwise (serving)
+    the forward alone, without the Function's host cost."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _QuantMatmul.apply(x, packed, scales, zeros, bits, groupsize,
+                                  N, impl)
+    return _qmm_fwd_impl(x, packed, scales, zeros, bits, groupsize, N, impl)
+
+
+def prepare_a8_backward(packed, scales, zeros, bits, N, groupsize):
+    """Per-input-channel int8 requantization of W^T for the backward
+    product (quant_matmul.py:1112-1123), computed once at train-prep:
+    (bwd_wq (N, K) int8 with codes clipped to [-127, 127] as written
+    there, bwd_scale (1, K) f32)."""
+    wt = dequant_weights(packed, scales, zeros, bits, N,
+                         groupsize).t().contiguous()  # (N, K)
+    absmax = wt.abs().amax(dim=0, keepdim=True)
+    scale = torch.clamp_min(absmax, 1e-8) * INV_127
+    q = torch.clamp(torch.round(wt / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+class _QuantMatmulA8Bwd(torch.autograd.Function):
+    """``quant_matmul_a8bwd``'s custom_vjp (quant_matmul.py:1127-1166):
+    quant_matmul's forward; dx = tokenwise-int8(g) @ bwd_wq rescaled by
+    g's per-token scale and the weight's per-input-channel scale, on the
+    int8 product (``int8_gemm``)."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, zeros, bwd_wq, bwd_scale, bits,
+                groupsize, N, impl):
+        ctx.bwd = (bwd_wq, bwd_scale, N)
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        return _qmm_fwd_impl(x, packed, scales, zeros, bits, groupsize, N,
+                             impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd_wq, bwd_scale, N = ctx.bwd
+        dx = int8_dx(g.reshape(-1, N), bwd_wq, bwd_scale, ctx.x_dtype)
+        return (dx.reshape(ctx.x_shape),) + (None,) * 9
+
+
+def quant_matmul_a8bwd(x, packed, scales, zeros, bwd_wq, bwd_scale, bits,
+                       groupsize, N, impl="auto"):
+    """quant_matmul whose backward runs on the int8 product (bwd_wq,
+    bwd_scale from prepare_a8_backward)."""
+    return _QuantMatmulA8Bwd.apply(x, packed, scales, zeros, bwd_wq,
+                                   bwd_scale, bits, groupsize, N, impl)
 
 
 def _a8_dispatch(xq, x_scale, packed, scales, zeros, bits, groupsize, N,

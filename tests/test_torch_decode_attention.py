@@ -344,3 +344,158 @@ def test_flash_route_ignores_the_tpu_block_rule():
     assert not TL._flash_ok(q(2048, 96, "cuda"))
     assert TF.block_k(torch.bfloat16) == 64
     assert TF.block_k(torch.float32) == 32
+
+
+# ---- K11, K12: the flash backward ---------------------------------------------
+#
+# The port's flash_attention with operands that require a gradient is an
+# autograd.Function whose backward, for CPU tensors, is the plain version of
+# K11 (dK, dV) and K12 (dQ), flash_attention_bwd_plain. Tolerance against
+# JAX's backward kernels (jax.vjp of its bundled flash_attention, in
+# interpret mode): f32 2e-5 of max |grad| (the same f32 sums in another
+# order, P from the log-sum-exp against exp(s - m) / l); bf16 2^-6 of max
+# |grad|: both round P and dS to bf16 before their products, and the
+# reference's output O (its di = sum O dO) and P differ from the port's by
+# an ulp here and there (FLASH_TOL), which moves a rounding of dS.
+
+BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2e-5}
+
+
+def _grads_close(got, ref, dtype):
+    for g, r in zip(got, ref):
+        r = np.asarray(r.astype(jnp.float32)) if not isinstance(
+            r, torch.Tensor) else r.float().numpy()
+        err = np.abs(g.float().numpy() - r).max()
+        assert err <= BWD_TOL[dtype] * np.abs(r).max(), (err,
+                                                         np.abs(r).max())
+
+
+def _port_grads(tq, tk, tv, do, sm_scale):
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    out = TF.flash_attention(q, k, v, sm_scale=sm_scale)
+    out.backward(do)
+    return out, (q.grad, k.grad, v.grad)
+
+
+@pytest.mark.parametrize("dtype,B,H,Hkv,S,D", [
+    (torch.bfloat16, 1, 2, 2, 128, 64), (torch.float32, 1, 2, 2, 256, 64),
+    (torch.bfloat16, 1, 2, 2, 256, 128), (torch.float32, 1, 2, 2, 128, 128),
+    (torch.bfloat16, 1, 4, 2, 128, 64), (torch.float32, 1, 4, 1, 128, 64)])
+def test_flash_bwd_plain_matches_jax_flash_kernels(dtype, B, H, Hkv, S, D):
+    """dQ, dK, dV of the port's flash_attention (K11/K12's plain version)
+    against jax.vjp of JAX's bundled flash kernels in interpret mode, the
+    reference's kernel over repeated kv heads under GQA (its dK, dV summed
+    back through jnp.repeat's transpose)."""
+    import jax
+
+    (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype,
+                                      S + D + H + Hkv)
+    rng = np.random.default_rng(S + D)
+    do = torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(
+        np.float32)).to(dtype)
+    jdo = jnp.asarray(do.float().numpy(), _JDT[dtype])
+    rep = H // Hkv
+
+    def f(a, b, c):
+        return j_flash(a, jnp.repeat(b, rep, axis=1),
+                       jnp.repeat(c, rep, axis=1), causal=True,
+                       sm_scale=D ** -0.5)
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(f, jq, jk, jv)
+        ref = vjp(jdo)
+    _, got = _port_grads(tq, tk, tv, do, D ** -0.5)
+    assert [g.dtype for g in got] == [dtype] * 3
+    assert tuple(got[1].shape) == (B, Hkv, S, D)
+    _grads_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [100, 257])
+def test_flash_bwd_plain_ragged_matches_masked_autograd(dtype, S):
+    """At S the TPU kernel refuses (fault R7): the flash route's gradients
+    against torch autograd of the masked attention_scores on the same
+    operands, (B, S, H, D) layout, GQA 4 -> 2; the masked route keeps P
+    and dS in f32, so bf16 is held to BWD_TOL as against JAX."""
+    _, (tq, tk, tv) = _qkv((2, 4, S, 64), 2, dtype, S + 3)
+    do = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (2, 4, S, 64)).astype(np.float32)).to(dtype)
+    _, got = _port_grads(tq, tk, tv, do, 0.125)
+    q, k, v = (t.transpose(1, 2).clone().requires_grad_()
+               for t in (tq, tk, tv))
+    mask = torch.triu(torch.full((S, S), -1e9), diagonal=1)[None, None]
+    out = TL.attention_scores(q, TL.repeat_kv(k, 2), TL.repeat_kv(v, 2),
+                              mask)
+    out.backward(do.transpose(1, 2))
+    _grads_close(got, [t.grad.transpose(1, 2) for t in (q, k, v)], dtype)
+
+
+def _bwd_dense(q, k, v, lse, do, di, scale, round_to, fault=None):
+    """The backward as whole (S, S) matrices in f64 (another order than
+    the plain version's tiles), P and dS rounded to ``round_to`` (None:
+    kept unrounded), with a planted fault: "skip_q_tile" (K11 skips query
+    tile 2 for key tile 0), "no_di" (dS without its di term, in K11 and
+    K12) or "no_diag_tile" (K12 skips each row's own key tile). Returns
+    (dq, dk, dv) in f64, kv heads not repeated (H == Hkv)."""
+    f64 = torch.float64
+    q, k, v, do = (t.to(f64) for t in (q, k, v, do))
+    S = q.shape[2]
+    above = torch.ones((S, S), dtype=torch.bool).triu(1)
+    s = (q @ k.transpose(-1, -2) * scale).masked_fill(above, float("-inf"))
+    p = torch.exp(s - lse.to(f64)[..., None])
+    dp = do @ v.transpose(-1, -2)
+    ds = (dp - (0.0 if fault == "no_di" else di.to(f64)[..., None])) * p \
+        * scale
+
+    def rnd(t):
+        return t if round_to is None else t.to(round_to).to(f64)
+
+    p, ds = rnd(p), rnd(ds)
+    pk, dsk, dsq = p.clone(), ds.clone(), ds.clone()
+    if fault == "skip_q_tile":
+        pk[..., 128:192, 0:64] = 0.0
+        dsk[..., 128:192, 0:64] = 0.0
+    if fault == "no_diag_tile":
+        for t0 in range(0, S, 64):
+            dsq[..., t0:t0 + 64, t0:t0 + 64] = 0.0
+    return dsq @ k, dsk.transpose(-1, -2) @ q, pk.transpose(-1, -2) @ do
+
+
+@pytest.mark.parametrize("fault,touched,share", [
+    ("skip_q_tile", ("dk", "dv"), 1.0), ("no_di", ("dq", "dk"), 0.95),
+    ("no_diag_tile", ("dq",), 0.95)])
+def test_flash_bwd_tolerance_rejects_planted_faults(fault, touched, share):
+    """The per-element bounds K11/K12 are held to (flash_bwd_tolerance)
+    at bf16 S = 512: a correct backward in another order stays within
+    them, with P and dS rounded where the kernels round them or not
+    rounded at all; each planted fault puts an element over the bound in
+    at least ``share`` of the rows it touches (dK/dV rows of key tile 0
+    for a skipped query tile, every row for dS without di, the rows past
+    the first tile for a skipped diagonal tile)."""
+    B, H, S, D = 1, 4, 512, 128
+    _, (q, k, v) = _qkv((B, H, S, D), H, torch.bfloat16, 72)
+    do = torch.from_numpy(np.random.default_rng(73).standard_normal(
+        (B, H, S, D)).astype(np.float32)).to(torch.bfloat16)
+    scale = D ** -0.5
+    out, lse = TF.flash_attention_plain(q, k, v, sm_scale=scale,
+                                        return_lse=True)
+    di = TF.flash_di(out, do)
+    dk, dv = TF.flash_bwd_dkv_plain(q, k, v, lse, do, di, sm_scale=scale)
+    dq = TF.flash_bwd_dq_plain(q, k, v, lse, do, di, sm_scale=scale)
+    refs = {"dq": dq, "dk": dk, "dv": dv}
+    tols = dict(zip(("dq", "dk", "dv"), TF.flash_bwd_tolerance(
+        q, k, v, lse, do, di, dq, dk, dv, sm_scale=scale)))
+
+    def over(grads):
+        return {n: ((g - refs[n].double()).abs() > tols[n].double()).any(
+            dim=-1) for n, g in zip(("dq", "dk", "dv"), grads)}
+
+    for round_to in (torch.bfloat16, None):
+        assert not any(o.any() for o in over(_bwd_dense(
+            q, k, v, lse, do, di, scale, round_to)).values())
+    bad = over(_bwd_dense(q, k, v, lse, do, di, scale, torch.bfloat16,
+                          fault))
+    rows = {"skip_q_tile": slice(0, 64), "no_di": slice(0, S),
+            "no_diag_tile": slice(64, S)}[fault]
+    for n in touched:
+        assert bad[n][..., rows].float().mean().item() >= share, n

@@ -717,3 +717,213 @@ def test_llama_13b_and_init_params_match_jax(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         TL.init_llama_params(cfg_t)
+
+
+# ---- QLoRA (llm/qlora.py) -----------------------------------------------------
+#
+# llama_tiny (head_dim 64, GQA 4 -> 2) quantized by the JAX package (RTN
+# INT4 g32, as tests/test_llm.py), wrapped with r = 4 adapters on wq/wv and
+# carried across by params_from_numpy; the adapters' A and B come from
+# numpy (B nonzero, so that gradients reach A too) into both packages.
+# Tolerance on the adapters' gradients: relative norm 0.05 and cosine
+# 0.999 against jax.grad: bf16 activations round differently where f32
+# sums run in another order (the port's plain K8 groups against the
+# reference's dense product on the CPU), and the int8 backward requantizes
+# each g row, so a code moves by one where two roundings disagree; the
+# loss within LOSS_RTOL.
+
+GRAD_REL, GRAD_COS = 0.05, 0.999
+
+
+@pytest.fixture(scope="module")
+def qlora_tiny():
+    from sparsebit_tpu.llm import qlora as JQ
+
+    cfg_j = JL.llama_tiny()
+    jp = JL.init_llama_params(cfg_j, jax.random.PRNGKey(0))
+    rtn = jax.jit(lambda w: JQuant.from_dense(w.astype(jnp.float32),
+                                              bits=4, groupsize=32))
+    qp = JL.quantize_llama_params(jp, lambda p, lin: rtn(lin.w))
+    lp = JQ.wrap_llama_lora(qp, r=4, targets=("wq", "wv"))
+    rng = np.random.default_rng(7)
+    lora = {key: {n: (rng.standard_normal(a.shape) * 0.05).astype(
+        np.float32) for n, a in leaves.items()}
+        for key, leaves in JQ.extract_lora(lp).items()}
+    return cfg_j, lp, TL.llama_tiny(), lora
+
+
+def _loras(lora):
+    """The numpy adapters as (JAX tree, port tree of fresh tensors)."""
+    j = {k: {n: jnp.asarray(a) for n, a in v.items()} for k, v in
+         lora.items()}
+    t = {k: {n: torch.from_numpy(a.copy()) for n, a in v.items()} for k, v
+         in lora.items()}
+    return j, t
+
+
+def _flat(tree, get=lambda t: t):
+    return np.concatenate([np.asarray(get(tree[k][n]), np.float32).ravel()
+                           for k in sorted(tree) for n in ("lora_A",
+                                                           "lora_B")])
+
+
+def _grads_agree(a, b, rel=GRAD_REL, cos=GRAD_COS):
+    r = np.linalg.norm(a - b) / np.linalg.norm(b)
+    c = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+    assert r < rel and c > cos, (r, c)
+
+
+def _tensors(tree):
+    """Every tensor of a params tree (linears' fields included)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    if hasattr(tree, "__dict__"):
+        return _tensors(tree.__dict__)
+    return []
+
+
+@pytest.mark.parametrize("route,prepared", [
+    ("masked", False), ("masked", True), ("flash", False)],
+    indirect=["route"])
+def test_qlora_loss_and_grads_match_jax(qlora_tiny, route, prepared):
+    """qlora_loss_fn and the adapters' gradients against
+    jax.value_and_grad(qlora_loss_fn), the dense backward and, after
+    prepare_train, the int8 one, on the masked route and on the flash
+    route (the port's flash autograd.Function on the plain versions of
+    K10/K11/K12, JAX's flash kernels in interpret mode): B = 2, S = 32
+    masked, 128 flash (the TPU kernel's block)."""
+    from sparsebit_tpu.llm import qlora as JQ
+    from sparsebit_tpu_torch.llm import qlora as TQ
+
+    cfg_j, lp, cfg_t, lora = qlora_tiny
+    if prepared:
+        lp = jax.jit(JQ.prepare_train)(lp)
+    tp = params_from_numpy(jax_tree_to_numpy(lp), "cpu")
+    toks = _tokens(2, 129 if route == "flash" else 33, 14)
+    jl, tl = _loras(lora)
+    j_loss, j_grads = jax.jit(jax.value_and_grad(JQ.qlora_loss_fn),
+                              static_argnums=3)(jl, lp, jnp.asarray(toks),
+                                                cfg_j)
+    TQ.lora_parameters(tl)
+    t_loss = TQ.qlora_loss_fn(tl, tp, torch.from_numpy(toks), cfg_t)
+    t_loss.backward()
+    assert abs(t_loss.item() - float(j_loss)) <= LOSS_RTOL * float(j_loss)
+    _grads_agree(_flat(tl, lambda t: t.grad), _flat(j_grads))
+
+
+def test_qlora_adamw_steps_match_optax(qlora_tiny):
+    """Two qlora_train_steps with adamw (torch's AdamW at optax.adamw's
+    weight decay 1e-4) against two JAX qlora_train_steps with
+    optax.adamw: the losses within LOSS_RTOL; the optimiser itself against
+    optax.adamw fed the port's own gradients, leaves within 1e-7 + 1e-6
+    relative (f32 updates in another order). Only the adapters change:
+    every backbone tensor is bit-equal after the steps."""
+    import optax
+
+    from sparsebit_tpu.llm import qlora as JQ
+    from sparsebit_tpu_torch.llm import qlora as TQ
+
+    cfg_j, lp, cfg_t, lora = qlora_tiny
+    tp = params_from_numpy(jax_tree_to_numpy(lp), "cpu")
+    backbone = [t.clone() for t in _tensors(tp)]
+    toks = _tokens(2, 33, 15)
+    lr = 1e-3
+    jl, tl = _loras(lora)
+    j_opt = optax.adamw(lr)
+    j_step = jax.jit(JQ.qlora_train_step, static_argnums=(4, 5))
+    state = j_opt.init(jl)
+    opt = TQ.adamw(tl, lr)
+    assert opt.defaults["weight_decay"] == 1e-4
+    t_grads = []
+    for _ in range(2):
+        jl, state, j_loss = j_step(jl, state, lp, jnp.asarray(toks), cfg_j,
+                                   j_opt)
+        tl, t_loss = TQ.qlora_train_step(tl, opt, tp, torch.from_numpy(toks),
+                                         cfg_t)
+        assert abs(t_loss.item() - float(j_loss)) <= LOSS_RTOL * float(
+            j_loss)
+        t_grads.append({k: {n: jnp.asarray(t.grad.numpy()) for n, t in
+                            v.items()} for k, v in tl.items()})
+    ref, _ = _loras(lora)
+    state = j_opt.init(ref)
+    for g in t_grads:
+        updates, state = j_opt.update(g, state, ref)
+        ref = optax.apply_updates(ref, updates)
+    got, want = _flat(tl, lambda t: t.detach()), _flat(ref)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert (got != _flat(lora)).all()
+    for a, b in zip(backbone, _tensors(tp)):
+        assert torch.equal(a, b)
+
+
+def test_qlora_wrap_merge_and_prepare_train(qlora_tiny):
+    """wrap_llama_lora starts as the base (B = 0, A ~ N(0, 1/K)); after
+    training-like adapters merge_llama_lora's dense weights give the
+    injected forward's logits (within 2e-2, the reference's own test);
+    prepare_train gives every QuantLinear, LoRA bases included, an int8
+    W^T, and params_from_numpy carries them across equal to the JAX
+    package's."""
+    from sparsebit_tpu.llm import qlora as JQ
+    from sparsebit_tpu_torch.llm import qlora as TQ
+
+    cfg_j, lp, cfg_t, lora = qlora_tiny
+    qp = params_from_numpy(jax_tree_to_numpy(lp), "cpu")
+    base = {**qp, "layers": [{k: (v.base if isinstance(v, TQ.LoraLinear)
+                                  else v) for k, v in layer.items()}
+                             for layer in qp["layers"]]}
+    wrapped = TQ.wrap_llama_lora(base, r=4, targets=("wq", "wv"),
+                                 generator=torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(_tokens(2, 16, 16))
+    a = wrapped["layers"][1]["wv"].lora_A
+    assert tuple(a.shape) == (cfg_t.dim, 4) and not wrapped["layers"][1][
+        "wv"].lora_B.any()
+    assert 0.5 < a.std().item() * cfg_t.dim ** 0.5 < 1.5
+    assert torch.equal(TL.llama_forward(wrapped, toks, cfg_t),
+                       TL.llama_forward(base, toks, cfg_t))
+    _, tl = _loras(lora)
+    injected = TQ.inject_lora(wrapped, tl)
+    merged = TQ.merge_llama_lora(injected)
+    assert isinstance(merged["layers"][0]["wq"], TL.DenseLinear)
+    np.testing.assert_allclose(
+        TL.llama_forward(merged, toks, cfg_t).numpy(),
+        TL.llama_forward(injected, toks, cfg_t).numpy(), rtol=2e-2,
+        atol=2e-2)
+    jt = jax.jit(JQ.prepare_train)(lp)  # as the reference runs it
+    tt = params_from_numpy(jax_tree_to_numpy(jt), "cpu")
+    mine = TQ.prepare_train(qp)
+    for lj, lt in zip(tt["layers"], mine["layers"]):
+        for name in ("wq", "wo"):
+            j_lin, t_lin = lj[name], lt[name]
+            if name == "wq":
+                j_lin, t_lin = j_lin.base, t_lin.base
+            assert t_lin.bwd_wq.dtype == torch.int8
+            assert torch.equal(t_lin.bwd_wq, j_lin.bwd_wq)
+            assert torch.equal(t_lin.bwd_scale, j_lin.bwd_scale)
+
+
+def test_qlora_int8_grads_stay_near_f32(qlora_tiny):
+    """The reference's own bound (tests/test_llm.py:240-279) on the port:
+    the adapters' gradients through the int8 backward (prepare_train)
+    within relative norm 0.15 and cosine 0.99 of the dense backward's,
+    and a train step through it runs and moves the adapters."""
+    from sparsebit_tpu_torch.llm import qlora as TQ
+
+    _, lp, cfg_t, lora = qlora_tiny
+    qp = params_from_numpy(jax_tree_to_numpy(lp), "cpu")
+    toks = torch.from_numpy(_tokens(2, 17, 17))
+    flat = []
+    for params in (qp, TQ.prepare_train(qp)):
+        _, tl = _loras(lora)
+        TQ.lora_parameters(tl)
+        TQ.qlora_loss_fn(tl, params, toks, cfg_t).backward()
+        flat.append(_flat(tl, lambda t: t.grad))
+    _grads_agree(flat[1], flat[0], rel=0.15, cos=0.99)
+    _, tl = _loras(lora)
+    _, loss = TQ.qlora_train_step(tl, TQ.adamw(tl, 1e-2), params, toks,
+                                  cfg_t)
+    assert torch.isfinite(loss)
+    assert (_flat(tl, lambda t: t.detach()) != _flat(lora)).any()

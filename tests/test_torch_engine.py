@@ -31,6 +31,7 @@ import torch
 
 from sparsebit_tpu.llm import decode as JD
 from sparsebit_tpu.llm import llama as JL
+from sparsebit_tpu.llm.qlora import LoraLinear as JLora
 from sparsebit_tpu.llm.quant import DenseLinear as JDense
 from sparsebit_tpu.llm.quant import QuantLinear as JQuant
 from sparsebit_tpu.llm.serving import DecodeEngine as JEngine
@@ -58,13 +59,20 @@ def jax_tree_to_numpy(tree):
     """JAX params -> the numpy tree params_from_numpy reads (bf16 as a
     uint16 view)."""
     if isinstance(tree, JQuant):
-        return {"packed": {k: _np(v) for k, v in tree.packed.items()},
-                "scales": _np(tree.scales), "zeros": _np(tree.zeros),
-                "bits": tree.bits, "groupsize": tree.groupsize,
-                "out_features": tree.out_features,
-                "bias": None if tree.bias is None else _np(tree.bias),
-                "perm": None if tree.perm is None else _np(tree.perm),
-                "impl": tree.impl}
+        out = {"packed": {k: _np(v) for k, v in tree.packed.items()},
+               "scales": _np(tree.scales), "zeros": _np(tree.zeros),
+               "bits": tree.bits, "groupsize": tree.groupsize,
+               "out_features": tree.out_features,
+               "bias": None if tree.bias is None else _np(tree.bias),
+               "perm": None if tree.perm is None else _np(tree.perm),
+               "impl": tree.impl}
+        if tree.bwd_wq is not None:  # after prepare_backward
+            out.update(bwd_wq=_np(tree.bwd_wq), bwd_scale=_np(tree.bwd_scale))
+        return out
+    if isinstance(tree, JLora):
+        return {"base": jax_tree_to_numpy(tree.base),
+                "lora_A": _np(tree.lora_A), "lora_B": _np(tree.lora_B),
+                "alpha": tree.alpha, "dropout": tree.dropout}
     if isinstance(tree, JDense):
         return {"w": _np(tree.w),
                 "bias": None if tree.bias is None else _np(tree.bias)}

@@ -811,3 +811,161 @@ def test_causal_attention_on_the_card_takes_k10(cuda):
     assert FA.flash_attention.launches == before + 1
     assert out.shape == q.shape and out.dtype == q.dtype
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def _bwd_operands(cuda, dtype, B, H, Hkv, S, D, layout, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def make(h):
+        shape = (B, S, h, D) if layout == "bshd" else (B, h, S, D)
+        t = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        return t.transpose(1, 2) if layout == "bshd" else t
+
+    return make(H), make(Hkv), make(Hkv), make(H)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,D,layout", [
+    (1, 8, 8, 512, 128, "bshd"), (2, 4, 4, 256, 128, "bhsd"),
+    (1, 4, 4, 256, 64, "bshd"), (1, 4, 4, 256, 256, "bshd"),
+    (2, 4, 4, 100, 128, "bshd"), (1, 4, 4, 2047, 128, "bhsd"),
+    (1, 2, 2, 1, 64, "bhsd"), (1, 32, 8, 256, 128, "bshd"),
+    (1, 8, 2, 130, 256, "bshd"), (2, 4, 1, 77, 64, "bhsd")])
+def test_k11_k12_kernels_match_plain(cuda, dtype, B, H, Hkv, S, D, layout):
+    """K10's log-sum-exp, K11 (dK, dV) and K12 (dQ) against their plain
+    versions on the same operands (the kernels' lse and di given to both):
+    ragged S (100, 2047, 130, 77, 1), GQA n_rep 1/2/4/8, head_dim
+    64/128/256, f32, both layouts. Each element within its own bound
+    (flash_bwd_tolerance); lse within 2^-14 (K10's m + log l against the
+    plain version's); outputs in the operands' layouts; each wrapper
+    counts one launch; a second call gives the same bits."""
+    q, k, v, do = _bwd_operands(cuda, dtype, B, H, Hkv, S, D, layout,
+                                S + D + H + Hkv)
+    scale = D ** -0.5
+    before = (FA.flash_attention.launches, FA.flash_attention_dkv.launches,
+              FA.flash_attention_dq.launches)
+    out, lse = FA.flash_attention_fwd(q, k, v, sm_scale=scale)
+    ref, ref_lse = FA.flash_attention_plain(q, k, v, sm_scale=scale,
+                                            return_lse=True)
+    di = FA.flash_di(out, do)
+    dk, dv = FA.flash_attention_dkv(q, k, v, lse, do, di, sm_scale=scale)
+    dq = FA.flash_attention_dq(q, k, v, lse, do, di, sm_scale=scale)
+    pdk, pdv = FA.flash_bwd_dkv_plain(q, k, v, lse, do, di, sm_scale=scale)
+    pdq = FA.flash_bwd_dq_plain(q, k, v, lse, do, di, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention.launches, FA.flash_attention_dkv.launches,
+            FA.flash_attention_dq.launches) == tuple(n + 1 for n in before)
+    assert (lse - ref_lse).abs().max().item() <= 2.0 ** -14
+    tol = FA.flash_tolerance(q, k, v, ref, sm_scale=scale)
+    assert ((out.float() - ref.float()).abs() <= tol).all()
+    tols = FA.flash_bwd_tolerance(q, k, v, lse, do, di, pdq, pdk, pdv,
+                                  sm_scale=scale)
+    for got, want, t, like in ((dq, pdq, tols[0], q), (dk, pdk, tols[1], k),
+                               (dv, pdv, tols[2], v)):
+        assert got.dtype == dtype and got.shape == like.shape
+        assert got.stride() == like.stride()
+        assert ((got.float() - want.float()).abs() <= t).all()
+    assert torch.equal(dq, FA.flash_attention_dq(q, k, v, lse, do, di,
+                                                 sm_scale=scale))
+
+
+def test_flash_attention_autograd_on_the_card(cuda):
+    """flash_attention on operands that require a gradient: the backward
+    is one K11 and one K12 launch, with the gradients the wrappers give
+    on the same operands; a dO that is not contiguous (a strided slice)
+    is copied, not refused. Without a gradient K10 runs as before."""
+    q, k, v, do = _bwd_operands(cuda, torch.bfloat16, 2, 8, 2, 200, 128,
+                                "bshd", 5)
+    do = torch.cat([do, do], dim=-1)[..., ::2]  # last stride 2
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    before = (FA.flash_attention.launches, FA.flash_attention_dkv.launches,
+              FA.flash_attention_dq.launches)
+    out = FA.flash_attention(qr, kr, vr, sm_scale=0.125)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (FA.flash_attention.launches, FA.flash_attention_dkv.launches,
+            FA.flash_attention_dq.launches) == tuple(n + 1 for n in before)
+    o2, lse = FA.flash_attention_fwd(q, k, v, sm_scale=0.125)
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, o2, lse, do,
+                                        sm_scale=0.125)
+    assert torch.equal(out.detach(), o2)
+    for a, b in ((qr.grad, dq), (kr.grad, dk), (vr.grad, dv)):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        FA.flash_attention(qr, kr, vr, sm_scale=0.125)
+    assert FA.flash_attention.launches == before[0] + 3
+    assert FA.flash_attention_dkv.launches == before[1] + 2
+
+
+def test_k11_k12_wrappers_raise_on_what_they_do_not_take(cuda):
+    """head_dim 96 and f16 raise on the card; a dO of another shape too;
+    nothing falls back to the plain version."""
+    before = (FA.flash_attention_dkv.launches, FA.flash_attention_dq.launches)
+    z = torch.zeros((1, 4, 64), device=cuda)
+    for D, dt in ((96, torch.bfloat16), (128, torch.float16)):
+        q = torch.zeros((1, 4, 64, D), dtype=dt, device=cuda)
+        with pytest.raises(ValueError):
+            FA.flash_attention_dkv(q, q, q, z, q, z)
+        with pytest.raises(ValueError):
+            FA.flash_attention_dq(q, q, q, z, q, z)
+    q = torch.zeros((1, 4, 64, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        FA.flash_attention_dq(q, q, q, z, q[:, :, :32], z)
+    assert (FA.flash_attention_dkv.launches,
+            FA.flash_attention_dq.launches) == before
+
+
+@pytest.mark.parametrize("mode", ["dense", "int8"])
+def test_qlora_train_step_on_the_card_matches_the_cpu(cuda, mode):
+    """One qlora_train_step of llama_tiny (head_dim 64, GQA 4 -> 2) over
+    RTN INT4-g64 column-plane linears with r = 4 adapters on wq/wv (B
+    nonzero), B = 2 x 65 tokens, the dense or the int8 backward: on the
+    card through K10/K11/K12 (one each a layer) and the dense linears at
+    M = 128, on the CPU through the masked route. The loss within 1e-3
+    relative; the adapters' gradients within relative norm and cosine
+    (0.05, 0.999) dense, (0.15, 0.99) int8 (chip_smoke.py's
+    QLORA_GRAD_TOL: the int8 backward requantizes g per token, so a code
+    moves where two correct orders round differently)."""
+    from sparsebit_tpu_torch.llm import qlora as Q
+    from sparsebit_tpu_torch.llm.llama import init_llama_params
+    from sparsebit_tpu_torch.llm.quant import QuantLinear
+
+    cfg = llama_tiny()
+    dense = init_llama_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    params = dict(dense, layers=[
+        {k: (QuantLinear.from_dense(v.w.float(), bits=4, groupsize=64)
+             if hasattr(v, "w") else v) for k, v in layer.items()}
+        for layer in dense["layers"]])
+    params = Q.wrap_llama_lora(params, r=4, generator=torch.Generator()
+                               .manual_seed(1))
+    if mode == "int8":
+        params = Q.prepare_train(params)
+    rng = np.random.default_rng(12)
+    lora0 = {k: {n: torch.from_numpy((rng.standard_normal(t.shape) * 0.05)
+                                     .astype(np.float32))
+                 for n, t in v.items()}
+             for k, v in Q.extract_lora(params).items()}
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65)))
+    before = [w.launches for w in (FA.flash_attention,
+                                   FA.flash_attention_dkv,
+                                   FA.flash_attention_dq)]
+    res = {}
+    for dev in ("cpu", cuda):
+        lora = {k: {n: t.clone().to(dev) for n, t in v.items()}
+                for k, v in lora0.items()}
+        opt = Q.adamw(lora, 1e-3)
+        _, loss = Q.qlora_train_step(lora, opt, _to(params, dev),
+                                     tokens.to(dev), cfg)
+        grads = torch.cat([lora[k][n].grad.reshape(-1).cpu() for k in
+                           sorted(lora) for n in ("lora_A", "lora_B")])
+        res[str(dev)] = (loss.item(), grads)
+    torch.cuda.synchronize()
+    after = [w.launches for w in (FA.flash_attention, FA.flash_attention_dkv,
+                                  FA.flash_attention_dq)]
+    assert [a - b for a, b in zip(after, before)] == [cfg.n_layers] * 3
+    (lc, gc), (lg, gg) = res["cpu"], res[str(cuda)]
+    assert abs(lg - lc) <= 1e-3 * abs(lc)
+    rel_tol, cos_tol = {"dense": (0.05, 0.999), "int8": (0.15, 0.99)}[mode]
+    assert ((gg - gc).norm() / gc.norm()).item() <= rel_tol
+    assert (gg @ gc / (gg.norm() * gc.norm())).item() >= cos_tol

@@ -186,3 +186,176 @@ def test_planes_plan_fills_the_card(bits, M, K, N, gs):
     assert gps == 1 or gps * gs <= 512
     tiles = -(-(N // P) // CB)
     assert tiles * splits >= 2 * 132 or splits == G
+
+
+# ---- gradients (QLoRA): the int8 backward and quant_matmul's dx --------------
+#
+# The JAX side runs under jax.jit, where XLA folds its division by 127 into
+# the multiply the port uses (ROADMAP, Numerics), so int8 codes are equal.
+# dx tolerance: 1e-5 of max |dx| for the f32 products (the same f32 terms
+# summed in another order; the plain K8/K7 route and the dense route of
+# the forward agree to 1e-4, the module's oracle); the int8 backward's dx is
+# exact integer sums times f32 scales, 1e-6 of max |dx|.
+
+def _int8_weight(seed, K_, N_):
+    rng = np.random.default_rng(seed)
+    wq = rng.integers(-127, 128, (K_, N_)).astype(np.int8)
+    w_scale = rng.uniform(0.001, 0.01, (1, N_)).astype(np.float32)
+    return wq, w_scale
+
+
+def test_requantize_per_input_channel_matches_jax():
+    """Codes (clipped to [-128, 127]) and per-K scales equal to the
+    jitted reference."""
+    import jax
+
+    from sparsebit_tpu.ops.int8_matmul import (
+        requantize_per_input_channel as j_req)
+    from sparsebit_tpu_torch.ops.int8_matmul import (
+        requantize_per_input_channel)
+
+    wq, w_scale = _int8_weight(1, 96, 40)
+    jq, js = jax.jit(j_req)(jnp.asarray(wq), jnp.asarray(w_scale))
+    tq, ts = requantize_per_input_channel(torch.from_numpy(wq),
+                                          torch.from_numpy(w_scale))
+    assert tq.dtype == torch.int8 and tuple(tq.shape) == (40, 96)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_dynamic_and_its_dx_match_jax(dtype):
+    """int8_matmul_dynamic's output and its dx (the reference's
+    custom_vjp: tokenwise-int8(g) @ bwd_wq) against jax.vjp, x of 20 rows
+    in f32 or bf16; dx in x's dtype. A bf16 x is quantized in bf16 as the
+    reference is written (equal codes); XLA on the CPU keeps that scale in
+    f32 (excess precision), the port rounds it to bf16, so the bf16
+    output is held to 2^-8 of max |out| (one bf16 rounding)."""
+    import jax
+
+    from sparsebit_tpu.ops.int8_matmul import int8_matmul_dynamic as j_imm
+    from sparsebit_tpu.ops.int8_matmul import (
+        requantize_per_input_channel as j_req)
+    from sparsebit_tpu_torch.ops import int8_matmul as TI
+
+    wq, w_scale = _int8_weight(2, 64, 48)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 5, 64)).astype(
+        np.float32)).to(dtype)
+    g = rng.standard_normal((4, 5, 48)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx = jnp.asarray(x.float().numpy(), jdt)
+    jw, jws = jnp.asarray(wq), jnp.asarray(w_scale)
+    jbw, jbs = j_req(jw, jws)
+
+    def f(a, gg):
+        out, vjp = jax.vjp(lambda t: j_imm(t, jw, jws, jbw, jbs), a)
+        return out, vjp(gg)[0]
+
+    jout, jdx = jax.jit(f)(jx, jnp.asarray(g))
+    bw, bs = TI.requantize_per_input_channel(torch.from_numpy(wq),
+                                             torch.from_numpy(w_scale))
+    xr = x.clone().requires_grad_()
+    out = TI.int8_matmul_dynamic(xr, torch.from_numpy(wq),
+                                 torch.from_numpy(w_scale), bw, bs)
+    out.backward(torch.from_numpy(g))
+    assert out.dtype == torch.float32 and xr.grad.dtype == dtype
+    ref = np.asarray(jout)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    assert np.abs(out.detach().numpy() - ref).max() <= tol * np.abs(
+        ref).max()
+    jd = np.asarray(jdx.astype(jnp.float32))
+    assert np.abs(xr.grad.float().numpy() - jd).max() <= tol * np.abs(
+        jd).max()
+
+
+def test_int8_gemm_is_exact_and_refuses_other_types():
+    from sparsebit_tpu_torch.ops.int8_matmul import int8_gemm
+
+    rng = np.random.default_rng(4)
+    a = rng.integers(-128, 128, (3, 7, 4096)).astype(np.int8)
+    b = rng.integers(-128, 128, (4096, 24)).astype(np.int8)
+    out = int8_gemm(torch.from_numpy(a), torch.from_numpy(b))
+    assert out.dtype == torch.int32 and tuple(out.shape) == (3, 7, 24)
+    np.testing.assert_array_equal(
+        out.numpy(), a.astype(np.int64) @ b.astype(np.int64))
+    with pytest.raises(TypeError):
+        int8_gemm(torch.from_numpy(a).float(), torch.from_numpy(b))
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 64), (3, 128), (8, -1)])
+def test_prepare_a8_backward_matches_jax(bits, gs):
+    """The int8 W^T of prepare_a8_backward (codes clipped to [-127, 127])
+    and its per-K scales equal to the jitted reference."""
+    import jax
+
+    q, s, z, _ = _operands(bits, gs, 1, 5 + bits)
+    jp = j_pack(jnp.asarray(q), bits)
+    tp = pack_columns(torch.from_numpy(q), bits)
+    jq, js = jax.jit(lambda p, a, b: JQ.prepare_a8_backward(
+        p, a, b, bits, N, gs))(jp, jnp.asarray(s), jnp.asarray(z))
+    tq, ts = TQ.prepare_a8_backward(tp, torch.from_numpy(s),
+                                    torch.from_numpy(z), bits, N, gs)
+    assert tq.dtype == torch.int8 and tuple(tq.shape) == (N, K)
+    assert int(tq.abs().max()) <= 127
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("bits,gs", [(4, 128), (3, 128)])
+@pytest.mark.parametrize("M", [8, 80])
+@pytest.mark.parametrize("a8bwd", [False, True])
+def test_quant_matmul_dx_matches_jax(bits, gs, M, a8bwd):
+    """dx of quant_matmul (g @ dequant(W)^T in f32) and of
+    quant_matmul_a8bwd (tokenwise-int8(g) @ bwd_wq) against jax.vjp of
+    the reference ops, at M = 8 (K8/K7's route on the card, their plain
+    version here) and M = 80 (the dense route); bf16 x, dx in bf16 (one
+    bf16 ulp, 2^-8 of max |dx|)."""
+    import jax
+
+    q, s, z, x = _operands(bits, gs, M, 20 + bits + M)
+    g = np.random.default_rng(M).standard_normal((M, N)).astype(np.float32)
+    jp = j_pack(jnp.asarray(q), bits)
+    tp = pack_columns(torch.from_numpy(q), bits)
+    js, jz = jnp.asarray(s), jnp.asarray(z)
+    ts, tz = torch.from_numpy(s), torch.from_numpy(z)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    jx = jnp.asarray(xb.float().numpy(), jnp.bfloat16)
+    if a8bwd:
+        jbw, jbs = JQ.prepare_a8_backward(jp, js, jz, bits, N, gs)
+        tbw, tbs = TQ.prepare_a8_backward(tp, ts, tz, bits, N, gs)
+
+        def jf(t):
+            return JQ.quant_matmul_a8bwd(t, jp, js, jz, jbw, jbs, bits, gs,
+                                         N)
+    else:
+        def jf(t):
+            return JQ.quant_matmul(t, jp, js, jz, bits, gs, N)
+
+    def f(a, gg):
+        out, vjp = jax.vjp(jf, a)
+        return out, vjp(gg)[0]
+
+    jout, jdx = jax.jit(f)(jx, jnp.asarray(g))
+    xr = xb.clone().requires_grad_()
+    out = (TQ.quant_matmul_a8bwd(xr, tp, ts, tz, tbw, tbs, bits, gs, N)
+           if a8bwd else TQ.quant_matmul(xr, tp, ts, tz, bits, gs, N))
+    out.backward(torch.from_numpy(g))
+    _close(out.detach().numpy(), jout)
+    assert xr.grad.dtype == torch.bfloat16
+    jd = np.asarray(jdx.astype(jnp.float32))
+    assert np.abs(xr.grad.float().numpy() - jd).max() <= 2.0 ** -8 * \
+        np.abs(jd).max()
+
+
+def test_quant_matmul_keeps_no_graph_without_a_gradient():
+    """Serving calls (x not requiring a gradient, or under no_grad) take
+    the forward alone: no autograd node, as before training existed."""
+    q, s, z, x = _operands(4, 128, 4, 9)
+    tp = pack_columns(torch.from_numpy(q), 4)
+    args = (tp, torch.from_numpy(s), torch.from_numpy(z), 4, 128, N)
+    assert TQ.quant_matmul(torch.from_numpy(x), *args).grad_fn is None
+    xr = torch.from_numpy(x).requires_grad_()
+    with torch.no_grad():
+        assert TQ.quant_matmul(xr, *args).grad_fn is None
+    assert TQ.quant_matmul(xr, *args).grad_fn is not None
