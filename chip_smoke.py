@@ -35,7 +35,9 @@ Phases (every failure is recorded and the script exits 1 at the end):
      of the plain version's), each element within its own bound
      (flash_bwd_tolerance), which must reject planted faults at B=4
      S=512 (a skipped query tile, dS without di, a skipped diagonal
-     tile), with SDPA's backward timed beside them;
+     tile), dQ, dK and dV bit-equal across two launches, with SDPA's
+     backward timed beside them (device ms from a graph replay, or the
+     profiler where a capture fails);
   3. a small LLaMA on the card against the same weights on the CPU:
      admission logits and teacher-forced decode logits agree;
   4. the paths, one at a time, every kernel count set to 0 before a path
@@ -926,6 +928,38 @@ def bwd_planted_shares(q, k, v, lse, do, di, refs, tols, scale):
     return out
 
 
+def sdpa_bwd_graph_ms(q, k, v, do, scale, gqa):
+    """SDPA's causal backward (dq, dk, dv in one autograd.grad over a saved
+    forward) on the device: 20 calls captured in a graph and replayed; a
+    capture that fails is tried once more. Where it fails again, the
+    profiler's device time of every kernel 10 eager calls launch, over 10.
+    Returns (ms, method)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                         scale=scale, enable_gqa=gqa)
+
+    def bwd(i):
+        return torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
+
+    for _ in range(2):
+        ms = graph_ms(bwd, 20)
+        if ms is not None:
+            return ms, "graph"
+    for i in range(3):
+        bwd(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(10):
+            bwd(i)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return (us / 10 / 1e3 if us > 0 else None), "profiler"
+
+
 def k11_k12_checks(cfg, record, g):
     """K11 (dK, dV) and K12 (dQ) against their plain versions on the card,
     causal, operands in the port's (B, S, H, hd) layout read through
@@ -939,7 +973,8 @@ def k11_k12_checks(cfg, record, g):
     at least 95 % of those of a dS without di and of a skipped diagonal
     tile). Kernel ms (CUDA events), device ms (graph replay), plain ms;
     the library call is SDPA's backward (is_causal: dq, dk, dv together),
-    timed as a yardstick only. Bounds: K11 4 and K12 3 causal-half
+    timed as a yardstick only (sdpa_bwd_graph_ms). A second launch of
+    each kernel gives the same bits. Bounds: K11 4 and K12 3 causal-half
     products of 2 B H hd S(S+1)/2 operations at the bf16 (or f32) peak,
     against q, k, v, dO, lse, di read once and the gradients written
     once."""
@@ -954,6 +989,9 @@ def k11_k12_checks(cfg, record, g):
              ("bf16", 1, 1024, cfg.dim // 256, cfg.dim // 256, 256),
              ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
              ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0)]
+    warm = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=dev)
+    # SDPA's first capture in the process, thrown away
+    sdpa_bwd_graph_ms(warm, warm, warm, warm, 0.125, False)
     for kind, B, S, H, Hkv, D in cases:
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
 
@@ -985,6 +1023,15 @@ def k11_k12_checks(cfg, record, g):
                                             pdv, sm_scale=scale)
         e11 = bwd_within((dk, dv), (pdk, pdv), (tk, tv))
         e12 = bwd_within((dq,), (pdq,), (tq,))
+        again = FA.flash_attention_dkv(q, k, v, lse, do, di, sm_scale=scale)
+        again += (FA.flash_attention_dq(q, k, v, lse, do, di,
+                                        sm_scale=scale),)
+        same = all(torch.equal(x, y) for x, y in zip((dk, dv, dq), again))
+        print("K11/K12 {}: second launch bit-equal {}".format(tag, same),
+              flush=True)
+        if not same:
+            fail("K11/K12 {}: a second launch gives other bits".format(tag))
+        del again
         if (B, S, H, Hkv) == (4, 512, H0, H0):
             shares = bwd_planted_shares(q, k, v, lse, do, di,
                                         (pdq, pdk, pdv), (tq, tk, tv), scale)
@@ -1020,7 +1067,10 @@ def k11_k12_checks(cfg, record, g):
             cuda_ms(lambda i: FA.flash_bwd_dq_plain(
                 q, k, v, lse, do, di, sm_scale=scale), 3, 1))
         lms = cuda_ms(lib, 20)
-        glib = graph_ms(lib, 20)
+        glib, how = sdpa_bwd_graph_ms(q, k, v, do, scale, Hkv < H)
+        print("SDPA backward {}: device {} ms ({})".format(
+            tag, "-" if glib is None else "{:.4f}".format(glib), how),
+            flush=True)
         gms = ((graph_ms(dkv, 20), glib), (graph_ms(dqk, 20), glib))
         esz = q.element_size()
         half = B * H * D * S * (S + 1)  # 2 B H hd S(S+1)/2

@@ -48,33 +48,59 @@
 // and l: exp(s - m) / l), dV += Pᵀ dO with P rounded to dO's type, dP =
 // dO Vᵀ, dS = (dP - di) P · sm_scale with di = sum(O dO) from the
 // caller, dK += dSᵀ Q and dQ += dS K with dS rounded first, f32
-// accumulators. Bound: operations (4 causal-half products for K11, 3 for
-// K12) against q, k, v, dO and the gradients once: at S = 2048, D = 128
-// ~4x the bytes' time; at S = 512 near balance. Design, on K10's pieces
-// (swizzled cp.async tiles, ldmatrix(.trans), mma.sync bf16, FFMA for
-// f32; wgmma, TMA and warp specialisation are a later step):
-//   - K11: a block per (64-key tile, kv head, batch row); dK and dV in
-//     registers over the q tiles from the diagonal down and, under GQA,
-//     over the kv head's query heads in order, so each kv head's gradient
-//     is its query heads' sum without atomics. Q, dO and the rows' lse
-//     and di are double-buffered. Per q tile, phase A scores the block's
-//     keys against the tile (warps split the queries) and writes Pᵀ and
-//     dSᵀ in bf16 to shared memory; phase B adds Pᵀ dO and dSᵀ Q (warps
-//     split the output columns, so no warp holds more than 64 or, at
-//     D = 256, 128 accumulator columns a matrix);
-//   - K12: K10's block (64 q rows, four warps of 16, K/V tiles
-//     double-buffered), dP beside S, dS rounded to bf16 in registers as
-//     the A operand of dQ += dS K, K read through ldmatrix.trans; at
-//     D = 256 the keys go 32 at a time to bound the registers;
-//   - f32: K10's FFMA tiling (32-row tiles, a lane a key or query for the
-//     scores, D / 32 columns a lane for the sums);
-//   - only the diagonal tile and a ragged last tile are masked; rows and
-//     keys past S load as zeros, are masked and not stored.
+// accumulators.
+//
+// Bound: operations. K11 does 4 causal-half products, K12 3, against q,
+// k, v, dO and the gradients read or written once: at S = 2048, D = 128
+// ~4x the bytes' time, at S = 512 near balance. So the design feeds the
+// tensor cores at Hopper's rate (sm_90a, flash_sm90.cuh):
+//   - wgmma, warp-specialised: a block is two consumer warpgroups (64
+//     rows each) and one producer warp whose lane 0 issues TMA copies of
+//     128-byte-swizzled 64-row tiles (4-D tensor maps over the strided
+//     (B, H, S, D) views; rows past S read as zeros and are not stored)
+//     into a ring of 3 stages (4 at D = 64) with full/empty mbarriers;
+//   - the score products take both operands from shared memory (K-major);
+//     the gradient products take P / dS (K11: Pᵀ / dSᵀ) from registers,
+//     rounded to bf16 straight from the score accumulators, and K, dO or
+//     Q from the same ring stage read MN-major (the descriptor's
+//     transpose bit), so no tile is copied twice and nothing the scores
+//     produce goes through shared memory;
+//   - P = exp2(s · sm_scale log2 e - lse log2 e) on the special-function
+//     unit, masked only on the diagonal tile (keys past S are above the
+//     diagonal of every row that is stored); dP's product runs while P is
+//     formed.
+//   - K12: a block per (128-row q tile, head, batch row), the heaviest
+//     tiles first; the producer streams K/V tiles 0 .. the diagonal; each
+//     warpgroup holds its 64 rows' Q and dO and its dQ (D / 2 f32
+//     registers a thread).
+//   - K11: a block per (key tile, kv head, batch row); the producer
+//     streams Q, dO and the rows' lse and di of the q tiles from the
+//     diagonal down, over the kv head's query heads in order. At D = 64
+//     each warpgroup owns 64 keys of a 128-key tile and sums both dK and
+//     dV. At D = 128 both own one 64-key tile: the first forms Sᵀ and sums
+//     dV, the second Sᵀ and dPᵀ and sums dK (5 products a tile instead of
+//     4). One 64 x 128 sum a thread (64 registers) keeps each warpgroup
+//     inside the 168 registers a thread that 384 (or 288) threads leave;
+//     with both sums (128) ptxas serialised every wgmma and spilled, also
+//     with setmaxnreg raising the consumers to 240 (its pipeline analysis
+//     keeps the launch's budget).
+//   - GQA: one block sums a kv head's gradients over all its query heads,
+//     so no sum uses atomics and two launches give the same bits. At
+//     hd 128 the 64-key blocks already number 256 at Hkv = 8, B = 1,
+//     S = 2048, about two an SM; splitting the heads across blocks, with f32 sums
+//     added by a second launch, took 6 % off there and was slower at
+//     B = 4, S = 512, so it is not done.
+//   - bf16 at D = 256 and f32 keep the first kernels: mma.sync and FFMA, K11
+//     a block per 64-key tile walking every query head in order, phase A
+//     writing Pᵀ and dSᵀ to shared memory for phase B's products (at
+//     D = 256 the two sums do not fit a warpgroup's registers).
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_sm90.cuh"
 #include "planes.cuh"
 
 namespace {
@@ -482,17 +508,23 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Args a) {
   }
 }
 
+// The kernel's dynamic shared memory limit, set before its first launch.
+template <auto Kernel>
+cudaError_t set_smem(size_t smem) {
+  static bool configured = false;  // one flag per kernel instantiation
+  if (configured) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  configured = e == cudaSuccess;
+  return e;
+}
+
 template <auto Kernel, typename A>
 cudaError_t launch(size_t smem, dim3 grid, const A& a, cudaStream_t st,
                    int threads = kThreads) {
-  static bool configured = false;  // one flag per kernel instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  const cudaError_t e = set_smem<Kernel>(smem);
+  if (e != cudaSuccess) return e;
   Kernel<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -546,8 +578,8 @@ __device__ __forceinline__ void load_rows(float* dst_l, float* dst_d,
   }
 }
 
-// K11, bf16. A block per (64-key tile, kv head, batch row). Warp (kw, ds)
-// of 4 x DS owns keys [16 kw, 16 kw + 16) of the tile; for each q tile
+// K11, bf16 at D = 256 (below it flash_dkv_sm90_kernel). A block per
+// (64-key tile, kv head, batch row). Warp (kw, ds) of 4 x DS owns keys [16 kw, 16 kw + 16) of the tile; for each q tile
 // (64 rows) it scores queries [QW ds, QW ds + QW) against its keys (phase
 // A: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, P and dS rounded to bf16 into shared
 // memory), then, after a barrier, adds Pᵀ dO and dSᵀ Q into its keys'
@@ -555,8 +587,9 @@ __device__ __forceinline__ void load_rows(float* dst_l, float* dst_d,
 // registers over every q tile of every query head of the kv head.
 template <int D>
 struct DkvTile {
+  static_assert(D == 256, "bf16 below D = 256 runs flash_dkv_sm90_kernel");
   static constexpr int BN = 64, BM = 64;
-  static constexpr int DS = D == 64 ? 1 : 2;  // column groups
+  static constexpr int DS = 2;  // column groups
   static constexpr int DC = D / DS, QW = BM / DS;
   static constexpr int kThreadsB = 128 * DS;
   static constexpr size_t kSmem =
@@ -722,14 +755,16 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreadsB)
   }
 }
 
-// K12, bf16: K10's shape. A block per (64-row q tile, head, batch row),
+// K12, bf16 at D = 256 (below it flash_dq_sm90_kernel): K10's shape. A
+// block per (64-row q tile, head, batch row),
 // four warps of 16 q rows; K/V tiles double-buffered; per key chunk of KN
 // keys S = Q Kᵀ and dP = dO Vᵀ, dS in registers rounded to bf16 as the A
 // operand of dQ += dS K (K through ldmatrix.trans).
 template <int D>
 struct DqTile {
+  static_assert(D == 256, "bf16 below D = 256 runs flash_dq_sm90_kernel");
   static constexpr int BM = 64, BN = 64;
-  static constexpr int KN = D == 256 ? 32 : 64;  // keys a register chunk
+  static constexpr int KN = 32;  // keys a register chunk
   static constexpr size_t kSmem =
       static_cast<size_t>(2 * BM + 4 * BN) * D * sizeof(__nv_bfloat16);
 };
@@ -1138,17 +1173,496 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- K11 and K12 on Hopper: bf16, D = 64 or 128 --------------------------
+//
+// Warp-specialised: two consumer warpgroups of 64 rows (K12: q rows, K11:
+// keys) and one producer warp whose lane 0 issues every TMA copy into a
+// ring of kStages stages (full/empty mbarriers). See the design note at
+// the top of the file.
+
+namespace sm = sbt::sm90;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Sm90Bwd {
+  static constexpr int kWG = 2;                      // consumer warpgroups
+  static constexpr int kThreads = kWG * 128 + 32;    // + the producer warp
+  static constexpr int kDkvKeys = D == 128 ? 64 : 128;
+  static constexpr int kTile = 64 * D * 2;           // bytes of 64 rows
+  static constexpr int kPanel = 64 * 128;            // a 64-row panel
+  static constexpr int kStages = D == 64 ? 4 : 3;    // ring depth
+  static constexpr int kBars = 1 + 2 * kStages;
+  // both: 2 kWG resident tiles (K12: Q, dO; K11: K, V) and 2 ring tiles a
+  // stage (K12: K, V; K11: Q, dO with the rows' lse and di)
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(2 * kWG + 2 * kStages) * kTile +
+      static_cast<size_t>(kStages) * 2 * 64 * sizeof(float) + kBars * 8;
+};
+
+// The first 1024-byte-aligned byte of dynamic shared memory (offset from
+// p itself, so that the compiler still knows the address space).
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return p + ((1024 - (sm::smem_u32(p) & 1023)) & 1023);
+}
+
+// A 64 x N f32 accumulator of one warpgroup as wgmma's register A
+// operand: N / 16 K steps of 16 columns, each rounded to bf16.
+template <int KS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4],
+                                         const float (&d)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk][e] = pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&d)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) d[i] = 0.f;
+}
+
+// K12, grid (ceil(S / 128), H, B). Warpgroup w owns q rows [q0 + 64 w,
+// q0 + 64 w + 64) of the block's 128; the producer streams the K/V tiles
+// 0 .. the block's diagonal, both warpgroups consume every stage (the
+// first skips the tile above its rows). Per tile: S = Q Kᵀ and dP = dO Vᵀ
+// (A and B from shared memory, K-major), P = exp2(S · scale log2 e -
+// lse log2 e), masked on the diagonal tile only, dS = (dP - di) P · scale
+// rounded to bf16 in registers as the A operand of dQ += dS K (K read
+// MN-major from the same stage).
+template <int D>
+__global__ void __launch_bounds__(Sm90Bwd<D>::kThreads, 1)
+    flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const BwdArgs a) {
+  using T = __nv_bfloat16;
+  using C = Sm90Bwd<D>;
+  constexpr int WG = C::kWG, ST = C::kStages, TILE = C::kTile,
+                PANEL = C::kPanel, NP = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align_1k(smem_raw);  // [WG] tiles
+  unsigned char* sdo = sq + WG * TILE;     // [WG]
+  unsigned char* sk = sdo + WG * TILE;     // [ST]
+  unsigned char* sv = sk + ST * TILE;      // [ST]
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(
+      sv + ST * TILE + ST * 2 * 64 * sizeof(float));
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.n_rep;
+  const int S = a.S, q0 = qt * 64 * WG;
+  const int n_kt = min(WG * (qt + 1), (S + 63) / 64);
+  if (threadIdx.x == 0) {
+    sm::mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      sm::mbar_init(full + s, 1);
+      sm::mbar_init(empty + s, WG * 128);
+    }
+    sm::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == WG) {  // the producer warp; one lane issues every copy
+    if (threadIdx.x == WG * 128) {
+      sm::mbar_arrive_tx(bar_q, 2 * WG * TILE);
+      for (int w = 0; w < WG; ++w)
+        for (int p = 0; p < NP; ++p) {
+          sm::tma_load_4d(sq + w * TILE + p * PANEL, &tq, bar_q, 64 * p,
+                          q0 + 64 * w, h, b);
+          sm::tma_load_4d(sdo + w * TILE + p * PANEL, &tdo, bar_q, 64 * p,
+                          q0 + 64 * w, h, b);
+        }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % ST;
+        if (j >= ST) sm::mbar_wait(empty + s, (j / ST - 1) & 1);
+        sm::mbar_arrive_tx(full + s, 2 * TILE);
+        for (int p = 0; p < NP; ++p) {
+          sm::tma_load_4d(sk + s * TILE + p * PANEL, &tk, full + s, 64 * p,
+                          64 * j, hk, b);
+          sm::tma_load_4d(sv + s * TILE + p * PANEL, &tv, full + s, 64 * p,
+                          64 * j, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+  const int diag = r0 / 64;     // its diagonal key tile
+  const bool live = r0 < S;
+  const long long srow = (static_cast<long long>(b) * gridDim.y + h) * S;
+  const float sl2 = a.sm_scale * kLog2e;
+  float lse2[2], di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + warp * 16 + g + 8 * r;
+    lse2[r] = row < S ? a.lse[srow + row] * kLog2e : 0.f;
+    di[r] = row < S ? a.di[srow + row] : 0.f;
+  }
+  float dq[D / 2];
+  zero(dq);
+  const unsigned char* qw = sq + wg * TILE;
+  const unsigned char* dow = sdo + wg * TILE;
+  sm::mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % ST;
+    sm::mbar_wait(full + s, (j / ST) & 1);
+    if (live && j <= diag) {
+      const unsigned char* kt = sk + s * TILE;
+      const unsigned char* vt = sv + s * TILE;
+      float sc[32], dp[32];
+      zero(sc);
+      zero(dp);
+      sm::fence_regs(sc);
+      sm::fence_regs(dp);
+      const uint64_t dqw = sm::opaque(sm::desc_k(qw));
+      const uint64_t ddo = sm::opaque(sm::desc_k(dow));
+      const uint64_t dkt = sm::desc_k(kt), dvt = sm::desc_k(vt);
+      sm::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm::wgmma_ss_n64(sc, dqw + sm::step_k<64>(kk),
+                         dkt + sm::step_k<64>(kk), kk);
+      sm::wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm::wgmma_ss_n64(dp, ddo + sm::step_k<64>(kk),
+                         dvt + sm::step_k<64>(kk), kk);
+      sm::wg_commit();
+      sm::wg_wait<1>();  // S is in; P while dP runs
+      sm::fence_regs(sc);
+      const bool mask = j == diag;
+      const int rel = sm::opaque(warp * 16 + g - 2 * t4);  // row - column
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = e >> 1;
+          float p = sm::exp2_ftz(sc[4 * i + e] * sl2 - lse2[rr]);
+          if (mask && 8 * i + (e & 1) > rel + 8 * rr) p = 0.f;
+          sc[4 * i + e] = p;
+        }
+      sm::wg_wait<0>();
+      sm::fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] = (dp[i] - di[(i >> 1) & 1]) * sc[i] * a.sm_scale;
+      uint32_t da[4][4];
+      acc_to_a(da, sc);
+      sm::fence_regs(dq);
+      sm::fence_regs(da);
+      sm::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm::wgmma_rs<D>(dq, da[kk], sm::desc_mn<64>(kt) + sm::step_mn(kk));
+      sm::wg_commit();
+      sm::wg_wait<0>();
+      sm::fence_regs(dq);
+    }
+    sm::mbar_arrive(empty + s);
+  }
+
+  T* dqg = static_cast<T*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + warp * 16 + g + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(dqg + row * a.dqs[2] + 8 * i + 2 * t4) =
+          pack_bf16(dq[4 * i + 2 * r], dq[4 * i + 2 * r + 1]);
+  }
+}
+
+// K11, grid (ceil(S / keys), Hkv, B), keys = Sm90Bwd<D>::kDkvKeys a
+// block. The producer streams Q, dO (TMA) and the rows' lse log2 e and di
+// (its 32 lanes) a q tile a stage, over the kv head's n_rep query heads in
+// order, for each the q tiles from the block's diagonal down. A warpgroup scores 64 keys against a stage,
+// Sᵀ = K Qᵀ and dPᵀ = V dOᵀ with K, V as A from shared memory, forms Pᵀ
+// and dSᵀ in registers and rounds them to bf16
+// as the A operand of dV += Pᵀ dO and dK += dSᵀ Q (dO and Q read MN-major
+// from the same stage), its sums in f32 registers over the whole walk:
+//   - D = 64: warpgroup w owns keys [64 w, 64 w + 64) of the block's 128
+//     and adds both dV and dK;
+//   - D = 128: both own the block's 64 keys; the first adds dV (Sᵀ only),
+//     the second dK (Sᵀ and dPᵀ), so that a thread holds one 64 x 128 sum
+//     (64 registers) beside its scores and ptxas keeps the wgmma pipeline
+//     within the launch's 168 registers.
+// dK, dV are written once, in k's dtype, through their strides.
+template <int D>
+__global__ void __launch_bounds__(Sm90Bwd<D>::kThreads, 1)
+    flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const BwdArgs a) {
+  using T = __nv_bfloat16;
+  using C = Sm90Bwd<D>;
+  constexpr int WG = C::kWG, ST = C::kStages, TILE = C::kTile,
+                PANEL = C::kPanel, NP = D / 64, KEYS = C::kDkvKeys;
+  constexpr bool kRoles = KEYS == 64;  // the warpgroups split dV and dK
+  constexpr int KT = KEYS / 64;        // key tiles a block
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sk = align_1k(smem_raw);  // [KT] tiles
+  unsigned char* sv = sk + KT * TILE;      // [KT]
+  unsigned char* sq = sv + KT * TILE;      // [ST]
+  unsigned char* sdo = sq + ST * TILE;     // [ST]
+  float* sl = reinterpret_cast<float*>(sdo + ST * TILE);  // [ST][64]
+  float* sdi = sl + ST * 64;                               // [ST][64]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sdi + ST * 64);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + ST;
+
+  const int kt = blockIdx.x;  // the heaviest key tiles (most q tiles) first
+  const int hk = blockIdx.y, b = blockIdx.z, H = gridDim.y * a.n_rep;
+  const int S = a.S, k0 = kt * KEYS;
+  const int first = KT * kt;  // the block's diagonal q tile
+  const int per_head = (S + 63) / 64 - first;
+  const int n_it = a.n_rep * per_head, h0 = hk * a.n_rep;
+  if (threadIdx.x == 0) {
+    sm::mbar_init(bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      sm::mbar_init(full + s, 32);
+      sm::mbar_init(empty + s, WG * 128);
+    }
+    sm::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == WG) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      sm::mbar_arrive_tx(bar_kv, 2 * KT * TILE);
+      for (int w = 0; w < KT; ++w)
+        for (int p = 0; p < NP; ++p) {
+          sm::tma_load_4d(sk + w * TILE + p * PANEL, &tk, bar_kv, 64 * p,
+                          k0 + 64 * w, hk, b);
+          sm::tma_load_4d(sv + w * TILE + p * PANEL, &tv, bar_kv, 64 * p,
+                          k0 + 64 * w, hk, b);
+        }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % ST;
+      if (it >= ST) sm::mbar_wait(empty + s, (it / ST - 1) & 1);
+      const int h = h0 + it / per_head;
+      const int q0 = (first + it % per_head) * 64;
+      const long long row = (static_cast<long long>(b) * H + h) * S;
+#pragma unroll
+      for (int r = lane; r < 64; r += 32) {
+        const bool ok = q0 + r < S;
+        sl[s * 64 + r] = ok ? a.lse[row + q0 + r] * kLog2e : 0.f;
+        sdi[s * 64 + r] = ok ? a.di[row + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        sm::mbar_arrive_tx(full + s, 2 * TILE);
+        for (int p = 0; p < NP; ++p) {
+          sm::tma_load_4d(sq + s * TILE + p * PANEL, &tq, full + s, 64 * p,
+                          q0, h, b);
+          sm::tma_load_4d(sdo + s * TILE + p * PANEL, &tdo, full + s, 64 * p,
+                          q0, h, b);
+        }
+      } else {
+        sm::mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ROLE 0: dV and dK (D = 64); 1: dV; 2: dK (D = 128, warpgroups 0, 1).
+  // The role is fixed for the whole loop, so no wgmma sits on a branch
+  // that ptxas must treat as divergent.
+  auto consume = [&](auto role) {
+    constexpr int ROLE = decltype(role)::value;
+    constexpr bool kDv = ROLE != 2, kDk = ROLE != 1;
+    const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int key0 = k0 + (kRoles ? 0 : 64 * wg);  // the warpgroup's keys
+    const int diag = key0 / 64;                     // their diagonal q tile
+    const bool live = key0 < S;
+    const float sl2 = a.sm_scale * kLog2e;
+    // ROLE 0: dv, dk; else dv holds the warpgroup's one sum (dV or dK)
+    float dv[D / 2], dk[ROLE == 0 ? D / 2 : 1];
+    zero(dv);
+    zero(dk);
+    const unsigned char* kw = sk + (kRoles ? 0 : wg * TILE);
+    const unsigned char* vw = sv + (kRoles ? 0 : wg * TILE);
+    sm::mbar_wait(bar_kv, 0);
+
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % ST;
+      sm::mbar_wait(full + s, (it / ST) & 1);
+      const int qt = first + it % per_head;
+      if (live && qt >= diag) {
+        const unsigned char* qs = sq + s * TILE;
+        const unsigned char* ds = sdo + s * TILE;
+        const bool mask = qt == diag;
+        const float* l2 = sl + s * 64;
+        const float* dd = sdi + s * 64;
+        const uint64_t dkw = sm::opaque(sm::desc_k(kw));
+        const uint64_t dvw = sm::opaque(sm::desc_k(vw));
+        const uint64_t dqs = sm::desc_k(qs);
+        const uint64_t dds = sm::desc_k(ds);
+        float st[32], dpt[32];
+        zero(st);
+        sm::fence_regs(st);
+        if constexpr (kDk) {
+          zero(dpt);
+          sm::fence_regs(dpt);
+        }
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          sm::wgmma_ss_n64(st, dkw + sm::step_k<64>(kk),
+                           dqs + sm::step_k<64>(kk), kk);
+        sm::wg_commit();
+        if constexpr (kDk) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            sm::wgmma_ss_n64(dpt, dvw + sm::step_k<64>(kk),
+                             dds + sm::step_k<64>(kk), kk);
+          sm::wg_commit();
+          sm::wg_wait<1>();  // Sᵀ is in: Pᵀ while dPᵀ runs
+        } else {
+          sm::wg_wait<0>();
+        }
+        sm::fence_regs(st);
+        const int rel = sm::opaque(warp * 16 + g - 2 * t4);  // key - q
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int c = 8 * i + 2 * t4;  // the thread's q columns
+          const float2 lv = *reinterpret_cast<const float2*>(l2 + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p =
+                sm::exp2_ftz(st[4 * i + e] * sl2 - (e & 1 ? lv.y : lv.x));
+            if (mask && rel + 8 * (e >> 1) > 8 * i + (e & 1)) p = 0.f;
+            st[4 * i + e] = p;
+          }
+        }
+        uint32_t pa[4][4], sa[4][4];
+        if constexpr (kDk) {
+          sm::wg_wait<0>();  // dPᵀ is in
+          sm::fence_regs(dpt);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float2 d2 =
+                *reinterpret_cast<const float2*>(dd + 8 * i + 2 * t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dpt[4 * i + e] = (dpt[4 * i + e] - (e & 1 ? d2.y : d2.x)) *
+                               st[4 * i + e] * a.sm_scale;
+          }
+          acc_to_a(sa, dpt);
+          sm::fence_regs(sa);
+        }
+        if constexpr (kDv) {
+          acc_to_a(pa, st);
+          sm::fence_regs(pa);
+        }
+        sm::fence_regs(dv);
+        sm::fence_regs(dk);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t step = sm::step_mn(kk);
+          if constexpr (ROLE == 0) {
+            sm::wgmma_rs<D>(dv, pa[kk], sm::desc_mn<64>(ds) + step);
+            sm::wgmma_rs<D>(dk, sa[kk], sm::desc_mn<64>(qs) + step);
+          } else if constexpr (ROLE == 1) {
+            sm::wgmma_rs<D>(dv, pa[kk], sm::desc_mn<64>(ds) + step);
+          } else {
+            sm::wgmma_rs<D>(dv, sa[kk], sm::desc_mn<64>(qs) + step);
+          }
+        }
+        sm::wg_commit();
+        sm::wg_wait<0>();
+        sm::fence_regs(dv);
+        sm::fence_regs(dk);
+      }
+      sm::mbar_arrive(empty + s);
+    }
+
+    T* dkg = static_cast<T*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
+    T* dvg = static_cast<T*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + warp * 16 + g + 8 * r;
+      if (key >= S) continue;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + 2 * t4;
+        const float2 v2 =
+            make_float2(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+        float2 k2 = v2;  // ROLE 2: dv holds dK
+        if constexpr (ROLE == 0)
+          k2 = make_float2(dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
+        if constexpr (kDv)
+          *reinterpret_cast<uint32_t*>(dvg + key * a.dvs[2] + col) =
+              pack_bf16(v2.x, v2.y);
+        if constexpr (kDk)
+          *reinterpret_cast<uint32_t*>(dkg + key * a.dks[2] + col) =
+              pack_bf16(k2.x, k2.y);
+      }
+    }
+  };
+  if constexpr (!kRoles)
+    consume(std::integral_constant<int, 0>());
+  else if (wg == 0)
+    consume(std::integral_constant<int, 1>());
+  else
+    consume(std::integral_constant<int, 2>());
+}
+
+// K11 (dkv) or K12 on the Hopper kernels: the four operands' tensor maps
+// (64-row boxes), then the launch.
+template <int D>
+cudaError_t launch_bwd_sm90(bool dkv, int B, int H, int Hkv,
+                            const BwdArgs& a, cudaStream_t st) {
+  using C = Sm90Bwd<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!sm::tensor_map_bhsd(&tq, a.q, B, H, a.S, D, a.qs, 64) ||
+      !sm::tensor_map_bhsd(&tk, a.k, B, Hkv, a.S, D, a.ks, 64) ||
+      !sm::tensor_map_bhsd(&tv, a.v, B, Hkv, a.S, D, a.vs, 64) ||
+      !sm::tensor_map_bhsd(&tdo, a.dO, B, H, a.S, D, a.dos, 64))
+    return cudaErrorInvalidValue;
+  const int n_tiles = (a.S + 64 * C::kWG - 1) / (64 * C::kWG);
+  cudaError_t e;
+  if (!dkv) {
+    if ((e = set_smem<flash_dq_sm90_kernel<D>>(C::kSmem)) != cudaSuccess)
+      return e;
+    flash_dq_sm90_kernel<D><<<dim3(n_tiles, H, B), C::kThreads, C::kSmem,
+                              st>>>(tq, tk, tv, tdo, a);
+    return cudaGetLastError();
+  }
+  if ((e = set_smem<flash_dkv_sm90_kernel<D>>(C::kSmem)) != cudaSuccess)
+    return e;
+  const int k_tiles = (a.S + C::kDkvKeys - 1) / C::kDkvKeys;
+  flash_dkv_sm90_kernel<D><<<dim3(k_tiles, Hkv, B), C::kThreads, C::kSmem,
+                             st>>>(tq, tk, tv, tdo, a);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_bwd_d(bool dkv, int dtype, int B, int H, int Hkv,
                          const BwdArgs& a, cudaStream_t st) {
-  if (dtype == 0) {
-    if (dkv) {
-      const dim3 grid((a.S + 63) / 64, Hkv, B);
-      return launch<flash_dkv_bf16_kernel<D>>(DkvTile<D>::kSmem, grid, a, st,
-                                              DkvTile<D>::kThreadsB);
+  if (dtype == 0) {  // bf16 below D = 256 runs launch_bwd_sm90
+    if constexpr (D == 256) {
+      if (dkv) {
+        const dim3 grid((a.S + 63) / 64, Hkv, B);
+        return launch<flash_dkv_bf16_kernel<D>>(DkvTile<D>::kSmem, grid, a,
+                                                st, DkvTile<D>::kThreadsB);
+      }
+      const dim3 grid((a.S + 63) / 64, H, B);
+      return launch<flash_dq_bf16_kernel<D>>(DqTile<D>::kSmem, grid, a, st);
     }
-    const dim3 grid((a.S + 63) / 64, H, B);
-    return launch<flash_dq_bf16_kernel<D>>(DqTile<D>::kSmem, grid, a, st);
+    return cudaErrorInvalidValue;
   }
   const dim3 grid((a.S + 31) / 32, dkv ? Hkv : H, B);
   if (dkv)
@@ -1192,8 +1706,15 @@ bool bwd_args(BwdArgs& a, const void* q, const void* k, const void* v,
   return true;
 }
 
+// bf16 at D = 64 and 128 runs the Hopper kernels; bf16 at D = 256 and f32
+// the mma.sync and FFMA ones.
+bool on_sm90(int dtype, int D) { return dtype == 0 && D <= 128; }
+
 cudaError_t launch_bwd(bool dkv, int dtype, int B, int H, int Hkv, int D,
                        const BwdArgs& a, cudaStream_t st) {
+  if (on_sm90(dtype, D))
+    return D == 64 ? launch_bwd_sm90<64>(dkv, B, H, Hkv, a, st)
+                   : launch_bwd_sm90<128>(dkv, B, H, Hkv, a, st);
   return D == 64    ? launch_bwd_d<64>(dkv, dtype, B, H, Hkv, a, st)
          : D == 128 ? launch_bwd_d<128>(dkv, dtype, B, H, Hkv, a, st)
                     : launch_bwd_d<256>(dkv, dtype, B, H, Hkv, a, st);

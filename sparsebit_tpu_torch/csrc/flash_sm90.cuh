@@ -1,0 +1,338 @@
+// Hopper (sm_90a) building blocks for the flash-attention kernels: mbarrier
+// rings, TMA tile loads from 4-D tensor maps, wgmma descriptors for
+// 128-byte-swizzled tiles and the wgmma instructions the backward uses.
+//
+// Tile layout. A tile of R rows x D bf16 columns is stored as D / 64
+// panels of [R][64] (128 bytes a row), each panel 1024-byte aligned, as a
+// TMA box of {64, R} with CU_TENSOR_MAP_SWIZZLE_128B writes it: 16-byte
+// chunk c of row r lands at chunk c ^ (r & 7). The same panels serve
+// wgmma as
+//   - a K-major operand (the row is the M or N index, the columns are K):
+//     8-row groups 1024 bytes apart (SBO), K steps of 16 columns 32 bytes
+//     apart inside a panel, the next panel for columns 64..127;
+//   - an MN-major B operand (the rows are K, the columns N, the
+//     descriptor's transpose bit set): 8-row K groups 1024 bytes apart
+//     (SBO), the next 64 columns one panel further (LBO), K steps of 16
+//     rows 2048 bytes apart. So a K or dO tile is read both ways without a
+//     second copy.
+#pragma once
+
+#include <algorithm>
+#include <cstdint>
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
+
+namespace sbt {
+namespace sm90 {
+
+constexpr int kPanel = 64;  // bf16 columns a 128-byte swizzled panel row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// 2^x on the special-function unit, denormal results flushed to 0 (the
+// probabilities below 2^-126 this drops are far under any bf16 ulp).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of parity `parity` to complete. A wait past 60 s of
+// the global timer traps: a ring whose producer and consumers disagree on
+// the trip count then fails the launch (and the process's CUDA context)
+// instead of hanging the device. The global timer runs on while the
+// context is time-sliced out or slowed by a debugger, so the limit sits
+// far past any such pause.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(a, parity))
+    if (global_ns() - t0 > 60000000000ull) __trap();
+}
+
+// ---- TMA ------------------------------------------------------------------
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; its bytes complete a transaction of `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled operand at `p` (its address inside a
+// 1024-byte-aligned panel), leading and stride byte offsets in bytes.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// A K-major tile of 64-column panels, and the offset of its K step kk
+// (16 columns) in the descriptor's address field for panels of `rows`
+// rows.
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile) {
+  return desc_sw128(tile, 16, 1024);
+}
+
+template <int rows>
+__host__ __device__ constexpr uint64_t step_k(int kk) {
+  return ((kk >> 2) * (rows * 128) + (kk & 3) * 32) >> 4;
+}
+
+// An MN-major B tile of 64-column panels of `rows` rows, and the offset
+// of its K step kk (16 rows).
+template <int rows>
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile) {
+  return desc_sw128(tile, rows * 128, 1024);
+}
+
+__host__ __device__ constexpr uint64_t step_mn(int kk) {
+  return (kk * 2048) >> 4;
+}
+
+// x, opaque to the compiler: what is formed from it inside a loop (a
+// descriptor's K steps, a tile's causal mask) stays there, instead of
+// being hoisted out of the loop into registers of its own.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return x;
+}
+
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers
+// across a fence or a wait (the instructions run asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// D (64 x 64 f32) += A (64 x 16, shared, K-major) B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (64 x 64 f32) += A (64 x 16, bf16 registers) B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128 f32) += A (64 x 16, bf16 registers) B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x N) += A (registers) B (MN-major), N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// ---- host: tensor maps ----------------------------------------------------
+
+// cuTensorMapEncodeTiled of the CUDA driver API, reached through the
+// runtime (the library links no -lcuda); null where it is missing.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over a (B, H, S, D) bf16 view, dims {D, S, H, B} with element
+// strides (batch, head, row) and the last dimension contiguous, boxes of
+// {64, rows, 1, 1} swizzled 128 bytes; rows past S read as zeros. A
+// stride of 0 (a dimension of size 1, never stepped) is given as the
+// largest extent of the others, a valid stride that is never used.
+inline bool tensor_map_bhsd(CUtensorMap* map, const void* base, int B, int H,
+                            int S, int D, const long long* strides,
+                            int rows) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  cuuint64_t st[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                      static_cast<cuuint64_t>(strides[1]) * 2,
+                      static_cast<cuuint64_t>(strides[0]) * 2};
+  cuuint64_t span = 16;
+  for (int i = 0; i < 3; ++i) span = std::max(span, st[i] * dims[i + 1]);
+  for (int i = 0; i < 3; ++i)
+    if (st[i] == 0) st[i] = span;
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanel),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, st, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace sm90
+}  // namespace sbt

@@ -411,20 +411,32 @@ def test_flash_bwd_plain_matches_jax_flash_kernels(dtype, B, H, Hkv, S, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S", [100, 257])
-def test_flash_bwd_plain_ragged_matches_masked_autograd(dtype, S):
-    """At S the TPU kernel refuses (fault R7): the flash route's gradients
-    against torch autograd of the masked attention_scores on the same
-    operands, (B, S, H, D) layout, GQA 4 -> 2; the masked route keeps P
-    and dS in f32, so bf16 is held to BWD_TOL as against JAX."""
-    _, (tq, tk, tv) = _qkv((2, 4, S, 64), 2, dtype, S + 3)
+@pytest.mark.parametrize("S,D,B,H,Hkv", [
+    pytest.param(100, 64, 2, 4, 2, id="100"),
+    pytest.param(257, 64, 2, 4, 2, id="257"),
+    pytest.param(320, 64, 2, 4, 2, id="320"),
+    pytest.param(330, 64, 2, 4, 2, id="330"),
+    pytest.param(320, 128, 1, 8, 2, id="320-hd128-gqa4"),
+    pytest.param(330, 128, 1, 8, 2, id="330-hd128-gqa4"),
+    pytest.param(1024, 128, 1, 8, 2, id="1024-hd128-gqa4")])
+def test_flash_bwd_plain_ragged_matches_masked_autograd(dtype, S, D, B, H,
+                                                        Hkv):
+    """At S the TPU kernel refuses (fault R7), and at the shapes the
+    card's tests give K11/K12's Hopper kernels (S = 320 / 330 off their
+    128-row q tiles, 128-key blocks at head_dim 64 and 64-key blocks at
+    128; GQA n_rep 4 over 1024 rows): the flash route's gradients against
+    torch autograd of the masked attention_scores on the same operands,
+    (B, S, H, D) layout; the masked route keeps P and dS in f32, so bf16
+    is held to BWD_TOL as against JAX."""
+    _, (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype, S + 3)
     do = torch.from_numpy(np.random.default_rng(S).standard_normal(
-        (2, 4, S, 64)).astype(np.float32)).to(dtype)
-    _, got = _port_grads(tq, tk, tv, do, 0.125)
+        (B, H, S, D)).astype(np.float32)).to(dtype)
+    _, got = _port_grads(tq, tk, tv, do, D ** -0.5)
     q, k, v = (t.transpose(1, 2).clone().requires_grad_()
                for t in (tq, tk, tv))
     mask = torch.triu(torch.full((S, S), -1e9), diagonal=1)[None, None]
-    out = TL.attention_scores(q, TL.repeat_kv(k, 2), TL.repeat_kv(v, 2),
+    rep = H // Hkv
+    out = TL.attention_scores(q, TL.repeat_kv(k, rep), TL.repeat_kv(v, rep),
                               mask)
     out.backward(do.transpose(1, 2))
     _grads_close(got, [t.grad.transpose(1, 2) for t in (q, k, v)], dtype)

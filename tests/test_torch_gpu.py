@@ -830,14 +830,18 @@ def _bwd_operands(cuda, dtype, B, H, Hkv, S, D, layout, seed):
     (1, 4, 4, 256, 64, "bshd"), (1, 4, 4, 256, 256, "bshd"),
     (2, 4, 4, 100, 128, "bshd"), (1, 4, 4, 2047, 128, "bhsd"),
     (1, 2, 2, 1, 64, "bhsd"), (1, 32, 8, 256, 128, "bshd"),
-    (1, 8, 2, 130, 256, "bshd"), (2, 4, 1, 77, 64, "bhsd")])
+    (1, 8, 2, 130, 256, "bshd"), (2, 4, 1, 77, 64, "bhsd"),
+    (1, 16, 4, 1024, 128, "bshd"), (2, 4, 4, 320, 128, "bshd"),
+    (1, 4, 4, 330, 128, "bhsd")])
 def test_k11_k12_kernels_match_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     """K10's log-sum-exp, K11 (dK, dV) and K12 (dQ) against their plain
     versions on the same operands (the kernels' lse and di given to both):
-    ragged S (100, 2047, 130, 77, 1), GQA n_rep 1/2/4/8, head_dim
-    64/128/256, f32, both layouts. Each element within its own bound
-    (flash_bwd_tolerance); lse within 2^-14 (K10's m + log l against the
-    plain version's); outputs in the operands' layouts; each wrapper
+    ragged S (100, 2047, 130, 77, 1, and 320 / 330 against the Hopper
+    kernels' 128-row q and 64-key tiles at D = 128), GQA n_rep 1/2/4/8
+    (n_rep 4 also at S = 1024, a long walk over a kv head's query heads),
+    head_dim 64/128/256, f32, both layouts. Each element within its own
+    bound (flash_bwd_tolerance); lse within 2^-14 (K10's m + log l against
+    the plain version's); outputs in the operands' layouts; each wrapper
     counts one launch; a second call gives the same bits."""
     q, k, v, do = _bwd_operands(cuda, dtype, B, H, Hkv, S, D, layout,
                                 S + D + H + Hkv)
@@ -867,6 +871,8 @@ def test_k11_k12_kernels_match_plain(cuda, dtype, B, H, Hkv, S, D, layout):
         assert ((got.float() - want.float()).abs() <= t).all()
     assert torch.equal(dq, FA.flash_attention_dq(q, k, v, lse, do, di,
                                                  sm_scale=scale))
+    dk2, dv2 = FA.flash_attention_dkv(q, k, v, lse, do, di, sm_scale=scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 def test_flash_attention_autograd_on_the_card(cuda):
