@@ -26,9 +26,11 @@ Phases (every failure is recorded and the script exits 1 at the end):
      at S = 2048, B = 1/8/32, int8 and bf16 caches, and one GQA case; K10
      (flash causal attention) against flash_attention_plain, bf16 H=32
      hd=128 at B=1 S=2048 and B=8 S=512, hd 64 and 256 at S=1024, ragged
-     S = 2047 and 100, f32 at S=512 and Hkv=8, each element within its own
-     bound (flash_tolerance), which must reject planted key-tile faults at
-     S = 2048, with SDPA (is_causal) timed beside it as a yardstick; K11
+     S = 2047 and 100, f32 at S=512, Hkv=8, and B=4 S=512 both without
+     and with the log-sum-exp output (the training forward), each element
+     within its own bound (flash_tolerance), which must reject planted
+     key-tile faults at S = 2048, a second launch bit-equal, with SDPA
+     (is_causal) timed beside it as a yardstick; K11
      (dK, dV) and K12 (dQ), the flash backward, against their plain
      versions at the same shapes with B=4 S=512 (the qlora path's) in
      place of B=8 S=512, over K10's own log-sum-exp (itself within 2^-14
@@ -780,14 +782,17 @@ def k10_checks(cfg, record, g):
     layout read through strides: bf16 H=32 hd=128 at B=1 S=2048 (the
     2048-token prefill) and B=8 S=512 (a full 512 admission bucket), hd 64
     and 256 at S=1024 (H = dim / hd), ragged S = 2047 (a perplexity
-    window) and 100, f32 at S=512, and Hkv=8 at S=2048. Tolerance: each
-    element within its own bound (flash_tolerance); on the first case the
-    same bound must also reject planted faults (k10_planted: every row a
-    skipped or mis-rescaled key tile touches). Kernel ms (CUDA events),
-    device ms (graph
-    replay), plain ms; the library call is scaled_dot_product_attention
-    (is_causal) on the same operands, timed as a yardstick only. Bound:
-    q, k, v, out once against 4 B H hd S(S+1)/2 operations."""
+    window) and 100, f32 at S=512, Hkv=8 at S=2048, and B=4 S=512, the
+    qlora path's shape, in the serving and in the kLse instantiation
+    (flash_attention_fwd, the training forward; its lse within 2^-14 of
+    the plain version's). Tolerance: each element within its own bound
+    (flash_tolerance); a second launch gives the same bits; on the first
+    case the same bound must also reject planted faults (k10_planted:
+    every row a skipped or mis-rescaled key tile touches). Kernel ms (CUDA
+    events), device ms (graph replay), plain ms; the library call is
+    scaled_dot_product_attention (is_causal) on the same operands, timed
+    as a yardstick only. Bound: q, k, v, out (and lse) once against
+    4 B H hd S(S+1)/2 operations."""
     import torch
     import torch.nn.functional as F
     from sparsebit_tpu_torch.ops import flash_attention as FA
@@ -798,9 +803,11 @@ def k10_checks(cfg, record, g):
              ("bf16", 1, 1024, cfg.dim // 64, cfg.dim // 64, 64),
              ("bf16", 1, 1024, cfg.dim // 256, cfg.dim // 256, 256),
              ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
-             ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0)]
+             ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0),
+             ("bf16", 4, 512, H0, H0, hd0), ("bf16 lse", 4, 512, H0, H0, hd0)]
     for kind, B, S, H, Hkv, D in cases:
-        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        with_lse = kind.endswith(" lse")
+        dt = torch.bfloat16 if kind.startswith("bf16") else torch.float32
 
         def make(h):
             return torch.randn((B, S, h, D), generator=g, device=dev).to(
@@ -808,10 +815,35 @@ def k10_checks(cfg, record, g):
 
         q, k, v = make(H), make(Hkv), make(Hkv)
         scale = D ** -0.5
-        out = FA.flash_attention(q, k, v, sm_scale=scale)
-        ref = FA.flash_attention_plain(q, k, v, sm_scale=scale)
+
+        def run(i):
+            if with_lse:
+                return FA.flash_attention_fwd(q, k, v, sm_scale=scale)
+            return (FA.flash_attention(q, k, v, sm_scale=scale),)
+
+        got = run(0)
+        ref = FA.flash_attention_plain(q, k, v, sm_scale=scale,
+                                       return_lse=with_lse)
+        ref = ref if with_lse else (ref,)
+        again = run(1)
         torch.cuda.synchronize()
-        err, ratio = k10_within(out, ref, q, k, v, scale)
+        out = got[0]
+        tag = "{} B={} S={} H={} Hkv={} hd={}".format(kind, B, S, H, Hkv, D)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not same:
+            fail("K10 {}: a second launch gives other bits".format(tag))
+        err, ratio = k10_within(out, ref[0], q, k, v, scale)
+        lse_note = ""
+        if with_lse:
+            lse_err = (got[1] - ref[1]).abs().max().item()
+            lse_note = ", lse max err {:.3e} (tol 2^-14)".format(lse_err)
+            if not lse_err <= 2.0 ** -14:
+                fail("K10 {}: lse err {:.3e} over 2^-14".format(tag, lse_err))
+        print("K10 {}: second launch bit-equal {}{}".format(tag, same,
+                                                            lse_note),
+              flush=True)
+        del again
+        ref = ref[0]
         if (kind, B, S, H, Hkv) == ("bf16", 1, 2048, H0, H0):
             shares = k10_planted(q, k, v, ref, scale)
             print("K10 planted faults at bf16 B=1 S=2048: share of touched "
@@ -821,28 +853,26 @@ def k10_checks(cfg, record, g):
                 fail("K10's bound passes a planted tile fault: {}".format(
                     shares))
 
-        def run(i):
-            return FA.flash_attention(q, k, v, sm_scale=scale)
-
         def lib(i):
             return F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=scale, enable_gqa=Hkv < H)
 
         ms = cuda_ms(run, 20)
         pms = cuda_ms(lambda i: FA.flash_attention_plain(
-            q, k, v, sm_scale=scale), 3, 1)
+            q, k, v, sm_scale=scale, return_lse=with_lse), 3, 1)
         lms = cuda_ms(lib, 20)
         gms = (graph_ms(run, 20), graph_ms(lib, 20))
         esz = q.element_size()
-        nbytes = esz * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-        bnd = bound_ms(nbytes, 4 * B * H * D * S * (S + 1) // 2, kind)
-        tag = "{} B={} S={} H={} Hkv={} hd={}".format(kind, B, S, H, Hkv, D)
+        nbytes = esz * (2 * B * H * S * D + 2 * B * Hkv * S * D) + (
+            4 * B * H * S if with_lse else 0)
+        bnd = bound_ms(nbytes, 4 * B * H * D * S * (S + 1) // 2,
+                       kind.split()[0])
         record("K10 " + tag, "K10",
                "sparsebit_tpu_torch/csrc/flash_attention.cu",
                "sparsebit_tpu/llm/llama.py:155 -> jax/experimental/pallas/"
                "ops/tpu/flash_attention.py:342", err, None, ms, pms, bnd,
                lms, tag, gms, ratio=ratio)
-        del q, k, v, out, ref
+        del q, k, v, out, ref, got
     torch.cuda.empty_cache()
 
 

@@ -26,15 +26,22 @@ accumulators. ``flash_attention`` is a ``torch.autograd.Function`` over
 them when an operand requires a gradient.
 
 The plain versions are the same arithmetic in eager torch, in the
-kernels' order: ``flash_attention_plain`` takes key tiles of the kernel's
-width (``block_k``), a running max and sum, P rounded to V's dtype before
-PV, the accumulator rescaled by exp(m_old - m_new) a tile and divided by
-l once at the end (a row with l = 0 stays 0). The kernel skips causal
-tiles above the diagonal; here such a tile is wholly masked, which adds
-exactly nothing (its P is 0 and its rescale 1), so the two agree to the
-rounding of their dot products. ``flash_bwd_dkv_plain`` and
-``flash_bwd_dq_plain`` (together ``flash_attention_bwd_plain``) walk the
-same key tiles and round P and dS where the kernels do.
+kernels' order: ``flash_attention_plain`` takes key tiles of K10's width
+(``fwd_block_k``), a running max and sum, P rounded to V's dtype before
+PV, the accumulator rescaled a tile and divided by l once at the end (a
+row with l = 0 stays 0). Where K10 runs on Hopper's wgmma (bf16 at
+head_dim 64 and 128, ``on_sm90``) it keeps the running max of the raw
+scores and forms P = exp2(s · c - m · c), c = sm_scale log2 e, with
+128-key tiles; the mma.sync and FFMA kernels (bf16 at head_dim 256, f32)
+form P = exp(s · sm_scale - m) over the scaled scores with 64- and
+32-key tiles. The plain version repeats whichever its operands take, so
+that the two shift P by the same running max and P's bf16 rounding
+differs only at a midpoint. The kernel skips causal tiles above the
+diagonal; here such a tile is wholly masked, which adds exactly nothing
+(its P is 0 and its rescale 1), so the two agree to the rounding of
+their dot products. ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``
+(together ``flash_attention_bwd_plain``) walk K11/K12's key tiles
+(``block_k``) and round P and dS where the kernels do.
 """
 
 import torch
@@ -45,18 +52,35 @@ HEAD_DIMS = (64, 128, 256)  # the head dims K10 takes
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # K10's operand types
 
 
+LOG2E = 1.4426950408889634  # K10's kLog2e, rounded to f32 there
+
+
+def on_sm90(dtype, head_dim):
+    """Whether K10, K11 and K12 run on the Hopper (wgmma, TMA) kernels for
+    these operands: bf16 at head_dim 64 and 128 (the C side's on_sm90)."""
+    return dtype == torch.bfloat16 and head_dim <= 128
+
+
 def block_k(dtype):
-    """Keys a tile of K10 (and of the plain version): 64 on the bf16
-    tensor-core path, 32 on the f32 path."""
+    """Keys a tile of K11/K12 and of their plain versions (``_bwd_tiles``):
+    64 on the bf16 tensor-core path, 32 on the f32 path."""
     return 64 if dtype == torch.bfloat16 else 32
+
+
+def fwd_block_k(dtype, head_dim):
+    """Keys a tile of K10 and of its plain version: 128 on the Hopper
+    kernel (``on_sm90``), 64 on the mma.sync kernel (bf16 at head_dim
+    256), 32 on the f32 one."""
+    return 128 if on_sm90(dtype, head_dim) else block_k(dtype)
 
 
 def flash_attention_plain(q, k, v, *, sm_scale=1.0, return_lse=False):
     """Causal. q (B, H, S, D), k/v (B, Hkv, S, D) with Hkv dividing H
     (query head h reads kv head h // (H // Hkv)). Returns (B, H, S, D) in
-    q's dtype and, with ``return_lse``, each row's f32 log-sum-exp of its
-    scaled scores, m + log(l) (B, H, S), as K10 writes it for the
-    backward."""
+    q's dtype and, with ``return_lse``, each row's f32 natural-log
+    log-sum-exp of its scaled scores (B, H, S), as K10 writes it for the
+    backward. In K10's order for these operands (``fwd_block_k``,
+    ``on_sm90``: see the module's note)."""
     B, H, S, D = q.shape
     n_rep = H // k.shape[1]
     if n_rep > 1:
@@ -64,20 +88,32 @@ def flash_attention_plain(q, k, v, *, sm_scale=1.0, return_lse=False):
         v = torch.repeat_interleave(v, n_rep, dim=1)
     qf = q.to(torch.float32)
     kf = k.to(torch.float32)
-    bk = block_k(q.dtype)
+    sm90 = on_sm90(q.dtype, D)
+    bk = fwd_block_k(q.dtype, D)
+    # Hopper: raw scores, P = exp2(s c - m c); else scaled, P = exp(s - m).
+    # c in f32 as the kernel forms it: f32(sm_scale) * f32(log2 e)
+    c = torch.tensor(sm_scale, dtype=torch.float32,
+                     device=q.device) * LOG2E
     rows = torch.arange(S, device=q.device)[:, None]
     m = torch.full((B, H, S), float("-inf"), device=q.device)
     l = torch.zeros((B, H, S), device=q.device)
     acc = torch.zeros((B, H, S, D), device=q.device)
     for j0 in range(0, S, bk):
         j1 = min(j0 + bk, S)
-        s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * sm_scale
+        s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2))
+        if not sm90:
+            s = s * sm_scale
         cols = torch.arange(j0, j1, device=q.device)[None, :]
         s = s.masked_fill(cols > rows, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         shift = torch.where(m_new == float("-inf"), 0.0, m_new)
-        alpha = torch.exp(m - shift)
-        p = torch.exp(s - shift[..., None])
+        if sm90:
+            sc = shift * c
+            alpha = torch.exp2(m * c - sc)
+            p = torch.exp2(s * c - sc[..., None])
+        else:
+            alpha = torch.exp(m - shift)
+            p = torch.exp(s - shift[..., None])
         l = alpha * l + p.sum(dim=-1)
         pv = torch.matmul(p.to(v.dtype).to(torch.float32),
                           v[:, :, j0:j1].to(torch.float32))
@@ -85,7 +121,9 @@ def flash_attention_plain(q, k, v, *, sm_scale=1.0, return_lse=False):
         m = m_new
     inv = torch.where(l == 0.0, 1.0, 1.0 / l)
     out = (acc * inv[..., None]).to(q.dtype)
-    return (out, m + torch.log(l)) if return_lse else out
+    if not return_lse:
+        return out
+    return out, (m * sm_scale if sm90 else m) + torch.log(l)
 
 
 def flash_di(out, do):

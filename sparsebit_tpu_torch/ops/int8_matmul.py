@@ -6,7 +6,8 @@ the QLoRA path (port of ``sparsebit_tpu/ops/int8_matmul.py``:
 The reference leaves all of it to XLA: a fused reduction for the
 quantization and an int8 dot with int32 accumulation. On the card the
 quantization is a handful of elementwise PyTorch ops and ``int8_gemm`` is
-``torch._int_mm``; on the CPU it is an exact integer product.
+``torch._int_mm`` over operands zero-padded to the shapes it takes; on the
+CPU it is an exact integer product.
 """
 
 import torch
@@ -27,12 +28,36 @@ def tokenwise_quant(x, eps=1e-8):
     return q, scale.to(torch.float32)
 
 
+def pad_for_int_mm(x2, wq):
+    """(x2 (M, K), wq (K, N)) zero-padded to the shapes ``torch._int_mm``
+    takes: rows of x2 up to M = 17 when M <= 16, columns of x2 and rows of
+    wq up to the next multiple of 8 of K, columns of wq up to the next
+    multiple of 8 of N. Zeros add nothing to an integer dot, so rows [0, M)
+    and columns [0, N) of the padded product are the exact product. Both
+    come back contiguous; an operand that needs no padding is not
+    copied."""
+    M, K = x2.shape
+    N = wq.shape[1]
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+
+    def pad(t, rows, cols):
+        if t.shape == (rows, cols):
+            return t.contiguous()
+        out = t.new_zeros((rows, cols))
+        out[:t.shape[0], :t.shape[1]] = t
+        return out
+
+    return pad(x2, Mp, Kp), pad(wq, Kp, Np)
+
+
 def int8_gemm(xq, wq):
-    """int8 (..., K) x int8 (K, N) -> int32 (..., N) (int8_matmul.py:47).
+    """int8 (..., K) x int8 (K, N) -> int32 (..., N) (int8_matmul.py:47),
+    exact at any shape, as the reference's integer dot.
 
     CPU tensors take an exact product (f64 holds every sum: |127 * 128 *
     K| < 2^53). CUDA tensors go to ``torch._int_mm``, which needs more
-    than 16 rows and K, N multiples of 8; a shape it refuses raises."""
+    than 16 rows and K, N multiples of 8: the operands are zero-padded up
+    to that (``pad_for_int_mm``) and the product sliced back."""
     lead = xq.shape[:-1]
     K = xq.shape[-1]
     x2 = xq.reshape(-1, K)
@@ -42,16 +67,12 @@ def int8_gemm(xq, wq):
     if wq.shape[0] != K:
         raise ValueError("int8_gemm: x {} and w {} do not match".format(
             tuple(xq.shape), tuple(wq.shape)))
+    M, N = x2.shape[0], wq.shape[1]
     if xq.device.type == "cpu":
         out = (x2.to(torch.float64) @ wq.to(torch.float64)).to(torch.int32)
     else:
-        M, N = x2.shape[0], wq.shape[1]
-        if M <= 16 or K % 8 or N % 8:
-            raise ValueError(
-                "int8_gemm: torch._int_mm takes M > 16 and K, N multiples "
-                "of 8 (got M={} K={} N={})".format(M, K, N))
-        out = torch._int_mm(x2.contiguous(), wq.contiguous())
-    return out.reshape(lead + (wq.shape[1],))
+        out = torch._int_mm(*pad_for_int_mm(x2, wq))[:M, :N]
+    return out.reshape(lead + (N,))
 
 
 def int8_dx(g, bwd_wq, bwd_scale, dtype):

@@ -236,7 +236,27 @@ def test_flash_plain_gqa_matches_jax_flash_kernel(dtype, Hkv):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("S,D", [(100, 128), (200, 64), (1, 128)])
+@pytest.mark.parametrize("B,H,Hkv,S,D", [(1, 2, 2, 384, 128),
+                                         (1, 4, 1, 384, 64),
+                                         (1, 4, 2, 512, 128)])
+def test_flash_plain_at_k10_width_matches_jax_flash_kernel(dtype, B, H, Hkv,
+                                                          S, D):
+    """The plain version over several of K10's 128-key tiles (fwd_block_k
+    at bf16 head_dim 64/128: three and four tiles, so the running max moves
+    between tiles), MHA and GQA, against JAX's bundled kernel over
+    jnp.repeat'ed kv heads, with the tolerance of the cases above."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype, S + D + Hkv)
+    rep = H // Hkv
+    ref = _j_flash(jq, jnp.repeat(jk, rep, axis=1),
+                   jnp.repeat(jv, rep, axis=1), D ** -0.5)
+    out = TF.flash_attention(tq, tk, tv, sm_scale=D ** -0.5)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,D", [(100, 128), (200, 64), (1, 128),
+                                 (300, 128), (257, 64)])
 def test_flash_plain_ragged_matches_jax_masked_attention(dtype, S, D):
     """S not a multiple of the tile (fault R7: the TPU kernel refuses it,
     K10 masks the ragged tile): the port's flash route against the JAX
@@ -295,6 +315,37 @@ def test_flash_tolerance_rejects_planted_faults(fault, share):
     assert over(bias)[..., first:].float().mean().item() >= share
 
 
+@pytest.mark.parametrize("fault,share", [("far_tile", 1.0),
+                                         ("rescaled_tile", 1.0),
+                                         ("diagonal", 0.85)])
+def test_flash_tolerance_rejects_planted_faults_at_k10_width(fault, share):
+    """The planted faults above at the width of K10's key tiles on the
+    Hopper kernel (fwd_block_k: 128 keys at bf16 head_dim 128), against
+    the plain version at that width: key tile 0 (keys 0-127) skipped or
+    mis-rescaled where it lies two or more tiles below the diagonal (rows
+    >= 256), and the diagonal off by one."""
+    B, H, S, D = 1, 4, 512, 128
+    _, (q, k, v) = _qkv((B, H, S, D), H, torch.bfloat16, 72)
+    bk = TF.fwd_block_k(torch.bfloat16, D)
+    scale = D ** -0.5
+    ref = TF.flash_attention_plain(q, k, v, sm_scale=scale)
+    tol = TF.flash_tolerance(q, k, v, ref, sm_scale=scale)
+
+    def over(bias):
+        out = _biased_attention(q, k, v, scale, bias)
+        return ((out.float() - ref.float()).abs() > tol).any(dim=-1)
+
+    assert not over(torch.zeros((S, S))).any()
+    bias = torch.zeros((S, S))
+    first = 1 if fault == "diagonal" else 2 * bk
+    if fault == "diagonal":
+        idx = torch.arange(1, S)
+        bias[idx, idx] = float("-inf")
+    else:
+        bias[first:, :bk] = float("-inf") if fault == "far_tile" else 0.5
+    assert over(bias)[..., first:].float().mean().item() >= share
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_tolerance_admits_one_ulp(dtype):
     """Every output element one ulp further from zero (the output's own
@@ -344,6 +395,19 @@ def test_flash_route_ignores_the_tpu_block_rule():
     assert not TL._flash_ok(q(2048, 96, "cuda"))
     assert TF.block_k(torch.bfloat16) == 64
     assert TF.block_k(torch.float32) == 32
+
+
+def test_fwd_block_k_is_k10s_key_tile():
+    """The forward plain version's key tile is K10's: 128 keys on the
+    Hopper kernel (bf16 at head_dim 64 and 128, on_sm90), 64 on the
+    mma.sync kernel (bf16 at head_dim 256), 32 on the f32 kernel; the
+    backward's tile (block_k) stays 64 / 32."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert [TF.fwd_block_k(bf, d) for d in TF.HEAD_DIMS] == [128, 128, 64]
+    assert [TF.fwd_block_k(f32, d) for d in TF.HEAD_DIMS] == [32, 32, 32]
+    assert [TF.on_sm90(bf, d) for d in TF.HEAD_DIMS] == [True, True, False]
+    assert not any(TF.on_sm90(f32, d) for d in TF.HEAD_DIMS)
+    assert (TF.block_k(bf), TF.block_k(f32)) == (64, 32)
 
 
 # ---- K11, K12: the flash backward ---------------------------------------------

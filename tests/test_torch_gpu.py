@@ -746,12 +746,16 @@ def test_decode_step_scanned_planes_on_the_card_matches_the_cpu(cuda):
     (1, 8, 8, 512, 128, "bshd"), (2, 4, 4, 256, 128, "bhsd"),
     (1, 4, 4, 256, 64, "bshd"), (1, 4, 4, 256, 256, "bshd"),
     (2, 4, 4, 100, 128, "bshd"), (1, 4, 4, 2047, 128, "bhsd"),
-    (1, 2, 2, 1, 64, "bhsd"), (1, 32, 8, 256, 128, "bshd")])
+    (1, 2, 2, 1, 64, "bhsd"), (1, 32, 8, 256, 128, "bshd"),
+    (2, 4, 4, 127, 128, "bshd"), (1, 4, 2, 129, 128, "bhsd"),
+    (2, 4, 4, 257, 64, "bshd")])
 def test_k10_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     """K10 against flash_attention_plain on the same operands: the
-    7B-shaped head dims, ragged S (100, 2047, 1), GQA 32 -> 8, and both
+    7B-shaped head dims, ragged S (100, 2047, 1, and 127 / 129 / 257 around
+    the Hopper kernel's 128-row q and key tiles), GQA 32 -> 8, and both
     the JAX layout and the port's (B, S, H, D) activations transposed as
-    views (read through strides, no copy)."""
+    views (read through strides, no copy); a second launch gives the same
+    bits."""
     g = torch.Generator(device=cuda).manual_seed(S + D + H)
 
     def make(h):
@@ -770,6 +774,36 @@ def test_k10_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     tol = FA.flash_tolerance(q, k, v, ref, sm_scale=D ** -0.5)
     assert ((out.float() - ref.float()).abs() <= tol).all()
     assert torch.equal(out, FA.flash_attention(q, k, v, sm_scale=D ** -0.5))
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", [(4, 32, 32, 512, 128),
+                                         (2, 8, 2, 129, 64),
+                                         (1, 4, 4, 257, 128)])
+def test_k10_lse_instantiation_matches_plain(cuda, B, H, Hkv, S, D):
+    """K10's kLse instantiation through flash_attention_fwd (the training
+    forward) at the qlora path's B=4 S=512 and ragged S around the
+    128-row tiles: the output within flash_tolerance of the plain
+    version's, each row's log-sum-exp within 2^-14 of it, one launch
+    counted, and a second launch bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(B + S + D)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2))
+    scale = D ** -0.5
+    before = FA.flash_attention.launches
+    out, lse = FA.flash_attention_fwd(q, k, v, sm_scale=scale)
+    ref, ref_lse = FA.flash_attention_plain(q, k, v, sm_scale=scale,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.stride() == q.stride()
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= 2.0 ** -14
+    tol = FA.flash_tolerance(q, k, v, ref, sm_scale=scale)
+    assert ((out.float() - ref.float()).abs() <= tol).all()
+    out2, lse2 = FA.flash_attention_fwd(q, k, v, sm_scale=scale)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 def test_k10_wrapper_raises_on_what_it_does_not_take(cuda):
@@ -921,11 +955,34 @@ def test_k11_k12_wrappers_raise_on_what_they_do_not_take(cuda):
             FA.flash_attention_dq.launches) == before
 
 
-@pytest.mark.parametrize("mode", ["dense", "int8"])
-def test_qlora_train_step_on_the_card_matches_the_cpu(cuda, mode):
+@pytest.mark.parametrize("M", [1, 16, 17])
+@pytest.mark.parametrize("K,N", [(12, 20), (4100, 36), (4096, 4096)])
+def test_int8_gemm_on_the_card_is_exact(cuda, M, K, N):
+    """int8_gemm on the card at shapes torch._int_mm refuses as they are
+    (M <= 16, K and N = 4 mod 8): the zero-padded product, sliced back,
+    equals the CPU's exact product."""
+    from sparsebit_tpu_torch.ops.int8_matmul import int8_gemm
+
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8))
+    out = int8_gemm(a.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+    assert out.shape == (M, N)
+    assert torch.equal(out.cpu(), int8_gemm(a, b))
+
+
+@pytest.mark.parametrize("mode,B,S", [
+    pytest.param("dense", 2, 65, id="dense"),
+    pytest.param("int8", 2, 65, id="int8"),
+    pytest.param("int8", 1, 9, id="int8-M8")])
+def test_qlora_train_step_on_the_card_matches_the_cpu(cuda, mode, B, S):
     """One qlora_train_step of llama_tiny (head_dim 64, GQA 4 -> 2) over
     RTN INT4-g64 column-plane linears with r = 4 adapters on wq/wv (B
-    nonzero), B = 2 x 65 tokens, the dense or the int8 backward: on the
+    nonzero), B = 2 x 65 tokens (and, int8, 1 x 9: M = 8 rows a linear,
+    which torch._int_mm takes only padded), the dense or the int8
+    backward: on the
     card through K10/K11/K12 (one each a layer) and the dense linears at
     M = 128, on the CPU through the masked route. The loss within 1e-3
     relative; the adapters' gradients within relative norm and cosine
@@ -952,7 +1009,7 @@ def test_qlora_train_step_on_the_card_matches_the_cpu(cuda, mode):
                                      .astype(np.float32))
                  for n, t in v.items()}
              for k, v in Q.extract_lora(params).items()}
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65)))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
     before = [w.launches for w in (FA.flash_attention,
                                    FA.flash_attention_dkv,
                                    FA.flash_attention_dq)]

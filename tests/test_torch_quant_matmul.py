@@ -283,6 +283,32 @@ def test_int8_gemm_is_exact_and_refuses_other_types():
         int8_gemm(torch.from_numpy(a).float(), torch.from_numpy(b))
 
 
+@pytest.mark.parametrize("M", [1, 16, 17])
+@pytest.mark.parametrize("K,N", [(12, 20), (4100, 36), (64, 44)])
+def test_int_mm_padding_keeps_the_exact_product(M, K, N):
+    """pad_for_int_mm, the card's route of int8_gemm: the padded shapes
+    are what torch._int_mm takes (more than 16 rows, K and N multiples of
+    8), the padding is zeros, and rows [0, M), columns [0, N) of the
+    padded product equal the exact product, at M = 1, 16, 17 and K, N = 4
+    (mod 8) among them."""
+    from sparsebit_tpu_torch.ops.int8_matmul import pad_for_int_mm
+
+    rng = np.random.default_rng(M + K + N)
+    a = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    b = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    xp, wp = pad_for_int_mm(torch.from_numpy(a), torch.from_numpy(b))
+    Mp, Kp = xp.shape
+    assert Mp == max(M, 17) and Kp % 8 == 0 and Kp - K < 8
+    assert wp.shape[0] == Kp and wp.shape[1] % 8 == 0 and wp.shape[1] - N < 8
+    assert xp.dtype == wp.dtype == torch.int8
+    assert xp.is_contiguous() and wp.is_contiguous()
+    assert not xp[M:].any() and not xp[:, K:].any()
+    assert not wp[K:].any() and not wp[:, N:].any()
+    full = xp.numpy().astype(np.int64) @ wp.numpy().astype(np.int64)
+    np.testing.assert_array_equal(full[:M, :N],
+                                  a.astype(np.int64) @ b.astype(np.int64))
+
+
 @pytest.mark.parametrize("bits,gs", [(4, 64), (3, 128), (8, -1)])
 def test_prepare_a8_backward_matches_jax(bits, gs):
     """The int8 W^T of prepare_a8_backward (codes clipped to [-127, 127])
