@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab ROOT]
 
 Phases (every failure is recorded and the script exits 1 at the end):
   1. card name and power limit (nvidia-smi); build the CUDA kernels from
@@ -17,7 +17,14 @@ Phases (every failure is recorded and the script exits 1 at the end):
      at INT4-g128 serving shapes (K1 on the four fused linears at M = 1,
      8, 16, 32, 64, 128, 512 and 768, bit-equal to the plain version in
      its plan's order, eager and graph-replay ms, with torch._int_mm at
-     M = 512 timed as context only; K4: all 32 layers at B = 1, 8, 32 and
+     M = 512 timed as context only; K2 at B=8 S=512 and S=2048 and at 64
+     query heads a kv head, KV codes and scales exact, out within 2e-3 of
+     the plain version and of the cluster-order oracle, two planted faults
+     past the first split caught; K3 at B = 1, 8 and 64 bit-equal, a
+     planted W2 fault caught; K2 and K3 also in graph-replay ms; with
+     --ab ROOT, ROOT's K2, K3 (device) and K4 (eager) ms beside this
+     tree's, timed in turns by k10_ab.py --k2k3 ROOT . . ROOT (ROOT: the
+     parent commit unpacked by git archive); K4: all 32 layers at B = 1, 8, 32 and
      B = 8 paged, output, KV codes and scales exact, its phase trace at
      B = 1, 8 and 32; K4's plane mode, "K4p",
      at 3 and 2 bits, B = 1 and 8, output, codes and scales equal to the
@@ -64,7 +71,9 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 groups, K1's device ms inside them, K1's launches by
                 shape);
      unfused    decode_chunk_scanned with FORCE_LAYER_KERNEL = False
-                (K1/K2/K3) at a reduced depth;
+                (K1/K2/K3) at a reduced depth, K2's and K3's device ms a
+                step beside the wall ms/step, and the same requests on
+                the K4 route (where the tokens agree);
      paged      PagedDecodeEngine(block=128) against the fixed-slot engine
                 on 10 requests with a shared 256-token prefix, tokens
                 equal;
@@ -417,72 +426,8 @@ def kernel_checks(stacked, cfg, results):
                    gms)
     int_mm_probe(g)
 
-    # K2 at B=8, S=512, Hkv=H=32, D=128, mixed lengths, 8 cache layers
-    B, S, H, Hkv, D, Lc = 8, 512, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
-    kc = torch.randint(-128, 128, (Lc, B, S, Hkv, D), dtype=torch.int8,
-                       generator=g, device=dev)
-    vc = torch.randint(-128, 128, (Lc, B, S, Hkv, D), dtype=torch.int8,
-                       generator=g, device=dev)
-    ksc = torch.empty((Lc, B, S, Hkv), device=dev).uniform_(
-        0.001, 0.05, generator=g)
-    vsc = torch.empty((Lc, B, S, Hkv), device=dev).uniform_(
-        0.001, 0.05, generator=g)
-    length = torch.tensor([0, 17, 100, 255, 300, 411, 480, 511],
-                          dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, D), generator=g, device=dev)
-    kn = torch.randn((B, Hkv, D), generator=g, device=dev)
-    vn = torch.randn((B, Hkv, D), generator=g, device=dev)
-    caches = [t.clone() for t in (kc, vc, ksc, vsc)]
-    out = A.decode_attention_update(q, kn, vn, kc, vc, ksc, vsc, 3, length)
-    ref = A._attn_update_plain(q, kn, vn, *caches, 3, length)
-    torch.cuda.synchronize()
-    exact = all(torch.equal(a, b) for a, b in zip((kc, vc, ksc, vsc), caches))
-    if not exact:
-        fail("K2 cache codes/scales differ from the plain version")
-    err = (out - ref).abs().max().item()
-    ms = cuda_ms(lambda i: A.decode_attention_update(
-        q, kn, vn, kc, vc, ksc, vsc, i % Lc, length), 50)
-    pms = cuda_ms(lambda i: A._attn_update_plain(
-        q, kn, vn, kc, vc, ksc, vsc, i % Lc, length), 3, 1)
-    rows = int(length.sum().item()) + B  # rows [0, len_b] per batch row
-    nbytes = (rows * Hkv * (2 * D + 8) + 4 * B * H * D * 2
-              + 4 * 2 * B * Hkv * D)
-    bnd = bound_ms(nbytes, 4 * rows * (H // Hkv) * Hkv * D, "f32")
-    record("K2 B=8 S=512", "K2", "sparsebit_tpu_torch/csrc/attention.cu",
-           "sparsebit_tpu/ops/attention.py:662", err, 2e-3, ms, pms, bnd,
-           None, "B={} S={} H={} D={} codes {}".format(
-               B, S, H, D, "exact" if exact else "DIFFER"))
-    del kc, vc, ksc, vsc, caches
-
-    # K3 at B in {1, 8}
-    w13, w2 = layers["w13"], layers["w2"]
-    F = cfg.ffn_dim
-    gs = w13.groupsize
-    args = (w13.packed["s4r"], w13.scales, w13.zeros, w2.packed["s4r"],
-            w2.scales, w2.zeros, layers["ffn_norm"])
-    for Bf in (1, 8):
-        x = torch.randn((Bf, cfg.dim), generator=g, device=dev).to(
-            torch.bfloat16)
-        out = FF.ffn_block_fused(x, *args, 0, gs, cfg.rms_eps)
-        lw = [a[0] for a in args]
-        ref = FF._ffn_plain(x.float(), *lw[:6], lw[6], gs, cfg.rms_eps)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 2e-2 * ref.abs().max().item()
-        ms = cuda_ms(lambda i: FF.ffn_block_fused(
-            x, *args, i % Lx, gs, cfg.rms_eps), 20)
-        pms = cuda_ms(lambda i: FF._ffn_plain(
-            x.float(), *[a[i % Lx] for a in args], gs, cfg.rms_eps), 3, 1)
-        G1, G2 = cfg.dim // gs, F // gs
-        nbytes = (cfg.dim * F + F * cfg.dim // 2 + 2 * 2 * (
-            G1 * 2 * F + G2 * cfg.dim) + 2 * cfg.dim
-            + 2 * Bf * cfg.dim + 4 * Bf * cfg.dim)
-        bnd = bound_ms(nbytes, 2 * Bf * (cfg.dim * 2 * F + F * cfg.dim),
-                       "int8")
-        record("K3 B={}".format(Bf) if Bf == 8 else None, "K3",
-               "sparsebit_tpu_torch/csrc/ffn_fused.cu",
-               "sparsebit_tpu/ops/ffn_fused.py:45", err, tol, ms, pms, bnd,
-               None, "B={} dim={} F={}".format(Bf, cfg.dim, F))
+    k2_checks(cfg, record, g)
+    k3_checks(stacked, cfg, record, g)
 
     # K9 at B in {1, 8}, 4096 -> 32000
     W = stacked["lm_head"].w
@@ -513,6 +458,208 @@ def kernel_checks(stacked, cfg, results):
     k5_checks(cfg, record, g)
     k10_checks(cfg, record, g)
     k11_k12_checks(cfg, record, g)
+
+
+K2_LENGTHS = [0, 17, 100, 255, 300, 411, 480, 511]
+# (B, S, H, Hkv, D, lengths): the 7B decode at S = 512, K5's S = 2048
+# lengths, and 64 query heads a kv head
+K2_CASES = [(8, 512, 32, 32, 128, K2_LENGTHS),
+            (8, 2048, 32, 32, 128, [(b + 1) * 256 - 1 for b in range(8)]),
+            (8, 512, 64, 1, 128, K2_LENGTHS)]
+
+
+def k2_planted(q, kn, vn, caches, li, length, out, C):
+    """Errors of K2's output ``out`` against the plain version over two
+    faulted copies of the cache ``caches`` (as they were before the call):
+    in the longest batch row, the row past its first split (rows [0, len]
+    cut into C ranges; with C = 1 the second half) with the largest
+    weight p * vs for query head 0, its largest V code with the top bit
+    flipped, or its V scale doubled. Each must exceed K2's tolerance."""
+    import torch
+    from sparsebit_tpu_torch.ops import attention as A
+
+    b = int(torch.argmax(length).item())
+    n = int(length[b].item()) + 1
+    lo = -(-n // C) if C > 1 else n // 2
+    rows = slice(lo, n - 1)  # row len_b is written by the call itself
+    k, v, ks, vs = caches
+    D = q.shape[-1]
+    qb = q[b, 0].to(torch.bfloat16).float()
+    score = (k[li, b, rows, 0].float() @ qb) * ks[li, b, rows, 0] / D ** 0.5
+    r = lo + int(torch.argmax(torch.exp(score - score.max())
+                              * vs[li, b, rows, 0]).item())
+    errs = []
+    for kind in ("code", "scale"):
+        f = [t.clone() for t in caches]
+        if kind == "code":
+            d = int(torch.argmax(f[1][li, b, r, 0].abs().int()).item())
+            f[1][li, b, r, 0, d] ^= -128  # the top bit
+        else:
+            f[3][li, b, r, 0] *= 2
+        ref = A._attn_update_plain(q, kn, vn, *f, li, length)
+        errs.append((out - ref).abs().max().item())
+    return errs
+
+
+def k2_checks(cfg, record, g):
+    """K2 against its plain version at K2_CASES over 8 cache layers
+    (cycled, so that the cache streams from HBM): KV codes and scales
+    exact, out within 2e-3 of the plain version and of the cluster-order
+    oracle (_attn_update_cluster_plain at the kernel's cluster size);
+    eager and graph-replay ms; two planted faults past the first split
+    (k2_planted) must each exceed the tolerance."""
+    import torch
+    from sparsebit_tpu_torch.ops import _kernels
+    from sparsebit_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    Lc, tol = 8, 2e-3
+    for B, S, H, Hkv, D, lens in K2_CASES:
+        kc = torch.randint(-128, 128, (Lc, B, S, Hkv, D), dtype=torch.int8,
+                           generator=g, device=dev)
+        vc = torch.randint(-128, 128, (Lc, B, S, Hkv, D), dtype=torch.int8,
+                           generator=g, device=dev)
+        ksc = torch.empty((Lc, B, S, Hkv), device=dev).uniform_(
+            0.001, 0.05, generator=g)
+        vsc = torch.empty((Lc, B, S, Hkv), device=dev).uniform_(
+            0.001, 0.05, generator=g)
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, D), generator=g, device=dev)
+        kn = torch.randn((B, Hkv, D), generator=g, device=dev)
+        vn = torch.randn((B, Hkv, D), generator=g, device=dev)
+        before = [t.clone() for t in (kc, vc, ksc, vsc)]
+        caches = [t.clone() for t in before]
+        C = A.k2_cluster(B, S, Hkv, _kernels.sm_count(dev))
+        out = A.decode_attention_update(q, kn, vn, kc, vc, ksc, vsc, 3,
+                                        length)
+        ref = A._attn_update_plain(q, kn, vn, *caches, 3, length)
+        oracle = A._attn_update_cluster_plain(
+            q, kn, vn, *[t.clone() for t in before], 3, length, C)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(a, b)
+                    for a, b in zip((kc, vc, ksc, vsc), caches))
+        tag = "B={} S={} H={} Hkv={} D={}".format(B, S, H, Hkv, D)
+        if not exact:
+            fail("K2 {} cache codes/scales differ from the plain "
+                 "version".format(tag))
+        err = (out - ref).abs().max().item()
+        err_o = (out - oracle).abs().max().item()
+        if err_o > tol:
+            fail("K2 {} error {:.3e} against the cluster-order oracle over "
+                 "{:.0e}".format(tag, err_o, tol))
+        planted = k2_planted(q, kn, vn, before, 3, length, out, C)
+        print("K2   {} cluster {}: err vs oracle {:.3e}; planted faults "
+              "(flipped V code, doubled V scale) err {:.3e} / {:.3e}, "
+              "{:.1f}x / {:.1f}x the tolerance".format(
+                  tag, C, err_o, *planted, *(e / tol for e in planted)),
+              flush=True)
+        if min(planted) <= tol:
+            fail("K2 {}: a planted fault within the tolerance {}".format(
+                tag, planted))
+        del before, caches
+
+        def run(i):
+            return A.decode_attention_update(q, kn, vn, kc, vc, ksc, vsc,
+                                             i % Lc, length)
+
+        ms = cuda_ms(run, 50)
+        gms = (graph_ms(run, 20), None)
+        pms = cuda_ms(lambda i: A._attn_update_plain(
+            q, kn, vn, kc, vc, ksc, vsc, i % Lc, length), 3, 1)
+        rows = int(length.sum().item()) + B  # rows [0, len_b] per batch row
+        nbytes = (rows * Hkv * (2 * D + 8) + 4 * B * H * D * 2
+                  + 4 * 2 * B * Hkv * D)
+        bnd = bound_ms(nbytes, 4 * rows * (H // Hkv) * Hkv * D, "f32")
+        record("K2 " + tag, "K2", "sparsebit_tpu_torch/csrc/attention.cu",
+               "sparsebit_tpu/ops/attention.py:662", err, tol, ms, pms, bnd,
+               None, "{} cluster {} codes {}".format(
+                   tag, C, "exact" if exact else "DIFFER"), gms)
+        del kc, vc, ksc, vsc
+    torch.cuda.empty_cache()
+
+
+def k3_checks(stacked, cfg, record, g):
+    """K3 bit-equal to _ffn_plain (the kernel's order: the norm's tree,
+    s4_plan's K splits) at llama_7b() widths, B = 1, 8 and 64, over the
+    32 layers' stacks cycled so that the weights stream from HBM; eager
+    and graph-replay ms; a doubled W2 scale (column 0 of a group past
+    W2's first split) must break the equality."""
+    import torch
+    from sparsebit_tpu_torch.ops import ffn_fused as FF
+    from sparsebit_tpu_torch.ops import quant_matmul as QM
+
+    dev = torch.device("cuda")
+    layers = stacked["layers"]
+    w13, w2 = layers["w13"], layers["w2"]
+    F, dim, Lx = cfg.ffn_dim, cfg.dim, cfg.n_layers
+    gs = w13.groupsize
+    args = (w13.packed["s4r"], w13.scales, w13.zeros, w2.packed["s4r"],
+            w2.scales, w2.zeros, layers["ffn_norm"])
+    g2 = min(QM.s4_plan(F, dim, gs), F // gs - 1)  # W2's second split
+    for Bf in (1, 8, 64):
+        x = torch.randn((Bf, dim), generator=g, device=dev).to(
+            torch.bfloat16)
+        out = FF.ffn_block_fused(x, *args, 0, gs, cfg.rms_eps)
+        lw = [a[0] for a in args]
+        ref = FF._ffn_plain(x.float(), *lw, gs, cfg.rms_eps)
+        s2f = lw[4].clone()
+        s2f[g2, 0] *= 2
+        ref_f = FF._ffn_plain(x.float(), *lw[:4], s2f, *lw[5:], gs,
+                              cfg.rms_eps)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        err_f = (out - ref_f).abs().max().item()
+        print("K3   B={}: planted fault (W2 scale of group {} column 0 "
+              "doubled) err {:.3e}".format(Bf, g2, err_f), flush=True)
+        if err_f <= 0.0:
+            fail("K3 B={}: a doubled W2 scale left the output equal".format(
+                Bf))
+
+        def run(i):
+            return FF.ffn_block_fused(x, *args, i % Lx, gs, cfg.rms_eps)
+
+        ms = cuda_ms(run, 20)
+        gms = (graph_ms(run, 20), None)
+        pms = cuda_ms(lambda i: FF._ffn_plain(
+            x.float(), *[a[i % Lx] for a in args], gs, cfg.rms_eps), 3, 1)
+        G1, G2 = dim // gs, F // gs
+        nbytes = (dim * F + F * dim // 2 + 2 * 2 * (G1 * 2 * F + G2 * dim)
+                  + 2 * dim + 2 * Bf * dim + 4 * Bf * dim)
+        bnd = bound_ms(nbytes, 2 * Bf * (dim * 2 * F + F * dim), "int8")
+        record("K3 B={}".format(Bf), "K3",
+               "sparsebit_tpu_torch/csrc/ffn_fused.cu",
+               "sparsebit_tpu/ops/ffn_fused.py:45", err, 0.0, ms, pms, bnd,
+               None, "B={} dim={} F={}".format(Bf, dim, F), gms)
+
+
+def ab_timings(root, results):
+    """With ``--ab ROOT`` (another tree of the repository, e.g. the parent
+    commit unpacked by git archive): k10_ab.py --k2k3 times ROOT, this
+    tree, this tree and ROOT in turns, K2 and K3 at K2_CASES and B =
+    1/8/64 (device ms) and K4 / K4p at phase 2's contiguous shapes (eager
+    ms), each tree on operands of its own from the same seeds; each of
+    those rows gains ``ab_ms`` (this tree's two readings) and
+    ``ab_root_ms`` (ROOT's)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, os.path.join(here, "k10_ab.py"), "--k2k3", root,
+         here, here, root], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=1200)
+    print(res.stdout, flush=True)
+    lines = [json.loads(ln) for ln in res.stdout.splitlines()
+             if ln.startswith("{")]
+    if res.returncode != 0 or len(lines) != 4:
+        fail("k10_ab.py --k2k3 exited {} with {} lines".format(
+            res.returncode, len(lines)))
+        return
+    keys = {"K2": "k2_ms", "K3": "k3_ms", "K4": "k4_ms", "K4p": "k4_ms"}
+    for r in results:
+        key = keys.get(r["kernel"])
+        tag = r["shape"].split(" cluster")[0].split(" L=")[0]
+        if key is None or tag not in lines[0].get(key, {}):
+            continue
+        r["ab_root_ms"] = [lines[0][key][tag], lines[3][key][tag]]
+        r["ab_ms"] = [lines[1][key][tag], lines[2][key][tag]]
 
 
 def int_mm_probe(g):
@@ -1708,6 +1855,8 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
         dev_ms, by = timer.take_ms()
         stats["kernel_device_ms_per_step"] = dev_ms / steps
         stats["k5_device_ms_per_step"] = by.get(K5_ENTRY, 0.0) / steps
+        stats["entry_device_ms_per_step"] = {n: t / steps
+                                             for n, t in by.items()}
         print("{}: K5 {:.4f} ms/step device of the decode kernels' "
               "{:.3f}".format(path, stats["k5_device_ms_per_step"],
                               stats["kernel_device_ms_per_step"]),
@@ -2092,17 +2241,41 @@ def serve_paths(params, cfg):
                 self.params_stacked, self.next_tok, self.cache, temps,
                 self._gen, self.cfg, n)
 
+    timer = KernelEvents()
     Dm.FORCE_LAYER_KERNEL = False
     try:
         eng = ScannedEngine(params_u, cfg_u, **kw)
-        _, out["unfused"] = drive(
-            eng, _prompts(cfg), "decode_chunk_scanned",
-            "unfused (decode_chunk_scanned, FORCE_LAYER_KERNEL=False, "
-            "depth {})".format(depth), ("K1", "K2", "K3", "K9"), n_new=8)
+        with timer.patch:
+            toks, st = drive(
+                eng, _prompts(cfg), "decode_chunk_scanned",
+                "unfused (decode_chunk_scanned, FORCE_LAYER_KERNEL=False, "
+                "depth {})".format(depth), ("K1", "K2", "K3", "K9"),
+                n_new=8, timer=timer)
     finally:
         Dm.FORCE_LAYER_KERNEL = None
-    out["unfused"]["depth"] = depth
     del eng
+    # the same model and requests on the K4 route: where do tokens agree?
+    eng = ScannedEngine(params_u, cfg_u, **kw)
+    toks4, _ = drive(eng, _prompts(cfg), "decode_chunk_scanned",
+                     "unfused's model on K4 (depth {})".format(depth),
+                     ("K4",), n_new=8)
+    del eng
+    by = st["entry_device_ms_per_step"]
+    st.update(depth=depth, k2_device_ms_per_step=by.get("sbt_attn_update",
+                                                        0.0),
+              k3_device_ms_per_step=by.get("sbt_ffn_block", 0.0),
+              tokens_equal_k4_route=[a == b for a, b in zip(toks, toks4)],
+              tokens_agree_k4_route=[
+                  next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       len(a)) for a, b in zip(toks, toks4)])
+    print("unfused: K2 {:.4f} and K3 {:.4f} ms/step device of the kernels' "
+          "{:.3f}, wall {:.3f} ms/step; tokens equal to the K4 route's in "
+          "{} of {} requests (leading tokens equal: {})".format(
+              st["k2_device_ms_per_step"], st["k3_device_ms_per_step"],
+              st["kernel_device_ms_per_step"], st["decode_ms_per_step"],
+              sum(st["tokens_equal_k4_route"]), len(toks),
+              st["tokens_agree_k4_route"]), flush=True)
+    out["unfused"] = st
     torch.cuda.empty_cache()
 
     prompts = _prompts(cfg, with_prefix_pair=True)
@@ -2810,7 +2983,8 @@ def plane_paths(cfg):
     return out
 
 
-def main():
+def main(argv):
+    ab_root = argv[argv.index("--ab") + 1] if "--ab" in argv else None
     try:
         import torch
     except ImportError:
@@ -2848,6 +3022,11 @@ def main():
     kernel_checks(stack_layers(params), cfg, results)
     torch.cuda.empty_cache()
     print("kernel checks {:.1f} s".format(time.perf_counter() - t0))
+    if ab_root is not None:
+        t0 = time.perf_counter()
+        ab_timings(ab_root, results)
+        print("K2/K3/K4 A/B against {} {:.1f} s".format(
+            ab_root, time.perf_counter() - t0))
     small_model_check()
     t0 = time.perf_counter()
     paths = generate_paths(cfg)
@@ -2902,7 +3081,7 @@ def main():
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     finally:
         if "proc" in _traced:  # a phase-trace build never waited for
             _traced["proc"].kill()

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Flash attention's device time at chip_smoke.py phase 2's shapes, for two
-or more trees of this repository, in turns on one card.
+"""Flash attention's device time (or, with --k2k3, that of the unfused
+route's K2 and K3) at chip_smoke.py phase 2's shapes, for two or more
+trees of this repository, in turns on one card.
 
     python3 k10_ab.py [--bwd] ROOT_A ROOT_B [ROOT_C ...]
+    python3 k10_ab.py --k2k3 ROOT_A ROOT_B [ROOT_C ...]
     python3 k10_ab.py --ptxas ROOT
     python3 k10_ab.py --probe ROOT
 
@@ -18,6 +20,14 @@ and times, on the same seeded operands:
   - with ``--bwd``, also K11 (``flash_attention_dkv``) and K12
     (``flash_attention_dq``) at k11_k12_checks' 8 shapes, over the tree's
     own K10 log-sum-exp.
+With ``--k2k3`` it times the decode kernels of the unfused scanned route
+instead, at chip_smoke.py phase 2's shapes (K2_CASES, K3_ROWS): K2
+(``decode_attention_update``) over 8 cache layers cycled, K3
+(``ffn_block_fused``) at LLaMA-7B widths over 4 layers of random INT4-g128
+weights cycled, so that both stream from HBM as in decode; and K4, whose
+FFN phases K3 shares, at phase 2's K4 and K4p shapes (32 layers at
+LLaMA-7B widths, S = 512; s4r B = 1/8/32, planes at 3 and 2 bits B =
+1/8), eager ms over 10 launches as phase 2 times it, the median of three.
 Device ms per launch from 20 launches replayed from one CUDA graph, three
 replays, the median. Prints one JSON line per tree, then the card's name
 and power limit. Needs CUDA.
@@ -49,21 +59,49 @@ CASES = [("bf16", 1, 2048, 32, 32, 128), ("bf16", 8, 512, 32, 32, 128),
 BWD_CASES = [("bf16", 4, 512, 32, 32, 128)] + CASES[:1] + CASES[2:8]
 
 
-def graph_ms(fn):
-    """Median device ms per call over three replays of 20 captured calls."""
+# K2: (B, S, H, Hkv, D, lengths); K3: rows at LLaMA-7B widths
+K2_CASES = [(8, 512, 32, 32, 128, [0, 17, 100, 255, 300, 411, 480, 511]),
+            (8, 2048, 32, 32, 128, [(b + 1) * 256 - 1 for b in range(8)]),
+            (8, 512, 64, 1, 128, [0, 17, 100, 255, 300, 411, 480, 511])]
+K3_ROWS = (1, 8, 64)
+
+
+def eager_ms(fn, n=10):
+    """Median over three runs of CUDA events around n eager calls, over
+    n (chip_smoke.cuda_ms's method)."""
     import torch
 
+    fn(0)
+    times = []
     for _ in range(3):
-        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for i in range(n):
+            fn(i)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return sorted(times)[1]
+
+
+def graph_ms(fn):
+    """Median device ms per call over three replays of 20 captured calls;
+    fn(i) is the i-th call."""
+    import torch
+
+    for i in range(3):
+        fn(i)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fn(0)
     torch.cuda.current_stream().wait_stream(side)
     with torch.cuda.graph(graph):
-        for _ in range(20):
-            fn()
+        for i in range(20):
+            fn(i)
     times = []
     for _ in range(3):
         a = torch.cuda.Event(enable_timing=True)
@@ -108,7 +146,7 @@ def child(root, bwd):
             fwd = (FA.flash_attention_fwd if case[0].endswith(" lse")
                    else FA.flash_attention)
             out["ms"][tag(*case)] = graph_ms(
-                lambda: fwd(q, k, v, sm_scale=scale))
+                lambda i: fwd(q, k, v, sm_scale=scale))
         if bwd:
             out["k11_ms"], out["k12_ms"] = {}, {}
             for case in BWD_CASES:
@@ -117,12 +155,117 @@ def child(root, bwd):
                 o, lse = FA.flash_attention_fwd(q, k, v, sm_scale=scale)
                 di = FA.flash_di(o, do)
                 out["k11_ms"][tag(*case)] = graph_ms(
-                    lambda: FA.flash_attention_dkv(q, k, v, lse, do, di,
-                                                   sm_scale=scale))
+                    lambda i: FA.flash_attention_dkv(q, k, v, lse, do, di,
+                                                     sm_scale=scale))
                 out["k12_ms"][tag(*case)] = graph_ms(
-                    lambda: FA.flash_attention_dq(q, k, v, lse, do, di,
-                                                  sm_scale=scale))
+                    lambda i: FA.flash_attention_dq(q, k, v, lse, do, di,
+                                                    sm_scale=scale))
     print(json.dumps(out), flush=True)
+
+
+def child_k2k3(root):
+    """Time K2 and K3 of the tree at ``root``; print its JSON line."""
+    sys.path.insert(0, root)
+    import torch
+    from sparsebit_tpu_torch.ops import _kernels
+    from sparsebit_tpu_torch.ops import attention as A
+    from sparsebit_tpu_torch.ops import ffn_fused as FF
+
+    _kernels.lib()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"root": root, "k2_ms": {}, "k3_ms": {}}
+    Lc = 8
+    for B, S, H, Hkv, D, lens in K2_CASES:
+        kv = [torch.randint(-128, 128, (Lc, B, S, Hkv, D), dtype=torch.int8,
+                            generator=g, device=dev) for _ in range(2)]
+        sc = [torch.empty((Lc, B, S, Hkv), device=dev).uniform_(
+            0.001, 0.05, generator=g) for _ in range(2)]
+        q = torch.randn((B, H, D), generator=g, device=dev)
+        kn = torch.randn((B, Hkv, D), generator=g, device=dev)
+        vn = torch.randn((B, Hkv, D), generator=g, device=dev)
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out["k2_ms"]["B={} S={} H={} Hkv={} D={}".format(
+            B, S, H, Hkv, D)] = graph_ms(
+                lambda i: A.decode_attention_update(
+                    q, kn, vn, *kv, *sc, i % Lc, length))
+        del kv, sc
+    dim, F, gs, L = 4096, 11008, 128, 4
+
+    def s4(K, N):
+        w = torch.randint(0, 256, (L, K // 2, N), dtype=torch.uint8,
+                          generator=g, device=dev)
+        s = torch.empty((L, K // gs, N), device=dev).uniform_(
+            0.001, 0.01, generator=g).to(torch.bfloat16)
+        return w, s, torch.full_like(s, 8.0)
+
+    ws = s4(dim, 2 * F) + s4(F, dim)
+    nw = torch.ones((L, dim), dtype=torch.bfloat16, device=dev)
+    for B in K3_ROWS:
+        x = torch.randn((B, dim), generator=g, device=dev).to(torch.bfloat16)
+        out["k3_ms"]["B={} dim={} F={}".format(B, dim, F)] = graph_ms(
+            lambda i: FF.ffn_block_fused(x, *ws, nw, i % L, gs, 1e-6))
+    del ws
+    out["k4_ms"] = k4_eager_ms(g)
+    print(json.dumps(out), flush=True)
+
+
+def k4_eager_ms(g):
+    """{case: eager ms} of K4 at chip_smoke.py phase 2's shapes: 32 layers
+    of random weights at LLaMA-7B widths (s4r, or the 3/2-bit plane concat
+    at the padded widths), bf16 qparams and norms, an int8 cache of S =
+    512 rows."""
+    import torch
+    from sparsebit_tpu_torch.llm.decode import _rope_cos_sin
+    from sparsebit_tpu_torch.llm.llama import llama_7b
+    from sparsebit_tpu_torch.ops import layer_fused as LF
+    from sparsebit_tpu_torch.ops.packing import pallas_n_pad
+
+    dev = torch.device("cuda")
+    cfg = llama_7b()
+    L, S, gs, D, Hkv = cfg.n_layers, 512, 128, cfg.head_dim, cfg.n_kv_heads
+    K_N = [(cfg.dim, (cfg.n_heads + 2 * Hkv) * D), (cfg.n_heads * D, cfg.dim),
+           (cfg.dim, 2 * cfg.ffn_dim), (cfg.ffn_dim, cfg.dim)]
+    norms = [torch.ones((L, cfg.dim), dtype=torch.bfloat16, device=dev)] * 2
+    pos8 = [0, 17, 100, 255, 300, 411, 480, 511]
+    pos32 = torch.randint(0, S, (32,), generator=torch.Generator().manual_seed(
+        4)).tolist()
+    out = {}
+    for bits, rows in ((4, ((1, [300]), (8, pos8), (32, pos32))),
+                       (3, ((1, [300]), (8, pos8))),
+                       (2, ((1, [300]), (8, pos8)))):
+        wargs = []
+        for K, N in K_N:
+            Ns = N if bits == 4 else N + pallas_n_pad(N, bits)
+            width = {4: N, 3: 3 * Ns // 8, 2: Ns // 4}[bits]
+            wargs += [torch.randint(0, 256, (L, K // 2 if bits == 4 else K,
+                                             width), dtype=torch.uint8,
+                                    generator=g, device=dev),
+                      torch.empty((L, K // gs, Ns), device=dev).uniform_(
+                          0.001, 0.01, generator=g).to(torch.bfloat16),
+                      torch.full((L, K // gs, Ns), 8.0 if bits == 4 else
+                                 float(2 ** (bits - 1)), dtype=torch.bfloat16,
+                                 device=dev)]
+        for B, pos_l in rows:
+            cache = [torch.randint(-128, 128, (L, B, S, Hkv, D),
+                                   dtype=torch.int8, generator=g, device=dev)
+                     for _ in range(2)]
+            cache += [torch.empty((L, B, S, Hkv), device=dev).uniform_(
+                0.001, 0.05, generator=g).to(torch.bfloat16).float()
+                for _ in range(2)]
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            cos, sin = _rope_cos_sin(cfg, pos)
+            x = torch.randn((B, cfg.dim), generator=g, device=dev).to(
+                torch.bfloat16).float()
+            out["K4{} B={}".format("" if bits == 4 else "p {}-bit".format(
+                bits), B)] = eager_ms(
+                lambda i: LF.fused_decoder_layers(
+                    x, pos, cos, sin, *wargs, *norms, *cache, cfg, gs,
+                    wbits=bits))
+            del cache
+        del wargs
+        torch.cuda.empty_cache()
+    return out
 
 
 def ptxas(root):
@@ -233,14 +376,13 @@ def main(args):
     if not torch.cuda.is_available():
         print("k10_ab.py needs a CUDA device", file=sys.stderr)
         return 2
-    bwd = "--bwd" in args
-    roots = [a for a in args if a != "--bwd"]
+    flags = [a for a in args if a in ("--bwd", "--k2k3")]
+    roots = [a for a in args if a not in flags]
     if len(roots) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     for root in roots:
-        cmd = [sys.executable, __file__, "--child", root] + (
-            ["--bwd"] if bwd else [])
+        cmd = [sys.executable, __file__, "--child", root] + flags
         rc = subprocess.run(cmd, timeout=900).returncode
         if rc != 0:
             print("tree {} failed with {}".format(root, rc), file=sys.stderr)
@@ -254,6 +396,9 @@ def main(args):
 
 if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == "--child":
-        child(sys.argv[2], "--bwd" in sys.argv[3:])
+        if "--k2k3" in sys.argv[3:]:
+            child_k2k3(sys.argv[2])
+        else:
+            child(sys.argv[2], "--bwd" in sys.argv[3:])
     else:
         sys.exit(main(sys.argv[1:]))

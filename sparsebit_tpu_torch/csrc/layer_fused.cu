@@ -29,6 +29,9 @@
 //   4  W13, a barrier, then silu(g) * u and the row absmax;
 //   5  the int8 rows of the GLU output, a barrier, then W2 + residual
 //      into the carried row.
+// Phases C, 4 and 5 of s4r mode are ffn_phases.cuh's, which K3
+// (ffn_fused.cu) runs as a launch of its own; plane mode shares their
+// norm, GLU and requantization.
 // Each matmul ends with a barrier and a pass that adds its K splits (s4r
 // mode: every matmul; plane mode: Wo and W2's two halves) before its
 // epilogue. The bit width is a template parameter. BITS 4 reads s4r row
@@ -80,17 +83,20 @@
 
 #include <type_traits>
 
-#include "w4a8.cuh"
+#include "ffn_phases.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = sbt::kGridThreads;
 constexpr int kMaxD = 256;
 constexpr int kMaxRep = 8;
-constexpr int kMaxRows = 64;  // B
-constexpr int kMaxBlocksPerSM = 2;
+
+using sbt::grid_for;
+using sbt::qp_at;
+using sbt::tree_max;
+using sbt::tree_sum;
 
 // The phases of a layer, each named at the grid barrier that ends it.
 enum Phase : int {
@@ -122,87 +128,31 @@ __device__ __forceinline__ void stamp(int li, int mark, Phase done) {
 }
 #endif
 
-struct Args {
-  const uint8_t *wq, *wo, *w13, *w2;
-  const void *sq, *zq, *so, *zo, *s13, *z13, *s2, *z2;
+// The FFN half's operands (w13, w2 and their qparams, xq, xs, act,
+// amax_g, sizes, W13's and W2's split plan) come from sbt::FfnArgs; xq and
+// xs also carry the attention norm's rows, aq also q8(aout) (B, Hq*D), and
+// part also holds, in plane mode, Wo's and W2's first-half sums (B, dim)
+// and then the second half's group terms (G - G0, B, dim).
+struct Args : sbt::FfnArgs {
+  const uint8_t *wq, *wo;
+  const void *sq, *zq, *so, *zo;
   const void *an, *fn;
   int8_t *k, *v;
   float *ks, *vs;
   const int *bt, *pos;
   const float *cos, *sin;
   float* x;  // carried rows (B, dim): the input, then each layer's output
-  int8_t* xq;
-  float *xs, *qkv, *aout, *amax_a, *xmid, *act, *amax_g, *sc;
+  float *qkv, *aout, *amax_a, *xmid, *sc;
   float* h13;  // plane mode: [gate | up] rows (B, 2F) before the GLU
-  int8_t* aq;  // q8(aout) (B, Hq*D), then q8(act) (B, F)
-  // plane mode: Wo's and W2's first-half sums (B, dim), then the second
-  // half's group terms (G - G0, B, dim); s4r mode: each matmul's K-split
-  // partials (splits, B, N)
-  float* part;
-  int sz_bf16, nw_bf16, L, B, dim, Hq, Hkv, D, F, gs;
+  int L, Hq, Hkv, D;
   int nq_s, no_s, n13_s, n2_s;  // (padded) N: the s/z row strides
-  int gq, go, g13, g2;          // s4r mode: groups a K split of each
+  int gq, go;                   // s4r mode: groups a K split of Wqkv, Wo
   int n_blocks, block, max_chunks, s_act;
-  float eps, inv_sqrt_d;
+  float inv_sqrt_d;
 };
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ const void* qp_at(const void* p, size_t i,
-                                             int bf16) {
-  return static_cast<const char*>(p) + i * (bf16 ? 2 : 4);
-}
-
-// Ordered block reductions over all kThreads threads: the plain version's
-// attention.ordered_sum folds the partials in this same tree.
-__device__ float tree_sum(float v, float* red) {
-  const int t = threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int w = kThreads / 2; w >= 1; w >>= 1) {
-    if (t < w) red[t] = __fadd_rn(red[t], red[t + w]);
-    __syncthreads();
-  }
-  float r = red[0];
-  __syncthreads();
-  return r;
-}
-
-__device__ float tree_max(float v, float* red) {
-  const int t = threadIdx.x;
-  red[t] = v;
-  __syncthreads();
-  for (int w = kThreads / 2; w >= 1; w >>= 1) {
-    if (t < w) red[t] = fmaxf(red[t], red[t + w]);
-    __syncthreads();
-  }
-  float r = red[0];
-  __syncthreads();
-  return r;
-}
-
-// xq[row] = int8(rms_norm(xr) * nw), xs[row] its scale; f32 throughout:
-// var = sum(x^2) / dim, xn = (x * (1 / sqrt(var + eps))) * nw.
-__device__ void norm_quant_row(const float* xr, const void* nw, int nw_bf16,
-                               int dim, float eps, int8_t* xq, float* xs,
-                               float* red) {
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < dim; i += kThreads)
-    ss = __fadd_rn(ss, __fmul_rn(xr[i], xr[i]));
-  const float var = __fdiv_rn(tree_sum(ss, red), static_cast<float>(dim));
-  const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
-  float mx = 0.f;
-  for (int i = threadIdx.x; i < dim; i += kThreads)
-    mx = fmaxf(mx, fabsf(__fmul_rn(__fmul_rn(xr[i], r),
-                                   sbt::load_qparam(nw, i, nw_bf16))));
-  const float scale = sbt::row_scale(tree_max(mx, red));
-  for (int i = threadIdx.x; i < dim; i += kThreads)
-    xq[i] = static_cast<int8_t>(sbt::quant8(
-        __fmul_rn(__fmul_rn(xr[i], r), sbt::load_qparam(nw, i, nw_bf16)),
-        scale));
-  if (threadIdx.x == 0) *xs = scale;
 }
 
 // Cache row index (into the (.., Hkv) scale pool) of logical row s of
@@ -479,77 +429,6 @@ __device__ __forceinline__ void plane_phase(const int8_t* x, const uint8_t* w,
   }
 }
 
-// dst (B, K) int8 = q8(src (B, K) f32) against each row's absmax, four
-// codes a word, the whole grid striding over the words (AF32Requant's
-// codes): the int8 rows Wo's and W2's tiles stream.
-__device__ void quant_rows_grid(const float* src, const float* amax, int B,
-                                int K, int8_t* dst) {
-  const sbt::AF32Requant q{src, amax, B, K};
-  const int kw = K / 4;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < B * kw;
-       i += gridDim.x * kThreads) {
-    const int row = i / kw;
-    reinterpret_cast<int*>(dst)[i] = q.word(row, 4 * (i - row * kw));
-  }
-}
-
-// One matmul phase of s4r mode with the tensor-core tile C (sbt::s4tile):
-// items (column tile, K split) over the grid, each writing its split's
-// partial sum of groups [p * gps, (p + 1) * gps) in order to a.part[p];
-// after a grid barrier (sync) every output adds the partials in split
-// order, then epi(row, col, sum). The plain version repeats that order
-// (ops/quant_matmul._qmm_s4_plain with the plan's gps).
-template <class C, class Sync, class Sum>
-__device__ __forceinline__ void s4_phase(const int8_t* x, const uint8_t* w,
-                                         const void* s, const void* z,
-                                         int li, int K, int N, int gps,
-                                         const Args& a, uint8_t* smem,
-                                         const Sync& sync, const Sum& sum) {
-  const int G = K / a.gs, splits = (G + gps - 1) / gps;
-  const int tiles = (N + C::BN - 1) / C::BN;
-  const int es = a.sz_bf16 ? 2 : 4;
-  const uint8_t* wl = w + static_cast<size_t>(li) * (K / 2) * N;
-  const void* sl = qp_at(s, static_cast<size_t>(li) * G * N, a.sz_bf16);
-  const void* zl = qp_at(z, static_cast<size_t>(li) * G * N, a.sz_bf16);
-  const int vec_w = sbt::copy_width(wl, N);
-  const int vec_q = min(sbt::copy_width(sl, static_cast<size_t>(N) * es),
-                        sbt::copy_width(zl, static_cast<size_t>(N) * es));
-  const size_t BN_ = static_cast<size_t>(a.B) * N;
-  const sbt::S4Out<C> o;
-  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
-    const int tile = item % tiles, p = item / tiles;
-    const int g0 = p * gps, col0 = tile * C::BN;
-    float acc[C::MT][C::NT][4];
-    sbt::s4tile<C>(x, a.B, K, wl, N, vec_w, sl, zl, a.sz_bf16, N, vec_q,
-                   a.gs, g0, min(G, g0 + gps), col0, N, smem, acc);
-#pragma unroll
-    for (int mt = 0; mt < C::MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = o.row(mt, r), col = col0 + o.col(j, r);
-          if (row < a.B && col < N)
-            a.part[p * BN_ + static_cast<size_t>(row) * N + col] =
-                acc[mt][j][r];
-        }
-  }
-  sync();
-  sum([&](size_t i) {  // output i = row * N + col of the split sums
-    float v = a.part[i];
-    for (int p = 1; p < splits; ++p) v = __fadd_rn(v, a.part[p * BN_ + i]);
-    return v;
-  });
-}
-
-// For every output i < n, over the whole grid: f(i).
-template <class F>
-__device__ __forceinline__ void grid_for(size_t n, const F& f) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * kThreads)
-    f(i);
-}
-
 template <class P, class G, int BITS, class S4>
 __global__ void __launch_bounds__(kThreads)
     layers_fused_kernel(Args a) {
@@ -568,7 +447,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(16) uint8_t s4_sm[];  // s4r: S4::BYTES
   __shared__ float red[kThreads];
   __shared__ AttnSmem sm;
-  __shared__ int amax_sm[kMaxRows];
+  __shared__ int amax_sm[sbt::kMaxGridRows];
   cg::grid_group grid = cg::this_grid();
 
   const int B = a.B, dim = a.dim, D = a.D, F = a.F, F2 = 2 * F;
@@ -592,9 +471,9 @@ __global__ void __launch_bounds__(kThreads)
 
     // A: attn norm + quant; zero the attention-out absmax
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
-      norm_quant_row(a.x + static_cast<size_t>(b) * dim, an, a.nw_bf16, dim,
-                     a.eps, a.xq + static_cast<size_t>(b) * dim, a.xs + b,
-                     red);
+      sbt::norm_quant_row(a.x + static_cast<size_t>(b) * dim, an, a.nw_bf16,
+                          dim, a.eps, a.xq + static_cast<size_t>(b) * dim,
+                          a.xs + b, red);
       if (threadIdx.x == 0) a.amax_a[b] = 0.f;
     }
     sync(kAttnNorm);
@@ -608,12 +487,12 @@ __global__ void __launch_bounds__(kThreads)
                            plane_sm, false, [] {}, qkv_out);
       sync(kWqkv);
     } else {
-      s4_phase<S4>(a.xq, a.wq, a.sq, a.zq, li, dim, Nq, a.gq, a, s4_sm,
-                   [&] { sync(kWqkv); }, [&](const auto& split_sum) {
-                     grid_for(static_cast<size_t>(B) * Nq, [&](size_t i) {
-                       qkv_out(i / Nq, i % Nq, split_sum(i));
-                     });
-                   });
+      sbt::s4_phase<S4>(a.xq, a.wq, a.sq, a.zq, li, dim, Nq, a.gq, a, s4_sm,
+                        [&] { sync(kWqkv); }, [&](const auto& split_sum) {
+                          grid_for(static_cast<size_t>(B) * Nq, [&](size_t i) {
+                            qkv_out(i / Nq, i % Nq, split_sum(i));
+                          });
+                        });
       sync(kWqkvSum);
     }
 
@@ -623,7 +502,7 @@ __global__ void __launch_bounds__(kThreads)
     sync(kAttention);
 
     // 3: xmid = x + as * Wo(q8(aout)), the int8 rows quantized first
-    quant_rows_grid(a.aout, a.amax_a, B, HD, a.aq);
+    sbt::quant_rows_grid(a.aout, a.amax_a, B, HD, a.aq);
     sync(kQ8Attn);
     const auto wo_out = [&](int row, int col, float v) {
       const size_t o = static_cast<size_t>(row) * dim + col;
@@ -634,44 +513,26 @@ __global__ void __launch_bounds__(kThreads)
       plane_phase<P, BITS>(a.aq, a.wo, a.so, a.zo, li, HD, a.no_s, dim, a,
                            plane_sm, true, [&] { sync(kWo); }, wo_out);
     } else {
-      s4_phase<S4>(a.aq, a.wo, a.so, a.zo, li, HD, dim, a.go, a, s4_sm,
-                   [&] { sync(kWo); }, [&](const auto& split_sum) {
-                     grid_for(static_cast<size_t>(B) * dim, [&](size_t i) {
-                       wo_out(i / dim, i % dim, split_sum(i));
-                     });
-                   });
+      sbt::s4_phase<S4>(a.aq, a.wo, a.so, a.zo, li, HD, dim, a.go, a, s4_sm,
+                        [&] { sync(kWo); }, [&](const auto& split_sum) {
+                          grid_for(static_cast<size_t>(B) * dim, [&](size_t i) {
+                            wo_out(i / dim, i % dim, split_sum(i));
+                          });
+                        });
     }
     sync(kWoSum);
 
-    // C: ffn norm + quant; zero the GLU absmax
-    for (int b = blockIdx.x; b < B; b += gridDim.x) {
-      norm_quant_row(a.xmid + static_cast<size_t>(b) * dim, fn, a.nw_bf16,
-                     dim, a.eps, a.xq + static_cast<size_t>(b) * dim,
-                     a.xs + b, red);
-      if (threadIdx.x == 0) a.amax_g[b] = 0.f;
-    }
-    sync(kFfnNorm);
-
-    // 4: [g | u] = xs * W13(xq), then act = silu(g) * u and its row absmax
-    // after a barrier (gate j and up F + j lie in different tiles).
-    const auto glu = [&](const auto& gate_up) {
-      if (static_cast<int>(threadIdx.x) < B) amax_sm[threadIdx.x] = 0;
-      __syncthreads();
-      grid_for(static_cast<size_t>(B) * F, [&](size_t i) {
-        const int rl = static_cast<int>(i / F), j = static_cast<int>(i % F);
-        float g, u;
-        gate_up(rl, j, g, u);
-        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
-        const float v = __fmul_rn(__fmul_rn(g, sig), u);
-        a.act[i] = v;
-        atomicMax(&amax_sm[rl], __float_as_int(fabsf(v)));
-      });
-      __syncthreads();
-      if (static_cast<int>(threadIdx.x) < B)
-        atomicMax(reinterpret_cast<int*>(a.amax_g) + threadIdx.x,
-                  amax_sm[threadIdx.x]);
-    };
-    if constexpr (BITS != 4) {
+    // C, 4, 5: the FFN half, x = xmid + W2(q8(silu(g) * u)). s4r mode
+    // runs ffn_phases.cuh's phases (K3's too); plane mode its own matmuls
+    // around the same norm, GLU and requantization phases.
+    if constexpr (BITS == 4) {
+      sbt::ffn_s4<S4>(a, li, a.xmid, fn, a.x, s4_sm, amax_sm, red,
+                      [&](sbt::FfnMark m) { sync(Phase(kFfnNorm + m)); });
+    } else {
+      sbt::ffn_norm_rows(a, a.xmid, fn, red);
+      sync(kFfnNorm);
+      // 4: [g | u] = xs * W13(xq) into h13, a barrier (gate j and up F + j
+      // may lie in different planes), then silu(g) * u and its row absmax
       plane_phase<W13, BITS>(a.xq, a.w13, a.s13, a.z13, li, dim, a.n13_s,
                              F2, a, plane_sm, false, [] {},
                              [&](int row, int col, float v) {
@@ -679,70 +540,28 @@ __global__ void __launch_bounds__(kThreads)
                                    __fmul_rn(v, a.xs[row]);
                              });
       sync(kW13);
-      glu([&](int rl, int j, float& g, float& u) {
+      sbt::glu_rows(a, amax_sm, [&](int rl, int j, float& g, float& u) {
         g = a.h13[static_cast<size_t>(rl) * F2 + j];
         u = a.h13[static_cast<size_t>(rl) * F2 + F + j];
       });
-    } else {
-      s4_phase<S4>(a.xq, a.w13, a.s13, a.z13, li, dim, F2, a.g13, a, s4_sm,
-                   [&] { sync(kW13); }, [&](const auto& split_sum) {
-                     glu([&](int rl, int j, float& g, float& u) {
-                       const size_t at = static_cast<size_t>(rl) * F2 + j;
-                       g = __fmul_rn(split_sum(at), a.xs[rl]);
-                       u = __fmul_rn(split_sum(at + F), a.xs[rl]);
-                     });
-                   });
-    }
-    sync(kGlu);
-
-    // 5: x = xmid + gs * W2(q8(act)), the int8 rows quantized first
-    quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
-    sync(kQ8Act);
-    const auto w2_out = [&](int row, int col, float v) {
-      const size_t o = static_cast<size_t>(row) * dim + col;
-      a.x[o] =
-          __fadd_rn(a.xmid[o], __fmul_rn(v, sbt::row_scale(a.amax_g[row])));
-    };
-    if constexpr (BITS != 4) {
+      sync(kGlu);
+      // 5: x = xmid + gs * W2(q8(act)), the int8 rows quantized first
+      sbt::quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
+      sync(kQ8Act);
       plane_phase<P, BITS>(a.aq, a.w2, a.s2, a.z2, li, F, a.n2_s, dim, a,
-                           plane_sm, true, [&] { sync(kW2); }, w2_out);
-    } else {
-      s4_phase<S4>(a.aq, a.w2, a.s2, a.z2, li, F, dim, a.g2, a, s4_sm,
-                   [&] { sync(kW2); }, [&](const auto& split_sum) {
-                     grid_for(static_cast<size_t>(B) * dim, [&](size_t i) {
-                       w2_out(i / dim, i % dim, split_sum(i));
-                     });
-                   });
+                           plane_sm, true, [&] { sync(kW2); },
+                           [&](int row, int col, float v) {
+                             const size_t o = static_cast<size_t>(row) * dim +
+                                              col;
+                             a.x[o] = __fadd_rn(
+                                 a.xmid[o],
+                                 __fmul_rn(v, sbt::row_scale(a.amax_g[row])));
+                           });
+      sync(kW2Sum);
     }
-    sync(kW2Sum);
   }
 }
 
-
-// Blocks of the persistent grid of kernel kern: as many as fit on the
-// card at once, at most kMaxBlocksPerSM an SM.
-// smem: its dynamic shared memory, allowed past 48 KB first, so that the
-// occupancy query sees the launch's own size.
-template <class Kern>
-cudaError_t grid_size(Kern kern, int smem, int* grid) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  *grid = sms * (per_sm < kMaxBlocksPerSM ? per_sm : kMaxBlocksPerSM);
-  return cudaSuccess;
-}
 
 // The dynamic shared memory of K4: s4r mode's ring (plane mode's tiles
 // use static shared memory).
@@ -754,7 +573,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   auto kern = layers_fused_kernel<P, G, BITS, S4>;
   constexpr int smem = kDynSmem<BITS, S4>;
   int grid = 0;
-  cudaError_t e = grid_size(kern, smem, &grid);
+  cudaError_t e = sbt::grid_size(kern, smem, &grid);
   if (e != cudaSuccess) return e;
   Args copy = a;
   void* params[] = {&copy};
@@ -887,7 +706,7 @@ struct GridOf {
   int* g;
   template <class P, class G, int BITS, class S4>
   cudaError_t operator()() const {
-    return grid_size(layers_fused_kernel<P, G, BITS, S4>,
+    return sbt::grid_size(layers_fused_kernel<P, G, BITS, S4>,
                      kDynSmem<BITS, S4>, g);
   }
 };

@@ -1,7 +1,7 @@
-// W4A8 tile cores: wtile (dp4a; the fused FFN K3, ffn_fused.cu), ptile
-// (dp4a over the 2/3-bit plane concat; K4's plane mode) and s4tile (int8
-// tensor cores over s4r; K1, quant_matmul.cu, and K4's 4-bit mode,
-// layer_fused.cu), all with the same epilogue order.
+// W4A8 tile cores: s4tile (int8 tensor cores over s4r: K1, quant_matmul.cu;
+// K4's 4-bit mode, layer_fused.cu; K3, ffn_fused.cu, through
+// ffn_phases.cuh) and ptile (dp4a over the 2/3-bit plane concat: K4's
+// plane mode), both with the same epilogue order.
 //
 // Math (sparsebit_tpu/ops/quant_matmul.py:443-471, _qmm_u4_kernel): for
 // int8 activations x8 (M, K) and 4-bit codes C (K, N) stored as signed
@@ -12,26 +12,11 @@
 //     xsum_g = sum_{k in g} x8[m, k]                 (exact int32),
 // each group term in f32, in that order, summed over g in order.
 //
-// Tiling: a block owns a BM x BN output tile and walks K in steps of
-// BK = 64 rows. Each step copies the x8 tile (BM x 64 bytes) and the s4r
-// tile (32 x BN bytes, neighbouring threads on neighbouring columns, so
-// the reads coalesce) into shared memory, the weights decoded to int8 and
-// transposed so that one 32-bit word holds 4 consecutive k of one column.
-// Threads then run __dp4a over the words; the next step's global loads are
-// issued into registers before the current step's dot products (register
-// double buffering). At the end of every group the int32 dots are folded
-// into the f32 accumulators with that group's scale and zero, read once
-// per (group, column) and never past row G-1.
-//
-// The s4r weights come through a source (S4Rows) that builds each dp4a
-// word of one column's codes. This tile has one 64-row step in flight and
-// byte-wide loads (~1 us a step on the H100 whatever its bytes); K1 and
-// K4's s4r mode moved to s4tile below, and only K3 still runs it.
-// K4's true-width 2/3-bit "pl" concat
-// (PlaneRows) goes through ptile, the same product with a plane-aware
-// tile (its columns span all planes of a run of byte columns, each byte
-// read once and decoded into the words of all its planes) fed by a
-// cp.async ring; unsigned plane codes take the zero unshifted:
+// K4's true-width 2/3-bit "pl" concat (PlaneRows) goes through ptile, the
+// same product on __dp4a with a plane-aware tile (its columns span all
+// planes of a run of byte columns, each byte read once and decoded into
+// the words of all its planes) fed by a cp.async ring; unsigned plane
+// codes take the zero unshifted:
 //     acc[m, n] = sum_g s_g * (dot_g - xsum_g * z_g).
 #pragma once
 
@@ -58,32 +43,11 @@ __device__ __forceinline__ int pack4(int a, int b, int c, int d) {
          ((d & 0xff) << 24);
 }
 
-// Two s4r bytes of one column (rows 2r and 2r+1 of the K/2 axis) -> the
-// four signed codes of k = 4r..4r+3 as one dp4a word, k ascending.
-__device__ __forceinline__ int decode_s4_pair(uint32_t b0, uint32_t b1) {
-  int lo0 = static_cast<int>(static_cast<int8_t>(b0 << 4)) >> 4;
-  int hi0 = static_cast<int>(static_cast<int8_t>(b0)) >> 4;
-  int lo1 = static_cast<int>(static_cast<int8_t>(b1 << 4)) >> 4;
-  int hi1 = static_cast<int>(static_cast<int8_t>(b1)) >> 4;
-  return pack4(lo0, hi0, lo1, hi1);
-}
-
 __device__ __forceinline__ int quant8(float v, float scale) {
   float r = rintf(v / scale);  // half to even, like jnp.round
   r = fminf(fmaxf(r, -128.f), 127.f);
   return static_cast<int>(r);
 }
-
-// A operand: int8 rows (M, K).
-struct AInt8 {
-  const int8_t* x;
-  int M, K;
-  __device__ __forceinline__ int word(int row, int k) const {
-    if (row >= M) return 0;
-    return *reinterpret_cast<const int*>(x + static_cast<size_t>(row) * K +
-                                         k);
-  }
-};
 
 // Per-row int8 scale of tokenwise_quant: max(absmax, 1e-8) * (1/127), the
 // multiply that XLA makes of the reference's division by 127.
@@ -104,47 +68,6 @@ struct AF32Requant {
     float s = row_scale(amax[row]);
     return pack4(quant8(v.x, s), quant8(v.y, s), quant8(v.z, s),
                  quant8(v.w, s));
-  }
-};
-
-// Tile column -> weight column, or -1 past the edge.
-struct ColPlain {
-  int n0, N;
-  __device__ __forceinline__ int operator()(int c) const {
-    int n = n0 + c;
-    return n < N ? n : -1;
-  }
-};
-
-// GLU pairing over a fused [gate | up] weight of 2F columns: tile columns
-// [0, half) are gate columns j0.., [half, 2*half) the up columns F+j0..
-struct ColGLU {
-  int j0, F, half;
-  __device__ __forceinline__ int operator()(int c) const {
-    int j = j0 + (c < half ? c : c - half);
-    if (j >= F) return -1;
-    return c < half ? j : F + j;
-  }
-};
-
-// Weight sources of the tile core: load() fetches the raw bytes of codes
-// k..k+3 of weight column n into two registers, decode() makes them one
-// dp4a word of int8 codes (k ascending).
-
-// Signed row pairs ("s4r", (K/2, N) bytes): stored codes are code - 8.
-struct S4Rows {
-  const uint8_t* w;
-  int N;  // row stride in bytes
-  static constexpr bool kSigned = true;
-  __device__ __forceinline__ void load(int k, int n, uint32_t& r0,
-                                       uint32_t& r1) const {
-    const uint8_t* p = w + static_cast<size_t>(k / 2) * N + n;
-    r0 = __ldg(p);
-    r1 = __ldg(p + N);
-  }
-  __device__ __forceinline__ int decode(uint32_t r0, uint32_t r1,
-                                        int) const {
-    return decode_s4_pair(r0, r1);
   }
 };
 
@@ -174,128 +97,14 @@ struct ColPlanes {
   }
 };
 
+// A BM x BN output tile of ptile, TM x TN outputs a thread: thread (tx,
+// ty) owns rows ty + tm * TY and tile columns tx + tn * TX.
 template <int BM, int BN, int TM, int TN>
 struct Tile {
   static constexpr int TX = BN / TN;
   static constexpr int TY = BM / TM;
   static constexpr int THREADS = TX * TY;
-  static constexpr int XW = BM * KW;  // x words per step
-  static constexpr int WP = BN * KW;  // (column, word) pairs per step
-  static constexpr int XW_T = (XW + THREADS - 1) / THREADS;
-  static constexpr int WP_T = WP / THREADS;
-  static_assert(WP % THREADS == 0, "weight pairs must split evenly");
 };
-
-// Accumulates acc[tm][tn] for rows row0 + ty + tm*TY and tile columns
-// tx + tn*TX. src, s, z already point at the layer; N is the row stride
-// of s/z (elements).
-template <int BM, int BN, int TM, int TN, class A, class W, class ColMap>
-__device__ __forceinline__ void wtile(
-    const A& a, const W& src, const void* s, const void* z, int sz_bf16,
-    int N, int K, int gs, int row0, const ColMap& cm,
-    float (&acc)[TM][TN]) {
-  using T = Tile<BM, BN, TM, TN>;
-  __shared__ int xs_sm[BM][KW + 1];
-  __shared__ int ws_sm[BN][KW + 1];
-  __shared__ int xsum_sm[BM];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % T::TX, ty = tid / T::TX;
-  int xr[T::XW_T];
-  uint32_t wr0[T::WP_T], wr1[T::WP_T];
-  int wcol[T::WP_T];
-  int idot[TM][TN];
-#pragma unroll
-  for (int i = 0; i < T::WP_T; ++i) wcol[i] = cm((tid + i * T::THREADS) % BN);
-#pragma unroll
-  for (int tm = 0; tm < TM; ++tm)
-#pragma unroll
-    for (int tn = 0; tn < TN; ++tn) {
-      acc[tm][tn] = 0.f;
-      idot[tm][tn] = 0;
-    }
-  if (tid < BM) xsum_sm[tid] = 0;
-
-  const int nk = K / BK;
-  const int steps_per_group = gs / BK;
-
-  auto load = [&](int ks) {
-    const int k0 = ks * BK;
-#pragma unroll
-    for (int i = 0; i < T::XW_T; ++i) {
-      int idx = tid + i * T::THREADS;
-      if (idx < T::XW) xr[i] = a.word(row0 + idx / KW, k0 + 4 * (idx % KW));
-    }
-#pragma unroll
-    for (int i = 0; i < T::WP_T; ++i) {
-      int kw = (tid + i * T::THREADS) / BN;
-      if (wcol[i] >= 0) {
-        src.load(k0 + 4 * kw, wcol[i], wr0[i], wr1[i]);
-      } else {
-        wr0[i] = wr1[i] = 0;
-      }
-    }
-  };
-
-  load(0);
-  for (int ks = 0; ks < nk; ++ks) {
-    __syncthreads();  // the previous step's dot products are done
-#pragma unroll
-    for (int i = 0; i < T::XW_T; ++i) {
-      int idx = tid + i * T::THREADS;
-      if (idx < T::XW) {
-        xs_sm[idx / KW][idx % KW] = xr[i];
-        atomicAdd(&xsum_sm[idx / KW], __dp4a(xr[i], 0x01010101, 0));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < T::WP_T; ++i) {
-      int idx = tid + i * T::THREADS;
-      ws_sm[idx % BN][idx / BN] =
-          wcol[i] >= 0 ? src.decode(wr0[i], wr1[i], wcol[i]) : 0;
-    }
-    __syncthreads();
-    if (ks + 1 < nk) load(ks + 1);
-#pragma unroll
-    for (int kw = 0; kw < KW; ++kw) {
-      int av[TM];
-#pragma unroll
-      for (int tm = 0; tm < TM; ++tm) av[tm] = xs_sm[ty + tm * T::TY][kw];
-#pragma unroll
-      for (int tn = 0; tn < TN; ++tn) {
-        int b = ws_sm[tx + tn * T::TX][kw];
-#pragma unroll
-        for (int tm = 0; tm < TM; ++tm)
-          idot[tm][tn] = __dp4a(av[tm], b, idot[tm][tn]);
-      }
-    }
-    if ((ks + 1) % steps_per_group == 0) {
-      const int g = ks / steps_per_group;
-#pragma unroll
-      for (int tn = 0; tn < TN; ++tn) {
-        int col = cm(tx + tn * T::TX);
-        float sg = 0.f, zg = 0.f;
-        if (col >= 0) {
-          size_t off = static_cast<size_t>(g) * N + col;
-          sg = load_qparam(s, off, sz_bf16);
-          zg = load_qparam(z, off, sz_bf16);
-          if (W::kSigned) zg -= 8.f;  // s4r stores code - 8
-        }
-#pragma unroll
-        for (int tm = 0; tm < TM; ++tm) {
-          float xsum = static_cast<float>(xsum_sm[ty + tm * T::TY]);
-          float d = static_cast<float>(idot[tm][tn]);
-          acc[tm][tn] = __fadd_rn(
-              acc[tm][tn],
-              __fmul_rn(__fsub_rn(d, __fmul_rn(xsum, zg)), sg));
-          idot[tm][tn] = 0;
-        }
-      }
-      __syncthreads();  // every thread has read this group's xsum
-      if (tid < BM) xsum_sm[tid] = 0;
-    }
-  }
-}
 
 // ptile's shared memory for a BM x BN plane tile (W = BN / P byte
 // columns): a ring of NST stages, each the raw weight bytes [NA][BK][W]
@@ -313,15 +122,17 @@ struct PlaneSmem {
   static constexpr int BYTES = WORDS + BN * (KW + 1) * 4;
 };
 
-// The wtile product over a plane concat with a plane-aware tile: its BN
+// The s4r product above over a plane concat with a plane-aware tile: its BN
 // columns are W = BN / P byte columns x all P planes (ColPlanes), so each
 // weight byte is read once. Int8 x rows x (M <= BM used, row stride K)
 // and the tile's weight bytes stream through a cp.async ring of NST
 // stages (NST - 1 in flight ahead of the one being read), vec bytes a
 // copy (16, 8 or 4, dividing W; 1 where the rows are not so aligned).
 // Each step, the thread of (byte column, k word) unit decodes the four
-// rows of its byte column into the dp4a words of its P columns; the dot
-// products and the group epilogue are wtile's, in wtile's order. A thread
+// rows of its byte column into the dp4a words of its P columns, then
+// every thread runs __dp4a over the words of its outputs and, at each
+// group's end, folds the int32 dots into its f32 sums in the order above
+// (each group's qparams read once a column). A thread
 // whose rows are all past M skips the dot products (at B = 1, seven of
 // the eight row warps), and each thread sums its own rows' x codes.
 // Groups [g0, g1) of the K / gs: with terms null, acc is their sum in
@@ -501,7 +312,7 @@ __device__ __forceinline__ void ptile(
 //
 // Numerics: at each group end the int32 dots (exact) and the row's x sum
 // (exact; each lane of a quad sums its k-blocks, two shuffles add them)
-// fold into f32 as acc + (dot - xsum * (z - 8)) * s, wtile's order.
+// fold into f32 as acc + (dot - xsum * (z - 8)) * s, ptile's order.
 template <int BM_, int BN_, int WM_, int WN_, int NST_, int SPS_>
 struct S4Cfg {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, NST = NST_;

@@ -35,14 +35,12 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # quant_matmul.cu (K1) (+ groups a K split, its partials' scratch)
     "sbt_qmm_s4": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
-    # ffn_fused.cu (K3)
-    "sbt_ffn_prologue": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "sbt_ffn_w13_glu": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "sbt_ffn_w2_resid": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                         _P],
-    # attention.cu (K2)
+    # ffn_fused.cu (K3): x, nw, 6 weight/qparam arrays, out, 6 scratch
+    # buffers; sz_bf16, nw_bf16, B, dim, F, gs and the K-split plan
+    "sbt_ffn_block": [_P] * 15 + [_I] * 8 + [_F, _P],
+    # attention.cu (K2) (+ the cluster size)
     "sbt_attn_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _I, _I, _F, _P],
+                        _I, _I, _F, _I, _P],
     # decode_attention.cu (K5)
     # (+ scratch: split partials, rows per split)
     "sbt_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _P, _P, _I, _P],

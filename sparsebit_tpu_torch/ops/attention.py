@@ -11,11 +11,15 @@ merge in split order (``_decode_attn_split_plain`` is that algorithm on
 the CPU).
 
 Kernel K2 (``csrc/attention.cu``) replaces ``_attn_update_kernel``
-(attention.py:662). The cache layout is the port's own: k, v (L, B, S,
-Hkv, D) int8 and ks, vs (L, B, S, Hkv) f32 scales, with no lane padding
-of the scale stacks and no ``Hkv % 4`` gate (both were Mosaic tiling
-rules). Where the JAX function returned updated cache arrays, this one
-writes the new row into the caller's tensors in place.
+(attention.py:662): the rows of each (batch row, kv head) split across
+the CTAs of a thread-block cluster (``k2_cluster``), which take the
+softmax's global max through distributed shared memory and add their
+sums in rank order (``_attn_update_cluster_plain`` is that algorithm on
+the CPU). The cache layout is the port's own: k, v (L, B, S, Hkv, D) int8
+and ks, vs (L, B, S, Hkv) f32 scales, with no lane padding of the scale
+stacks and no ``Hkv % 4`` gate (both were Mosaic tiling rules). Where the
+JAX function returned updated cache arrays, this one writes the new row
+into the caller's tensors in place.
 
 ``flat_attention_rows_int8`` is the int8 attention of the decode
 megakernel (K4, ``ops/layer_fused.py``): per-(row, head) int8 q, exact
@@ -33,12 +37,18 @@ from sparsebit_tpu_torch.ops.int8_matmul import INV_127
 
 
 # The kernels' gates: K5 takes these cache dtypes (its C entry's kv_type is
-# the index) and head_dim <= 512; K2 (int8 only) the same head_dim, with
-# the scores of a kv head's query heads, n_rep * (S + 1) f32, in shared
-# memory (227 KB a block on the H100, less K2's static 2 KB).
+# the index) and head_dim <= 512; K2 (int8 only) the same head_dim and at
+# most K2_MAX_SCORES scores of a kv head's query heads, n_rep * (S + 1)
+# (what one block's shared memory holds: the bound of a single-block
+# design, kept by the cluster kernel, which holds only its CTA's rows'
+# scores and takes query heads in passes).
 K5_CACHE_DTYPES = (torch.int8, torch.bfloat16, torch.float16, torch.float32)
 K5_MAX_HEAD_DIM = 512
 K2_MAX_SCORES = (227 * 1024 - 2048) // 4
+# K2's cluster: at most 8 CTAs (the portable cluster size), each holding
+# at most K2_CTA_ROWS rows' scores (64 KB of f32 a query head).
+K2_MAX_CLUSTER = 8
+K2_CTA_ROWS = 16384
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,9 +69,12 @@ def quant_rows(x):
     return q.to(torch.int8), scale
 
 
-def _attn_update_plain(q, k_new, v_new, k, v, ks, vs, li, length):
-    """Plain version of K2 with _group_attention's roundings: q and p*vs in
-    bf16, products and sums in f32, rows s <= length[b] attend."""
+def _attn_update_weights(q, k_new, v_new, k, v, ks, vs, li, length):
+    """K2's commit and softmax weights with _group_attention's roundings:
+    the new rows' int8 codes and scales written in place at [li, b,
+    length[b]], then q in bf16, f32 products and sums, rows s <= length[b]
+    attend. Returns p = exp(s - max) (B, H, S), zero past length[b]; p2 =
+    bf16(p * vs); and the f32 V codes per query head (B, S, H, D)."""
     B, H, D = q.shape
     S, Hkv = k.shape[2], k.shape[3]
     n_rep = H // Hkv
@@ -89,10 +102,57 @@ def _attn_update_plain(q, k_new, v_new, k, v, ks, vs, li, length):
     scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
-    denom = p.sum(dim=-1, keepdim=True)
     p2 = (p * vsq).to(torch.bfloat16).to(torch.float32)
+    return p, p2, V8
+
+
+def _attn_update_plain(q, k_new, v_new, k, v, ks, vs, li, length):
+    """Plain version of K2: sum_s bf16(p * vs) v / sum_s p over the
+    weights of _attn_update_weights (which commits the new rows)."""
+    p, p2, V8 = _attn_update_weights(q, k_new, v_new, k, v, ks, vs, li,
+                                     length)
     out = torch.einsum("bhs,bshd->bhd", p2, V8)
-    return out / denom
+    return out / p.sum(dim=-1, keepdim=True)
+
+
+def k2_cluster(B, S, Hkv, sms):
+    """K2's cluster size, the CTAs that split the rows [0, length[b]] of
+    one (batch row, kv head): doubled from 1 while the grid (B * Hkv
+    clusters) holds fewer than two CTAs an SM and each CTA keeps at least
+    64 rows at full length (S), up to 8; then doubled until a CTA's rows,
+    ceil(S / C), fit its scores (K2_CTA_ROWS)."""
+    C = 1
+    while C < K2_MAX_CLUSTER and B * Hkv * C < 2 * sms and S // (2 * C) >= 64:
+        C *= 2
+    while -(-S // C) > K2_CTA_ROWS:
+        C *= 2
+    return C
+
+
+def _attn_update_cluster_plain(q, k_new, v_new, k, v, ks, vs, li, length,
+                               cluster):
+    """K2's algorithm on the CPU, its oracle: the weights of
+    _attn_update_weights (one global max) with the rows [0, length[b]] of
+    each (batch row, kv head) cut into ``cluster`` contiguous ranges of
+    ceil((length[b] + 1) / cluster) rows (the CTAs, the last ones possibly
+    short or empty): each range's sum of p and of bf16(p * vs) . v, the
+    ranges' sums added in rank order, out = num / den."""
+    p, p2, V8 = _attn_update_weights(q, k_new, v_new, k, v, ks, vs, li,
+                                     length)
+    B, H, S = p.shape
+    n = length.to(torch.long)[:, None] + 1  # (B, 1) rows attended
+    R = -(-n // cluster)  # rows a CTA
+    s_idx = torch.arange(S, device=q.device)[None, :]
+    num = torch.zeros((B, H, q.shape[-1]), device=q.device)
+    den = torch.zeros((B, H, 1), device=q.device)
+    for c in range(cluster):
+        r0 = torch.minimum(c * R, n)
+        mine = ((s_idx >= r0) & (s_idx < torch.minimum(r0 + R, n)))[:, None]
+        den = den + torch.where(mine, p, torch.zeros_like(p)).sum(
+            dim=-1, keepdim=True)
+        num = num + torch.einsum(
+            "bhs,bshd->bhd", torch.where(mine, p2, torch.zeros_like(p2)), V8)
+    return num / den
 
 
 def k2_check(q, k, ks, li):
@@ -120,7 +180,8 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
     (L, B, S, Hkv, D) int8; ks/vs (L, B, S, Hkv) f32; li int; length (B,)
     int32 with every entry < S. Returns out (B, H, D) f32.
 
-    CPU tensors take the plain version; CUDA tensors launch K2."""
+    CPU tensors take the plain version; CUDA tensors launch K2 (a cluster
+    of ``k2_cluster`` CTAs a kv head and batch row)."""
     if q.device.type == "cpu":
         return _attn_update_plain(q, k_new, v_new, k, v, ks, vs, li, length)
     k2_check(q, k, ks, li)
@@ -137,7 +198,8 @@ def decode_attention_update(q, k_new, v_new, k, v, ks, vs, li, length):
         _kernels.ptr(qf), _kernels.ptr(kf), _kernels.ptr(vf),
         _kernels.ptr(k), _kernels.ptr(v), _kernels.ptr(ks), _kernels.ptr(vs),
         _kernels.ptr(ln), _kernels.ptr(out), li, B, S, Hkv, H, D,
-        _inv_sqrt(D), _kernels.stream())
+        _inv_sqrt(D), k2_cluster(B, S, Hkv, _kernels.sm_count(q.device)),
+        _kernels.stream())
     _kernels.check(err, "sbt_attn_update")
     decode_attention_update.launches += 1
     return out

@@ -38,13 +38,17 @@ from sparsebit_tpu_torch.ops import _kernels
 from sparsebit_tpu_torch.ops.attention import (
     _inv_sqrt,
     flat_attention_rows_int8,
-    ordered_sum,
     quant_q_rows,
     quant_rows,
 )
+from sparsebit_tpu_torch.ops.ffn_fused import (
+    _ffn_plain,
+    _norm_quant,
+    _qmm_s4_planned,
+)
 from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
 from sparsebit_tpu_torch.ops.packing import unpack_planes_serving
-from sparsebit_tpu_torch.ops.quant_matmul import _qmm_s4_plain, s4_plan
+from sparsebit_tpu_torch.ops.quant_matmul import s4_plan
 
 MAX_ROWS = 64  # B cap, as the reference (layer_fused.py:965)
 MAX_REP = 8    # query heads per kv head held by one attention work item
@@ -80,14 +84,6 @@ def _rope_rows(rows, cos, sin):
     return rows * cos[:, None, :] + rot * sin[:, None, :]
 
 
-def _norm_quant(xf, nw, eps):
-    """f32 rms_norm(xf) * nw (``_norm_row``), then per-row int8 codes and
-    scales (``_quant_rows``)."""
-    var = ordered_sum(xf * xf) / xf.shape[-1]
-    r = 1.0 / torch.sqrt(var + eps)
-    return tokenwise_quant(xf * r[:, None] * nw.to(torch.float32))
-
-
 def _rows_of(bt, block, S):
     """(block ids, offsets) of logical rows [0, S) of every batch row:
     (B, S) each."""
@@ -121,8 +117,7 @@ def _mm_plain(wbits):
     """K4's matmul step for one container: s4r row pairs in the kernel's
     K-split order (``s4_plan``), or planes."""
     if wbits == 4:
-        return lambda x8, xs, w, s, z, gs: _qmm_s4_plain(
-            x8, xs, w, s, z, gs, s4_plan(x8.shape[1], w.shape[-1], gs))
+        return _qmm_s4_planned
     return lambda x8, xs, w, s, z, gs: _qmm_pl_plain(x8, xs, w, s, z, gs,
                                                      wbits)
 
@@ -137,7 +132,6 @@ def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
     HD, KVD = Hq * D, Hkv * D
     block = k.shape[2]
     S_cache = bt.shape[1] * block
-    F = ws[3][0].shape[1] * (2 if wbits == 4 else 1)  # W2's rows
     mm = _mm_plain(wbits)
     lw = torch.clamp(pos.to(torch.long), max=S_cache - 1)
     rows = torch.arange(B, device=x.device)
@@ -165,12 +159,8 @@ def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
             ks[li, blk_r, off_r], vs[li, blk_r, off_r], pos)
         a8, a_s = tokenwise_quant(attn.reshape(B, HD))
         xmid = x + mm(a8, a_s, wo, so, zo, gs)[:, :dim]
-        xq, xs = _norm_quant(xmid, ffn_norm[li], eps)
-        h = mm(xq, xs, w13, s13, z13, gs)
-        g, u = h[:, :F], h[:, F:2 * F]
-        a = g * (1.0 / (1.0 + torch.exp(-g))) * u
-        g8, g_s = tokenwise_quant(a)
-        x = xmid + mm(g8, g_s, w2, s2, z2, gs)[:, :dim]
+        x = _ffn_plain(xmid, w13, s13, z13, w2, s2, z2, ffn_norm[li], gs,
+                       eps, mm)
     return x
 
 

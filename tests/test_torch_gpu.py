@@ -72,7 +72,8 @@ def test_k1_kernel_matches_plain(cuda, M, K, N, gs, sz_bf16):
 
 
 def test_k2_kernel_matches_plain(cuda):
-    """GQA n_rep = 2: codes and scales bit-exact, out atol 2e-3."""
+    """GQA n_rep = 2: codes and scales bit-exact, out atol 2e-3 of the
+    plain version and of the cluster-order oracle."""
     g = torch.Generator(device=cuda).manual_seed(0)
     L, B, S, H, Hkv, D = 2, 4, 64, 8, 4, 128
     k = torch.randint(-128, 128, (L, B, S, Hkv, D), dtype=torch.int8,
@@ -88,9 +89,14 @@ def test_k2_kernel_matches_plain(cuda):
     plain = [t.clone() for t in (k, v, ks, vs)]
     out = A.decode_attention_update(q, kn, vn, k, v, ks, vs, 1, length)
     ref = A._attn_update_plain(q, kn, vn, *plain, 1, length)
+    C = A.k2_cluster(B, S, Hkv, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    oracle = A._attn_update_cluster_plain(
+        q, kn, vn, *[t.clone() for t in plain], 1, length, C)
     for a, b in zip((k, v, ks, vs), plain):
         assert torch.equal(a, b)
     assert (out - ref).abs().max().item() <= 2e-3
+    assert (out - oracle).abs().max().item() <= 2e-3
 
 
 @pytest.mark.parametrize("H,Hkv,D,S", [(2, 2, 384, 64), (4, 2, 512, 64),
@@ -121,20 +127,83 @@ def test_k2_wide_heads_match_plain(cuda, H, Hkv, D, S):
     assert (out - ref).abs().max().item() <= 2e-3
 
 
-@pytest.mark.parametrize("B", [1, 8, 20])
-def test_k3_kernel_matches_plain(cuda, B):
-    """atol 2e-2 x max |out|: a requantized code may flip at a rounding
-    boundary when f32 sums are taken in another order."""
-    rng = np.random.default_rng(B)
-    dim, F, gs = 256, 384, 128
+@pytest.mark.parametrize("dim,F,gs", [(256, 384, 128), (1024, 4352, 64)])
+@pytest.mark.parametrize("B", [1, 8, 20, 64])
+def test_k3_kernel_matches_plain(cuda, B, dim, F, gs):
+    """Bit-equal to the plain version, which takes every sum in the
+    kernel's order (the norm's tree, s4_plan's K splits; at 1024 x 4352
+    the plan splits W13 and W2 in runs of more than one group), and equal
+    on a second launch; one launch of the kernel library a call."""
+    from sparsebit_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(B + dim)
     w13, s13, z13 = _s4(rng, (2,), dim, 2 * F, gs, cuda)
     w2, s2, z2 = _s4(rng, (2,), F, dim, gs, cuda)
-    nw = torch.ones((2, dim), dtype=torch.bfloat16, device=cuda)
+    nw = torch.from_numpy(rng.uniform(0.5, 1.5, (2, dim)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
     x = torch.randn((B, dim), device=cuda).to(torch.bfloat16)
-    out = FF.ffn_block_fused(x, w13, s13, z13, w2, s2, z2, nw, 1, gs, 1e-6)
+    calls = []
+    real = _kernels.lib()
+
+    class Lib:
+        def __getattr__(self, name):
+            calls.append(name)
+            return getattr(real, name)
+
+    before = FF.ffn_block_fused.launches
+    orig = _kernels.lib
+    _kernels.lib = Lib
+    try:
+        out = FF.ffn_block_fused(x, w13, s13, z13, w2, s2, z2, nw, 1, gs,
+                                 1e-6)
+    finally:
+        _kernels.lib = orig
     ref = FF._ffn_plain(x.float(), w13[1], s13[1], z13[1], w2[1], s2[1],
                         z2[1], nw[1], gs, 1e-6)
-    assert (out - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+    assert calls == ["sbt_ffn_block"]
+    assert FF.ffn_block_fused.launches == before + 1
+    assert torch.equal(out, ref)
+    assert torch.equal(out, FF.ffn_block_fused(x, w13, s13, z13, w2, s2, z2,
+                                               nw, 1, gs, 1e-6))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens", [
+    (8, 2048, 32, 32, 128, [0, 1, 255, 1024, 1025, 1500, 2046, 2047]),
+    (2, 64, 4, 4, 128, [0, 63]),           # one CTA a cluster
+    (3, 512, 8, 1, 100, [511, 256, 2]),    # 4-byte copies
+    (2, 256, 4, 2, 70, [255, 130])])       # 1-byte copies
+def test_k2_cluster_matches_plain(cuda, B, S, H, Hkv, D, lens):
+    """K2 over rows split across a cluster at S = 2048 (lengths at the
+    ends and at the split boundary), with a single CTA, and at head dims
+    whose rows take narrower copies: codes and scales bit-exact, out within
+    2e-3 of the plain version and of the cluster-order oracle, and equal
+    on a second launch."""
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    L = 2
+    k = torch.randint(-128, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                      generator=g, device=cuda)
+    v = torch.randint(-128, 128, (L, B, S, Hkv, D), dtype=torch.int8,
+                      generator=g, device=cuda)
+    ks = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.05
+    vs = torch.rand((L, B, S, Hkv), generator=g, device=cuda) * 0.05
+    q = torch.randn((B, H, D), generator=g, device=cuda)
+    kn = torch.randn((B, Hkv, D), generator=g, device=cuda)
+    vn = torch.randn((B, Hkv, D), generator=g, device=cuda)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    plain = [t.clone() for t in (k, v, ks, vs)]
+    again = [t.clone() for t in (k, v, ks, vs)]
+    out = A.decode_attention_update(q, kn, vn, k, v, ks, vs, 1, length)
+    ref = A._attn_update_plain(q, kn, vn, *plain, 1, length)
+    C = A.k2_cluster(B, S, Hkv, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    oracle = A._attn_update_cluster_plain(
+        q, kn, vn, *[t.clone() for t in again], 1, length, C)
+    for a, b in zip((k, v, ks, vs), plain):
+        assert torch.equal(a, b)
+    assert (out - ref).abs().max().item() <= 2e-3
+    assert (out - oracle).abs().max().item() <= 2e-3
+    assert torch.equal(out, A.decode_attention_update(
+        q, kn, vn, *again, 1, length))
 
 
 @pytest.mark.parametrize("B", [1, 5, 8])

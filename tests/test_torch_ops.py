@@ -268,6 +268,58 @@ def test_k2_plain_matches_pallas():
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=2e-3)
 
 
+def test_k2_cluster_plain_matches_plain_and_pallas():
+    """K2's cluster-order oracle at 1, 2, 4 and 8 CTAs over lengths 0, 1,
+    31 (a split boundary: 32 rows split evenly) and S - 1: codes and
+    scales exact, out within 1e-5 of the plain version and 2e-3 of the JAX
+    kernel in interpret mode."""
+    rng = np.random.default_rng(5)
+    L, B, S, H, Hkv, D, li = 2, 4, 64, 4, 2, 128, 0
+    k = rng.integers(-128, 128, (L, B, S, Hkv, D)).astype(np.int8)
+    v = rng.integers(-128, 128, (L, B, S, Hkv, D)).astype(np.int8)
+    ks = rng.uniform(0.001, 0.05, (L, B, S, Hkv)).astype(np.float32)
+    vs = rng.uniform(0.001, 0.05, (L, B, S, Hkv)).astype(np.float32)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    vn = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    length = np.array([0, 1, 31, S - 1], np.int32)
+    pad = ((0, 0),) * 3 + ((0, 128 - Hkv),)  # the TPU kernel's lane padding
+    out_j, k_j, v_j, ks_j, vs_j = j_attn(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(k),
+        jnp.asarray(v), jnp.asarray(np.pad(ks, pad)),
+        jnp.asarray(np.pad(vs, pad)), jnp.int32(li), jnp.asarray(length),
+        interpret=True)
+    caches = [_t(t) for t in (k, v, ks, vs)]
+    ref = A._attn_update_plain(_t(q), _t(kn), _t(vn),
+                               *[t.clone() for t in caches], li, _t(length))
+    for C in (1, 2, 4, 8):
+        got = [t.clone() for t in caches]
+        out = A._attn_update_cluster_plain(_t(q), _t(kn), _t(vn), *got, li,
+                                           _t(length), C)
+        for a, b in zip(got, (k_j, v_j, ks_j, vs_j)):
+            np.testing.assert_array_equal(a.numpy(),
+                                          np.asarray(b)[..., :a.shape[-1]]
+                                          if a.dim() == 4 else np.asarray(b))
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5)
+        np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=2e-3)
+
+
+def test_k2_cluster_plan():
+    """The cluster grows until the grid holds two CTAs an SM, keeping 64
+    rows a CTA, and far enough that a CTA's scores fit; every shape the
+    gate admits gets at most 8 CTAs."""
+    sms = 132
+    assert A.k2_cluster(8, 512, 32, sms) == 2   # 256 clusters < 264
+    assert A.k2_cluster(8, 2048, 32, sms) == 2
+    assert A.k2_cluster(32, 2048, 32, sms) == 1
+    assert A.k2_cluster(1, 2048, 32, sms) == 8
+    assert A.k2_cluster(1, 100, 32, sms) == 1   # 64 rows a CTA at least
+    S = A.K2_MAX_SCORES - 1                     # n_rep 1, the gate's edge
+    C = A.k2_cluster(64, S, 64, sms)
+    assert C == 4 and -(-S // C) <= A.K2_CTA_ROWS
+    assert A.k2_cluster(1, S, 1, sms) == A.K2_MAX_CLUSTER
+
+
 # ---- K3: fused FFN block -----------------------------------------------------
 
 
@@ -290,6 +342,34 @@ def test_k3_plain_matches_pallas():
                 interpret=True, signed=True)
     out = FF.ffn_block_fused(_t(x), w13, _t(s13), _t(z13), w2, _t(s2),
                              _t(z2), _t(nw), li, gs, 1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("dim,F", [(1024, 4352), (2048, 2304)])
+def test_k3_split_plain_matches_pallas(dim, F):
+    """The plain version in K3's order at widths where s4_plan splits
+    both matmuls into runs of more than one group (gs 64), against the JAX
+    kernel in interpret mode: rtol/atol 2e-4."""
+    gs, B = 64, 2
+    for K, N in ((dim, 2 * F), (F, dim)):
+        assert 1 < QM.s4_plan(K, N, gs) < K // gs
+    rng = np.random.default_rng(dim)
+    c13 = rng.integers(0, 16, (1, dim, 2 * F)).astype(np.uint8)
+    c2 = rng.integers(0, 16, (1, F, dim)).astype(np.uint8)
+    s13 = rng.uniform(0.001, 0.01, (1, dim // gs, 2 * F)).astype(np.float32)
+    s2 = rng.uniform(0.001, 0.01, (1, F // gs, dim)).astype(np.float32)
+    z13 = rng.integers(4, 12, s13.shape).astype(np.float32)
+    z2 = rng.integers(4, 12, s2.shape).astype(np.float32)
+    nw = (1 + 0.1 * rng.standard_normal((1, dim))).astype(np.float32)
+    x = rng.standard_normal((B, dim)).astype(np.float32)
+    w13, w2 = pk.pack_s4_rows(_t(c13)), pk.pack_s4_rows(_t(c2))
+    ref = j_ffn(jnp.asarray(x), jnp.asarray(w13.numpy()), jnp.asarray(s13),
+                jnp.asarray(z13), jnp.asarray(w2.numpy()), jnp.asarray(s2),
+                jnp.asarray(z2), jnp.asarray(nw), jnp.int32(0), gs, 1e-6,
+                interpret=True, signed=True)
+    out = FF.ffn_block_fused(_t(x), w13, _t(s13), _t(z13), w2, _t(s2),
+                             _t(z2), _t(nw), 0, gs, 1e-6)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
                                atol=2e-4)
 
