@@ -114,7 +114,23 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 backward, tok/s, K10/K11/K12 device ms and launches, 32
                 each a step, peak memory), one step's loss and adapter
                 gradients against the plain versions, the backbone
-                bit-equal after the steps.
+                bit-equal after the steps;
+     gptq       GPTQ conversion (quantize_llama_gptq, 4-bit g128) of a
+                seeded f32 model at llama_7b() widths, depth 2, fused
+                layers, on 128 x 2048 seeded calibration tokens: s of the
+                Hessians, the Cholesky, the column loop a linear and the
+                propagation (K10 f32, 256 launches), peak memory; every
+                linear's Hessian loss below round to nearest's, codes in
+                range, one wo solved on the CPU from the same H within the
+                CPU test's tolerance; the result saved under the bf16
+                serving config, loaded, served by DecodeEngine on K4 (K1,
+                K9) and by generate B=8 (K8, K5, K9), one decode_step held
+                to the plain versions;
+     fixture    the accuracy fixture (run_fixture(steps=200, gptq_bits=(4,
+                3))) on the card: five perplexities, train / GPTQ / eval
+                s, ppl_float < 4 and int4 GPTQ < 1.05 x float held, every
+                GPTQ'd linear below RTN on its Hessian loss, int4 GPTQ <=
+                RTN x 1.002 recorded (fault R9), K8 launched.
 It prints one JSON line of per-kernel and per-path numbers, the card's
 name and power limit, and last {"ok": true, "device": {...}}. It exits
 non-zero without CUDA or without the repository beside it.
@@ -2805,6 +2821,394 @@ def qlora_path(cfg):
 
 
 
+GPTQ_DEPTH = 2
+GPTQ_CALIB = (128, 2048)  # the reference's calibration, convert.py:37
+
+
+def gptq_within(got, ref):
+    """tests/test_torch_gptq.py's tolerance between two solves of one
+    linear: at least 99.5 % of the codes equal, every fake-quant weight
+    within one quantization step of its group (|dwq| <= 1.001 step +
+    1e-6). Returns (fraction of equal codes, worst |dwq| / step, ok)."""
+    import torch
+
+    gs = got["wq"].shape[0] // got["scales"].shape[0]
+    step = torch.repeat_interleave(ref["scales"], gs, 0)
+    dwq = (got["wq"] - ref["wq"]).abs()
+    same = (got["codes"] == ref["codes"]).float().mean().item()
+    ok = same >= 0.995 and bool((dwq <= step * 1.001 + 1e-6).all())
+    return same, (dwq / step).max().item(), ok
+
+
+def gptq_linear_record(w, H, res, groupsize):
+    """One solved linear against round to nearest (QuantLinear.from_dense)
+    on the same Hessian: both Hessian-weighted losses tr(dW^T H dW) / KN,
+    and whether codes, scales and zeros are finite and in range."""
+    import torch
+    from sparsebit_tpu_torch.llm.quant import QuantLinear
+
+    w = w.to(torch.float32)
+    bits = res["bits"]
+    qmax = 2 ** bits - 1
+    rtn = QuantLinear.from_dense(w, bits=bits, groupsize=groupsize)
+
+    def hessian_loss(wq):
+        d = wq - w
+        return ((d * (H @ d)).sum() / d.numel()).item()
+
+    z = res["zeros"]
+    return {"shape": list(w.shape), "bits": bits, "loss": res["loss"],
+            "hessian_loss": hessian_loss(res["wq"]),
+            "rtn_hessian_loss": hessian_loss(rtn.dequantize()),
+            "in_range": bool(
+                int(res["codes"].max()) <= qmax
+                and torch.isfinite(res["scales"]).all()
+                and bool((res["scales"] > 0).all())
+                and torch.isfinite(z).all()
+                and bool(((z >= 0) & (z <= qmax) & (z == z.round())).all())
+                and torch.isfinite(res["wq"]).all())}
+
+
+def gptq_records_held(tag, records):
+    """Fail unless every record's GPTQ Hessian loss is strictly below
+    RTN's and its codes, scales and zeros are in range."""
+    for rec in records:
+        if not rec["hessian_loss"] < rec["rtn_hessian_loss"]:
+            fail("{} {}: Hessian loss {} not below RTN's {}".format(
+                tag, rec["path"], rec["hessian_loss"],
+                rec["rtn_hessian_loss"]))
+        if not rec["in_range"]:
+            fail("{} {}: codes, scales or zeros out of range".format(
+                tag, rec["path"]))
+
+
+def timed_into(times, key, fn):
+    """fn with a synchronise before and after each call, its wall s added
+    to times[key] (appended where times[key] is a list)."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if isinstance(times[key], list):
+            times[key].append(dt)
+        else:
+            times[key] += dt
+        return out
+    return run
+
+
+def column_loop_profile(w, H, bits, kw):
+    """One column loop (gptq._gptq_core) of a linear on the card under
+    torch.profiler: wall s, the device time of its kernels and their
+    launches, so that the loop's host share shows. Device time None where
+    the profiler records none."""
+    import torch
+    from sparsebit_tpu_torch.llm import gptq as G
+
+    U, dead = G._hinv_cholesky(H, kw["percdamp"])
+    W = w.clone()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        G._gptq_core(W, U, dead, bits, kw["groupsize"], 128, kw["sym"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    out = {"wall_s_profiled": wall, "device_ms": dev_ms or None,
+           "kernel_launches": sum(e.count for e in events),
+           "columns": w.shape[0]}
+    print("gptq column loop {} under torch.profiler: {:.2f} s wall, {} "
+          "({} columns)".format(
+              list(w.shape), wall, "kernels {:.1f} ms device in {} launches"
+              .format(dev_ms, out["kernel_launches"]) if dev_ms else
+              "device time not measured", w.shape[0]), flush=True)
+    return out
+
+
+def gptq_path(cfg):
+    """Phase 4, path gptq: GPTQ conversion on the card, its checkpoint
+    served. llama_7b() widths at depth GPTQ_DEPTH (the only cut, for
+    time), f32, seeded weights made on the card, fused wqkv/w13;
+    calibration on GPTQ_CALIB seeded token ids; quantize_llama_gptq
+    (4-bit, g128, no act-order, so that K4 takes the result), with TF32
+    off (main sets allow_tf32 = False: GPTQ is IEEE f32). Timed with a
+    synchronise around each: the Hessian accumulation (the float layer's
+    intermediates and add_batch), the Cholesky, the column loop a linear
+    and the propagation, with K10's launches (f32, hd 128, S = 2048 in
+    decoder_layer's causal_attention) and device ms inside, and the peak
+    memory. Held: every linear's Hessian-weighted loss strictly below
+    round to nearest's (QuantLinear.from_dense) on the same H, its codes,
+    scales and zeros finite and in range; the first wo (4096 x 4096) also
+    solved on the CPU from the same H, within gptq_within; K10 at the
+    propagation's shape held to its plain version once. Then
+    save_quant_checkpoint under the bf16 serving config,
+    load_quant_checkpoint (arrays equal), DecodeEngine(max_batch=8) on K4
+    with K1 and K9 (8 requests x 32 tokens), generate B=8 x 16 on K8, K5
+    and K9, and one decode_step on the kernels against the plain
+    versions."""
+    import torch
+    from sparsebit_tpu_torch.llm import convert as C
+    from sparsebit_tpu_torch.llm import gptq as G
+    from sparsebit_tpu_torch.llm import llama as L
+    from sparsebit_tpu_torch.llm import serving as Sv
+
+    dev = torch.device("cuda")
+    cfg_f = dataclasses.replace(cfg, n_layers=GPTQ_DEPTH, dtype="float32")
+    params = L.fuse_llama_params(L.init_llama_params(
+        cfg_f, torch.Generator(device=dev).manual_seed(SEED + 20),
+        device=dev))
+    calib = torch.randint(0, cfg.vocab_size, GPTQ_CALIB, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              SEED + 21))
+
+    held = []
+    x0 = params["tok_embed"][calib[:1]]
+    inv_freq = L.rope_frequencies(cfg_f, device=dev)
+    pos = torch.arange(GPTQ_CALIB[1], dtype=torch.int32, device=dev)[None]
+    with _Patched([(L, "flash_attention", k10_held(held))]):
+        L.decoder_layer(params["layers"][0], x0, cfg_f, inv_freq, pos, None)
+    k10_held_report("gptq propagation shape (f32, S=2048)", held, 1)
+    del x0
+
+    times = {"hessian": 0.0, "cholesky": 0.0, "column_loop": [],
+             "propagation": 0.0, "checks": 0.0}
+    linears = []
+    timer = KernelEvents()
+
+    class Acc(G.HessianAccumulator):
+        add_batch = timed_into(times, "hessian",
+                               G.HessianAccumulator.add_batch)
+
+    orig_layer = L.decoder_layer
+
+    def propagate(*a, **kw):
+        timer.on = True
+        out = timed_into(times, "propagation", orig_layer)(*a, **kw)
+        timer.on = False
+        return out
+
+    orig_solve = C.gptq_quantize_mixed
+    cpu_case = []
+
+    def solve(w, H, **kw):
+        res = orig_solve(w, H, **kw)
+        t = time.perf_counter()
+        rec = gptq_linear_record(w, H, res, kw["groupsize"])
+        rec["column_loop_s"] = times["column_loop"][-1]
+        if tuple(w.shape) == (cfg.dim, cfg.dim) and not cpu_case:
+            cpu_case.append((w.to(torch.float32).cpu(), H.cpu(), kw, rec, {
+                k: res[k].cpu() for k in ("codes", "wq", "scales")}))
+        linears.append(rec)
+        torch.cuda.synchronize()
+        times["checks"] += time.perf_counter() - t
+        return res
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with timer.patch, _Patched([
+            (C, "HessianAccumulator", Acc),
+            (C, "_layer_intermediates",
+             timed_into(times, "hessian", C._layer_intermediates)),
+            (G, "_hinv_cholesky",
+             timed_into(times, "cholesky", G._hinv_cholesky)),
+            (G, "_gptq_core",
+             timed_into(times, "column_loop", G._gptq_core)),
+            (C, "gptq_quantize_mixed", solve),
+            (L, "decoder_layer", propagate)]):
+        t0 = time.perf_counter()
+        qparams, layers_bit = C.quantize_llama_gptq(
+            params, calib, cfg_f, candidate_bits=(4,), groupsize=128,
+            verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - times["checks"]
+    _, by = timer.take_ms()
+    launches = _launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    for w, H, kw, rec, got in cpu_case:  # the first wo, solved on the CPU
+        t = time.perf_counter()
+        ref = G.gptq_quantize(w, H, bits=rec["bits"],
+                              groupsize=kw["groupsize"], sym=kw["sym"],
+                              percdamp=kw["percdamp"])
+        rec["cpu_s"] = time.perf_counter() - t
+        same, worst, ok = gptq_within(got, ref)
+        rec.update(cpu_codes_equal=same, cpu_worst_steps=worst,
+                   cpu_loss=ref["loss"], cpu_ok=ok)
+        rec["column_loop_profile"] = column_loop_profile(
+            w.to(dev), H.to(dev), rec["bits"], kw)
+    out = {"depth": GPTQ_DEPTH, "calib": list(GPTQ_CALIB), "wall_s": wall,
+           "hessian_s": times["hessian"], "cholesky_s": times["cholesky"],
+           "column_loop_s": sum(times["column_loop"]),
+           "propagation_s": times["propagation"],
+           "k10_device_ms": by.get(K10_ENTRY, 0.0), "launches": launches,
+           "peak_gb_above_resident": peak, "linears": linears,
+           "k10_vs_plain": held}
+    print("gptq: {} layers at 7B widths, calibration {} x {}: {:.1f} s wall; "
+          "Hessians {:.2f} s, Cholesky {:.2f} s, column loop {:.2f} s, "
+          "propagation {:.2f} s (K10 {:.1f} ms device in {} launches); peak "
+          "{:.2f} GB above the resident".format(
+              GPTQ_DEPTH, *GPTQ_CALIB, wall, times["hessian"],
+              times["cholesky"], out["column_loop_s"], times["propagation"],
+              out["k10_device_ms"], launches["K10"], peak), flush=True)
+    for name, rec in zip([p for li in range(GPTQ_DEPTH) for p in (
+            "layers.{}.{}".format(li, n) for n in L._LINEAR_NAMES
+            if n in params["layers"][li])], linears):
+        rec["path"] = name
+        print("gptq {} {}: column loop {:.2f} s, Hessian loss {:.4e} vs RTN "
+              "{:.4e} ({:.2f} %), codes in range {}{}".format(
+                  name, rec["shape"], rec["column_loop_s"],
+                  rec["hessian_loss"], rec["rtn_hessian_loss"],
+                  100 * rec["hessian_loss"] / rec["rtn_hessian_loss"],
+                  rec["in_range"],
+                  "" if "cpu_ok" not in rec else
+                  "; CPU solve from the same H ({:.1f} s): codes equal "
+                  "{:.5f}, worst |dwq| {:.3f} steps, loss {:.6e} vs {:.6e} "
+                  "{}".format(rec["cpu_s"], rec["cpu_codes_equal"],
+                              rec["cpu_worst_steps"], rec["cpu_loss"],
+                              rec["loss"],
+                              "ok" if rec["cpu_ok"] else "BAD")), flush=True)
+        if not rec.get("cpu_ok", True):
+            fail("gptq {}: the card's solve differs from the CPU's".format(
+                name))
+    gptq_records_held("gptq", linears)
+    if len(linears) != 4 * GPTQ_DEPTH or not any("cpu_ok" in r
+                                                 for r in linears):
+        fail("gptq: {} linears solved, the CPU comparison {}".format(
+            len(linears), "missing" if linears else "not run"))
+    _expect("gptq", launches, ("K10",))
+    if launches["K10"] != GPTQ_DEPTH * GPTQ_CALIB[0]:
+        fail("gptq: K10 launched {} times in the propagation, want "
+             "{}".format(launches["K10"], GPTQ_DEPTH * GPTQ_CALIB[0]))
+    del params, calib
+    torch.cuda.empty_cache()
+
+    cfg_s = dataclasses.replace(cfg_f, dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        C.save_quant_checkpoint(tmp, qparams, layers_bit, cfg_s, 128)
+        loaded, cfg_l, bits_l = C.load_quant_checkpoint(tmp)
+        io_s = time.perf_counter() - t
+    same = bits_l == layers_bit and cfg_l == cfg_s and all(
+        torch.equal(a[n].packed["w"], b[n].packed["w"])
+        and torch.equal(a[n].scales, b[n].scales)
+        for a, b in zip(qparams["layers"], loaded["layers"])
+        for n in FUSED)
+    print("gptq: checkpoint under the bf16 serving config written and read "
+          "in {:.1f} s, arrays equal {}".format(io_s, same), flush=True)
+    if not same:
+        fail("gptq: the npz round trip changed the converted model")
+    del qparams
+    torch.cuda.empty_cache()
+
+    eng = Sv.DecodeEngine(loaded, cfg_l, max_batch=8, max_len=512, chunk=8,
+                          device="cuda")
+    if not eng._stacked_chunks:
+        fail("gptq: DecodeEngine did not put the converted model on K4")
+    timer = KernelEvents()
+    with timer.patch:
+        _, out["serve"] = drive(eng, _prompts(cfg), "decode_chunk_scanned",
+                                "gptq serve (DecodeEngine on the converted "
+                                "checkpoint, K4)", ("K1", "K4", "K9"),
+                                timer=timer)
+    del eng
+    torch.cuda.empty_cache()
+    prompt = torch.randint(0, cfg.vocab_size, (8, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 22))
+    with timer.patch:
+        _, st = run_generate(loaded, cfg_l, prompt, 16, timer,
+                             "gptq generate B=8")
+    _expect("gptq generate B=8", st["launches"], ("K5", "K8", "K9"), ("K4",))
+    st["step_vs_plain_err"] = step_vs_plain(loaded, cfg_l, prompt,
+                                            "gptq generate")
+    out["generate"] = st
+    out["checkpoint_io_s"] = io_s
+    del loaded
+    torch.cuda.empty_cache()
+    return {"gptq": out}
+
+
+def fixture_path():
+    """Phase 4, path fixture: the accuracy fixture on the card,
+    run_fixture(steps=200, gptq_bits=(4, 3)) (train a tiny LLaMA on the
+    Markov corpus with Adam, float / RTN / GPTQ perplexity at int4 and
+    int3, g32, 64-token windows). Prints the five perplexities and the
+    train, GPTQ and eval seconds. Held: ppl_float < 4 and int4 GPTQ <
+    1.05 x float (tests/test_fixture.py), and every GPTQ'd linear's
+    Hessian loss strictly below RTN's on the same H (gptq_linear_record,
+    28 linears). The test's third claim, int4 GPTQ <= RTN x 1.002, is
+    printed and recorded with its numbers, not held: the card's training
+    (deterministic) gives a model on which the JAX package's own GPTQ
+    misses it by the same margin (fault R9: the claim sits inside the
+    spread of trained models; fixture_margin_probe.py measures it). At M = 64 the int4 linears take K8; the
+    int3 ones take the dense route (g32 is no lane multiple:
+    supports_planes), so K7 does not launch; head_dim 32 keeps attention
+    on the masked scores (no K10)."""
+    import torch
+    from sparsebit_tpu_torch.llm import convert as C
+    from sparsebit_tpu_torch.llm import fixture as F
+
+    times = {"train": 0.0, "gptq": 0.0, "eval": 0.0}
+    linears = []
+
+    orig_solve = C.gptq_quantize_mixed
+
+    def solve(w, H, **kw):
+        res = orig_solve(w, H, **kw)
+        linears.append(gptq_linear_record(w, H, res, kw["groupsize"]))
+        return res
+
+    _reset_launches()
+    with _Patched([(F, "train_tiny_llama",
+                    timed_into(times, "train", F.train_tiny_llama)),
+                   (F, "quantize_llama_gptq",
+                    timed_into(times, "gptq", F.quantize_llama_gptq)),
+                   (F, "perplexity", timed_into(times, "eval", F.perplexity)),
+                   (C, "gptq_quantize_mixed", solve)]):
+        res = F.run_fixture(steps=200, gptq_bits=(4, 3), device="cuda")
+    launches = _launches()
+    for i, rec in enumerate(linears):
+        rec["path"] = "int{} #{}".format(rec["bits"], i % 14)
+    out = dict(res, train_s=times["train"], gptq_s=times["gptq"],
+               eval_s=times["eval"], launches=launches, linears=linears)
+    print("fixture: ppl float {:.6f}, RTN int4 {:.6f}, GPTQ int4 {:.6f}, "
+          "RTN int3 {:.6f}, GPTQ int3 {:.6f}; train {:.2f} s, GPTQ {:.2f} s "
+          "(incl. the Hessian checks), eval {:.2f} s; launches {}".format(
+              res["ppl_float"], res["ppl_rtn_int4"], res["ppl_gptq_int4"],
+              res["ppl_rtn_int3"], res["ppl_gptq_int3"], times["train"],
+              times["gptq"], times["eval"], launches), flush=True)
+    ratio = [r["hessian_loss"] / r["rtn_hessian_loss"] for r in linears]
+    print("fixture: {} GPTQ'd linears, Hessian loss / RTN's {:.3f} .. "
+          "{:.3f}".format(len(linears), min(ratio), max(ratio)), flush=True)
+    gptq_records_held("fixture", linears)
+    if len(linears) != 2 * 2 * 7:
+        fail("fixture: {} linears solved, want 28".format(len(linears)))
+    held = {"ppl_float < 4": res["ppl_float"] < 4.0,
+            "int4 GPTQ < 1.05 x float":
+                res["ppl_gptq_int4"] < 1.05 * res["ppl_float"]}
+    margin = res["ppl_gptq_int4"] / res["ppl_rtn_int4"] - 1
+    out.update(claims=held, gptq_vs_rtn_int4=margin,
+               gptq_le_rtn_x1002_int4=margin <= 0.002)
+    print("fixture: claims {}; int4 GPTQ / RTN - 1 = {:+.4%} (the test's "
+          "GPTQ <= RTN x 1.002: {}, recorded, not held: R9); int3 {:+.4%}"
+          .format(held, margin, "holds" if margin <= 0.002 else "MISS",
+                  res["ppl_gptq_int3"] / res["ppl_rtn_int3"] - 1),
+          flush=True)
+    for claim, ok in held.items():
+        if not ok:
+            fail("fixture: {} does not hold ({})".format(claim, res))
+    _expect("fixture", launches, ("K8",), ("K7", "K10"))
+    return {"fixture": out}
+
+
 def run_scanned(sp, cfg, prompt, n_new, tag):
     """prefill_scanned (the per-layer branch), one decode_step_scanned and
     decode_tokens_scanned of n_new greedy tokens over a 128-row int8 cache,
@@ -3051,6 +3455,12 @@ def main(argv):
     t0 = time.perf_counter()
     paths.update(qlora_path(cfg))
     print("qlora path {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(gptq_path(cfg))
+    print("gptq path {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(fixture_path())
+    print("fixture path {:.1f} s".format(time.perf_counter() - t0))
     # launches of each kernel on the path that runs it: K5 and K8 on
     # generate (this slice's main path), K6 on the engine's decode_chunk
     # route, K7 on the mixed-precision model (its int8 form with impl

@@ -1,5 +1,14 @@
-"""Carry parameters across from the JAX package, and the npz checkpoint
-(port side of ``sparsebit_tpu/llm/convert.py``).
+"""Layer-streaming GPTQ conversion, the npz checkpoint, and parameters
+carried across from the JAX package (port of
+``sparsebit_tpu/llm/convert.py``).
+
+``quantize_llama_gptq`` runs the reference's llama_sequential
+(convert.py:63-174) layer by layer: the inputs of each linear group are
+taken from the float layer (``_layer_intermediates``, masked attention
+scores as in the JAX package), their Hessians accumulated, every linear
+GPTQ-solved (``llm/gptq.py``), and the calibration batches propagated
+through the quantized layer, so that later layers calibrate against
+quantized predecessors. One layer's Hessians are held at a time.
 
 ``params_from_numpy`` reads a tree of nested dicts and lists of numpy
 arrays and plain metadata, so this module needs nothing of JAX:
@@ -32,11 +41,132 @@ import torch
 
 from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.llm import llama as L
+from sparsebit_tpu_torch.llm.gptq import (HessianAccumulator,
+                                          gptq_quantize_mixed)
 from sparsebit_tpu_torch.llm.qlora import LoraLinear
 from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
 
 _CONFIG_KEYS = ("vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
                 "ffn_dim", "max_seq_len", "rope_theta", "rms_eps", "dtype")
+
+
+def _layer_intermediates(layer, x, cfg, inv_freq, positions, mask):
+    """The inputs of each linear group of one decoder layer
+    (convert.py:34-54), fused wqkv/w13 or separate wq/wk/wv/w1/w3."""
+    h1 = L.rms_norm(x, layer["attn_norm"], cfg.rms_eps)  # -> wq/wk/wv|wqkv
+    B, S, _ = x.shape
+    q, k, v = L.qkv_proj(layer, h1, cfg)
+    q = L.apply_rope(q, positions, inv_freq)
+    k = L.apply_rope(k, positions, inv_freq)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    attn = L.attention_scores(
+        q, L.repeat_kv(k, n_rep), L.repeat_kv(v, n_rep), mask
+    ).reshape(B, S, cfg.n_heads * cfg.head_dim)  # -> wo
+    x2 = x + layer["wo"](attn)
+    h2 = L.rms_norm(x2, layer["ffn_norm"], cfg.rms_eps)  # -> w1/w3|w13
+    if "w13" in layer:
+        g, u = torch.chunk(layer["w13"](h2), 2, dim=-1)
+        ffn_mid = torch.nn.functional.silu(g) * u  # -> w2
+    else:
+        ffn_mid = torch.nn.functional.silu(layer["w1"](h2)) * layer["w3"](h2)
+    return {"qkv": h1, "wo": attn, "ffn_in": h2, "w2": ffn_mid}
+
+
+_GROUP_OF = {
+    "wq": "qkv", "wk": "qkv", "wv": "qkv", "wqkv": "qkv",
+    "wo": "wo", "w1": "ffn_in", "w3": "ffn_in", "w13": "ffn_in", "w2": "w2",
+}
+
+
+def quantize_llama_gptq(params, calib_tokens, cfg, candidate_bits=(4,),
+                        groupsize=128, sym=False, percdamp=0.01,
+                        loss_threshold=1e-3, batch_size=1,
+                        quantize_lm_head=False, act_order=False,
+                        verbose=True, *, device=None):
+    """calib_tokens: (n_samples, seqlen) ints (the reference calibrates on
+    128 x 2048 wikitext2 samples, convert.py:37). params lie on ``device``
+    (default the card), where the whole conversion runs. Returns
+    (quant_params, layers_bit).
+
+    Each batch of ``batch_size`` samples gets positions of its own shape,
+    so a last batch shorter than batch_size is calibrated as it is (the
+    JAX package broadcasts one positions array of batch_size rows: fault
+    R8). The propagation runs ``decoder_layer`` without a mask, i.e.
+    ``causal_attention`` (K10 on the card), where the JAX package passes
+    its mask (the masked scores): the same causal attention without the
+    (S, S) scores."""
+    dev = resolve_device(device)
+    calib = torch.as_tensor(calib_tokens, device=dev).long()
+    n, S = calib.shape
+    inv_freq = L.rope_frequencies(cfg, device=dev)
+    mask = L._causal_mask(S, dev)
+    batches = [(b, min(b + batch_size, n)) for b in range(0, n, batch_size)]
+
+    def positions(rows):
+        return torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+            rows, S)
+
+    inps = params["tok_embed"][calib]  # (n, S, D): layer 0's inputs
+    new_params = dict(params)
+    new_params["layers"] = []
+    layers_bit = {}
+    for li, layer in enumerate(params["layers"]):
+        # Hessians of the four linear groups over the calibration batches
+        accs = {
+            "qkv": HessianAccumulator(cfg.dim, device=dev),
+            "wo": HessianAccumulator(cfg.n_heads * cfg.head_dim, device=dev),
+            "ffn_in": HessianAccumulator(cfg.dim, device=dev),
+            "w2": HessianAccumulator(cfg.ffn_dim, device=dev),
+        }
+        for b0, b1 in batches:
+            feats = _layer_intermediates(layer, inps[b0:b1], cfg, inv_freq,
+                                         positions(b1 - b0), mask)
+            for g, acc in accs.items():
+                acc.add_batch(feats[g])
+        del feats
+
+        # GPTQ-solve each linear (fused or separate layout)
+        new_layer = dict(layer)
+        for name in [nm for nm in L._LINEAR_NAMES if nm in layer]:
+            lin = layer[name]
+            acc = accs[_GROUP_OF[name]]
+            res = gptq_quantize_mixed(
+                lin.w, acc.H, candidate_bits=candidate_bits,
+                loss_threshold=loss_threshold, groupsize=groupsize, sym=sym,
+                percdamp=percdamp, mean_x=acc.mean_x, bias=lin.bias,
+                act_order=act_order)
+            path = "layers.{}.{}".format(li, name)
+            layers_bit[path] = res["bits"]
+            new_layer[name] = QuantLinear.from_codes(
+                res["codes"], res["scales"], res["zeros"], res["bits"],
+                groupsize, bias=res.get("bias", lin.bias), perm=res["perm"])
+            if verbose:
+                print("[gptq] {} bits={} loss={:.3e}".format(
+                    path, res["bits"], res["loss"]))
+        del accs, res
+        new_params["layers"].append(new_layer)
+
+        # propagate: the quantized layer's outputs feed the next layer
+        outs = torch.empty_like(inps)
+        for b0, b1 in batches:
+            outs[b0:b1] = L.decoder_layer(new_layer, inps[b0:b1], cfg,
+                                          inv_freq, positions(b1 - b0),
+                                          None)[0]
+        inps = outs
+
+    if quantize_lm_head:
+        lin = params["lm_head"]
+        acc = HessianAccumulator(cfg.dim, device=dev)
+        acc.add_batch(L.rms_norm(inps, params["norm"], cfg.rms_eps))
+        res = gptq_quantize_mixed(
+            lin.w, acc.H, candidate_bits=candidate_bits,
+            loss_threshold=loss_threshold, groupsize=groupsize, sym=sym,
+            percdamp=percdamp, mean_x=acc.mean_x, bias=lin.bias)
+        layers_bit["lm_head"] = res["bits"]
+        new_params["lm_head"] = QuantLinear.from_codes(
+            res["codes"], res["scales"], res["zeros"], res["bits"],
+            groupsize, bias=res.get("bias", lin.bias))
+    return new_params, layers_bit
 
 
 def _tensor(a, device):

@@ -570,14 +570,18 @@ def _tokens(B, S, seed):
 
 def test_llama_forward_and_loss_match_jax(dense_tiny, route):
     """B = 2, S = 128: logits within ATOL with equal decisive argmax, the
-    loss within LOSS_RTOL."""
+    loss within LOSS_RTOL. The JAX side runs under jax.jit: op by op, the
+    main thread's next dispatch can deadlock against the io_callbacks of
+    JAX's interpreted flash kernel, which dispatch ops of their own."""
     cfg_j, jp, cfg_t, tp = dense_tiny
     toks = _tokens(2, 129, 11)
-    jl = np.asarray(JL.llama_forward(jp, jnp.asarray(toks[:, :-1]), cfg_j))
+    jl = np.asarray(jax.jit(JL.llama_forward, static_argnums=2)(
+        jp, jnp.asarray(toks[:, :-1]), cfg_j))
     tl = TL.llama_forward(tp, torch.from_numpy(toks[:, :-1]), cfg_t)
     assert tl.dtype == torch.float32 and tl.shape == (2, 128, 512)
     _check_rows([(jl.reshape(-1, 512), tl.reshape(-1, 512).numpy())])
-    j_loss = float(JL.llama_loss(jp, jnp.asarray(toks), cfg_j))
+    j_loss = float(jax.jit(JL.llama_loss, static_argnums=2)(
+        jp, jnp.asarray(toks), cfg_j))
     t_loss = float(TL.llama_loss(tp, torch.from_numpy(toks), cfg_t))
     assert abs(t_loss - j_loss) <= LOSS_RTOL * abs(j_loss)
 

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no file of sparsebit_tpu_torch/ nor
-chip_smoke.py imports jax or the JAX package."""
+"""The PyTorch port stands alone: no file of sparsebit_tpu_torch/, no
+port CLI (examples/llm/*_torch.py) and not chip_smoke.py imports jax or
+the JAX package."""
 
 import ast
 from pathlib import Path
@@ -7,8 +8,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "sparsebit_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "sparsebit_tpu_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "llm").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
