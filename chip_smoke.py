@@ -131,6 +131,30 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 s, ppl_float < 4 and int4 GPTQ < 1.05 x float held, every
                 GPTQ'd linear below RTN on its Hessian loss, int4 GPTQ <=
                 RTN x 1.002 recorded (fault R9), K8 launched.
+     int4kv     DecodeEngine(kv_quantized="int4") on main's model and
+                requests (decode_chunk: K1, K9, the plain attention over
+                the dequantized layer; no K4, no K5): ms/step wall and
+                device, cache bytes of the int4 / int8 / bf16 modes, the
+                same requests over a bf16 cache (K5), tokens equal up to
+                near ties, one step's int4 codes equal to the CPU's, and
+                the int4 route at depth 2 on the card against the CPU;
+     kpad       main's model with every W2 K-padded by with_k_pad(1024)
+                (11008 -> 11264 rows) beside the unpadded one on K4:
+                every decision's logits and every token equal, K4's
+                device ms/step of both;
+     offload    StreamingLlama over 32 INT4-g128 layers (checkpoint
+                layout: K8) from pinned host memory on a copy stream,
+                prefetch 2, prefill B=1 S=128 and 8 decode steps against
+                the resident prefill / decode_step (logits within 0.1):
+                ms/token, H2D GB/s streamed and on the copy stream beside
+                a bare pinned 1 GB copy's, the share of copy time hidden
+                under compute, peak memory above the resident part;
+     quantcore  fake_quant forward and backward per tensor (2048 x 4096)
+                and per channel (11008 x 4096) against the CPU (forward
+                and gx equal, gs / gzp within the f32 sum bound), minmax
+                / mse / percentile qparams per channel (the CPU on the
+                first 2048 rows) and percentile per tensor over 45M
+                elements, an LSQ step (scale gradients within the bound).
 It prints one JSON line of per-kernel and per-path numbers, the card's
 name and power limit, and last {"ok": true, "device": {...}}. It exits
 non-zero without CUDA or without the repository beside it.
@@ -3387,6 +3411,650 @@ def plane_paths(cfg):
     return out
 
 
+def _record_decisions(eng, rows):
+    """Patch ``eng`` and the engines' sampling so that ``rows`` maps each
+    request id to the logits rows of its decisions, in order (the
+    admission's, then one a decode step); a _Patched context."""
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.llm import serving as Sv
+
+    order = []
+    orig = Dm.sample_logits_vec
+    orig_admit, orig_chunk = eng._admit_group, eng._decode_chunk
+
+    def sample(logits, temps, generator=None):
+        for rid, row in zip(order, logits):
+            if rid is not None:
+                rows.setdefault(rid, []).append(row.detach().clone())
+        return orig(logits, temps, generator)
+
+    def admit(admits, *a):
+        order[:] = [req.rid for _, req, _ in admits]
+        return orig_admit(admits, *a)
+
+    def chunk(temps, n):
+        order[:] = [s.rid if s is not None else None for s in eng.slots]
+        return orig_chunk(temps, n)
+
+    return _Patched([(Dm, "sample_logits_vec", sample),
+                     (Sv, "sample_logits_vec", sample),
+                     (eng, "_admit_group", admit),
+                     (eng, "_decode_chunk", chunk)])
+
+
+def _cache_bytes(cfg, B, S, mode):
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+
+    c = init_kv_cache(cfg, B, S, mode, device="meta")
+    return sum(t.numel() * t.element_size()
+               for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None)
+
+
+def _int4_card_vs_cpu(params, cfg, depth=2):
+    """The int4 route on the card against the port on the CPU, at main's
+    widths and ``depth`` layers in the engine's serving layout: prefill of
+    8 x 32 tokens into an int4 cache, then two decode steps fed the
+    card's greedy tokens; logits within 0.1 with decisive argmax equal
+    (_logits_agree), and the share of equal int4 codes in the caches
+    (bf16 activations may round a code differently)."""
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.llm import llama as L
+    from sparsebit_tpu_torch.llm import serving as Sv
+    from sparsebit_tpu_torch.llm.convert import map_params
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+    from sparsebit_tpu_torch.llm.quant import QuantLinear
+
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    p2 = L.quantize_llama_params(
+        dict(params, layers=params["layers"][:depth]),
+        lambda p, lin: (Sv._serving_layout(lin)
+                        if isinstance(lin, QuantLinear) else lin), skip=())
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    prompt = torch.randint(0, cfg.vocab_size, (8, 32), generator=g,
+                           device="cuda")
+    runs, toks = {}, []
+    for dev, p in (("cuda", p2), ("cpu", map_params(lambda t: t.cpu(), p2))):
+        cache = init_kv_cache(cfg2, 8, 40, "int4", device=dev)
+        logits, cache = Dm.prefill(p, prompt.to(dev), cache, cfg2)
+        out = [logits.float().cpu()]
+        for i in range(2):
+            if dev == "cuda":
+                toks.append(logits.argmax(-1).to(torch.int32))
+            logits, cache = Dm.decode_step(p, toks[i].to(dev), cache, cfg2)
+            out.append(logits.float().cpu())
+        runs[dev] = (out, cache.k.cpu(), cache.v.cpu())
+    errs, ok = [], True
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        err, good = _logits_agree(a, b)
+        errs.append(err)
+        ok &= good
+    same = float(sum((runs["cuda"][i] == runs["cpu"][i]).sum()
+                     for i in (1, 2)) / (2 * runs["cpu"][1].numel()))
+    print("int4kv: depth {} on the card vs the CPU: prefill and two decode "
+          "steps, logits max err {} (atol 0.1, decisive argmax equal: {}), "
+          "int4 code bytes equal {:.4%}".format(
+              depth, ["{:.4f}".format(e) for e in errs], ok, same),
+          flush=True)
+    if not ok:
+        fail("int4kv: the card's int4 route differs from the CPU's (errs "
+             "{})".format(errs))
+    return dict(depth=depth, max_abs_err=errs, logits_agree=ok,
+                code_bytes_equal=same)
+
+
+def int4kv_path(params, cfg):
+    """Phase 4, path int4kv: DecodeEngine(kv_quantized="int4") at 7B
+    widths, 32 layers, B=8, max_len 512, main's 8 prompts x 32 greedy
+    tokens. K4 reads an int8 cache only, so the engine decodes on
+    decode_chunk: the linears on K1 (a8), the head on K9, the attention the
+    plain masked attention over the dequantized layer (no K5). Prints
+    ms/step wall and device, the launches, and the cache bytes of the int4,
+    int8 and bf16 modes. The same requests on the bf16-cache route
+    (kv_quantized=False, decode_chunk with K5): the admission logits'
+    error printed, greedy tokens equal up to each request's first
+    difference, where the bf16 route's margin between the two tokens must
+    be a near tie: at most twice the admission's logit error (the rule of
+    tests/test_torch_engine.py). One step's int4 codes and scales on the
+    card bit-equal to _quant_heads on the CPU, and the int4 route at depth
+    2 on the card against the CPU (_int4_card_vs_cpu)."""
+    import torch
+    from sparsebit_tpu_torch.llm import kv_cache as Kc
+    from sparsebit_tpu_torch.llm import serving as Sv
+
+    kw = dict(max_batch=8, max_len=512, chunk=8, device="cuda")
+    prompts = _prompts(cfg)
+    seen = []
+    orig_q = Kc._quant_heads
+
+    def quant_seen(x, mode="int8"):
+        out = orig_q(x, mode)
+        if mode == "int4" and x.shape[1] == 1 and not seen:
+            seen.append((x.detach().cpu(), out[0].cpu(), out[1].cpu()))
+        return out
+
+    runs = {}
+    for mode in ("int4", False):
+        eng = Sv.DecodeEngine(params, cfg, kv_quantized=mode, **kw)
+        if eng._stacked_chunks:
+            fail("int4kv: the {} cache engine is on K4".format(mode))
+        rows = {}
+        timer = KernelEvents()
+        tag = "int4kv ({} cache, decode_chunk)".format(
+            "int4" if mode else "bf16")
+        with timer.patch, _record_decisions(eng, rows), _Patched(
+                [(Kc, "_quant_heads", quant_seen)]):
+            toks, st = drive(eng, prompts, "decode_chunk", tag,
+                             ("K1", "K9") + (() if mode else ("K5",)),
+                             timer=timer)
+        runs[mode] = (toks, st, [rows[rid] for rid in sorted(rows)])
+        del eng
+        torch.cuda.empty_cache()
+    toks4, st, rows4 = runs["int4"]
+    toksb, stb, rowsb = runs[False]
+    _expect("int4kv", st["launches"], ("K1", "K9"), ("K4", "K5"))
+    B = kw["max_batch"]
+    # each request's first decision: the admission's logits row
+    adm4 = torch.stack([r[0] for r in rows4]).float()
+    admb = torch.stack([r[0] for r in rowsb]).float()
+    err0 = float((adm4 - admb).abs().max())
+    scale = float(admb.abs().max())
+    # near tie: twice the admission's logit error (measured before any
+    # decode step), as test_torch_engine.py's NEAR_TIE is twice the
+    # route's known logit error
+    near = 2 * err0
+    firsts, margins = [], []
+    for r, (a, b) in enumerate(zip(toks4, toksb)):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        firsts.append(i)
+        if i < len(a):
+            row = rowsb[r][i].float()
+            margins.append(float(row[b[i]] - row[a[i]]))
+    ties_ok = all(m <= near for m in margins)
+    q = {}
+    if seen:
+        x, codes, scales = seen[0]
+        rc, rs = orig_q(x, "int4")
+        q = dict(codes_equal=bool(torch.equal(codes, rc)),
+                 scales_equal=bool(torch.equal(scales, rs)),
+                 rows=int(x.shape[0] * x.shape[2]))
+    st.update(bf16_route=dict(decode_ms_per_step=stb["decode_ms_per_step"],
+                              kernel_device_ms_per_step=stb[
+                                  "kernel_device_ms_per_step"],
+                              launches=stb["launches"]),
+              cache_bytes={m: _cache_bytes(cfg, B, kw["max_len"], m)
+                           for m in ("int4", "int8", False)},
+              admission_max_abs_err_vs_bf16=err0,
+              admission_max_abs_logit=scale,
+              near_tie=near,
+              first_differences_near_ties=ties_ok,
+              tokens_equal_bf16_route=[a == b for a, b in zip(toks4, toksb)],
+              leading_tokens_equal=firsts,
+              bf16_margin_at_first_difference=margins, step_quant=q)
+    cb = st["cache_bytes"]
+    print("int4kv: {:.3f} ms/step wall, kernels {:.3f} ms/step device "
+          "(bf16 route {:.3f} / {:.3f}); cache bytes int4 {} int8 {} bf16 "
+          "{}; admission logits max |int4 - bf16| {:.4f} of max |logit| "
+          "{:.4f}; tokens equal in {} of {} "
+          "requests, leading equal {}, bf16 margins at the first "
+          "difference {} (near tie <= {:.4f}: {}); one step's int4 "
+          "codes/scales vs the CPU {}".format(
+              st["decode_ms_per_step"], st["kernel_device_ms_per_step"],
+              stb["decode_ms_per_step"], stb["kernel_device_ms_per_step"],
+              cb["int4"], cb["int8"], cb[False], err0, scale,
+              sum(st["tokens_equal_bf16_route"]), len(toks4), firsts,
+              ["{:.4f}".format(m) for m in margins], near, ties_ok, q),
+          flush=True)
+    if not ties_ok:
+        fail("int4kv: against the bf16 route, first-difference margins {} "
+             "past twice the admission's error {:.4f}".format(margins, err0))
+    st["card_vs_cpu"] = _int4_card_vs_cpu(params, cfg)
+    if not (q.get("codes_equal") and q.get("scales_equal")):
+        fail("int4kv: the card's int4 codes/scales differ from the CPU's "
+             "({})".format(q))
+    return {"int4kv": st}
+
+
+def kpad_path(params, cfg):
+    """Phase 4, path kpad: every W2 of main's model K-padded by
+    QuantLinear.with_k_pad(1024) (11008 -> 11264 rows, the reference's
+    example), served by DecodeEngine on K4 beside the unpadded model on
+    the same requests (main's 8 prompts x 32 tokens): K4 launched on both,
+    every decision's logits and every token equal (K4 reads each layer's
+    first F rows of the padded stack, in the unpadded K split)."""
+    import torch
+    from sparsebit_tpu_torch.llm import llama as L
+    from sparsebit_tpu_torch.llm import serving as Sv
+
+    padded = L.quantize_llama_params(
+        params, lambda p, lin: lin.with_k_pad(1024) if p.endswith("w2")
+        else lin, skip=())
+    kp = padded["layers"][0]["w2"].k_padded
+    kw = dict(max_batch=8, max_len=512, chunk=8, device="cuda")
+    runs = []
+    for tag, p in (("unpadded", params), ("padded", padded)):
+        eng = Sv.DecodeEngine(p, cfg, **kw)
+        if not eng._stacked_chunks:
+            fail("kpad: the {} model is not on K4".format(tag))
+        rows = {}
+        with _record_decisions(eng, rows):
+            toks, st = drive(eng, _prompts(cfg), "decode_chunk_scanned",
+                             "kpad ({}, W2 rows {})".format(
+                                 tag, kp if tag == "padded" else cfg.ffn_dim),
+                             ("K1", "K4", "K9"), time_k4=True)
+        runs.append((toks, st, rows))
+        del eng
+        torch.cuda.empty_cache()
+    (ta, sa, ra), (tb, sb, rb) = runs
+    same_logits = sorted(ra) == sorted(rb) and all(
+        len(ra[r]) == len(rb[r]) and all(
+            torch.equal(a, b) for a, b in zip(ra[r], rb[r])) for r in ra)
+    out = dict(sb, w2_rows=kp, tokens_equal=ta == tb,
+               logits_equal=same_logits,
+               unpadded_k4_device_ms_per_step=sa["k4_device_ms_per_step"],
+               unpadded_launches=sa["launches"])
+    print("kpad: W2 K-padded {} -> {}: K4 {:.3f} ms/step device (unpadded "
+          "{:.3f}); tokens equal {}, every decision's logits equal {}"
+          .format(cfg.ffn_dim, kp, sb["k4_device_ms_per_step"],
+                  sa["k4_device_ms_per_step"], ta == tb, same_logits),
+          flush=True)
+    if kp != -(-cfg.ffn_dim // 1024) * 1024 or kp == cfg.ffn_dim \
+            or ta != tb or not same_logits:
+        fail("kpad: the padded model (W2 rows {}) differs from the unpadded "
+             "one on K4 (tokens equal {}, logits equal {})".format(
+                 kp, ta == tb, same_logits))
+    return {"kpad": out}
+
+
+OFFLOAD_PREFETCH = 2
+OFFLOAD_STEPS = 8
+
+
+def _layer_bytes(layer):
+    from sparsebit_tpu_torch.llm.convert import map_params
+
+    seen = []
+    map_params(lambda t: seen.append(t.numel() * t.element_size()) or t,
+               layer)
+    return sum(seen)
+
+
+def offload_path(cfg):
+    """Phase 4, path offload: StreamingLlama over 32 INT4-g128 layers at
+    7B widths (checkpoint layout, impl "auto": K8 for the decode steps'
+    linears, the dense route at the prefill's M = 128, the plain masked
+    attention, the head a matmul over (B, S, dim)) streamed from pinned
+    host memory on a copy stream, prefetch 2: prefill B=1 S=128 and 8
+    greedy decode steps, against the resident prefill / decode_step on the
+    same params fed the same tokens (logits within 0.1, decisive argmax
+    equal: the resident step attends through K5). Prints ms/token, the H2D
+    GB/s streaming reaches (weight bytes a step over the step) and over
+    the copy stream's busy time, a bare pinned 1 GB copy's GB/s, the share
+    of copy time hidden under compute (against the same StreamingLlama over
+    device-resident layers), and the peak device memory above the resident
+    part while decoding, against prefetch + 1 layers."""
+    import torch
+    from sparsebit_tpu_torch.llm import decode as Dm
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+    from sparsebit_tpu_torch.llm.offload import (
+        StreamingLlama, offload_llama_params)
+
+    dev = torch.device("cuda")
+    params = build_plane_params(cfg, dev, lambda li, n: 4, SEED + 14)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 128), generator=g,
+                           device="cuda")
+    S_max = 128 + OFFLOAD_STEPS + 8
+
+    def run(prefill, step, toks=None, after_prefill=None):
+        """prefill + OFFLOAD_STEPS decode steps (greedy, or fed toks):
+        (logits list, tokens, s per call)."""
+        cache = init_kv_cache(cfg, 1, S_max, device="cuda")
+        times = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill(prompt, cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if after_prefill is not None:
+            after_prefill()
+        out, fed = [logits], []
+        for i in range(OFFLOAD_STEPS):
+            tok = (logits.argmax(-1).to(torch.int32) if toks is None
+                   else toks[i])
+            fed.append(tok)
+            t = time.perf_counter()
+            logits, cache = step(tok, cache)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            out.append(logits)
+        return out, fed, times
+
+    _reset_launches()
+    ref, toks, res_s = run(lambda p, c: Dm.prefill(params, p, c, cfg),
+                           lambda t, c: Dm.decode_step(params, t, c, cfg))
+    res_launches = _launches()
+    # the same code path over device-resident layers: compute alone (the
+    # second of two runs; the first warms the allocator's cache)
+    compute = StreamingLlama(params, cfg, OFFLOAD_PREFETCH)
+    for _ in range(2):
+        _, _, comp_s = run(compute.prefill, compute.decode_step, toks)
+    layer_b = _layer_bytes(params["layers"][0])
+    t = time.perf_counter()
+    host = offload_llama_params(params)
+    pin_s = time.perf_counter() - t
+    pinned = all(t.is_pinned() for t in host["layers"][0]["wq"].packed.values())
+    del params, compute
+    torch.cuda.empty_cache()
+
+    sl = StreamingLlama(host, cfg, OFFLOAD_PREFETCH)
+    copies = []  # each layer's (start, done) events on the copy stream
+    orig_fetch = sl._fetch
+
+    def fetch(i):
+        out = orig_fetch(i)
+        copies.append(out[1:])
+        return out
+
+    sl._fetch = fetch
+    base = torch.cuda.memory_allocated()
+    peaks = []
+
+    def prefill_peak():
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    got, _, str_s = run(sl.prefill, sl.decode_step, toks, prefill_peak)
+    launches = _launches()
+    # the decode steps' peak (the prefill's M = 128 linears take the dense
+    # route, whose f32 dequantized weights dominate its peak)
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.synchronize()
+    copy_ms = [a.elapsed_time(b) for a, b in copies]
+    n_layers = cfg.n_layers
+    step_copy_s = [sum(copy_ms[i * n_layers:(i + 1) * n_layers]) / 1e3
+                   for i in range(1 + OFFLOAD_STEPS)]
+    dec = slice(1, None)
+    ms_tok = 1e3 * sum(str_s[dec]) / OFFLOAD_STEPS
+    comp_ms = 1e3 * sum(comp_s[dec]) / OFFLOAD_STEPS
+    copy_tok_ms = 1e3 * sum(step_copy_s[dec]) / OFFLOAD_STEPS
+    hidden = max(0.0, min(1.0, (copy_tok_ms + comp_ms - ms_tok)
+                          / copy_tok_ms))
+    step_bytes = layer_b * n_layers
+    big = torch.empty(2 ** 30, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    dst.copy_(big, non_blocking=True)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(3):
+        dst.copy_(big, non_blocking=True)
+    ev[1].record()
+    torch.cuda.synchronize()
+    bare = 3 * 2 ** 30 / (ev[0].elapsed_time(ev[1]) / 1e3) / 1e9
+    del big, dst
+    errs, ok = [], True
+    for a, b in zip(got, ref):
+        err, good = _logits_agree(a.float(), b.float())
+        errs.append(err)
+        ok &= good
+    out = dict(prefetch=OFFLOAD_PREFETCH, layers=n_layers, prompt=128,
+               decode_steps=OFFLOAD_STEPS, pinned=pinned, pin_s=pin_s,
+               layer_bytes=layer_b, ms_per_token=ms_tok,
+               resident_ms_per_token=1e3 * sum(res_s[dec]) / OFFLOAD_STEPS,
+               compute_only_ms_per_token=comp_ms,
+               copy_busy_ms_per_token=copy_tok_ms,
+               prefill_s=str_s[0], h2d_gb_s_streaming=step_bytes / (
+                   ms_tok / 1e3) / 1e9,
+               h2d_gb_s_copy_stream=step_bytes / (copy_tok_ms / 1e3) / 1e9,
+               h2d_gb_s_bare_1gb=bare, copy_hidden_share=hidden,
+               peak_above_resident_bytes=peak,
+               peak_in_layers=peak / layer_b,
+               prefill_peak_above_resident_bytes=peaks[0],
+               max_abs_err_vs_resident=max(errs), logits_agree=ok,
+               launches=launches, resident_launches=res_launches)
+    print("offload: {} layers of {:.1f} MB from pinned memory ({}; pinned "
+          "in {:.1f} s), prefetch {}: {:.2f} ms/token (resident {:.2f}, the "
+          "same code over resident layers {:.2f}), prefill S=128 {:.3f} s; "
+          "H2D {:.2f} GB/s streaming, {:.2f} GB/s over the copy stream's "
+          "busy time, bare pinned 1 GB copy {:.2f} GB/s; copy time hidden "
+          "{:.1%}; peak device memory above resident while decoding "
+          "{:.1f} MB = {:.2f} layers (prefill {:.1f} MB); logits vs resident "
+          "max err {:.4f} (atol 0.1, decisive argmax equal: {}); launches {}"
+          .format(
+              n_layers, layer_b / 1e6, pinned, pin_s, OFFLOAD_PREFETCH,
+              ms_tok, out["resident_ms_per_token"], comp_ms, str_s[0],
+              out["h2d_gb_s_streaming"], out["h2d_gb_s_copy_stream"], bare,
+              hidden, peak / 1e6, peak / layer_b, peaks[0] / 1e6, max(errs),
+              ok, launches),
+          flush=True)
+    if not ok:
+        fail("offload: streamed logits differ from the resident ones "
+             "(max err {:.4f})".format(max(errs)))
+    if not pinned:
+        fail("offload: the host layers are not pinned")
+    if peak > (OFFLOAD_PREFETCH + 2) * layer_b:
+        fail("offload: decoding peaks {:.1f} MB above resident, more than "
+             "prefetch + 2 layers".format(peak / 1e6))
+    # the head is applied to (B, 1, dim) rows as the reference applies it
+    # (offload.py:150), which the bf16 matvec K9 does not take
+    _expect("offload", launches, ("K8",), ("K5", "K4"))
+    del sl, host
+    torch.cuda.empty_cache()
+    return {"offload": out}
+
+
+def _fq_check(tag, x, s, zp, qmin, qmax, g):
+    """fake_quant forward and backward on the card against the CPU on the
+    same tensors: forward and gx equal, gs and gzp within n * 2^-24 * sum
+    |term| twice (two f32 sums of the same terms in any order). Returns
+    (stats, ok)."""
+    import torch
+    from sparsebit_tpu_torch.quantization import fake_quant as FQ
+
+    gy = torch.randn(x.shape, generator=g, device="cuda")
+    res = {}
+    def leaf(t, dev):
+        return t.detach().to(dev).clone().requires_grad_(True)
+
+    for dev in ("cuda", "cpu"):
+        xt, st, zt = leaf(x, dev), leaf(s, dev), leaf(zp, dev)
+        if dev == "cuda":
+            fwd_ms = cuda_ms(lambda i: FQ.fake_quant(xt, st, zt, qmin, qmax),
+                             10)
+        y = FQ.fake_quant(xt, st, zt, qmin, qmax)
+        y.backward(gy.to(dev))
+        res[dev] = [t.detach().cpu() for t in (y, xt.grad, st.grad, zt.grad)]
+    # the elementwise terms, for the sums' bound
+    sf = leaf(s.expand(x.shape), "cpu")
+    zf = leaf(zp.expand(x.shape), "cpu")
+    FQ.fake_quant(x.detach().cpu(), sf, zf, qmin, qmax).backward(gy.cpu())
+    n = x.numel() // s.numel()
+    (y, gx, gs, gz), (yc, gxc, gsc, gzc) = res["cuda"], res["cpu"]
+    errs, ok = {}, torch.equal(y, yc) and torch.equal(gx, gxc)
+    for name, a, b, terms in (("gs", gs, gsc, sf.grad), ("gzp", gz, gzc,
+                                                          zf.grad)):
+        abs_sum = FQ._reduce_to_shape(terms.abs(), s.shape)
+        bound = 2 * n * 2.0 ** -24 * abs_sum + 1e-30
+        errs[name] = float((a - b).abs().max())
+        ok &= bool(((a - b).abs() <= bound).all())
+    st = dict(shape=list(x.shape), qparams=list(s.shape), fwd_ms=fwd_ms,
+              forward_equal=bool(torch.equal(y, yc)),
+              gx_equal=bool(torch.equal(gx, gxc)), max_abs_err=errs)
+    print("quantcore: fake_quant {} {}: forward {} and gx {} the CPU's, gs "
+          "/ gzp max err {} within n 2^-24 sum|term|: {}; forward {:.4f} ms"
+          .format(tag, list(x.shape), "equal" if st["forward_equal"] else
+                  "DIFFER", "equal" if st["gx_equal"] else "DIFFER", errs,
+                  ok, fwd_ms), flush=True)
+    return st, ok
+
+
+def _qcfg(target, qscheme, observer="minmax", qtype="uniform", bit=4):
+    from sparsebit_tpu_torch.quantization.common import QuantTarget
+    from sparsebit_tpu_torch.utils.config import CfgNode
+
+    return CfgNode({
+        "TARGET": [getattr(QuantTarget, target)], "QSCHEME": qscheme,
+        "QUANTIZER": {"TYPE": qtype, "BIT": bit, "GROUPSIZE": -1},
+        "OBSERVER": {"TYPE": observer, "PERCENTILE": {"ALPHA": 0.001},
+                     "LAYOUT": "NLC"}})
+
+
+QUANTCORE_CPU_ROWS = 2048  # rows of the weight the CPU repeats
+
+
+def quantcore_path():
+    """Phase 4, path quantcore: the graph regime's bottom layer on the
+    card against the port on the CPU (no kernel: elementwise PyTorch).
+    fake_quant forward and backward per tensor on a (2048, 4096)
+    activation and per channel on an (11008, 4096) weight: forward and gx
+    equal, gs and gzp within the f32 bound of a sum in another order. An
+    LSQ quantizer's step on the weight (4-bit per channel: calibration,
+    fake-quant MSE, backward, one Adam step): the scale gradients within
+    the same bound of the CPU's. minmax, mse and percentile qparams per
+    channel on the weight (the card on all rows, timed; the CPU on the
+    first 2048, equal for minmax and percentile; mse's choice within
+    rounding of the CPU's least loss), and percentile per tensor over all
+    45M elements on the card (a sort: torch.quantile refuses past
+    2^24)."""
+    import torch
+    from sparsebit_tpu_torch.quantization import fake_quant as FQ
+    from sparsebit_tpu_torch.quantization.observers import build_observer
+    from sparsebit_tpu_torch.quantization.quant_descriptor import (
+        QuantDescriptor)
+    from sparsebit_tpu_torch.quantization.quantizers import build_quantizer
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    out = {}
+    ok_all = True
+    act = torch.randn((2048, 4096), generator=g, device="cuda") * 2
+    st, ok = _fq_check("per tensor", act, torch.tensor(0.05),
+                       torch.tensor(3.0), 0, 255, g)
+    out["fake_quant_per_tensor"] = st
+    ok_all &= ok
+    w = torch.randn((11008, 4096), generator=g, device="cuda") * 0.02
+    s = (w.abs().amax(1, keepdim=True) / 7).cpu()
+    st, ok = _fq_check("per channel", w, s, torch.zeros_like(s), -8, 7, g)
+    out["fake_quant_per_channel"] = st
+    ok_all &= ok
+
+    cpu_w = w[:QUANTCORE_CPU_ROWS].cpu()
+    obs = {}
+    for name in ("minmax", "mse", "percentile"):
+        cfg = _qcfg("WEIGHT", "per-channel-symmetric", observer=name)
+        res = {}
+        for dev, data in (("cuda", w), ("cpu", cpu_w)):
+            o = build_observer(cfg, QuantDescriptor(cfg))
+            o.update(data)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sc, zp = o.calc_qparams()
+            torch.cuda.synchronize()
+            res[dev] = (sc.cpu(), zp.cpu(), time.perf_counter() - t)
+        (sa, za, ta), (sb, zb, tb) = res["cuda"], res["cpu"]
+        sa, za = sa[:QUANTCORE_CPU_ROWS], za[:QUANTCORE_CPU_ROWS]
+        if name == "mse":
+            # each channel's loss at the card's choice and at the CPU's
+            def loss(sc, zp):
+                dq = FQ.fake_quant(cpu_w, sc[:, None], zp[:, None], -8, 7)
+                return ((cpu_w - dq) ** 2).sum(-1) / cpu_w.shape[1]
+
+            la, lb = loss(sa, za), loss(sb, zb)
+            differ = int((sa != sb).sum())
+            good = bool((la <= lb * (1 + 2 * 4096 * 2.0 ** -24)).all())
+        else:
+            differ = int((sa != sb).sum() + (za != zb).sum())
+            good = differ == 0
+        obs[name] = dict(card_s=ta, cpu_s_rows=tb, channels_differ=differ,
+                         held=good)
+        ok_all &= good
+        print("quantcore: {} per channel on the (11008, 4096) weight: card "
+              "{:.3f} s; the first {} rows on the CPU ({:.3f} s): {} "
+              "channels differ, held {}".format(
+                  name, ta, QUANTCORE_CPU_ROWS, tb, differ, good), flush=True)
+    cfg = _qcfg("WEIGHT", "per-tensor-symmetric", observer="percentile")
+    o = build_observer(cfg, QuantDescriptor(cfg))
+    o.update(w)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mn, mx = o.calc_minmax()
+    torch.cuda.synchronize()
+    srt = torch.sort(w.reshape(-1)).values
+    n = srt.numel()
+    pos, neg = int((w >= 0).sum()), int((w < 0).sum())
+    want = (srt[max(round(neg * 0.001), 1) - 1],
+            srt[n - round(pos * 0.001) - 1])
+    good = bool(mn == want[0]) and bool(mx == want[1])
+    obs["percentile_per_tensor_45M"] = dict(card_s=time.perf_counter() - t,
+                                            held=good)
+    ok_all &= good
+    print("quantcore: percentile per tensor over {} elements on the card: "
+          "({:.6f}, {:.6f}), the sorted order's kth values: {}".format(
+              n, float(mn), float(mx), good), flush=True)
+    out["observers"] = obs
+
+    # LSQ: the card's quantizer calibrates (its initial scale, a mean
+    # |w| a channel, within 1e-5 of the CPU's: a reduction), then both
+    # start from the card's scale, take the fake-quant MSE's gradient and
+    # one Adam step
+    from sparsebit_tpu_torch.quantization.quantizers.base import learnable
+
+    cfg = _qcfg("WEIGHT", "per-channel-symmetric", qtype="lsq")
+    grads, init = {}, None
+    for dev, data in (("cuda", w), ("cpu", w.cpu())):
+        q = build_quantizer(cfg)
+        q.update_observer(data)
+        q.calc_qparams()
+        if init is None:
+            init = q.scale.detach().cpu().clone()
+        else:
+            init_err = float(((q.scale.detach() - init).abs()
+                              / init.abs()).max())
+            q.scale = learnable(init)
+        q.enable_quant()
+        opt = torch.optim.Adam([q.scale], lr=1e-3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = q(data)
+        loss = ((y - data) ** 2).mean()
+        loss.backward()
+        grad = q.scale.grad.detach().cpu().clone()
+        opt.step()
+        torch.cuda.synchronize()
+        grads[dev] = (grad, q.scale.detach().cpu(), loss.item(),
+                      time.perf_counter() - t, y.detach().cpu())
+    (ga, sa, la, ta, ya), (gb, sb, lb, tb, yb) = grads["cuda"], grads["cpu"]
+    # each channel's scale gradient is ratio times a sum of 4096 terms,
+    # each |d loss / dy| = 2 |y - w| / N times at most 8 (qmax - zp or
+    # qmin - zp at 4 bits, or |round(x/s) - x/s| <= 1/2)
+    wc = w.cpu()
+    ratio = 1.0 / (4096 * 7) ** 0.5
+    term_sum = (2 * (yb - wc).abs() / wc.numel() * 8).sum(1)
+    bound = 2 * 4096 * 2.0 ** -24 * ratio * term_sum + 1e-30
+    err = (ga - gb).abs().reshape(-1)
+    good = bool(torch.equal(ya, yb)) and bool((err <= bound).all()) \
+        and init_err <= 1e-5
+    out["lsq_step"] = dict(card_s=ta, cpu_s=tb, loss_card=la, loss_cpu=lb,
+                           init_scale_rel_err=init_err,
+                           forward_equal=bool(torch.equal(ya, yb)),
+                           grad_max_abs_err=float(err.max()), held=good,
+                           scale_max_abs_diff_after=float((sa - sb).abs()
+                                                          .max()))
+    ok_all &= good
+    print("quantcore: LSQ step on the weight: card {:.3f} s (CPU {:.3f} s), "
+          "initial scale rel err {:.2e}, forward equal {}, loss {:.6e} / "
+          "{:.6e}, scale grads max err {:.3e} within the sum bound: {}; "
+          "scales after one Adam step differ by {:.3e}".format(
+              ta, tb, init_err, out["lsq_step"]["forward_equal"], la, lb,
+              float(err.max()), good,
+              out["lsq_step"]["scale_max_abs_diff_after"]), flush=True)
+    if not ok_all:
+        fail("quantcore: the card differs from the CPU ({})".format(out))
+    return {"quantcore": out}
+
+
 def main(argv):
     ab_root = argv[argv.index("--ab") + 1] if "--ab" in argv else None
     try:
@@ -3440,6 +4108,10 @@ def main(argv):
     paths.update(serve_paths(params, cfg))
     print("main, unfused, paged and paged_cold paths {:.1f} s".format(
         time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(int4kv_path(params, cfg))
+    paths.update(kpad_path(params, cfg))
+    print("int4kv and kpad paths {:.1f} s".format(time.perf_counter() - t0))
     del params
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3461,6 +4133,12 @@ def main(argv):
     t0 = time.perf_counter()
     paths.update(fixture_path())
     print("fixture path {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(offload_path(cfg))
+    print("offload path {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(quantcore_path())
+    print("quantcore path {:.1f} s".format(time.perf_counter() - t0))
     # launches of each kernel on the path that runs it: K5 and K8 on
     # generate (this slice's main path), K6 on the engine's decode_chunk
     # route, K7 on the mixed-precision model (its int8 form with impl

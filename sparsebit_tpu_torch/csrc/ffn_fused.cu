@@ -93,6 +93,7 @@ extern "C" int sbt_ffn_block(const void* x, const void* nw, const void* w13,
   a.part = static_cast<float*>(part);
   a.sz_bf16 = sz_bf16; a.nw_bf16 = nw_bf16;
   a.B = B; a.dim = dim; a.F = F; a.gs = gs; a.g13 = g13; a.g2 = g2;
+  a.f2 = F;  // one unpadded layer a launch
   a.eps = eps;
   auto st = static_cast<cudaStream_t>(stream);
   auto xf = static_cast<const float*>(x);

@@ -32,8 +32,12 @@ constexpr int kMaxGridRows = 64;   // B
 constexpr int kMaxBlocksPerSM = 2;
 
 // The FFN half's operands and scratch (K4's Args extends them). Weights
-// are layer stacks: w13 (L, dim/2, 2F) and w2 (L, F/2, dim) s4r bytes with
-// (L, K/gs, N) scales and zeros, f32 or bf16 (sz_bf16).
+// are layer stacks: w13 (L, dim/2, 2F) and w2 (L, f2/2, dim) s4r bytes with
+// (L, K/gs, N) scales and zeros, f32 or bf16 (sz_bf16). f2 >= F: a W2
+// K-padded by QuantLinear.with_k_pad carries f2 - F rows of code 0, zero
+// 0 and scale 1 a layer, whose groups fold to exactly 0 against the zero
+// rows of the GLU; the phases read W2's first F rows of each layer only,
+// so a padded model keeps the unpadded model's K split and bits.
 struct FfnArgs {
   const uint8_t *w13, *w2;
   const void *s13, *z13, *s2, *z2;
@@ -44,6 +48,7 @@ struct FfnArgs {
   int8_t* aq;     // (B, >= F) q8(act)
   float* part;    // (splits, B, N) each matmul's K-split partials
   int sz_bf16, nw_bf16, B, dim, F, gs;
+  int f2;       // rows of one layer of the W2 stack (>= F)
   int g13, g2;  // groups a K split of W13 and W2 (s4_plan)
   float eps;
 };
@@ -136,19 +141,22 @@ __device__ inline void quant_rows_grid(const float* src, const float* amax,
 // a.part[p]; after a grid barrier (sync) every output adds the partials in
 // split order: sum(f) hands f the function i -> that sum of output i = row
 // * N + col. The plain version repeats that order (_qmm_s4_plain with the
-// plan's gps). w, s, z are layer stacks, li the layer.
+// plan's gps). w, s, z are layer stacks of K_st >= K rows a layer (the
+// rows past K, a with_k_pad W2's zero groups, are not read), li the layer.
 template <class C, class Sync, class Sum>
 __device__ __forceinline__ void s4_phase(const int8_t* x, const uint8_t* w,
                                          const void* s, const void* z,
-                                         int li, int K, int N, int gps,
-                                         const FfnArgs& a, uint8_t* smem,
-                                         const Sync& sync, const Sum& sum) {
+                                         int li, int K, int K_st, int N,
+                                         int gps, const FfnArgs& a,
+                                         uint8_t* smem, const Sync& sync,
+                                         const Sum& sum) {
   const int G = K / a.gs, splits = (G + gps - 1) / gps;
   const int tiles = (N + C::BN - 1) / C::BN;
   const int es = a.sz_bf16 ? 2 : 4;
-  const uint8_t* wl = w + static_cast<size_t>(li) * (K / 2) * N;
-  const void* sl = qp_at(s, static_cast<size_t>(li) * G * N, a.sz_bf16);
-  const void* zl = qp_at(z, static_cast<size_t>(li) * G * N, a.sz_bf16);
+  const size_t G_st = K_st / a.gs;
+  const uint8_t* wl = w + static_cast<size_t>(li) * (K_st / 2) * N;
+  const void* sl = qp_at(s, li * G_st * N, a.sz_bf16);
+  const void* zl = qp_at(z, li * G_st * N, a.sz_bf16);
   const int vec_w = copy_width(wl, N);
   const int vec_q = min(copy_width(sl, static_cast<size_t>(N) * es),
                         copy_width(zl, static_cast<size_t>(N) * es));
@@ -227,7 +235,7 @@ __device__ inline void ffn_s4(const FfnArgs& a, int li, const float* xin,
   const int B = a.B, dim = a.dim, F = a.F, F2 = 2 * F;
   ffn_norm_rows(a, xin, nw, red);
   sync(kFfnNormDone);
-  s4_phase<C>(a.xq, a.w13, a.s13, a.z13, li, dim, F2, a.g13, a, smem,
+  s4_phase<C>(a.xq, a.w13, a.s13, a.z13, li, dim, dim, F2, a.g13, a, smem,
               [&] { sync(kW13Done); }, [&](const auto& split_sum) {
                 glu_rows(a, amax_sm, [&](int rl, int j, float& g, float& u) {
                   const size_t at = static_cast<size_t>(rl) * F2 + j;
@@ -238,7 +246,7 @@ __device__ inline void ffn_s4(const FfnArgs& a, int li, const float* xin,
   sync(kGluDone);
   quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
   sync(kQ8ActDone);
-  s4_phase<C>(a.aq, a.w2, a.s2, a.z2, li, F, dim, a.g2, a, smem,
+  s4_phase<C>(a.aq, a.w2, a.s2, a.z2, li, F, a.f2, dim, a.g2, a, smem,
               [&] { sync(kW2Done); }, [&](const auto& split_sum) {
                 grid_for(static_cast<size_t>(B) * dim, [&](size_t i) {
                   const int row = static_cast<int>(i / dim);

@@ -334,13 +334,13 @@ __device__ void attention_item(const Args& a, int li, int b, int h,
 }
 
 // One layer's plane concat of a (K, N) linear, (K, 3N/8) or (K, N/4), as
-// ptile's source.
+// ptile's source; the stack holds K_st >= K rows a layer.
 template <int BITS>
 struct Weights {
   using Src = sbt::PlaneRows<BITS>;
-  __device__ static Src at(const uint8_t* w, int li, int K, int N) {
+  __device__ static Src at(const uint8_t* w, int li, int K_st, int N) {
     const int ld = BITS == 3 ? 3 * N / 8 : N / 4;
-    return Src{w + static_cast<size_t>(li) * K * ld, ld,
+    return Src{w + static_cast<size_t>(li) * K_st * ld, ld,
                BITS == 3 ? N / 8 : N / 4};
   }
 };
@@ -363,8 +363,9 @@ using S4Small = sbt::S4Cfg<16, 256, 1, 8, 6, 2>;
 using S4Large = sbt::S4Cfg<64, 128, 2, 4, 6, 2>;
 
 // One matmul phase of plane mode with C's tiles: every tile of this
-// block over the padded width NS of a plane-concat weight (K rows, logical
-// width N), each tile W = BN / P byte columns x all P planes (sbt::ptile)
+// block over the padded width NS of a plane-concat weight (K rows read of
+// the K_st >= K rows a layer of the stack holds, logical width N), each
+// tile W = BN / P byte columns x all P planes (sbt::ptile)
 // over the int8 rows x (B, K); epi(row, col, sum) for every row < B and
 // logical column col. With split (Wo and W2, whose N gives fewer tiles
 // than there are blocks) each tile's K is halved: the first half's block
@@ -375,15 +376,17 @@ using S4Large = sbt::S4Cfg<64, 128, 2, 4, 6, 2>;
 template <class C, int BITS, class Sync, class Epi>
 __device__ __forceinline__ void plane_phase(const int8_t* x, const uint8_t* w,
                                             const void* s, const void* z,
-                                            int li, int K, int NS, int N,
-                                            const Args& a, uint8_t* smem,
-                                            bool split, const Sync& sync,
+                                            int li, int K, int K_st,
+                                            int NS, int N, const Args& a,
+                                            uint8_t* smem, bool split,
+                                            const Sync& sync,
                                             const Epi& epi) {
   using TC = sbt::Tile<C::BM, C::BN, C::TM, C::TN>;
-  const auto src = Weights<BITS>::at(w, li, K, NS);
+  const auto src = Weights<BITS>::at(w, li, K_st, NS);
   const int G = K / a.gs, G0 = split ? (G + 1) / 2 : G;
-  const void* sl = qp_at(s, static_cast<size_t>(li) * G * NS, a.sz_bf16);
-  const void* zl = qp_at(z, static_cast<size_t>(li) * G * NS, a.sz_bf16);
+  const size_t G_st = K_st / a.gs;
+  const void* sl = qp_at(s, li * G_st * NS, a.sz_bf16);
+  const void* zl = qp_at(z, li * G_st * NS, a.sz_bf16);
   constexpr int W = C::BN / Weights<BITS>::Src::P;
   // the widest copy (at most W bytes) that every row start and NP allow
   int vec = W > 16 ? 16 : W;
@@ -483,11 +486,12 @@ __global__ void __launch_bounds__(kThreads)
       a.qkv[static_cast<size_t>(row) * Nq + col] = __fmul_rn(v, a.xs[row]);
     };
     if constexpr (BITS != 4) {
-      plane_phase<G, BITS>(a.xq, a.wq, a.sq, a.zq, li, dim, a.nq_s, Nq, a,
-                           plane_sm, false, [] {}, qkv_out);
+      plane_phase<G, BITS>(a.xq, a.wq, a.sq, a.zq, li, dim, dim, a.nq_s, Nq,
+                           a, plane_sm, false, [] {}, qkv_out);
       sync(kWqkv);
     } else {
-      sbt::s4_phase<S4>(a.xq, a.wq, a.sq, a.zq, li, dim, Nq, a.gq, a, s4_sm,
+      sbt::s4_phase<S4>(a.xq, a.wq, a.sq, a.zq, li, dim, dim, Nq, a.gq, a,
+                        s4_sm,
                         [&] { sync(kWqkv); }, [&](const auto& split_sum) {
                           grid_for(static_cast<size_t>(B) * Nq, [&](size_t i) {
                             qkv_out(i / Nq, i % Nq, split_sum(i));
@@ -510,10 +514,11 @@ __global__ void __launch_bounds__(kThreads)
           __fadd_rn(a.x[o], __fmul_rn(v, sbt::row_scale(a.amax_a[row])));
     };
     if constexpr (BITS != 4) {
-      plane_phase<P, BITS>(a.aq, a.wo, a.so, a.zo, li, HD, a.no_s, dim, a,
-                           plane_sm, true, [&] { sync(kWo); }, wo_out);
+      plane_phase<P, BITS>(a.aq, a.wo, a.so, a.zo, li, HD, HD, a.no_s, dim,
+                           a, plane_sm, true, [&] { sync(kWo); }, wo_out);
     } else {
-      sbt::s4_phase<S4>(a.aq, a.wo, a.so, a.zo, li, HD, dim, a.go, a, s4_sm,
+      sbt::s4_phase<S4>(a.aq, a.wo, a.so, a.zo, li, HD, HD, dim, a.go, a,
+                        s4_sm,
                         [&] { sync(kWo); }, [&](const auto& split_sum) {
                           grid_for(static_cast<size_t>(B) * dim, [&](size_t i) {
                             wo_out(i / dim, i % dim, split_sum(i));
@@ -533,8 +538,8 @@ __global__ void __launch_bounds__(kThreads)
       sync(kFfnNorm);
       // 4: [g | u] = xs * W13(xq) into h13, a barrier (gate j and up F + j
       // may lie in different planes), then silu(g) * u and its row absmax
-      plane_phase<W13, BITS>(a.xq, a.w13, a.s13, a.z13, li, dim, a.n13_s,
-                             F2, a, plane_sm, false, [] {},
+      plane_phase<W13, BITS>(a.xq, a.w13, a.s13, a.z13, li, dim, dim,
+                             a.n13_s, F2, a, plane_sm, false, [] {},
                              [&](int row, int col, float v) {
                                a.h13[static_cast<size_t>(row) * F2 + col] =
                                    __fmul_rn(v, a.xs[row]);
@@ -548,8 +553,8 @@ __global__ void __launch_bounds__(kThreads)
       // 5: x = xmid + gs * W2(q8(act)), the int8 rows quantized first
       sbt::quant_rows_grid(a.act, a.amax_g, B, F, a.aq);
       sync(kQ8Act);
-      plane_phase<P, BITS>(a.aq, a.w2, a.s2, a.z2, li, F, a.n2_s, dim, a,
-                           plane_sm, true, [&] { sync(kW2); },
+      plane_phase<P, BITS>(a.aq, a.w2, a.s2, a.z2, li, F, a.f2, a.n2_s, dim,
+                           a, plane_sm, true, [&] { sync(kW2); },
                            [&](int row, int col, float v) {
                              const size_t o = static_cast<size_t>(row) * dim +
                                               col;
@@ -612,8 +617,10 @@ cudaError_t launch_rows(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // Weights of wbits 4: wq (L, dim/2, Nq), wo (L, Hq*D/2, dim), w13 (L,
-// dim/2, 2F), w2 (L, F/2, dim) s4r bytes; of wbits 3 or 2: the plane
-// concat (L, K, 3Ns/8) or (L, K, Ns/4) of each, with Ns = nq_s, no_s,
+// dim/2, 2F), w2 (L, f2/2, dim) s4r bytes; of wbits 3 or 2: the plane
+// concat (L, K, 3Ns/8) or (L, K, Ns/4) of each (K = f2 for W2). f2 >= F:
+// W2's rows a layer, K-padded by QuantLinear.with_k_pad with exact-zero
+// groups that K4 does not read (ffn_phases.cuh); with Ns = nq_s, no_s,
 // n13_s, n2_s >= Nq, dim, 2F, dim the padded widths (equal at 4 bits).
 // Scales/zeros (L, K/gs, Ns) (bf16 when sz_bf16, else f32); an/fn (L,
 // dim) norms (bf16 when nw_bf16). Cache pools k, v (Lc, n_blocks, block,
@@ -636,7 +643,7 @@ extern "C" int sbt_layers_fused(
     void* x, void* xq, void* xs, void* qkv, void* aout, void* amax_a,
     void* xmid, void* act, void* amax_g, void* sc, void* h13, void* aq,
     void* part, int sz_bf16, int nw_bf16,
-    int L, int B, int dim, int Hq, int Hkv, int D, int F, int gs,
+    int L, int B, int dim, int Hq, int Hkv, int D, int F, int gs, int f2,
     int wbits, int nq_s, int no_s, int n13_s, int n2_s, int gq, int go,
     int g13, int g2, int n_blocks,
     int block, int max_chunks, int s_act, float eps, float inv_sqrt_d,
@@ -652,7 +659,7 @@ extern "C" int sbt_layers_fused(
                     n13_s % pmul == 0 && n2_s % pmul == 0);
   if (B < 1 || B > 64 || D > kMaxD || D % 4 || kThreads % (D / 4) ||
       Hq % Hkv || Hq / Hkv > kMaxRep || s_act < 1 ||
-      s_act > max_chunks * block || !widths_ok ||
+      s_act > max_chunks * block || !widths_ok || f2 < F || f2 % gs ||
       (wbits == 4 && (gq < 1 || go < 1 || g13 < 1 || g2 < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -686,7 +693,7 @@ extern "C" int sbt_layers_fused(
   a.part = static_cast<float*>(part);
   a.sz_bf16 = sz_bf16; a.nw_bf16 = nw_bf16;
   a.L = L; a.B = B; a.dim = dim; a.Hq = Hq; a.Hkv = Hkv; a.D = D; a.F = F;
-  a.gs = gs; a.n_blocks = n_blocks; a.block = block;
+  a.gs = gs; a.f2 = f2; a.n_blocks = n_blocks; a.block = block;
   a.nq_s = nq_s; a.no_s = no_s; a.n13_s = n13_s; a.n2_s = n2_s;
   a.gq = gq; a.go = go; a.g13 = g13; a.g2 = g2;
   a.max_chunks = max_chunks; a.s_act = s_act;

@@ -22,6 +22,9 @@ arrays and plain metadata, so this module needs nothing of JAX:
   "alpha", "dropout"}``;
 - any other array is a plain tensor (norms, embeddings).
 
+``map_params`` applies a function to every tensor of a port tree (the
+offload's move to pinned host memory and back).
+
 bf16 arrays travel as their ``uint16`` bit pattern: every uint16 array in
 the tree is read back as bf16.
 
@@ -205,6 +208,45 @@ def params_from_numpy(tree, device):
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
     return _tensor(tree, device)
+
+
+def map_params(fn, tree):
+    """The tree with fn(t) for every tensor t, the linears' included
+    (QuantLinear: packed containers, qparams, bias, perm and the int8
+    backward's; DenseLinear; LoraLinear), their kinds and metadata kept:
+    a move to another device or to pinned host memory as one tree. A
+    tensor met twice (a 2-bit ``"w"`` that is the ``"pl"`` array itself)
+    maps once, to one result. No reference to the results outlives the
+    call but the returned tree's (the streaming offload frees a layer's
+    device copies as soon as it drops the layer)."""
+    memo = {}
+
+    def f(t):
+        if t is None:
+            return None
+        if id(t) not in memo:
+            memo[id(t)] = fn(t)
+        return memo[id(t)]
+
+    return _map_tree(tree, f)
+
+
+def _map_tree(x, f):
+    if isinstance(x, QuantLinear):
+        return x._replace(
+            packed={k: f(v) for k, v in x.packed.items()},
+            scales=f(x.scales), zeros=f(x.zeros), bias=f(x.bias),
+            perm=f(x.perm), bwd_wq=f(x.bwd_wq), bwd_scale=f(x.bwd_scale))
+    if isinstance(x, DenseLinear):
+        return DenseLinear(f(x.w), f(x.bias))
+    if isinstance(x, LoraLinear):
+        return LoraLinear(_map_tree(x.base, f), f(x.lora_A), f(x.lora_B),
+                          x.alpha, x.dropout)
+    if isinstance(x, dict):
+        return {k: _map_tree(v, f) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_map_tree(v, f) for v in x]
+    return f(x) if isinstance(x, torch.Tensor) else x
 
 
 def _npz_array(t):

@@ -12,7 +12,8 @@ The non-scanned decode (``decode_step`` and the loops over it) runs the
 layers one by one over per-layer params, each linear through its own
 ``impl`` (K8/K7 for "auto", K1/K6/K7 for "a8"), and single-token attention
 through K5 after the new row is committed (``_use_attn_kernel``, as
-decode.py:30-70); other shapes take the reference's dense attention over
+decode.py:30-70); other shapes, and an int4 cache (which the reference
+attends on its XLA path only), take the reference's dense attention over
 the dequantized cache.
 
 PyTorch runs eagerly, so ``lax.scan`` over layers and tokens becomes a
@@ -33,8 +34,9 @@ decode.py:333, and ``_scan_uses_update_kernel``, decode.py:290):
   (K1, K6, K7), K2 (int8 row commit + attention) for a single-token step
   over an int8 cache, and K3 for an s4r FFN block;
 - the same per-layer walk with the plain attention in place of K2 for a
-  prompt (S > 1) or a bf16 cache: the rows are quantized (int8) and
-  written, the layer's cache dequantized and attended under the mask.
+  prompt (S > 1), a bf16 or an int4 cache: the rows are quantized in the
+  cache's mode and written, the layer's cache dequantized and attended
+  under the mask.
 The predicates do not look at the device: the CPU runs the route that
 the card runs, with the kernels' plain versions. Admission runs K1 at
 large M and K9 for the last-token lm_head; a cold admission
@@ -394,9 +396,9 @@ def _forward_scanned_kvs(params, tokens, positions, mask, kvs, quant_mode,
                          cfg, s_active=None):
     """One forward over stacked layers (decode.py:410-548): tokens (B, S),
     positions (B, S) the rows they take, kvs the stacked cache tensors
-    (updated in place) of mode ``quant_mode`` ("int8" or False), ``mask``
-    the additive attention mask (None: each row sees the cache up to its
-    position). Megakernel branch: one K4 launch for the backbone. Else per
+    (updated in place) of mode ``quant_mode`` ("int8", "int4" or False),
+    ``mask`` the additive attention mask (None: each row sees the cache up
+    to its position). Megakernel branch: one K4 launch for the backbone. Else per
     layer: the stacked linears, rope, then K2 (int8 row commit and
     attention) or the plain attention, K3 or the plain FFN block.
     ``s_active`` bounds K4's attention rows. Returns logits (B, 1, V) f32
@@ -596,8 +598,8 @@ def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
     engine's cold admission (decode.py:589-640): each row attends to its
     own causal prefix only, through L.causal_attention (K10 on the card:
     no (S, S) scores), so nothing of the cache is read; K/V rows [0, S)
-    are int8-quantized into the cache, or written as they are in the
-    cache's dtype when it is not quantized. Semantics of
+    are quantized into the cache in its mode (int8 or int4), or written as
+    they are in the cache's dtype when it is not quantized. Semantics of
     prefill_at(..., offset=0): logits (B, V) f32 at each row's last real
     token, cache.length = last_idx + 1."""
     B, S = tokens.shape
@@ -619,7 +621,7 @@ def prefill_cold_scanned(params_stacked, tokens, cache, cfg, last_idx):
             if not cache.quantized:
                 buf[li, :, :S] = new.to(buf.dtype)
                 continue
-            q8, sc = _quant_heads(new)
+            q8, sc = _quant_heads(new, cache.quantized)
             buf[li, :, :S] = q8
             sbuf[li, :, :S] = sc
         x = x + layer["wo"](out.reshape(B, S, -1))

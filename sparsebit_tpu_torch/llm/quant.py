@@ -8,7 +8,7 @@ dispatches on ``impl`` as the reference does (quant.py:487-515): "a8" is
 the W4A8 path (K1, K6, K7), "auto"/"pallas"/"xla" the f32-activation
 ``quant_matmul`` (K8, K7 or the dense product); after ``prepare_backward``
 every impl takes ``quant_matmul_a8bwd`` (the int8 backward of QLoRA).
-``from_dense`` is the round-to-nearest quantizer; GPTQ is not ported yet.
+``from_dense`` is the round-to-nearest quantizer (GPTQ: llm/gptq.py).
 Both linears differentiate in x: QuantLinear through its
 autograd.Functions (no weight gradients), DenseLinear through plain
 autograd.
@@ -218,6 +218,38 @@ class QuantLinear:
         if x.shape[-1] < Kw:
             x = torch.nn.functional.pad(x, (0, Kw - x.shape[-1]))
         return x
+
+    def with_k_pad(self, mult):
+        """Copy whose packed codes are K-padded (input rows) to a multiple
+        of ``mult`` with exact-zero rows: code 0, zero 0, scale 1
+        (quant.py:416-458). Whole groups only, no act-order perm. An
+        ``s4r`` linear keeps only ``s4r``; others repack to the fold
+        layout. __call__/call_stacked zero-pad x to match, so the padded
+        groups add exactly 0; K4 takes a K-padded W2
+        (ops/layer_fused.fused_layer_supported)."""
+        if self.perm is not None:
+            raise ValueError("with_k_pad: an act-order perm indexes K")
+        if self.groupsize <= 0 or self.bits == 8:
+            raise ValueError("with_k_pad: groupwise 2/3/4-bit linears only")
+        pad = (-self.k_padded) % mult
+        if pad == 0:
+            return self
+        if pad % self.groupsize:
+            raise ValueError(
+                "with_k_pad: pad {} must be whole groups (gs={})".format(
+                    pad, self.groupsize))
+        codes = unpack_columns(self.packed, self.bits, self.n_padded)
+        codes = torch.nn.functional.pad(codes, (0, 0, 0, pad))
+        gpad = pad // self.groupsize
+        scales = torch.nn.functional.pad(self.scales, (0, 0, 0, gpad),
+                                         value=1.0)
+        zeros = torch.nn.functional.pad(self.zeros, (0, 0, 0, gpad))
+        if "s4r" in self.packed and self.bits == 4:
+            packed = {"s4r": pack_s4_rows(codes)}
+        else:
+            packed = pack_columns(codes, self.bits)
+        return self._replace(packed=packed, scales=scales, zeros=zeros,
+                             perm=None)
 
     def with_s4_rows(self, drop_fold=False):
         """Copy carrying the signed row-pair container ``s4r`` (stored

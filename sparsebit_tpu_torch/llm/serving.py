@@ -3,8 +3,9 @@
 (serving.py:164-542) and the paged ``PagedDecodeEngine`` (:634-918)).
 
 ``DecodeEngine``:
-- one fixed (max_batch, max_len) KV cache, layer-stacked: int8, or the
-  model's float dtype with ``kv_quantized=False``;
+- one fixed (max_batch, max_len) KV cache, layer-stacked: int8, int4
+  (``kv_quantized="int4"``) or the model's float dtype
+  (``kv_quantized=False``);
 - admission: queued prompts grouped per length bucket and prefilled in one
   batched forward (decode.prefill_at) into a reused bucket-sized scratch
   cache, logits taken at each row's last real token, rows then copied into
@@ -29,9 +30,12 @@ table (decode.decode_chunk_paged).
 Both take the reference's positional parameters, then the keyword-only
 ``device=None`` (CUDA, raising without it) or ``device="cpu"`` (the
 kernels' plain versions). ``DecodeEngine``'s ``kv_quantized`` picks the
-slot cache: True/"int8", or False for the model's float dtype, which
-decodes on decode_chunk (K4 reads int8 only); "int4" is not ported and
-raises NotImplementedError. Both take ``head_bits`` (serving.py:281-289): a
+slot cache: True/"int8"; "int4", packed code pairs with f32 scales; or
+False for the model's float dtype. K4 reads int8 only, so an int4 or a
+float slot cache decodes on decode_chunk: the linears on K1/K6, the
+attention over a float cache on K5 and over an int4 cache by the plain
+masked attention over the dequantized layer (the reference's XLA path).
+Prefix entries keep the scales with the codes (serving.py:199-293, 392). Both take ``head_bits`` (serving.py:281-289): a
 dense lm_head quantized per channel, symmetric, by round to nearest
 (QuantLinear.from_dense, bf16 qparams; 8 bits halve its stream and take
 K8 at decode). Params must already live on that device

@@ -53,9 +53,9 @@ SIGNATURES = {
     # (+ scratch: K-split partials, splits)
     "sbt_bf16_matvec": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # layer_fused.cu (K4): 12 weight/qparam stacks, 2 norms, 4 cache
-    # pools, bt, pos, cos, sin, x, 12 scratch buffers; 23 ints (the s4r
-    # K-split plan among them), 2 floats
-    "sbt_layers_fused": [_P] * 35 + [_I] * 23 + [_F, _F, _P],
+    # pools, bt, pos, cos, sin, x, 12 scratch buffers; 24 ints (W2's rows
+    # a layer and the s4r K-split plan among them), 2 floats
+    "sbt_layers_fused": [_P] * 35 + [_I] * 24 + [_F, _F, _P],
     # flash_attention.cu (K10): q, k, v, out, lse (or null); dtype, B, H,
     # Hkv, S, D; sm_scale; q, k, v, out's (batch, head, row) strides
     "sbt_flash_attention": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 12 + [_P],

@@ -57,17 +57,24 @@ MAX_REP = 8    # query heads per kv head held by one attention work item
 def fused_layer_supported(cfg, gs, B=1, f_pad=None, wbits=4):
     """The port's limits for K4 (no Mosaic tiling rules, and no cache
     length limit): groups of whole 64-row steps, B <= 64, head_dim a power
-    of two in [16, 256], at most 8 query heads per kv head, and an
-    unpadded W2 (f_pad, its input width, == ffn_dim). ``wbits`` 4 takes
-    s4r row pairs, 2 or 3 the plane concat; the same limits hold for
-    both (the reference's plane mode needs only whole groups)."""
+    of two in [16, 256], at most 8 query heads per kv head. ``f_pad``, W2's
+    input rows (default ffn_dim), may exceed ffn_dim by whole groups, as
+    the reference allows (layer_fused.py:952-960): a W2 K-padded by
+    QuantLinear.with_k_pad, whose pad rows are code 0, zero 0 and scale 1.
+    Those groups fold to exactly 0 against the GLU row's zero padding, so
+    K4 does not read them: it steps over them in the stack and keeps the
+    unpadded model's K split, and a padded model decodes to the same bits.
+    ``wbits`` 4 takes s4r row pairs, 2 or 3 the plane concat; the same
+    limits hold for both (the reference's plane mode needs only whole
+    groups)."""
     dim, F, D = cfg.dim, cfg.ffn_dim, cfg.head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     if wbits not in (2, 3, 4):
         return False
     if gs <= 0 or gs % 64 or not 1 <= B <= MAX_ROWS:
         return False
-    if f_pad not in (None, F):
+    f_pad = F if f_pad is None else f_pad
+    if f_pad < F or f_pad % gs:
         return False
     if D < 16 or D > 256 or D & (D - 1):
         return False
@@ -123,10 +130,16 @@ def _mm_plain(wbits):
 
 
 def _fused_layers_plain(x, pos, cos, sin, ws, attn_norm, ffn_norm, k, v,
-                        ks, vs, bt, s_act, gs, eps, Hq, Hkv, wbits=4):
+                        ks, vs, bt, s_act, gs, eps, Hq, Hkv, wbits=4, F=None):
     """Plain version of K4. ws = ((wq, sq, zq), (wo, so, zo), (w13, s13,
     z13), (w2, s2, z2)) layer stacks in the ``wbits`` container; the cache
-    is updated in place. Returns the post-backbone rows (B, dim) f32."""
+    is updated in place. ``F`` (default: W2's rows) is the FFN width: a
+    longer, K-padded W2 stack is read in its first F rows, as the kernel.
+    Returns the post-backbone rows (B, dim) f32."""
+    if F is not None:
+        w2, s2, z2 = ws[3]
+        rows, G = (F // 2 if wbits == 4 else F), F // gs
+        ws = tuple(ws[:3]) + ((w2[:, :rows], s2[:, :G], z2[:, :G]),)
     B, dim = x.shape
     D = cos.shape[-1]
     HD, KVD = Hq * D, Hkv * D
@@ -241,6 +254,7 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
     szt = ws[0][1].dtype
     flat = [t for w in ws for t in w]
     K_N = ((dim, Nq), (HD, dim), (dim, 2 * F), (F, dim))
+    f2 = ws[3][1].shape[1] * gs  # W2's rows a layer, > F when K-padded
     if (B > MAX_ROWS or k.dtype != torch.int8 or ks.dtype != torch.float32
             or k.shape[0] < L or k.shape[3:] != (Hkv, D)
             or szt not in (torch.float32, torch.bfloat16)
@@ -248,7 +262,8 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
             or any(t.dtype != szt for w in ws for t in w[1:])
             or attn_norm.dtype != ffn_norm.dtype
             or attn_norm.dtype not in (torch.float32, torch.bfloat16)
-            or not _weight_shapes_ok(ws, K_N, gs, wbits)):
+            or f2 < F
+            or not _weight_shapes_ok(ws, K_N[:3] + ((f2, dim),), gs, wbits)):
         raise ValueError("fused_decoder_layers: unsupported operands")
     _kernels.require_cuda("fused_decoder_layers", out, pos, cos, sin,
                           attn_norm, ffn_norm, k, v, ks, vs, bt, *flat)
@@ -260,7 +275,8 @@ def _launch(out, pos, cos, sin, ws, attn_norm, ffn_norm, k, v, ks, vs, bt,
         p(k), p(v), p(ks), p(vs), p(bt), p(pos), p(cos), p(sin), p(out),
         *[p(t) for t in scratch],
         int(szt == torch.bfloat16), int(attn_norm.dtype == torch.bfloat16),
-        L, B, dim, Hq, Hkv, D, F, gs, wbits, *[w[1].shape[-1] for w in ws],
+        L, B, dim, Hq, Hkv, D, F, gs, f2, wbits,
+        *[w[1].shape[-1] for w in ws],
         *[gps for gps, _ in s4_splits(K_N, gs)], NB, block, bt.shape[1], s_act, eps, _inv_sqrt(D), _kernels.stream())
     _kernels.check(err, "sbt_layers_fused")
     fused_decoder_layers.launches += 1
@@ -282,7 +298,9 @@ def fused_decoder_layers(x, pos, cos, sin,
     (L, K/gs, Ns) scales and zeros (one dtype, f32 or bf16) and
     attn_norm/ffn_norm (L, dim); w13 = [gate | up]. ``wbits`` 4: ``s4r``
     row pairs wq (L, dim/2, (Hq+2Hkv)D), wo (L, HqD/2, dim), w13 (L,
-    dim/2, 2F), w2 (L, F/2, dim), Ns the logical N. ``wbits`` 3 or 2: the
+    dim/2, 2F), w2 (L, F_pad/2, dim), Ns the logical N; F_pad >= F is a
+    W2 K-padded by QuantLinear.with_k_pad, of which K4 reads the first F
+    rows a layer (fused_layer_supported). ``wbits`` 3 or 2: the
     plane concat (L, K, 3Ns/8) or (L, K, Ns/4) of each, Ns >= N the
     padded width (pallas_n_pad).
 
@@ -316,7 +334,7 @@ def fused_decoder_layers(x, pos, cos, sin,
     if x.device.type == "cpu":
         out = _fused_layers_plain(
             x, pos, cos, sin, ws, attn_norm, ffn_norm, *kv, bt, s_act, gs,
-            cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads, wbits)
+            cfg.rms_eps, cfg.n_heads, cfg.n_kv_heads, wbits, cfg.ffn_dim)
         return (out,) + caches
     out = x.to(torch.float32).clone().contiguous()
     _launch(out, pos.to(torch.int32).contiguous(), cos, sin, ws, attn_norm,

@@ -495,8 +495,14 @@ def test_positional_parameters_match_the_reference():
         assert (e.block, e.eos_id, e.pcache.k.shape[1]) == (16, 7, 9)
     with pytest.raises(TypeError):
         DecodeEngine(tq, cfg_t, 2, 32, True, None, 0, 8, 8, None, "cpu")
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(tq, cfg_t, 2, 32, "int4", device="cpu")
+    # the int4 slot cache is the fifth positional parameter in both, and
+    # K4 reads an int8 cache only, so it decodes on decode_chunk
+    je4 = JEngine(jq, cfg_j, 2, 32, "int4")
+    te4 = DecodeEngine(tq, cfg_t, 2, 32, "int4", device="cpu")
+    assert te4.kv_quantized == je4.kv_quantized == "int4"
+    assert te4.cache.k.dtype == torch.uint8 and je4.cache.k[0].dtype == jnp.uint8
+    assert tuple(te4.cache.k.shape[1:]) == je4.cache.k[0].shape
+    assert not te4._stacked_chunks and not je4._stacked_chunks
 
 
 def test_engine_over_a_bf16_slot_cache_matches_jax(monkeypatch):

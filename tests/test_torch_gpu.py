@@ -758,6 +758,48 @@ def test_k4_plane_mode_narrow_copies_match_plain(cuda, bits, extra):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("bits", [4, 3])
+@pytest.mark.parametrize("B", [1, 8, 20])
+def test_k4_k_padded_w2_matches_unpadded(cuda, bits, B):
+    """K4 over a W2 K-padded as QuantLinear.with_k_pad pads it (F = 384
+    rows to 512: code 0, zero 0, scale 1): output, KV codes and scales
+    bit-equal to the unpadded launch and to the plain version (the kernel
+    reads each layer's first F rows of the padded stack)."""
+    S = 256
+    if bits == 4:
+        cfg, x, pos, cos, sin, ws, norms, cache = _k4_operands(cuda, B, S)
+        fill = 0x88  # s4r stores code - 8: code 0 rows
+    else:
+        cfg, x, pos, cos, sin, ws, norms, cache = _k4_plane_operands(
+            cuda, B, S, bits)
+        fill = 0
+    w2, s2, z2 = ws[9:12]
+    rows = 64 if bits == 4 else 128  # 128 more logical rows, two groups
+    wp = list(ws[:9]) + [
+        torch.cat([w2, torch.full((2, rows, w2.shape[-1]), fill,
+                                  dtype=torch.uint8, device=cuda)], 1),
+        torch.cat([s2, torch.ones_like(s2[:, :2])], 1),
+        torch.cat([z2, torch.zeros_like(z2[:, :2])], 1)]
+    assert LF.fused_layer_supported(cfg, 64, B, f_pad=512, wbits=bits)
+    runs = []
+    for w in (ws, wp):
+        c = [t.clone() for t in cache]
+        out, *_ = LF.fused_decoder_layers(x, pos, cos, sin, *w, *norms, *c,
+                                          cfg, 64, wbits=bits)
+        runs.append((out, c))
+    plain = [t.clone() for t in cache]
+    bt = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+    ref = LF._fused_layers_plain(
+        x, pos, cos, sin, [tuple(wp[i:i + 3]) for i in range(0, 12, 3)],
+        *norms, *plain, bt, S, 64, cfg.rms_eps, 4, cfg.n_kv_heads,
+        wbits=bits, F=cfg.ffn_dim)
+    torch.cuda.synchronize()
+    (out, c), (outp, cp) = runs
+    assert torch.equal(out, outp) and torch.equal(outp, ref)
+    for a, b, r in zip(c, cp, plain):
+        assert torch.equal(a, b) and torch.equal(b, r)
+
+
 def test_decode_step_scanned_planes_on_the_card_matches_the_cpu(cuda):
     """An int3 model served as planes (prepare_params_host(sub4="planes")):
     prefill_scanned and three decode_step_scanned on the card (K4 in plane
@@ -1101,3 +1143,36 @@ def test_qlora_train_step_on_the_card_matches_the_cpu(cuda, mode, B, S):
     rel_tol, cos_tol = {"dense": (0.05, 0.999), "int8": (0.15, 0.99)}[mode]
     assert ((gg - gc).norm() / gc.norm()).item() <= rel_tol
     assert (gg @ gc / (gg.norm() * gc.norm())).item() >= cos_tol
+
+
+def test_streaming_llama_on_the_card_matches_resident(cuda):
+    """StreamingLlama from pinned host memory on its copy stream (prefetch
+    1 and 2) against the resident prefill / decode_step on the card: an
+    f32 tiny model whose attention takes the plain masked route on both,
+    within rtol/atol 1e-4 (tests/test_offload.py's oracle)."""
+    from sparsebit_tpu_torch.llm import decode as D
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+    from sparsebit_tpu_torch.llm.llama import init_llama_params
+    from sparsebit_tpu_torch.llm.offload import (StreamingLlama,
+                                                 offload_llama_params)
+
+    cfg = llama_tiny(dim=128, ffn_dim=256, n_layers=3, vocab_size=128,
+                     max_seq_len=64, dtype="float32")
+    params = init_llama_params(cfg, device=cuda)
+    tokens = torch.randint(0, 128, (2, 6), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    cache = init_kv_cache(cfg, 2, 32, device=cuda)
+    ref, cache = D.prefill(params, tokens, cache, cfg)
+    nxt = ref.argmax(-1).to(torch.int32)
+    ref_step, _ = D.decode_step(params, nxt, cache, cfg)
+    host = offload_llama_params(params)
+    assert host["layers"][0]["wq"].w.is_pinned()
+    for prefetch in (1, 2):
+        sl = StreamingLlama(host, cfg, prefetch)
+        assert sl.copy_stream is not None
+        c2 = init_kv_cache(cfg, 2, 32, device=cuda)
+        got, c2 = sl.prefill(tokens, c2)
+        step, _ = sl.decode_step(nxt, c2)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(step, ref_step, rtol=1e-4, atol=1e-4)

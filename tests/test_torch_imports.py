@@ -1,8 +1,12 @@
 """The PyTorch port stands alone: no file of sparsebit_tpu_torch/, no
 port CLI (examples/llm/*_torch.py) and not chip_smoke.py imports jax or
-the JAX package."""
+the JAX package; and every module of the port imports in a process where
+jax, the JAX package and PyYAML cannot be imported (the card's machine
+has no PyYAML: the config tree imports it only to read or write yaml)."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -36,3 +40,29 @@ def test_port_file_imports_no_jax(path):
 def test_import_check_catches_jax():
     assert _forbidden("jax.numpy") and _forbidden("sparsebit_tpu.ops")
     assert not _forbidden("sparsebit_tpu_torch.ops")
+
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
+        ".__init__", "")
+    for p in (ROOT / "sparsebit_tpu_torch").rglob("*.py"))
+
+
+def test_every_port_module_imports_without_jax_or_yaml():
+    blocked = ("jax", "jaxlib", "sparsebit_tpu", "yaml")
+    code = ("import importlib, sys\n"
+            "for name in {!r}:\n"
+            "    sys.modules[name] = None\n"
+            "for mod in {!r}:\n"
+            "    importlib.import_module(mod)\n"
+            "print(len({!r}))\n").format(blocked, MODULES, MODULES)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == str(len(MODULES))
+    for new in ("sparsebit_tpu_torch.llm.offload",
+                "sparsebit_tpu_torch.quantization.fake_quant",
+                "sparsebit_tpu_torch.quantization.observers.percentile",
+                "sparsebit_tpu_torch.quantization.quantizers.lsq_plus",
+                "sparsebit_tpu_torch.utils.config"):
+        assert new in MODULES
