@@ -155,6 +155,28 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 / mse / percentile qparams per channel (the CPU on the
                 first 2048 rows) and percentile per tensor over 45M
                 elements, an LSQ step (scale gradients within the bound).
+     graphptq   the PTQ basecase flow at full width: resnet18 (seeded card
+                weights), 224x224x3 NHWC, batch 64, qconfig.yaml's scheme,
+                QuantModel -> 16 calibration batches -> calc_qparams ->
+                set_quant, 2048 seeded eval images: trace / capture /
+                layerwise / observer seconds, float and fake-quant ms a
+                batch and images/s, calibration peak memory, node counts;
+                quantizers off equal to float (atol 1e-4), w8a8 rel MSE in
+                (0, 5e-2), every quantizer's qparams against the CPU at
+                batch 8 (cuDNN TF32 off);
+     graphcalib asym calibration, the aciq / kl_histogram (per tensor and
+                per channel) / mse activation observers (s a quantizer,
+                held against the CPU on the same data; per-channel KL's
+                error split by leaving each activation quantizer out)
+                and AdaRound W4 on the first three convs at the
+                reference's 20000 steps (s a step, each layer's
+                hard-rounded reconstruction loss held to its bound as a
+                multiple of nearest rounding's), resnet18 at batch 16;
+     cnnfixture the CNN accuracy fixture (run_cnn_fixture(): 300 steps,
+                4096 / 2048 images), the three claims of
+                tests/test_fixture_cnn.py held.
+The graph regime has no Pallas kernel in the JAX package and launches no
+kernel of the port (its counts are read and must stay 0).
 It prints one JSON line of per-kernel and per-path numbers, the card's
 name and power limit, and last {"ok": true, "device": {...}}. It exits
 non-zero without CUDA or without the repository beside it.
@@ -162,6 +184,7 @@ non-zero without CUDA or without the repository beside it.
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4055,6 +4078,504 @@ def quantcore_path():
     return {"quantcore": out}
 
 
+# ---- phase 4: the graph regime (no kernel of its own: PyTorch calls) ------
+
+# the PTQ basecase's scheme (read without PyYAML where it is missing:
+# utils.config.load_yaml)
+BASECASE_QCONFIG = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "examples",
+    "post_training_quantization", "imagenet1k_basecase", "qconfig.yaml")
+GRAPH_BATCH, GRAPH_CALIB_BATCHES, GRAPH_EVAL = 64, 16, 2048  # main.py's
+GRAPH_CPU_BATCH = 8  # the card against the CPU
+# channels of a per-channel activation the CPU repeats: a feature map's
+# first 4, the fc input's first 64 (the CPU's KL search takes ~0.07 s a
+# channel)
+CPU_CHANNELS, CPU_FC_CHANNELS = 4, 64
+CALIB_BATCH = 16  # graphcalib: one calibration batch
+ADAROUND_STEPS = 20000  # the reference's budget (adaround.py:66)
+# AdaRound's layers, each with the bound held on its hard-rounded loss as
+# a multiple of rounding to nearest's. conv1 reads i.i.d. N(0, 1) pixels,
+# so its loss is a multiple of the summed squared weight errors, which
+# rounding to nearest minimises: it can tie, not win. The layer1 convs
+# read correlated activations; at 20000 steps they reach 0.49 and 0.10 of
+# nearest's, where an AdaRound that never steps keeps nearest's rounding
+# but for ties (adaround_probe.py, H100 80GB HBM3, 700 W).
+ADAROUND_LAYERS = {"conv1": 1.001, "layer1.0.conv1": 0.75,
+                   "layer1.0.conv2": 0.75}
+
+
+def _images(gen, n, size=224):
+    import torch
+
+    return torch.randn((n, size, size, 3), generator=gen, device="cuda")
+
+
+def _rel_mse(a, b):
+    return float(((a - b) ** 2).mean() / ((b ** 2).mean() + 1e-12))
+
+
+def _calibrate(qmodel, batches, asym=False, cpu_pick=None):
+    """prepare_calibration, the capture of ``batches`` and calc_qparams
+    (asym: with w_quant and a_quant), every quantizer's calc_qparams
+    timed (synchronised). ``cpu_pick(quantizer)``: whether to copy the
+    quantizer's observed data to the CPU first (a per-channel feature's
+    first CPU_CHANNELS channels, CPU_FC_CHANNELS of a 2-D one: channels
+    are searched independently) and
+    compute the same observer there. Returns (seconds, [(quantizer, data, card scale, card
+    zero point, CPU scale, CPU zero point)])."""
+    import torch
+    from sparsebit_tpu_torch.quantization.quantizers.base import Quantizer
+
+    orig = Quantizer.calc_qparams
+    times = {"FEATURE": [], "WEIGHT": []}
+    cpu = []
+
+    def timed(self):
+        if self.fake_fused:
+            return orig(self)
+        data = None
+        if cpu_pick is not None and cpu_pick(self):
+            data = [d[..., :CPU_CHANNELS if d.dim() > 2 else CPU_FC_CHANNELS]
+                    .cpu() if self.qdesc.is_perchannel else d.cpu()
+                    for d in self.observer.data_cache.get_data_cache()]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scale, zp = orig(self)
+        torch.cuda.synchronize()
+        times[self.qdesc.target.name].append(time.perf_counter() - t)
+        if data is not None:
+            o = type(self.observer)(self.observer.cfg, self.qdesc)
+            for d in data:
+                o.update(d)
+            cs, cz = o.calc_qparams()
+            n = cs.numel()  # per channel: the first channels
+            cpu.append((self, data, scale.reshape(-1)[:n].cpu(),
+                        zp.reshape(-1)[:n].cpu(), cs.reshape(-1),
+                        cz.reshape(-1)))
+        return scale, zp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel.prepare_calibration()
+    for b in batches:
+        qmodel(b)
+    torch.cuda.synchronize()
+    capture = time.perf_counter() - t0
+    with _Patched([(Quantizer, "calc_qparams", timed)]):
+        t0 = time.perf_counter()
+        qmodel.calc_qparams(asym, asym, asym)
+        torch.cuda.synchronize()
+        calc = time.perf_counter() - t0
+    obs = sum(times["FEATURE"]) + sum(times["WEIGHT"])
+    return dict(capture_s=capture, calc_qparams_s=calc,
+                observers_s=obs, layerwise_forward_s=calc - obs,
+                activation_quantizers=len(times["FEATURE"]),
+                weight_quantizers=len(times["WEIGHT"]),
+                s_a_activation_quantizer=(sum(times["FEATURE"]) / max(
+                    1, len(times["FEATURE"])))), cpu
+
+
+def _cpu_held(rec, rtol=1e-5):
+    """The card's qparams against the same observer's on the CPU over the
+    same data: scale within rtol relative and zero points equal (MinMax,
+    ACIQ: reductions; KL: the same candidate); MSE: the card's choice no
+    worse on the CPU's loss than the CPU's own choice, within the f32
+    bound of two sums of the same N terms (2 N 2^-24). Returns (max scale
+    rel err, zero points differing, held)."""
+    import torch
+    from sparsebit_tpu_torch.quantization.fake_quant import fake_quant
+
+    err, zdiff, ok = 0.0, 0, True
+    for q, data, s, z, cs, cz in rec:
+        if q.observer.TYPE == "mse":
+            x = torch.cat([d.reshape(-1) for d in data]).double()
+            loss = [float(((fake_quant(x, a.double(), b.double(),
+                                       *q.qdesc.qrange) - x) ** 2).mean())
+                    for a, b in ((s, z), (cs, cz))]
+            ok &= loss[0] <= loss[1] * (1 + 2 * x.numel() * 2.0 ** -24)
+            continue
+        e = float(((s - cs).abs() / cs.abs()).max())
+        d = int((z != cz).sum())
+        err, zdiff = max(err, e), zdiff + d
+        ok &= e <= rtol and d == 0
+    return err, zdiff, ok
+
+
+def graphptq_path():
+    """Phase 4, path graphptq: the PTQ basecase flow
+    (imagenet1k_basecase/main.py) at full width on the card: resnet18
+    with seeded weights made on the card, 224 x 224 x 3 NHWC, batch 64,
+    qconfig.yaml's W8 per-channel-symmetric / A8 per-tensor-affine MinMax
+    scheme; QuantModel -> prepare_calibration -> 16 calibration batches ->
+    calc_qparams -> set_quant(True, True), then 2048 seeded eval images.
+    Prints the seconds of trace + convert, capture, the layerwise walk and
+    the observers' qparams; float and fake-quant ms per batch and images/s
+    (CUDA events after warm-up); the peak device memory of calibration;
+    node counts. Held: quantizers off equal to the float model within
+    atol 1e-4; w8a8 relative MSE in (0, 5e-2); the card's qparams of every
+    quantizer against the port's on the CPU at batch 8 over the same
+    images and weights (cuDNN TF32 off): scales within 1e-5 relative,
+    zero points equal. The graph regime launches no kernel of the port
+    (the JAX package has no Pallas kernel there)."""
+    import copy
+
+    import torch
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+    from sparsebit_tpu_torch.nn.graph import Tracer
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = parse_qconfig(BASECASE_QCONFIG)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    model = create_model("resnet18", seed=SEED, device="cuda").eval()
+    calib = [_images(gen, GRAPH_BATCH) for _ in range(GRAPH_CALIB_BATCHES)]
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = QuantModel(model, cfg, (calib[0],))
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    n_traced = len(Tracer().trace(model, (calib[0][:1],)).op_nodes)
+    quantizers = [q for _, op in qmodel.qmodules()
+                  for q in (op.input_quantizer, op.weight_quantizer)
+                  if q is not None]
+    nodes = dict(traced=n_traced, after_build_and_fuse=len(
+        qmodel.graph.op_nodes), qmodules=len(list(qmodel.qmodules())),
+        quantizers=len(quantizers),
+        fake_fused=sum(q.fake_fused for q in quantizers))
+    with torch.no_grad():
+        off_err = float((qmodel(calib[0]) - model(calib[0])).abs().max())
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, _ = _calibrate(qmodel, calib)
+    peak = torch.cuda.max_memory_allocated() - base
+    qmodel.set_quant(w_quant=True, a_quant=True)
+    egen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    f_out, q_out = [], []
+    with torch.no_grad():
+        for _ in range(GRAPH_EVAL // GRAPH_BATCH):
+            x = _images(egen, GRAPH_BATCH)
+            f_out.append(model(x))
+            q_out.append(qmodel(x))
+        float_ms = cuda_ms(lambda i: model(x), 10)
+        quant_ms = cuda_ms(lambda i: qmodel(x), 10)
+    launches = _launches()
+    f, q = torch.cat(f_out), torch.cat(q_out)
+    rel = _rel_mse(q, f)
+    agree = float((q.argmax(1) == f.argmax(1)).float().mean())
+
+    # the card against the CPU at batch 8: the same images and weights
+    x8 = calib[0][:GRAPH_CPU_BATCH]
+    qa = QuantModel(model, cfg, (x8,))
+    qb = QuantModel(copy.deepcopy(model).cpu(), cfg, (x8.cpu(),))
+    t0 = time.perf_counter()
+    for qq, xx in ((qa, x8), (qb, x8.cpu())):
+        qq.prepare_calibration()
+        qq(xx)
+        qq.calc_qparams()
+    cpu_s = time.perf_counter() - t0
+    s_err, z_diff, n_q = 0.0, 0, 0
+    for (name, op), (_, hop) in zip(qa.qmodules(), qb.qmodules()):
+        for k in ("input_quantizer", "weight_quantizer"):
+            a, b = getattr(op, k), getattr(hop, k)
+            if a is None or a.fake_fused:
+                continue
+            n_q += 1
+            s_err = max(s_err, float(((a.scale.cpu() - b.scale).abs()
+                                      / b.scale.abs()).max()))
+            z_diff += int((a.zero_point.cpu() != b.zero_point).sum())
+    cpu_ok = s_err <= 1e-5 and z_diff == 0
+    del qa, qb, calib
+    out = dict(times, trace_convert_s=trace_s, nodes=nodes,
+               quant_off_max_err=off_err, calib_peak_bytes=peak,
+               float_ms_per_batch=float_ms, quant_ms_per_batch=quant_ms,
+               float_images_s=GRAPH_BATCH / float_ms * 1e3,
+               quant_images_s=GRAPH_BATCH / quant_ms * 1e3,
+               w8a8_rel_mse=rel, top1_agreement=agree, eval_images=len(f),
+               cpu_batch=GRAPH_CPU_BATCH, cpu_quantizers=n_q,
+               cpu_scale_max_rel_err=s_err, cpu_zero_points_differ=z_diff,
+               cpu_calibration_s=cpu_s, launches=launches)
+    print("graphptq: resnet18 224x224 B={} x {} calibration batches: trace "
+          "+ convert {:.3f} s, capture {:.3f} s, calc_qparams {:.3f} s "
+          "(layerwise forward {:.3f} s, observers {:.3f} s over {} "
+          "activation / {} weight quantizers), calibration peak {:.2f} GB; "
+          "nodes {}; quant off vs float max err {:.2e}; float {:.3f} ms / "
+          "batch ({:.0f} images/s), fake-quant {:.3f} ms / batch ({:.0f} "
+          "images/s); w8a8 rel MSE {:.3e} over {} images, top-1 agreement "
+          "{:.4f}; card vs CPU at B={}: {} quantizers, scales max rel err "
+          "{:.2e}, {} zero points differ; launches {}".format(
+              GRAPH_BATCH, GRAPH_CALIB_BATCHES, trace_s, times["capture_s"],
+              times["calc_qparams_s"], times["layerwise_forward_s"],
+              times["observers_s"], times["activation_quantizers"],
+              times["weight_quantizers"], peak / 1e9, nodes, off_err,
+              float_ms, out["float_images_s"], quant_ms,
+              out["quant_images_s"], rel, len(f), agree, GRAPH_CPU_BATCH,
+              n_q, s_err, z_diff, launches), flush=True)
+    if off_err > 1e-4:
+        fail("graphptq: quantizers off differ from the float model by "
+             "{:.2e}".format(off_err))
+    if not 0 < rel < 5e-2:
+        fail("graphptq: w8a8 relative MSE {:.3e} outside (0, 5e-2)".format(
+            rel))
+    if not cpu_ok:
+        fail("graphptq: the card's qparams differ from the CPU's (scale "
+             "rel err {:.2e}, {} zero points)".format(s_err, z_diff))
+    _expect("graphptq", launches, (), tuple(launches))
+    torch.cuda.empty_cache()
+    return {"graphptq": out}
+
+
+def capture_adaround_layers(qmodel, x, max_steps=None):
+    """Calibrate ``qmodel`` on the batch ``x`` and record each AdaRound
+    layer's reconstruct_qlayer call: {node name: (QModule, its calibration
+    inputs, their float outputs, seconds a step)}. With ``max_steps`` the
+    layers are reconstructed at that budget (timed, synchronised);
+    without, they are left as calibration found them (no v)."""
+    import torch
+    from sparsebit_tpu_torch.quantization.quantizers import adaround
+
+    names = {id(op): name for name, op in qmodel.qmodules()}
+    orig = adaround.reconstruct_qlayer
+    got = {}
+
+    def record(layer, inputs, outputs, **kw):
+        secs = None
+        if max_steps is not None:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            orig(layer, inputs, outputs, **kw)
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t) / kw["max_steps"]
+        got[names[id(layer)]] = (layer, inputs, outputs, secs)
+        return layer
+
+    qmodel.prepare_calibration()
+    qmodel(x)
+    if max_steps is not None:
+        qmodel.calibration_runner.adaround_max_steps = max_steps
+    with _Patched([(adaround, "reconstruct_qlayer", record)]):
+        qmodel.calc_qparams()
+    return got
+
+
+def adaround_losses(op, inputs, outputs):
+    """reconstruct_qlayer's reconstruction loss (|.|^2 summed over a
+    sample, averaged over samples) of the QModule ``op``'s layer on its
+    calibration inputs against their float outputs, for the
+    rectified-sigmoid weight that AdaRound trains, for its hard rounding
+    and for rounding to nearest: (soft, hard, nearest)."""
+    import torch
+
+    wq, w = op.weight_quantizer, op.get_weight().detach()
+    assert wq.TYPE == "adaround" and wq.is_enable and wq.v is not None
+    qmin, qmax = wq.qdesc.qrange
+    was = wq.training
+    with torch.no_grad():
+        def loss(wt):
+            d = op.module.execute(inputs, params={"weight": wt}) - outputs
+            return float((d ** 2).sum() / d.shape[0])
+
+        nearest = ((torch.round(w / wq.scale) + wq.zero_point).clamp(
+            qmin, qmax) - wq.zero_point) * wq.scale
+        wq.train(True)
+        soft = loss(wq(w))
+        wq.train(False)
+        hard = loss(wq(w))
+        wq.train(was)
+        return soft, hard, loss(nearest)
+
+
+def graphcalib_path():
+    """Phase 4, path graphcalib: the other calibrators on resnet18 (seeded
+    card weights) over one batch of 16 seeded 224 x 224 images: the
+    basecase scheme calibrated asymmetrically (asym=True, each layer on
+    its quantized predecessors); the aciq, kl_histogram (2048 bins; per
+    tensor, and per channel) and mse activation observers, each with
+    seconds a quantizer, the w8a8 relative MSE against float, and the
+    card's qparams held against the same observer's on the CPU over the
+    same data (``_cpu_held``; every activation quantizer, a per-channel
+    feature map's first 4 channels, the fc input's first 64; MSE every
+    fourth; none checked fails); for per-channel KL, the w8a8 relative
+    MSE with each activation quantizer left out in turn, the largest
+    drop printed. AdaRound W4 (per channel) on the first three convs
+    through the calibration at the reference's adaround_max_steps =
+    20000, s a step, and each layer's reconstruction loss on its
+    calibration inputs (``adaround_losses``): the hard-rounded weight's
+    held to its bound in ADAROUND_LAYERS as a multiple of rounding to
+    nearest's, the rectified sigmoid's printed."""
+    import copy
+
+    import torch
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+    from sparsebit_tpu_torch.utils.config import load_yaml
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = create_model("resnet18", seed=SEED, device="cuda").eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    x = _images(gen, CALIB_BATCH)
+    with torch.no_grad():
+        ref = model(x)
+    base = load_yaml(BASECASE_QCONFIG)
+
+    def cfg_with(a_obs=None, a_scheme=None, w_type=None, w_bit=None):
+        d = copy.deepcopy(base)
+        if a_obs:
+            d["A"]["OBSERVER"]["TYPE"] = a_obs
+        if a_scheme:
+            d["A"]["QSCHEME"] = a_scheme
+        if w_type:
+            d["W"]["QUANTIZER"]["TYPE"] = w_type
+        if w_bit:
+            d["W"]["QUANTIZER"]["BIT"] = w_bit
+        return parse_qconfig(d)
+
+    def feature(q):
+        return q.qdesc.target.name == "FEATURE"
+
+    every4 = {"n": 0}
+
+    def fourth(q):
+        if not feature(q):
+            return False
+        every4["n"] += 1
+        return every4["n"] % 4 == 1
+
+    def rel_mse(qmodel):
+        with torch.no_grad():
+            return _rel_mse(qmodel(x), ref)
+
+    def leave_one_out(qmodel):
+        """{node: w8a8 rel MSE with that node's input quantizer off}"""
+        drops = {}
+        for name, op in qmodel.qmodules():
+            iq = op.input_quantizer
+            if iq is None or iq.fake_fused or not iq.is_enable:
+                continue
+            op.set_quant(w_quant=True, a_quant=False)
+            drops[name] = rel_mse(qmodel)
+            op.set_quant(w_quant=True, a_quant=True)
+        return drops
+
+    cases = [("asym minmax", cfg_with(), True, feature),
+             ("aciq", cfg_with("ACIQ"), False, feature),
+             ("kl_histogram per tensor", cfg_with("KL_HISTOGRAM"), False,
+              feature),
+             ("kl_histogram per channel", cfg_with(
+                 "KL_HISTOGRAM", "per-channel-affine"), False, feature),
+             ("mse", cfg_with("MSE"), False, fourth)]
+    out, launches_all = {}, {}
+    _reset_launches()
+    for tag, cfg, asym, pick in cases:
+        qmodel = QuantModel(model, cfg, (x,))
+        times, rec = _calibrate(qmodel, [x], asym=asym, cpu_pick=pick)
+        qmodel.set_quant(w_quant=True, a_quant=True)
+        rel = rel_mse(qmodel)
+        err, zd, ok = _cpu_held(rec)
+        ok &= len(rec) > 0
+        # the basecase scheme keeps graphptq's bound; the other observers'
+        # errors are printed, per-channel KL's with its largest contributor
+        ok &= rel < 5e-2 if asym else math.isfinite(rel)
+        out[tag] = dict(times, w8a8_rel_mse=rel, cpu_checked=len(rec),
+                        cpu_scale_max_rel_err=err, cpu_zero_points_differ=zd,
+                        held=ok)
+        note = ""
+        if tag == "kl_histogram per channel":
+            drops = leave_one_out(qmodel)
+            worst = min(drops, key=drops.get)
+            out[tag].update(leave_one_out=drops, largest_drop=worst)
+            note = "; without {}'s input quantizer {:.3e} (next lowest " \
+                "{:.3e})".format(worst, drops[worst], sorted(
+                    drops.values())[1])
+        print("graphcalib: {}: calc_qparams {:.3f} s ({:.4f} s an "
+              "activation quantizer over {}), w8a8 rel MSE {:.3e}{}; {} "
+              "quantizers against the CPU: scales max rel err {:.2e}, {} "
+              "zero points differ, held {}".format(
+                  tag, times["calc_qparams_s"],
+                  times["s_a_activation_quantizer"],
+                  times["activation_quantizers"], rel, note, len(rec), err,
+                  zd, ok), flush=True)
+        if not ok:
+            fail("graphcalib: {} ({})".format(tag, out[tag]))
+        del qmodel
+
+    # AdaRound W4 on the first three convs, uniform W4 elsewhere
+    qmodel = QuantModel(model, cfg_with(w_bit=4), (x,))
+    ada_cfg = cfg_with(w_type="adaround", w_bit=4)
+    for name in ADAROUND_LAYERS:
+        qmodel.get_qmodule(name).build_quantizer(ada_cfg)
+    t0 = time.perf_counter()
+    got = capture_adaround_layers(qmodel, x, ADAROUND_STEPS)
+    torch.cuda.synchronize()
+    ada_s = time.perf_counter() - t0
+    qmodel.set_quant(w_quant=True, a_quant=True)
+    layers, ok = {}, sorted(got) == sorted(ADAROUND_LAYERS)
+    for name, (op, inputs, outputs, sps) in got.items():
+        ls, la, ln = adaround_losses(op, inputs, outputs)
+        bound = ADAROUND_LAYERS[name]
+        layers[name] = dict(s_per_step=sps, soft_loss=ls, adaround_loss=la,
+                            nearest_loss=ln, hard_over_nearest=la / ln,
+                            bound=bound, held=la <= bound * ln)
+        ok &= la <= bound * ln
+    rel = rel_mse(qmodel)
+    launches_all.update(_launches())
+    out["adaround"] = dict(layers=layers, max_steps=ADAROUND_STEPS,
+                           calc_qparams_s=ada_s, w4a8_rel_mse=rel, held=ok)
+    print("graphcalib: AdaRound W4 on {} at adaround_max_steps = {}: s a "
+          "step {}; calc_qparams {:.3f} s; reconstruction loss soft / "
+          "hard-rounded / nearest rounding's (hard / nearest, bound) {}; "
+          "w4a8 rel MSE {:.3e}; held {}".format(
+              tuple(ADAROUND_LAYERS), ADAROUND_STEPS,
+              {k: "{:.5f}".format(v["s_per_step"]) for k, v in
+               layers.items()}, ada_s,
+              {k: "{:.4g} / {:.4g} / {:.4g} ({:.4f}, {})".format(
+                  v["soft_loss"], v["adaround_loss"], v["nearest_loss"],
+                  v["hard_over_nearest"], v["bound"])
+               for k, v in layers.items()}, rel, ok), flush=True)
+    if not ok:
+        fail("graphcalib: AdaRound ({})".format(out["adaround"]))
+    out["launches"] = launches_all
+    _expect("graphcalib", launches_all, (), tuple(launches_all))
+    del qmodel, got
+    torch.cuda.empty_cache()
+    return {"graphcalib": out}
+
+
+def cnnfixture_path():
+    """Phase 4, path cnnfixture: the graph regime's accuracy fixture on the
+    card at the artifact's settings, run_cnn_fixture() (300 steps, 4096
+    training / 2048 eval images, w8a8 and w4a8). Held: the claims of
+    tests/test_fixture_cnn.py (top-1 > 0.6; int8 PTQ < 2 points; w4a8 <
+    15 points and not above w8a8 + 2). Its record goes under "cnn_ptq"
+    in accuracy/ACCURACY_torch.json."""
+    import torch
+    from sparsebit_tpu_torch.quantization.tools.fixture import (
+        run_cnn_fixture,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = run_cnn_fixture(device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    f, q8, q4 = res["acc_float"], res["acc_w8a8"], res["acc_w4a8"]
+    held = {"learned": f > 0.6, "int8 PTQ < 2 points": q8 > f - 0.02,
+            "w4a8 < 15 points, <= w8a8 + 2": q4 > f - 0.15
+            and q4 <= q8 + 0.02}
+    print("cnnfixture: top-1 float {:.4f}, w8a8 {:.4f}, w4a8 {:.4f} "
+          "({} steps, {} / {} images) in {:.2f} s; claims {}".format(
+              f, q8, q4, res["train_steps"], res["n_train"], res["n_eval"],
+              secs, held), flush=True)
+    for claim, ok in held.items():
+        if not ok:
+            fail("cnnfixture: {} does not hold ({})".format(claim, res))
+    _expect("cnnfixture", launches, (), tuple(launches))
+    return {"cnnfixture": dict(res, seconds=secs, claims=held,
+                               launches=launches)}
+
+
 def main(argv):
     ab_root = argv[argv.index("--ab") + 1] if "--ab" in argv else None
     try:
@@ -4139,6 +4660,12 @@ def main(argv):
     t0 = time.perf_counter()
     paths.update(quantcore_path())
     print("quantcore path {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    paths.update(graphptq_path())
+    paths.update(graphcalib_path())
+    paths.update(cnnfixture_path())
+    print("graphptq, graphcalib and cnnfixture paths {:.1f} s".format(
+        time.perf_counter() - t0))
     # launches of each kernel on the path that runs it: K5 and K8 on
     # generate (this slice's main path), K6 on the engine's decode_chunk
     # route, K7 on the mixed-precision model (its int8 form with impl

@@ -1,12 +1,17 @@
 """PyTorch/CUDA port of ``sparsebit_tpu`` for NVIDIA Hopper (sm_90a).
 
 The package mirrors the JAX package's tree (``ops/`` kernels and their
-plain versions, ``llm/`` model, cache, decode and serving code) and imports
-neither JAX nor ``sparsebit_tpu``. Every TPU (Pallas) kernel it ports is a
-CUDA C++ kernel under ``csrc/``, built with ``nvcc`` at first use into
-``csrc/build/`` and bound through ``ctypes`` (``ops/_kernels.py``). Each
-kernel wrapper runs its plain PyTorch version for CPU tensors and launches
-the kernel for CUDA tensors; it never falls back from one to the other.
+plain versions; ``llm/`` model, cache, decode and serving code;
+``quantization/``, the graph-level PTQ regime with its QModules,
+converters, observers, quantizers and calibration; ``nn/``, the module
+zoo and the ``torch.fx`` tracer; ``models/``, the model zoo; ``utils/``,
+the config tree) and imports neither JAX nor ``sparsebit_tpu``. Every
+TPU (Pallas) kernel it ports is a CUDA C++ kernel under ``csrc/``, built
+with ``nvcc`` at first use into ``csrc/build/`` and bound through
+``ctypes`` (``ops/_kernels.py``). Each kernel wrapper runs its plain
+PyTorch version for CPU tensors and launches the kernel for CUDA
+tensors; it never falls back from one to the other. The graph regime has
+no Pallas kernel in the JAX package, so it has no kernel here either.
 """
 
 import torch
@@ -26,3 +31,13 @@ def resolve_device(device=None):
         raise RuntimeError("device {} requested but CUDA is absent".format(
             device))
     return device
+
+
+def __getattr__(name):
+    # QuantModel and parse_qconfig as the JAX package exports them,
+    # imported on first use (the graph regime imports torch.fx)
+    if name in ("QuantModel", "parse_qconfig"):
+        from sparsebit_tpu_torch import quantization
+
+        return getattr(quantization, name)
+    raise AttributeError(name)

@@ -2,13 +2,11 @@
 ``sparsebit_tpu/quantization/quantizers/__init__.py``; reference:
 sparsebit/quantization/quantizers/__init__.py:4-28).
 
-Ported: uniform, lsq, lsq+, pact and dorefa. adaround comes with the
-calibration tools' layer reconstruction; until then ``build_quantizer``
-raises NotImplementedError for it.
+uniform, lsq, lsq+, pact, dorefa and adaround (with its layer
+reconstruction, ``adaround.reconstruct_qlayer``).
 """
 
 QUANTIZERS_MAP = {}
-NOT_PORTED = ("adaround",)
 
 
 def register_quantizer(quantizer_cls):
@@ -20,6 +18,7 @@ from sparsebit_tpu_torch.quantization.quantizers.base import (  # noqa: E402,F40
     Quantizer,
 )
 from sparsebit_tpu_torch.quantization.quantizers import (  # noqa: E402,F401
+    adaround,
     dorefa,
     lsq,
     lsq_plus,
@@ -30,10 +29,6 @@ from sparsebit_tpu_torch.quantization.quantizers import (  # noqa: E402,F401
 
 def build_quantizer(cfg):
     quantizer_type = cfg.QUANTIZER.TYPE.lower()
-    if quantizer_type in NOT_PORTED:
-        raise NotImplementedError(
-            "quantizer {!r} is not ported yet (it comes with the "
-            "calibration tools' layer reconstruction)".format(quantizer_type))
     assert quantizer_type in QUANTIZERS_MAP, "no quantizer named {}".format(
         quantizer_type)
     return QUANTIZERS_MAP[quantizer_type](cfg)

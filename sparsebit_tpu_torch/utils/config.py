@@ -4,12 +4,15 @@
 ``merge_from_file``, ``clone``, ``freeze`` and yaml dump.
 
 ``yaml`` (PyYAML) is imported only where a yaml text is read or written
-(``merge_from_file``, ``merge_from_list``'s string values, ``dump``), so
-that the tree, and every module built on it, imports where PyYAML is not
-installed.
+(``load_yaml``, ``merge_from_list``'s string values, ``dump``), so that
+the tree, and every module built on it, imports where PyYAML is not
+installed. Without PyYAML, ``load_yaml`` reads the block-mapping subset
+that flat config files such as the PTQ basecase's ``qconfig.yaml`` use,
+and refuses anything beyond it.
 """
 
 import copy
+import re
 
 
 class CfgNode(dict):
@@ -61,11 +64,7 @@ class CfgNode(dict):
         _merge_a_into_b(CfgNode(d), self)
 
     def merge_from_file(self, filename):
-        import yaml
-
-        with open(filename, "r") as f:
-            loaded = yaml.safe_load(f) or {}
-        _merge_a_into_b(CfgNode(loaded), self)
+        _merge_a_into_b(CfgNode(load_yaml(filename)), self)
 
     def merge_from_list(self, cfg_list):
         assert len(cfg_list) % 2 == 0, "override list must have even length"
@@ -121,3 +120,109 @@ def _merge_a_into_b(a, b):
             _merge_a_into_b(v, b[k])
         else:
             b[k] = copy.deepcopy(v)
+
+
+def load_yaml(filename):
+    """The mapping in a yaml file: PyYAML's ``safe_load`` where PyYAML is
+    installed, else ``block_mappings``."""
+    with open(filename, "r") as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        return block_mappings(text)
+    return yaml.safe_load(text) or {}
+
+
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_.\-]*):(?:[ ]+(.*))?")
+_BOOL = {v: b for b in (True, False) for w in (
+    ("yes", "true", "on") if b else ("no", "false", "off"))
+    for v in (w, w.capitalize(), w.upper())}
+_NULL = ("~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)")
+_FLOAT = re.compile(r"[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?")
+
+
+def _strip_comment(line):
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(s, no):
+    """A plain or quoted scalar as PyYAML resolves it (decimal ints,
+    floats with a point, booleans, nulls, strings); ValueError for what
+    the subset leaves out."""
+    def refuse(why):
+        raise ValueError("line {}: {} ({!r})".format(no, why, s))
+
+    if s[0] in "'\"":
+        if len(s) < 2 or s[-1] != s[0]:
+            refuse("unterminated quote")
+        inner = s[1:-1]
+        if s[0] == "'":
+            return inner.replace("''", "'")
+        if "\\" in inner or '"' in inner:
+            refuse("escapes in a double-quoted scalar")
+        return inner
+    if s[0] in "[{&*!|>%@`" or s == "-" or s.startswith("- "):
+        refuse("flow collections, lists, anchors, tags and block scalars "
+               "need PyYAML")
+    if s in _BOOL:
+        return _BOOL[s]
+    if s in _NULL:
+        return None
+    if _INT.fullmatch(s):
+        return int(s)
+    if _FLOAT.fullmatch(s):
+        return float(s)
+    if re.match(r"[-+.]?[0-9]", s) or ": " in s or s.endswith(":"):
+        refuse("a number or mapping form outside the subset")
+    return s
+
+
+def block_mappings(text):
+    """Nested block mappings of scalars (``key: value`` lines, indented
+    by spaces, ``#`` comments): the dict ``yaml.safe_load`` gives for
+    such a text. ValueError for anything else (lists, flow collections,
+    anchors, multi-line scalars, tabs)."""
+    root = {}
+    stack = [(0, root)]  # (indent, mapping) of the open mappings
+    pending = None  # (indent, mapping, key) of a key with no value yet
+    for no, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        body = line.lstrip(" ")
+        indent = len(line) - len(body)
+        if body[0] == "\t" or line.startswith("---"):
+            raise ValueError("line {}: tabs and documents need PyYAML "
+                             "({!r})".format(no, raw))
+        if pending is not None:
+            p_indent, mapping, key = pending
+            pending = None
+            if indent > p_indent:
+                mapping[key] = {}
+                stack.append((indent, mapping[key]))
+            else:
+                mapping[key] = None
+        while indent < stack[-1][0]:
+            stack.pop()
+        m = _KEY.fullmatch(body)
+        if indent != stack[-1][0] or not m:
+            raise ValueError("line {}: not a key of the enclosing block "
+                             "mapping ({!r})".format(no, raw))
+        key, value = m.group(1), m.group(2)
+        if value is None or not value.strip():
+            pending = (indent, stack[-1][1], key)
+        else:
+            stack[-1][1][key] = _scalar(value.strip(), no)
+    if pending is not None:
+        pending[1][pending[2]] = None
+    return root

@@ -12,6 +12,7 @@ import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
@@ -124,3 +125,124 @@ def test_qlora_finetune_torch_saves_adapters(tmp_path):
                                    torch.from_numpy(data[idx]).long(),
                                    cfg_l))
     assert np.isfinite(loss) and loss < losses[0]
+
+
+def _basecase():
+    path = os.path.join(os.path.dirname(EXAMPLES), "post_training_quantization",
+                        "imagenet1k_basecase")
+    sys.path.insert(0, path)
+    try:
+        return importlib.import_module("main_torch")
+    finally:
+        sys.path.pop(0)
+
+
+def test_ptq_basecase_torch_demo(tmp_path):
+    """The graph regime's PTQ basecase CLI on random tensors: resnet18 at
+    224x224 through QuantModel, calibration and the fake-quant eval; a
+    checkpoint in the JAX package's layout loads; the models of later
+    slices and --export are refused."""
+    import pytest
+
+    cli = _basecase()
+    res = cli.main(["--batch", "2", "--calib-batches", "1",
+                    "--eval-samples", "4", "--device", "cpu"])
+    assert set(res) == {"int8_acc"} and 0.0 <= res["int8_acc"] <= 1.0
+    from sparsebit_tpu_torch.models import create_model
+
+    m = create_model("resnet18", seed=1, device="cpu")
+    sd = {}
+    for path, mod in m.named_modules():
+        for k, v in mod.leaf_state_dict().items():
+            v = v.detach().numpy()
+            if k == "weight" and v.ndim == 4:
+                v = v.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            elif k == "weight" and path == "fc":
+                v = v.T
+            sd["{}.{}".format(path, k)] = v
+    ckpt = str(tmp_path / "r18.npz")
+    np.savez(ckpt, **sd)
+    res = cli.main(["--batch", "2", "--calib-batches", "1", "--eval-samples",
+                    "4", "--ckpt", ckpt, "--device", "cpu"])
+    assert set(res) == {"float_acc", "int8_acc"}
+    with pytest.raises(SystemExit):
+        cli.main(["--model", "mobilenet_v2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="export"):
+        cli.main(["--export", str(tmp_path / "x"), "--device", "cpu"])
+
+
+def test_chip_smoke_basecase_qconfig_is_the_yaml(monkeypatch):
+    """chip_smoke.py's graph paths and the basecase CLI read qconfig.yaml
+    where PyYAML is not installed (the card's machine): with PyYAML
+    hidden, the file parses to the config PyYAML gives."""
+    import importlib.util
+
+    from sparsebit_tpu_torch import parse_qconfig
+
+    root = os.path.dirname(os.path.dirname(EXAMPLES))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    yaml_path = os.path.join(os.path.dirname(EXAMPLES),
+                             "post_training_quantization",
+                             "imagenet1k_basecase", "qconfig.yaml")
+    assert os.path.samefile(smoke.BASECASE_QCONFIG, yaml_path)
+    want = parse_qconfig(yaml_path)
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml fails
+    assert parse_qconfig(yaml_path) == want
+
+
+YAMLS = sorted(os.path.relpath(os.path.join(d, f), os.path.dirname(EXAMPLES))
+               for d, _, fs in os.walk(os.path.dirname(EXAMPLES))
+               for f in fs if f.endswith(".yaml"))
+
+
+@pytest.mark.parametrize("rel", YAMLS)
+def test_block_mappings_reads_what_pyyaml_reads_or_refuses(rel):
+    """Without PyYAML the config loader reads each example yaml file to
+    PyYAML's dict, or raises ValueError (lists, flow collections); the
+    flat PTQ and pruning configs are read."""
+    import yaml
+
+    from sparsebit_tpu_torch.utils.config import block_mappings
+
+    with open(os.path.join(os.path.dirname(EXAMPLES), rel)) as f:
+        text = f.read()
+    want = yaml.safe_load(text) or {}
+    flat = not any(isinstance(v, list) for v in _leaves(want))
+    if flat:
+        assert block_mappings(text) == want
+    else:
+        with pytest.raises(ValueError):
+            block_mappings(text)
+
+
+def _leaves(d):
+    for v in d.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+@pytest.mark.parametrize("text", [
+    "A:\n  - 1\n", "A: [1, 2]\n", "A: &x 1\n", "A: |\n  t\n",
+    "A: 1e-3\n", "A: 0x1f\n", "A:\n\tB: 1\n", "A: \"a\\\\nb\"\n",
+    "A:\n    B: 1\n  C: 2\n"])
+def test_block_mappings_refuses_forms_outside_the_subset(text):
+    from sparsebit_tpu_torch.utils.config import block_mappings
+
+    with pytest.raises(ValueError):
+        block_mappings(text)
+
+
+def test_block_mappings_scalars_resolve_as_pyyaml():
+    import yaml
+
+    from sparsebit_tpu_torch.utils.config import block_mappings
+
+    text = ("# c\nA:\n  B: 8 # bits\n  C: -0.5\n  D: 1.0e-3\n  E: true\n"
+            "  F: Off\n  G: ~\n  H: 'it''s'\n  I: \"x # y\"\n  J:\nK: "
+            "per-channel-symmetric\nL: NHWC\n")
+    assert block_mappings(text) == yaml.safe_load(text)

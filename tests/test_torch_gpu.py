@@ -1176,3 +1176,103 @@ def test_streaming_llama_on_the_card_matches_resident(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(step, ref_step, rtol=1e-4, atol=1e-4)
+
+
+# ---- the graph regime on the card (no kernel: PyTorch calls) ---------------
+
+
+def test_kl_device_on_the_card_matches_numpy_oracle(cuda):
+    """The KL search on the card picks the numpy oracle's candidates, per
+    tensor and per channel, at 512 and 2048 bins."""
+    from sparsebit_tpu_torch.quantization.observers.kl_device import (
+        kl_thresholds_device,
+    )
+    from sparsebit_tpu_torch.quantization.observers.kl_histogram import (
+        kl_thresholds,
+    )
+
+    rng = np.random.RandomState(7)
+    cases = [rng.randn(3, 4096), rng.laplace(size=(2, 4096)),
+             np.concatenate([rng.randn(1, 4000), 20 * rng.randn(1, 96)], 1),
+             np.maximum(rng.randn(64, 1024), 0), rng.randn(1, 200000)]
+    for data in cases:
+        data = data.astype(np.float32)
+        for bit, bins in ((4, 512), (8, 2048)):
+            want = kl_thresholds(data, bit, bins=bins)
+            data_dev = torch.from_numpy(data).to(cuda)
+            got = kl_thresholds_device(data_dev, bit, bins=bins)
+            assert got.device == data_dev.device
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-6)
+
+
+def _graph_outputs(graph, x):
+    """Every node's output of a graph run on x."""
+    from sparsebit_tpu_torch.nn.graph import Output, Placeholder
+
+    env = {}
+
+    def value(a):
+        if hasattr(a, "node"):
+            v = env[a.node.name]
+            return v if a.index is None else v[a.index]
+        return a
+
+    with torch.no_grad():
+        for n in graph.nodes:
+            if isinstance(n.op, Placeholder):
+                env[n.name] = x
+            elif not isinstance(n.op, Output):
+                env[n.name] = n.op.execute(*[value(a) for a in n.args],
+                                           **n.kwargs)
+    return env
+
+
+def test_quant_model_w8a8_on_the_card_matches_the_cpu(cuda):
+    """resnet18 (16 classes) at 8 x 64 x 64 x 3, weights made on the card
+    and copied to the CPU, both calibrated (MinMax, w8a8) with cuDNN TF32
+    off: every quantizer's scale within 1e-5 relative of the CPU's, zero
+    points equal; then, with the card's qparams in both, every node on
+    the card's inputs within 1e-4 of the card's output, relative to its
+    largest (convolutions summed in other orders)."""
+    import copy
+
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = {"BACKEND": "virtual",
+           "W": {"QSCHEME": "per-channel-symmetric",
+                 "QUANTIZER": {"BIT": 8}},
+           "A": {"QSCHEME": "per-tensor-affine", "QUANTIZER": {"BIT": 8},
+                 "OBSERVER": {"LAYOUT": "NHWC"}}}
+    model = create_model("resnet18", num_classes=16, device=cuda).eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(8, 64, 64, 3)).astype(np.float32))
+    qc = QuantModel(model, parse_qconfig(cfg), (x.to(cuda),))
+    qh = QuantModel(cpu_model, parse_qconfig(cfg), (x,))
+    for q, xx in ((qc, x.to(cuda)), (qh, x)):
+        q.prepare_calibration()
+        q(xx)
+        q.calc_qparams()
+        q.set_quant(True, True)
+    for (name, op), (_, hop) in zip(qc.qmodules(), qh.qmodules()):
+        for k in ("input_quantizer", "weight_quantizer"):
+            a, b = getattr(op, k), getattr(hop, k)
+            if a is None:
+                continue
+            np.testing.assert_allclose(a.scale.cpu().numpy(),
+                                       b.scale.numpy(), rtol=1e-5,
+                                       err_msg=name)
+            assert torch.equal(a.zero_point.cpu(), b.zero_point), name
+            b.scale, b.zero_point = a.scale.cpu(), a.zero_point.cpu()
+    card = _graph_outputs(qc.graph, x.to(cuda))
+    with torch.no_grad():
+        for n in qh.graph.op_nodes:
+            args = [(card[a.node.name] if a.index is None else
+                     card[a.node.name][a.index]).cpu()
+                    if hasattr(a, "node") else a for a in n.args]
+            got = n.op.execute(*args, **n.kwargs)
+            want = card[n.name].cpu()
+            tol = 1e-4 * max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= tol, n.name

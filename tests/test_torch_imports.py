@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no file of sparsebit_tpu_torch/, no
-port CLI (examples/llm/*_torch.py) and not chip_smoke.py imports jax or
+port CLI (examples/**/*_torch.py) and not chip_smoke.py imports jax or
 the JAX package; and every module of the port imports in a process where
 jax, the JAX package and PyYAML cannot be imported (the card's machine
 has no PyYAML: the config tree imports it only to read or write yaml)."""
@@ -13,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "sparsebit_tpu_torch").rglob("*.py")) + sorted(
-    (ROOT / "examples" / "llm").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "examples").rglob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -64,5 +64,11 @@ def test_every_port_module_imports_without_jax_or_yaml():
                 "sparsebit_tpu_torch.quantization.fake_quant",
                 "sparsebit_tpu_torch.quantization.observers.percentile",
                 "sparsebit_tpu_torch.quantization.quantizers.lsq_plus",
-                "sparsebit_tpu_torch.utils.config"):
+                "sparsebit_tpu_torch.utils.config",
+                "sparsebit_tpu_torch.nn.graph",
+                "sparsebit_tpu_torch.models.resnet",
+                "sparsebit_tpu_torch.quantization.quant_model",
+                "sparsebit_tpu_torch.quantization.observers.kl_device",
+                "sparsebit_tpu_torch.quantization.quantizers.adaround",
+                "sparsebit_tpu_torch.quantization.tools.fixture"):
         assert new in MODULES

@@ -27,7 +27,8 @@ the same seeded numpy inputs:
   tests/test_fake_quant.py and tests/test_qat.py exercise them;
 - ``parse_qconfig`` on a dict and on a yaml file (equal trees, equal to
   the JAX package's), the verify checks, QuantDescriptor's axes, and the
-  registries' refusal of what is not ported yet."""
+  registries as the JAX package's (aciq, kl_histogram and adaround
+  build; kl_device is no observer type in either package)."""
 
 import jax
 import jax.numpy as jnp
@@ -258,15 +259,30 @@ def test_mse_beats_or_ties_minmax():
 
 @pytest.mark.parametrize("name", ["aciq", "kl_histogram", "kl_device"])
 def test_unported_observers_raise(name):
-    _, tc = _both("FEATURE", "per-tensor-affine", observer=name)
-    with pytest.raises(NotImplementedError, match=name):
-        t_observer(tc, TD(tc))
+    """The registry as the JAX package's: aciq and kl_histogram build (the
+    histogram observers are ported now; tests/test_torch_observers_kl.py
+    holds their values), kl_device is the search module and no observer
+    type, which both packages refuse alike."""
+    jc, tc = _both("FEATURE", "per-tensor-affine", observer=name)
+    if name == "kl_device":
+        for build, desc in ((j_observer, JD), (t_observer, TD)):
+            with pytest.raises(AssertionError, match="no observer named"):
+                build(jc if build is j_observer else tc,
+                      desc(jc if build is j_observer else tc))
+        return
+    assert t_observer(tc, TD(tc)).TYPE == j_observer(jc, JD(jc)).TYPE == name
 
 
 def test_unported_quantizer_raises():
-    _, tc = _both("WEIGHT", "per-channel-symmetric", qtype="adaround")
-    with pytest.raises(NotImplementedError, match="adaround"):
-        t_quant(tc)
+    """adaround builds for weights (ported now; tests/test_torch_adaround.py
+    holds it to the JAX package's) and is refused for features, as in the
+    JAX package."""
+    jc, tc = _both("WEIGHT", "per-channel-symmetric", qtype="adaround")
+    assert t_quant(tc).TYPE == j_quant(jc).TYPE == "adaround"
+    jc, tc = _both("FEATURE", "per-tensor-affine", qtype="adaround")
+    for build, c in ((j_quant, jc), (t_quant, tc)):
+        with pytest.raises(AssertionError, match="only supports"):
+            build(c)
 
 
 @pytest.mark.parametrize("layout,axis", [("NCHW", 1), ("NLC", 2),
