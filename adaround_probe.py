@@ -6,27 +6,26 @@ seeded 224 x 224 images, W4 per-channel-symmetric).
 
     # on the card: capture each layer's calibration inputs and float
     # outputs through the port's layerwise calibration, reconstruct the
-    # layer at each budget, print the reconstruction loss (reconstruct_
-    # qlayer's: |.|^2 summed over a sample, averaged over samples) of the
-    # rectified-sigmoid weight, the hard-rounded weight and the weight
-    # rounded to nearest; --pixel-mean also runs each layer with the
-    # round loss weighted by the output's pixels (below); --save keeps
-    # one layer for the CPU run
-    python adaround_probe.py --steps 5000 20000 --pixel-mean 5000 \
+    # layer at each budget, print the reconstruction loss (|.|^2 summed
+    # over a sample, averaged over samples) of the rectified-sigmoid
+    # weight, the hard-rounded weight and the weight rounded to nearest;
+    # --pixel-sum also runs each layer under the JAX package's objective
+    # (below); --save keeps one layer for the CPU run
+    python adaround_probe.py --steps 5000 20000 --pixel-sum 5000 \
         --save chiprun_out/adaround_layer.npz
 
     # on the CPU: the saved layer reconstructed by the JAX package's
-    # reconstruct_qlayer and by the port's, at the same budget
+    # reconstruct_qlayer and by the port's under the JAX package's
+    # objective, at the same budget
     JAX_PLATFORMS=cpu python adaround_probe.py \
         --layer chiprun_out/adaround_layer.npz --steps 5000
 
---pixel-mean: the JAX package's docstring gives the reference's loss as
-``lp_loss``'s ``sum(1).mean()``; on the reference's NCHW tensors that sums
-over channels and averages over samples and pixels, where the JAX package
-(and the port) sum over every non-batch axis, a loss H x W times larger
-against the same round loss. Adam's step does not change when the loss
-is scaled (but for its eps), so ``round_loss_weight = 1e-3 x H x W`` runs
-the pixel-averaged objective.
+The port's reconstruction loss is the reference's ``lp_loss``,
+``sum(1).mean()`` on NCHW: channels summed, samples and pixels averaged.
+The JAX package sums the pixels too, a loss H x W times larger against
+the same round loss (reference fault R10). Adam's step does not change
+when the loss is scaled (but for its eps), so ``round_loss_weight = 1e-3
+/ (H x W)`` runs the JAX package's objective on the port (--pixel-sum).
 
 The JAX package is imported only by the CPU mode.
 """
@@ -81,8 +80,8 @@ def card(steps, pixel_steps, save, save_layer, only):
     for name, (op, inputs, outputs, _) in layers.items():
         if only and name not in only:
             continue
-        runs = [(n, "package", ROUND_LOSS_WEIGHT) for n in steps] + [
-            (n, "pixel-mean", ROUND_LOSS_WEIGHT * _pixels(outputs))
+        runs = [(n, "port", ROUND_LOSS_WEIGHT) for n in steps] + [
+            (n, "pixel-sum", ROUND_LOSS_WEIGHT / _pixels(outputs))
             for n in pixel_steps]
         for n, kind, rlw in runs:
             torch.cuda.synchronize()
@@ -96,7 +95,7 @@ def card(steps, pixel_steps, save, save_layer, only):
                              soft=soft, hard=hard, nearest=near,
                              hard_below_nearest=hard < near))
             print(json.dumps(rows[-1]), flush=True)
-            if save and name == save_layer and kind == "package" \
+            if save and name == save_layer and kind == "port" \
                     and n == steps[0]:
                 _save(save, op, inputs, outputs, n, soft, hard, near)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -193,7 +192,8 @@ def cpu(layer, steps):
     top.weight_quantizer.calc_qparams()
     tx, ty = torch.from_numpy(d["inputs"]), torch.from_numpy(d["outputs"])
     t = time.perf_counter()
-    t_reconstruct(top, tx, ty, max_steps=steps)
+    t_reconstruct(top, tx, ty, max_steps=steps,
+                  round_loss_weight=ROUND_LOSS_WEIGHT / _pixels(d["outputs"]))
     tsecs = time.perf_counter() - t
     soft, hard, near = S.adaround_losses(top, tx, ty)
     tv = top.weight_quantizer.v.numpy()
@@ -214,8 +214,8 @@ def cpu(layer, steps):
 
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--steps", type=int, nargs="+", default=[5000, 20000])
-    ap.add_argument("--pixel-mean", type=int, nargs="*", default=[])
+    ap.add_argument("--steps", type=int, nargs="*", default=[5000, 20000])
+    ap.add_argument("--pixel-sum", type=int, nargs="*", default=[])
     ap.add_argument("--save", default=None,
                     help="card: write --save-layer's first run to this npz")
     ap.add_argument("--save-layer", default="layer1.0.conv1")
@@ -231,7 +231,7 @@ def main(argv):
     if not torch.cuda.is_available():
         print("the card mode needs CUDA", file=sys.stderr)
         return 2
-    card(args.steps, args.pixel_mean, args.save, args.save_layer,
+    card(args.steps, args.pixel_sum, args.save, args.save_layer,
          args.layers)
     return 0
 

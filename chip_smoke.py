@@ -174,7 +174,31 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 multiple of nearest rounding's), resnet18 at batch 16;
      cnnfixture the CNN accuracy fixture (run_cnn_fixture(): 300 steps,
                 4096 / 2048 images), the three claims of
-                tests/test_fixture_cnn.py held.
+                tests/test_fixture_cnn.py held;
+     deploy     graphptq's W8A8 resnet18 lowered to int8 compute
+                (quantization/deploy.py) at B=64: int8 / fake-quant /
+                float ms a batch; every Int8 node within 2e-5 of its
+                fake-quant op on the same input; end-to-end error and
+                top-1 agreement reported;
+     export     QuantModel.export and DeployedModel.export (torch.export),
+                each loaded back: seconds, bytes, output bit-equal;
+     errprof    get_quantization_error on that resnet18 at B=16, async
+                and sync: seconds, the five worst nodes, state kept;
+     qat        the resnet18 QAT CLI's flow at 224x224, B=64, for each of
+                the LSQ / LSQ+ / PACT / DoReFa yamls: calibrate, init_QAT,
+                3 + 10 steps of make_qat_step (s a step split into
+                forward / backward / optimiser, images/s, peak memory),
+                a learnable moved, one small step equal to the CPU's;
+     qatdeit    deit_small at 224x224, B=64, qconfig_lsq / _gelu_lsqplus:
+                the figures of qat through the quantized attention path;
+     bertptq    bert_base at S=128, B=32, the CoLA yaml (percentile):
+                float and fake-quant ms a batch, W8A8 relative MSE;
+     trfixture  the transformer fixtures at the JAX artifact's settings
+                through record_fixture_torch.py, the claims of
+                tests/test_fixture_transformer.py held, the records
+                written to chiprun_out/ACCURACY_torch.json.
+The gptq path also holds the LLM quantizer's scale arithmetic on the card
+bit-equal to the CPU's (gptq_scale_arithmetic).
 The graph regime has no Pallas kernel in the JAX package and launches no
 kernel of the port (its counts are read and must stay 0).
 It prints one JSON line of per-kernel and per-path numbers, the card's
@@ -3180,7 +3204,45 @@ def gptq_path(cfg):
     out["checkpoint_io_s"] = io_s
     del loaded
     torch.cuda.empty_cache()
+    out["scale_arithmetic"] = gptq_scale_arithmetic(cfg)
     return {"gptq": out}
+
+
+def gptq_scale_arithmetic(cfg):
+    """The LLM quantizer's scale arithmetic on the card against the CPU,
+    bit for bit (ROADMAP numerics contracts): ``(wmax - wmin) / qmax`` is
+    an exact division on both (``div_exact``; a division by a plain
+    number is a multiply by its reciprocal on the card); at a 7B wo's
+    width (4096 x 4096, g128) at 2/3/4/8 bits, and the GPTQ solver itself
+    with U = I (no error propagates) on its first 512 rows at 4 bits."""
+    import torch
+    from sparsebit_tpu_torch.llm import gptq as G
+    from sparsebit_tpu_torch.llm.quant import LLMQuantizer
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    w = torch.randn((cfg.dim, cfg.dim), generator=g, device="cuda") * 0.02
+    wg = w.reshape(cfg.dim // 128, 128, cfg.dim)
+    differ = {}
+    for bits in (2, 3, 4, 8):
+        q = LLMQuantizer(bits=bits)
+        s_card, z_card = q.find_params(wg)
+        s_cpu, z_cpu = q.find_params(wg.cpu())
+        differ["{}bit".format(bits)] = (int((s_card.cpu() != s_cpu).sum())
+                                        + int((z_card.cpu() != z_cpu).sum()))
+    K = 512
+    eye = torch.eye(K, device="cuda")
+    dead = torch.zeros(K, dtype=torch.bool, device="cuda")
+    card = G._gptq_core(w[:K].clone(), eye, dead, 4, 128, 128, False)
+    cpu = G._gptq_core(w[:K].cpu().clone(), eye.cpu(), dead.cpu(), 4, 128,
+                       128, False)
+    differ["solver U=I codes"] = int((card[0].cpu() != cpu[0]).sum())
+    differ["solver U=I scales"] = int((card[1].cpu() != cpu[1]).sum())
+    print("gptq: scale arithmetic, card vs CPU, elements that differ: "
+          "{}".format(differ), flush=True)
+    if any(differ.values()):
+        fail("gptq: the quantizer's scales or codes differ between the "
+             "card and the CPU: {}".format(differ))
+    return differ
 
 
 def fixture_path():
@@ -4097,11 +4159,16 @@ ADAROUND_STEPS = 20000  # the reference's budget (adaround.py:66)
 # a multiple of rounding to nearest's. conv1 reads i.i.d. N(0, 1) pixels,
 # so its loss is a multiple of the summed squared weight errors, which
 # rounding to nearest minimises: it can tie, not win. The layer1 convs
-# read correlated activations; at 20000 steps they reach 0.49 and 0.10 of
-# nearest's, where an AdaRound that never steps keeps nearest's rounding
-# but for ties (adaround_probe.py, H100 80GB HBM3, 700 W).
+# read correlated activations; at 20000 steps, with the reconstruction
+# loss averaged over pixels (the reference's), they reach 0.10 and 0.09
+# of nearest's and conv1 0.9990, where an AdaRound that never steps keeps
+# nearest's rounding but for ties (adaround_probe.py, H100 80GB HBM3,
+# 700 W).
 ADAROUND_LAYERS = {"conv1": 1.001, "layer1.0.conv1": 0.75,
                    "layer1.0.conv2": 0.75}
+
+
+_GRAPH = {}  # graphptq's calibrated W8A8 resnet18, for deploy and export
 
 
 def _images(gen, n, size=224):
@@ -4286,6 +4353,7 @@ def graphptq_path():
             z_diff += int((a.zero_point.cpu() != b.zero_point).sum())
     cpu_ok = s_err <= 1e-5 and z_diff == 0
     del qa, qb, calib
+    _GRAPH.update(model=model, qmodel=qmodel, x=x)
     out = dict(times, trace_convert_s=trace_s, nodes=nodes,
                quant_off_max_err=off_err, calib_peak_bytes=peak,
                float_ms_per_batch=float_ms, quant_ms_per_batch=quant_ms,
@@ -4576,6 +4644,620 @@ def cnnfixture_path():
                                launches=launches)}
 
 
+# ---- phase 4: QAT, the error profiler, deploy and export, the transformer
+# ---- zoo (the graph regime; no kernel of its own: PyTorch calls)
+
+QAT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "quantization_aware_training")
+PTQ_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "post_training_quantization")
+QAT_YAMLS = ("qconfig_lsq.yaml", "qconfig_lsq_plus.yaml",
+             "qconfig_pact.yaml", "qconfig_dorefa.yaml")
+DEIT_YAMLS = ("qconfig_lsq.yaml", "qconfig_gelu_lsqplus.yaml")
+QAT_BATCH, QAT_CALIB, QAT_WARMUP, QAT_STEPS = 64, 4, 3, 10
+QAT_LR = 1e-4  # the resnet18 QAT CLI's default
+BERT_BATCH, BERT_SEQ, BERT_CALIB = 32, 128, 8
+
+
+class _StepTimer:
+    """Splits each QAT step (``make_qat_step``'s) into forward, backward
+    and optimiser seconds: the loss function is entered when the forward
+    has run, the optimiser's ``step`` when the backward has; the card is
+    synchronised at each mark."""
+
+    def __init__(self, loss_fn, optimizer):
+        import torch
+
+        self.times = []
+        self._t = None
+        orig = optimizer.step
+
+        def loss(*a):
+            torch.cuda.synchronize()
+            self._t.append(time.perf_counter())
+            return loss_fn(*a)
+
+        def step(*a, **kw):
+            torch.cuda.synchronize()
+            self._t.append(time.perf_counter())
+            r = orig(*a, **kw)
+            torch.cuda.synchronize()
+            self._t.append(time.perf_counter())
+            return r
+
+        optimizer.step = step
+        self.loss_fn = loss
+
+    def run(self, fn):
+        import torch
+
+        torch.cuda.synchronize()
+        self._t = [time.perf_counter()]
+        r = fn()
+        t0, t1, t2, t3 = self._t
+        self.times.append((t1 - t0, t2 - t1, t3 - t2))
+        return r
+
+    def summary(self, skip):
+        import statistics
+
+        rows = self.times[skip:]
+        f, b, o = (statistics.median(c) for c in zip(*rows))
+        total = [sum(r) for r in rows]
+        return dict(s_per_step=statistics.median(total),
+                    s_per_step_min=min(total), s_per_step_max=max(total),
+                    forward_s=f, backward_s=b, optimizer_s=o,
+                    timed_steps=len(rows))
+
+
+def _quant_leaves(trainable):
+    return {(n, k): v.detach().clone() for n, p in trainable.items()
+            for k, v in p.items() if "quantizer" in k}
+
+
+def _qat_run(qmodel, calib, batches, labels, loss_fn, make_opt, tag):
+    """Calibrate, init_QAT and QAT_WARMUP + QAT_STEPS steps of
+    ``make_qat_step`` on the card, timed; returns the figures, and the
+    loss and learnables checks (held by the caller)."""
+    import torch
+    from sparsebit_tpu_torch.quantization.tools.qat import (
+        init_qat_state,
+        make_qat_step,
+    )
+
+    t0 = time.perf_counter()
+    qmodel.prepare_calibration()
+    for b in calib:
+        qmodel(b)
+    qmodel.init_QAT()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    qmodel.train()
+    trainable, opt = init_qat_state(qmodel, make_opt)
+    before = _quant_leaves(trainable)
+    timer = _StepTimer(loss_fn, opt)
+    step = make_qat_step(qmodel, timer.loss_fn, opt)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(QAT_WARMUP + QAT_STEPS):
+        j = i % len(batches)
+        trainable, loss = timer.run(lambda: step(trainable, batches[j],
+                                                 labels[j]))
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated() - base
+    after = _quant_leaves(trainable)
+    moved = sum(not torch.equal(v, after[k]) for k, v in before.items())
+    qmodel.eval()
+    out = dict(timer.summary(QAT_WARMUP), calibrate_init_s=calib_s,
+               peak_bytes_above_model=peak, losses=losses,
+               quantizer_learnables=len(before), learnables_moved=moved)
+    out["images_s"] = len(labels[0]) / out["s_per_step"]
+    print("{}: {:.4f} s a step (forward {:.4f}, backward {:.4f}, optimiser "
+          "{:.4f}; min {:.4f} max {:.4f} over {}), {:.0f} images/s, peak "
+          "{:.2f} GB above the model, calibrate + init_QAT {:.2f} s, loss "
+          "{:.4f} -> {:.4f}, {} of {} quantizer learnables moved".format(
+              tag, out["s_per_step"], out["forward_s"], out["backward_s"],
+              out["optimizer_s"], out["s_per_step_min"],
+              out["s_per_step_max"], QAT_STEPS, out["images_s"], peak / 1e9,
+              calib_s, losses[0], losses[-1], moved, len(before)),
+          flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("{}: a loss is not finite: {}".format(tag, losses))
+    if not moved:
+        fail("{}: no quantizer learnable moved".format(tag))
+    return out
+
+
+def _qat_card_vs_cpu(yaml_path):
+    """One QAT step at a small size (resnet18 num_classes=16, 2 x 64 x 64
+    x 3) on the card and on the CPU from the same weights, data and
+    calibration. Held: the loss within 1e-3 relative (the two devices sum
+    convolutions in other orders, and a code at a rounding tie may flip);
+    all trainables' gradients, as one vector, within 5e-2 relative (L2):
+    where x / s lies within an ulp of a 4-bit clip's qmax + 1/2 the two
+    devices round to either side, the forward clamps both to qmax but
+    the straight-through mask passes the gradient on one side only, and
+    BatchNorm's training statistics over a batch of 2 spread that
+    through the weights' gradients (1.39e-2 measured, H100 80GB HBM3,
+    700 W; a single quantizer's gradient, a sum that cancels to near
+    zero, is printed, not held); every trainable after the Adam step
+    within 2.01 lr of the CPU's (one Adam step moves a value by at most
+    lr, so two steps differ by at most 2 lr where a near-zero gradient's
+    sign differs) and 99 % of their elements within 1e-3 lr."""
+    import copy
+
+    import torch
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+    from sparsebit_tpu_torch.quantization.tools.qat import (
+        cross_entropy,
+        init_qat_state,
+        make_qat_step,
+    )
+
+    lr = 1e-3
+    g = torch.Generator().manual_seed(SEED + 50)
+    x = torch.randn((2, 64, 64, 3), generator=g)
+    y = torch.randint(0, 16, (2,), generator=g)
+    model = create_model("resnet18", num_classes=16, seed=SEED,
+                         device="cpu").eval()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        q = QuantModel(m, parse_qconfig(yaml_path), (x.to(dev),))
+        q.prepare_calibration()
+        q(x.to(dev))
+        q.init_QAT()
+        q.train()
+        trainable, opt = init_qat_state(
+            q, lambda ps: torch.optim.Adam(ps, lr=lr))
+        _, loss = make_qat_step(q, cross_entropy, opt)(
+            trainable, x.to(dev), y.to(dev))
+        res[dev] = (loss.item(), {
+            (n, k): (v.grad.detach().cpu().clone() if v.grad is not None
+                     else None, v.detach().cpu().clone())
+            for n, p in trainable.items() for k, v in p.items()
+            if v.requires_grad})
+    (lc, card), (lh, cpu) = res["cuda"], res["cpu"]
+    loss_err = abs(lc - lh) / abs(lh)
+    grads = [k for k in cpu if cpu[k][0] is not None]
+    gc = torch.cat([card[k][0].reshape(-1) for k in grads])
+    gh = torch.cat([cpu[k][0].reshape(-1) for k in grads])
+    grad_err = float((gc - gh).norm() / gh.norm())
+    per = {k: float((card[k][0] - cpu[k][0]).norm()
+                    / (cpu[k][0].norm() + 1e-30)) for k in grads}
+    worst_grad = max(per, key=per.get)
+    diffs = torch.cat([(card[k][1] - cpu[k][1]).abs().reshape(-1)
+                       for k in cpu])
+    worst = float(diffs.max())
+    close = float((diffs <= 1e-3 * lr).float().mean())
+    ok = (loss_err <= 1e-3 and grad_err <= 5e-2 and worst <= 2.01 * lr
+          and close >= 0.99)
+    return dict(loss_card=lc, loss_cpu=lh, loss_rel_err=loss_err,
+                grad_rel_l2_err=grad_err,
+                worst_tensor_grad=("{}.{}".format(*worst_grad),
+                                   per[worst_grad],
+                                   float(cpu[worst_grad][0].norm())),
+                param_max_abs_err=worst, param_share_within_1e_3_lr=close,
+                lr=lr, held=ok)
+
+
+def qat_path():
+    """Phase 4, path qat: the resnet18 QAT CLI's flow at full width on the
+    card (imagenet1k_resnet18/main_torch.py): resnet18 with seeded card
+    weights, 224 x 224 x 3 NHWC, B=64, each of the four yamls (LSQ, LSQ+,
+    PACT, DoReFa; 8-bit conv1 and fc through SPECIFIC, read without
+    PyYAML): calibrate 4 batches, init_QAT, 3 warm-up and 10 timed steps
+    of make_qat_step (Adam, lr 1e-4): seconds a step split into forward,
+    backward and optimiser, images/s, peak memory above the model. Held:
+    finite losses, a quantizer learnable moved, and one step at a small
+    size equal to the CPU's (_qat_card_vs_cpu's tolerance)."""
+    import torch
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+    from sparsebit_tpu_torch.quantization.tools.qat import cross_entropy
+
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    calib = [_images(gen, QAT_BATCH) for _ in range(QAT_CALIB)]
+    batches = calib[:2]
+    labels = [torch.randint(0, 1000, (QAT_BATCH,), generator=gen,
+                            device="cuda") for _ in batches]
+    out = {}
+    for name in QAT_YAMLS:
+        path = os.path.join(QAT_DIR, "imagenet1k_resnet18", name)
+        model = create_model("resnet18", seed=SEED, device="cuda").eval()
+        qmodel = QuantModel(model, parse_qconfig(path), (calib[0],))
+        out[name] = _qat_run(
+            qmodel, calib, batches, labels, cross_entropy,
+            lambda ps: torch.optim.Adam(ps, lr=QAT_LR),
+            "qat resnet18 B={} {}".format(QAT_BATCH, name))
+        del model, qmodel
+        torch.cuda.empty_cache()
+    lsq = os.path.join(QAT_DIR, "imagenet1k_resnet18", QAT_YAMLS[0])
+    out["card_vs_cpu"] = _qat_card_vs_cpu(lsq)
+    print("qat: one LSQ step card vs CPU (resnet18 16 classes, 2 x 64 x 64): "
+          "{}".format(out["card_vs_cpu"]), flush=True)
+    if not out["card_vs_cpu"]["held"]:
+        fail("qat: the card's step differs from the CPU's: {}".format(
+            out["card_vs_cpu"]))
+    out["launches"] = _launches()
+    _expect("qat", out["launches"], (), tuple(out["launches"]))
+    return {"qat": out}
+
+
+def qatdeit_path():
+    """Phase 4, path qatdeit: the DeiT QAT CLI's flow at full width
+    (imagenet1k_deit/main_torch.py): deit_small (dim 384, 12 layers, 6
+    heads) at 224 x 224, B=64, qconfig_lsq.yaml and
+    qconfig_gelu_lsqplus.yaml (8-bit patch embedding and head): calibrate
+    4 batches, init_QAT, 3 warm-up and 10 timed AdamW steps (lr 5e-5,
+    weight decay 0.05, label smoothing 0.1) through QMatmul(q, k^T) and
+    QMatmul(softmax, v), the figures of qat. Held: finite losses, a
+    quantizer learnable of the attention products' inputs moved."""
+    import torch
+    import torch.nn.functional as TF
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+    from sparsebit_tpu_torch.quantization.modules.matmul import MatMul
+
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    calib = [_images(gen, QAT_BATCH) for _ in range(QAT_CALIB)]
+    batches = calib[:2]
+    labels = [torch.randint(0, 1000, (QAT_BATCH,), generator=gen,
+                            device="cuda") for _ in batches]
+
+    def loss_fn(logits, y):
+        return TF.cross_entropy(logits, y, label_smoothing=0.1)
+
+    out = {}
+    for name in DEIT_YAMLS:
+        path = os.path.join(QAT_DIR, "imagenet1k_deit", name)
+        model = create_model("deit_small", seed=SEED, device="cuda").eval()
+        qmodel = QuantModel(model, parse_qconfig(path), (calib[0],))
+        mm = [n for n in qmodel.graph.op_nodes if isinstance(n.op, MatMul)]
+        ids = [p for n in mm for p in n.input_nodes]
+        scales = {p.name: p.op.input_quantizer for p in ids}
+        r = _qat_run(qmodel, calib, batches, labels, loss_fn,
+                     lambda ps: torch.optim.AdamW(
+                         ps, lr=5e-5, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=0.05),
+                     "qatdeit deit_small B={} {}".format(QAT_BATCH, name))
+        r["qmatmuls"] = len(mm)
+        r["qmatmul_input_scales"] = {k: float(q.scale.detach().reshape(-1)[0])
+                                     for k, q in list(scales.items())[:4]}
+        r["qmatmul_inputs_learnable"] = sum(
+            bool(q.is_enable and q.trainable_params()) for q in scales.values())
+        out[name] = r
+        if len(mm) != 24 or r["qmatmul_inputs_learnable"] != 48:
+            fail("qatdeit: {} QMatmuls, {} learnable operand quantizers "
+                 "(want 24, 48)".format(len(mm),
+                                        r["qmatmul_inputs_learnable"]))
+        del model, qmodel
+        torch.cuda.empty_cache()
+    out["launches"] = _launches()
+    _expect("qatdeit", out["launches"], (), tuple(out["launches"]))
+    return {"qatdeit": out}
+
+
+def bertptq_path():
+    """Phase 4, path bertptq: the CoLA PTQ CLI's flow at full width
+    (glue_cola_bert/main_torch.py): bert_base (vocab 30522, dim 768, 12
+    layers) with seeded card weights, sequence length 128, B=32,
+    qconfig.yaml (W8 MinMax, A8 percentile 0.001, NLC), calibrate 8
+    batches; float and fake-quant ms a batch (CUDA events), the W8A8
+    relative MSE against float over 4 batches. Held: quantizers off equal
+    to the float model within 1e-4, the relative MSE in (0, 5e-2)."""
+    import torch
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+
+    def tokens():
+        return torch.randint(0, 30522, (BERT_BATCH, BERT_SEQ), generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+    model = create_model("bert_base", seed=SEED, device="cuda").eval()
+    calib = [tokens() for _ in range(BERT_CALIB)]
+    t0 = time.perf_counter()
+    qmodel = QuantModel(
+        model, parse_qconfig(os.path.join(PTQ_DIR, "glue_cola_bert",
+                                          "qconfig.yaml")), (calib[0],))
+    with torch.no_grad():
+        off = float((qmodel(calib[0]) - model(calib[0])).abs().max())
+    qmodel.prepare_calibration()
+    for b in calib:
+        qmodel(b)
+    qmodel.calc_qparams()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    qmodel.set_quant(w_quant=True, a_quant=True)
+    f_out, q_out = [], []
+    with torch.no_grad():
+        for _ in range(4):
+            x = tokens()
+            f_out.append(model(x))
+            q_out.append(qmodel(x))
+        float_ms = cuda_ms(lambda i: model(x), 10)
+        quant_ms = cuda_ms(lambda i: qmodel(x), 10)
+    rel = _rel_mse(torch.cat(q_out), torch.cat(f_out))
+    out = dict(trace_calibrate_s=calib_s, quant_off_max_err=off,
+               float_ms_per_batch=float_ms, quant_ms_per_batch=quant_ms,
+               w8a8_rel_mse=rel, launches=_launches())
+    print("bertptq: bert_base B={} S={}: trace + calibration ({} batches) "
+          "{:.2f} s; float {:.3f} ms a batch, fake-quant {:.3f} ms; W8A8 "
+          "rel MSE {:.3e}; quant off vs float {:.2e}".format(
+              BERT_BATCH, BERT_SEQ, BERT_CALIB, calib_s, float_ms, quant_ms,
+              rel, off), flush=True)
+    if off > 1e-4:
+        fail("bertptq: quantizers off differ from the float model by "
+             "{:.2e}".format(off))
+    if not 0 < rel < 5e-2:
+        fail("bertptq: W8A8 relative MSE {:.3e} outside (0, 5e-2)".format(
+            rel))
+    _expect("bertptq", out["launches"], (), tuple(out["launches"]))
+    del model, qmodel
+    torch.cuda.empty_cache()
+    return {"bertptq": out}
+
+
+def _node_inputs(graph, x, names):
+    """{node name: (input args, output)} of ``names`` from one op-by-op
+    run of ``graph`` on ``x``."""
+    from sparsebit_tpu_torch.nn.graph import Output, Placeholder, \
+        SymbolicTensor
+
+    env, got = {}, {}
+
+    def value(a):
+        if isinstance(a, SymbolicTensor):
+            v = env[a.node.name]
+            return v if a.index is None else v[a.index]
+        return a
+
+    for n in graph.nodes:
+        if isinstance(n.op, Placeholder):
+            env[n.name] = x
+        elif not isinstance(n.op, Output):
+            args = [value(a) for a in n.args]
+            env[n.name] = n.op.execute(*args, **n.kwargs)
+            if n.name in names:
+                got[n.name] = (args, env[n.name])
+    return got
+
+
+def deploy_path():
+    """Phase 4, path deploy: graphptq's calibrated W8A8 resnet18 lowered
+    to integer compute (quantization/deploy.py: int8 weights, im2col
+    codes padded with the zero point, ops/int8_matmul.int8_gemm's
+    torch._int_mm) at B=64: int8 ms a batch beside fake-quant and float
+    (CUDA events). Held: every Int8 node against its fake-quant op on the
+    same input within 2e-5 of the node's largest output, the weights
+    int8 buffers. Reported, not held: the end-to-end relative error and
+    top-1 agreement (a code at a rounding tie flips between two correct
+    pipelines and the flip spreads through later layers)."""
+    import torch
+    from sparsebit_tpu_torch.quantization.deploy import (
+        Int8Conv2d,
+        Int8Linear,
+        deploy,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_launches()
+    model, qmodel, x = _GRAPH["model"], _GRAPH["qmodel"], _GRAPH["x"]
+    t0 = time.perf_counter()
+    dm = deploy(qmodel)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    int8 = {n.name: n.op for n in dm.graph.op_nodes
+            if isinstance(n.op, (Int8Conv2d, Int8Linear))}
+    with torch.no_grad():
+        fq = qmodel(x)
+        out = dm(x)
+        f = model(x)
+        int8_ms = cuda_ms(lambda i: dm(x), 10)
+        quant_ms = cuda_ms(lambda i: qmodel(x), 10)
+        float_ms = cuda_ms(lambda i: model(x), 10)
+        worst, worst_node = 0.0, None
+        for name, (args, want) in _node_inputs(qmodel.graph, x,
+                                               set(int8)).items():
+            got = int8[name].execute(*args)
+            err = float((got - want).abs().max() / want.abs().max())
+            if err > worst:
+                worst, worst_node = err, name
+    rel = float((out - fq).norm() / fq.norm())
+    agree = float((out.argmax(1) == fq.argmax(1)).float().mean())
+    int8_bufs = all(op.wq.dtype == torch.int8 for op in int8.values())
+    res = dict(deploy_s=deploy_s, int8_nodes=len(int8),
+               int8_ms_per_batch=int8_ms, quant_ms_per_batch=quant_ms,
+               float_ms_per_batch=float_ms, node_max_rel_err=worst,
+               node_worst=worst_node, end_to_end_rel_err=rel,
+               top1_agreement_vs_fake_quant=agree,
+               top1_agreement_vs_float=float(
+                   (out.argmax(1) == f.argmax(1)).float().mean()),
+               weights_int8=int8_bufs, launches=_launches())
+    print("deploy: resnet18 B={}: {} int8 nodes in {:.3f} s; int8 {:.3f} ms "
+          "a batch, fake-quant {:.3f}, float {:.3f}; each node vs its "
+          "fake-quant op max rel err {:.2e} ({}); end to end rel err "
+          "{:.3e}, top-1 agreement {:.4f} (vs float {:.4f})".format(
+              x.shape[0], len(int8), deploy_s, int8_ms, quant_ms, float_ms,
+              worst, worst_node, rel, agree, res["top1_agreement_vs_float"]),
+          flush=True)
+    if worst > 2e-5:
+        fail("deploy: Int8 node {} differs from its fake-quant op by "
+             "{:.2e} relative".format(worst_node, worst))
+    if not int8_bufs or len(int8) != 21:
+        fail("deploy: {} int8 nodes (want 21), int8 weights {}".format(
+            len(int8), int8_bufs))
+    _expect("deploy", res["launches"], (), tuple(res["launches"]))
+    _GRAPH["deployed"] = dm
+    return {"deploy": res}
+
+
+def export_path():
+    """Phase 4, path export: QuantModel.export (the fake-quant W8A8
+    resnet18 of graphptq) and DeployedModel.export (deploy's integer
+    graph) as torch.export programs at B=64 on the card, each loaded back
+    with torch.export.load: seconds to export and to load, the
+    artifact's bytes. Held: each loaded program's output equal to the
+    in-memory model's, bit for bit, and the sidecar's node count."""
+    import json
+    import shutil
+    import tempfile
+
+    import torch
+
+    _reset_launches()
+    qmodel, dm, x = _GRAPH["qmodel"], _GRAPH["deployed"], _GRAPH["x"]
+    tmp = tempfile.mkdtemp()
+    out = {}
+    try:
+        for tag, obj in (("quant_model", qmodel), ("deployed", dm)):
+            d = os.path.join(tmp, tag)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obj.export(d, x)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prog = torch.export.load(os.path.join(d, "model.pt2")).module()
+            load_s = time.perf_counter() - t0
+            with torch.no_grad():
+                want = obj(x)
+                got = prog(x)
+            err = float((got - want).abs().max())
+            files = sorted(os.listdir(d))
+            r = dict(export_s=export_s, load_s=load_s, files=files,
+                     bytes={f: os.path.getsize(os.path.join(d, f))
+                            for f in files},
+                     equal=bool(torch.equal(got, want)), max_abs_err=err)
+            if tag == "quant_model":
+                with open(os.path.join(d, "quant_meta.json")) as f:
+                    r["sidecar_nodes"] = len(json.load(f)["nodes"])
+            out[tag] = r
+            print("export {}: {:.2f} s, loaded in {:.2f} s, {}; loaded "
+                  "program equal to the model {} (max abs err {:.2e})"
+                  .format(tag, export_s, load_s, r["bytes"], r["equal"],
+                          err), flush=True)
+            if not r["equal"]:
+                fail("export: the loaded {} program differs from the model "
+                     "by {:.2e}".format(tag, err))
+    finally:
+        shutil.rmtree(tmp)
+    if out["quant_model"].get("sidecar_nodes", 0) < 21:
+        fail("export: the sidecar lists {} nodes".format(
+            out["quant_model"].get("sidecar_nodes")))
+    out["launches"] = _launches()
+    _expect("export", out["launches"], (), tuple(out["launches"]))
+    return {"export": out}
+
+
+def errprof_path():
+    """Phase 4, path errprof: QuantModel.get_quantization_error on
+    graphptq's W8A8 resnet18 at B=16, async (one node quantized at a
+    time) and sync (quantization propagated): seconds and the five
+    nodes of largest MSE. Held: errors finite and non-negative, a node
+    with a positive error in each mode, and the caller's quant state
+    kept (the model's output after profiling equal to before)."""
+    import torch
+
+    _reset_launches()
+    qmodel, x = _GRAPH["qmodel"], _GRAPH["x"][:16]
+    with torch.no_grad():
+        before = qmodel(x)
+    out = {}
+    for mode, is_async in (("async", True), ("sync", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = qmodel.get_quantization_error(x, is_async=is_async)
+        secs = time.perf_counter() - t0
+        worst = sorted(err.items(), key=lambda kv: -kv[1])[:5]
+        out[mode] = dict(seconds=secs, nodes=len(err), worst5=worst)
+        print("errprof {}: {} nodes in {:.3f} s; worst 5 {}".format(
+            mode, len(err), secs, worst), flush=True)
+        if not err or not all(math.isfinite(v) and v >= 0
+                              for v in err.values()) or not any(
+                                  v > 0 for v in err.values()):
+            fail("errprof {}: errors {}".format(mode, worst))
+    with torch.no_grad():
+        kept = torch.equal(qmodel(x), before)
+    out["quant_state_kept"] = kept
+    if not kept:
+        fail("errprof: profiling changed the model's quant state")
+    out["launches"] = _launches()
+    _expect("errprof", out["launches"], (), tuple(out["launches"]))
+    return {"errprof": out}
+
+
+def trfixture_path():
+    """Phase 4, path trfixture: the transformer accuracy fixtures on the
+    card at the JAX package's artifact settings, through
+    record_fixture_torch.py: run_vit_fixture (300 steps, 4096 / 1024),
+    run_bert_fixture (300 steps, 4096 / 1024), run_vit_qat_fixture (150
+    float and 800 QAT steps, 2048 / 512). Held: the claims of
+    tests/test_fixture_transformer.py (ViT learned > 0.6, w8a8 within 3
+    points, w4a8 within 15 and <= w8a8 + 2; BERT learned > 0.7, w8a8
+    within 3, w4a8 within 15; QAT >= 0.60 and >= PTQ + 0.25). The
+    records, with the card's name and power limit, go to
+    chiprun_out/ACCURACY_torch.json, merged with the repository's
+    accuracy/ACCURACY_torch.json, for accuracy/ACCURACY_torch.json."""
+    import importlib.util
+    import json
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "record_fixture_torch", os.path.join(PTQ_DIR,
+                                             "record_fixture_torch.py"))
+    rec = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rec)
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = rec.record(["vit", "bert", "vit_qat"], torch.device("cuda"),
+                     verbose=False)
+    secs = time.perf_counter() - t0
+    v, b, q = res["vit_ptq"], res["bert_ptq"], res["vit_qat"]
+    held = {
+        "vit learned": v["acc_float"] > 0.6,
+        "vit int8 < 3 points": v["acc_w8a8"] > v["acc_float"] - 0.03,
+        "vit w4a8 < 15 points, <= w8a8 + 2": (
+            v["acc_w4a8"] > v["acc_float"] - 0.15
+            and v["acc_w4a8"] <= v["acc_w8a8"] + 0.02),
+        "bert learned": b["acc_float"] > 0.7,
+        "bert int8 < 3 points": b["acc_w8a8"] > b["acc_float"] - 0.03,
+        "bert w4a8 < 15 points": b["acc_w4a8"] > b["acc_float"] - 0.15,
+        "vit qat >= 0.60, >= ptq + 0.25": (
+            q["acc_qat"] >= 0.60 and q["acc_qat"] >= q["acc_ptq"] + 0.25)}
+    print("trfixture ({:.1f} s): vit {}; bert {}; vit_qat {}; claims "
+          "{}".format(secs, v, b, q, held), flush=True)
+    for claim, ok in held.items():
+        if not ok:
+            fail("trfixture: {} does not hold".format(claim))
+    merged = {}
+    path = os.path.join(here, "accuracy", "ACCURACY_torch.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            merged = json.load(f)
+    merged.update(res)
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(here, "chiprun_out", "ACCURACY_torch.json"),
+              "w") as f:
+        json.dump(merged, f, indent=2)
+    launches = _launches()
+    _expect("trfixture", launches, (), tuple(launches))
+    return {"trfixture": dict(records=res, seconds=secs, claims=held,
+                              launches=launches)}
+
+
 def main(argv):
     ab_root = argv[argv.index("--ab") + 1] if "--ab" in argv else None
     try:
@@ -4666,6 +5348,13 @@ def main(argv):
     paths.update(cnnfixture_path())
     print("graphptq, graphcalib and cnnfixture paths {:.1f} s".format(
         time.perf_counter() - t0))
+    for path_fn in (deploy_path, export_path, errprof_path, qat_path,
+                    qatdeit_path, bertptq_path, trfixture_path):
+        t0 = time.perf_counter()
+        paths.update(path_fn())
+        print("{} {:.1f} s".format(path_fn.__name__.replace("_", " "),
+                                   time.perf_counter() - t0), flush=True)
+    _GRAPH.clear()
     # launches of each kernel on the path that runs it: K5 and K8 on
     # generate (this slice's main path), K6 on the engine's decode_chunk
     # route, K7 on the mixed-precision model (its int8 form with impl

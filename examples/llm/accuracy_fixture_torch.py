@@ -14,24 +14,11 @@ nvidia-smi reports them).
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(
     0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 )
-
-
-def device_line(device):
-    """The card's name and power limit, or the device type off the card."""
-    if device.type != "cuda":
-        return device.type
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def main(argv=None):
@@ -49,6 +36,7 @@ def main(argv=None):
 
     import torch
 
+    from sparsebit_tpu_torch import device_line
     from sparsebit_tpu_torch.llm.fixture import run_fixture
 
     dev = torch.device(args.device)

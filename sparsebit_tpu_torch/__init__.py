@@ -14,7 +14,23 @@ tensors; it never falls back from one to the other. The graph regime has
 no Pallas kernel in the JAX package, so it has no kernel here either.
 """
 
+import subprocess
+
 import torch
+
+
+def device_line(device):
+    """The card's name and power limit as nvidia-smi reports them (the
+    line a measurement is recorded with), or the device type off the
+    card."""
+    if torch.device(device).type != "cuda":
+        return torch.device(device).type
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def resolve_device(device=None):

@@ -32,13 +32,22 @@ from sparsebit_tpu_torch.ops.quant_matmul import (
     quant_matmul_a8_stacked,
     quant_matmul_a8bwd,
 )
+from sparsebit_tpu_torch.quantization.common import div_exact
 
 IMPLS = ("auto", "pallas", "xla", "a8")
 
 
 class LLMQuantizer:
     """Asymmetric (or symmetric) min/max quantizer with integer zeros and
-    an optional MSE shrink-grid search (quant.py:23-84), in f32."""
+    an optional MSE shrink-grid search (quant.py:23-84), in f32.
+
+    The scale ``(wmax - wmin) / qmax`` and the shrink grid ``i / grid``
+    are exact divisions on either device (``common.div_exact``: the
+    card's division by a plain number is a multiply by its reciprocal),
+    as the JAX package's eager round to nearest divides. Its jitted GPTQ
+    solver multiplies by ``1 / qmax`` instead (XLA rewrites a division by
+    a constant); the port's solver divides (ROADMAP.md, numerics
+    contracts)."""
 
     def __init__(self, bits=4, sym=False, mse=False, maxshrink=0.8, grid=100,
                  norm=2.4):
@@ -67,7 +76,7 @@ class LLMQuantizer:
         return self._params_from_range(wmin, wmax)
 
     def _params_from_range(self, wmin, wmax):
-        scale = (wmax - wmin) / self.qmax
+        scale = div_exact(wmax - wmin, float(self.qmax))
         if self.sym:
             zero = torch.full_like(scale, (self.qmax + 1) / 2.0)
         else:
@@ -78,8 +87,8 @@ class LLMQuantizer:
         """Shrink factors p = 1 - i/grid; per column the p of least
         sum |dequant - w|^norm (the first one on a tie)."""
         n = int(self.grid * self.maxshrink)
-        ps = 1.0 - torch.arange(n, dtype=torch.float32,
-                                device=w.device) / self.grid
+        ps = 1.0 - div_exact(torch.arange(n, dtype=torch.float32,
+                                          device=w.device), float(self.grid))
         best_loss = best_p = None
         for p in ps:
             s, z = self._params_from_range(wmin * p, wmax * p)

@@ -1,7 +1,8 @@
 """Model zoo built on ``sparsebit_tpu_torch.nn`` (port of
 ``sparsebit_tpu/models``): NHWC models that QuantModel traces whole. This
-slice of the port holds the ResNets (resnet18/34/50, the cifar resnet20);
-the rest of the JAX package's zoo is still to be ported."""
+slice of the port holds the ResNets (resnet18/34/50, the cifar resnet20),
+DeiT / ViT (deit_tiny/small/base) and BERT (bert_base, bert_tiny); the
+rest of the JAX package's zoo is still to be ported."""
 
 import torch
 
@@ -26,10 +27,16 @@ def create_model(name, *, seed=0, device=None, **kwargs):
     return MODEL_REGISTRY[name](generator=generator, device=device, **kwargs)
 
 
-from sparsebit_tpu_torch.models import resnet  # noqa: E402,F401
+from sparsebit_tpu_torch.models import resnet, vit, bert  # noqa: E402,F401
 from sparsebit_tpu_torch.models.resnet import (  # noqa: E402,F401
     resnet18,
     resnet20,
     resnet34,
     resnet50,
 )
+from sparsebit_tpu_torch.models.vit import (  # noqa: E402,F401
+    deit_tiny,
+    deit_small,
+    deit_base,
+)
+from sparsebit_tpu_torch.models.bert import bert_base, bert_tiny  # noqa: E402,F401

@@ -13,8 +13,12 @@ IR:
   ``nn/functional.py`` for each ``call_function`` / ``call_method`` node,
   named by its class (``add``, ``add_0``, ...);
 - values that are no tensors (``x.shape``, ``x.size(1)``) fold into
-  constants, as shapes are static in the JAX package's graphs; an element
-  of a multi-output op is a ``SymbolicTensor`` with an ``index``;
+  constants, as shapes are static in the JAX package's graphs, and so
+  does every call that reads no traced tensor (``torch.arange(L)``, an
+  embedding lookup of it, an ``expand`` of a parameter): it is computed
+  once while lowering, as the JAX package computes a call on captured
+  arrays; an element of a multi-output op is a ``SymbolicTensor`` with an
+  ``index``;
 - ``Graph``: the topologically ordered nodes with the edit utilities the
   converters and calibration use, and ``Graph.run``, the interpreter,
   which runs eagerly on the ops' state (``params`` replaces it per node).
@@ -415,6 +419,9 @@ def _lower(gm, fx_graph):
             graph.set_output(out)
         elif aval is None:
             env[fx_node] = fx_node.meta["sbt_const"]  # shapes, sizes
+        elif not _traced(mapped(list(fx_node.args))
+                         + list(mapped(dict(fx_node.kwargs)).values())):
+            env[fx_node] = _constant_call(gm, fx_node, mapped)
         elif fx_node.op == "call_module":
             op = gm.get_submodule(fx_node.target)
             if not isinstance(op, Module):
@@ -442,6 +449,30 @@ def _lower(gm, fx_graph):
             node = graph.create_node(op, op_args, op_kwargs, out_aval=aval)
             env[fx_node] = _symbolic_out(node)
     return graph
+
+
+def _traced(values):
+    """Whether a SymbolicTensor is among ``values`` (nested sequences
+    too)."""
+    for v in values:
+        if isinstance(v, SymbolicTensor):
+            return True
+        if isinstance(v, (tuple, list)) and _traced(v):
+            return True
+    return False
+
+
+def _constant_call(gm, fx_node, mapped):
+    """The value of a call that reads no traced tensor, on its constant
+    arguments."""
+    args = mapped(list(fx_node.args))
+    kwargs = mapped(dict(fx_node.kwargs))
+    with torch.no_grad():
+        if fx_node.op == "call_module":
+            return gm.get_submodule(fx_node.target)(*args, **kwargs)
+        if fx_node.op == "call_method":
+            return getattr(args[0], fx_node.target)(*args[1:], **kwargs)
+        return fx_node.target(*args, **kwargs)
 
 
 def _symbolic_out(node):

@@ -281,12 +281,10 @@ class BatchNorm2d(Module):
             dims = self._stats_dims(x)
             mean = x.mean(dim=dims)
             var = x.var(dim=dims, unbiased=False)  # jnp.var: biased
-            with torch.no_grad():
+            with torch.no_grad():  # in place: the tensors stay the state
                 m = self.momentum
-                self.running_mean = ((1 - m) * self.running_mean
-                                     + m * mean.detach())
-                self.running_var = ((1 - m) * self.running_var
-                                    + m * var.detach())
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var)
         else:
             mean = self.get(params, "running_mean")
             var = self.get(params, "running_var")

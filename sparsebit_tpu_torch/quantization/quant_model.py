@@ -201,10 +201,15 @@ class QuantModel:
 
     # ---- introspection ----------------------------------------------------
     def get_quantization_error(self, *inputs, checker=None, is_async=True):
-        raise NotImplementedError(
-            "get_quantization_error (tools/errors_profiler.py) comes with "
-            "the next slice of the port, with qat.py, deploy.py and "
-            "export/")
+        """{node: error} of each quantized node against its float output
+        (``tools/errors_profiler.py``; default checker: MSE)."""
+        from sparsebit_tpu_torch.quantization.tools.errors_profiler import (
+            QuantizationErrorProfiler,
+            mse_checker,
+        )
+
+        return QuantizationErrorProfiler(self.graph).apply(
+            *inputs, checker=checker or mse_checker, is_async=is_async)
 
     def dump_mermaid(self):
         return self.graph.to_mermaid()
@@ -214,6 +219,12 @@ class QuantModel:
 
     # ---- export -----------------------------------------------------------
     def export(self, path, *example_inputs, extra_info=False):
-        raise NotImplementedError(
-            "export (export/stablehlo.py, deploy.py) comes with the next "
-            "slice of the port, with qat.py and errors_profiler.py")
+        """A ``torch.export`` program of the fake-quant model and the
+        quant-metadata sidecar (replaces the reference's QDQ-ONNX export,
+        quant_model.py:222-324; see ``sparsebit_tpu_torch.export``)."""
+        from sparsebit_tpu_torch.export.torch_export import (
+            export_quant_model,
+        )
+
+        return export_quant_model(self, path, example_inputs,
+                                  extra_info=extra_info)

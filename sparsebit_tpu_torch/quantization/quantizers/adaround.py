@@ -3,8 +3,15 @@ reconstruction that trains it (port of
 ``sparsebit_tpu/quantization/quantizers/adaround.py``; reference:
 sparsebit/quantization/quantizers/adaround.py:16-134: zeta / gamma
 stretch 1.1 / -0.1, LinearTempDecay beta 20 -> 2 after a 0.2 warm-up,
-Adam, reconstruction loss |.|^p summed over a sample and averaged, round
-loss weight 1e-3, 20k steps).
+Adam, reconstruction loss |.|^p summed over channels and averaged over
+the rest, round loss weight 1e-3, 20k steps).
+
+The reconstruction loss is the reference's ``lp_loss``, ``sum(1).mean()``
+on NCHW: channels summed, samples and pixels averaged. The JAX package
+sums every axis but the batch (adaround.py:95-97 there), which weakens
+the round loss by H x W on a convolution; the port keeps the reference's
+(reference fault R10 in ROADMAP.md). On a linear layer's (N, C) output
+the two are one number.
 
 ``torch.optim.Adam(lr=1e-3)`` takes the place of optax's ``adam(1e-3)``
 (the same betas (0.9, 0.999) and eps 1e-8 outside the square root). Each
@@ -70,6 +77,12 @@ def linear_temp_decay(step, max_steps, rel_start_step, start_beta, end_beta):
     return end_beta + (start_beta - end_beta) * max(0.0, 1.0 - ratio)
 
 
+def reconstruction_loss(pred, target, p=2.0):
+    """|pred - target|^p summed over the channel axis (the last: NHWC,
+    NLC) and averaged over the others."""
+    return ((pred - target).abs() ** p).sum(dim=-1).mean()
+
+
 def reconstruct_qlayer(layer, inputs, outputs, batch_size=32,
                        max_steps=20000, beta_range=(20, 2), warmup=0.2,
                        p=2.0, round_loss_weight=1e-3, a_quant=False, seed=0):
@@ -96,8 +109,7 @@ def reconstruct_qlayer(layer, inputs, outputs, batch_size=32,
             x, y = inputs[idx], outputs[idx]
             pred = layer.execute(x, params={"weight_quantizer.v": wq.v},
                                  training=True)
-            rec_loss = ((pred - y).abs() ** p).sum(
-                dim=tuple(range(1, pred.dim()))).mean()
+            rec_loss = reconstruction_loss(pred, y, p)
             loss = rec_loss
             if step >= warmup * max_steps:
                 beta = linear_temp_decay(step, max_steps, warmup,

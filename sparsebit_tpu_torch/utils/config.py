@@ -6,9 +6,11 @@
 ``yaml`` (PyYAML) is imported only where a yaml text is read or written
 (``load_yaml``, ``merge_from_list``'s string values, ``dump``), so that
 the tree, and every module built on it, imports where PyYAML is not
-installed. Without PyYAML, ``load_yaml`` reads the block-mapping subset
-that flat config files such as the PTQ basecase's ``qconfig.yaml`` use,
-and refuses anything beyond it.
+installed. Without PyYAML, ``merge_from_list`` resolves a string value
+as the subset's scalar, and ``load_yaml`` reads the block-mapping subset
+that the example config files use (nested mappings of scalars, and the
+``SPECIFIC`` sequences of mappings whose values are flow sequences), and
+refuses anything beyond it.
 """
 
 import copy
@@ -100,15 +102,22 @@ class CfgNode(dict):
 
 def _decode_value(value, old=None):
     """Coerce a string override to the type of the existing value if
-    possible."""
+    possible (PyYAML's scalar resolution, or the subset's where PyYAML is
+    missing)."""
     if not isinstance(value, str):
         return value
-    import yaml
-
     try:
-        parsed = yaml.safe_load(value)
-    except yaml.YAMLError:
-        return value
+        import yaml
+    except ImportError:
+        try:
+            parsed = _scalar(value, 0) if value else value
+        except ValueError:
+            return value
+    else:
+        try:
+            parsed = yaml.safe_load(value)
+        except yaml.YAMLError:
+            return value
     if isinstance(old, str) and not isinstance(parsed, str):
         return value
     return parsed
@@ -187,13 +196,56 @@ def _scalar(s, no):
     return s
 
 
+_QKEY = re.compile(r"""(?:"([^"\\]*)"|'((?:[^']|'')*)')[ ]*:(?:[ ]+(.*))?""")
+
+
+def _flow_sequence(s, no):
+    """``[a, "b", 'c']``: a flow sequence of plain or quoted scalars."""
+    if not (s.startswith("[") and s.endswith("]")):
+        return _scalar(s, no)
+    items, cur, quote = [], "", None
+    for c in s[1:-1]:
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"":
+            quote = c
+        elif c == ",":
+            items.append(cur.strip())
+            cur = ""
+            continue
+        cur += c
+    if cur.strip() or items:
+        items.append(cur.strip())
+    if any(not item for item in items):
+        raise ValueError("line {}: an empty flow sequence entry needs "
+                         "PyYAML ({!r})".format(no, s))
+    return [_scalar(item, no) for item in items]
+
+
+def _key_value(body, quoted_keys):
+    m = _KEY.fullmatch(body)
+    if m:
+        return m.group(1), m.group(2)
+    m = _QKEY.fullmatch(body) if quoted_keys else None
+    if m:
+        key = m.group(1) if m.group(1) is not None else m.group(2).replace(
+            "''", "'")
+        return key, m.group(3)
+    return None
+
+
 def block_mappings(text):
     """Nested block mappings of scalars (``key: value`` lines, indented
-    by spaces, ``#`` comments): the dict ``yaml.safe_load`` gives for
-    such a text. ValueError for anything else (lists, flow collections,
-    anchors, multi-line scalars, tabs)."""
+    by spaces, ``#`` comments), and, as a mapping's value, a block
+    sequence (``- ``) of mappings whose values are scalars or flow
+    sequences of scalars (the ``SPECIFIC`` form of the qconfig files):
+    the data ``yaml.safe_load`` gives for such a text. ValueError for
+    anything else (other lists, flow collections elsewhere, anchors,
+    multi-line scalars, tabs)."""
     root = {}
-    stack = [(0, root)]  # (indent, mapping) of the open mappings
+    # the open collections: (indent, container, is a sequence item's
+    # mapping); a sequence is (indent, list, None)
+    stack = [(0, root, False)]
     pending = None  # (indent, mapping, key) of a key with no value yet
     for no, raw in enumerate(text.splitlines(), 1):
         line = _strip_comment(raw).rstrip()
@@ -204,25 +256,44 @@ def block_mappings(text):
         if body[0] == "\t" or line.startswith("---"):
             raise ValueError("line {}: tabs and documents need PyYAML "
                              "({!r})".format(no, raw))
+        item = body == "-" or body.startswith("- ")
         if pending is not None:
             p_indent, mapping, key = pending
             pending = None
-            if indent > p_indent:
+            if indent > p_indent and item:
+                mapping[key] = []
+                stack.append((indent, mapping[key], None))
+            elif indent > p_indent:
                 mapping[key] = {}
-                stack.append((indent, mapping[key]))
+                stack.append((indent, mapping[key], False))
             else:
                 mapping[key] = None
         while indent < stack[-1][0]:
             stack.pop()
-        m = _KEY.fullmatch(body)
-        if indent != stack[-1][0] or not m:
+        top_indent, container, in_item = stack[-1]
+        if isinstance(container, list):
+            if not item or indent != top_indent:
+                raise ValueError("line {}: not an item of the enclosing "
+                                 "block sequence ({!r})".format(no, raw))
+            body = body[2:].lstrip(" ")
+            indent += len(line) - indent - len(body)
+            container.append({})
+            stack.append((indent, container[-1], True))
+            top_indent, container, in_item = stack[-1]
+        kv = _key_value(body, in_item) if indent == top_indent else None
+        if kv is None:
             raise ValueError("line {}: not a key of the enclosing block "
                              "mapping ({!r})".format(no, raw))
-        key, value = m.group(1), m.group(2)
+        key, value = kv
         if value is None or not value.strip():
-            pending = (indent, stack[-1][1], key)
+            if in_item:
+                raise ValueError("line {}: a collection inside a sequence "
+                                 "item needs PyYAML ({!r})".format(no, raw))
+            pending = (indent, container, key)
+        elif in_item:
+            container[key] = _flow_sequence(value.strip(), no)
         else:
-            stack[-1][1][key] = _scalar(value.strip(), no)
+            container[key] = _scalar(value.strip(), no)
     if pending is not None:
         pending[1][pending[2]] = None
     return root

@@ -141,7 +141,7 @@ def test_ptq_basecase_torch_demo(tmp_path):
     """The graph regime's PTQ basecase CLI on random tensors: resnet18 at
     224x224 through QuantModel, calibration and the fake-quant eval; a
     checkpoint in the JAX package's layout loads; the models of later
-    slices and --export are refused."""
+    slices are refused; --export writes the program and the sidecar."""
     import pytest
 
     cli = _basecase()
@@ -167,8 +167,111 @@ def test_ptq_basecase_torch_demo(tmp_path):
     assert set(res) == {"float_acc", "int8_acc"}
     with pytest.raises(SystemExit):
         cli.main(["--model", "mobilenet_v2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="export"):
-        cli.main(["--export", str(tmp_path / "x"), "--device", "cpu"])
+    out = tmp_path / "x"
+    cli.main(["--batch", "2", "--calib-batches", "1", "--eval-samples", "2",
+              "--export", str(out), "--device", "cpu"])
+    assert sorted(os.listdir(out)) == ["model.pt2", "quant_meta.json",
+                                       "quant_params.npz"]
+
+
+def _example(rel):
+    """An example CLI loaded from its file under a name of its own (every
+    directory has a main_torch.py)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(EXAMPLES), rel)
+    name = "example_" + rel.replace("/", "_").replace(".py", "")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+QAT = "quantization_aware_training/"
+PTQ = "post_training_quantization/"
+
+
+@pytest.mark.parametrize("yaml_name", ["qconfig_lsq.yaml",
+                                       "qconfig_lsq_plus.yaml",
+                                       "qconfig_pact.yaml",
+                                       "qconfig_dorefa.yaml"])
+def test_qat_resnet18_torch_demo(yaml_name, monkeypatch):
+    """The resnet18 QAT CLI on each of its yamls, read without PyYAML (the
+    card's machine has none): calibration, init_QAT, two steps."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(QAT + "imagenet1k_resnet18/main_torch.py")
+    res = cli.main(["--qconfig", os.path.join(
+        os.path.dirname(EXAMPLES), QAT, "imagenet1k_resnet18", yaml_name),
+        "--batch", "2", "--img", "32", "--num-classes", "10",
+        "--device", "cpu"])
+    assert np.isfinite(res["loss"])
+
+
+@pytest.mark.parametrize("yaml_name", ["qconfig_lsq.yaml",
+                                       "qconfig_gelu_lsqplus.yaml"])
+def test_qat_deit_torch_demo(yaml_name, monkeypatch):
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(QAT + "imagenet1k_deit/main_torch.py")
+    res = cli.main(["--qconfig", os.path.join(
+        os.path.dirname(EXAMPLES), QAT, "imagenet1k_deit", yaml_name),
+        "--batch", "2", "--img", "32", "--device", "cpu"])
+    assert np.isfinite(res["loss"]) and 0.0 <= res["top1"] <= 1.0
+
+
+def test_qat_cifar10_resnet20_torch_demo():
+    cli = _example(QAT + "cifar10_resnet20/main_torch.py")
+    res = cli.main(["--samples", "4", "--batch", "2", "--device", "cpu"])
+    assert np.isfinite(res["loss"])
+
+
+def test_ptq_cifar10_resnet20_torch_demo(tmp_path):
+    cli = _example(PTQ + "cifar10_resnet20/main_torch.py")
+    out = tmp_path / "export"
+    res = cli.main(["--calib-batches", "1", "--batch", "2", "--eval-samples",
+                    "4", "--export", str(out), "--device", "cpu"])
+    assert 0.0 <= res["int8_acc"] <= 1.0
+    meta = json.loads((out / "quant_meta.json").read_text())
+    assert "conv1" in meta["nodes"] and (out / "model.pt2").exists()
+
+
+def test_ptq_deit_torch_demo(monkeypatch):
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(PTQ + "imagenet1k_deit/main_torch.py")
+    res = cli.main(["--batch", "2", "--calib-batches", "1",
+                    "--eval-samples", "2", "--img", "32", "--device", "cpu"])
+    assert 0.0 <= res["int8_top1"] <= 1.0 and len(res["worst"]) == 5
+
+
+def test_ptq_glue_cola_bert_torch_demo(monkeypatch):
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(PTQ + "glue_cola_bert/main_torch.py")
+    res = cli.main(["--model", "bert_tiny", "--batch", "2",
+                    "--calib-batches", "1", "--eval-samples", "4",
+                    "--seqlen", "8", "--device", "cpu"])
+    assert 0.0 <= res["int8_acc"] <= 1.0
+
+
+def test_record_fixture_torch_writes_records(tmp_path, monkeypatch):
+    """record_fixture_torch.py merges its records, each with the device,
+    into the file (the fixtures cut to a few steps here)."""
+    from sparsebit_tpu_torch.quantization.tools import fixture
+
+    cli = _example(PTQ + "record_fixture_torch.py")
+    small = dict(n_train=512, n_eval=128, batch=64)
+    for name in ("run_vit_fixture", "run_bert_fixture",
+                 "run_vit_qat_fixture"):
+        fn = getattr(fixture, name)
+        monkeypatch.setattr(fixture, name, lambda fn=fn, **kw: fn(
+            **dict(kw, **small)))
+    out = tmp_path / "ACCURACY_torch.json"
+    out.write_text(json.dumps({"cnn_ptq": 1}))
+    res = cli.main(["--steps", "2", "--qat-steps", "2", "--out", str(out),
+                    "--device", "cpu"])
+    rec = json.loads(out.read_text())
+    assert set(rec) == {"cnn_ptq", "vit_ptq", "bert_ptq", "vit_qat"}
+    for key in ("vit_ptq", "bert_ptq", "vit_qat"):
+        assert rec[key] == res[key] and rec[key]["device"] == "cpu"
+    assert rec["vit_qat"]["qat_steps"] == 2
 
 
 def test_chip_smoke_basecase_qconfig_is_the_yaml(monkeypatch):
@@ -201,8 +304,10 @@ YAMLS = sorted(os.path.relpath(os.path.join(d, f), os.path.dirname(EXAMPLES))
 @pytest.mark.parametrize("rel", YAMLS)
 def test_block_mappings_reads_what_pyyaml_reads_or_refuses(rel):
     """Without PyYAML the config loader reads each example yaml file to
-    PyYAML's dict, or raises ValueError (lists, flow collections); the
-    flat PTQ and pruning configs are read."""
+    PyYAML's dict: the flat PTQ and pruning configs and the QAT and
+    transformer configs, whose SPECIFIC is a block sequence of mappings
+    with flow-sequence values. A file with a flow mapping (the BEVDet
+    QAT config's ``SPECIFIC: [{...}]``) is refused with ValueError."""
     import yaml
 
     from sparsebit_tpu_torch.utils.config import block_mappings
@@ -210,26 +315,19 @@ def test_block_mappings_reads_what_pyyaml_reads_or_refuses(rel):
     with open(os.path.join(os.path.dirname(EXAMPLES), rel)) as f:
         text = f.read()
     want = yaml.safe_load(text) or {}
-    flat = not any(isinstance(v, list) for v in _leaves(want))
-    if flat:
-        assert block_mappings(text) == want
-    else:
+    if "{" in text:
         with pytest.raises(ValueError):
             block_mappings(text)
-
-
-def _leaves(d):
-    for v in d.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
+    else:
+        assert block_mappings(text) == want
 
 
 @pytest.mark.parametrize("text", [
     "A:\n  - 1\n", "A: [1, 2]\n", "A: &x 1\n", "A: |\n  t\n",
     "A: 1e-3\n", "A: 0x1f\n", "A:\n\tB: 1\n", "A: \"a\\\\nb\"\n",
-    "A:\n    B: 1\n  C: 2\n"])
+    "A:\n    B: 1\n  C: 2\n", "A:\n  - x: [1,]\n",
+    "A:\n  - x:\n      y: 1\n", "A:\n  - x: {a: 1}\n",
+    "A:\n  - x: [[1]]\n", "A: [{x: 1}]\n"])
 def test_block_mappings_refuses_forms_outside_the_subset(text):
     from sparsebit_tpu_torch.utils.config import block_mappings
 
@@ -245,4 +343,17 @@ def test_block_mappings_scalars_resolve_as_pyyaml():
     text = ("# c\nA:\n  B: 8 # bits\n  C: -0.5\n  D: 1.0e-3\n  E: true\n"
             "  F: Off\n  G: ~\n  H: 'it''s'\n  I: \"x # y\"\n  J:\nK: "
             "per-channel-symmetric\nL: NHWC\n")
+    assert block_mappings(text) == yaml.safe_load(text)
+
+
+def test_block_mappings_reads_sequences_of_mappings_as_pyyaml():
+    """The SPECIFIC form: a block sequence of mappings, quoted or plain
+    keys, flow sequences of plain and quoted scalars as values."""
+    import yaml
+
+    from sparsebit_tpu_torch.utils.config import block_mappings
+
+    text = ("W:\n  SPECIFIC:\n    - \"*patch*\": [\"QUANTIZER.BIT\", \"8\"]\n"
+            "      'h''d': [QUANTIZER.DISABLE, True, 8, -0.5]\n"
+            "    - fc: []\n  BIT: 4\nA:\n  - x: 1\n")
     assert block_mappings(text) == yaml.safe_load(text)

@@ -367,3 +367,47 @@ def test_act_order_checkpoint_both_ways(tiny_model, tmp_path, writer):
             np.testing.assert_array_equal(np.asarray(lr[name].packed["w"]),
                                           np.asarray(lw[name].packed["w"]))
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("bits,sym", [(4, False), (3, False), (8, True)])
+def test_quantizer_scale_arithmetic_against_jax(bits, sym):
+    """The scale arithmetic, bit for bit (ROADMAP numerics contracts).
+    The port divides ``(wmax - wmin) / qmax`` exactly (``div_exact``, so
+    the card divides as the CPU does): its round to nearest equals the
+    JAX package's eager ``find_params``, and its GPTQ solver with U = I
+    (no error propagates) finds the same scales and codes. The JAX
+    package's jitted ``_gptq_core`` (gptq.py:68 there) multiplies by
+    ``1 / qmax`` instead (XLA rewrites a division by a constant): its
+    scales are that multiply's, a last place apart from the division in
+    some groups. On real Hessians the two solvers' error-compensated
+    weights already differ in the last place (the propagation sums in
+    another order), so neither arithmetic makes them bit-equal there."""
+    from sparsebit_tpu.llm.quant import LLMQuantizer as JQ
+    from sparsebit_tpu_torch.llm.quant import LLMQuantizer as TQ
+
+    K, N, gs = 64, 48, 16
+    w = np.random.default_rng(bits).normal(size=(N, K)).astype(np.float32)
+    wg = w.T.copy().reshape(K // gs, gs, N)
+    ts, tz = TQ(bits=bits, sym=sym).find_params(_t(wg))
+    js, jz = jax.vmap(JQ(bits=bits, sym=sym).find_params)(jnp.asarray(wg))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+    eye, dead = np.eye(K, dtype=np.float32), np.zeros(K, bool)
+    _, cs, cz, _, _ = TG._gptq_core(_t(w.T.copy()), _t(eye), _t(dead),
+                                    bits, gs, 32, sym)
+    np.testing.assert_array_equal(cs.numpy(), ts.numpy().reshape(K // gs, N))
+    np.testing.assert_array_equal(cz.numpy(), tz.numpy().reshape(K // gs, N))
+    _, jcs, _, _, _ = JG._gptq_core(jnp.asarray(w), jnp.asarray(eye),
+                                    jnp.asarray(dead), bits, gs, 32, sym)
+    qmax = 2 ** bits - 1
+    wmin = np.minimum(wg.min(axis=1), 0.0)
+    wmax = np.maximum(wg.max(axis=1), 0.0)
+    if sym:
+        wmax = np.maximum(-wmin, wmax)
+        wmin = -wmax
+    rng = (wmax - wmin).astype(np.float32)
+    mult = rng * np.float32(1.0 / qmax)
+    np.testing.assert_array_equal(np.asarray(jcs).T, mult)
+    np.testing.assert_array_equal(ts.numpy().reshape(K // gs, N),
+                                  rng / np.float32(qmax))
+    assert (mult != rng / np.float32(qmax)).any()

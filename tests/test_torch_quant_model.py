@@ -19,6 +19,8 @@ weights carried across; the cases of tests/test_quant_model.py:
 - W/A.SPECIFIC overrides select the same nodes in both packages.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -327,7 +329,10 @@ def test_specific_overrides_select_same_nodes():
     assert not tq.get_qmodule("conv1").weight_quantizer.is_symmetric
 
 
-def test_params_api_and_next_slice_stubs():
+def test_params_api_and_next_slice_stubs(tmp_path):
+    """The params API; the error profiler and export, stubs until this
+    slice, now answer (their parity is in test_torch_errors_profiler.py
+    and test_torch_export.py)."""
     jm, tm, shape = pair("resblock")
     x = rand(shape)
     jq, tq = both(jm, tm, x, cfg_dict())
@@ -348,7 +353,9 @@ def test_params_api_and_next_slice_stubs():
             tq.apply(params, torch.from_numpy(x)).numpy(), out)
     assert "graph TD" in tq.dump_mermaid()
     assert "QConv2d" in tq.print_tabular()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tq.get_quantization_error(torch.from_numpy(x))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tq.export("unused", torch.from_numpy(x))
+    err = tq.get_quantization_error(torch.from_numpy(x))
+    assert set(err) == set(jq.get_quantization_error(jnp.asarray(x)))
+    assert all(v >= 0 for v in err.values())
+    tq.export(str(tmp_path), torch.from_numpy(x))
+    assert sorted(os.listdir(tmp_path)) == [
+        "model.pt2", "quant_meta.json", "quant_params.npz"]
