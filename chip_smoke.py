@@ -4284,8 +4284,6 @@ def graphptq_path():
     images and weights (cuDNN TF32 off): scales within 1e-5 relative,
     zero points equal. The graph regime launches no kernel of the port
     (the JAX package has no Pallas kernel there)."""
-    import copy
-
     import torch
     from sparsebit_tpu_torch import QuantModel, parse_qconfig
     from sparsebit_tpu_torch.models import create_model
@@ -4332,27 +4330,10 @@ def graphptq_path():
     agree = float((q.argmax(1) == f.argmax(1)).float().mean())
 
     # the card against the CPU at batch 8: the same images and weights
-    x8 = calib[0][:GRAPH_CPU_BATCH]
-    qa = QuantModel(model, cfg, (x8,))
-    qb = QuantModel(copy.deepcopy(model).cpu(), cfg, (x8.cpu(),))
-    t0 = time.perf_counter()
-    for qq, xx in ((qa, x8), (qb, x8.cpu())):
-        qq.prepare_calibration()
-        qq(xx)
-        qq.calc_qparams()
-    cpu_s = time.perf_counter() - t0
-    s_err, z_diff, n_q = 0.0, 0, 0
-    for (name, op), (_, hop) in zip(qa.qmodules(), qb.qmodules()):
-        for k in ("input_quantizer", "weight_quantizer"):
-            a, b = getattr(op, k), getattr(hop, k)
-            if a is None or a.fake_fused:
-                continue
-            n_q += 1
-            s_err = max(s_err, float(((a.scale.cpu() - b.scale).abs()
-                                      / b.scale.abs()).max()))
-            z_diff += int((a.zero_point.cpu() != b.zero_point).sum())
+    s_err, z_diff, n_q, cpu_s = _qparams_card_vs_cpu(
+        model, cfg, calib[0][:GRAPH_CPU_BATCH])
     cpu_ok = s_err <= 1e-5 and z_diff == 0
-    del qa, qb, calib
+    del calib
     _GRAPH.update(model=model, qmodel=qmodel, x=x)
     out = dict(times, trace_convert_s=trace_s, nodes=nodes,
                quant_off_max_err=off_err, calib_peak_bytes=peak,
@@ -5258,6 +5239,466 @@ def trfixture_path():
                               launches=launches)}
 
 
+# ---- phase 4: the pruning regime and the rest of the CNN zoo (no kernel) --
+
+PRUNE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "examples", "pruning")
+PRUNE_BATCH, PRUNE_STEPS, PRUNE_WARMUP = 64, 20, 3  # the imagenet1k CLI's
+PRUNE_LR = 1e-4
+PRUNEBERT_RATIO = 0.7
+QA_BATCH, QA_SEQ, QA_STEPS = 16, 384, 4  # steps a ratio of the ratchet
+QA_RATIOS = (0.2, 0.35, 0.5)  # the squad CLI's schedule
+ZOO = ("mobilenet_v2", "efficientnet_lite0", "regnetx_600mf")
+ZOO_EVAL_BATCHES = 4
+
+
+def _masks(smodel):
+    """{(node, mask name): tensor} of every SModule's masks."""
+    return {(n, k): getattr(op, k) for n, op in smodel.smodules()
+            for k in ("w_mask", "b_mask", "ch_mask")
+            if getattr(op, k, None) is not None}
+
+
+def prune_path():
+    """Phase 4, path prune: the structured_imagenet1k CLI's flow at full
+    width (examples/pruning/structured_imagenet1k/main_torch.py): resnet18
+    with seeded card weights, 224 x 224 x 3 NHWC, B=64, its sconfig
+    (structured l1norm 0.5, conv1 and fc dense through SPECIFIC, read
+    without PyYAML). Prints the seconds of trace + convert and of
+    calc_params; float and masked eval ms a batch (CUDA events); 20
+    masked finetune steps (SGD lr 1e-4, momentum 0.9) in seconds a step,
+    split into forward / backward / optimiser; the peak memory above the
+    model; export and load seconds. Held: the card's masks equal, bit for
+    bit, the port's on the CPU from the same weights; each block's conv1
+    loses int(n * 0.5) channels and every conv feeding an add keeps all;
+    the pruned channels of each masked BatchNorm's output are exact zeros
+    in the feature map; after the finetune every masked weight is 0 in
+    effect, the masks are unchanged bit for bit and the losses finite;
+    the exported program loads and its output equals the model's bit for
+    bit. No kernel of the port is launched."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as TF
+    from sparsebit_tpu_torch import SparseModel, parse_sconfig
+    from sparsebit_tpu_torch.models import create_model
+    from sparsebit_tpu_torch.sparse.modules.normalization import (
+        SBatchNorm2d,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_launches()
+    cfg = parse_sconfig(os.path.join(PRUNE_DIR, "structured_imagenet1k",
+                                     "sconfig.yaml"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    model = create_model("resnet18", seed=SEED, device="cuda").eval()
+    xs = [_images(gen, PRUNE_BATCH) for _ in range(2)]
+    ys = [torch.randint(0, 1000, (PRUNE_BATCH,), generator=gen,
+                        device="cuda") for _ in xs]
+    x = xs[0]
+    with torch.no_grad():
+        float_ms = cuda_ms(lambda i: model(x), 10)
+    cpu_model = copy.deepcopy(model).cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smodel = SparseModel(model, cfg, (x,))
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smodel.calc_params()
+    torch.cuda.synchronize()
+    calc_s = time.perf_counter() - t0
+    masks = {k: v.clone() for k, v in _masks(smodel).items()}
+
+    # the CPU from the same weights
+    cs = SparseModel(cpu_model, cfg, (x[:2].cpu(),))
+    cs.calc_params()
+    cmasks = _masks(cs)
+    differ = sorted("{}.{}".format(*k) for k, v in masks.items()
+                    if k not in cmasks or not torch.equal(v.cpu(), cmasks[k]))
+    if set(cmasks) != set(masks):
+        differ.append("mask sets")
+    del cs, cpu_model
+
+    # which nodes were pruned
+    ops = dict(smodel.smodules())
+    wrong = []
+    for name, op in ops.items():
+        if not op.HAS_WEIGHT:
+            continue
+        n = op.w_mask.shape[0]
+        keeps_all = bool((op.w_mask == 1).all())
+        if name.endswith(".conv1") and name != "conv1":
+            pruned = int((op.w_mask.reshape(n, -1) == 0).all(1).sum())
+            if pruned != int(n * 0.5):
+                wrong.append(name)
+        elif not keeps_all:  # conv2, down_conv feed an add; conv1, fc
+            wrong.append(name)
+    bns = [n for n, op in ops.items()
+           if isinstance(op, SBatchNorm2d) and bool((op.ch_mask == 0).any())]
+    with torch.no_grad():
+        got = _node_inputs(smodel.graph, x, set(bns))
+    nonzero = [n for n in bns
+               if bool((got[n][1][..., ops[n].ch_mask == 0] != 0).any())]
+    del got
+    smodel.eval()
+    with torch.no_grad():
+        masked_ms = cuda_ms(lambda i: smodel(x), 10)
+
+    # masked finetune, as the CLI runs it
+    opt = torch.optim.SGD(model.parameters(), lr=PRUNE_LR, momentum=0.9)
+    timer = _StepTimer(TF.cross_entropy, opt)
+    smodel.train()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def step(j):
+        loss = timer.loss_fn(smodel(xs[j]), ys[j])
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss
+
+    for i in range(PRUNE_WARMUP + PRUNE_STEPS):
+        losses.append(timer.run(lambda: step(i % 2)).item())
+    peak = torch.cuda.max_memory_allocated() - base
+    smodel.eval()
+    after = _masks(smodel)
+    changed = sorted("{}.{}".format(*k) for k, v in masks.items()
+                     if not torch.equal(v, after[k]))
+    alive = sorted(n for n, op in ops.items() if op.HAS_WEIGHT and bool(
+        ((op.module.weight.detach() * op.w_mask)[op.w_mask == 0]
+         != 0).any()))
+    ft = timer.summary(PRUNE_WARMUP)
+
+    tmp = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        smodel.export(tmp, x)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prog = torch.export.load(os.path.join(tmp, "model.pt2")).module()
+        load_s = time.perf_counter() - t0
+        with torch.no_grad():
+            export_equal = bool(torch.equal(prog(x), smodel(x)))
+        del prog
+    finally:
+        shutil.rmtree(tmp)
+    out = dict(trace_convert_s=trace_s, calc_params_s=calc_s,
+               sparsity=smodel.sparsity(), masks_differ_from_cpu=differ,
+               wrongly_pruned=wrong, masked_bns=len(bns),
+               bn_pruned_channels_nonzero=nonzero,
+               float_ms_per_batch=float_ms, masked_ms_per_batch=masked_ms,
+               finetune=ft, finetune_images_s=PRUNE_BATCH / ft["s_per_step"],
+               finetune_peak_bytes_above_model=peak, losses=losses,
+               masks_changed=changed, masked_weights_alive=alive,
+               export_s=export_s, load_s=load_s, export_equal=export_equal,
+               launches=_launches())
+    print("prune: resnet18 224x224 B={} structured l1norm 0.5: trace + "
+          "convert {:.3f} s, calc_params {:.4f} s, sparsity {:.4f}; masks "
+          "card vs CPU: {} differ; {} masked BatchNorms; float {:.3f} ms / "
+          "batch, masked {:.3f} ms; finetune {:.4f} s a step (forward "
+          "{:.4f}, backward {:.4f}, optimiser {:.4f}; min {:.4f} max {:.4f} "
+          "over {}), {:.0f} images/s, peak {:.2f} GB above the model, loss "
+          "{:.4f} -> {:.4f}; export {:.2f} s, load {:.2f} s, equal {}; "
+          "launches {}".format(
+              PRUNE_BATCH, trace_s, calc_s, out["sparsity"], len(differ),
+              len(bns), float_ms, masked_ms, ft["s_per_step"],
+              ft["forward_s"], ft["backward_s"], ft["optimizer_s"],
+              ft["s_per_step_min"], ft["s_per_step_max"], PRUNE_STEPS,
+              out["finetune_images_s"], peak / 1e9, losses[0], losses[-1],
+              export_s, load_s, export_equal, out["launches"]), flush=True)
+    if differ:
+        fail("prune: the card's masks differ from the CPU's: {}".format(
+            differ[:8]))
+    if wrong or not bns:
+        fail("prune: wrongly pruned nodes {} ({} masked BatchNorms)".format(
+            wrong, len(bns)))
+    if nonzero:
+        fail("prune: pruned channels not zero after {}".format(nonzero))
+    if changed or alive:
+        fail("prune: the finetune changed masks {} or revived weights "
+             "{}".format(changed[:8], alive[:8]))
+    if not all(math.isfinite(v) for v in losses):
+        fail("prune: a loss is not finite: {}".format(losses))
+    if not export_equal:
+        fail("prune: the exported program differs from the model")
+    _expect("prune", out["launches"], (), tuple(out["launches"]))
+    del smodel, model, opt, xs
+    torch.cuda.empty_cache()
+    return {"prune": out}
+
+
+def prunebert_path():
+    """Phase 4, path prunebert: the unstructured_bert CLI's flow at
+    bert_base's width (vocab 30522, dim 768, 12 layers) with seeded card
+    weights, S=128, B=32, its sconfig at --ratio 0.7 (embeddings and the
+    classifier dense): the seconds of trace + convert and of calc_params
+    (a linear quantile a masked linear), float and masked eval ms a batch.
+    Then the unstructured_squad CLI's ratchet on bert_qa (the same widths)
+    at S=384, B=16: ratios 0.2, 0.35, 0.5 with 4 AdamW steps each (lr
+    3e-4, weight decay 1e-4), seeded tokens and span labels: the sparsity
+    after each ratio and the seconds a step. Held: each masked linear's
+    pruned count within one element of numel * 0.7 (scores equal to the
+    threshold, which are kept, aside), the dense ones at 0; every loss
+    finite, the masks {0, 1} and qa_outputs dense after the finetune. No
+    kernel of the port is launched."""
+    import torch
+    import torch.nn.functional as TF
+    from sparsebit_tpu_torch import SparseModel, parse_sconfig
+    from sparsebit_tpu_torch.models import create_model
+    from sparsebit_tpu_torch.sparse.sparsers.base import quantile_linear
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    cfg = parse_sconfig(os.path.join(PRUNE_DIR, "unstructured_bert",
+                                     "sconfig.yaml"))
+    cfg.defrost()
+    cfg.SPARSER.RATIO = PRUNEBERT_RATIO
+    cfg.freeze()
+    model = create_model("bert_base", seed=SEED, device="cuda").eval()
+    ids = torch.randint(0, 30522, (BERT_BATCH, BERT_SEQ), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        float_ms = cuda_ms(lambda i: model(ids), 10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smodel = SparseModel(model, cfg, (ids,))
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smodel.calc_params()
+    torch.cuda.synchronize()
+    calc_s = time.perf_counter() - t0
+    off, masked = [], 0
+    for name, op in smodel.smodules():
+        pruned = int((op.w_mask == 0).sum())
+        if "classifier" in name:
+            if pruned:
+                off.append((name, pruned))
+            continue
+        masked += 1
+        scores = op.module.weight.detach().abs()
+        at = int((scores == quantile_linear(scores, PRUNEBERT_RATIO)).sum())
+        if abs(pruned - PRUNEBERT_RATIO * scores.numel()) > 1 + at:
+            off.append((name, pruned))
+    smodel.eval()
+    with torch.no_grad():
+        masked_ms = cuda_ms(lambda i: smodel(ids), 10)
+    bert = dict(trace_convert_s=trace_s, calc_params_s=calc_s,
+                masked_linears=masked,
+                calc_params_ms_a_linear=calc_s / max(masked, 1) * 1e3,
+                sparsity=smodel.sparsity(), off_ratio=off,
+                float_ms_per_batch=float_ms, masked_ms_per_batch=masked_ms)
+    print("prunebert: bert_base B={} S={} unstructured l1norm {}: trace + "
+          "convert {:.3f} s, calc_params {:.4f} s ({:.2f} ms a linear over "
+          "{}), sparsity {:.4f}; float {:.3f} ms / batch, masked {:.3f} ms"
+          .format(BERT_BATCH, BERT_SEQ, PRUNEBERT_RATIO, trace_s, calc_s,
+                  bert["calc_params_ms_a_linear"], masked, bert["sparsity"],
+                  float_ms, masked_ms), flush=True)
+    if off or masked != 12 * 6 + 1:
+        fail("prunebert: {} masked linears; off their ratio: {}".format(
+            masked, off[:8]))
+    del smodel, model
+    torch.cuda.empty_cache()
+
+    # the squad CLI's ratchet at bert_qa's full width
+    cfg = parse_sconfig(os.path.join(PRUNE_DIR, "unstructured_squad",
+                                     "sconfig.yaml"))
+    model = create_model("bert_qa", seed=SEED, device="cuda").eval()
+    batches = [tuple(torch.randint(lo, hi, shape, generator=gen,
+                                   device="cuda")
+                     for lo, hi, shape in ((0, 30522, (QA_BATCH, QA_SEQ)),
+                                           (0, QA_SEQ, (QA_BATCH,)),
+                                           (0, QA_SEQ, (QA_BATCH,))))
+               for _ in range(2)]
+    smodel = SparseModel(model, cfg, (batches[0][0],))
+    smodel.train()
+    steps, sparsity, losses, calc = [], [], [], []
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for ratio in QA_RATIOS:
+        for _, op in smodel.smodules():
+            if op.sparser is not None and op.sparser.ratio > 0.0:
+                op.sparser.ratio = ratio
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smodel.calc_params()
+        torch.cuda.synchronize()
+        calc.append(time.perf_counter() - t0)
+        sparsity.append(smodel.sparsity())
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                weight_decay=1e-4)
+        timer = _StepTimer(lambda s, e, sb, eb: 0.5 * (
+            TF.cross_entropy(s, sb) + TF.cross_entropy(e, eb)), opt)
+
+        def step(j):
+            xb, sb, eb = batches[j]
+            loss = timer.loss_fn(*smodel(xb), sb, eb)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            return loss
+
+        for i in range(QA_STEPS):
+            losses.append(timer.run(lambda: step(i % 2)).item())
+        steps.append(timer.summary(1))
+    peak = torch.cuda.max_memory_allocated() - base
+    not01 = sorted(n for n, op in smodel.smodules() if not bool(
+        ((op.w_mask == 0) | (op.w_mask == 1)).all()))
+    qa_dense = bool((dict(smodel.smodules())["qa_outputs"].w_mask == 1).all())
+    qa = dict(ratios=list(QA_RATIOS), sparsity=sparsity,
+              calc_params_s=calc, steps=steps, losses=losses,
+              peak_bytes_above_model=peak, masks_not_0_1=not01,
+              qa_outputs_dense=qa_dense)
+    print("prunebert ratchet: bert_qa B={} S={} ratios {}: sparsity {}, "
+          "calc_params {} s, s a step {} (forward / backward / optimiser of "
+          "the last ratio {:.4f} / {:.4f} / {:.4f}), peak {:.2f} GB above "
+          "the model, loss {:.4f} -> {:.4f}".format(
+              QA_BATCH, QA_SEQ, list(QA_RATIOS),
+              ["{:.4f}".format(s) for s in sparsity],
+              ["{:.3f}".format(c) for c in calc],
+              ["{:.4f}".format(s["s_per_step"]) for s in steps],
+              steps[-1]["forward_s"], steps[-1]["backward_s"],
+              steps[-1]["optimizer_s"], peak / 1e9, losses[0], losses[-1]),
+          flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("prunebert: a loss is not finite: {}".format(losses))
+    if not01 or not qa_dense or sparsity != sorted(sparsity):
+        fail("prunebert: masks not in {{0, 1}}: {}; qa_outputs dense {}; "
+             "sparsity {}".format(not01[:8], qa_dense, sparsity))
+    out = dict(bert_base=bert, bert_qa=qa, launches=_launches(),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    _expect("prunebert", out["launches"], (), tuple(out["launches"]))
+    del smodel, model, opt, batches
+    torch.cuda.empty_cache()
+    return {"prunebert": out}
+
+
+def _qparams_card_vs_cpu(model, cfg, x):
+    """QuantModel on the card and on the CPU (a copy of ``model``) over
+    the same batch ``x``: every enabled quantizer's scale, max relative
+    error, and zero points differing. Returns (max rel err, zero points
+    differing, quantizers compared, CPU seconds)."""
+    import copy
+
+    from sparsebit_tpu_torch import QuantModel
+
+    qa = QuantModel(model, cfg, (x,))
+    qb = QuantModel(copy.deepcopy(model).cpu(), cfg, (x.cpu(),))
+    t0 = time.perf_counter()
+    for qq, xx in ((qa, x), (qb, x.cpu())):
+        qq.prepare_calibration()
+        qq(xx)
+        qq.calc_qparams()
+    cpu_s = time.perf_counter() - t0
+    s_err, z_diff, n_q = 0.0, 0, 0
+    for (name, op), (_, hop) in zip(qa.qmodules(), qb.qmodules()):
+        for k in ("input_quantizer", "weight_quantizer"):
+            a, b = getattr(op, k), getattr(hop, k)
+            if a is None or a.fake_fused:
+                continue
+            n_q += 1
+            s_err = max(s_err, float(((a.scale.cpu() - b.scale).abs()
+                                      / b.scale.abs()).max()))
+            z_diff += int((a.zero_point.cpu() != b.zero_point).sum())
+    return s_err, z_diff, n_q, cpu_s
+
+
+def zoo_path():
+    """Phase 4, path zoo: graphptq's flow (the PTQ basecase CLI's:
+    qconfig.yaml's W8 per-channel-symmetric / A8 per-tensor-affine
+    MinMax, 16 calibration batches) on mobilenet_v2, efficientnet_lite0
+    and regnetx_600mf with seeded card weights, 224 x 224 x 3 NHWC, B=64:
+    the seconds of trace + convert and calibration, float and fake-quant
+    ms a batch (CUDA events), the W8A8 relative MSE against float over 4
+    seeded batches, the calibration peak memory. Held: quantizers off
+    equal to the float model within 1e-4, the relative MSE in (0, 5e-2),
+    every quantizer's qparams on the card against the port's on the CPU
+    at B=8 over the same images and weights (cuDNN TF32 off): scales
+    within 1e-5 relative, zero points equal. No kernel of the port is
+    launched."""
+    import torch
+    from sparsebit_tpu_torch import QuantModel, parse_qconfig
+    from sparsebit_tpu_torch.models import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    _reset_launches()
+    cfg = parse_qconfig(BASECASE_QCONFIG)
+    out = {}
+    for k, name in enumerate(ZOO):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 70 + k)
+        model = create_model(name, seed=SEED, device="cuda").eval()
+        calib = [_images(gen, GRAPH_BATCH)
+                 for _ in range(GRAPH_CALIB_BATCHES)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qmodel = QuantModel(model, cfg, (calib[0],))
+        torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        with torch.no_grad():
+            off = float((qmodel(calib[0]) - model(calib[0])).abs().max())
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = _calibrate(qmodel, calib)
+        peak = torch.cuda.max_memory_allocated() - base
+        qmodel.set_quant(w_quant=True, a_quant=True)
+        f_out, q_out = [], []
+        with torch.no_grad():
+            for _ in range(ZOO_EVAL_BATCHES):
+                x = _images(gen, GRAPH_BATCH)
+                f_out.append(model(x))
+                q_out.append(qmodel(x))
+            float_ms = cuda_ms(lambda i: model(x), 10)
+            quant_ms = cuda_ms(lambda i: qmodel(x), 10)
+        rel = _rel_mse(torch.cat(q_out), torch.cat(f_out))
+        # the spread of the float logits over the images: seeded weights
+        # under the default BatchNorm statistics shrink a deep CNN's
+        # activations, so that its logits are nearly its classifier's bias
+        out_std = float(torch.cat(f_out).std(0).mean())
+        s_err, z_diff, n_q, cpu_s = _qparams_card_vs_cpu(
+            model, cfg, calib[0][:GRAPH_CPU_BATCH])
+        r = dict(times, trace_convert_s=trace_s, quant_off_max_err=off,
+                 calib_peak_bytes=peak, float_ms_per_batch=float_ms,
+                 quant_ms_per_batch=quant_ms, w8a8_rel_mse=rel,
+                 float_logit_std_over_images=out_std,
+                 qmodules=len(list(qmodel.qmodules())),
+                 cpu_quantizers=n_q, cpu_scale_max_rel_err=s_err,
+                 cpu_zero_points_differ=z_diff, cpu_calibration_s=cpu_s)
+        out[name] = r
+        print("zoo {}: 224x224 B={} x {} calibration batches: trace + "
+              "convert {:.3f} s, capture {:.3f} s, calc_qparams {:.3f} s, "
+              "calibration peak {:.2f} GB; {} qmodules; quant off vs float "
+              "{:.2e}; float {:.3f} ms / batch, fake-quant {:.3f} ms; w8a8 "
+              "rel MSE {:.3e} (float logits' std over images {:.3e}); card "
+              "vs CPU at B={}: {} quantizers, scales max rel err {:.2e}, {} "
+              "zero points differ".format(
+                  name, GRAPH_BATCH, GRAPH_CALIB_BATCHES, trace_s,
+                  times["capture_s"], times["calc_qparams_s"], peak / 1e9,
+                  r["qmodules"], off, float_ms, quant_ms, rel, out_std,
+                  GRAPH_CPU_BATCH, n_q, s_err, z_diff), flush=True)
+        if off > 1e-4:
+            fail("zoo {}: quantizers off differ from the float model by "
+                 "{:.2e}".format(name, off))
+        if not 0 < rel < 5e-2:
+            fail("zoo {}: w8a8 relative MSE {:.3e} outside (0, 5e-2)".format(
+                name, rel))
+        if s_err > 1e-5 or z_diff:
+            fail("zoo {}: the card's qparams differ from the CPU's (scale "
+                 "rel err {:.2e}, {} zero points)".format(name, s_err,
+                                                          z_diff))
+        del model, qmodel, calib, f_out, q_out
+        torch.cuda.empty_cache()
+    out["launches"] = _launches()
+    _expect("zoo", out["launches"], (), tuple(out["launches"]))
+    return {"zoo": out}
+
+
 def main(argv):
     ab_root = argv[argv.index("--ab") + 1] if "--ab" in argv else None
     try:
@@ -5349,7 +5790,8 @@ def main(argv):
     print("graphptq, graphcalib and cnnfixture paths {:.1f} s".format(
         time.perf_counter() - t0))
     for path_fn in (deploy_path, export_path, errprof_path, qat_path,
-                    qatdeit_path, bertptq_path, trfixture_path):
+                    qatdeit_path, bertptq_path, trfixture_path, prune_path,
+                    prunebert_path, zoo_path):
         t0 = time.perf_counter()
         paths.update(path_fn())
         print("{} {:.1f} s".format(path_fn.__name__.replace("_", " "),

@@ -3,7 +3,8 @@
 The package mirrors the JAX package's tree (``ops/`` kernels and their
 plain versions; ``llm/`` model, cache, decode and serving code;
 ``quantization/``, the graph-level PTQ regime with its QModules,
-converters, observers, quantizers and calibration; ``nn/``, the module
+converters, observers, quantizers and calibration; ``sparse/``, the
+pruning regime with its sparsers and SModules; ``nn/``, the module
 zoo and the ``torch.fx`` tracer; ``models/``, the model zoo; ``utils/``,
 the config tree) and imports neither JAX nor ``sparsebit_tpu``. Every
 TPU (Pallas) kernel it ports is a CUDA C++ kernel under ``csrc/``, built
@@ -50,10 +51,15 @@ def resolve_device(device=None):
 
 
 def __getattr__(name):
-    # QuantModel and parse_qconfig as the JAX package exports them,
-    # imported on first use (the graph regime imports torch.fx)
+    # QuantModel, parse_qconfig, SparseModel and parse_sconfig as the JAX
+    # package exports them, imported on first use (the graph regime
+    # imports torch.fx)
     if name in ("QuantModel", "parse_qconfig"):
         from sparsebit_tpu_torch import quantization
 
         return getattr(quantization, name)
+    if name in ("SparseModel", "parse_sconfig"):
+        from sparsebit_tpu_torch import sparse
+
+        return getattr(sparse, name)
     raise AttributeError(name)

@@ -1,8 +1,10 @@
 """Model zoo built on ``sparsebit_tpu_torch.nn`` (port of
-``sparsebit_tpu/models``): NHWC models that QuantModel traces whole. This
-slice of the port holds the ResNets (resnet18/34/50, the cifar resnet20),
-DeiT / ViT (deit_tiny/small/base) and BERT (bert_base, bert_tiny); the
-rest of the JAX package's zoo is still to be ported."""
+``sparsebit_tpu/models``): NHWC / NLC models that QuantModel and
+SparseModel trace whole. The port holds the ResNets (resnet18/34/50, the
+cifar resnet20), mobilenet_v2, efficientnet_lite0, regnetx_600mf, DeiT /
+ViT (deit_tiny/small/base) and BERT (bert_base, bert_tiny, and the
+extractive-QA bert_qa, bert_qa_tiny); gpt2, yolo and bevdet of the JAX
+package's zoo are still to be ported."""
 
 import torch
 
@@ -27,16 +29,33 @@ def create_model(name, *, seed=0, device=None, **kwargs):
     return MODEL_REGISTRY[name](generator=generator, device=device, **kwargs)
 
 
-from sparsebit_tpu_torch.models import resnet, vit, bert  # noqa: E402,F401
+from sparsebit_tpu_torch.models import (  # noqa: E402,F401
+    resnet,
+    mobilenet,
+    efficientnet,
+    regnet,
+    vit,
+    bert,
+)
 from sparsebit_tpu_torch.models.resnet import (  # noqa: E402,F401
     resnet18,
     resnet20,
     resnet34,
     resnet50,
 )
+from sparsebit_tpu_torch.models.mobilenet import mobilenet_v2  # noqa: E402,F401
+from sparsebit_tpu_torch.models.efficientnet import (  # noqa: E402,F401
+    efficientnet_lite0,
+)
+from sparsebit_tpu_torch.models.regnet import regnetx_600mf  # noqa: E402,F401
 from sparsebit_tpu_torch.models.vit import (  # noqa: E402,F401
     deit_tiny,
     deit_small,
     deit_base,
 )
-from sparsebit_tpu_torch.models.bert import bert_base, bert_tiny  # noqa: E402,F401
+from sparsebit_tpu_torch.models.bert import (  # noqa: E402,F401
+    bert_base,
+    bert_tiny,
+    bert_qa,
+    bert_qa_tiny,
+)

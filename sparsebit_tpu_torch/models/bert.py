@@ -110,3 +110,39 @@ def bert_tiny(num_classes=2, *, generator=None, device=None):
     return BertModel(vocab_size=1024, dim=128, depth=2, num_heads=2,
                      ffn_dim=512, num_classes=num_classes,
                      generator=generator, device=device)
+
+
+class BertForQuestionAnswering(nn.Module):
+    """Extractive-QA head: per-token start / end span logits (reference:
+    examples/unstructured_prune/SQuAD/model.py BertForQuestionAnswering,
+    ``qa_outputs`` Linear(hidden, 2) over the whole sequence), returned
+    as ``(start, end)``, each (B, L)."""
+
+    def __init__(self, vocab_size=30522, dim=768, depth=12, num_heads=12,
+                 ffn_dim=3072, *, generator=None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.embeddings = BertEmbeddings(vocab_size, dim, **kw)
+        self.encoder = nn.Sequential(
+            *[BertLayer(dim, num_heads, ffn_dim, **kw) for _ in range(depth)])
+        self.qa_outputs = nn.Linear(dim, 2, **kw)
+
+    def forward(self, input_ids):
+        y = self.encoder(self.embeddings(input_ids))
+        logits = self.qa_outputs(y)  # (B, L, 2)
+        start = F.getitem(logits, (slice(None), slice(None), 0))
+        end = F.getitem(logits, (slice(None), slice(None), 1))
+        return start, end
+
+
+@register_model
+def bert_qa(*, generator=None, device=None, **kwargs):
+    return BertForQuestionAnswering(generator=generator, device=device,
+                                    **kwargs)
+
+
+@register_model
+def bert_qa_tiny(*, generator=None, device=None, **kwargs):
+    kw = dict(vocab_size=1024, dim=128, depth=2, num_heads=2, ffn_dim=512)
+    kw.update(kwargs)
+    return BertForQuestionAnswering(generator=generator, device=device, **kw)

@@ -140,10 +140,8 @@ def _basecase():
 def test_ptq_basecase_torch_demo(tmp_path):
     """The graph regime's PTQ basecase CLI on random tensors: resnet18 at
     224x224 through QuantModel, calibration and the fake-quant eval; a
-    checkpoint in the JAX package's layout loads; the models of later
-    slices are refused; --export writes the program and the sidecar."""
-    import pytest
-
+    checkpoint in the JAX package's layout loads; mobilenet_v2 runs the
+    same flow; --export writes the program and the sidecar."""
     cli = _basecase()
     res = cli.main(["--batch", "2", "--calib-batches", "1",
                     "--eval-samples", "4", "--device", "cpu"])
@@ -165,8 +163,10 @@ def test_ptq_basecase_torch_demo(tmp_path):
     res = cli.main(["--batch", "2", "--calib-batches", "1", "--eval-samples",
                     "4", "--ckpt", ckpt, "--device", "cpu"])
     assert set(res) == {"float_acc", "int8_acc"}
-    with pytest.raises(SystemExit):
-        cli.main(["--model", "mobilenet_v2", "--device", "cpu"])
+    res = cli.main(["--model", "mobilenet_v2", "--batch", "2",
+                    "--calib-batches", "1", "--eval-samples", "2",
+                    "--device", "cpu"])
+    assert 0.0 <= res["int8_acc"] <= 1.0
     out = tmp_path / "x"
     cli.main(["--batch", "2", "--calib-batches", "1", "--eval-samples", "2",
               "--export", str(out), "--device", "cpu"])
@@ -357,3 +357,95 @@ def test_block_mappings_reads_sequences_of_mappings_as_pyyaml():
             "      'h''d': [QUANTIZER.DISABLE, True, 8, -0.5]\n"
             "    - fc: []\n  BIT: 4\nA:\n  - x: 1\n")
     assert block_mappings(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("name", ["efficientnet_lite0", "regnetx_600mf"])
+def test_ptq_basecase_torch_zoo_models(name):
+    """The basecase CLI's other newly ported models, the same flow."""
+    res = _basecase().main(["--model", name, "--batch", "2",
+                            "--calib-batches", "1", "--eval-samples", "2",
+                            "--device", "cpu"])
+    assert 0.0 <= res["int8_acc"] <= 1.0
+
+
+PRUNE = "pruning/"
+
+
+def test_yaml_cases_cover_the_pruning_sconfigs():
+    assert {PRUNE + d + "/sconfig.yaml" for d in (
+        "structured_cifar10", "unstructured_cifar10", "structured_imagenet1k",
+        "unstructured_bert", "unstructured_squad")} <= set(YAMLS)
+
+
+def _dense(smodel, names):
+    ops = dict(smodel.smodules())
+    return all(bool((ops[n].w_mask == 1).all()) for n in names)
+
+
+def test_prune_structured_cifar10_torch_demo(tmp_path, monkeypatch):
+    """resnet20, structured l1norm 0.5 (sconfig read without PyYAML):
+    only the classifier and each block's first conv lose channels; the
+    exported program loads and equals the masked model."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(PRUNE + "structured_cifar10/main_torch.py")
+    out = tmp_path / "export"
+    res = cli.main(["--export", str(out), "--device", "cpu"])
+    smodel = res["smodel"]
+    assert 0.0 < res["sparsity"] < 0.5
+    assert _dense(smodel, ["conv1", "layer1.0.conv2", "layer2.0.down_conv"])
+    assert not _dense(smodel, ["layer2.1.conv1"])
+    x = torch.randn(8, 32, 32, 3)  # the program's example batch
+    prog = torch.export.load(str(out / "model.pt2")).module()
+    with torch.no_grad():
+        assert torch.equal(prog(x), smodel(x))
+
+
+def test_prune_unstructured_cifar10_torch_demo(tmp_path):
+    cli = _example(PRUNE + "unstructured_cifar10/main_torch.py")
+    res = cli.main(["--ratio", "0.7", "--export", str(tmp_path / "e"),
+                    "--device", "cpu"])
+    assert abs(res["sparsity"] - 0.7) < 1e-3
+    assert (tmp_path / "e" / "model.pt2").exists()
+
+
+def test_prune_structured_imagenet1k_torch_demo(monkeypatch):
+    """resnet18 with conv1 and fc dense (SPECIFIC with comment lines,
+    read without PyYAML), one masked SGD step: the masks are unchanged
+    and the pruned weights stay zero in effect."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(PRUNE + "structured_imagenet1k/main_torch.py")
+    res = cli.main(["--img", "32", "--batch", "2", "--finetune-steps", "1",
+                    "--lr", "0.1", "--device", "cpu"])
+    smodel = res["smodel"]
+    assert np.isfinite(res["loss"]) and 0.0 < res["sparsity"] < 0.5
+    assert _dense(smodel, ["conv1", "fc", "layer1.0.conv2"])
+    op = dict(smodel.smodules())["layer1.0.conv1"]
+    pruned = op.w_mask == 0
+    assert int(pruned.reshape(64, -1).all(1).sum()) == 32
+    assert bool((op.module.weight * op.w_mask)[pruned].eq(0).all())
+
+
+def test_prune_unstructured_bert_torch_demo():
+    cli = _example(PRUNE + "unstructured_bert/main_torch.py")
+    res = cli.main(["--dim", "32", "--ratio", "0.7", "--device", "cpu"])
+    smodel = res["smodel"]
+    assert _dense(smodel, ["classifier"])
+    # 12 masked encoder linears at 0.7 and the dense pooler and classifier
+    assert 0.6 < res["sparsity"] < 0.7
+
+
+def test_prune_unstructured_squad_torch_demo():
+    """bert_qa_tiny through the ratchet 0.2, 0.35, 0.5 (one step each);
+    qa_outputs stays dense (SPECIFIC), the masks stay {0, 1}."""
+    cli = _example(PRUNE + "unstructured_squad/main_torch.py")
+    res = cli.main(["--batch", "2", "--steps", "3", "--ratio-steps", "1",
+                    "--device", "cpu"])
+    assert np.isfinite(res["loss"]) and 0.0 <= res["em"] <= 1.0
+    assert res["sparsity"] == sorted(res["sparsity"]) and len(
+        res["sparsity"]) == 3
+    smodel = res["smodel"]
+    assert _dense(smodel, ["qa_outputs"])
+    for name, op in smodel.smodules():
+        assert bool(((op.w_mask == 0) | (op.w_mask == 1)).all()), name
+        if name != "qa_outputs":
+            assert abs(float((op.w_mask == 0).float().mean()) - 0.5) < 1e-3

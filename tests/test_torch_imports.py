@@ -70,5 +70,36 @@ def test_every_port_module_imports_without_jax_or_yaml():
                 "sparsebit_tpu_torch.quantization.quant_model",
                 "sparsebit_tpu_torch.quantization.observers.kl_device",
                 "sparsebit_tpu_torch.quantization.quantizers.adaround",
-                "sparsebit_tpu_torch.quantization.tools.fixture"):
+                "sparsebit_tpu_torch.quantization.tools.fixture",
+                "sparsebit_tpu_torch.sparse",
+                "sparsebit_tpu_torch.sparse.sparse_config",
+                "sparsebit_tpu_torch.sparse.sparse_model",
+                "sparsebit_tpu_torch.sparse.sparsers.base",
+                "sparsebit_tpu_torch.sparse.sparsers.random",
+                "sparsebit_tpu_torch.sparse.sparsers.slimming",
+                "sparsebit_tpu_torch.sparse.modules.base",
+                "sparsebit_tpu_torch.sparse.modules.normalization",
+                "sparsebit_tpu_torch.models.mobilenet",
+                "sparsebit_tpu_torch.models.efficientnet",
+                "sparsebit_tpu_torch.models.regnet"):
         assert new in MODULES
+
+
+def test_root_exports_the_pruning_regime_without_jax_or_yaml():
+    """``from sparsebit_tpu_torch import SparseModel, parse_sconfig`` (the
+    pruning CLIs' import) in a process where jax, the JAX package and
+    PyYAML are blocked; the zoo registers the new models."""
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'sparsebit_tpu', 'yaml'):\n"
+            "    sys.modules[name] = None\n"
+            "from sparsebit_tpu_torch import SparseModel, parse_sconfig\n"
+            "from sparsebit_tpu_torch.models import MODEL_REGISTRY\n"
+            "print(SparseModel.__name__, parse_sconfig.__name__, "
+            "sorted(MODEL_REGISTRY))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("SparseModel parse_sconfig")
+    for name in ("mobilenet_v2", "efficientnet_lite0", "regnetx_600mf",
+                 "bert_qa", "bert_qa_tiny"):
+        assert "'{}'".format(name) in out.stdout
