@@ -5,8 +5,9 @@ plain versions; ``llm/`` model, cache, decode and serving code;
 ``quantization/``, the graph-level PTQ regime with its QModules,
 converters, observers, quantizers and calibration; ``sparse/``, the
 pruning regime with its sparsers and SModules; ``nn/``, the module
-zoo and the ``torch.fx`` tracer; ``models/``, the model zoo; ``utils/``,
-the config tree) and imports neither JAX nor ``sparsebit_tpu``. Every
+zoo and the ``torch.fx`` tracer; ``models/``, the model zoo and the
+checkpoint importers; ``utils/``, the config tree and the profiling
+helpers) and imports neither JAX nor ``sparsebit_tpu``. Every
 TPU (Pallas) kernel it ports is a CUDA C++ kernel under ``csrc/``, built
 with ``nvcc`` at first use into ``csrc/build/`` and bound through
 ``ctypes`` (``ops/_kernels.py``). Each kernel wrapper runs its plain

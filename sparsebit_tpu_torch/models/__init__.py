@@ -2,9 +2,12 @@
 ``sparsebit_tpu/models``): NHWC / NLC models that QuantModel and
 SparseModel trace whole. The port holds the ResNets (resnet18/34/50, the
 cifar resnet20), mobilenet_v2, efficientnet_lite0, regnetx_600mf, DeiT /
-ViT (deit_tiny/small/base) and BERT (bert_base, bert_tiny, and the
-extractive-QA bert_qa, bert_qa_tiny); gpt2, yolo and bevdet of the JAX
-package's zoo are still to be ported."""
+ViT (deit_tiny/small/base), BERT (bert_base, bert_tiny, and the
+extractive-QA bert_qa, bert_qa_tiny), GPT-2 (gpt2_small, gpt2_tiny), the
+YOLO family (yolov3_tiny, yolov3, yolov3_darknet21, yolov4, yolov4_small,
+yolov5s, yolov5n) and BEVDet-lite (bevdet_lite), the whole of the JAX
+package's zoo; ``import_torch`` fills them from torchvision, timm and
+Hugging Face state dicts."""
 
 import torch
 
@@ -36,6 +39,9 @@ from sparsebit_tpu_torch.models import (  # noqa: E402,F401
     regnet,
     vit,
     bert,
+    gpt2,
+    yolo,
+    bevdet,
 )
 from sparsebit_tpu_torch.models.resnet import (  # noqa: E402,F401
     resnet18,
@@ -59,3 +65,14 @@ from sparsebit_tpu_torch.models.bert import (  # noqa: E402,F401
     bert_qa,
     bert_qa_tiny,
 )
+from sparsebit_tpu_torch.models.gpt2 import gpt2_small, gpt2_tiny  # noqa: E402,F401
+from sparsebit_tpu_torch.models.yolo import (  # noqa: E402,F401
+    yolov3,
+    yolov3_darknet21,
+    yolov3_tiny,
+    yolov4,
+    yolov4_small,
+    yolov5n,
+    yolov5s,
+)
+from sparsebit_tpu_torch.models.bevdet import bevdet_lite  # noqa: E402,F401

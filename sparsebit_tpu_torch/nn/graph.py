@@ -320,10 +320,13 @@ def _default_name(op):
 class _FxTracer(torch.fx.Tracer):
     """fx's tracer with the port's leaf policy: a port module that computes
     in ``execute`` is a leaf, and so is any module whose dotted path
-    matches a ``SKIP_TRACE_MODULES`` pattern."""
+    matches a ``SKIP_TRACE_MODULES`` pattern. A buffer that a traced
+    ``forward`` reads is a ``get_attr`` node, so that indexing it by a
+    traced size (GPT-2's ``causal_bias[:N, :N]``) traces."""
 
     def __init__(self, skipped_patterns):
         super().__init__()
+        self.proxy_buffer_attributes = True
         self.skipped_patterns = skipped_patterns
 
     def is_leaf_module(self, m, module_qualified_name):
@@ -398,6 +401,8 @@ def _lower(gm, fx_graph):
             return type(a)(mapped(x) for x in a)
         if isinstance(a, dict):
             return {k: mapped(v) for k, v in a.items()}
+        if isinstance(a, slice):
+            return slice(mapped(a.start), mapped(a.stop), mapped(a.step))
         return a
 
     for fx_node in fx_graph.nodes:

@@ -234,20 +234,54 @@ def _key_value(body, quoted_keys):
     return None
 
 
+def _flow_mappings(lines, no):
+    """The lines after ``key: [{`` (line ``no``) up to a ``}]`` line: a
+    flow sequence of flow mappings written one ``key: value`` entry a line,
+    entries separated by commas, mappings by a ``}, {`` line, each value a
+    scalar or a flow sequence of scalars."""
+    out, cur, comma = [], {}, True
+    for at, raw in lines:
+        body = _strip_comment(raw).strip()
+        if not body:
+            continue
+        if body in ("}]", "}, {", "},{"):
+            out.append(cur)
+            if body == "}]":
+                return out
+            cur, comma = {}, True
+            continue
+        if not comma:
+            raise ValueError("line {}: flow mapping entries need a comma "
+                             "between them ({!r})".format(at, raw))
+        comma = body.endswith(",")
+        kv = _key_value(body[:-1].rstrip() if comma else body, True)
+        value = kv[1].strip() if kv is not None and kv[1] else ""
+        if not value or (value[0] not in "[\"'" and any(
+                c in value for c in ",[]{}")):
+            raise ValueError("line {}: not a key: value entry of a flow "
+                             "mapping ({!r})".format(at, raw))
+        cur[kv[0]] = _flow_sequence(value, at)
+    raise ValueError("line {}: flow sequence not closed by a }}] line"
+                     .format(no))
+
+
 def block_mappings(text):
     """Nested block mappings of scalars (``key: value`` lines, indented
-    by spaces, ``#`` comments), and, as a mapping's value, a block
-    sequence (``- ``) of mappings whose values are scalars or flow
-    sequences of scalars (the ``SPECIFIC`` form of the qconfig files):
-    the data ``yaml.safe_load`` gives for such a text. ValueError for
-    anything else (other lists, flow collections elsewhere, anchors,
-    multi-line scalars, tabs)."""
+    by spaces, ``#`` comments), and, as a mapping's value, a sequence of
+    mappings whose values are scalars or flow sequences of scalars (the
+    ``SPECIFIC`` form of the qconfig files), either as a block sequence
+    (``- `` items) or as a flow sequence of flow mappings opened by
+    ``key: [{`` at the end of a line, one entry a line, and closed by a
+    ``}]`` line: the data ``yaml.safe_load`` gives for such a text.
+    ValueError for anything else (other lists, flow collections
+    elsewhere or on one line, anchors, multi-line scalars, tabs)."""
     root = {}
     # the open collections: (indent, container, is a sequence item's
     # mapping); a sequence is (indent, list, None)
     stack = [(0, root, False)]
     pending = None  # (indent, mapping, key) of a key with no value yet
-    for no, raw in enumerate(text.splitlines(), 1):
+    lines = enumerate(text.splitlines(), 1)
+    for no, raw in lines:
         line = _strip_comment(raw).rstrip()
         if not line.strip():
             continue
@@ -292,6 +326,8 @@ def block_mappings(text):
             pending = (indent, container, key)
         elif in_item:
             container[key] = _flow_sequence(value.strip(), no)
+        elif value.strip() == "[{":
+            container[key] = _flow_mappings(lines, no)
         else:
             container[key] = _scalar(value.strip(), no)
     if pending is not None:

@@ -304,22 +304,50 @@ YAMLS = sorted(os.path.relpath(os.path.join(d, f), os.path.dirname(EXAMPLES))
 @pytest.mark.parametrize("rel", YAMLS)
 def test_block_mappings_reads_what_pyyaml_reads_or_refuses(rel):
     """Without PyYAML the config loader reads each example yaml file to
-    PyYAML's dict: the flat PTQ and pruning configs and the QAT and
+    PyYAML's dict: the flat PTQ and pruning configs, the QAT and
     transformer configs, whose SPECIFIC is a block sequence of mappings
-    with flow-sequence values. A file with a flow mapping (the BEVDet
-    QAT config's ``SPECIFIC: [{...}]``) is refused with ValueError."""
+    with flow-sequence values, and the BEVDet QAT config, whose SPECIFIC
+    is a multi-line flow sequence of one flow mapping
+    (``SPECIFIC: [{ ... }]``)."""
     import yaml
 
     from sparsebit_tpu_torch.utils.config import block_mappings
 
     with open(os.path.join(os.path.dirname(EXAMPLES), rel)) as f:
         text = f.read()
-    want = yaml.safe_load(text) or {}
-    if "{" in text:
-        with pytest.raises(ValueError):
-            block_mappings(text)
-    else:
-        assert block_mappings(text) == want
+    assert block_mappings(text) == (yaml.safe_load(text) or {})
+
+
+def test_no_example_yaml_is_refused(monkeypatch):
+    """With PyYAML hidden, ``load_yaml`` reads every yaml under
+    examples/, the BEVDet QAT default (qconfig_lsq_4w4f.yaml) among
+    them."""
+    from sparsebit_tpu_torch.utils.config import load_yaml
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    assert QAT + "nuscenes_bevdet/qconfig_lsq_4w4f.yaml" in YAMLS
+    refused = []
+    for rel in YAMLS:
+        try:
+            load_yaml(os.path.join(os.path.dirname(EXAMPLES), rel))
+        except ValueError:
+            refused.append(rel)
+    assert refused == []
+
+
+def test_block_mappings_reads_flow_sequences_of_mappings_as_pyyaml():
+    """The multi-line flow form of SPECIFIC: ``key: [{`` ending a line,
+    one ``key: value`` entry a line (quoted or plain keys, flow-sequence
+    or scalar values, a trailing comma allowed), mappings separated by a
+    ``}, {`` line, ``}]`` closing it; comments and blank lines inside."""
+    import yaml
+
+    from sparsebit_tpu_torch.utils.config import block_mappings
+
+    text = ("W:\n  SPECIFIC: [{\n    \"img*.conv\": [\"QUANTIZER.BIT\", 8],"
+            "\n    # 8-bit heads\n\n    '*_head': [QUANTIZER.BIT, 8],\n"
+            "  }, {\n    fc: 4\n  }]\n  BIT: 4\nA:\n  SPECIFIC: [{\n  }]\n")
+    assert block_mappings(text) == yaml.safe_load(text)
 
 
 @pytest.mark.parametrize("text", [
@@ -327,7 +355,9 @@ def test_block_mappings_reads_what_pyyaml_reads_or_refuses(rel):
     "A: 1e-3\n", "A: 0x1f\n", "A:\n\tB: 1\n", "A: \"a\\\\nb\"\n",
     "A:\n    B: 1\n  C: 2\n", "A:\n  - x: [1,]\n",
     "A:\n  - x:\n      y: 1\n", "A:\n  - x: {a: 1}\n",
-    "A:\n  - x: [[1]]\n", "A: [{x: 1}]\n"])
+    "A:\n  - x: [[1]]\n", "A: [{x: 1}]\n", "A: [{\n  x: 1\n  y: 2\n}]\n",
+    "A: [{\n  x: 1,\n", "A: [{\n  - x\n}]\n", "A:\n  - x: [{\n  }]\n",
+    "A: [{\n  x: {a: 1},\n}]\n", "A: [{\n  x: a, b\n}]\n"])
 def test_block_mappings_refuses_forms_outside_the_subset(text):
     from sparsebit_tpu_torch.utils.config import block_mappings
 
@@ -449,3 +479,71 @@ def test_prune_unstructured_squad_torch_demo():
         assert bool(((op.w_mask == 0) | (op.w_mask == 1)).all()), name
         if name != "qa_outputs":
             assert abs(float((op.w_mask == 0).float().mean()) - 0.5) < 1e-3
+
+
+def test_ptq_wikitext_gpt2_torch_demo(tmp_path, monkeypatch):
+    """gpt2_tiny on a seeded token stream (the yaml read without PyYAML):
+    float and int8 perplexities; a checkpoint in the JAX package's layout
+    (HWIO / (in, out) weights) loads and gives the model's own float
+    perplexity."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(PTQ + "wikitext_gpt2/main_torch.py")
+    args = ["--model", "gpt2_tiny", "--seqlen", "16", "--calib-windows",
+            "2", "--device", "cpu"]
+    res = cli.main(args)
+    assert set(res) == {"float_ppl", "int8_ppl"}
+    assert all(np.isfinite(v) and v > 1.0 for v in res.values())
+    from sparsebit_tpu_torch.models import create_model
+
+    m = create_model("gpt2_tiny", seed=0, device="cpu")
+    sd = {}
+    for path, mod in m.named_modules():
+        for k, v in mod.leaf_state_dict().items():
+            v = v.detach().numpy()
+            sd["{}.{}".format(path, k)] = v.T if (
+                k == "weight" and type(mod).__name__ == "Linear") else v
+    ckpt = str(tmp_path / "gpt2.npz")
+    np.savez(ckpt, **sd)
+    res2 = cli.main(args + ["--ckpt", ckpt])
+    assert res2 == res  # seed 0: the same weights either way
+
+
+@pytest.mark.parametrize("name", ["yolov3_tiny", "yolov5n"])
+def test_ptq_coco_yolo_torch_demo(name, monkeypatch):
+    """The detection PTQ CLI (MSE observers, FUSE_BN; yaml read without
+    PyYAML) on two of its small models at 64 x 64: the map shapes and the
+    mean per-layer error of every quantized node (the other models'
+    graphs and qparams: tests/test_torch_yolo.py)."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(PTQ + "coco_yolov3_tiny/main_torch.py")
+    res = cli.main(["--model", name, "--imgsize", "64", "--batch", "1",
+                    "--calib-batches", "1", "--device", "cpu"])
+    n = 2 if name == "yolov3_tiny" else 3
+    assert res["shapes"] == [(1, 2, 2, 255), (1, 4, 4, 255),
+                             (1, 8, 8, 255)][:n]
+    assert len(res["errors"]) > 10 and np.isfinite(res["mean_error"])
+    assert res["mean_error"] > 0.0
+
+
+@pytest.mark.parametrize("yaml_name", ["qconfig_lsq_4w4f.yaml",
+                                       "qconfig_lsq_8w8f.yaml"])
+def test_qat_nuscenes_bevdet_torch_demo(yaml_name, monkeypatch):
+    """The BEVDet QAT CLI on both yamls read without PyYAML (the 4w4f
+    default's multi-line flow SPECIFIC too): calibration, init_QAT, an
+    epoch of Adam steps on the CenterPoint loss; the 4w4f overrides give
+    the first conv, the depthnet input and the heads 8 bits."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    cli = _example(QAT + "nuscenes_bevdet/main_torch.py")
+    args = ["--batch", "4", "--device", "cpu"]
+    if yaml_name != "qconfig_lsq_4w4f.yaml":
+        args += ["--qconfig", os.path.join(os.path.dirname(EXAMPLES), QAT,
+                                           "nuscenes_bevdet", yaml_name)]
+    res = cli.main(args)
+    assert len(res["losses"]) == 2 and np.all(np.isfinite(res["losses"]))
+    ops = dict(res["qmodel"].qmodules())
+    assert "view_transform" not in ops
+    low = 8 if yaml_name == "qconfig_lsq_8w8f.yaml" else 4
+    assert ops["bev_neck.conv"].weight_quantizer.bit == low
+    for name in ("img_backbone.0.conv", "depthnet", "heatmap_head",
+                 "box_head"):
+        assert ops[name].input_quantizer.bit == 8, name

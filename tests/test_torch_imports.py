@@ -81,7 +81,12 @@ def test_every_port_module_imports_without_jax_or_yaml():
                 "sparsebit_tpu_torch.sparse.modules.normalization",
                 "sparsebit_tpu_torch.models.mobilenet",
                 "sparsebit_tpu_torch.models.efficientnet",
-                "sparsebit_tpu_torch.models.regnet"):
+                "sparsebit_tpu_torch.models.regnet",
+                "sparsebit_tpu_torch.models.gpt2",
+                "sparsebit_tpu_torch.models.yolo",
+                "sparsebit_tpu_torch.models.bevdet",
+                "sparsebit_tpu_torch.models.import_torch",
+                "sparsebit_tpu_torch.utils.profiling"):
         assert new in MODULES
 
 
@@ -101,5 +106,31 @@ def test_root_exports_the_pruning_regime_without_jax_or_yaml():
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("SparseModel parse_sconfig")
     for name in ("mobilenet_v2", "efficientnet_lite0", "regnetx_600mf",
-                 "bert_qa", "bert_qa_tiny"):
+                 "bert_qa", "bert_qa_tiny", "gpt2_small", "gpt2_tiny",
+                 "yolov3_tiny", "yolov3", "yolov3_darknet21", "yolov4",
+                 "yolov4_small", "yolov5s", "yolov5n", "bevdet_lite"):
         assert "'{}'".format(name) in out.stdout
+
+
+CLIS = ["post_training_quantization/wikitext_gpt2/main_torch.py",
+        "post_training_quantization/coco_yolov3_tiny/main_torch.py",
+        "quantization_aware_training/nuscenes_bevdet/main_torch.py"]
+
+
+@pytest.mark.parametrize("rel", CLIS)
+def test_cli_imports_without_jax_or_yaml(rel):
+    """Each of the model zoo's last three CLIs loads (its imports, its
+    argument parser) where jax, the JAX package and PyYAML are blocked,
+    as on the card's machine."""
+    path = ROOT / "examples" / rel
+    code = ("import importlib.util, sys\n"
+            "for name in ('jax', 'jaxlib', 'sparsebit_tpu', 'yaml'):\n"
+            "    sys.modules[name] = None\n"
+            "spec = importlib.util.spec_from_file_location('cli', {!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "print(callable(mod.main))\n").format(str(path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "True"
