@@ -142,6 +142,20 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 (11008 -> 11264 rows) beside the unpadded one on K4:
                 every decision's logits and every token equal, K4's
                 device ms/step of both;
+     tp         TPDecodeEngine(max_batch=8, max_len=512, chunk=8) at
+                T=1 on a one-rank NCCL group, llama_7b() widths, 32 layers,
+                generate's INT4-g128 checkpoint-layout weights (unfused),
+                int8 KV: main's 8 requests x 32 tokens, then one extending
+                a served prompt (a prefix hit); K1 per shard, K9, the
+                plain attention. DecodeEngine on the same weights and
+                requests is the yardstick: admission logits within 1e-3,
+                tokens equal up to near ties; wall ms/step, K1's device
+                ms a step and launches by shape, admission s;
+     tp2        the same model and traffic on two ranks spawned on the one
+                card over gloo (NCCL refuses two ranks on one device):
+                tokens equal and gathered logits bit-equal across the
+                ranks, rank 0's admission logits within 0.1 of tp's, K1 at
+                the T=2 shard shapes; wall ms/step (through the host);
      offload    StreamingLlama over 32 INT4-g128 layers (checkpoint
                 layout: K8) from pinned host memory on a copy stream,
                 prefetch 2, prefill B=1 S=128 and 8 decode steps against
@@ -510,7 +524,6 @@ def kernel_checks(stacked, cfg, results):
         w, s, z = ql.packed["s4r"], ql.scales, ql.zeros
         gs = ql.groupsize
         K, N = w.shape[1] * 2, w.shape[2]
-        G = K // gs
         for M in (1, 8, 16, 32, 64, 128, 512, 768):
             x = torch.randn((M, K), generator=g, device=dev)
             x8, xs = tokenwise_quant(x)
@@ -527,8 +540,7 @@ def kernel_checks(stacked, cfg, results):
             gms = (graph_ms(run, 20), None)
             pms = cuda_ms(lambda i: QM._qmm_s4_plain(
                 x8, xs, w[i % Lx], s[i % Lx], z[i % Lx], gs, gps), 3, 1)
-            nbytes = M * K + 4 * M + K * N // 2 + 2 * G * N * 2 + 4 * M * N
-            bnd = bound_ms(nbytes, 2 * M * K * N, "int8")
+            bnd = bound_ms(_k1_bytes(M, K, N, gs), 2 * M * K * N, "int8")
             # decode reads a layer of the stack (K1s); admission one linear
             rep_at = ("sparsebit_tpu/ops/quant_matmul.py:693" if M <= 64
                       else "sparsebit_tpu/ops/quant_matmul.py:443")
@@ -1894,7 +1906,7 @@ def drive(eng, prompts, chunk_fn_name, path, expect, n_new=32,
         if timer is not None:
             timer.on = False
         torch.cuda.synchronize()
-        chunk_s.append((time.perf_counter() - t, a[6]))
+        chunk_s.append((time.perf_counter() - t, a[-1]))
         return out
 
     def k4_timed(*a, **kw):
@@ -3725,6 +3737,424 @@ def int4kv_path(params, cfg):
              "({})".format(q))
     return {"int4kv": st}
 
+
+TP_KW = dict(max_batch=8, max_len=512, chunk=8)
+TP_EXT = 24  # tokens the extension request adds to a served prompt
+TP_ADMISSION_ATOL = 1e-3  # tp against DecodeEngine: one K1 on equal codes
+TP2_ATOL = 0.1  # tp2 against tp: bf16 partial sums added in another order
+# K1's (K -> N) at 7B, T=2: wq/wk/wv, wo, w1/w3 (5504 columns, packed to
+# the 4-bit width multiple 5632 as the reference's from_codes pads), w2
+TP2_SHAPES = ("4096->2048", "2048->4096", "4096->5632", "5504->4096")
+
+
+def _tp_requests(cfg):
+    """main's 8 prompts and one that extends the first by TP_EXT tokens."""
+    import torch
+
+    prompts = _prompts(cfg)
+    gen = torch.Generator().manual_seed(SEED + 19)
+    ext = prompts[0] + torch.randint(0, cfg.vocab_size, (TP_EXT,),
+                                     generator=gen).tolist()
+    return prompts, ext
+
+
+def _tp_serve(eng, tag, chunk_fn_name, expect):
+    """The tp paths' traffic on ``eng`` through drive(): 8 requests x 32
+    greedy tokens, then the extension request (8 tokens), which must hit
+    the prefix cache. Returns (tokens, the extension's tokens, each
+    request's decision logits (n, V) in request order, stats)."""
+    import torch
+
+    prompts, ext = _tp_requests(eng.cfg)
+    rows = {}
+    timer = KernelEvents()
+    with timer.patch, _record_decisions(eng, rows):
+        toks, st = drive(eng, prompts, chunk_fn_name, tag, expect,
+                         timer=timer)
+        ext_toks, _ = drive(eng, [ext], chunk_fn_name, tag + ", extension",
+                            (), n_new=8)
+    st["prefix_hits"] = eng.prefix_hits
+    st["k1_device_ms_per_step"] = st["entry_device_ms_per_step"].get(
+        "sbt_qmm_s4", 0.0)
+    print("{}: K1 {:.4f} ms/step device of the kernels' {:.3f}, wall {:.3f} "
+          "ms/step, admission {:.4f} s; prefix hits {}".format(
+              tag, st["k1_device_ms_per_step"],
+              st["kernel_device_ms_per_step"], st["decode_ms_per_step"],
+              st["admission_s"], eng.prefix_hits), flush=True)
+    if eng.prefix_hits != 1:
+        fail("{}: {} prefix hits for the extension request, want 1".format(
+            tag, eng.prefix_hits))
+    return (toks, ext_toks[0],
+            [torch.stack(rows[r]).float() for r in sorted(rows)], st)
+
+
+def tp_path(cfg):
+    """Phase 4, path tp: TPDecodeEngine at T=1 on a one-rank NCCL group,
+    llama_7b() widths, 32 layers, generate's checkpoint-layout INT4-g128
+    weights (unfused, build_plane_params) and an int8 KV cache,
+    max_batch 8, max_len 512, chunk 8: main's 8 requests x 32 greedy
+    tokens, then a request that extends the first prompt (a prefix hit).
+    Each linear is K1 on its (whole) shard, the head K9, the attention the
+    reference's plain masked attention over the dequantized layer. The
+    yardstick is DecodeEngine on the same weights and requests (the
+    decode_chunk route: K1, K5, K9). Held: the admission logits within
+    TP_ADMISSION_ATOL (both admit through prefill_at's attention and K1 on
+    equal codes); greedy tokens equal up to each request's first
+    difference, where the yardstick's margin between the two tokens must
+    be a near tie: at most twice the routes' logit error (the larger of
+    the admission's and the first decode step's, where the first token
+    agrees), the rule of the int4kv path. Records wall ms/step, K1's
+    device ms per step and launches by shape, admission s. Returns (paths
+    entry, the admission logits on the CPU for tp2)."""
+    import torch
+    import torch.distributed as dist
+    from sparsebit_tpu_torch.llm import serving as Sv
+    from sparsebit_tpu_torch.parallel.mesh import make_mesh
+    from sparsebit_tpu_torch.parallel.multihost import (
+        free_port, initialize_multihost)
+
+    params = build_plane_params(cfg, torch.device("cuda"), lambda li, n: 4,
+                                SEED + 6)
+    initialize_multihost("localhost:{}".format(free_port()), 1, 0,
+                         device="cuda")
+    try:
+        backend = dist.get_backend()
+        t0 = time.perf_counter()
+        mesh = make_mesh(dp=1, tp=1, device_type="cuda")
+        eng = Sv.TPDecodeEngine(params, cfg, mesh, device="cuda", **TP_KW)
+        shard_s = time.perf_counter() - t0
+        toks, ext, rows, st = _tp_serve(
+            eng, "tp (TPDecodeEngine, T=1, {})".format(backend),
+            "tp_decode_chunk", ("K1", "K9"))
+        del eng
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    eng = Sv.DecodeEngine(params, cfg, device="cuda", **TP_KW)
+    ytoks, yext, yrows, yst = _tp_serve(
+        eng, "tp yardstick (DecodeEngine, decode_chunk)", "decode_chunk",
+        ("K1", "K5", "K9"))
+    del eng, params
+    torch.cuda.empty_cache()
+    st["k1_step_replay"] = k1_step_replay(cfg, 1)
+    _expect("tp", st["launches"], ("K1", "K9"), ("K4", "K5", "K6"))
+    if backend != "nccl":
+        fail("tp: the one-rank group runs {}, want nccl".format(backend))
+    adm = torch.stack([r[0] for r in rows])
+    yadm = torch.stack([r[0] for r in yrows])
+    err0, ok0 = _logits_agree(adm, yadm, atol=TP_ADMISSION_ATOL)
+    toks, ytoks = toks + [ext], ytoks + [yext]
+    err1 = max([float((a[1] - b[1]).abs().max()) for a, b, t, y in zip(
+        rows, yrows, toks, ytoks) if t[0] == y[0]] or [0.0])
+    near = 2 * max(err0, err1)
+    firsts, margins = [], []
+    for i, (a, b) in enumerate(zip(toks, ytoks)):
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        firsts.append(k)
+        if k < len(a):
+            margins.append(float(yrows[i][k][b[k]] - yrows[i][k][a[k]]))
+    ties_ok = all(m <= near for m in margins)
+    st.update(shard_s=shard_s, backend=backend,
+              admission_max_abs_err_vs_engine=err0,
+              admission_bit_equal=bool(torch.equal(adm, yadm)),
+              first_step_max_abs_err_vs_engine=err1, near_tie=near,
+              leading_tokens_equal=firsts,
+              engine_margin_at_first_difference=margins,
+              first_differences_near_ties=ties_ok,
+              yardstick=dict(decode_ms_per_step=yst["decode_ms_per_step"],
+                             kernel_device_ms_per_step=yst[
+                                 "kernel_device_ms_per_step"],
+                             admission_s=yst["admission_s"],
+                             launches=yst["launches"]))
+    print("tp: shards built in {:.2f} s; admission logits vs DecodeEngine "
+          "max err {:.3e} (atol {}; bit-equal {}), first decode step {:.3e}; "
+          "tokens equal in {} of {} requests, leading equal {}, margins at "
+          "the first difference {} (near tie <= {:.4f}: {}); wall {:.3f} "
+          "ms/step (DecodeEngine {:.3f}); K1 {:.4f} ms/step between events "
+          "in the engine, {} by graph replay of the step's launches".format(
+              shard_s, err0, TP_ADMISSION_ATOL, st["admission_bit_equal"],
+              err1, sum(a == b for a, b in zip(toks, ytoks)), len(toks),
+              firsts, ["{:.4f}".format(m) for m in margins], near, ties_ok,
+              st["decode_ms_per_step"], yst["decode_ms_per_step"],
+              st["k1_device_ms_per_step"],
+              st["k1_step_replay"]["graph_ms_a_step"]), flush=True)
+    if not ok0:
+        fail("tp: admission logits differ from DecodeEngine's (err "
+             "{:.3e}, atol {})".format(err0, TP_ADMISSION_ATOL))
+    if not ties_ok:
+        fail("tp: first-difference margins {} past the near tie "
+             "{:.4f}".format(margins, near))
+    return {"tp": st}, adm.cpu()
+
+
+def _tp2_rank(rank, address):
+    """One rank of path tp2 (a spawned process on the same card): the tp
+    path's model made from the same seed on the card, this rank's shards
+    kept, its traffic served over gloo. Returns tokens, decision logits
+    (CPU), stats and this process's failures."""
+    import torch
+    import torch.distributed as dist
+    from sparsebit_tpu_torch.llm.llama import llama_7b
+    from sparsebit_tpu_torch.llm.serving import TPDecodeEngine
+    from sparsebit_tpu_torch.parallel.mesh import make_mesh
+    from sparsebit_tpu_torch.parallel.multihost import initialize_multihost
+
+    initialize_multihost(address, 2, rank, backend="gloo", device="cuda:0")
+    try:
+        _wrappers()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = llama_7b()
+        params = build_plane_params(cfg, torch.device("cuda"),
+                                    lambda li, n: 4, SEED + 6)
+        t0 = time.perf_counter()
+        mesh = make_mesh(dp=1, tp=2, device_type="cuda")
+        eng = TPDecodeEngine(params, cfg, mesh, device="cuda", **TP_KW)
+        shard_s = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        toks, ext, rows, st = _tp_serve(
+            eng, "tp2 rank {} (TPDecodeEngine, T=2, gloo)".format(rank),
+            "tp_decode_chunk", ("K1", "K9"))
+        st.update(shard_s=shard_s, backend=dist.get_backend(),
+                  cache_kv_heads=int(eng.cache.k.shape[3]))
+    finally:
+        dist.destroy_process_group()
+    return {"tokens": toks, "ext": ext, "rows": [r.cpu() for r in rows],
+            "stats": st, "failures": list(failures)}
+
+
+def _k1_case(K, N, copies, g, gs=128):
+    """Random s4r weights (copies, K/2, N) with bf16 scales and zeros."""
+    import torch
+
+    dev = torch.device("cuda")
+    w = torch.randint(0, 256, (copies, K // 2, N), dtype=torch.uint8,
+                      generator=g, device=dev)
+    s = torch.empty((copies, K // gs, N), device=dev).uniform_(
+        0.001, 0.01, generator=g).to(torch.bfloat16)
+    z = torch.full((copies, K // gs, N), 8.0, dtype=torch.bfloat16,
+                   device=dev)
+    return w, s, z
+
+
+def _k1_bytes(M, K, N, gs=128):
+    """K1's bytes at (M, K -> N): x int8 and its scales, the nibbles, bf16
+    scales and zeros, the f32 output."""
+    return M * K + 4 * M + K * N // 2 + 2 * (K // gs) * N * 2 + 4 * M * N
+
+
+TP2_MS = (8, 16, 32, 128, 768)  # tp2's K1 rows: decode 8, admission groups
+
+
+def k1_shard_checks():
+    """The kernels at tp2's shard shapes, each against its plain version:
+    K1 at the four 7B T=2 shapes (TP2_SHAPES) at every M the path
+    launches it with (TP2_MS: a decode step and the admission groups),
+    over 8 copies of the weights cycled so that they come from HBM,
+    bit-equal in k1_plan's order; K9 on the head's vocab shard (4096 ->
+    16000, another k_splits split than phase 2's 32000 columns) at B = 1
+    and 8, within phase 2's tolerance (1e-3 of max |plain|). Eager and
+    graph-replay (device) ms, the plain version's ms and the bound; K9
+    also ``x @ W``'s. Returns the records."""
+    import torch
+    from sparsebit_tpu_torch.ops import _kernels
+    from sparsebit_tpu_torch.ops import matvec as MV
+    from sparsebit_tpu_torch.ops import quant_matmul as QM
+    from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
+
+    dev, gs, copies = torch.device("cuda"), 128, 8
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    out = []
+    for shape in TP2_SHAPES:
+        K, N = map(int, shape.split("->"))
+        w, s, z = _k1_case(K, N, copies, g, gs)
+        for M in TP2_MS:
+            x8, xs = tokenwise_quant(torch.randn((M, K), generator=g,
+                                                 device=dev))
+            tile, gps = QM.k1_plan(M, K, N, gs)
+
+            def run(i):
+                return QM.quant_matmul_s4(x8, xs, w, s, z, gs,
+                                          li=i % copies)
+
+            def plain(i):
+                c = i % copies
+                return QM._qmm_s4_plain(x8, xs, w[c], s[c], z[c], gs, gps)
+
+            err = float((run(0) - plain(0)).abs().max())
+            ms = cuda_ms(run, 20)
+            dms = graph_ms(run, 20)
+            pms = cuda_ms(plain, 3, 1)
+            bnd = bound_ms(_k1_bytes(M, K, N, gs), 2 * M * K * N, "int8")
+            out.append({"kernel": "K1", "shape": "M={} {}".format(M, shape),
+                        "tile": tile, "gps": gps, "max_abs_err": err,
+                        "tol": 0.0, "ms": ms, "device_ms": dms,
+                        "plain_ms": pms, "bound_ms": bnd[0],
+                        "bound_by": bnd[1]})
+            print("K1   T=2 shard M={} {} ({}, gps {}): err {:.3e} (bit-"
+                  "equal required) | {:.4f} ms, device {} ms, plain {:.4f} "
+                  "ms, bound {:.4f} ms ({})".format(
+                      M, shape, tile, gps, err, ms, "-" if dms is None
+                      else "{:.4f}".format(dms), pms, *bnd), flush=True)
+            if err != 0.0:
+                fail("K1 at the T=2 shard M={} {}: err {:.3e}".format(
+                    M, shape, err))
+        del w, s, z
+    K, N = 4096, 16000  # llama_7b's lm_head, one rank's vocab columns
+    W = (torch.randn((K, N), generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    splits = MV.k_splits(K, N, _kernels.sm_count(dev))
+    for B in (1, 8):
+        x = torch.randn((B, K), generator=g, device=dev).to(torch.bfloat16)
+        ref = MV._bf16_matvec_plain(x, W)
+        err = float((MV.bf16_matvec(x, W) - ref).abs().max())
+        tol = 1e-3 * float(ref.abs().max())
+        ms = cuda_ms(lambda i: MV.bf16_matvec(x, W), 20)
+        dms = graph_ms(lambda i: MV.bf16_matvec(x, W), 20)
+        pms = cuda_ms(lambda i: MV._bf16_matvec_plain(x, W), 5, 1)
+        lms = cuda_ms(lambda i: torch.matmul(x, W), 20)
+        bnd = bound_ms(2 * K * N + 2 * B * K + 4 * B * N, 2 * B * K * N,
+                       "bf16")
+        out.append({"kernel": "K9", "shape": "B={} {}->{}".format(B, K, N),
+                    "k_splits": splits, "max_abs_err": err, "tol": tol,
+                    "ms": ms, "device_ms": dms, "plain_ms": pms,
+                    "library_ms": lms, "bound_ms": bnd[0],
+                    "bound_by": bnd[1]})
+        print("K9   T=2 head shard B={} {}->{} (k_splits {}): err {:.3e} tol "
+              "{:.3e} | {:.4f} ms, device {} ms, plain {:.4f} ms, x @ W "
+              "{:.4f} ms, bound {:.4f} ms ({})".format(
+                  B, K, N, splits, err, tol, ms, "-" if dms is None
+                  else "{:.4f}".format(dms), pms, lms, *bnd), flush=True)
+        if not err <= tol:
+            fail("K9 at the T=2 head shard B={}: err {:.3e} over tol "
+                 "{:.3e}".format(B, err, tol))
+    return out
+
+
+def k1_step_replay(cfg, T, M=8):
+    """K1's time in one decode step at a tp path's widths, without the
+    path's host: the step's launches (wq, wk, wv, wo, w1, w3, w2 of every
+    layer, T's shards, M rows) in the engine's order, each on its own
+    copy of 8 weight stacks a shape cycled so that they come from HBM,
+    timed issued back to back (CUDA events around the sequence) and as
+    one replayed CUDA graph (device time alone). The tp paths time each
+    launch between events while the engine runs, so their K1 figure also
+    holds what the host leaves between a kernel's start and end events.
+    Returns the record."""
+    import torch
+    from sparsebit_tpu_torch.ops import quant_matmul as QM
+    from sparsebit_tpu_torch.ops.int8_matmul import tokenwise_quant
+
+    dev, gs, copies = torch.device("cuda"), 128, 8
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    D, F = cfg.dim, cfg.ffn_dim
+    Fp = -(-(F // T) // 256) * 256  # w1/w3 shards packed to 256 columns
+    layer = ([(D, D // T)] * 3 + [(D // T, D)] + [(D, Fp)] * 2
+             + [(F // T, D)])
+    stacks = {kn: _k1_case(*kn, copies, g, gs) for kn in set(layer)}
+    xq = {K: tokenwise_quant(torch.randn((M, K), generator=g, device=dev))
+          for K in {k for k, _ in layer}}
+    seq, used = [], {}
+    for _ in range(cfg.n_layers):
+        for kn in layer:
+            used[kn] = used.get(kn, -1) + 1
+            seq.append((kn, used[kn] % copies))
+
+    def run(i):
+        (K, N), li = seq[i % len(seq)]
+        return QM.quant_matmul_s4(*xq[K], *stacks[(K, N)], gs, li=li)
+
+    n = len(seq)
+    eager = cuda_ms(run, n, n) * n
+    graph = graph_ms(run, n)
+    nbytes = sum(_k1_bytes(M, K, N, gs) for (K, N), _ in seq)
+    ops = sum(2 * M * K * N for (K, N), _ in seq)
+    bnd = bound_ms(nbytes, ops, "int8")
+    rec = {"T": T, "M": M, "launches_a_step": n,
+           "shapes_a_layer": ["{}->{}".format(*kn) for kn in layer],
+           "eager_ms_a_step": eager,
+           "graph_ms_a_step": None if graph is None else graph * n,
+           "bound_ms_a_step": bnd[0], "bound_by": bnd[1]}
+    print("K1   one decode step at T={} widths (M={}, {} launches, {}): "
+          "issued back to back {:.4f} ms, graph replay {} ms, bound {:.4f} "
+          "ms ({})".format(T, M, n, rec["shapes_a_layer"], eager,
+                           "-" if graph is None
+                           else "{:.4f}".format(graph * n), *bnd),
+          flush=True)
+    del stacks
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp2_path(tp_admission):
+    """Phase 4, path tp2: two ranks spawned on the one card over gloo
+    (NCCL refuses two ranks on one device), each building tp's model from
+    the same seed and keeping its shards (K1 at 7B T=2: 4096->2048,
+    2048->4096, 4096->5504 packed as 5632 columns, 5504->4096). gloo
+    moves every all_reduce and all_gather of CUDA tensors through the
+    host, so the wall ms/step is no measure of multi-GPU speed. Held:
+    both ranks' tokens equal, their gathered logits bit-equal, rank 0's
+    admission logits within TP2_ATOL of tp's with equal decisive argmax,
+    K1 at the four T=2 shard shapes on both ranks (launches per rank
+    recorded); before the ranks start, K1 and K9 alone at the shapes and
+    rows the ranks give them (k1_shard_checks) and one decode step's K1
+    launches replayed (k1_step_replay)."""
+    import torch
+    from sparsebit_tpu_torch.llm.llama import llama_7b
+    from sparsebit_tpu_torch.parallel.multihost import free_port, spawn_ranks
+
+    k1_shards = k1_shard_checks()
+    k1_step = k1_step_replay(llama_7b(), 2)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn_ranks(_tp2_rank, 2,
+                      args=("localhost:{}".format(free_port()),))
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(res):
+        for f in r["failures"]:
+            fail("tp2 rank {}: {}".format(rank, f))
+    a, b = res
+    same_tokens = a["tokens"] == b["tokens"] and a["ext"] == b["ext"]
+    bit_equal = len(a["rows"]) == len(b["rows"]) and all(
+        torch.equal(x, y) for x, y in zip(a["rows"], b["rows"]))
+    adm = torch.stack([r[0] for r in a["rows"]])
+    err, ok = _logits_agree(adm, tp_admission, atol=TP2_ATOL)
+    shapes_ok = []
+    for r in res:
+        seen = r["stats"]["k1_launches_by_shape"]
+        shapes_ok.append(all(any(k.endswith(" " + s) for k in seen)
+                             for s in TP2_SHAPES))
+    st = {"ranks": [r["stats"] for r in res], "spawn_s": wall,
+          "tokens_equal_across_ranks": same_tokens,
+          "logits_bit_equal_across_ranks": bit_equal,
+          "admission_max_abs_err_vs_tp": err,
+          "k1_at_t2_shapes": shapes_ok,
+          "launches": res[0]["stats"]["launches"],
+          "launches_per_rank": [r["stats"]["launches"] for r in res],
+          "k1_shard_checks": k1_shards, "k1_step_replay": k1_step,
+          "collectives": "gloo on CUDA tensors (all_reduce, all_gather)"}
+    print("tp2: 2 ranks in {:.1f} s (spawn, weights, shards, serving); "
+          "tokens equal across ranks {}, gathered logits bit-equal {}, rank "
+          "0 admission vs tp max err {:.3e} (atol {}), K1 at the T=2 shapes "
+          "{}; wall {} ms/step (gloo through the host); K1 {} ms/step "
+          "between events in the engine, {} by graph replay of the step's "
+          "launches; K1 launches by shape, rank 0: {}".format(
+              wall, same_tokens, bit_equal, err, TP2_ATOL, shapes_ok,
+              ["{:.3f}".format(r["stats"]["decode_ms_per_step"])
+               for r in res],
+              ["{:.4f}".format(r["stats"]["k1_device_ms_per_step"])
+               for r in res], k1_step["graph_ms_a_step"],
+              a["stats"]["k1_launches_by_shape"]), flush=True)
+    if not same_tokens:
+        fail("tp2: the ranks' tokens differ")
+    if not bit_equal:
+        fail("tp2: the ranks' gathered logits differ")
+    if not ok:
+        fail("tp2: rank 0's admission logits vs tp's err {:.3e} (atol "
+             "{})".format(err, TP2_ATOL))
+    if not all(shapes_ok):
+        fail("tp2: K1 missed a T=2 shard shape {}".format(TP2_SHAPES))
+    return {"tp2": st}
 
 def kpad_path(params, cfg):
     """Phase 4, path kpad: every W2 of main's model K-padded by
@@ -6361,6 +6791,13 @@ def main(argv):
     print("int4kv and kpad paths {:.1f} s".format(time.perf_counter() - t0))
     del params
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp, tp_admission = tp_path(cfg)
+    paths.update(tp)
+    print("tp path {:.1f} s".format(time.perf_counter() - t0), flush=True)
+    t0 = time.perf_counter()
+    paths.update(tp2_path(tp_admission))
+    print("tp2 path {:.1f} s".format(time.perf_counter() - t0), flush=True)
     t0 = time.perf_counter()
     paths.update(prefill_paths(cfg))
     print("prefill paths {:.1f} s".format(time.perf_counter() - t0))

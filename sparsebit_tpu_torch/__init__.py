@@ -7,7 +7,9 @@ converters, observers, quantizers and calibration; ``sparse/``, the
 pruning regime with its sparsers and SModules; ``nn/``, the module
 zoo and the ``torch.fx`` tracer; ``models/``, the model zoo and the
 checkpoint importers; ``utils/``, the config tree and the profiling
-helpers) and imports neither JAX nor ``sparsebit_tpu``. Every
+helpers; ``parallel/``, the mesh, process-group setup and tensor-parallel
+serving on ``torch.distributed``) and imports neither JAX nor
+``sparsebit_tpu``. Every
 TPU (Pallas) kernel it ports is a CUDA C++ kernel under ``csrc/``, built
 with ``nvcc`` at first use into ``csrc/build/`` and bound through
 ``ctypes`` (``ops/_kernels.py``). Each kernel wrapper runs its plain

@@ -1,6 +1,7 @@
 """Continuous-batching decode engines (port of
 ``sparsebit_tpu/llm/serving.py``: the fixed-slot ``DecodeEngine``
-(serving.py:164-542) and the paged ``PagedDecodeEngine`` (:634-918)).
+(serving.py:164-542), the tensor-sharded ``TPDecodeEngine`` (:545-632)
+and the paged ``PagedDecodeEngine`` (:634-918)).
 
 ``DecodeEngine``:
 - one fixed (max_batch, max_len) KV cache, layer-stacked: int8, int4
@@ -27,7 +28,11 @@ full prefix blocks shared between requests, a reserved trash block for
 idle slots, and every decode token as one K4 launch through the block
 table (decode.decode_chunk_paged).
 
-Both take the reference's positional parameters, then the keyword-only
+``TPDecodeEngine`` runs DecodeEngine's host logic on every rank of a
+tensor-parallel group over the rank's weight and KV-head shards
+(parallel/tp.py).
+
+All three take the reference's positional parameters, then the keyword-only
 ``device=None`` (CUDA, raising without it) or ``device="cpu"`` (the
 kernels' plain versions). ``DecodeEngine``'s ``kv_quantized`` picks the
 slot cache: True/"int8"; "int4", packed code pairs with f32 scales; or
@@ -67,6 +72,13 @@ from sparsebit_tpu_torch.llm.kv_cache import (
 )
 from sparsebit_tpu_torch.llm.llama import quantize_llama_params
 from sparsebit_tpu_torch.llm.quant import DenseLinear, QuantLinear
+from sparsebit_tpu_torch.parallel.tp import (
+    shard_kv_cache_tp,
+    shard_llama_params_tp_packed,
+    tp_decode_chunk,
+    tp_group,
+    tp_prefill_at,
+)
 
 
 @dataclass
@@ -107,17 +119,7 @@ class DecodeEngine:
             raise ValueError("params live on {}, engine device is {}".format(
                 params["tok_embed"].device, self.device))
         self.cfg = cfg
-        self.params = quantize_llama_params(
-            params,
-            lambda path, lin: (_serving_layout(lin)
-                               if isinstance(lin, QuantLinear) else lin),
-            skip=(),
-        )
-        head = self.params["lm_head"]
-        if head_bits is not None and isinstance(head, DenseLinear):
-            self.params["lm_head"] = QuantLinear.from_dense(
-                head.w.to(torch.float32), bits=head_bits, groupsize=-1,
-                sym=True, bias=head.bias).with_sz_dtype()
+        self.params = self._prepare_params(params, head_bits)
         # layers K4 can take are stacked for it; a model it refuses may mix
         # containers across layers and is served per layer
         self.params_stacked = None
@@ -151,6 +153,23 @@ class DecodeEngine:
         self._pinned = set()  # prefix keys hit by the admission under way
         self._prefix = {}
         self.prefix_hits = 0
+
+    # ---- backend hooks (overridden by TPDecodeEngine) -----------------------
+    def _prepare_params(self, params, head_bits):
+        """The serving layout of every QuantLinear (_serving_layout) and,
+        with ``head_bits``, a dense lm_head quantized per channel."""
+        out = quantize_llama_params(
+            params,
+            lambda path, lin: (_serving_layout(lin)
+                               if isinstance(lin, QuantLinear) else lin),
+            skip=(),
+        )
+        head = out["lm_head"]
+        if head_bits is not None and isinstance(head, DenseLinear):
+            out["lm_head"] = QuantLinear.from_dense(
+                head.w.to(torch.float32), bits=head_bits, groupsize=-1,
+                sym=True, bias=head.bias).with_sz_dtype()
+        return out
 
     def _init_cache(self, n_rows, n_cols):
         return init_kv_cache(self.cfg, n_rows, n_cols, self.kv_quantized,
@@ -397,6 +416,60 @@ class DecodeEngine:
         if self.slots[slot] is not None and self._finished(slot):
             self.slots[slot].done = True
             self.slots[slot] = None
+
+
+class TPDecodeEngine(DecodeEngine):
+    """Tensor-sharded continuous batching (serving.py:545-632; the
+    reference's "LLaMA-13B INT4-g128 + INT8 KV-cache, tensor-sharded
+    continuous batching" configuration): DecodeEngine's admission,
+    prefix-cache and scheduling host logic, run by every rank of the
+    mesh's "tp" axis in lockstep on the same requests, over
+
+    - weights: the rank's Megatron column/row shards of the PACKED
+      QuantLinears, split exactly (parallel/tp.shard_quantlinear: codes
+      sliced, never requantized), each shard in the serving layout, so
+      each linear is the one-device W4A8 matmul (K1) on its shard; a
+      ``head_bits`` head is quantized before it is sharded;
+    - KV cache and admission scratches: the rank's heads
+      (parallel/tp.shard_kv_cache_tp);
+    - admission: parallel/tp.tp_prefill_at (the vocab-sharded lm_head
+      gathered at each row's last token);
+    - decode: parallel/tp.tp_decode_chunk, two all_reduces a layer and one
+      all_gather of the logits a step; every rank samples the same tokens
+      from its own generator, seeded alike.
+
+    Layers are unfused, so the megakernel route (params_stacked,
+    _stacked_chunks) stays off. ``mesh`` is a DeviceMesh with a "tp" axis;
+    the params, the same on every rank, live on the engine's device
+    (keyword ``device``, the card unless the caller names another), and
+    the rank's shards are cut there. Needs n_heads, n_kv_heads and vocab
+    divisible by T."""
+
+    def __init__(self, params, cfg, mesh, **kw):
+        self.mesh = mesh
+        super().__init__(params, cfg, **kw)
+
+    def _prepare_params(self, params, head_bits):
+        _, self.T, self.rank = tp_group(self.mesh)
+        head = params["lm_head"]
+        if head_bits is not None and isinstance(head, DenseLinear):
+            params = dict(params, lm_head=QuantLinear.from_dense(
+                head.w.to(torch.float32), bits=head_bits, groupsize=-1,
+                sym=True, bias=head.bias))
+        return shard_llama_params_tp_packed(
+            params, self.cfg, self.T, conv=_serving_layout, rank=self.rank)
+
+    def _init_cache(self, n_rows, n_cols):
+        return shard_kv_cache_tp(super()._init_cache(n_rows, n_cols),
+                                 self.rank, self.T)
+
+    def _prefill_call(self, tokens, scratch, lasts, offsets):
+        return tp_prefill_at(self.params, tokens, scratch, self.cfg, lasts,
+                             offsets, self.mesh)
+
+    def _decode_chunk_call(self, temps, n):
+        return tp_decode_chunk(self.params, self.next_tok, self.cache, temps,
+                               self._gen, self.cfg, self.mesh, n)
 
 
 class PagedDecodeEngine(DecodeEngine):

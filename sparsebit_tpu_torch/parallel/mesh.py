@@ -1,0 +1,67 @@
+"""Device mesh and data-parallel helpers (port of
+``sparsebit_tpu/parallel/mesh.py``).
+
+The JAX package builds a ``Mesh`` over the devices one process sees; here
+every rank is its own process and the mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
+process group, with the reference's axis names ("dp", "tp", ...). The
+group of one axis is ``mesh.get_group(name)``. The default group must
+exist first (``multihost.initialize_multihost``): a mesh never starts one
+with a backend of its own choosing.
+"""
+
+import math
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from sparsebit_tpu_torch import resolve_device
+from sparsebit_tpu_torch.llm.convert import map_params
+from sparsebit_tpu_torch.parallel.multihost import local_batch_slice
+
+
+def _mesh(device_type, axes):
+    if not dist.is_initialized():
+        raise RuntimeError("no default process group: call "
+                           "parallel.multihost.initialize_multihost first")
+    n = math.prod(axes.values())
+    have = dist.get_world_size()
+    if n > have:
+        raise ValueError("need {} devices, have {}".format(n, have))
+    device_type = device_type or resolve_device(None).type
+    return init_device_mesh(device_type, tuple(axes.values()),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_mesh(dp=1, tp=1, device_type=None):
+    """Mesh(("dp", "tp")) over the first dp * tp ranks; ``device_type``
+    "cuda" unless the caller names another (raises without CUDA)."""
+    return _mesh(device_type, {"dp": dp, "tp": tp})
+
+
+def make_mesh_named(device_type=None, **axes):
+    """Mesh with arbitrary named axes, e.g. make_mesh_named(dp=2, tp=4)."""
+    return _mesh(device_type, axes)
+
+
+def dp_shard_batch(mesh, x):
+    """This rank's contiguous rows of a batch sharded over "dp"
+    (replicated over the other axes)."""
+    return x[local_batch_slice(x.shape[0], mesh)]
+
+
+def replicate(mesh, tree):
+    """Broadcast every tensor leaf of ``tree`` in place from the mesh's
+    first rank (along each axis from its first rank in turn); returns
+    ``tree``."""
+
+    def bcast(t):
+        if not t.is_contiguous():
+            raise ValueError("replicate: leaves must be contiguous")
+        for name in mesh.mesh_dim_names:
+            g = mesh.get_group(name)
+            dist.broadcast(t, src=dist.get_global_rank(g, 0), group=g)
+        return t
+
+    map_params(bcast, tree)
+    return tree

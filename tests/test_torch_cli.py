@@ -547,3 +547,54 @@ def test_qat_nuscenes_bevdet_torch_demo(yaml_name, monkeypatch):
     for name in ("img_backbone.0.conv", "depthnet", "heatmap_head",
                  "box_head"):
         assert ops[name].input_quantizer.bit == 8, name
+
+
+def test_tp_serve_demo_torch_matches_jax_demo():
+    """tp_serve_demo_torch --tp 2 --device cpu (two spawned gloo ranks)
+    decodes the tokens of the JAX demo's computation (tp_serve_demo.py:
+    per-shard RTN INT4-g32 weights, prefill on the unsharded params, the
+    cache sharded, greedy tp_decode_step) run here on the port demo's
+    weights (llama_tiny widths, seed 0, the all-ones prompt)."""
+    import jax
+    import jax.numpy as jnp
+
+    from sparsebit_tpu.llm import llama as JL
+    from sparsebit_tpu.llm.decode import prefill
+    from sparsebit_tpu.llm.kv_cache import init_kv_cache
+    from sparsebit_tpu.llm.quant import DenseLinear as JDense
+    from sparsebit_tpu.parallel.mesh import make_mesh
+    from sparsebit_tpu.parallel.tp import (
+        shard_kv_cache_tp, shard_llama_params_tp, tp_decode_step)
+    from sparsebit_tpu_torch.llm.quant import DenseLinear
+
+    cli = _cli("tp_serve_demo_torch")
+    got = cli.main(["--tp", "2", "--tokens", "6", "--device", "cpu"])
+
+    def to_jax(x):
+        if isinstance(x, DenseLinear):
+            return JDense(jnp.asarray(x.w.numpy()))
+        if isinstance(x, dict):
+            return {k: to_jax(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_jax(v) for v in x]
+        return jnp.asarray(x.numpy())
+
+    tcfg = cli.demo_config()
+    cfg = JL.llama_tiny(**{f: getattr(tcfg, f) for f in (
+        "vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads", "ffn_dim",
+        "max_seq_len", "dtype")})
+    params = to_jax(cli.demo_params(tcfg, torch.device("cpu")))
+    mesh = make_mesh(dp=1, tp=2)
+    params_tp = shard_llama_params_tp(params, cfg, 2, bits=4, groupsize=32)
+    logits, cache = prefill(params, jnp.ones((2, 5), jnp.int32),
+                            init_kv_cache(cfg, 2, 32, quantized=True), cfg)
+    cache = shard_kv_cache_tp(cache, mesh)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    want = []
+    for _ in range(6):
+        logits, cache = tp_decode_step(params_tp, tok, cache, cfg, mesh)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        want.append(np.asarray(tok))
+    assert tuple(got.shape) == (2, 6)
+    np.testing.assert_array_equal(got.numpy(), np.stack(want, 1))
+    assert jax.devices()[0].platform == "cpu"

@@ -86,7 +86,11 @@ def test_every_port_module_imports_without_jax_or_yaml():
                 "sparsebit_tpu_torch.models.yolo",
                 "sparsebit_tpu_torch.models.bevdet",
                 "sparsebit_tpu_torch.models.import_torch",
-                "sparsebit_tpu_torch.utils.profiling"):
+                "sparsebit_tpu_torch.utils.profiling",
+                "sparsebit_tpu_torch.parallel",
+                "sparsebit_tpu_torch.parallel.mesh",
+                "sparsebit_tpu_torch.parallel.multihost",
+                "sparsebit_tpu_torch.parallel.tp"):
         assert new in MODULES
 
 
@@ -114,14 +118,15 @@ def test_root_exports_the_pruning_regime_without_jax_or_yaml():
 
 CLIS = ["post_training_quantization/wikitext_gpt2/main_torch.py",
         "post_training_quantization/coco_yolov3_tiny/main_torch.py",
-        "quantization_aware_training/nuscenes_bevdet/main_torch.py"]
+        "quantization_aware_training/nuscenes_bevdet/main_torch.py",
+        "llm/tp_serve_demo_torch.py"]
 
 
 @pytest.mark.parametrize("rel", CLIS)
 def test_cli_imports_without_jax_or_yaml(rel):
-    """Each of the model zoo's last three CLIs loads (its imports, its
-    argument parser) where jax, the JAX package and PyYAML are blocked,
-    as on the card's machine."""
+    """Each of the model zoo's last three CLIs and the tensor-parallel
+    demo loads (its imports, its argument parser) where jax, the JAX
+    package and PyYAML are blocked, as on the card's machine."""
     path = ROOT / "examples" / rel
     code = ("import importlib.util, sys\n"
             "for name in ('jax', 'jaxlib', 'sparsebit_tpu', 'yaml'):\n"
