@@ -156,6 +156,22 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 tokens equal and gathered logits bit-equal across the
                 ranks, rank 0's admission logits within 0.1 of tp's, K1 at
                 the T=2 shard shapes; wall ms/step (through the host);
+     pptrain    pipelined QLoRA (pp_qlora_train_step) on two gloo ranks on
+                the card: pp 2, M 2, qlora's model at 8 layers, B=4 S=512,
+                a warm-up and 3 steps: s a step (forward, backward,
+                exchanges), K10-K12 launches a rank, peak memory; losses
+                equal across ranks; loss and adapter gradients against
+                the single rank's qlora_loss_fn; backbone bit-equal;
+     tptrain    a tp=2 float step of tp_llama_loss (7B widths, 2 layers,
+                B=2 S=512): loss and every leaf's gradient against one
+                rank's llama_loss backward;
+     sptrain    sp=2, all_gather and ring (B=1 S=2048): loss and
+                gradients against one rank's;
+     pptp       tp 2 x pp 2 on four gloo ranks: one pp_tp_qlora_loss Adam
+                step over exact packed shards, the loss against one rank;
+     dpqat      BatchNorm over a dp group at resnet18's shapes against the
+                whole batch, then the resnet18 LSQ QAT CLI under
+                torchrun's variables on two gloo ranks against one rank;
      offload    StreamingLlama over 32 INT4-g128 layers (checkpoint
                 layout: K8) from pinned host memory on a copy stream,
                 prefetch 2, prefill B=1 S=128 and 8 decode steps against
@@ -2708,18 +2724,10 @@ QLORA_GRAD_TOL = {"dense": (0.05, 0.999), "int8": (0.15, 0.99)}
 
 
 def _tensors(tree):
-    """Every tensor of a params tree, linears' fields included."""
-    import torch
+    """Every tensor of a params tree once, linears' fields included."""
+    from sparsebit_tpu_torch.llm.convert import tree_tensors
 
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tensors(v)]
-    if isinstance(tree, (list, tuple)):
-        return [t for v in tree for t in _tensors(v)]
-    if hasattr(tree, "__dict__"):
-        return _tensors(tree.__dict__)
-    return []
+    return tree_tensors(tree)
 
 
 def bwd_held(log):
@@ -4155,6 +4163,962 @@ def tp2_path(tp_admission):
     if not all(shapes_ok):
         fail("tp2: K1 missed a T=2 shard shape {}".format(TP2_SHAPES))
     return {"tp2": st}
+
+# ---- training over ranks: pptrain, tptrain, sptrain, pptp, dpqat ----------
+#
+# gloo carries every exchange and collective of these ranks through the
+# host (two or four ranks share the one card; NCCL refuses that), so no
+# wall time here measures multi-card speed.
+
+PP_LAYERS, PP_M, PP_STEPS = 8, 2, 3  # pptrain: 4 layers a stage
+PPTP_LAYERS = 4
+TRAIN_LAYERS = 2  # tptrain, sptrain
+SP_SEQ = 2048
+# tptrain / sptrain against the single rank, per leaf: (relative norm,
+# cosine). bf16 weights and activations; the ranks' products sum in
+# other orders (row-parallel partials added in bf16 after the
+# all_reduce, sp's plain attention against K10-K12).
+TRAIN_GRAD_TOL = (0.05, 0.999)
+DPQAT_LR = 1e-4  # the resnet18 QAT CLI's default
+
+
+def _rank_env(rank, world, address):
+    """torchrun's variables for a spawned rank on the one card; its
+    collective timeout cut so that a hang fails the path within the run."""
+    from sparsebit_tpu_torch.parallel import multihost
+
+    host, port = address.split(":")
+    os.environ.update(MASTER_ADDR=host, MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    multihost.TIMEOUT_S = 300
+
+
+def _agree(got, want):
+    """(relative norm, cosine) of two gradients flattened."""
+    got, want = got.float().reshape(-1), want.float().reshape(-1)
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    cos = float(got @ want / (got.norm() * want.norm()).clamp_min(1e-30))
+    return rel, cos
+
+
+def _train_cfg(n_layers):
+    from sparsebit_tpu_torch.llm.llama import llama_7b
+
+    return dataclasses.replace(llama_7b(), n_layers=n_layers)
+
+
+def _trainable(tree):
+    from sparsebit_tpu_torch.llm.convert import trainable
+
+    return trainable(tree)
+
+
+def _qlora_model(cfg):
+    """path qlora's model at cfg's depth: random INT4-g128 checkpoint-layout
+    weights (unit scales), r = 8 adapters on wq and wv, and B = 4 windows
+    of 513 seeded tokens."""
+    import torch
+    from sparsebit_tpu_torch.llm import qlora as Q
+
+    dev = torch.device("cuda")
+    params = Q.wrap_llama_lora(
+        build_plane_params(cfg, dev, lambda li, n: 4, SEED + 6, unit=True),
+        r=8, alpha=16.0,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 14))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 513), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 15))
+    return params, tokens
+
+
+def _pptrain(rank):
+    """Path pptrain on this rank (see pptrain_path)."""
+    import torch
+    import torch.distributed as dist
+    from sparsebit_tpu_torch.llm import qlora as Q
+    from sparsebit_tpu_torch.parallel import pp as PP
+    from sparsebit_tpu_torch.parallel import tp as TP
+    from sparsebit_tpu_torch.parallel.mesh import make_mesh_named, sum_grads
+
+    cfg = _train_cfg(PP_LAYERS)
+    mesh = make_mesh_named("cuda", dp=1, pp=2)
+    sid = mesh.get_local_rank("pp")
+    params, tokens = _qlora_model(cfg)
+    pp_params = PP.stack_llama_stages(params, 2, rank=sid)
+    lora = PP.pp_extract_lora(pp_params)
+    ids = {id(t) for v in lora.values() for t in v.values()}
+    backbone = [t.clone() for t in _tensors(pp_params) if id(t) not in ids]
+    lora0 = [t.clone() for t in _tensors(lora)]
+    opt = Q.adamw(lora, 3e-4)
+
+    marks, exch = [], {"s": 0.0, "n": 0}
+    real_loss, real_sum, real_exchange = (PP.pp_qlora_loss, PP.sum_grads,
+                                          TP._exchange)
+
+    def timed_loss(*a):
+        out = real_loss(*a)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+
+    def timed_sum(*a, **kw):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return real_sum(*a, **kw)
+
+    def timed_exchange(*a):
+        t0 = time.perf_counter()
+        out = real_exchange(*a)
+        exch["s"] += time.perf_counter() - t0
+        exch["n"] += 1
+        return out
+
+    timer = KernelEvents()
+    steps = []
+    with _Patched([(PP, "pp_qlora_loss", timed_loss),
+                   (PP, "sum_grads", timed_sum),
+                   (TP, "_exchange", timed_exchange)]), timer.patch:
+        for step in range(1 + PP_STEPS):  # a warm-up, then the timed steps
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _reset_launches()
+            marks.clear()
+            exch.update(s=0.0, n=0)
+            timer.events = []
+            timer.on = True
+            t0 = time.perf_counter()
+            lora, loss = PP.pp_qlora_train_step(lora, opt, pp_params, tokens,
+                                                cfg, mesh, PP_M)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            timer.on = False
+            _, by = timer.take_ms()
+            st = {"loss": loss.item(), "wall_s": t3 - t0,
+                  "forward_s": marks[0] - t0,
+                  "backward_s": marks[1] - marks[0],
+                  "grad_sum_and_optimizer_s": t3 - marks[1],
+                  "exchange_s": exch["s"], "exchanges": exch["n"],
+                  "k10_device_ms": by.get(K10_ENTRY, 0.0),
+                  "k11_device_ms": by.get(K11_ENTRY, 0.0),
+                  "k12_device_ms": by.get(K12_ENTRY, 0.0),
+                  "peak_bytes_above_resident":
+                      torch.cuda.max_memory_allocated() - base,
+                  "resident_bytes": base, "launches": _launches()}
+            if step:
+                steps.append(st)
+            if not math.isfinite(st["loss"]):
+                fail("pptrain rank {} step {}: loss {}".format(
+                    rank, step, st["loss"]))
+
+    # the gradients at the trained state against the single rank's
+    opt.zero_grad(set_to_none=True)
+    loss = PP.pp_qlora_loss(lora, pp_params, tokens, cfg, mesh, PP_M)
+    loss.backward()
+    sum_grads(lora, mesh, ("dp",))
+    g = mesh.get_group("pp")
+    per = PP_LAYERS // 2
+    full = Q.extract_lora(params)  # every stage's adapters, this rank's
+    with torch.no_grad():          # trained ones: share them
+        for (li, name) in sorted(full):
+            for t in full[li, name].values():
+                dist.broadcast(t, src=dist.get_global_rank(g, li // per),
+                               group=g)
+    ref = {k: {n: t.detach().clone().requires_grad_(True)
+               for n, t in v.items()} for k, v in full.items()}
+    ref_loss = Q.qlora_loss_fn(ref, params, tokens, cfg)
+    ref_loss.backward()
+    leaves = [(k, n) for k in sorted(lora) for n in ("lora_A", "lora_B")]
+    worst, n_bad = _adapters_held(
+        "pptrain stage {}".format(sid),
+        {(k, n): lora[k][n].grad for k, n in leaves},
+        {((s, i, name), n): ref[s * per + i, name][n].grad
+         for (s, i, name), n in leaves})
+    same = all(torch.equal(a, b) for a, b in zip(
+        backbone, [t for t in _tensors(pp_params) if id(t) not in ids]))
+    moved = all(not torch.equal(a, b) for a, b in zip(lora0, _tensors(lora)))
+    return {"stage": sid, "steps": steps, "losses": [s["loss"]
+                                                     for s in steps],
+            "loss_at_trained_state": loss.item(),
+            "single_rank_loss": ref_loss.item(),
+            "loss_vs_single_rel": abs(loss.item() - ref_loss.item())
+            / abs(ref_loss.item()),
+            "adapter_grads_vs_single": worst,
+            "adapters_past_tol": n_bad, "backbone_bit_equal": same, "adapters_moved": moved,
+            "launches": {k: sum(s["launches"][k] for s in steps)
+                         for k in steps[0]["launches"]}}
+
+
+def _shard_slice(full, name, t, T):
+    """Rank t's block of an unsharded weight gradient (w as (in, out))."""
+    kind = name.split(".")[-1]
+    if kind in ("wq", "wk", "wv", "w1", "w3", "lm_head"):
+        n = full.shape[1] // T
+        return full[:, t * n:(t + 1) * n]
+    if kind in ("wo", "w2"):
+        n = full.shape[0] // T
+        return full[t * n:(t + 1) * n]
+    return full
+
+
+def _leaf_grads(params):
+    """{leaf name: gradient} of a (TP-sharded) LLaMA params tree."""
+    from sparsebit_tpu_torch.parallel.tp import TPLinear
+
+    def grad(x):
+        if isinstance(x, TPLinear):
+            x = x.local()
+        return (x.w if hasattr(x, "w") else x).grad
+
+    out = {k: grad(params[k]) for k in ("tok_embed", "norm", "lm_head")}
+    for i, layer in enumerate(params["layers"]):
+        for name, x in layer.items():
+            out["layers.{}.{}".format(i, name)] = grad(x)
+    return out
+
+
+def _single_rank_grads(cfg, params, tokens):
+    """(loss, {leaf: gradient}) of llama_loss on one rank (K10-K12)."""
+    import copy
+
+    from sparsebit_tpu_torch.llm.llama import llama_loss
+
+    ref = _trainable(copy.deepcopy(params))
+    loss = llama_loss(ref, tokens, cfg)
+    loss.backward()
+    return loss.item(), _leaf_grads(ref)
+
+
+def _grads_held(tag, got, want, T=1, t=0):
+    """Each leaf's gradient (the rank's block) against the single rank's:
+    (worst relative norm, worst cosine, the leaves past TRAIN_GRAD_TOL)."""
+    worst_rel, worst_cos, bad = 0.0, 1.0, []
+    for name, w in want.items():
+        rel, cos = _agree(got[name], _shard_slice(w, name, t, T))
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        if rel > TRAIN_GRAD_TOL[0] or cos < TRAIN_GRAD_TOL[1]:
+            bad.append((name, rel, cos))
+    if bad:
+        fail("{}: gradients past (rel {}, cos {}): {}".format(
+            tag, *TRAIN_GRAD_TOL, bad[:6]))
+    return worst_rel, worst_cos, len(bad)
+
+
+def _adapters_held(tag, got, want):
+    """Each adapter leaf's gradient, ``got`` {(key, "lora_A" / "lora_B"):
+    gradient}, against the single rank's ``want`` (the rank's block) by
+    QLORA_GRAD_TOL["dense"]: {leaf kind: [worst relative norm, worst
+    cosine]} and the number of leaves past it."""
+    tol_rel, tol_cos = QLORA_GRAD_TOL["dense"]
+    worst, bad = {}, []
+    for k, g in got.items():
+        rel, cos = _agree(g, want[k])
+        w = worst.setdefault(k[-1], [0.0, 1.0])
+        w[0], w[1] = max(w[0], rel), min(w[1], cos)
+        if rel > tol_rel or cos < tol_cos:
+            bad.append((k, rel, cos))
+    if bad:
+        fail("{}: adapter gradients past (rel {}, cos {}): {}".format(
+            tag, tol_rel, tol_cos, bad[:6]))
+    return worst, len(bad)
+
+
+def _tptrain(rank):
+    """Path tptrain on this rank (see pptrain_path)."""
+    import torch
+    from sparsebit_tpu_torch.llm.llama import init_llama_params
+    from sparsebit_tpu_torch.parallel import tp as TP
+    from sparsebit_tpu_torch.parallel.mesh import make_mesh, sum_grads
+
+    dev = torch.device("cuda")
+    cfg = _train_cfg(TRAIN_LAYERS)
+    params = init_llama_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 30), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 513), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 31))
+    ref_loss, ref = _single_rank_grads(cfg, params, tokens)
+    mesh = make_mesh(dp=1, tp=2, device_type="cuda")
+    _, T, r = TP.tp_group(mesh)
+    ptp = _trainable(TP.shard_llama_params_tp(params, cfg, T, rank=r))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss = TP.tp_llama_loss(ptp, tokens, cfg, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    sum_grads(ptp, mesh, ("dp",))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():  # the step: plain SGD, lr 1e-3
+        for t in _tensors(ptp):
+            if t.grad is not None:
+                t -= 1e-3 * t.grad
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = _launches()
+    tag = "tptrain rank {}".format(rank)
+    rel, cos, n_bad = _grads_held(tag, _leaf_grads(ptp), ref, T, r)
+    loss_rel = abs(loss.item() - ref_loss) / abs(ref_loss)
+    if not (loss_rel <= 1e-3 and math.isfinite(loss.item())):
+        fail("{}: loss {} against the single rank's {}".format(
+            tag, loss.item(), ref_loss))
+    return {"tp_rank": r, "loss": loss.item(), "single_rank_loss": ref_loss,
+            "loss_vs_single_rel": loss_rel, "worst_grad_rel": rel,
+            "worst_grad_cos": cos, "leaves_past_tol": n_bad,
+            "wall_s": t3 - t0, "forward_s": t1 - t0, "backward_s": t2 - t1,
+            "update_s": t3 - t2,
+            "peak_bytes_above_resident":
+                torch.cuda.max_memory_allocated() - base,
+            "launches": launches}
+
+
+def _sptrain(rank):
+    """Path sptrain on this rank (see pptrain_path)."""
+    import torch
+    from sparsebit_tpu_torch.llm.llama import init_llama_params
+    from sparsebit_tpu_torch.parallel.mesh import make_mesh_named, sum_grads
+    from sparsebit_tpu_torch.parallel.sp import sp_llama_loss
+
+    dev = torch.device("cuda")
+    cfg = _train_cfg(TRAIN_LAYERS)
+    params = init_llama_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 32), device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SP_SEQ), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 33))
+    ref_loss, ref = _single_rank_grads(cfg, params, tokens)
+    mesh = make_mesh_named("cuda", sp=2)
+    out = {}
+    for ring in (False, True):
+        import copy
+
+        p = _trainable(copy.deepcopy(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_launches()
+        t0 = time.perf_counter()
+        loss = sp_llama_loss(p, tokens, cfg, mesh, ring=ring)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        sum_grads(p, mesh, ("sp",))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tag = "sptrain ring={} rank {}".format(ring, rank)
+        rel, cos, n_bad = _grads_held(tag, _leaf_grads(p), ref)
+        loss_rel = abs(loss.item() - ref_loss) / abs(ref_loss)
+        if not (loss_rel <= 1e-3 and math.isfinite(loss.item())):
+            fail("{}: loss {} against the single rank's {}".format(
+                tag, loss.item(), ref_loss))
+        out["ring={}".format(ring)] = {
+            "loss": loss.item(), "single_rank_loss": ref_loss,
+            "loss_vs_single_rel": loss_rel, "worst_grad_rel": rel,
+            "worst_grad_cos": cos, "leaves_past_tol": n_bad,
+            "forward_s": t1 - t0, "backward_s": t2 - t1,
+            "peak_bytes_above_resident":
+                torch.cuda.max_memory_allocated() - base,
+            "launches": _launches()}
+        del p, loss
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_rank(rank, address):
+    """Two ranks spawned on the one card over gloo: paths pptrain, tptrain
+    and sptrain in turn, every kernel count set to 0 before each."""
+    import torch
+    import torch.distributed as dist
+    from sparsebit_tpu_torch.parallel.multihost import initialize_multihost
+
+    _rank_env(rank, 2, address)
+    initialize_multihost(address, 2, rank, backend="gloo", device="cuda:0")
+    out = {}
+    try:
+        _wrappers()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for name, fn in (("pptrain", _pptrain), ("tptrain", _tptrain),
+                         ("sptrain", _sptrain)):
+            t0 = time.perf_counter()
+            out[name] = fn(rank)
+            out[name]["path_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {"paths": out, "failures": list(failures)}
+
+
+def _pptp_rank(rank, address):
+    """One of path pptp's four ranks (see pptp_path)."""
+    import torch
+    import torch.distributed as dist
+    from sparsebit_tpu_torch.llm import qlora as Q
+    from sparsebit_tpu_torch.parallel import pp as PP
+    from sparsebit_tpu_torch.parallel import tp as TP
+    from sparsebit_tpu_torch.parallel.mesh import make_mesh_named, sum_grads
+    from sparsebit_tpu_torch.parallel.multihost import initialize_multihost
+
+    _rank_env(rank, 4, address)
+    initialize_multihost(address, 4, rank, backend="gloo", device="cuda:0")
+    try:
+        _wrappers()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = _train_cfg(PPTP_LAYERS)
+        params, tokens = _qlora_model(cfg)
+        full = Q.extract_lora(params)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+        with torch.no_grad():  # lora_B off zero: lora_A takes a gradient
+            for k in sorted(full):
+                b = full[k]["lora_B"]
+                b.copy_(1e-3 * torch.randn(b.shape, generator=g,
+                                           device=b.device))
+        want = {k: {n: t.detach().clone().requires_grad_(True)
+                    for n, t in v.items()} for k, v in full.items()}
+        ref_loss = Q.qlora_loss_fn(want, params, tokens, cfg)
+        ref_loss.backward()
+        ref = ref_loss.item()
+        mesh = make_mesh_named("cuda", dp=1, tp=2, pp=2)
+        _, T, r = TP.tp_group(mesh)
+        sid = mesh.get_local_rank("pp")
+        ppp = PP.stack_llama_stages(TP.shard_llama_params_tp_packed(
+            params, cfg, T, rank=r), 2, rank=sid)
+        del params
+        lora = PP.pp_extract_lora(ppp)
+        opt = torch.optim.Adam(Q.lora_parameters(lora), lr=3e-4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_launches()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = PP.pp_tp_qlora_loss(lora, ppp, tokens, cfg, mesh, PP_M)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        sum_grads(lora, mesh, ("dp",))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = _launches()
+        rel = abs(loss.item() - ref) / abs(ref)
+        if not (rel <= 1e-3 and math.isfinite(loss.item())):
+            fail("pptp rank {}: loss {} against the single rank's {}".format(
+                rank, loss.item(), ref))
+        per = PPTP_LAYERS // 2
+        got, block = {}, {}
+        for (s, i, name), ad in lora.items():
+            w = want[s * per + i, name]
+            kind = ppp["stages"][s][i][name].kind
+            for n, t in ad.items():  # col: lora_B's columns; row: A's rows
+                wg = w[n].grad
+                if kind == "col" and n == "lora_B":
+                    wg = wg.chunk(T, dim=1)[r]
+                elif kind == "row" and n == "lora_A":
+                    wg = wg.chunk(T, dim=0)[r]
+                got[(s, i, name), n], block[(s, i, name), n] = t.grad, wg
+        worst, n_bad = _adapters_held("pptp rank {}".format(rank), got,
+                                      block)
+        out = {"tp_rank": r, "stage": sid, "loss": loss.item(),
+               "single_rank_loss": ref, "loss_vs_single_rel": rel,
+               "adapter_grads_vs_single": worst,
+               "adapters_past_tol": n_bad,
+               "wall_s": t3 - t0, "forward_s": t1 - t0,
+               "backward_s": t2 - t1, "optimizer_s": t3 - t2,
+               "peak_bytes_above_resident":
+                   torch.cuda.max_memory_allocated() - base,
+               "launches": launches}
+    finally:
+        dist.destroy_process_group()
+    return {"path": out, "failures": list(failures)}
+
+
+class _Halves:
+    """Stands in one process for path dpqat's dp group of two ranks (see
+    _run_qat_cli)."""
+
+
+def _halves_moments(real):
+    """nn.modules._group_moments, which over _Halves sums BatchNorm's
+    statistics as the two ranks do: each half's sums, then the two added
+    (what gloo's all_reduce of two ranks computes)."""
+    def moments(x, dims, group):
+        if not isinstance(group, _Halves):
+            return real(x, dims, group)
+        ch = next(i for i in range(x.dim()) if i not in dims)
+        shape = [-1 if i == ch else 1 for i in range(x.dim())]
+        n = x.numel() // x.shape[ch]
+        parts = x.chunk(2)
+        s0, s1 = (p.sum(dim=dims) for p in parts)
+        mean = (s0 + s1) / n
+        d0, d1 = (p - mean.reshape(shape) for p in parts)
+        return mean, ((d0 * d0).sum(dim=dims) + (d1 * d1).sum(dim=dims)) / n
+    return moments
+
+
+def _halves_conv2d(real):
+    """F.conv2d over each half of the batch, as each rank computes it."""
+    import torch
+
+    def conv2d(x, *a, **kw):
+        outs = [real(p, *a, **kw) for p in x.chunk(2)]
+        fmt = (torch.channels_last if outs[0].is_contiguous(
+            memory_format=torch.channels_last) else torch.contiguous_format)
+        return torch.cat(outs).contiguous(memory_format=fmt)
+    return conv2d
+
+
+def _run_qat_cli(argv, halves=False):
+    """The resnet18 QAT CLI's main(argv), with what each optimiser step
+    finds recorded: the parameters and their gradients (after the dp
+    average) in the optimiser's order, and BatchNorm's running statistics
+    as that step's forward left them. Returns (the CLI's result, [{"params":
+    [(param, grad)], "bn": {name: tensor}} a step], wall s).
+
+    ``halves``: one process on the global batch that sums as path dpqat's
+    two ranks do, its reference: in each training step every convolution
+    runs on each half of the batch and BatchNorm sums each half's
+    statistics, then adds the two; calibration is the plain one rank's, as
+    every rank calibrates on the whole batches. Its forward is then the
+    ranks' bit for bit, so no 4-bit activation falls to the other side of
+    a rounding tie; its gradients are the global batch's mean, summed in
+    another order than the ranks' average."""
+    import importlib.util
+
+    import torch
+    import torch.nn.functional as F
+    from sparsebit_tpu_torch.nn import modules as M
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    spec = importlib.util.spec_from_file_location("qat_resnet18_cli", (
+        os.path.join(QAT_DIR, "imagenet1k_resnet18", "main_torch.py")))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    seen, models = [], []
+    make = cli.make_qat_step
+
+    def keep_model(qmodel, *a, **kw):
+        models.append(qmodel)
+        step = make(qmodel, *a, **kw)
+        if not halves:
+            return step
+        for node in qmodel.graph.op_nodes:
+            for m in node.op.modules():
+                if isinstance(m, M.BatchNorm2d):
+                    m.dp_group = _Halves()
+
+        def halves_step(*batch):
+            with _Patched([(F, "conv2d", _halves_conv2d(F.conv2d)),
+                           (M, "_group_moments",
+                            _halves_moments(M._group_moments))]):
+                return step(*batch)
+        return halves_step
+
+    def record(optimizer, args, kwargs):
+        bn = {"{}.{}".format(n, k): v.detach().cpu().clone()
+              for n, p in models[0].trainable_params().items()
+              for k, v in p.items() if "running_" in k}
+        seen.append({"params": [
+            (p.detach().cpu().clone(),
+             None if p.grad is None else p.grad.detach().cpu().clone())
+            for grp in optimizer.param_groups for p in grp["params"]],
+            "bn": bn})
+
+    cli.make_qat_step = keep_model
+    hook = register_optimizer_step_pre_hook(record)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    return res, seen, wall
+
+
+def _dpqat_argv():
+    return ["--qconfig", os.path.join(QAT_DIR, "imagenet1k_resnet18",
+                                      "qconfig_lsq.yaml"),
+            "--batch", "64", "--img", "224", "--lr", str(DPQAT_LR),
+            "--device", "cuda"]
+
+
+# resnet18's BatchNorm inputs at 224 x 224, B = 64 (NHWC)
+DPQAT_BN_SHAPES = ((64, 112, 112, 64), (64, 56, 56, 64), (64, 28, 28, 128),
+                   (64, 14, 14, 256), (64, 7, 7, 512))
+
+
+def _dp_batchnorm_checks(mesh):
+    """nn.BatchNorm2d in training mode over the dp group on the rank's rows
+    of a seeded global batch, at each of DPQAT_BN_SHAPES, against the same
+    module on the whole batch on the card: the largest relative error of
+    the rank's output rows, the running statistics, gamma's and beta's
+    gradients (summed over dp) and the rank's input-gradient rows."""
+    import copy
+
+    import torch
+    from sparsebit_tpu_torch.nn import BatchNorm2d, data_parallel
+    from sparsebit_tpu_torch.parallel.mesh import sum_grads
+
+    dev = torch.device("cuda")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    out = {}
+    for shape in DPQAT_BN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 60)
+        x = torch.randn(shape, generator=g, device=dev) * 3 + 1
+        cot = torch.randn(shape, generator=g, device=dev)
+        bn = BatchNorm2d(shape[-1], device=dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(shape[-1], generator=g, device=dev)
+                            + 0.5)
+            bn.bias.copy_(torch.randn(shape[-1], generator=g, device=dev))
+        ref = copy.deepcopy(bn)
+        xr = x.clone().requires_grad_(True)
+        ref_out = ref.execute(xr, training=True)
+        (ref_out * cot).sum().backward()
+        per = shape[0] // mesh["dp"].size()
+        rows = slice(mesh.get_local_rank("dp") * per,
+                     (mesh.get_local_rank("dp") + 1) * per)
+        xl = x[rows].clone().requires_grad_(True)
+        with data_parallel(mesh.get_group("dp"), bn):
+            y = bn.execute(xl, training=True)
+            (y * cot[rows]).sum().backward()
+        sum_grads([bn.weight, bn.bias], mesh, ("dp",))
+        out["x".join(map(str, shape))] = max(
+            rel(y.detach(), ref_out.detach()[rows]),
+            rel(bn.running_mean, ref.running_mean),
+            rel(bn.running_var, ref.running_var),
+            rel(bn.weight.grad, ref.weight.grad),
+            rel(bn.bias.grad, ref.bias.grad), rel(xl.grad, xr.grad[rows]))
+    return out
+
+
+def _dpqat_rank(rank, address):
+    """One of path dpqat's two ranks: BatchNorm over the dp group at
+    resnet18's shapes (_dp_batchnorm_checks), then the CLI under
+    torchrun's variables on the one card; its group is gloo (NCCL refuses
+    two ranks on one device; the CLI takes multihost's default backend,
+    named here)."""
+    import torch
+    import torch.distributed as dist
+    from sparsebit_tpu_torch.parallel import multihost
+    from sparsebit_tpu_torch.parallel.mesh import make_mesh
+
+    _rank_env(rank, 2, address)
+    multihost.BACKENDS = dict(multihost.BACKENDS, cuda="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _wrappers()
+    multihost.initialize_multihost(device="cuda")
+    try:
+        bn = _dp_batchnorm_checks(make_mesh(dp=2, device_type="cuda"))
+    finally:
+        dist.destroy_process_group()
+    _reset_launches()
+    res, seen, wall = _run_qat_cli(_dpqat_argv())
+    return {"loss": res["loss"], "state": res["state"], "steps": seen[:1],
+            "n_steps": len(seen), "wall_s": wall, "launches": _launches(),
+            "bn_checks": bn, "failures": list(failures)}
+
+
+def train_paths():
+    """Phase 4, paths pptrain (this slice's main path), tptrain and
+    sptrain: two ranks spawned on the one card over gloo (NCCL refuses
+    two ranks on one device), every kernel count set to 0 in each rank
+    before a path and read after it.
+      pptrain  pp = 2, M = 2 microbatches: path qlora's model at 8 layers
+               (4 a stage; llama_7b() widths, random INT4-g128 checkpoint
+               layout, r = 8 adapters on wq/wv), B = 4 x 513 tokens,
+               qlora.adamw lr 3e-4: a warm-up and PP_STEPS
+               pp_qlora_train_steps, wall s a step split into forward,
+               backward, the dp gradient sum with the optimiser, and the
+               host-staged exchanges inside; K10/K11/K12 device ms and
+               launches a rank; peak memory. Held: both ranks' losses
+               equal and finite; at the trained state, the pipelined loss
+               within 1e-3 relative and each of the stage's adapter
+               leaves' gradients (lora_A and lora_B of every layer) within
+               QLORA_GRAD_TOL (dense) of the single rank's
+               qlora_loss_fn on the same weights, adapters and tokens;
+               the backbone bit-equal after the steps, every adapter
+               moved, K10/K11/K12 launched on each rank.
+      tptrain  tp = 2, a float training step of tp_llama_loss at 7B
+               widths, 2 layers, B = 2, S = 512: loss within 1e-3 and
+               every leaf's gradient (the rank's shard) within
+               TRAIN_GRAD_TOL of the single rank's llama_loss backward
+               (K10-K12), K10/K11/K12 launched.
+      sptrain  sp = 2, ring False and True, 7B widths, 2 layers, B = 1,
+               S = 2048: loss within 1e-3, gradients (summed over sp)
+               within TRAIN_GRAD_TOL of the single rank's."""
+    from sparsebit_tpu_torch.parallel.multihost import free_port, spawn_ranks
+
+    t0 = time.perf_counter()
+    res = spawn_ranks(_train_rank, 2,
+                      args=("localhost:{}".format(free_port()),))
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(res):
+        for f in r["failures"]:
+            fail("rank {}: {}".format(rank, f))
+    a, b = (r["paths"] for r in res)
+    out = {}
+    pp = {"ranks": [a["pptrain"], b["pptrain"]], "spawn_s": wall,
+          "transport": "gloo; CUDA activations staged through host memory "
+                       "for each exchange"}
+    pp["launches"] = a["pptrain"]["launches"]
+    pp["launches_per_rank"] = [a["pptrain"]["launches"],
+                               b["pptrain"]["launches"]]
+    equal = a["pptrain"]["losses"] == b["pptrain"]["losses"]
+    for r in (a, b):
+        p = r["pptrain"]
+        st = p["steps"]
+        print("pptrain stage {}: losses {}; a step {} s wall (forward {}, "
+              "backward {}, grad sum + optimiser {}; exchanges {} in {} "
+              "s); K10 / K11 / K12 {} / {} / {} ms device a step; peak {:.3f} "
+              "GB above {:.3f} GB resident; launches {}; at the trained "
+              "state loss {:.6f} vs single rank {:.6f} (rel {:.3e}), "
+              "each adapter leaf's gradient, worst [rel, cos] by kind {} "
+              "(tol {}); backbone bit-equal {}, adapters moved {}".format(
+                  p["stage"], ["{:.6f}".format(v) for v in p["losses"]],
+                  ["{:.4f}".format(s["wall_s"]) for s in st],
+                  ["{:.4f}".format(s["forward_s"]) for s in st],
+                  ["{:.4f}".format(s["backward_s"]) for s in st],
+                  ["{:.4f}".format(s["grad_sum_and_optimizer_s"])
+                   for s in st], st[0]["exchanges"],
+                  ["{:.4f}".format(s["exchange_s"]) for s in st],
+                  *(["{:.3f}".format(s[k]) for s in st] for k in (
+                      "k10_device_ms", "k11_device_ms", "k12_device_ms")),
+                  max(s["peak_bytes_above_resident"] for s in st) / 1e9,
+                  st[0]["resident_bytes"] / 1e9, p["launches"],
+                  p["loss_at_trained_state"], p["single_rank_loss"],
+                  p["loss_vs_single_rel"], p["adapter_grads_vs_single"],
+                  QLORA_GRAD_TOL["dense"], p["backbone_bit_equal"],
+                  p["adapters_moved"]), flush=True)
+        if not p["loss_vs_single_rel"] <= 1e-3:
+            fail("pptrain stage {}: loss rel {:.3e} against the single "
+                 "rank".format(p["stage"], p["loss_vs_single_rel"]))
+        if not (p["backbone_bit_equal"] and p["adapters_moved"]):
+            fail("pptrain stage {}: backbone changed or an adapter did not "
+                 "move".format(p["stage"]))
+        _expect("pptrain stage {}".format(p["stage"]), p["launches"],
+                ("K10", "K11", "K12"))
+    if not equal:
+        fail("pptrain: the ranks' losses differ: {} / {}".format(
+            a["pptrain"]["losses"], b["pptrain"]["losses"]))
+    pp["losses_equal_across_ranks"] = equal
+    out["pptrain"] = pp
+
+    for r in (a, b):
+        t = r["tptrain"]
+        print("tptrain tp rank {}: loss {:.6f} vs single rank {:.6f} (rel "
+              "{:.3e}); worst leaf gradient rel {:.3e} cos {:.6f} (tol {}); "
+              "{:.4f} s (forward {:.4f}, backward + sum {:.4f}, update "
+              "{:.4f}); peak {:.3f} GB; launches {}".format(
+                  t["tp_rank"], t["loss"], t["single_rank_loss"],
+                  t["loss_vs_single_rel"], t["worst_grad_rel"],
+                  t["worst_grad_cos"], TRAIN_GRAD_TOL, t["wall_s"],
+                  t["forward_s"], t["backward_s"], t["update_s"],
+                  t["peak_bytes_above_resident"] / 1e9, t["launches"]),
+              flush=True)
+        _expect("tptrain tp rank {}".format(t["tp_rank"]), t["launches"],
+                ("K10", "K11", "K12"))
+    out["tptrain"] = {"ranks": [a["tptrain"], b["tptrain"]],
+                      "launches": a["tptrain"]["launches"],
+                      "launches_per_rank": [a["tptrain"]["launches"],
+                                            b["tptrain"]["launches"]]}
+
+    for mode in ("ring=False", "ring=True"):
+        for rank, r in enumerate((a, b)):
+            s = r["sptrain"][mode]
+            print("sptrain {} rank {}: loss {:.6f} vs single rank {:.6f} (rel "
+                  "{:.3e}); worst leaf gradient rel {:.3e} cos {:.6f}; "
+                  "forward {:.4f} s, backward + sum {:.4f} s; peak {:.3f} GB; "
+                  "launches {}".format(
+                      mode, rank, s["loss"], s["single_rank_loss"],
+                      s["loss_vs_single_rel"], s["worst_grad_rel"],
+                      s["worst_grad_cos"], s["forward_s"], s["backward_s"],
+                      s["peak_bytes_above_resident"] / 1e9, s["launches"]),
+                  flush=True)
+    out["sptrain"] = {"ranks": [a["sptrain"], b["sptrain"]],
+                      "launches": a["sptrain"]["ring=False"]["launches"]}
+    return out
+
+
+def pptp_path():
+    """Phase 4, path pptp: four ranks spawned on the one card over gloo,
+    tp = 2 x pp = 2: path qlora's model at 4 layers, its packed INT4
+    weights split exactly over tp (shard_llama_params_tp_packed: codes
+    sliced, the adapters split with them), one Adam step (lr 3e-4) of
+    pp_tp_qlora_loss at B = 4, S = 512, M = 2, from adapters whose lora_B
+    is seeded off zero (so that lora_A, replicated over tp and summed by
+    _copy_to in the backward, takes a gradient). Held: the loss within
+    1e-3 relative of the single rank's QLoRA loss on the same packed
+    weights and adapters, the same on every rank; each adapter leaf's
+    gradient (the rank's block) within QLORA_GRAD_TOL (dense) of the
+    single rank's; K10/K11/K12 launched on each.
+    Recorded: s split into forward, backward and optimiser, peak memory,
+    launches (K8 where QuantLinear's "auto" route takes it)."""
+    from sparsebit_tpu_torch.parallel.multihost import free_port, spawn_ranks
+
+    t0 = time.perf_counter()
+    res = spawn_ranks(_pptp_rank, 4,
+                      args=("localhost:{}".format(free_port()),))
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(res):
+        for f in r["failures"]:
+            fail("pptp rank {}: {}".format(rank, f))
+    ranks = [r["path"] for r in res]
+    for p in ranks:
+        print("pptp tp rank {} stage {}: loss {:.6f} vs single rank {:.6f} "
+              "(rel {:.3e}); each adapter leaf's gradient (the rank's "
+              "block), worst [rel, cos] by kind {} (tol {}); {:.4f} s "
+              "(forward {:.4f}, backward {:.4f}, optimiser {:.4f}); peak "
+              "{:.3f} GB; launches {}".format(
+                  p["tp_rank"], p["stage"], p["loss"], p["single_rank_loss"],
+                  p["loss_vs_single_rel"], p["adapter_grads_vs_single"],
+                  QLORA_GRAD_TOL["dense"], p["wall_s"], p["forward_s"],
+                  p["backward_s"], p["optimizer_s"],
+                  p["peak_bytes_above_resident"] / 1e9, p["launches"]),
+              flush=True)
+        _expect("pptp tp rank {} stage {}".format(p["tp_rank"], p["stage"]),
+                p["launches"], ("K10", "K11", "K12"))
+    if len({p["loss"] for p in ranks}) != 1:
+        fail("pptp: the ranks' losses differ: {}".format(
+            [p["loss"] for p in ranks]))
+    return {"pptp": {"ranks": ranks, "spawn_s": wall,
+                     "launches": ranks[0]["launches"],
+                     "launches_per_rank": [p["launches"] for p in ranks]}}
+
+
+DPQAT_BN_TOL = 1e-5
+# dpqat's first step against the one process that sums as the two ranks
+# do, each trainable's gradient: largest |difference| over the largest
+# |gradient| of that leaf. The two sum the gradients in other orders
+# (the ranks their halves, then the average); a sum in place of the
+# average reads 1.0, LSQ's count of the rank's elements alone sqrt(2) - 1
+# = 0.41 on the activation scales, and BatchNorm on the rank's rows alone
+# moves the 4-bit codes downstream.
+DPQAT_GRAD_TOL = 1e-2
+
+
+def dpqat_path():
+    """Phase 4, path dpqat: two ranks spawned on the one card (gloo).
+    First, BatchNorm over the dp group at resnet18's five BatchNorm
+    shapes at 224 x 224, B = 64 (_dp_batchnorm_checks): held within
+    DPQAT_BN_TOL relative of the whole batch's module on the card. Then
+    the resnet18 LSQ QAT CLI (imagenet1k_resnet18/main_torch.py) under
+    torchrun's variables, at a global B = 64 of 224 x 224 images for its
+    2 steps (Adam, lr 1e-4), against the same CLI in one process on the
+    global batch, summing as the two ranks do (_run_qat_cli's
+    ``halves``); TF32 off in all. Held against it, at the first optimiser
+    step: the parameters (calibrated, QAT-initialised, broadcast) within
+    1e-6 relative, BatchNorm's running statistics as the first forward
+    left them within DPQAT_BN_TOL, and every trainable's dp-averaged
+    gradient within DPQAT_GRAD_TOL of that leaf's largest; both ranks'
+    losses equal and finite. Printed, not held: the state after the 2
+    steps against it, and the first step against the plain one-rank CLI.
+    A bit moved in a BatchNorm sum or a convolution sends a 4-bit
+    activation at a rounding tie to the other code, so the plain one rank
+    is not the same computation (the path prints how far it lands), and
+    after the first Adam step a weight at a tie does the same."""
+    import torch
+    from sparsebit_tpu_torch.parallel.multihost import free_port, spawn_ranks
+
+    res = spawn_ranks(_dpqat_rank, 2,
+                      args=("localhost:{}".format(free_port()),))
+    for rank, r in enumerate(res):
+        for f in r["failures"]:
+            fail("dpqat rank {}: {}".format(rank, f))
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref, seen, ref_wall = _run_qat_cli(_dpqat_argv(), halves=True)
+        one, one_seen, one_wall = _run_qat_cli(_dpqat_argv())
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def first_step(mine, want):
+        """(parameters, worst leaf gradient, BatchNorm statistics) rel,
+        and the worst leaf gradient of a sum in place of the average."""
+        pairs = [(g, w) for (_, g), (_, w) in zip(mine["params"],
+                                                  want["params"])
+                 if w is not None]
+        return (max(rel(a, b) for (a, _), (b, _) in zip(mine["params"],
+                                                        want["params"])),
+                max(rel(g, w) for g, w in pairs),
+                max(rel(mine["bn"][k], v) for k, v in want["bn"].items()),
+                max(rel(2 * g, w) for g, w in pairs))
+
+    def after_steps(r, want):
+        stats = [k for k in want["state"] if "running_" in k]
+        return (max(rel(r["state"][k], want["state"][k]) for k in stats),
+                max(rel(r["state"][k], want["state"][k])
+                    for k in want["state"] if k not in stats))
+
+    out = {"reference_wall_s": ref_wall, "one_rank_wall_s": one_wall,
+           "ranks": []}
+    for rank, r in enumerate(res):
+        bn_worst = max(r["bn_checks"].values())
+        mine = r["steps"][0]
+        params_rel, grad_rel, bn1, summed = first_step(mine, seen[0])
+        _, one_grad, one_bn, _ = first_step(mine, one_seen[0])
+        bn2, tr2 = after_steps(r, ref)
+        one_bn2, one_tr2 = after_steps(r, one)
+        rec = {"bn_checks": r["bn_checks"], "loss": r["loss"],
+               "reference_loss": ref["loss"], "one_rank_loss": one["loss"],
+               "first_step_params_rel": params_rel,
+               "first_step_worst_leaf_grad_rel": grad_rel,
+               "first_step_bn_running_stats_rel": bn1,
+               "first_step_worst_leaf_grad_rel_if_summed": summed,
+               "bn_stats": len(seen[0]["bn"]),
+               "after_steps_bn_running_stats_rel": bn2,
+               "after_steps_worst_trainable_rel": tr2,
+               "one_rank_first_step_worst_leaf_grad_rel": one_grad,
+               "one_rank_first_step_bn_running_stats_rel": one_bn,
+               "one_rank_after_steps_bn_running_stats_rel": one_bn2,
+               "one_rank_after_steps_worst_trainable_rel": one_tr2,
+               "steps": r["n_steps"], "wall_s": r["wall_s"],
+               "launches": r["launches"]}
+        out["ranks"].append(rec)
+        print("dpqat rank {}: BatchNorm over dp at resnet18's shapes, worst "
+              "rel {:.3e} (tol {}) {}; the CLI, {} steps in {:.2f} s (the "
+              "reference {:.2f} s, the plain one rank {:.2f} s); loss {:.6f} "
+              "(reference {:.6f}, plain one rank {:.6f}); held at the first "
+              "step against the reference: parameters rel {:.3e} (tol "
+              "1e-6), the worst leaf's gradient rel {:.3e} (tol {}; a sum "
+              "in place of the average reads {:.3e}), BatchNorm's {} "
+              "running statistics rel {:.3e} (tol {}); printed: after the "
+              "steps, running statistics rel {:.3e} and the worst trainable "
+              "rel {:.3e}; against the plain one rank, the first step's "
+              "worst leaf gradient rel {:.3e} and statistics rel {:.3e}, "
+              "after the steps {:.3e} / {:.3e}; launches {}".format(
+                  rank, bn_worst, DPQAT_BN_TOL, r["bn_checks"], r["n_steps"],
+                  r["wall_s"], ref_wall, one_wall, r["loss"], ref["loss"],
+                  one["loss"], params_rel, grad_rel, DPQAT_GRAD_TOL, summed,
+                  len(seen[0]["bn"]), bn1, DPQAT_BN_TOL, bn2, tr2, one_grad,
+                  one_bn, one_bn2, one_tr2, r["launches"]), flush=True)
+        if not (bn_worst <= DPQAT_BN_TOL and params_rel <= 1e-6
+                and grad_rel <= DPQAT_GRAD_TOL and bn1 <= DPQAT_BN_TOL
+                and math.isfinite(r["loss"])
+                and r["n_steps"] == len(seen) == 2 and seen[0]["bn"]):
+            fail("dpqat rank {}: {}".format(rank, rec))
+        _expect("dpqat rank {}".format(rank), r["launches"], (),
+                tuple(_wrappers()))
+    if res[0]["loss"] != res[1]["loss"]:
+        fail("dpqat: the ranks' losses differ")
+    out["launches"] = res[0]["launches"]
+    return {"dpqat": out}
+
 
 def kpad_path(params, cfg):
     """Phase 4, path kpad: every W2 of main's model K-padded by
@@ -6798,6 +7762,12 @@ def main(argv):
     t0 = time.perf_counter()
     paths.update(tp2_path(tp_admission))
     print("tp2 path {:.1f} s".format(time.perf_counter() - t0), flush=True)
+    t0 = time.perf_counter()
+    paths.update(train_paths())
+    paths.update(pptp_path())
+    paths.update(dpqat_path())
+    print("pptrain, tptrain, sptrain, pptp and dpqat paths {:.1f} s".format(
+        time.perf_counter() - t0), flush=True)
     t0 = time.perf_counter()
     paths.update(prefill_paths(cfg))
     print("prefill paths {:.1f} s".format(time.perf_counter() - t0))

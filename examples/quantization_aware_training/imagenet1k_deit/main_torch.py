@@ -10,12 +10,18 @@ cross entropy (timm's LabelSmoothingCrossEntropy, the reference's
 criterion at deit/main.py:619). LSQ trains end to end through the
 quantized attention path: QMatmul(q, k^T) and QMatmul(softmax, v).
 
-One card: data parallelism on the port waits for its ``parallel/``
-package (ROADMAP.md, queue 1). --ckpt loads an npz of the JAX
-package's ``full_state_dict`` layout. Runs on the card unless --device
-names another device.
+Data parallelism as the JAX CLI's: under ``torchrun`` (its variables
+set) each rank, one a card, trains on its rows of every global batch
+(``--batch`` is the global batch), LSQ's gradient scale counts the global
+batch's elements (``nn.data_parallel``), as under the JAX
+CLI's jit, and the gradients are averaged over the ranks before each
+step; every rank calibrates on the same whole batches and rank 0's
+trainables are broadcast before training. Without torchrun it runs on
+one rank. --ckpt loads an npz of the JAX package's ``full_state_dict``
+layout. Runs on the card unless --device names another device.
 
     python main_torch.py --model deit_small --qconfig qconfig_lsq.yaml
+    python -m torch.distributed.run --nproc_per_node 8 main_torch.py
 """
 
 import argparse
@@ -27,12 +33,18 @@ sys.path.insert(0, os.path.abspath(os.path.join(
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as TF  # noqa: E402
 
 from sparsebit_tpu_torch import QuantModel, parse_qconfig  # noqa: E402
 from sparsebit_tpu_torch import resolve_device  # noqa: E402
 from sparsebit_tpu_torch.models import create_model  # noqa: E402
 from sparsebit_tpu_torch.nn import load_jax_state_dict  # noqa: E402
+from sparsebit_tpu_torch.parallel.mesh import (  # noqa: E402
+    data_parallel_mesh,
+    dp_shard_batch,
+    replicate,
+)
 from sparsebit_tpu_torch.quantization.tools.qat import (  # noqa: E402
     commit_qat_params,
     init_qat_state,
@@ -58,6 +70,10 @@ def main(argv=None):
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    mesh = data_parallel_mesh(device)
+    n_dp = 1 if mesh is None else mesh["dp"].size()
+    if args.batch % n_dp:
+        raise SystemExit("the global batch must divide the dp axis")
 
     if args.data:
         z = np.load(args.data)
@@ -77,12 +93,19 @@ def main(argv=None):
     if args.ckpt:
         load_jax_state_dict(model, dict(np.load(args.ckpt)))
     model.eval()
-    qmodel = QuantModel(model, parse_qconfig(args.qconfig), (batch(0)[0],))
+    # the traced graph keeps the batch size of its example (the attention's
+    # reshapes), so it is traced at a rank's rows and every rank calibrates
+    # on all of each global batch in pieces of that size
+    rows = args.batch // n_dp
+    qmodel = QuantModel(model, parse_qconfig(args.qconfig),
+                        (batch(0)[0][:rows],))
 
     # calibrate ~256 images (the reference's calib_size), then QAT init
     qmodel.prepare_calibration()
     for i in range(0, min(len(x), 256), args.batch):
-        qmodel(batch(i)[0])
+        xb = batch(i)[0]
+        for r in range(0, args.batch, rows):
+            qmodel(xb[r:r + rows])
     qmodel.init_QAT()
 
     def loss_fn(logits, yy):
@@ -90,21 +113,38 @@ def main(argv=None):
 
     trainable, opt = init_qat_state(qmodel, lambda ps: torch.optim.AdamW(
         ps, lr=args.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.05))
-    step = make_qat_step(qmodel, loss_fn, opt)
+    if mesh is not None:
+        replicate(mesh, trainable)
+    step = make_qat_step(qmodel, loss_fn, opt, mesh)
     qmodel.train()
-    for epoch in range(args.epochs):
-        for i in range(0, len(x) - args.batch + 1, args.batch):
-            trainable, loss = step(trainable, *batch(i))
-        print("epoch {} loss {:.4f}".format(epoch, loss.item()))
+    try:
+        for epoch in range(args.epochs):
+            for i in range(0, len(x) - args.batch + 1, args.batch):
+                xb, yb = batch(i)
+                if mesh is not None:
+                    xb, yb = dp_shard_batch(mesh, xb), dp_shard_batch(mesh, yb)
+                trainable, loss = step(trainable, xb, yb)
+            if mesh is not None:  # the global batch's mean
+                dist.all_reduce(loss, group=mesh.get_group("dp"))
+                loss /= n_dp
+            print("epoch {} loss {:.4f}".format(epoch, loss.item()))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     commit_qat_params(qmodel, trainable)
     qmodel.eval()
 
     # eval (quantizers on) on the tail of the data
     xb, yb = batch(len(x) - args.batch)
     with torch.no_grad():
-        top1 = float((qmodel(xb).argmax(-1) == yb).float().mean())
+        hits = torch.cat([qmodel(xb[r:r + rows]).argmax(-1) == yb[r:r + rows]
+                          for r in range(0, args.batch, rows)])
+    top1 = float(hits.float().mean())
     print("QAT top-1 on eval tail: {:.4f}".format(top1))
-    return {"loss": loss.item(), "top1": top1}
+    state = {"{}.{}".format(n, k): v.detach().cpu()
+             for n, p in qmodel.trainable_params().items()
+             for k, v in p.items()}
+    return {"loss": loss.item(), "top1": top1, "state": state}
 
 
 if __name__ == "__main__":

@@ -9,11 +9,18 @@ batches -> init_QAT -> a torch.optim training loop over
 with --qconfig qconfig_{lsq,lsq_plus,pact,dorefa}.yaml. The yamls are
 read without PyYAML where it is missing (``utils/config.load_yaml``).
 
-One card: the JAX CLI shards the batch over a device mesh; data
-parallelism on the port waits for its ``parallel/`` package (ROADMAP.md,
-queue 1). Runs on the card unless --device names another device.
+Data parallelism as the JAX CLI's: under ``torchrun`` (its variables
+set) each rank, one a card, trains on its rows of every global batch
+(``--batch`` is the global batch), BatchNorm takes its statistics over
+the global batch and LSQ's gradient scale counts its elements
+(``nn.data_parallel``), as under the JAX CLI's jit, and the
+gradients are averaged over the ranks before each step.
+Every rank calibrates on the same whole batches, as the JAX CLI does, and
+rank 0's trainables are broadcast before training. Without torchrun it
+runs on one rank. Runs on the card unless --device names another device.
 
     python main_torch.py --qconfig qconfig_lsq.yaml [--data train.npz]
+    python -m torch.distributed.run --nproc_per_node 8 main_torch.py
 """
 
 import argparse
@@ -25,10 +32,16 @@ sys.path.insert(0, os.path.abspath(os.path.join(
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from sparsebit_tpu_torch import QuantModel, parse_qconfig  # noqa: E402
 from sparsebit_tpu_torch import resolve_device  # noqa: E402
 from sparsebit_tpu_torch.models import create_model  # noqa: E402
+from sparsebit_tpu_torch.parallel.mesh import (  # noqa: E402
+    data_parallel_mesh,
+    dp_shard_batch,
+    replicate,
+)
 from sparsebit_tpu_torch.quantization.tools.qat import (  # noqa: E402
     commit_qat_params,
     cross_entropy,
@@ -52,6 +65,11 @@ def main(argv=None):
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    mesh = data_parallel_mesh(device)
+    n_dp = 1 if mesh is None else mesh["dp"].size()
+    if args.batch % n_dp:
+        raise SystemExit("the global batch must divide the dp axis")
+    print("ranks: {} (dp={})".format(n_dp, n_dp))
 
     if args.data:
         z = np.load(args.data)
@@ -79,15 +97,30 @@ def main(argv=None):
 
     trainable, opt = init_qat_state(
         qmodel, lambda ps: torch.optim.Adam(ps, lr=args.lr))
-    step = make_qat_step(qmodel, cross_entropy, opt)
+    if mesh is not None:
+        replicate(mesh, trainable)
+    step = make_qat_step(qmodel, cross_entropy, opt, mesh)
     qmodel.train()
-    for epoch in range(args.epochs):
-        for i in range(0, len(x) - args.batch + 1, args.batch):
-            trainable, loss = step(trainable, *batch(i))
-        print("epoch {} loss {:.4f}".format(epoch, loss.item()))
+    try:
+        for epoch in range(args.epochs):
+            for i in range(0, len(x) - args.batch + 1, args.batch):
+                xb, yb = batch(i)
+                if mesh is not None:
+                    xb, yb = dp_shard_batch(mesh, xb), dp_shard_batch(mesh, yb)
+                trainable, loss = step(trainable, xb, yb)
+            if mesh is not None:  # the global batch's mean
+                dist.all_reduce(loss, group=mesh.get_group("dp"))
+                loss /= n_dp
+            print("epoch {} loss {:.4f}".format(epoch, loss.item()))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     commit_qat_params(qmodel, trainable)
     qmodel.eval()
-    return {"loss": loss.item()}
+    state = {"{}.{}".format(n, k): v.detach().cpu()
+             for n, p in qmodel.trainable_params().items()
+             for k, v in p.items()}
+    return {"loss": loss.item(), "state": state}
 
 
 if __name__ == "__main__":

@@ -23,7 +23,8 @@ arrays and plain metadata, so this module needs nothing of JAX:
 - any other array is a plain tensor (norms, embeddings).
 
 ``map_params`` applies a function to every tensor of a port tree (the
-offload's move to pinned host memory and back).
+offload's move to pinned host memory and back); ``tree_tensors`` lists
+them and ``trainable`` marks the floating ones as taking a gradient.
 
 bf16 arrays travel as their ``uint16`` bit pattern: every uint16 array in
 the tree is read back as bf16.
@@ -231,7 +232,25 @@ def map_params(fn, tree):
     return _map_tree(tree, f)
 
 
+def tree_tensors(tree):
+    """Every tensor of a params tree once, in ``map_params``'s order."""
+    out = []
+    map_params(lambda t: out.append(t) or t, tree)
+    return out
+
+
+def trainable(tree):
+    """Every floating tensor of ``tree`` set to take a gradient; returns
+    ``tree``."""
+    for t in tree_tensors(tree):
+        if t.is_floating_point():
+            t.requires_grad_(True)
+    return tree
+
+
 def _map_tree(x, f):
+    if hasattr(x, "map_shards"):  # parallel.tp.TPLinear
+        return x.map_shards(lambda s: _map_tree(s, f))
     if isinstance(x, QuantLinear):
         return x._replace(
             packed={k: f(v) for k, v in x.packed.items()},

@@ -76,9 +76,11 @@ def _logits(head, x):
     """f32 logits of the lm_head for x (..., D). A bias-free dense head on
     at most 8 rows goes to K9 and keeps its f32 sums: under jit XLA folds
     the reference's cast of the bf16 dot to f32 into the dot itself, so
-    its logits are never rounded to bf16 either."""
+    its logits are never rounded to bf16 either. K9 has no backward: an x
+    that takes a gradient goes through the head's own call."""
     x2 = x.reshape(-1, x.shape[-1])
-    if isinstance(head, DenseLinear) and use_matvec(x2, head.w, head.bias):
+    if (isinstance(head, DenseLinear) and not x.requires_grad
+            and use_matvec(x2, head.w, head.bias)):
         return bf16_matvec(x2, head.w).reshape(x.shape[:-1] + (-1,))
     return head(x).to(torch.float32)
 

@@ -32,6 +32,7 @@ from sparsebit_tpu_torch.nn.modules import (  # noqa: F401
     Flatten,
     Upsample,
     load_jax_state_dict,
+    data_parallel,
 )
 from sparsebit_tpu_torch.nn.graph import (  # noqa: F401
     Graph,

@@ -24,6 +24,7 @@ takes the biased variance, and evaluation is ``(x - mean) * rsqrt(var +
 eps) * weight + bias``.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -250,10 +251,72 @@ class Embedding(Module):
         return F.embedding(x, self.get(params, "weight"))
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """all_reduce sum whose gradient is summed too: the sum feeds each
+    rank's own normalisation, so every rank's loss reaches every rank's
+    summand."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        gx = gy.clone(memory_format=torch.contiguous_format)
+        torch.distributed.all_reduce(gx, group=ctx.group)
+        return gx, None
+
+
+@contextlib.contextmanager
+def data_parallel(group, *models):
+    """For the block, the BatchNorms and quantizers of ``models`` (a
+    QuantModel or SparseModel by its graph's ops, or a module) train on
+    this rank's rows of a batch that the ranks of ``group``, a
+    data-parallel group, split in equal shares. The JAX package's jitted
+    step over a batch sharded on "dp" sees the global batch; so here
+    BatchNorm takes its training statistics over the global batch and
+    LSQ's gradient scale counts the global batch's elements. Each object
+    that reads the group holds it as ``dp_group``, None outside the
+    block; ``group`` None changes nothing."""
+    held = []
+    for model in models if group is not None else ():
+        graph = getattr(model, "graph", None)
+        for op in ([n.op for n in graph.op_nodes] if graph is not None
+                   else [model]):
+            for m in (op.modules() if isinstance(op, torch.nn.Module)
+                      else [op]):
+                held += [o for o in (m, *vars(m).values())
+                         if hasattr(o, "dp_group")]
+    for o in held:
+        o.dp_group = group
+    try:
+        yield
+    finally:
+        for o in held:
+            o.dp_group = None
+
+
+def _group_moments(x, dims, group):
+    """Mean and biased variance over ``dims`` of the batch whose rows the
+    ranks of ``group`` split between them (equal shares), in two passes,
+    differentiably."""
+    ch = next(i for i in range(x.dim()) if i not in dims)
+    n = x.numel() // x.shape[ch] * torch.distributed.get_world_size(group)
+    mean = _SumOverGroup.apply(x.sum(dim=dims), group) / n
+    d = x - mean.reshape([-1 if i == ch else 1 for i in range(x.dim())])
+    return mean, _SumOverGroup.apply((d * d).sum(dim=dims), group) / n
+
+
 class BatchNorm2d(Module):
-    """Batch norm over the last (channel) axis, the JAX package's math."""
+    """Batch norm over the last (channel) axis, the JAX package's math.
+    In training its statistics are the rank's batch's, or the global
+    batch's within ``data_parallel``."""
 
     CH_AXIS = -1
+    dp_group = None  # set by data_parallel
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1, *,
                  device=None):
@@ -279,8 +342,11 @@ class BatchNorm2d(Module):
         beta = self.get(params, "bias")
         if training:
             dims = self._stats_dims(x)
-            mean = x.mean(dim=dims)
-            var = x.var(dim=dims, unbiased=False)  # jnp.var: biased
+            if self.dp_group is None:
+                mean = x.mean(dim=dims)
+                var = x.var(dim=dims, unbiased=False)  # jnp.var: biased
+            else:
+                mean, var = _group_moments(x, dims, self.dp_group)
             with torch.no_grad():  # in place: the tensors stay the state
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)

@@ -22,10 +22,14 @@ the mesh (its "tp" and "dp" groups) where the reference takes its JAX
 mesh. The sharding functions build the T shards on the params' device,
 as the reference's stacked axis does; ``rank=`` builds one rank's alone,
 the form the per-rank bodies run.
-Attention runs as the reference's does on a rank's heads: the rows are
-committed to the cache (cache_update), the layer read back
+The serving bodies attend as the reference's do on a rank's heads: the
+rows are committed to the cache (cache_update), the layer read back
 dequantized (cache_read) and attended by the plain masked
-``attention_scores``; no attention kernel runs on this route.
+``attention_scores``; no attention kernel runs on that route. The
+full-sequence body (tp_llama_forward, tp_llama_loss and pp's tensor-
+parallel stages) attends through ``llama.causal_attention``: K10, with
+K11/K12 in its backward, on the card. Every collective is
+differentiable (see the collectives section), so tp_llama_loss trains.
 """
 
 import torch
@@ -60,6 +64,11 @@ class TPLinear:
                                  sorted(self.shards)))
         return next(iter(self.shards.values()))
 
+    def map_shards(self, fn):
+        """A TPLinear of fn(shard) for every shard held."""
+        return TPLinear({t: fn(s) for t, s in self.shards.items()},
+                        self.kind, self.T)
+
 
 def _ranks(T, rank):
     return range(T) if rank is None else (rank,)
@@ -74,18 +83,8 @@ def shard_linear(lin, T, kind, bits=None, groupsize=-1, rank=None):
     give the full adapter output. ``rank``: build that rank's shard
     only."""
     if isinstance(lin, LoraLinear):
-        base_tp = shard_linear(lin.base, T, kind, bits, groupsize, rank)
-        shards = {}
-        for t, base in base_tp.shards.items():
-            if kind == "col":
-                Nl = lin.lora_B.shape[1] // T
-                a, b = lin.lora_A, lin.lora_B[:, t * Nl: (t + 1) * Nl]
-            else:
-                Kl = lin.lora_A.shape[0] // T
-                a, b = lin.lora_A[t * Kl: (t + 1) * Kl, :], lin.lora_B
-            shards[t] = LoraLinear(base, a.contiguous(), b.contiguous(),
-                                   lin.alpha, lin.dropout)
-        return TPLinear(shards, kind, T)
+        return _shard_lora(lin, shard_linear(lin.base, T, kind, bits,
+                                             groupsize, rank))
 
     w = lin.w if isinstance(lin, DenseLinear) else lin.dequantize()
     K, N = w.shape
@@ -115,6 +114,24 @@ def shard_linear(lin, T, kind, bits=None, groupsize=-1, rank=None):
         else:
             shards[t] = QuantLinear.from_dense(ws, bits=bits,
                                                groupsize=groupsize, bias=bs)
+    return TPLinear(shards, kind, T)
+
+
+def _shard_lora(lin, base_tp):
+    """A LoraLinear's TPLinear over its base's shards ``base_tp``: lora_B's
+    columns split for a column split (lora_A whole), lora_A's rows for a
+    row split (lora_B whole)."""
+    T, kind = base_tp.T, base_tp.kind
+    shards = {}
+    for t, base in base_tp.shards.items():
+        if kind == "col":
+            Nl = lin.lora_B.shape[1] // T
+            a, b = lin.lora_A, lin.lora_B[:, t * Nl: (t + 1) * Nl]
+        else:
+            Kl = lin.lora_A.shape[0] // T
+            a, b = lin.lora_A[t * Kl: (t + 1) * Kl, :], lin.lora_B
+        shards[t] = LoraLinear(base, a.contiguous(), b.contiguous(),
+                               lin.alpha, lin.dropout)
     return TPLinear(shards, kind, T)
 
 
@@ -214,11 +231,16 @@ def shard_llama_params_tp(params, cfg, T, bits=None, groupsize=-1,
 def shard_llama_params_tp_packed(params, cfg, T, conv=None, rank=None):
     """TP-shard an already QUANTIZED LLaMA params tree exactly
     (shard_quantlinear; DenseLinear leaves take plain splits): the serving
-    engine's entry, GPTQ codes survive sharding bit for bit. ``conv`` maps
-    each QuantLinear shard (the serving layout)."""
+    engine's entry, GPTQ codes survive sharding bit for bit; a LoraLinear
+    over a QuantLinear (QLoRA) keeps its base's exact shards and splits
+    its adapters as shard_linear does. ``conv`` maps each QuantLinear
+    shard (the serving layout)."""
     _check_heads(cfg, T)
 
     def shard_any(lin, kind):
+        if isinstance(lin, LoraLinear) and isinstance(lin.base, QuantLinear):
+            return _shard_lora(lin, shard_quantlinear(lin.base, T, kind,
+                                                      conv=conv, rank=rank))
         if isinstance(lin, QuantLinear):
             return shard_quantlinear(lin, T, kind, conv=conv, rank=rank)
         return shard_linear(lin, T, kind, rank=rank)
@@ -244,6 +266,33 @@ def shard_kv_cache_tp(cache, rank, T):
 
 
 # ---- collectives ------------------------------------------------------------
+#
+# Each is differentiable, its backward chosen by how the ranks use the
+# result (Megatron's pair; JAX's shard_map transposes its collectives by
+# itself). The contract: after one step's backward, each rank holds its
+# share of the gradient of the loss, so that summing over the axes that
+# split the loss (mesh.sum_grads) gives every rank the unsharded model's
+# gradient of each leaf, or of its shard.
+#   _psum      sum; the gradient passes through: every rank repeats the
+#              work after the sum alike (a row-parallel output, the
+#              vocab-parallel softmax sums, a loss summed over ranks), so
+#              each rank's summand takes the whole gradient once;
+#   _copy_to   identity; the gradient is summed: a replicated tensor
+#              enters rank-local work (column-parallel shards), each rank
+#              contributing its own part of its gradient;
+#   _gather_last  all_gather of blocks that every rank then uses alike;
+#              the gradient of a rank's block is its slice;
+#   _gather_shared  all_gather of blocks that each rank uses for work of
+#              its own (sp's K/V); the gradient is reduce-scattered;
+#   ppermute   JAX's ppermute; the gradient takes the reverse exchange.
+#
+# Transport. NCCL takes CUDA tensors in every operation. gloo takes them
+# in its collectives (on the card, torch 2.11: all_reduce, all_gather,
+# broadcast, reduce_scatter, all_to_all, each staged through host memory
+# inside gloo), but its point-to-point operations hand the device pointer
+# to gloo's TCP transport, which aborts the process. So _exchange copies
+# a CUDA tensor to host memory and back itself on a gloo group: chosen by
+# backend and device, never by catching a failure.
 
 
 def tp_group(mesh):
@@ -252,19 +301,139 @@ def tp_group(mesh):
     return g, dist.get_world_size(g), dist.get_rank(g)
 
 
-def _psum(x, g):
-    x = x.contiguous()
-    dist.all_reduce(x, group=g)
-    return x
+def _all_reduce(x, g, op=dist.ReduceOp.SUM):
+    """A contiguous copy of ``x`` reduced over ``g``."""
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=g)
+    return y
 
 
-def _gather_last(x, g, T):
-    """all_gather(tiled=True) on the last axis: the ranks' blocks in rank
-    order. gloo takes CUDA tensors here too (checked on the card)."""
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(T)]
+def _all_gather(x, g, dim):
+    """all_gather(tiled=True): the ranks' ``x`` concatenated on ``dim`` in
+    rank order."""
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, x, group=g)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(x, g, dim):
+    """This rank's block on ``dim`` of the sum of the ranks' ``x``."""
+    n, r = dist.get_world_size(g), dist.get_rank(g)
+    parts = [p.contiguous() for p in torch.chunk(x.detach(), n, dim=dim)]
+    out = torch.empty_like(parts[r])
+    dist.reduce_scatter(out, parts, group=g)
+    return out
+
+
+def _exchange(x, perm, g):
+    """JAX's ppermute over ``g``: ``perm`` lists (source, destination)
+    pairs of group ranks; this rank sends ``x`` to the destination it is
+    the source of and returns what its source sent, zeros where it has
+    none (dist.batch_isend_irecv)."""
+    me = dist.get_rank(g)
+    dsts = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    x = x.detach().contiguous()
+    if dsts == [me] and srcs == [me]:
+        return x.clone()
+    staged = x.is_cuda and dist.get_backend(g) == "gloo"  # see above
+    send = x.cpu() if staged else x
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(g, d), g)
+           for d in dsts]
+    ops += [dist.P2POp(dist.irecv, recv, dist.get_global_rank(g, s), g)
+            for s in srcs]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if not srcs:
+        return torch.zeros_like(x)
+    return recv.to(x.device) if staged else recv
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return _all_reduce(x, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return gy, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _all_reduce(gy, ctx.g), None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.n, ctx.r = dist.get_world_size(g), dist.get_rank(g)
+        return _all_gather(x, g, -1)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return torch.chunk(gy, ctx.n, dim=-1)[ctx.r], None
+
+
+class _GatherShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return _all_gather(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return _reduce_scatter(gy, ctx.g, ctx.dim), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, g):
+        ctx.perm, ctx.g = perm, g
+        return _exchange(x, perm, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        back = tuple((d, s) for s, d in ctx.perm)
+        return _exchange(gy, back, ctx.g), None, None
+
+
+_psum = _Psum.apply  # (x, g)
+_copy_to = _CopyTo.apply  # (x, g)
+_gather_last = _GatherLast.apply  # (x, g)
+_gather_shared = _GatherShared.apply  # (x, g, dim)
+
+
+def ppermute(x, perm, g):
+    """Differentiable JAX ppermute over the group ``g`` (see _exchange);
+    the backward sends the gradient along the reverse pairs, so every rank
+    issues the same exchanges, in reverse order, in its backward."""
+    return _PPermute.apply(x, tuple(perm), g)
+
+
+def _shard(lin, g):
+    """The rank's shard of a TPLinear. A LoRA shard's replicated factor
+    (lora_A of a column split, lora_B of a row split) passes _copy_to:
+    each rank's product holds only its part of that factor's
+    gradient."""
+    sh = lin.local()
+    if not isinstance(sh, LoraLinear):
+        return sh
+    a, b = sh.lora_A, sh.lora_B
+    if lin.kind == "col":
+        a = _copy_to(a, g)
+    else:
+        b = _copy_to(b, g)
+    return LoraLinear(sh.base, a, b, sh.alpha, sh.dropout)
 
 
 # ---- per-rank bodies --------------------------------------------------------
@@ -274,13 +443,13 @@ def _local_heads(cfg, T):
     return cfg.n_heads // T, cfg.n_kv_heads // T
 
 
-def _qkv(layer, h, cfg, T, positions, inv_freq):
+def _qkv(layer, h, cfg, T, positions, inv_freq, g):
     B, S, _ = h.shape
     hd = cfg.head_dim
     h_loc, kv_loc = _local_heads(cfg, T)
-    q = layer["wq"].local()(h).reshape(B, S, h_loc, hd)
-    k = layer["wk"].local()(h).reshape(B, S, kv_loc, hd)
-    v = layer["wv"].local()(h).reshape(B, S, kv_loc, hd)
+    q = _shard(layer["wq"], g)(h).reshape(B, S, h_loc, hd)
+    k = _shard(layer["wk"], g)(h).reshape(B, S, kv_loc, hd)
+    v = _shard(layer["wv"], g)(h).reshape(B, S, kv_loc, hd)
     return (L.apply_rope(q, positions, inv_freq),
             L.apply_rope(k, positions, inv_freq), v)
 
@@ -294,16 +463,21 @@ def _attend(q, k, v, mask, cfg, T):
     return out.reshape(B, S, h_loc * cfg.head_dim)
 
 
-def _tp_attn(layer, x, cfg, inv_freq, positions, mask, T, g):
-    q, k, v = _qkv(layer, x, cfg, T, positions, inv_freq)
-    out = _attend(q, k, v, mask, cfg, T)
-    return _psum(layer["wo"].local()(out), g)  # row-parallel partials
+def _tp_attn(layer, x, cfg, inv_freq, positions, T, g):
+    """The full-sequence (training) attention block over the rank's heads:
+    llama.causal_attention, K10 forward and K11/K12 backward on the card,
+    the masked attention_scores of the reference's _tp_attn elsewhere."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(layer, _copy_to(x, g), cfg, T, positions, inv_freq, g)
+    out = L.causal_attention(q, k, v).reshape(B, S, -1)
+    return _psum(_shard(layer["wo"], g)(out), g)  # row-parallel partials
 
 
 def _tp_ffn(layer, x, g):
-    h = (torch.nn.functional.silu(layer["w1"].local()(x))
-         * layer["w3"].local()(x))
-    return _psum(layer["w2"].local()(h), g)
+    x = _copy_to(x, g)
+    h = (torch.nn.functional.silu(_shard(layer["w1"], g)(x))
+         * _shard(layer["w3"], g)(x))
+    return _psum(_shard(layer["w2"], g)(h), g)
 
 
 def _tp_forward_local(params, tokens, cfg, T, g):
@@ -314,23 +488,22 @@ def _tp_forward_local(params, tokens, cfg, T, g):
     inv_freq = L.rope_frequencies(cfg, device=dev)
     positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
         B, S)
-    mask = torch.triu(torch.full((S, S), -1e9, dtype=torch.float32,
-                                 device=dev), diagonal=1)[None, None]
     for layer in params["layers"]:
         h = L.rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        x = x + _tp_attn(layer, h, cfg, inv_freq, positions, mask, T, g)
+        x = x + _tp_attn(layer, h, cfg, inv_freq, positions, T, g)
         h = L.rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
         x = x + _tp_ffn(layer, h, g)
     x = L.rms_norm(x, params["norm"], cfg.rms_eps)
-    return D._logits(params["lm_head"].local(), x)
+    return D._logits(_shard(params["lm_head"], g), _copy_to(x, g))
 
 
 def _vocab_parallel_nll(logits_loc, targets, V_loc, g, r):
     """Cross-entropy over vocab-sharded logits (B, S, V/T) without
     gathering them: a max and a sum of exponentials across ranks, and the
-    target's logit from the rank that owns it."""
-    m = logits_loc.detach().amax(dim=-1).contiguous()
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    target's logit from the rank that owns it. The max only shifts the
+    exponentials and takes no gradient (the reference's stop_gradient
+    before pmax)."""
+    m = _all_reduce(logits_loc.detach().amax(dim=-1), g, dist.ReduceOp.MAX)
     z = _psum(torch.exp(logits_loc - m[..., None]).sum(dim=-1), g)
     logz = m + torch.log(z)
     lo = r * V_loc
@@ -357,7 +530,7 @@ def _tp_layers_with_cache(params, x, positions, cache, cfg, T, g):
     inv_freq = L.rope_frequencies(cfg, device=x.device)
     for li, layer in enumerate(params["layers"]):
         h = L.rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        q, k, v = _qkv(layer, h, cfg, T, positions, inv_freq)
+        q, k, v = _qkv(layer, h, cfg, T, positions, inv_freq, g)
         cache_update(cache, li, k, v, positions[:, 0])
         k_all, v_all = cache_read(cache, li, x.dtype)
         out = _attend(q, k_all, v_all, mask, cfg, T)
@@ -389,7 +562,7 @@ def _tp_prefill_local(params, tokens, cache, last_idx, offset, cfg, T, g):
     x = params["tok_embed"][tokens.long()]
     x = _tp_layers_with_cache(params, x, positions, cache, cfg, T, g)
     x_last = x[torch.arange(B, device=dev), last_idx.to(torch.long)]
-    logits = _gather_last(D._logits(params["lm_head"].local(), x_last), g, T)
+    logits = _gather_last(D._logits(params["lm_head"].local(), x_last), g)
     cache.length = (offset + last_idx + 1).to(torch.int32)
     return logits, cache
 
@@ -403,14 +576,16 @@ def tp_llama_forward(params_tp, tokens, cfg, mesh):
     (dp_shard_batch); returns (B / dp, S, V), the vocab gathered over "tp"."""
     g, T, _ = tp_group(mesh)
     tokens = dp_shard_batch(mesh, tokens)
-    return _gather_last(_tp_forward_local(params_tp, tokens, cfg, T, g), g,
-                        T)
+    return _gather_last(_tp_forward_local(params_tp, tokens, cfg, T, g), g)
 
 
 def tp_llama_loss(params_tp, tokens, cfg, mesh):
     """Mean next-token NLL of the global batch with the vocab-parallel
     softmax (full logits never formed): every rank returns the same value.
-    The forward value only (no gradient through the collectives yet)."""
+    Differentiable in the rank's shards and in the replicated leaves: after
+    ``backward()`` a rank's gradients are its dp replica's share, and
+    ``mesh.sum_grads(tree, mesh, ("dp",))`` makes each the unsharded
+    model's gradient of the leaf, or of the rank's shard of it."""
     g, T, r = tp_group(mesh)
     V_loc = cfg.vocab_size // T
     tokens = dp_shard_batch(mesh, tokens)
@@ -449,7 +624,7 @@ def tp_decode_chunk(params_tp, tok0, cache, temps, generator, cfg, mesh,
     for _ in range(n_tokens):
         logits_loc, cache = _tp_decode_local(params_tp, tok, cache, cfg, T,
                                              g)
-        logits = _gather_last(logits_loc, g, T)
+        logits = _gather_last(logits_loc, g)
         tok = D.sample_logits_vec(logits, temps, generator)
         toks.append(tok)
     return torch.stack(toks, dim=1), cache

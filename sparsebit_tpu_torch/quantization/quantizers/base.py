@@ -10,7 +10,7 @@ package, ``__call__(x, params=...)`` also takes replacements for them.
 
 import torch
 
-from sparsebit_tpu_torch.quantization.common import Backend
+from sparsebit_tpu_torch.quantization.common import Backend, QuantTarget
 from sparsebit_tpu_torch.quantization.fake_quant import fake_quant
 from sparsebit_tpu_torch.quantization.observers import build_observer
 from sparsebit_tpu_torch.quantization.quant_descriptor import QuantDescriptor
@@ -24,6 +24,7 @@ def learnable(t):
 
 class Quantizer:
     TYPE = "base"
+    dp_group = None  # set by nn.data_parallel
 
     def __init__(self, config):
         self.cfg = config
@@ -110,6 +111,18 @@ class Quantizer:
     def _forward(self, x, scale, zero_point, params=None):
         return fake_quant(x, scale, zero_point, self.qdesc.qmin,
                           self.qdesc.qmax)
+
+    def _grad_elements(self, x):
+        """The elements LSQ's gradient scale counts: a channel's or the
+        tensor's, of the whole global batch for a feature under data
+        parallelism (``dp_group``, set by ``nn.data_parallel``), as the
+        JAX package counts them under jit over a batch sharded on "dp"."""
+        n = x.numel() / x.shape[self.qdesc.ch_axis] if self.is_perchannel \
+            else x.numel()
+        if self.qdesc.target == QuantTarget.FEATURE and \
+                self.dp_group is not None:
+            n *= torch.distributed.get_world_size(self.dp_group)
+        return n
 
     def __call__(self, x, params=None):
         if self.is_enable and not self.fake_fused:

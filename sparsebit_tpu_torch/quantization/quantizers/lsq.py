@@ -56,8 +56,7 @@ class Quantizer(BaseQuantizer):
         return scale.abs(), zp
 
     def _forward(self, x, scale, zero_point, params=None):
-        n = x.numel() / x.shape[self.qdesc.ch_axis] if self.is_perchannel \
-            else x.numel()
+        n = self._grad_elements(x)
         scale = grad_scale(scale, 1.0 / math.sqrt(n * self.qdesc.qmax))
         return fake_quant(x, scale, zero_point, self.qdesc.qmin,
                           self.qdesc.qmax)

@@ -73,8 +73,7 @@ class Quantizer(BaseQuantizer):
         return scale.abs(), zp.clamp(self.qdesc.qmin, self.qdesc.qmax)
 
     def _forward(self, x, scale, zero_point, params=None):
-        n = x.numel() / x.shape[self.qdesc.ch_axis] if self.is_perchannel \
-            else x.numel()
+        n = self._grad_elements(x)
         ratio = 1.0 / math.sqrt(n * self.qdesc.qmax)
         scale = grad_scale(scale, ratio)
         if self._zp_learnable:

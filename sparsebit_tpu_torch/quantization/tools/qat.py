@@ -24,6 +24,9 @@ train mode does (the JAX package's jitted step leaves them).
 import torch
 import torch.nn.functional as TF
 
+from sparsebit_tpu_torch.nn.modules import data_parallel
+from sparsebit_tpu_torch.parallel.mesh import sum_grads
+
 
 def merge_params(base, trainable):
     """Overlay the trainable dict onto the full params dict."""
@@ -50,20 +53,27 @@ def init_qat_state(qmodel, make_optimizer):
     return trainable, make_optimizer(qat_parameters(trainable))
 
 
-def make_qat_step(qmodel, loss_fn, optimizer):
+def make_qat_step(qmodel, loss_fn, optimizer, mesh=None):
     """A step ``(trainable, *batch) -> (trainable, loss)``: the forward
     ``qmodel.apply(params, batch[0], training=True)`` over the trainables
     merged into the model's params, ``loss_fn(outputs, *batch[1:])``, its
     backward and ``optimizer.step()``, which updates the trainables in
-    place."""
+    place. With a ``mesh`` that has a "dp" axis, the batch is this rank's
+    rows of the global batch: the forward runs within
+    ``nn.data_parallel`` of the dp group and the gradients are averaged
+    over dp before the optimiser's step."""
     base = qmodel.params()
+    group = None if mesh is None else mesh.get_group("dp")
 
     def step(trainable, *batch):
         optimizer.zero_grad(set_to_none=True)
-        out = qmodel.apply(merge_params(base, trainable), batch[0],
-                           training=True)
+        with data_parallel(group, qmodel):
+            out = qmodel.apply(merge_params(base, trainable), batch[0],
+                               training=True)
         loss = loss_fn(out, *batch[1:])
         loss.backward()
+        if mesh is not None:
+            sum_grads(trainable, mesh, ("dp",), mean=True)
         optimizer.step()
         return trainable, loss.detach()
 

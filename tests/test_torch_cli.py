@@ -598,3 +598,102 @@ def test_tp_serve_demo_torch_matches_jax_demo():
     assert tuple(got.shape) == (2, 6)
     np.testing.assert_array_equal(got.numpy(), np.stack(want, 1))
     assert jax.devices()[0].platform == "cpu"
+
+
+# ---- data parallelism of the QAT and pruning CLIs under torchrun ------------
+
+PRUNE_IMAGENET = "pruning/structured_imagenet1k/main_torch.py"
+DP_CASES = {
+    "resnet18_" + y[len("qconfig_"):-len(".yaml")]: (
+        QAT + "imagenet1k_resnet18/main_torch.py",
+        ["--qconfig", os.path.join(os.path.dirname(EXAMPLES), QAT,
+                                   "imagenet1k_resnet18", y),
+         "--num-classes", "10"])
+    for y in ("qconfig_lsq.yaml", "qconfig_lsq_plus.yaml",
+              "qconfig_pact.yaml", "qconfig_dorefa.yaml")}
+DP_CASES["deit_lsq"] = (QAT + "imagenet1k_deit/main_torch.py",
+                        ["--model", "deit_tiny"])
+DP_CASES["prune_structured_imagenet1k"] = (
+    PRUNE_IMAGENET, ["--finetune-steps", "1", "--lr", "0.1"])
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+@pytest.mark.parametrize("case", sorted(DP_CASES))
+def test_dp_cli_torchrun_matches_one_rank(case, tmp_path):
+    """The CLI under ``python -m torch.distributed.run --nproc_per_node 2``
+    with --device cpu (gloo) against its one-rank run on the same global
+    batch of 4 rows, one step. With BatchNorm's statistics over the global
+    batch, LSQ's gradient scale counting it and the gradients averaged
+    over the ranks: the step's loss and the parameters the optimiser's
+    first step finds (calibrated, QAT-initialised, broadcast) within 1e-5
+    relative, their gradients within 5e-4 of each tensor's largest (f32
+    sums over the batch in another order: up to 1.3e-4 through the
+    pruning CLI's resnet18 and BatchNorm backward), and BatchNorm's running
+    statistics after the step within 1e-5 relative. At this size no 4-bit
+    activation of the one-rank run sits at a rounding tie that the split
+    sums of BatchNorm's statistics tip over; at 224 x 224 one does, and
+    chip_smoke.py's dpqat path holds the CLI against one process that sums
+    as the ranks do instead (tests/test_torch_parallel.py holds BatchNorm
+    over dp by itself on the CPU). The one-rank run is held to the JAX CLI
+    by the tests above."""
+    import pickle
+    import subprocess
+
+    from torch_dp_cli_worker import run_cli
+
+    rel, extra = DP_CASES[case]
+    cli = os.path.join(os.path.dirname(EXAMPLES), rel)
+    rng = np.random.default_rng(0)
+    data = tmp_path / "batch.npz"
+    np.savez(data, x=rng.normal(size=(4, 32, 32, 3)).astype(np.float32),
+             y=rng.integers(0, 10, size=(4,)))
+    argv = extra + ["--batch", "4", "--img", "32", "--data", str(data),
+                    "--device", "cpu"]
+    out = tmp_path / "rank"
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_dp_cli_worker.py")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", worker, str(out), cli] + argv,
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    one = run_cli(cli, argv)
+    stats = [k for k in one["state"] if "running_" in k]
+    assert stats or case.startswith("deit")  # deit has no BatchNorm
+    for rank in (0, 1):
+        with open("{}.{}".format(out, rank), "rb") as f:
+            dp = pickle.load(f)
+        assert abs(dp["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"])
+        assert len(dp["first_step"]) == len(one["first_step"])
+        for i, ((p, g), (p1, g1)) in enumerate(zip(dp["first_step"],
+                                                   one["first_step"])):
+            assert _rel(p, p1) <= 1e-5, (i, _rel(p, p1))
+            assert (g is None) == (g1 is None) or not np.any(g if g1 is None
+                                                             else g1), i
+            if g1 is not None and g is not None and np.any(g1):
+                assert _rel(g, g1) <= 5e-4, (i, _rel(g, g1))
+        for k in stats:
+            assert _rel(dp["state"][k], one["state"][k]) <= 1e-5, k
+
+
+def test_dryrun_multichip_torch_on_four_cpu_ranks():
+    """The port's dry run (__graft_entry__.dryrun_multichip's topologies)
+    on four gloo ranks on the CPU: dp x tp x pp QLoRA, TP decode and the
+    TP engine, dp x tp and dp x sp (both attentions) training steps, every
+    loss finite and equal across the ranks; n % 4 != 0 is refused."""
+    from sparsebit_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    res = dryrun_multichip(4, device="cpu")
+    assert [r["backend"] for r in res] == ["gloo"] * 4
+    assert sorted(res[0]["losses"]) == [
+        "dp x sp ring=False", "dp x sp ring=True", "dp x tp",
+        "dp x tp x pp QLoRA"]
+    assert res[0]["dp x tp x pp"] == (1, 2, 2)
+    assert res[0]["losses"]["dp x sp ring=True"] == pytest.approx(
+        res[0]["losses"]["dp x sp ring=False"], rel=1e-5)
+    with pytest.raises(ValueError, match="% 4"):
+        dryrun_multichip(6, device="cpu")

@@ -90,7 +90,10 @@ def test_every_port_module_imports_without_jax_or_yaml():
                 "sparsebit_tpu_torch.parallel",
                 "sparsebit_tpu_torch.parallel.mesh",
                 "sparsebit_tpu_torch.parallel.multihost",
-                "sparsebit_tpu_torch.parallel.tp"):
+                "sparsebit_tpu_torch.parallel.tp",
+                "sparsebit_tpu_torch.parallel.sp",
+                "sparsebit_tpu_torch.parallel.pp",
+                "sparsebit_tpu_torch.parallel.dryrun"):
         assert new in MODULES
 
 

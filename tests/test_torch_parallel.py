@@ -1,5 +1,7 @@
-"""The port's tensor-parallel serving (sparsebit_tpu_torch/parallel and
-TPDecodeEngine) against the JAX package on the CPU.
+"""The port's parallel/ (tensor-parallel serving and TPDecodeEngine; the
+training half: gradients through tp's collectives, sp, pp with pipelined
+QLoRA, BatchNorm and LSQ over a dp group) against the JAX package on the
+CPU.
 
 The JAX side runs on the 8-device virtual CPU mesh that conftest.py
 forces; its tp_* functions and engines are jitted. The port side runs in
@@ -10,7 +12,11 @@ tiny widths where the s4r route (K1's plain version) is taken: dim 256,
 ffn 512, 4 heads, 2 kv heads, 4-bit g64, 2 layers, f32 activations.
 Tolerances are the reference's own (tests/test_parallel.py): forward
 2e-4, loss rel 1e-4, decode 1e-3 (float cache) / 0.05 (int8); tokens
-equal; packed shards bit-equal."""
+equal; packed shards bit-equal. The training cases
+(tests/torch_train_worker.py, in the same group) run at the widths of
+tests/test_parallel.py and tests/test_pp.py (dim 64, 2 or 4 layers) with
+the JAX package's tolerances: losses within 1e-4 (sp 2e-4), gradients
+within rtol 5e-3 / atol 5e-4 of jax.grad."""
 
 import jax
 import jax.numpy as jnp
@@ -163,10 +169,129 @@ def jax_side(model):
     return out, data
 
 
+# ---- the training references (tests/test_parallel.py, tests/test_pp.py) ----
+
+TRAIN_KW = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                ffn_dim=128, max_seq_len=64, dtype="float32")
+TRAIN4_KW = dict(TRAIN_KW, n_layers=4)
+PP_CASES = [(1, 4, 4), (2, 2, 2), (1, 2, 4)]
+SP_CASES = [("sp4", False), ("sp4", True), ("dp2_sp2", False),
+            ("dp2_sp2", True)]
+GRAD_TOL = dict(rtol=5e-3, atol=5e-4)  # tests/test_parallel.py:133-137
+_COL, _ROW = ("wq", "wk", "wv", "w1", "w3", "lm_head"), ("wo", "w2")
+
+
+def _bump(tree):
+    """lora_B + 0.01, so that the adapters take part in the loss
+    (tests/test_pp.py)."""
+    def bump(x):
+        if isinstance(x, JLora):
+            return JLora(x.base, x.lora_A, x.lora_B + 0.01, x.alpha,
+                         x.dropout)
+        return x
+
+    return jax.tree.map(bump, tree, is_leaf=lambda x: isinstance(x, JLora))
+
+
+def _flat_grads(g):
+    """{leaf name: array} of a JAX llama gradient tree; a TPLinear's as its
+    stacked (T, ...) shards."""
+    def leaf(x):
+        if isinstance(x, JTP.TPLinear):
+            x = x.stacked
+        return np.asarray(x.w if isinstance(x, JDense) else x)
+
+    out = {k: leaf(g[k]) for k in ("tok_embed", "norm", "lm_head")}
+    for i, layer in enumerate(g["layers"]):
+        for name, x in layer.items():
+            out["layers.{}.{}".format(i, name)] = leaf(x)
+    return out
+
+
+def _shard_of(full, name, t, T):
+    """Rank t's block of an unsharded gradient: columns of a
+    column-parallel linear, rows of a row-parallel one."""
+    kind = name.split(".")[-1]
+    if kind in _COL:
+        n = full.shape[1] // T
+        return full[:, t * n:(t + 1) * n]
+    if kind in _ROW:
+        n = full.shape[0] // T
+        return full[t * n:(t + 1) * n]
+    return full
+
+
 @pytest.fixture(scope="module")
-def port_ranks(jax_side):
+def jax_train():
+    """The JAX package's losses and gradients for the training cases, each
+    program jitted once, and the numpy inputs the ranks get."""
+    from sparsebit_tpu.llm.qlora import wrap_llama_lora as j_wrap_lora
+    from sparsebit_tpu.parallel import pp as JPP
+    from sparsebit_tpu.parallel.mesh import make_mesh_named as j_named
+    from sparsebit_tpu.parallel.sp import sp_llama_loss as j_sp_loss
+
+    cfg2, cfg4 = JL.llama_tiny(**TRAIN_KW), JL.llama_tiny(**TRAIN4_KW)
+    dense2, dense4 = _rng_params(cfg2, 10), _rng_params(cfg4, 11)
+    rng = np.random.default_rng(12)
+    tok2 = rng.integers(0, 128, (4, 16)).astype(np.int32)
+    tok4 = rng.integers(0, 128, (8, 17)).astype(np.int32)
+    t2, t4 = jnp.asarray(tok2), jnp.asarray(tok4)
+    ref = {}
+
+    def vg(fn, x):
+        loss, g = jax.jit(jax.value_and_grad(fn))(x)
+        return float(loss), g
+
+    ref["loss2"], g = vg(lambda p: JL.llama_loss(p, t2, cfg2), dense2)
+    ref["grads2"] = _flat_grads(g)
+    mesh = j_make_mesh(dp=2, tp=2)
+    ref["tp_loss"], g = vg(lambda p: JTP.tp_llama_loss(p, t2, cfg2, mesh),
+                           JTP.shard_llama_params_tp(dense2, cfg2, 2))
+    ref["tp_grads"] = _flat_grads(g)
+    for name, ring in SP_CASES:
+        m = j_named(sp=4) if name == "sp4" else j_named(dp=2, sp=2)
+        dp_axis = None if name == "sp4" else "dp"
+        ref["sp", name, ring] = float(jax.jit(lambda p: j_sp_loss(
+            p, t2, cfg2, m, dp_axis=dp_axis, ring=ring))(dense2))
+
+    ref["loss4"], g = vg(lambda p: JL.llama_loss(p, t4, cfg4), dense4)
+    ref["grads4"] = _flat_grads(g)
+    for dp, pp, M in PP_CASES:
+        m = j_named(dp=dp, pp=pp)
+        ref["pp", dp, pp, M] = float(jax.jit(lambda p: JPP.pp_llama_loss(
+            p, t4, cfg4, m, M))(JPP.stack_llama_stages(
+                JPP.densify_llama_params(dense4), pp)))
+    quant4 = JL.quantize_llama_params(dense4, lambda p, lin: (
+        JQuant.from_dense(lin.w.astype(jnp.float32), bits=4, groupsize=32)))
+    m22 = j_named(dp=2, pp=2)
+    ref["pp_quant"] = float(jax.jit(lambda p: JPP.pp_llama_loss(
+        p, t4, cfg4, m22, 2))(JPP.stack_llama_stages(quant4, 2)))
+    qlora4 = _bump(j_wrap_lora(quant4, r=4, key=jax.random.PRNGKey(7)))
+    qpp = JPP.stack_llama_stages(qlora4, 2)
+    ref["pp_qlora"] = vg(lambda l: JPP.pp_qlora_loss(l, qpp, t4, cfg4, m22,
+                                                      2),
+                         JPP.pp_extract_lora(qpp))
+    lora4 = _bump(j_wrap_lora(dense4, r=4, key=jax.random.PRNGKey(7)))
+    m3 = j_named(dp=1, tp=2, pp=2)
+    ptp = JPP.stack_llama_stages(JTP.shard_llama_params_tp(
+        lora4, cfg4, 2, bits=4, groupsize=32), 2)
+    ref["pp_tp"] = vg(lambda l: JPP.pp_tp_qlora_loss(l, ptp, t4, cfg4, m3,
+                                                      2),
+                      JPP.pp_extract_lora(ptp))
+    data = {"cfg2": TRAIN_KW, "cfg4": TRAIN4_KW, "tokens2": tok2,
+            "tokens4": tok4, "pp_cases": PP_CASES,
+            "dense2": jax_tree_to_numpy(dense2),
+            "dense4": jax_tree_to_numpy(dense4),
+            "quant4": jax_tree_to_numpy(quant4),
+            "qlora4": jax_tree_to_numpy(qlora4),
+            "lora4": jax_tree_to_numpy(lora4)}
+    return ref, data
+
+
+@pytest.fixture(scope="module")
+def port_ranks(jax_side, jax_train):
     """Every rank's results from one spawned group of four."""
-    _, data = jax_side
+    data = dict(jax_side[1], train=jax_train[1])
     return spawn_ranks(worker_run, WORLD, args=(WORLD, free_port(), data))
 
 
@@ -364,3 +489,190 @@ def test_tp_engine_matches_jax_and_the_port_engine(model, port_ranks,
         assert off
         assert cache_shape == (cfg.n_layers, 2, 48, cfg.n_kv_heads // 2,
                                cfg.head_dim)
+
+
+# ---- training through the collectives: tp, sp, pp --------------------------
+
+
+def _assert_grads(got, want, T=1, t=0, names=None):
+    for name in names or want:
+        np.testing.assert_allclose(got[name], _shard_of(want[name], name, t,
+                                                        T),
+                                   err_msg=name, **GRAD_TOL)
+
+
+def test_tp_llama_loss_gradients_match_jax(port_ranks, jax_train):
+    """dp=2 x tp=2, one backward and the dp sum (mesh.sum_grads): each
+    rank's loss within 1e-4 relative of JAX's tp_llama_loss, and its
+    gradient of every leaf, or of its shard, within rtol 5e-3 / atol 5e-4
+    of jax.grad of the unsharded llama_loss and of jax.grad of JAX's
+    tp_llama_loss (shard t of its stacked TPLinear gradients)."""
+    ref, _ = jax_train
+    assert ref["tp_loss"] == pytest.approx(ref["loss2"], rel=1e-4)
+    for res in port_ranks:
+        loss, grads, t = res["train"]["tp_train"]
+        assert loss == pytest.approx(ref["tp_loss"], rel=1e-4)
+        assert sorted(grads) == sorted(ref["grads2"])
+        _assert_grads(grads, ref["grads2"], 2, t)
+        for name, want in ref["tp_grads"].items():
+            kind = name.split(".")[-1]
+            want = want[t] if kind in _COL + _ROW else want
+            np.testing.assert_allclose(grads[name], want, err_msg=name,
+                                       **GRAD_TOL)
+
+
+@pytest.mark.parametrize("mesh,ring", SP_CASES)
+def test_sp_llama_loss_and_gradients_match_jax(port_ranks, jax_train, mesh,
+                                               ring):
+    """sp=4 and dp=2 x sp=2, the K/V all_gather and the ring: every rank's
+    loss within 2e-4 of JAX's jitted sp_llama_loss and, after the sum over
+    sp (and dp), its gradients within rtol 5e-3 / atol 5e-4 of JAX's
+    single-device llama_loss gradients."""
+    ref, _ = jax_train
+    for res in port_ranks:
+        loss, grads = res["train"]["sp", mesh, ring]
+        assert loss == pytest.approx(ref["sp", mesh, ring], rel=2e-4)
+        assert loss == pytest.approx(ref["loss2"], rel=2e-4)
+        _assert_grads(grads, ref["grads2"])
+
+
+@pytest.mark.parametrize("dp,pp,M", PP_CASES)
+def test_pp_llama_loss_and_gradients_match_jax(port_ranks, jax_train, dp,
+                                               pp, M):
+    """GPipe waves over the densified float model (a (1, pp) mesh smaller
+    than the group repeats over a replica axis): the loss within 1e-4 of
+    JAX's pp_llama_loss on every rank; after pp_sum_grads each rank's
+    gradients of its stage and of the replicated embedding, norm and head
+    within rtol 5e-3 / atol 5e-4 of JAX's single-device ones."""
+    ref, _ = jax_train
+    n_layers = TRAIN4_KW["n_layers"]
+    seen = set()
+    for res in port_ranks:
+        loss, grads = res["train"]["pp", dp, pp, M]
+        assert loss == pytest.approx(ref["pp", dp, pp, M], rel=1e-4)
+        assert loss == pytest.approx(ref["loss4"], rel=1e-4)
+        _assert_grads(grads, ref["grads4"], names=list(grads))
+        seen.update(k for k in grads if k.startswith("layers."))
+    assert len(seen) == 9 * n_layers  # every layer's leaves on some rank
+
+
+def test_pp_quantized_backbone_matches_jax(port_ranks, jax_train):
+    """(dp, pp, M) = (2, 2, 2) over the 4-bit g32 backbone: within 1e-4 of
+    JAX's pp_llama_loss."""
+    ref, _ = jax_train
+    for res in port_ranks:
+        assert res["train"]["pp_quant"] == pytest.approx(ref["pp_quant"],
+                                                         rel=1e-4)
+
+
+def _lora_ref(tree, key, tp=None):
+    """JAX's stacked adapter gradient for the port's (stage, layer, name)
+    key. ``tp``: the rank's part of a TPLinear's. JAX stacks a copy of the
+    replicated factor (lora_A of a column split, lora_B of a row split) a
+    shard, and each copy's gradient is that shard's share: the unsharded
+    model's gradient of the factor is their sum."""
+    s, i, name = key
+    node = tree["stages"][name]
+    if tp is not None:
+        node = node.stacked
+    a, b = (np.asarray(node[k])[s, i] for k in ("lora_A", "lora_B"))
+    if tp is None:
+        return a, b
+    if name in _COL:
+        return a.sum(axis=0), b[tp]
+    return a[tp], b.sum(axis=0)
+
+
+def test_pp_qlora_loss_and_gradients_match_jax(port_ranks, jax_train):
+    """Pipelined QLoRA over the packed 4-bit backbone on (dp=2, pp=2):
+    the loss within 1e-4 of JAX's pp_qlora_loss, each rank's stage's
+    adapter gradients (after the dp sum) within rtol 5e-3 / atol 5e-4 of
+    jax.grad of it."""
+    ref, _ = jax_train
+    loss_ref, g_ref = ref["pp_qlora"]
+    for res in port_ranks:
+        got = res["train"]["pp_qlora"]
+        assert got["loss"] == pytest.approx(loss_ref, rel=1e-4)
+        assert sorted({k[0] for k in got["grads"]}) == [got["sid"]]
+        assert len(got["grads"]) == 2 * 2  # two layers x (wq, wv)
+        for key, (a, b) in got["grads"].items():
+            wa, wb = _lora_ref(g_ref, key)
+            np.testing.assert_allclose(a, wa, **GRAD_TOL)
+            np.testing.assert_allclose(b, wb, **GRAD_TOL)
+
+
+def test_pp_qlora_train_step_moves_only_the_adapters(port_ranks):
+    """One pp_qlora_train_step (Adam, lr 1e-2; tests/test_pp.py:122-143):
+    the loss falls, the packed backbone is untouched, and the adapters
+    merged back (pp_merge_lora) give the same loss through pp_llama_loss
+    within 1e-5."""
+    for res in port_ranks:
+        got = res["train"]["pp_qlora"]
+        assert got["loss_after"] < got["loss"]
+        assert got["backbone_equal"]
+        assert got["merged"] == pytest.approx(got["loss_after"], rel=1e-5)
+
+
+def test_pp_tp_qlora_matches_jax(port_ranks, jax_train):
+    """dp=1 x tp=2 x pp=2 QLoRA over packed tensor-parallel stages: the
+    loss within 1e-4 of JAX's pp_tp_qlora_loss on the same mesh, each
+    rank's adapter gradients (its stage; of wq and wv, column splits,
+    lora_B's block and the whole of the replicated lora_A, summed over the
+    ranks in the backward by _copy_to) within rtol 5e-3 / atol 5e-4 of
+    jax.grad of it."""
+    ref, _ = jax_train
+    loss_ref, g_ref = ref["pp_tp"]
+    for res in port_ranks:
+        loss, grads, sid, t = res["train"]["pp_tp"]
+        assert loss == pytest.approx(loss_ref, rel=1e-4)
+        assert sorted({k[0] for k in grads}) == [sid] and len(grads) == 4
+        for key, (a, b) in grads.items():
+            wa, wb = _lora_ref(g_ref, key, tp=t)
+            np.testing.assert_allclose(a, wa, **GRAD_TOL)
+            np.testing.assert_allclose(b, wb, **GRAD_TOL)
+
+
+def test_shard_packed_keeps_qlora_base_codes(model):
+    """shard_llama_params_tp_packed over QLoRA params (adapters on wq and
+    wv over packed QuantLinears): each rank's base shard is
+    shard_quantlinear's exact one, lora_A whole and lora_B's columns
+    split (column-parallel), the other linears split as before."""
+    from sparsebit_tpu_torch.llm.qlora import wrap_llama_lora
+
+    _, _, qparams = model
+    cfg = TL.llama_tiny(**CFG_KW)
+    q = wrap_llama_lora(params_from_numpy(jax_tree_to_numpy(qparams), "cpu"),
+                        r=4, generator=torch.Generator().manual_seed(3))
+    for layer in q["layers"]:
+        layer["wq"].lora_B += 0.5
+    tp = TTP.shard_llama_params_tp_packed(q, cfg, 2)
+    for name in ("wq", "wv"):
+        lin, got = q["layers"][0][name], tp["layers"][0][name]
+        want = TTP.shard_quantlinear(lin.base, 2, "col")
+        n = lin.lora_B.shape[1] // 2
+        for t in range(2):
+            sh = got.shards[t]
+            assert isinstance(sh, LoraLinear) and got.kind == "col"
+            for k, v in want.shards[t].packed.items():
+                assert torch.equal(sh.base.packed[k], v)
+            assert torch.equal(sh.lora_A, lin.lora_A)
+            assert torch.equal(sh.lora_B, lin.lora_B[:, t * n:(t + 1) * n])
+    assert isinstance(tp["layers"][0]["wo"].shards[0], QuantLinear)
+
+
+def test_dp_batchnorm_and_lsq_take_the_global_batch(port_ranks):
+    """Within nn.data_parallel (dp=2), BatchNorm2d in training
+    mode on a rank's rows gives that rank's rows of the whole batch's
+    output, the whole batch's running statistics and, after the sum over
+    dp, its gamma / beta gradients and the rank's rows of the input
+    gradient (the statistics' all_reduce sums their gradient too), each
+    within 1e-5 relative; LSQ's gradient scale counts a feature over the
+    global batch (2x the rank's elements) and a weight as it is. The JAX
+    package's jitted step sees the global batch, so both match it."""
+    for res in port_ranks:
+        got = res["train"]["dp_batchnorm"]
+        for k in ("out", "running_mean", "running_var", "weight_grad",
+                  "bias_grad", "x_grad"):
+            assert got[k] <= 1e-5, (k, got[k])
+        n = got["local_elements"]
+        assert got["lsq_counts"] == (2 * n, n)

@@ -1,7 +1,9 @@
 """One rank of tests/test_torch_parallel.py's process group: runs the
-port's tensor-parallel functions on the CPU over gloo and returns numpy
-results. Imports torch and the port only (spawned ranks import it
-afresh, so it stays light)."""
+port's tensor-parallel functions on the CPU over gloo, then the training
+cases of torch_train_worker.py, and returns numpy results. Imports torch
+and the port only (spawned ranks import it afresh, so it stays light).
+The group's collective timeout is 120 s, so that a hang fails its test
+instead of holding the test run."""
 
 import os
 
@@ -17,6 +19,7 @@ from sparsebit_tpu_torch.parallel.mesh import (
     make_mesh,
     replicate,
 )
+from sparsebit_tpu_torch.parallel import multihost
 from sparsebit_tpu_torch.parallel.multihost import (
     initialize_multihost,
     local_batch_slice,
@@ -32,6 +35,7 @@ from sparsebit_tpu_torch.parallel.tp import (
     tp_llama_loss,
     tp_prefill_at,
 )
+from torch_train_worker import run_training
 
 
 def _cache(c):
@@ -49,6 +53,7 @@ def run(rank, world, port, data):
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world))
     torch.set_num_threads(1)
+    multihost.TIMEOUT_S = 120
     out = {"joined": initialize_multihost(device="cpu")}
     mesh = make_mesh(dp=2, tp=2, device_type="cpu")
     out["batch_slice"] = local_batch_slice(8, mesh)
@@ -102,6 +107,7 @@ def run(rank, world, port, data):
     out["engine"] = ([got[i] for i in rids], got2[ext], eng.prefix_hits,
                      eng.params_stacked is None and not eng._stacked_chunks,
                      tuple(eng.cache.k.shape))
+    out["train"] = run_training(data["train"], world)
     dist.destroy_process_group()
     return out
 
