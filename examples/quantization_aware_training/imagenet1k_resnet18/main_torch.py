@@ -68,7 +68,9 @@ def main(argv=None):
     mesh = data_parallel_mesh(device)
     n_dp = 1 if mesh is None else mesh["dp"].size()
     if args.batch % n_dp:
-        raise SystemExit("the global batch must divide the dp axis")
+        raise SystemExit("--batch {} does not split over {} data-parallel "
+                         "ranks: give a multiple of {}".format(
+                             args.batch, n_dp, n_dp))
     print("ranks: {} (dp={})".format(n_dp, n_dp))
 
     if args.data:

@@ -32,7 +32,10 @@ decode.py:333, and ``_scan_uses_update_kernel``, decode.py:290):
 - the unfused branch (decode.py:464-548), for models K4 does not take or
   with ``FORCE_LAYER_KERNEL = False``: per layer the stacked linears
   (K1, K6, K7), K2 (int8 row commit + attention) for a single-token step
-  over an int8 cache, and K3 for an s4r FFN block;
+  over an int8 cache, and K3 for an s4r FFN block
+  (``_scan_uses_ffn_kernel``; ``FORCE_FFN_KERNEL = False`` runs that
+  block on the stacked linears instead, as decode.py:300 lets the
+  reference's callers A/B its fused FFN);
 - the same per-layer walk with the plain attention in place of K2 for a
   prompt (S > 1), a bf16 or an int4 cache: the rows are quantized in the
   cache's mode and written, the layer's cache dequantized and attended
@@ -269,8 +272,12 @@ def _stacked_layer_view(layers, li):
     return view
 
 
-# The reference's switch (decode.py:303): None routes by the predicate,
-# False forces the unfused branch, True takes K4 wherever it is supported.
+# The reference's switches (decode.py:300-303): None routes by the
+# predicate, False forces the plain branch, True takes the kernel wherever
+# it is supported. FORCE_LAYER_KERNEL: K4 against the unfused branch;
+# FORCE_FFN_KERNEL: the unfused branch's FFN block on K3 against the
+# stacked linears.
+FORCE_FFN_KERNEL = None
 FORCE_LAYER_KERNEL = None
 
 
@@ -362,8 +369,13 @@ def _backbone_fused(layers, x, pos, k, v, ks, vs, cfg, bt=None,
 
 
 def _scan_uses_ffn_kernel(S, layers, cfg, batch):
-    """True when the FFN block runs as K3: layer-stacked s4r QuantLinears
-    without act-order perm, bias or N padding, w13 = [gate | up] of 2F."""
+    """True when the unfused branch's FFN block runs as K3 (decode.py:
+    378-406): a single-token step over layer-stacked s4r QuantLinears
+    without act-order perm, bias or N padding, w13 = [gate | up] of 2F,
+    within ffn_block_supported, unless FORCE_FFN_KERNEL says otherwise
+    (True: K3 wherever it is supported; False: the stacked linears).
+    Unlike the reference it does not ask the device, so the CPU takes the
+    card's route."""
     if S != 1:
         return False
     w13, w2 = layers.get("w13"), layers.get("w2")
@@ -383,7 +395,10 @@ def _scan_uses_ffn_kernel(S, layers, cfg, batch):
     F = w2.in_features
     if w13.out_features != 2 * F:
         return False
-    return ffn_block_supported(cfg.dim, F, gs, batch)
+    ok = ffn_block_supported(cfg.dim, F, gs, batch)
+    if FORCE_FFN_KERNEL is not None:
+        return FORCE_FFN_KERNEL and ok
+    return ok
 
 
 def _positions_mask(positions, S_max):

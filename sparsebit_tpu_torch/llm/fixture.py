@@ -15,7 +15,18 @@ drawn by a CPU ``torch.Generator`` seeded ``seed`` and windows drawn by one
 seeded ``seed + 1``, so a run on the card starts from the same weights and
 windows as one on the CPU; the JAX package draws both from its own PRNG,
 so the two packages train different models.
+
+The long-context int8-attention record (the port's counterpart of
+``experiments/exp36_int8attn_longctx.py``) has its pieces here too:
+``markov_stream`` (exp36's stream, bit for bit), ``train_on_stream``
+(exp36's Adam loop at seqlen 2047), ``quantize_rtn_serving`` and
+``decode_routes``: the same prefilled int8 cache decoded by
+``decode_step`` (attention in f32 over the int8 codes: K5 on the card) and
+by ``decode_step_scanned`` (K4's 7-bit probability mix).
+``examples/llm/int8attn_longctx_torch.py`` records it.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -23,6 +34,12 @@ import torch
 from sparsebit_tpu_torch import resolve_device
 from sparsebit_tpu_torch.llm import llama as L
 from sparsebit_tpu_torch.llm.convert import quantize_llama_gptq
+from sparsebit_tpu_torch.llm.decode import (
+    decode_step,
+    decode_step_scanned,
+    prepare_params_host,
+    stack_layers,
+)
 from sparsebit_tpu_torch.llm.eval import perplexity
 from sparsebit_tpu_torch.llm.quant import QuantLinear
 
@@ -68,6 +85,31 @@ def _leaves(params):
     return out
 
 
+def _adam_train(params, cfg, batches, lr, on_step=None):
+    """torch.optim.Adam(lr) (optax.adam's update at its defaults) on the
+    next-token loss of each token batch, ``params`` trained in place;
+    ``on_step(i, loss)`` after each step. Returns the losses (tensors)."""
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=lr)
+    losses = []
+    try:
+        for i, toks in enumerate(batches):
+            loss = L.llama_loss(params, toks, cfg)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+            if on_step is not None:
+                on_step(i, loss)
+    finally:
+        opt.zero_grad(set_to_none=True)
+        for t in leaves:
+            t.requires_grad_(False)
+    return losses
+
+
 def train_tiny_llama(cfg, corpus, steps=200, batch=8, seqlen=64, lr=3e-3,
                      seed=0, verbose=False, *, params=None, device=None):
     """Adam on the next-token loss; deterministic given the seeds. Starts
@@ -77,27 +119,20 @@ def train_tiny_llama(cfg, corpus, steps=200, batch=8, seqlen=64, lr=3e-3,
     if params is None:
         params = L.init_llama_params(
             cfg, torch.Generator().manual_seed(seed), device=dev)
-    leaves = _leaves(params)
-    for t in leaves:
-        t.requires_grad_(True)
-    opt = torch.optim.Adam(leaves, lr=lr)
-
     n_windows = len(corpus) // (seqlen + 1)
     windows = torch.as_tensor(
         corpus[: n_windows * (seqlen + 1)].reshape(n_windows, seqlen + 1),
         device=dev).long()
     gen = torch.Generator().manual_seed(seed + 1)
-    for i in range(steps):
-        idx = torch.randint(0, n_windows, (batch,), generator=gen)
-        loss = L.llama_loss(params, windows[idx.to(dev)], cfg)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        if verbose and (i + 1) % 50 == 0:
+    batches = (windows[torch.randint(0, n_windows, (batch,),
+                                     generator=gen).to(dev)]
+               for _ in range(steps))
+
+    def report(i, loss):
+        if (i + 1) % 50 == 0:
             print("train step {}: loss {:.4f}".format(i + 1, loss.item()))
-    opt.zero_grad(set_to_none=True)
-    for t in leaves:
-        t.requires_grad_(False)
+
+    _adam_train(params, cfg, batches, lr, report if verbose else None)
     return params
 
 
@@ -153,3 +188,141 @@ def run_fixture(steps=200, n_tokens=40_000, gptq_bits=(4,), groupsize=32,
                 bits, results["ppl_rtn_int{}".format(bits)],
                 results["ppl_gptq_int{}".format(bits)]))
     return results
+
+
+# ---- the long-context int8-attention record (exp36) -------------------------
+
+
+def markov_stream(n, vocab, walk_seed=1, chain_seed=1234, sharpness=8.0):
+    """exp36's token stream (exp36_int8attn_longctx.py:68-83), bit for
+    bit: a walk seeded ``walk_seed`` over a bigram chain of peaked
+    Dirichlet rows seeded ``chain_seed``. The chain is shared between the
+    training stream and a held-out walk."""
+    rng_c = np.random.RandomState(chain_seed)
+    T = rng_c.dirichlet(np.full(vocab, 1.0 / sharpness), size=vocab)
+    Tc = np.cumsum(T, axis=1)
+    rng = np.random.RandomState(walk_seed)
+    u = rng.random_sample(n)
+    out = np.zeros(n, np.int32)
+    t = rng.randint(vocab)
+    for i in range(n):
+        out[i] = t
+        t = int(np.searchsorted(Tc[t], u[i]))
+        t = min(t, vocab - 1)
+    return out
+
+
+def longctx_config(**kw):
+    """exp36's model: an f32 llama at head_dim 128 (dim 512, 4 heads and 4
+    kv heads, ffn 384, 2 layers) over 2048 positions and 256 tokens."""
+    d = dict(dim=512, n_heads=4, n_kv_heads=4, ffn_dim=384,
+             max_seq_len=2048, vocab_size=256, dtype="float32")
+    d.update(kw)
+    return L.llama_tiny(**d)
+
+
+def init_longctx_params(cfg, seed=0, *, device=None):
+    """Fused (wqkv, w13) f32 weights drawn by a CPU generator seeded
+    ``seed``, on ``device`` (default the card). exp36 draws them from
+    jax.random, which torch cannot repeat: the record is the port's."""
+    return L.fuse_llama_params(L.init_llama_params(
+        cfg, torch.Generator().manual_seed(seed),
+        device=resolve_device(device)))
+
+
+def train_on_stream(params, cfg, stream, steps=250, seqlen=2047, batch=4,
+                    lr=1e-3, window_seed=7, on_step=None):
+    """exp36's training (exp36:35-65) of ``params`` in place: Adam(lr)
+    over llama_loss, each step's ``batch`` windows of seqlen + 1 tokens
+    starting where np.random.RandomState(window_seed) draws them over the
+    whole stream. On the card llama_loss runs K10 with its lse output and
+    K11/K12 (f32 at head_dim 128). Returns the step losses."""
+    dev = params["tok_embed"].device
+    rng = np.random.RandomState(window_seed)
+    n_win = len(stream) - seqlen - 1
+
+    def batches():
+        for _ in range(steps):
+            idx = rng.randint(0, n_win, size=batch)
+            yield torch.from_numpy(np.stack(
+                [stream[j:j + seqlen + 1] for j in idx])).to(dev).long()
+
+    losses = _adam_train(params, cfg, batches(), lr, on_step)
+    return torch.stack(losses).tolist() if losses else []
+
+
+def quantize_rtn_serving(params, bits=4, groupsize=64):
+    """exp36's weights: every decoder linear round-to-nearest
+    (QuantLinear.from_dense), the f32 head kept, in the serving layout
+    (prepare_params_host). Returns (per-layer params, stack_layers of
+    them)."""
+    q = L.quantize_llama_params(params, lambda path, lin: (
+        QuantLinear.from_dense(lin.w.to(torch.float32), bits=bits,
+                               groupsize=groupsize)))
+    sparams = prepare_params_host(q)
+    return sparams, stack_layers(sparams)
+
+
+def decode_fed(step_fn, params, cache, cfg, tokens):
+    """One ``step_fn(params, tok, cache, cfg)`` a token of ``tokens`` (n,)
+    int32 at batch 1 (teacher forcing): logits (n, V) f32."""
+    rows = []
+    for i in range(tokens.shape[0]):
+        logits, cache = step_fn(params, tokens[i:i + 1], cache, cfg)
+        rows.append(logits[0])
+    return torch.stack(rows)
+
+
+def decode_routes(sparams, stacked, cache, cfg, feed=None, tok0=None,
+                  n=None):
+    """exp36's two routes from one prefilled int8 cache at batch 1: route
+    A ``decode_step`` over ``cache`` (attention in f32 over the int8
+    codes), route B ``decode_step_scanned`` over a clone of it (on the
+    card K4, whose value mix takes 7-bit probabilities). Teacher-forced
+    on ``feed`` (n,), or greedy on route A's argmax from ``tok0`` (1,) for
+    ``n`` steps, route B fed the same tokens (exp36's ``main``). Returns
+    (logits A (n, V), logits B (n, V), the tokens fed (n,))."""
+    twin = cache.clone()
+    if feed is None:
+        rows, tok, fed = [], tok0, []
+        for _ in range(n):
+            fed.append(tok)
+            logits, cache = decode_step(sparams, tok, cache, cfg)
+            rows.append(logits[0])
+            tok = logits.argmax(-1).to(torch.int32)
+        feed, logits_a = torch.cat(fed), torch.stack(rows)
+    else:
+        logits_a = decode_fed(decode_step, sparams, cache, cfg, feed)
+    logits_b = decode_fed(decode_step_scanned, stacked, twin, cfg, feed)
+    return logits_a, logits_b, feed
+
+
+def route_summary(logits_a, logits_b, targets=None):
+    """exp36's figures of the two routes' logits (n, V): greedy agreement
+    and, against ``targets`` (n,), each route's mean NLL and perplexity
+    (``main_trained``); without targets, the logit differences and the
+    agreement where route A's top-2 margin exceeds twice the step's
+    largest difference (``main``)."""
+    a, b = logits_a.double().cpu(), logits_b.double().cpu()
+    n = a.shape[0]
+    out = {"greedy_agree": "{}/{}".format(
+        int((a.argmax(-1) == b.argmax(-1)).sum()), n)}
+    if targets is not None:
+        t = targets.long().cpu()[:, None]
+        for key, x in (("f32", a), ("int8", b)):
+            nll = -torch.log_softmax(x, -1).gather(-1, t)[:, 0]
+            out["nll_" + key] = float(nll.mean())
+            out["ppl_" + key] = math.exp(out["nll_" + key])
+        out["rel_ppl_increase"] = out["ppl_int8"] / out["ppl_f32"] - 1.0
+        return out
+    d = (a - b).abs()
+    top2 = torch.topk(a, 2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * d.amax(-1)
+    same = a.argmax(-1) == b.argmax(-1)
+    out.update(logit_mae_mean=float(d.mean(-1).mean()),
+               logit_maxdiff_mean=float(d.amax(-1).mean()),
+               logit_maxdiff_max=float(d.max()),
+               decisive_agree="{}/{}".format(int(same[decisive].sum()),
+                                             int(decisive.sum())),
+               logit_scale_ref=float(a[-1].abs().mean()))
+    return out

@@ -44,6 +44,12 @@ class KVCache:
     length: torch.Tensor  # (B,) int32 rows filled per sequence
     quantized: object = "int8"  # "int8", "int4" or False
 
+    def clone(self):
+        """A copy with its own tensors (caches are updated in place)."""
+        return KVCache(*(None if t is None else t.clone() for t in (
+            self.k, self.v, self.k_scale, self.v_scale, self.length)),
+            self.quantized)
+
 
 def init_kv_cache(cfg, batch, max_len=None, quantized=True, *, device=None):
     """Zeroed cache of ``max_len`` (default cfg.max_seq_len) rows on

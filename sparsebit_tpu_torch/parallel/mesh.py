@@ -62,7 +62,8 @@ def data_parallel_mesh(device):
 
 def dp_shard_batch(mesh, x):
     """This rank's contiguous rows of a batch sharded over "dp"
-    (replicated over the other axes)."""
+    (replicated over the other axes); ValueError where dp does not divide
+    the batch (local_batch_slice)."""
     return x[local_batch_slice(x.shape[0], mesh)]
 
 

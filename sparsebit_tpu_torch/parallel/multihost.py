@@ -66,8 +66,13 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
 
 def local_batch_slice(global_batch, mesh, axis="dp"):
     """Rows of the global batch this rank owns under a batch sharded over
-    ``axis`` (contiguous shards in mesh order)."""
+    ``axis`` (contiguous shards in mesh order). The axis must divide the
+    batch, as the reference's shard_map over P("dp") requires: a remainder
+    raises instead of dropping rows."""
     n = mesh[axis].size()
+    if global_batch % n:
+        raise ValueError("{} rows over {} ranks of axis {!r}".format(
+            global_batch, n, axis))
     per = global_batch // n
     idx = mesh.get_local_rank(axis)
     return slice(idx * per, (idx + 1) * per)

@@ -118,9 +118,10 @@ def _sp_forward_local(params, tok_local, offset, cfg, g, n, ring):
 def sp_llama_loss(params, tokens, cfg, mesh, axis="sp", dp_axis=None,
                   ring=False):
     """Sequence-parallel next-token loss, equal to llama.llama_loss: tokens
-    (B, S), the same global batch on every rank, S % n_sp == 0; params
-    replicated; the batch split over ``dp_axis`` when given (a (dp, sp)
-    mesh). Every rank returns the same value."""
+    (B, S), the same global batch on every rank; params replicated; the
+    batch split over ``dp_axis`` when given (a (dp, sp) mesh). S % n_sp
+    and B % n_dp must be 0 (ValueError otherwise: a remainder is never
+    dropped). Every rank returns the same value."""
     g = mesh.get_group(axis)
     n = mesh[axis].size()
     if dp_axis is not None:
@@ -129,6 +130,9 @@ def sp_llama_loss(params, tokens, cfg, mesh, axis="sp", dp_axis=None,
     else:
         n_dp = 1
     B, S = tokens.shape
+    if S % n:
+        raise ValueError("{} positions over {} ranks of axis {!r}".format(
+            S, n, axis))
     S_loc = S // n
     offset = mesh.get_local_rank(axis) * S_loc
     tok_local = tokens[:, offset:offset + S_loc]

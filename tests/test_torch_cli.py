@@ -75,6 +75,42 @@ def test_accuracy_fixture_torch_writes_record(tmp_path):
         assert np.isfinite(res[key]) and res[key] > 1.0
 
 
+def test_int8attn_longctx_torch_both_modes(tmp_path, monkeypatch):
+    """int8attn_longctx_torch on --device cpu at a short context, both
+    modes: --trained --write merges ``int8_attn_longctx`` (exp36's keys,
+    the steps, the final train loss, the device) into --out and leaves the
+    other records; the default (untrained, greedy) mode prints exp36's
+    logit figures. The training windows (SEQLEN) and the stream (STREAM)
+    are cut here to 31 and 3000 tokens; the record's S~2k figures come
+    from the card."""
+    cli = _cli("int8attn_longctx_torch")
+    monkeypatch.setattr(cli, "SEQLEN", 31)
+    monkeypatch.setattr(cli, "STREAM", 3000)
+    out = tmp_path / "ACCURACY_torch.json"
+    out.write_text(json.dumps({"llm_gptq": {"ppl_float": 2.0}}))
+    small = ["--device", "cpu", "--ctx", "40", "--decode-steps", "4"]
+    rec = cli.main(["--trained", "--write", "--out", str(out), "--steps",
+                    "2"] + small)
+    got = json.loads(out.read_text())
+    assert got["llm_gptq"] == {"ppl_float": 2.0}
+    assert got["int8_attn_longctx"] == rec
+    for key in ("config", "context_positions", "ppl_f32_attention",
+                "ppl_int8_attention", "rel_ppl_increase", "greedy_agree",
+                "train_steps", "final_train_loss", "device"):
+        assert key in rec, key
+    assert rec["device"] == "cpu" and rec["train_steps"] == 2
+    assert "3000-token Markov chain at seqlen 31" in rec["config"]
+    assert rec["context_positions"] == "40..44 (teacher-forced)"
+    assert rec["rel_ppl_increase"] == pytest.approx(
+        rec["ppl_int8_attention"] / rec["ppl_f32_attention"] - 1)
+    assert rec["greedy_agree"].endswith("/4")
+    res = cli.main(small)
+    assert set(res) == {"context", "logit_mae_mean", "logit_maxdiff_mean",
+                        "logit_maxdiff_max", "greedy_agree",
+                        "decisive_agree", "logit_scale_ref"}
+    assert 0 <= res["logit_mae_mean"] <= res["logit_maxdiff_max"] < 1.0
+
+
 def test_qlora_finetune_torch_saves_adapters(tmp_path):
     """qlora_finetune_torch on a tiny RTN INT4-g32 checkpoint written here
     and a seeded .npy of token windows: two AdamW steps, the adapters
@@ -678,6 +714,48 @@ def test_dp_cli_torchrun_matches_one_rank(case, tmp_path):
                 assert _rel(g, g1) <= 5e-4, (i, _rel(g, g1))
         for k in stats:
             assert _rel(dp["state"][k], one["state"][k]) <= 1e-5, k
+
+
+DP_CLIS = sorted({rel for rel, _ in DP_CASES.values()})
+
+
+class _DPAxis:
+    def size(self):
+        return 2
+
+
+@pytest.mark.parametrize("rel", DP_CLIS)
+def test_dp_cli_refuses_a_batch_the_ranks_do_not_split(rel, monkeypatch):
+    """Fault F1 at the CLIs: with two data-parallel ranks (the mesh faked
+    here) --batch 5 fails at start, before a model is built, with the
+    numbers in the message, instead of reaching dp_shard_batch."""
+    cli = _example(rel)
+    monkeypatch.setattr(cli, "data_parallel_mesh",
+                        lambda device: {"dp": _DPAxis()})
+    monkeypatch.setattr(cli, "create_model", lambda *a, **k: pytest.fail(
+        "built a model"))
+    with pytest.raises(SystemExit, match="--batch 5 does not split over 2 "
+                       "data-parallel ranks: give a multiple of 2"):
+        cli.main(["--batch", "5", "--img", "32", "--device", "cpu"])
+
+
+def test_dp_cli_torchrun_refuses_an_odd_batch(tmp_path):
+    """The resnet18 QAT CLI under ``python -m torch.distributed.run
+    --nproc_per_node 2`` with --batch 3: both ranks exit at start with the
+    message (fault F1), no step runs."""
+    import subprocess
+
+    cli = os.path.join(os.path.dirname(EXAMPLES), QAT,
+                       "imagenet1k_resnet18", "main_torch.py")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", cli, "--batch", "3", "--img", "32",
+         "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "--batch 3 does not split over 2 data-parallel ranks" in (
+        proc.stdout + proc.stderr), proc.stderr[-3000:]
 
 
 def test_dryrun_multichip_torch_on_four_cpu_ranks():

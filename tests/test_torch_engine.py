@@ -110,6 +110,7 @@ def forced_kernels(monkeypatch, route):
     monkeypatch.setattr(TD, "FORCE_LAYER_KERNEL", False)
     if route == "unfused":
         monkeypatch.setattr(JD, "FORCE_FFN_KERNEL", True)
+        monkeypatch.setattr(TD, "FORCE_FFN_KERNEL", True)
 
 
 def test_params_from_numpy_roundtrip(model):

@@ -18,6 +18,9 @@ The two packages draw the fixture's weights and windows from different
 generators, so their trained models differ; the claims are relative.
 """
 
+import ast
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -144,3 +147,159 @@ def test_port_fixture_claims(port_fixture):
     assert r["ppl_float"] < 4.0
     assert r["ppl_gptq_int4"] < r["ppl_float"] * 1.05, r
     assert r["ppl_gptq_int4"] <= r["ppl_rtn_int4"] * 1.002, r
+
+
+# ---- the long-context int8-attention record (exp36) -------------------------
+
+EXP36 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "experiments", "exp36_int8attn_longctx.py")
+# Each route against the JAX package's on the same quantized weights (max
+# |diff| of the logits; measured on the CPU: A 5.3e-5, B 1.5e-6), well under
+# the gap between the two routes there (1.1e-2), so that a route B that
+# took route A's attention, or the other way round, fails.
+ROUTE_A_ATOL = 5e-4
+ROUTE_B_ATOL = 5e-5
+LONGCTX_KW = dict(dim=512, n_heads=4, n_kv_heads=4, ffn_dim=384,
+                  max_seq_len=64, vocab_size=256, dtype="float32")
+CTX, STEPS, SEQ = 48, 4, 47
+
+
+def _exp36_markov_stream():
+    """exp36's own ``_markov_stream``, compiled from its source without
+    importing the script (whose import points JAX's compilation cache
+    into the repository)."""
+    with open(EXP36) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "_markov_stream")
+    ns = {"np": np}
+    exec(compile(ast.Module([fn], type_ignores=[]), EXP36, "exec"), ns)
+    return ns["_markov_stream"]
+
+
+@pytest.mark.parametrize("n,vocab,walk_seed", [(20_000, 256, 1),
+                                               (2_030, 256, 4321),
+                                               (3_000, 512, 9)])
+def test_longctx_stream_bit_equal_to_exp36(n, vocab, walk_seed):
+    ref = _exp36_markov_stream()(n, vocab, walk_seed=walk_seed)
+    got = TF.markov_stream(n, vocab, walk_seed=walk_seed)
+    assert got.dtype == ref.dtype == np.int32
+    np.testing.assert_array_equal(got, ref)
+
+
+def _exp36_train_jax(params, cfg, stream, steps, seqlen, batch=4):
+    """exp36's _train_tiny (exp36:35-65) from given weights: optax.adam(1e-3)
+    on jitted llama_loss steps, windows drawn by RandomState(7)."""
+    opt = optax.adam(1e-3)
+    opt_state = opt.init(params)
+
+    @jax.jit
+    def step(params, opt_state, toks):
+        loss, grads = jax.value_and_grad(
+            lambda p: JL.llama_loss(p, toks, cfg))(params)
+        upd, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, upd), opt_state, loss
+
+    rng = np.random.RandomState(7)
+    n_win = len(stream) - seqlen - 1
+    losses = []
+    for _ in range(steps):
+        idx = rng.randint(0, n_win, size=batch)
+        toks = jnp.asarray(np.stack([stream[j:j + seqlen + 1] for j in idx]))
+        params, opt_state, loss = step(params, opt_state, toks)
+        losses.append(float(loss))
+    return params, losses
+
+
+def _jax_routes(sparams, stacked, cfg, prompt, feed):
+    """exp36's decode loop: one prefilled int8 cache, copied; decode_step
+    (its K5 kernel forced on) and decode_step_scanned (its megakernel
+    forced on) teacher-forced on ``feed``."""
+    from sparsebit_tpu.llm import decode as JD
+    from sparsebit_tpu.llm.kv_cache import init_kv_cache as j_init
+
+    cache_a = j_init(cfg, 1, 128, quantized=True)
+    _, cache_a = JD.prefill(sparams, jnp.asarray(prompt)[None], cache_a, cfg)
+    cache_b = jax.tree.map(lambda x: x, cache_a)
+    rows_a, rows_b = [], []
+    for t in feed:
+        tok = jnp.asarray([t], jnp.int32)
+        lg_a, cache_a = JD.decode_step(sparams, tok, cache_a, cfg)
+        lg_b, cache_b = JD.decode_step_scanned(stacked, tok, cache_b, cfg)
+        rows_a.append(np.asarray(lg_a[0], np.float32))
+        rows_b.append(np.asarray(lg_b[0], np.float32))
+    return np.stack(rows_a), np.stack(rows_b)
+
+
+def _routes_close(got, want, atol):
+    """Logits within atol, argmax equal where the top-2 margin exceeds
+    twice it. Returns the largest difference."""
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    top2 = np.sort(want, -1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > 2 * atol
+    np.testing.assert_array_equal(got.argmax(-1)[decisive],
+                                  want.argmax(-1)[decisive])
+    return float(np.abs(got - want).max())
+
+
+def test_longctx_training_and_routes_match_jax(monkeypatch):
+    """exp36's flow at a short context (dim 512, 4 heads of 128, 2 fused
+    f32 layers, vocab 256; 3 Adam steps at seqlen 47, RTN int4-g64, a
+    48-token prefill, 4 teacher-forced steps) from JAX's own initial
+    weights carried across: the port's train_on_stream losses within rtol
+    1e-5 of exp36's optax loop. Then JAX's trained weights, carried across
+    too, so that both packages quantize and decode the same codes: each
+    route's logits (decode_routes: A decode_step, B decode_step_scanned on
+    K4's plain version, the predicate taking K4) against the JAX package's
+    decode_step (its K5) and decode_step_scanned (its megakernel), A
+    within ROUTE_A_ATOL and B within ROUTE_B_ATOL; each route's logits
+    farther than that from the other JAX route's."""
+    from sparsebit_tpu.llm import decode as JD
+    from sparsebit_tpu_torch.llm import decode as TD
+    from sparsebit_tpu_torch.llm.kv_cache import init_kv_cache
+
+    monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
+    monkeypatch.setattr(JD, "FORCE_LAYER_KERNEL", True)
+    jax.clear_caches()
+    cfg_j, cfg_t = JL.llama_tiny(**LONGCTX_KW), TF.longctx_config(
+        max_seq_len=64)
+    assert cfg_t == TL.llama_tiny(**LONGCTX_KW)
+    params = JL.fuse_llama_params(
+        JL.init_llama_params(cfg_j, jax.random.PRNGKey(0)))
+    stream = TF.markov_stream(6_000, 256)
+    tparams = params_from_numpy(jax_tree_to_numpy(params), "cpu")
+    losses_t = TF.train_on_stream(tparams, cfg_t, stream, steps=3,
+                                  seqlen=SEQ)
+    params, losses_j = _exp36_train_jax(params, cfg_j, stream, 3, SEQ)
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-5)
+
+    ev = TF.markov_stream(CTX + STEPS + 2, 256, walk_seed=4321)
+    qj = JL.quantize_llama_params(params, lambda p, lin: JQuant.from_dense(
+        lin.w.astype(jnp.float32), bits=4, groupsize=64))
+    sj = JD.prepare_params_host(qj)
+    want_a, want_b = _jax_routes(sj, JD.stack_layers(sj), cfg_j, ev[:CTX],
+                                 ev[CTX:CTX + STEPS])
+    jax.clear_caches()
+
+    sparams, stacked = TF.quantize_rtn_serving(
+        params_from_numpy(jax_tree_to_numpy(params), "cpu"), bits=4,
+        groupsize=64)
+    assert TD._scan_uses_layer_kernel(1, stacked["layers"], "int8", cfg_t, 1)
+    ev_t = torch.from_numpy(ev)
+    cache = init_kv_cache(cfg_t, 1, 128, True, device="cpu")
+    _, cache = TD.prefill(sparams, ev_t[None, :CTX], cache, cfg_t)
+    got_a, got_b, fed = TF.decode_routes(sparams, stacked, cache, cfg_t,
+                                         feed=ev_t[CTX:CTX + STEPS])
+    assert torch.equal(fed, ev_t[CTX:CTX + STEPS])
+    assert cache.length.tolist() == [CTX + STEPS]
+    got_a, got_b = got_a.numpy(), got_b.numpy()
+    err_a = _routes_close(got_a, want_a, ROUTE_A_ATOL)
+    err_b = _routes_close(got_b, want_b, ROUTE_B_ATOL)
+    swap_a = float(np.abs(got_b - want_a).max())
+    swap_b = float(np.abs(got_a - want_b).max())
+    print("longctx routes vs JAX: A {:.3e}, B {:.3e}; swapped {:.3e} / "
+          "{:.3e}".format(err_a, err_b, swap_a, swap_b))
+    assert swap_a > ROUTE_A_ATOL and swap_b > ROUTE_B_ATOL
+    s = TF.route_summary(torch.from_numpy(got_a), torch.from_numpy(got_b),
+                         ev_t[CTX + 1:CTX + 1 + STEPS])
+    assert np.isfinite(s["ppl_f32"]) and np.isfinite(s["ppl_int8"])

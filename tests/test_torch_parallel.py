@@ -420,6 +420,58 @@ def test_mesh_and_multihost_partition_the_batch(port_ranks):
     assert rows[0] == [0, 1, 2, 3]
 
 
+def test_f1_batch_remainder_is_refused(port_ranks):
+    """Fault F1: where dp does not divide the global batch (7, 9 and 1
+    rows over dp = 2), local_batch_slice, dp_shard_batch and what shards
+    through them (tp_llama_loss) raise ValueError on every rank before any
+    collective, as the reference's shard_map over P("dp") refuses such a
+    batch; no row is dropped silently."""
+    for res in port_ranks:
+        assert res["batch_refused"] == {
+            "local_batch_slice": "7 rows over 2 ranks of axis 'dp'",
+            "dp_shard_batch": "9 rows over 2 ranks of axis 'dp'",
+            "tp_llama_loss": "1 rows over 2 ranks of axis 'dp'"}
+
+
+@pytest.mark.parametrize("mesh", ["sp4", "dp2_sp2"])
+def test_f1_sp_llama_loss_refuses_a_remainder(port_ranks, mesh):
+    """Fault F1: sp_llama_loss at S = 11 raises ValueError on every rank
+    (11 % 4 and 11 % 2), where it used to score S // n_sp positions a
+    rank and divide by S - 1; over dp = 2 a batch of 3 rows is refused
+    too, and without a dp axis the batch needs no split."""
+    n_sp = 4 if mesh == "sp4" else 2
+    for res in port_ranks:
+        assert res["train"]["sp_refused", mesh] == {
+            "S=11": "11 positions over {} ranks of axis 'sp'".format(n_sp),
+            "B=3": (None if mesh == "sp4"
+                    else "3 rows over 2 ranks of axis 'dp'")}
+
+
+def test_r15_jax_sp_loss_drops_the_tail(jax_train):
+    """Reference fault R15 (sparsebit_tpu/parallel/sp.py:139-178): the JAX
+    package's sp_llama_loss takes S // n_sp positions a shard and checks
+    nothing. At S = 10 over sp = 4 it returns, without an error, the mean
+    over positions 0..7 (llama_loss of the first 9 tokens, within 1e-5
+    relative) instead of llama_loss's mean over 0..8 (2.8e-3 away on this
+    model, far more than the first difference). The port refuses such an
+    S (above)."""
+    from sparsebit_tpu.parallel.mesh import make_mesh_named as j_named
+    from sparsebit_tpu.parallel.sp import sp_llama_loss as j_sp_loss
+
+    cfg = JL.llama_tiny(**TRAIN_KW)
+    dense = _rng_params(cfg, 10)
+    tok = jnp.asarray(jax_train[1]["tokens2"])
+    m = j_named(sp=4)
+    short = float(jax.jit(lambda p: j_sp_loss(p, tok[:, :10], cfg, m))(
+        dense))
+    covered = float(jax.jit(lambda p: JL.llama_loss(p, tok[:, :9], cfg))(
+        dense))
+    whole = float(jax.jit(lambda p: JL.llama_loss(p, tok[:, :10], cfg))(
+        dense))
+    assert abs(short - covered) <= 1e-5 * covered
+    assert abs(short - whole) > 100 * abs(short - covered)
+
+
 def test_tp_llama_forward_and_loss_match_jax(port_ranks, jax_side):
     """dp=2 x tp=2: every rank's rows of the gathered logits within 2e-4
     of JAX's tp_llama_forward, the loss within rel 1e-4 on every rank."""

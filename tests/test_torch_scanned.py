@@ -70,6 +70,7 @@ def int4():
 def jax_kernels(monkeypatch):
     monkeypatch.setattr(JD, "FORCE_LAYER_KERNEL", True)
     monkeypatch.setattr(JD, "FORCE_FFN_KERNEL", True)
+    monkeypatch.setattr(TD, "FORCE_FFN_KERNEL", True)
 
 
 def _prompt(B=2, S=5, seed=6):
@@ -267,3 +268,67 @@ def test_engine_head_bits_matches_jax(int4):
     rid = te.add_request(_prompt(1, 6)[0].tolist(), max_new_tokens=3)
     out = te.run()
     assert len(out[rid]) == 3
+
+
+@pytest.fixture
+def fresh_jit():
+    """JAX's scanned entry points read the FORCE_* switches when they are
+    traced: clear the compiled programs around a test that flips them."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _unfused_rows(tp, cfg_t, prompt, feed):
+    """The port's prefill_scanned and teacher-forced decode_step_scanned
+    logits over a fresh int8 cache."""
+    tc = init_kv_cache(cfg_t, 2, 32, device="cpu")
+    tl, tc = TD.prefill_scanned(tp, torch.from_numpy(prompt), tc, cfg_t)
+    rows = [tl.numpy()]
+    for tok in feed:
+        tl, tc = TD.decode_step_scanned(tp, torch.from_numpy(tok), tc, cfg_t)
+        rows.append(tl.numpy())
+    return rows
+
+
+@pytest.mark.parametrize("force", [None, True, False])
+def test_force_ffn_kernel_switch_matches_jax(int4, fresh_jit, monkeypatch,
+                                             force):
+    """decode.FORCE_FFN_KERNEL (the reference's decode.py:300) on the
+    unfused scan (FORCE_LAYER_KERNEL = False, K2 for the attention): None
+    and True run each FFN block as K3 (its plain version here), False on
+    the stacked linears. Each setting's prefill and teacher-forced decode
+    logits agree with the default's (None) within ATOL with equal
+    decisive argmax, and match JAX's jitted prefill_scanned /
+    decode_step_scanned under the same switch (its attention-update
+    kernel forced on; its None is the plain block off the TPU)."""
+    cfg_j, jq, cfg_t, tq = int4
+    jp = JD.stack_layers(JD.prepare_params_host(jq))
+    tp = TD.stack_layers(TD.prepare_params_host(tq))
+    monkeypatch.setattr(TD, "FORCE_LAYER_KERNEL", False)
+    monkeypatch.setattr(JD, "FORCE_LAYER_KERNEL", False)
+    monkeypatch.setattr(JD, "FORCE_ATTN_KERNEL", True)
+    monkeypatch.setattr(JD, "FORCE_FFN_KERNEL", force)
+    k3 = TD.ffn_block_fused
+    calls = []
+    monkeypatch.setattr(TD, "ffn_block_fused",
+                        lambda *a, **k: calls.append(1) or k3(*a, **k))
+    prompt = _prompt()
+    feed = [np.array([7, 300], np.int32), np.array([41, 2], np.int32),
+            np.array([511, 88], np.int32)]
+    default = _unfused_rows(tp, cfg_t, prompt, feed)
+    del calls[:]
+    monkeypatch.setattr(TD, "FORCE_FFN_KERNEL", force)
+    assert TD._scan_uses_ffn_kernel(1, tp["layers"], cfg_t, 2) is (
+        force is not False)
+    got = _unfused_rows(tp, cfg_t, prompt, feed)
+    assert len(calls) == (0 if force is False
+                          else len(feed) * cfg_t.n_layers)
+    jc = j_init(cfg_j, 2, 32, True)
+    jl, jc = JD.prefill_scanned(jp, jnp.asarray(prompt), jc, cfg_j)
+    want = [np.asarray(jl, np.float32)]
+    for tok in feed:
+        jl, jc = JD.decode_step_scanned(jp, jnp.asarray(tok), jc, cfg_j)
+        want.append(np.asarray(jl, np.float32))
+    _check_rows(list(zip(want, got)))
+    _check_rows(list(zip(default, got)))

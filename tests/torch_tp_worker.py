@@ -35,7 +35,7 @@ from sparsebit_tpu_torch.parallel.tp import (
     tp_llama_loss,
     tp_prefill_at,
 )
-from torch_train_worker import run_training
+from torch_train_worker import refused, run_training
 
 
 def _cache(c):
@@ -58,6 +58,10 @@ def run(rank, world, port, data):
     mesh = make_mesh(dp=2, tp=2, device_type="cpu")
     out["batch_slice"] = local_batch_slice(8, mesh)
     out["dp_rows"] = dp_shard_batch(mesh, torch.arange(8)).tolist()
+    out["batch_refused"] = {
+        "local_batch_slice": refused(lambda: local_batch_slice(7, mesh)),
+        "dp_shard_batch": refused(lambda: dp_shard_batch(mesh,
+                                                         torch.arange(9)))}
     tree = {"a": torch.full((3,), float(rank)), "b": [torch.arange(2) + rank]}
     replicate(mesh, tree)
     out["replicated"] = (tree["a"].tolist(), tree["b"][0].tolist())
@@ -70,6 +74,8 @@ def run(rank, world, port, data):
     tokens = torch.from_numpy(data["tokens"])
     out["forward"] = tp_llama_forward(ptp, tokens, cfg, mesh).numpy()
     out["loss"] = float(tp_llama_loss(ptp, tokens, cfg, mesh))
+    out["batch_refused"]["tp_llama_loss"] = refused(
+        lambda: tp_llama_loss(ptp, tokens[:1], cfg, mesh))
 
     for mode, case in data["decode"].items():
         cache = shard_kv_cache_tp(_cache(case["cache"]), r, T)

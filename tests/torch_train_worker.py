@@ -26,6 +26,15 @@ from sparsebit_tpu_torch.parallel.mesh import (
 from sparsebit_tpu_torch.parallel.sp import sp_llama_loss
 
 
+def refused(fn):
+    """The message of the ValueError ``fn()`` raises, or None."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
@@ -158,6 +167,15 @@ def run_training(data, world):
             loss.backward()
             sum_grads(p, m, tuple(axes))
             out["sp", name, ring] = (loss.item(), _llama_grads(p))
+        # fault F1: a sequence (or a batch) the axes do not divide is
+        # refused on every rank before any collective, never cut short
+        p = params_from_numpy(data["dense2"], "cpu")
+        dp_axis = "dp" if "dp" in axes else None
+        out["sp_refused", name] = {
+            "S=11": refused(lambda: sp_llama_loss(p, tok2[:, :11], cfg2, m,
+                                                  dp_axis=dp_axis)),
+            "B=3": refused(lambda: sp_llama_loss(p, tok2[:3], cfg2, m,
+                                                 dp_axis=dp_axis))}
 
     # pipeline parallel over densified float weights
     for dp, pp, M in data["pp_cases"]:
