@@ -1012,6 +1012,9 @@ K10_ENTRY = "sbt_flash_attention"  # K10's C entry point
 # (B, S, H, Hkv, hd) of the long-context record's training attention
 # (examples/llm/int8attn_longctx_torch.py --trained; path longctx): f32
 LONGCTX_ATTN = (4, 2047, 4, 4, 128)
+# (B, S, H, Hkv, hd) of GPTQ's propagation through an f32 model (path gptq:
+# 256 launches of K10 f32)
+GPTQ_ATTN = (1, 2048, 32, 32, 128)
 
 
 def k10_within(out, ref, q, k, v, sm_scale):
@@ -1089,12 +1092,14 @@ def k10_checks(cfg, record, g):
     window) and 100, f32 at S=512, Hkv=8 at S=2048, and B=4 S=512, the
     qlora path's shape, in the serving and in the kLse instantiation
     (flash_attention_fwd, the training forward; its lse within 2^-14 of
-    the plain version's), and the long-context record's training shape
-    (LONGCTX_ATTN: f32, B=4 S=2047 H=4 hd 128) with the lse. Tolerance:
-    each element within its own bound (flash_tolerance); a second launch
-    gives the same bits; on the first
-    case the same bound must also reject planted faults (k10_planted:
-    every row a skipped or mis-rescaled key tile touches). Kernel ms (CUDA
+    the plain version's), the long-context record's training shape
+    (LONGCTX_ATTN: f32, B=4 S=2047 H=4 hd 128) with the lse, and f32 at
+    B=1 S=2048 (GPTQ's propagation through an f32 model, GPTQ_ATTN), also
+    with Hkv=8. Tolerance: each element within its own bound
+    (flash_tolerance); a second launch gives the same bits; on the first
+    case and on f32 S=512 the same bound must also reject planted faults
+    (k10_planted: every row a skipped or mis-rescaled key tile touches).
+    Kernel ms (CUDA
     events), device ms (graph replay), plain ms; the library call is
     scaled_dot_product_attention (is_causal) on the same operands, timed
     as a yardstick only. Bound: q, k, v, out (and lse) once against
@@ -1111,7 +1116,8 @@ def k10_checks(cfg, record, g):
              ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
              ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0),
              ("bf16", 4, 512, H0, H0, hd0), ("bf16 lse", 4, 512, H0, H0, hd0),
-             ("f32 lse",) + LONGCTX_ATTN]
+             ("f32 lse",) + LONGCTX_ATTN, ("f32",) + GPTQ_ATTN,
+             ("f32", 1, 2048, H0, 8, hd0)]
     for kind, B, S, H, Hkv, D in cases:
         with_lse = kind.endswith(" lse")
         dt = torch.bfloat16 if kind.startswith("bf16") else torch.float32
@@ -1151,11 +1157,14 @@ def k10_checks(cfg, record, g):
               flush=True)
         del again
         ref = ref[0]
-        if (kind, B, S, H, Hkv) == ("bf16", 1, 2048, H0, H0):
+        planted = {("bf16", 1, 2048, H0, H0): "k10_planted_faults",
+                   ("f32", 1, 512, H0, H0): "k10_planted_faults_f32"}.get(
+                       (kind, B, S, H, Hkv))
+        if planted:
             shares = k10_planted(q, k, v, ref, scale)
-            print("K10 planted faults at bf16 B=1 S=2048: share of touched "
-                  "rows over the bound {}".format(shares), flush=True)
-            probes["k10_planted_faults"] = shares
+            print("K10 planted faults at {}: share of touched rows over the "
+                  "bound {}".format(tag, shares), flush=True)
+            probes[planted] = shares
             if shares["far_tile"] < 1.0 or shares["rescaled_tile"] < 1.0:
                 fail("K10's bound passes a planted tile fault: {}".format(
                     shares))
@@ -1303,10 +1312,11 @@ def k11_k12_checks(cfg, record, g):
     strides, the kernels' own lse (K10's, itself held to the plain
     version's within 2^-14) and di given to both: bf16 H=32 hd=128 at
     B=4 S=512 (the qlora path's shape) and B=1 S=2048, hd 64 and 256 at
-    S=1024, ragged S = 2047 and 100, f32 at S=512, Hkv=8 at S=2048, and
-    the long-context record's training shape (LONGCTX_ATTN, f32).
-    Tolerance: each element within its own bound (flash_bwd_tolerance);
-    on the first case the same bounds must reject planted faults
+    S=1024, ragged S = 2047 and 100, f32 at S=512, Hkv=8 at S=2048 (bf16
+    and f32), and the long-context record's training shape
+    (LONGCTX_ATTN, f32). Tolerance: each element within its own bound
+    (flash_bwd_tolerance); on the first case and on f32 S=512 the same
+    bounds must reject planted faults
     (bwd_planted_shares: every touched row of a skipped query tile, and
     at least 95 % of those of a dS without di and of a skipped diagonal
     tile). Kernel ms (CUDA events), device ms (graph replay), plain ms;
@@ -1327,7 +1337,7 @@ def k11_k12_checks(cfg, record, g):
              ("bf16", 1, 1024, cfg.dim // 256, cfg.dim // 256, 256),
              ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
              ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0),
-             ("f32",) + LONGCTX_ATTN]
+             ("f32",) + LONGCTX_ATTN, ("f32", 1, 2048, H0, 8, hd0)]
     warm = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=dev)
     # SDPA's first capture in the process, thrown away
     sdpa_bwd_graph_ms(warm, warm, warm, warm, 0.125, False)
@@ -1371,12 +1381,15 @@ def k11_k12_checks(cfg, record, g):
         if not same:
             fail("K11/K12 {}: a second launch gives other bits".format(tag))
         del again
-        if (B, S, H, Hkv) == (4, 512, H0, H0):
+        planted = {(4, 512, H0, H0): "k11_k12_planted_faults",
+                   (1, 512, H0, H0): "k11_k12_planted_faults_f32"}.get(
+                       (B, S, H, Hkv))
+        if planted:
             shares = bwd_planted_shares(q, k, v, lse, do, di,
                                         (pdq, pdk, pdv), (tq, tk, tv), scale)
             print("K11/K12 planted faults at {}: share of touched rows "
                   "over the bound {}".format(tag, shares), flush=True)
-            probes["k11_k12_planted_faults"] = shares
+            probes[planted] = shares
             if min(shares["skip_q_tile"].values()) < 1.0 or min(
                     min(shares[f].values()) for f in
                     ("no_di", "no_diag_tile")) < 0.95:

@@ -14,12 +14,13 @@ its own, in the order given (so parent, change, change, parent compares
 two versions within one call), builds its kernels from its own ``csrc/``
 and times, on the same seeded operands:
   - K10: ``flash_attention`` without a gradient (the serving and eval
-    paths' call) at k10_checks' first 8 shapes and at B=4 S=512, and
-    ``flash_attention_fwd`` (the kLse instantiation, the training forward)
-    at B=4 S=512, k10_checks' ninth shape;
+    paths' call) at k10_checks' first 8 shapes, at B=4 S=512 and at the
+    f32 GPTQ propagation's B=1 S=2048 H=32, and ``flash_attention_fwd``
+    (the kLse instantiation, the training forward) at B=4 S=512 and at
+    the long-context record's f32 B=4 S=2047 H=4;
   - with ``--bwd``, also K11 (``flash_attention_dkv``) and K12
-    (``flash_attention_dq``) at k11_k12_checks' 8 shapes, over the tree's
-    own K10 log-sum-exp.
+    (``flash_attention_dq``) at k11_k12_checks' first 8 shapes and at the
+    two f32 shapes above, over the tree's own K10 log-sum-exp.
 With ``--k2k3`` it times the decode kernels of the unfused scanned route
 instead, at chip_smoke.py phase 2's shapes (K2_CASES, K3_ROWS): K2
 (``decode_attention_update``) over 8 cache layers cycled, K3
@@ -55,8 +56,10 @@ CASES = [("bf16", 1, 2048, 32, 32, 128), ("bf16", 8, 512, 32, 32, 128),
          ("bf16", 1, 1024, 64, 64, 64), ("bf16", 1, 1024, 16, 16, 256),
          ("bf16", 1, 2047, 32, 32, 128), ("bf16", 1, 100, 32, 32, 128),
          ("f32", 1, 512, 32, 32, 128), ("bf16", 1, 2048, 32, 8, 128),
-         ("bf16", 4, 512, 32, 32, 128), ("bf16 lse", 4, 512, 32, 32, 128)]
-BWD_CASES = [("bf16", 4, 512, 32, 32, 128)] + CASES[:1] + CASES[2:8]
+         ("bf16", 4, 512, 32, 32, 128), ("bf16 lse", 4, 512, 32, 32, 128),
+         ("f32 lse", 4, 2047, 4, 4, 128), ("f32", 1, 2048, 32, 32, 128)]
+BWD_CASES = [("bf16", 4, 512, 32, 32, 128)] + CASES[:1] + CASES[2:8] + [
+    ("f32", 4, 2047, 4, 4, 128), ("f32", 1, 2048, 32, 32, 128)]
 
 
 # K2: (B, S, H, Hkv, D, lengths); K3: rows at LLaMA-7B widths

@@ -58,10 +58,24 @@
 //     bank-conflict-free); QKᵀ and PV on mma.sync.m16n8k16 bf16 with f32
 //     accumulators, V through ldmatrix.trans; the online softmax in
 //     registers, P converted to bf16 in registers as PV's A operand;
-//   - f32 models: the same tiling on FFMA (no tensor cores: wgmma takes no
-//     f32 operands, and TF32 would change what the kernel computes),
-//     32-row q and kv tiles, one key a lane for the scores, D / 32 output
-//     columns a lane;
+//   - f32 models (flash_f32_kernel): FFMA, since no tensor core takes f32
+//     (wgmma has no f32 operands, and TF32 would change what the kernel
+//     computes), so the bound is the FFMA pipes' 67 TFLOP/s. Register-
+//     tiled as an SGEMM is: 256 threads on a 128-row q tile (64 at
+//     D = 256), 64-key tiles (32) in a two-stage cp.async ring beside Q;
+//     a thread owns 4 x 8 scores (2 x 4) and O's rows of them by D / 8
+//     columns, its operands read as float4 from XOR-swizzled tiles (10.7
+//     FFMA a 16-byte load for the scores, 12.8 for PV; 5.3 and 7.5 at
+//     D = 256, where the tiles are smaller; a quarter-warp's 8 lanes read
+//     one row of Q or P by broadcast and 8 distinct chunks of K or V,
+//     with no bank conflict; the swizzle's XOR is taken once a lane, 8
+//     offsets, so the inner loops load at a pointer plus an immediate and
+//     issue no integer work); the online softmax over the scaled scores
+//     (P = exp(s sm_scale - m)), a row's max and sum reduced once a tile
+//     over its 8 lanes, P through shared memory once a tile as PV's A
+//     operand, no shuffle inside either product. A variant with a score
+//     warpgroup and an output warpgroup ping-ponging through P (8 x 8
+//     scores, fewer loads a FFMA) timed no faster;
 //   - causal tiles above the diagonal are skipped; only the diagonal tile
 //     and a ragged last tile are masked (rows past S load as zeros and are
 //     not stored); the heaviest causal q tiles are scheduled first.
@@ -122,10 +136,18 @@
 //     S = 2048, about two an SM; splitting the heads across blocks, with f32 sums
 //     added by a second launch, took 6 % off there and was slower at
 //     B = 4, S = 512, so it is not done.
-//   - bf16 at D = 256 and f32 keep the first kernels: mma.sync and FFMA, K11
-//     a block per 64-key tile walking every query head in order, phase A
-//     writing Pᵀ and dSᵀ to shared memory for phase B's products (at
-//     D = 256 the two sums do not fit a warpgroup's registers).
+//   - bf16 at D = 256 keeps the first kernels (mma.sync): K11 a block per
+//     64-key tile walking every query head in order, phase A writing Pᵀ
+//     and dSᵀ to shared memory for phase B's products (at D = 256 the two
+//     sums do not fit a warpgroup's registers).
+//   - f32 (FFMA, as K10's f32 forward): K11 (flash_dkv_f32_kernel) a block
+//     of 256 threads per 64-key tile (32 at D = 256) walking the q tiles
+//     from the diagonal down over every query head in order, Q, dO, lse
+//     and di in a two-stage cp.async ring; phase A forms Sᵀ and dPᵀ as
+//     4 x 4 register micro-tiles (2 x 2 at D = 256) and writes P and dS
+//     once (key-major), phase B sums dV and dK as 4 keys x D / 16 columns
+//     a thread (2 x D / 16) from the same ring stage. K12 keeps the first f32 kernel (32-row tiles, a
+//     lane a key).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -390,61 +412,88 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// f32 on FFMA, register-tiled as an SGEMM is. A block of 256 threads (8
+// warps) owns a BM-row q tile and walks BN-key tiles: 128 x 64 at D <= 128,
+// 64 x 32 at D = 256 (two ring stages of K and V beside Q fit 227 KB only
+// so). Warp w owns rows [w WM, w WM + WM); its lane (ty, tx) = (lane / 8,
+// lane % 8) owns rows ty + 4 i (i < TM) of them, keys tx + 8 j (j < TN) of
+// the tile and O's 16-byte column chunks tx + 8 c (c < CC). So a warp's
+// 4 rows and 8 keys in one load are 4 and 8 distinct chunks of the swizzled
+// tiles (no bank conflict), each read by 8 or 4 lanes at once (broadcast).
 template <int D>
-struct F32Tile {
-  static constexpr int BM = 32, BN = 32;
+struct F32Fwd {
+  static constexpr int NT = 256, kWarps = NT / 32;
+  static constexpr int BM = D == 256 ? 64 : 128, BN = D == 256 ? 32 : 64;
+  static constexpr int WM = BM / kWarps;  // rows a warp
+  static constexpr int TM = WM / 4, TN = BN / 8, CC = D / 32;
   static constexpr size_t kSmem =
-      static_cast<size_t>(BM + 4 * BN) * D * sizeof(float);
+      static_cast<size_t>(BM + 4 * BN) * D * sizeof(float) +
+      static_cast<size_t>(BM) * BN * sizeof(float);
 };
 
-// grid (ceil(S / 32), H, B), block kThreads: warp w owns q rows
-// [8w, 8w + 8) of the tile; lane j scores key j, and owns output columns
-// lane + 32c.
+// grid (ceil(S / BM) H B): block x takes q tile n_qt - 1 - x / (H B) (the
+// heaviest tiles of every head first) of head x % H, batch row x / H % B.
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Args a) {
-  using C = F32Tile<D>;
-  constexpr int BM = C::BM, BN = C::BN, R = BM / kWarps, CH = D / 4,
-                NC = D / 32;
+__global__ void __launch_bounds__(F32Fwd<D>::NT, 1)
+    flash_f32_kernel(const Args a) {
+  using C = F32Fwd<D>;
+  constexpr int NT = C::NT, BM = C::BM, BN = C::BN, WM = C::WM, TM = C::TM,
+                TN = C::TN, CC = C::CC, CH = D / 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(smem_raw);
-  float* sk = sq + BM * D;
-  float* sv = sk + 2 * BN * D;
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [BM][D]
+  float* sk = sq + BM * D;                         // [2][BN][D]
+  float* sv = sk + 2 * BN * D;                     // [2][BN][D]
+  float* sp = sv + 2 * BN * D;                     // [BM][BN]: P
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.n_rep;
-  const int S = a.S, q0 = qt * BM;
+  const int S = a.S, n_qt = (S + BM - 1) / BM, HB = a.H * a.B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / HB;
+  const int h = static_cast<int>(blockIdx.x) % a.H;
+  const int b = static_cast<int>(blockIdx.x) / a.H % a.B;
+  const int hk = h / a.n_rep, q0 = qt * BM;
   const float* qg = static_cast<const float*>(a.q) + b * a.qs[0] +
                     h * a.qs[1];
   const float* kg = static_cast<const float*>(a.k) + b * a.ks[0] +
                     hk * a.ks[1];
   const float* vg = static_cast<const float*>(a.v) + b * a.vs[0] +
                     hk * a.vs[1];
-  const int n_all = (S + BN - 1) / BN;
-  const int n_kt = min(qt + 1, n_all);
+  // key tiles up to the one holding the tile's last row (keys past S lie
+  // above the diagonal of every stored row)
+  const int n_kt = min((q0 + BM - 1) / BN + 1, (S + BN - 1) / BN);
 
-  load_tile<float, D, BM>(sq, qg, a.qs[2], q0, S);
-  load_tile<float, D, BN>(sk, kg, a.ks[2], 0, S);
-  load_tile<float, D, BN>(sv, vg, a.vs[2], 0, S);
+  load_tile<float, D, BM, NT>(sq, qg, a.qs[2], q0, S);
+  load_tile<float, D, BN, NT>(sk, kg, a.ks[2], 0, S);
+  load_tile<float, D, BN, NT>(sv, vg, a.vs[2], 0, S);
   sbt::cp_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow = warp * R;
-  float o[R][NC], m[R], l[R];
+  const int ty = lane >> 3, tx = lane & 7, wrow = warp * WM;
+  // The swizzle's chunk offsets, XORed once: chunk 8 b + u of a row r lies
+  // at 32 b + 4 (u ^ (r & 7)) floats into it, and the lane's rows (of Q,
+  // P) have r & 7 = ty ^ 4 (i & 1), its keys (of K) tx; V row 4 kc + e
+  // holds the lane's chunk tx + 8 c at 32 c + 4 (tx ^ ((4 kc + e) & 7)).
+  int oy[8], ox[8];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int u = 0; u < 8; ++u) {
+    oy[u] = 4 * (u ^ ty);
+    ox[u] = 4 * (u ^ tx);
+  }
+  float o[TM][CC][4], m[TM], l[TM];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[r][c] = 0.f;
+  for (int i = 0; i < TM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CC; ++c) o[i][c][0] = o[i][c][1] = o[i][c][2] =
+        o[i][c][3] = 0.f;
   }
 
   for (int j = 0; j < n_kt; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_kt) {
-      load_tile<float, D, BN>(sk + (buf ^ 1) * BN * D, kg, a.ks[2],
-                              (j + 1) * BN, S);
-      load_tile<float, D, BN>(sv + (buf ^ 1) * BN * D, vg, a.vs[2],
-                              (j + 1) * BN, S);
+      load_tile<float, D, BN, NT>(sk + (buf ^ 1) * BN * D, kg, a.ks[2],
+                                  (j + 1) * BN, S);
+      load_tile<float, D, BN, NT>(sv + (buf ^ 1) * BN * D, vg, a.vs[2],
+                                  (j + 1) * BN, S);
       sbt::cp_commit();
       sbt::cp_wait<1>();
     } else {
@@ -453,80 +502,134 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Args a) {
     __syncthreads();
     const float* kt = sk + buf * BN * D;
     const float* vt = sv + buf * BN * D;
+    const int k0 = j * BN;
+    // a tile wholly above the warp's rows adds nothing: skipped
+    if (k0 <= q0 + wrow + WM - 1) {
+      // S = Q Kᵀ: TM x TN scores, a float4 of d at a time
+      float s[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) s[i][n] = 0.f;
+      const float* qr = sq + (wrow + ty) * D;
+      const float* kr = kt + tx * D;
+#pragma unroll 1
+      for (int cb = 0; cb < CH / 8; ++cb)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        float4 qv[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              qr + 4 * i * D + 32 * cb + oy[u ^ ((i & 1) << 2)]);
+#pragma unroll
+        for (int n = 0; n < TN; ++n) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              kr + 8 * n * D + 32 * cb + ox[u]);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            s[i][n] = fmaf(qv[i].x, kv.x, s[i][n]);
+            s[i][n] = fmaf(qv[i].y, kv.y, s[i][n]);
+            s[i][n] = fmaf(qv[i].z, kv.z, s[i][n]);
+            s[i][n] = fmaf(qv[i].w, kv.w, s[i][n]);
+          }
+        }
+      }
 
-    float s[R];
+      // scale, mask (keys past a row: the diagonal's tiles, and so keys
+      // past S), online softmax: each row's max and sum over its 8 lanes
+      const bool need_mask = k0 + BN - 1 > q0 + wrow;
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < CH; ++c) {
-      const float4 kv = *reinterpret_cast<const float4*>(kt + swz<D, 4>(lane,
-                                                                        c));
+      for (int i = 0; i < TM; ++i) {
+        const int row = q0 + wrow + ty + 4 * i;
+        float mx = m[i];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(sq + swz<D, 4>(wrow + r, c));
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
+        for (int n = 0; n < TN; ++n) {
+          float x = s[i][n] * a.sm_scale;
+          if (need_mask && k0 + tx + 8 * n > row) x = -INFINITY;
+          s[i][n] = x;
+          mx = fmaxf(mx, x);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+        const float sh = shift_of(mx);
+        const float alpha = expf(m[i] - sh);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < TN; ++n) {
+          const float p = expf(s[i][n] - sh);
+          sum += p;
+          const int kk = tx + 8 * n;
+          sp[swz<BN, 4>(wrow + ty + 4 * i, kk >> 2) + (kk & 3)] = p;
+        }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        sum += __shfl_xor_sync(kFull, sum, 4);
+        l[i] = alpha * l[i] + sum;
+        m[i] = mx;
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          o[i][c][0] *= alpha;
+          o[i][c][1] *= alpha;
+          o[i][c][2] *= alpha;
+          o[i][c][3] *= alpha;
+        }
+      }
+      __syncwarp();  // P's rows are the warp's own
+
+      // O += P V: a float4 of P (4 keys) a row, a float4 of V a chunk
+      const float* pr = sp + (wrow + ty) * BN;
+#pragma unroll 1
+      for (int kb = 0; kb < BN / 32; ++kb)
+#pragma unroll
+      for (int ku = 0; ku < 8; ++ku) {
+        float4 pv[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(
+              pr + 4 * i * BN + 32 * kb + oy[ku ^ ((i & 1) << 2)]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int c = 0; c < CC; ++c) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                vt + (32 * kb + 4 * ku + e) * D + 32 * c +
+                ox[(4 * ku + e) & 7]);
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              const float p = e == 0   ? pv[i].x
+                              : e == 1 ? pv[i].y
+                              : e == 2 ? pv[i].z
+                                       : pv[i].w;
+              o[i][c][0] = fmaf(p, vv.x, o[i][c][0]);
+              o[i][c][1] = fmaf(p, vv.y, o[i][c][1]);
+              o[i][c][2] = fmaf(p, vv.z, o[i][c][2]);
+              o[i][c][3] = fmaf(p, vv.w, o[i][c][3]);
+            }
+          }
+        }
       }
     }
-
-    const bool need_mask = j == qt || (j + 1) * BN > S;
-    const int col = j * BN + lane;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float x = s[r] * a.sm_scale;
-      if (need_mask && (col >= S || col > q0 + wrow + r))
-        x = -INFINITY;
-      float mx = x;
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      mx = fmaxf(mx, m[r]);
-      const float sh = shift_of(mx);
-      const float alpha = expf(m[r] - sh);
-      const float p = expf(x - sh);
-      float sum = p;
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        sum += __shfl_xor_sync(kFull, sum, off);
-      l[r] = alpha * l[r] + sum;
-      m[r] = mx;
-      s[r] = p;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) o[r][c] *= alpha;
-    }
-
-#pragma unroll 4
-    for (int kj = 0; kj < BN; ++kj) {
-      float vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        vv[c] = vt[swz<D, 4>(kj, (lane >> 2) + 8 * c) + (lane & 3)];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = __shfl_sync(kFull, s[r], kj);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) o[r][c] = fmaf(p, vv[c], o[r][c]);
-      }
-    }
-    __syncthreads();
+    __syncthreads();  // the buffer is refilled, P rewritten, next
   }
 
+  // out = O / l (rows with l = 0 stay 0), 16 bytes a chunk
   float* og = static_cast<float*>(a.o) + b * a.os[0] + h * a.os[1];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = q0 + wrow + r;
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + wrow + ty + 4 * i;
     if (row >= S) continue;
-    const float inv = l[r] == 0.f ? 1.f : 1.f / l[r];
-    if (kLse && lane == 0)
-      a.lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
-          m[r] + logf(l[r]);
+    const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
+    if (kLse && tx == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * S + row] =
+          m[i] + logf(l[i]);
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      og[static_cast<long long>(row) * a.os[2] + lane + 32 * c] =
-          o[r][c] * inv;
+    for (int c = 0; c < CC; ++c)
+      *reinterpret_cast<float4*>(og + static_cast<long long>(row) * a.os[2] +
+                                 4 * (tx + 8 * c)) =
+          make_float4(o[i][c][0] * inv, o[i][c][1] * inv, o[i][c][2] * inv,
+                      o[i][c][3] * inv);
   }
 }
 
@@ -567,12 +670,11 @@ cudaError_t launch_d(int dtype, int B, int H, const Args& a,
     }
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((a.S + F32Tile<D>::BM - 1) / F32Tile<D>::BM, H, B);
+  using C = F32Fwd<D>;
+  const dim3 grid(static_cast<unsigned>((a.S + C::BM - 1) / C::BM) * H * B);
   return a.lse == nullptr
-             ? launch<flash_f32_kernel<D, false>>(F32Tile<D>::kSmem, grid, a,
-                                                  st)
-             : launch<flash_f32_kernel<D, true>>(F32Tile<D>::kSmem, grid, a,
-                                                 st);
+             ? launch<flash_f32_kernel<D, false>>(C::kSmem, grid, a, st, C::NT)
+             : launch<flash_f32_kernel<D, true>>(C::kSmem, grid, a, st, C::NT);
 }
 
 // ---- K11 (dK, dV) and K12 (dQ): the backward ------------------------------
@@ -590,6 +692,7 @@ struct BwdArgs {
   long long qs[3], ks[3], vs[3], dos[3], dqs[3], dks[3], dvs[3];
   int S, n_rep;
   float sm_scale;
+  int B, Hkv;  // read by the f32 K11's linear grid
 };
 
 // Per-row statistics of a q tile (lse, di) into shared memory; rows past S
@@ -927,34 +1030,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The f32 backward on FFMA, K10's f32 tiling: 32-row tiles, four warps of
-// 8 rows (K11: keys, K12: q rows), one lane a row of the other side for
-// the scores and D / 32 output columns a lane.
+// K11, f32 on FFMA, register-tiled as K10's f32 forward. A block of 256
+// threads owns a BN-key tile of one kv head and batch row (64 keys at
+// D <= 128, 32 at D = 256) and walks BM-row q tiles (BM = BN) from the
+// diagonal down, over the kv head's query heads in order, Q, dO and the
+// rows' lse and di arriving by cp.async in a ring of two stages. Warp w =
+// (wk, wx) = (w / 2, w % 2) and lane (ky, x) = (lane / 8, lane % 8): the
+// thread owns keys wk BN / 4 + ky + 4 i (i < AK) in both phases. Phase A
+// scores queries wx BM / 2 + x + 8 j (j < AQ) into register micro-tiles of
+// Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, forms P and dS there and writes each once
+// into shared memory (key-major: Pᵀ, dSᵀ); phase B adds Pᵀ dO into dV and
+// dSᵀ Q into dK on column chunks wx D / 8 + x + 8 c (c < CC), a float4 of
+// Pᵀ / dSᵀ (4 queries) a key and a float4 of dO / Q a chunk, reading the
+// ring stage phase A read. Queries in order, no atomics: the GQA sum keeps
+// its order and its bits.
 template <int D>
-struct F32BwdTile {
-  static constexpr int BM = 32, BN = 32;
+struct F32Dkv {
+  static constexpr int NT = 256;
+  static constexpr int BN = D == 256 ? 32 : 64, BM = BN;
+  static constexpr int AK = BN / 16, AQ = BM / 16, CC = D / 64;
   static constexpr size_t kSmem =
       static_cast<size_t>(2 * BN + 4 * BM) * D * sizeof(float) +
-      4 * BM * sizeof(float);
+      static_cast<size_t>(2 * BN * BM + 4 * BM) * sizeof(float);
 };
 
+// grid (ceil(S / BN) Hkv B): block x takes key tile x / (Hkv B) (the
+// tiles with the most q tiles first) of kv head x % Hkv, batch row
+// x / Hkv % B.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Dkv<D>::NT, 1)
     flash_dkv_f32_kernel(const BwdArgs a) {
-  using C = F32BwdTile<D>;
-  constexpr int BM = C::BM, BN = C::BN, R = BN / kWarps, CH = D / 4,
-                NC = D / 32;
+  using C = F32Dkv<D>;
+  constexpr int NT = C::NT, BN = C::BN, BM = C::BM, AK = C::AK, AQ = C::AQ,
+                CC = C::CC, CH = D / 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sk = reinterpret_cast<float*>(smem_raw);  // [BN][D]
-  float* sv = sk + BN * D;
-  float* sq = sv + BN * D;    // [2][BM][D]
-  float* sdo = sq + 2 * BM * D;
-  float* sl = sdo + 2 * BM * D;  // [2][BM]
-  float* sdi = sl + 2 * BM;
+  float* sv = sk + BN * D;                         // [BN][D]
+  float* sq = sv + BN * D;                         // [2][BM][D]
+  float* sdo = sq + 2 * BM * D;                    // [2][BM][D]
+  float* sp = sdo + 2 * BM * D;                    // [BN][BM]: Pᵀ
+  float* sds = sp + BN * BM;                       // [BN][BM]: dSᵀ
+  float* sl = sds + BN * BM;                       // [2][BM]
+  float* sdi = sl + 2 * BM;                        // [2][BM]
 
-  const int jt = blockIdx.x;
-  const int hk = blockIdx.y, b = blockIdx.z, H = gridDim.y * a.n_rep;
-  const int S = a.S, j0 = jt * BN;
+  const int S = a.S, HB = a.Hkv * a.B;
+  const int jt = static_cast<int>(blockIdx.x) / HB;
+  const int hk = static_cast<int>(blockIdx.x) % a.Hkv;
+  const int b = static_cast<int>(blockIdx.x) / a.Hkv % a.B;
+  const int H = a.Hkv * a.n_rep, j0 = jt * BN;
   const int n_qt = (S + BM - 1) / BM, per_head = n_qt - jt;
   const int n_it = a.n_rep * per_head;
   const float* kg = static_cast<const float*>(a.k) + b * a.ks[0] +
@@ -962,32 +1085,52 @@ __global__ void __launch_bounds__(kThreads)
   const float* vg = static_cast<const float*>(a.v) + b * a.vs[0] +
                     hk * a.vs[1];
 
-  auto issue = [&](int it, int buf) {
+  auto issue = [&](int it, int buf) {  // q tile `it` of the walk into buf
     const int h = hk * a.n_rep + it / per_head;
     const int q0 = (jt + it % per_head) * BM;
     const float* qg = static_cast<const float*>(a.q) + b * a.qs[0] +
                       h * a.qs[1];
     const float* dg = static_cast<const float*>(a.dO) + b * a.dos[0] +
                       h * a.dos[1];
-    load_tile<float, D, BM>(sq + buf * BM * D, qg, a.qs[2], q0, S);
-    load_tile<float, D, BM>(sdo + buf * BM * D, dg, a.dos[2], q0, S);
+    load_tile<float, D, BM, NT>(sq + buf * BM * D, qg, a.qs[2], q0, S);
+    load_tile<float, D, BM, NT>(sdo + buf * BM * D, dg, a.dos[2], q0, S);
     const long long row = (static_cast<long long>(b) * H + h) * S;
-    load_rows<BM, kThreads>(sl + buf * BM, sdi + buf * BM, a.lse + row,
-                            a.di + row, q0, S);
+    for (int i = threadIdx.x; i < 2 * BM; i += NT) {  // lse, then di
+      const int r = i % BM;
+      const bool ok = q0 + r < S;
+      const float* src = (i < BM ? a.lse : a.di) + row + (ok ? q0 + r : 0);
+      sbt::copy_chunk((i < BM ? sl : sdi) + buf * BM + r,
+                      reinterpret_cast<const uint8_t*>(src), 4, ok);
+    }
   };
 
-  load_tile<float, D, BN>(sk, kg, a.ks[2], j0, S);
-  load_tile<float, D, BN>(sv, vg, a.vs[2], j0, S);
+  load_tile<float, D, BN, NT>(sk, kg, a.ks[2], j0, S);
+  load_tile<float, D, BN, NT>(sv, vg, a.vs[2], j0, S);
   issue(0, 0);
   sbt::cp_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow = warp * R;  // the warp's first key
-  float dk[R][NC], dv[R][NC];
+  const int wk = warp >> 1, wx = warp & 1, ky = lane >> 3, x = lane & 7;
+  const int krow = wk * (BN / 4) + ky;  // the thread's first key
+  const int qcol = wx * (BM / 2) + x;   // phase A: its first query
+  const int dch = wx * (D / 8) + x;     // phase B: its first column chunk
+  // The swizzle's chunk offsets, XORed once (as K10's f32 forward): the
+  // thread's keys (rows of K, V, Pᵀ, dSᵀ) have r & 7 = ky ^ 4 (i & 1),
+  // its phase A queries x; Q / dO row 4 q4 + e holds its phase B chunk
+  // dch + 8 c at 4 wx D / 8 + 32 c + 4 (x ^ ((4 q4 + e) & 7)).
+  int oy[8], ox[8];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int u = 0; u < 8; ++u) {
+    oy[u] = 4 * (u ^ ky);
+    ox[u] = 4 * (u ^ x);
+  }
+  float dk[AK][CC][4], dv[AK][CC][4];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk[r][c] = dv[r][c] = 0.f;
+  for (int i = 0; i < AK; ++i)
+#pragma unroll
+    for (int c = 0; c < CC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][c][e] = dv[i][c][e] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
     const int buf = it & 1;
@@ -1003,80 +1146,139 @@ __global__ void __launch_bounds__(kThreads)
     const float* qt_s = sq + buf * BM * D;
     const float* dt_s = sdo + buf * BM * D;
 
-    // lane = query: scores and dP of the warp's R keys
-    float s[R], dp[R];
+    // phase A: Sᵀ and dPᵀ, AK keys x AQ queries, a float4 of d at a time
+    float s[AK][AQ], dp[AK][AQ];
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = dp[r] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < CH; ++c) {
-      const float4 qv = *reinterpret_cast<const float4*>(qt_s +
-                                                         swz<D, 4>(lane, c));
-      const float4 ov = *reinterpret_cast<const float4*>(dt_s +
-                                                         swz<D, 4>(lane, c));
+    for (int i = 0; i < AK; ++i)
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(sk + swz<D, 4>(wrow + r, c));
-        const float4 vv =
-            *reinterpret_cast<const float4*>(sv + swz<D, 4>(wrow + r, c));
-        s[r] = fmaf(kv.x, qv.x, s[r]);
-        s[r] = fmaf(kv.y, qv.y, s[r]);
-        s[r] = fmaf(kv.z, qv.z, s[r]);
-        s[r] = fmaf(kv.w, qv.w, s[r]);
-        dp[r] = fmaf(vv.x, ov.x, dp[r]);
-        dp[r] = fmaf(vv.y, ov.y, dp[r]);
-        dp[r] = fmaf(vv.z, ov.z, dp[r]);
-        dp[r] = fmaf(vv.w, ov.w, dp[r]);
-      }
-    }
-    const bool need_mask = qt == jt || q0 + BM > S;
-    const int qry = q0 + lane;
-    const float l_q = sl[buf * BM + lane], d_q = sdi[buf * BM + lane];
+      for (int n = 0; n < AQ; ++n) s[i][n] = dp[i][n] = 0.f;
+    const float* kr = sk + krow * D;    // V: + BN D
+    const float* qr = qt_s + qcol * D;  // dO: + 2 BM D
+#pragma unroll 1
+    for (int cb = 0; cb < CH / 8; ++cb)
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float p = 0.f;
-      if (!need_mask || (j0 + wrow + r <= qry && qry < S))
-        p = expf(s[r] * a.sm_scale - l_q);
-      s[r] = p;
-      dp[r] = (dp[r] - d_q) * p * a.sm_scale;
-    }
-    // lane = output column: dV += Pᵀ dO, dK += dSᵀ Q
-#pragma unroll 4
-    for (int qj = 0; qj < BM; ++qj) {
-      float ov[NC], qv[NC];
+    for (int u = 0; u < 8; ++u) {
+      float4 kv[AK], vv[AK];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int at = swz<D, 4>(qj, (lane >> 2) + 8 * c) + (lane & 3);
-        ov[c] = dt_s[at];
-        qv[c] = qt_s[at];
+      for (int i = 0; i < AK; ++i) {
+        const float* at = kr + 4 * i * D + 32 * cb + oy[u ^ ((i & 1) << 2)];
+        kv[i] = *reinterpret_cast<const float4*>(at);
+        vv[i] = *reinterpret_cast<const float4*>(at + BN * D);
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = __shfl_sync(kFull, s[r], qj);
-        const float d = __shfl_sync(kFull, dp[r], qj);
+      for (int n = 0; n < AQ; ++n) {
+        const float* at = qr + 8 * n * D + 32 * cb + ox[u];
+        const float4 qv = *reinterpret_cast<const float4*>(at);
+        const float4 ov = *reinterpret_cast<const float4*>(at + 2 * BM * D);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv[r][c] = fmaf(p, ov[c], dv[r][c]);
-          dk[r][c] = fmaf(d, qv[c], dk[r][c]);
+        for (int i = 0; i < AK; ++i) {
+          s[i][n] = fmaf(kv[i].x, qv.x, s[i][n]);
+          s[i][n] = fmaf(kv[i].y, qv.y, s[i][n]);
+          s[i][n] = fmaf(kv[i].z, qv.z, s[i][n]);
+          s[i][n] = fmaf(kv[i].w, qv.w, s[i][n]);
+          dp[i][n] = fmaf(vv[i].x, ov.x, dp[i][n]);
+          dp[i][n] = fmaf(vv[i].y, ov.y, dp[i][n]);
+          dp[i][n] = fmaf(vv[i].z, ov.z, dp[i][n]);
+          dp[i][n] = fmaf(vv[i].w, ov.w, dp[i][n]);
         }
       }
     }
+    // P = exp(s · sm_scale - lse) under the causal mask (the diagonal
+    // tile, and the ragged last one: queries past S), dS = (dP - di) P ·
+    // sm_scale; each written once, key-major
+    const bool need_mask = qt == jt || q0 + BM > S;
+#pragma unroll
+    for (int n = 0; n < AQ; ++n) {
+      const int qc = qcol + 8 * n, qry = q0 + qc;
+      const float l_q = sl[buf * BM + qc], d_q = sdi[buf * BM + qc];
+#pragma unroll
+      for (int i = 0; i < AK; ++i) {
+        float p = 0.f;
+        if (!need_mask || (j0 + krow + 4 * i <= qry && qry < S))
+          p = expf(s[i][n] * a.sm_scale - l_q);
+        const int at = swz<BM, 4>(krow + 4 * i, qc >> 2) + (qc & 3);
+        sp[at] = p;
+        sds[at] = (dp[i][n] - d_q) * p * a.sm_scale;
+      }
+    }
     __syncthreads();
+
+    // phase B: dV += Pᵀ dO, dK += dSᵀ Q over the tile's queries in order
+    const float* pr = sp + krow * BM;          // dSᵀ: + BN BM
+    const float* xr = dt_s + 4 * wx * (D / 8);  // Q: - 2 BM D
+#pragma unroll 1
+    for (int qb = 0; qb < BM / 32; ++qb)
+#pragma unroll
+    for (int qu = 0; qu < 8; ++qu) {
+      float4 pv[AK], sv4[AK];
+#pragma unroll
+      for (int i = 0; i < AK; ++i) {
+        const float* at = pr + 4 * i * BM + 32 * qb + oy[qu ^ ((i & 1) << 2)];
+        pv[i] = *reinterpret_cast<const float4*>(at);
+        sv4[i] = *reinterpret_cast<const float4*>(at + BN * BM);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          const float* at = xr + (32 * qb + 4 * qu + e) * D + 32 * c +
+                            ox[(4 * qu + e) & 7];
+          const float4 ov = *reinterpret_cast<const float4*>(at);
+          const float4 qv = *reinterpret_cast<const float4*>(at - 2 * BM * D);
+#pragma unroll
+          for (int i = 0; i < AK; ++i) {
+            const float p = e == 0   ? pv[i].x
+                            : e == 1 ? pv[i].y
+                            : e == 2 ? pv[i].z
+                                     : pv[i].w;
+            const float d = e == 0   ? sv4[i].x
+                            : e == 1 ? sv4[i].y
+                            : e == 2 ? sv4[i].z
+                                     : sv4[i].w;
+            dv[i][c][0] = fmaf(p, ov.x, dv[i][c][0]);
+            dv[i][c][1] = fmaf(p, ov.y, dv[i][c][1]);
+            dv[i][c][2] = fmaf(p, ov.z, dv[i][c][2]);
+            dv[i][c][3] = fmaf(p, ov.w, dv[i][c][3]);
+            dk[i][c][0] = fmaf(d, qv.x, dk[i][c][0]);
+            dk[i][c][1] = fmaf(d, qv.y, dk[i][c][1]);
+            dk[i][c][2] = fmaf(d, qv.z, dk[i][c][2]);
+            dk[i][c][3] = fmaf(d, qv.w, dk[i][c][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // buf and the Pᵀ/dSᵀ tiles are refilled next
   }
 
   float* dkg = static_cast<float*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
   float* dvg = static_cast<float*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int key = j0 + wrow + r;
+  for (int i = 0; i < AK; ++i) {
+    const int key = j0 + krow + 4 * i;
     if (key >= S) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dkg[static_cast<long long>(key) * a.dks[2] + lane + 32 * c] = dk[r][c];
-      dvg[static_cast<long long>(key) * a.dvs[2] + lane + 32 * c] = dv[r][c];
+    for (int c = 0; c < CC; ++c) {
+      const int col = 4 * (dch + 8 * c);
+      *reinterpret_cast<float4*>(dkg + static_cast<long long>(key) *
+                                           a.dks[2] + col) =
+          make_float4(dk[i][c][0], dk[i][c][1], dk[i][c][2], dk[i][c][3]);
+      *reinterpret_cast<float4*>(dvg + static_cast<long long>(key) *
+                                           a.dvs[2] + col) =
+          make_float4(dv[i][c][0], dv[i][c][1], dv[i][c][2], dv[i][c][3]);
     }
   }
 }
+
+// K12, f32 on FFMA (the first f32 backward): 32-row q tiles and 32-key
+// tiles, four warps of 8 rows, one lane a key for the scores and D / 32
+// output columns a lane.
+template <int D>
+struct F32BwdTile {
+  static constexpr int BM = 32, BN = 32;
+  static constexpr size_t kSmem =
+      static_cast<size_t>(2 * BN + 4 * BM) * D * sizeof(float) +
+      4 * BM * sizeof(float);
+};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -1695,10 +1897,13 @@ cudaError_t launch_bwd_d(bool dkv, int dtype, int B, int H, int Hkv,
     }
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((a.S + 31) / 32, dkv ? Hkv : H, B);
-  if (dkv)
-    return launch<flash_dkv_f32_kernel<D>>(F32BwdTile<D>::kSmem, grid, a,
-                                           st);
+  if (dkv) {
+    using C = F32Dkv<D>;
+    const dim3 grid(static_cast<unsigned>((a.S + C::BN - 1) / C::BN) * Hkv *
+                    B);
+    return launch<flash_dkv_f32_kernel<D>>(C::kSmem, grid, a, st, C::NT);
+  }
+  const dim3 grid((a.S + 31) / 32, H, B);
   return launch<flash_dq_f32_kernel<D>>(F32BwdTile<D>::kSmem, grid, a, st);
 }
 
@@ -2047,6 +2252,8 @@ bool bwd_args(BwdArgs& a, const void* q, const void* k, const void* v,
   a.S = S;
   a.n_rep = H / Hkv;
   a.sm_scale = sm_scale;
+  a.B = B;
+  a.Hkv = Hkv;
   return true;
 }
 

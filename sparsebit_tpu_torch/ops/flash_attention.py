@@ -8,7 +8,9 @@ Kernel K10 (``csrc/flash_attention.cu``) replaces
 ``..._single_step`` (:484), launched from ``_flash_attention_impl``
 (:758): causal softmax(q kᵀ · sm_scale) v with an online softmax over key
 tiles, never holding the (S, S) scores. bf16 operands run on the tensor
-cores, f32 ones on FFMA; scores and sums are f32 either way. For the
+cores, f32 ones on FFMA (register-tiled as an SGEMM is: no tensor core
+takes f32, and TF32 would change what the kernel computes); scores and
+sums are f32 either way. For the
 backward it also writes each row's log-sum-exp (the reference saves m
 and l, :682/:789; P = exp(s - m) / l = exp(s - lse)) through a pointer
 that is null on every serving and eval path.
@@ -33,15 +35,15 @@ row with l = 0 stays 0). Where K10 runs on Hopper's wgmma (bf16 at
 head_dim 64 and 128, ``on_sm90``) it keeps the running max of the raw
 scores and forms P = exp2(s · c - m · c), c = sm_scale log2 e, with
 128-key tiles; the mma.sync and FFMA kernels (bf16 at head_dim 256, f32)
-form P = exp(s · sm_scale - m) over the scaled scores with 64- and
-32-key tiles. The plain version repeats whichever its operands take, so
+form P = exp(s · sm_scale - m) over the scaled scores with 64-key tiles
+(32 for f32 at head_dim 256). The plain version repeats whichever its operands take, so
 that the two shift P by the same running max and P's bf16 rounding
 differs only at a midpoint. The kernel skips causal tiles above the
 diagonal; here such a tile is wholly masked, which adds exactly nothing
 (its P is 0 and its rescale 1), so the two agree to the rounding of
 their dot products. ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``
-(together ``flash_attention_bwd_plain``) walk K11/K12's key tiles
-(``block_k``) and round P and dS where the kernels do.
+(together ``flash_attention_bwd_plain``) walk K11's and K12's key tiles
+(``dkv_block_k``, ``block_k``) and round P and dS where the kernels do.
 """
 
 import torch
@@ -62,16 +64,34 @@ def on_sm90(dtype, head_dim):
 
 
 def block_k(dtype):
-    """Keys a tile of K11/K12 and of their plain versions (``_bwd_tiles``):
-    64 on the bf16 tensor-core path, 32 on the f32 path."""
+    """Keys a tile of K12 and of its plain version (``_bwd_tiles``): 64 on
+    the bf16 tensor-core path, 32 on the f32 path."""
     return 64 if dtype == torch.bfloat16 else 32
+
+
+def _f32_block_k(head_dim):
+    """Keys a tile of the f32 K10 and K11 (F32Fwd / F32Dkv): 64, or 32 at
+    head_dim 256, where two ring stages of wider tiles do not fit."""
+    return 32 if head_dim > 128 else 64
+
+
+def dkv_block_k(dtype, head_dim):
+    """Keys a tile of K11's plain version: the f32 kernel's key block
+    (``_f32_block_k``), 64 for bf16 (the kernels' blocks are 64 or 128
+    keys). Each key's dK and dV rows are one product over all the
+    queries, so the width orders nothing."""
+    if dtype == torch.float32:
+        return _f32_block_k(head_dim)
+    return block_k(dtype)
 
 
 def fwd_block_k(dtype, head_dim):
     """Keys a tile of K10 and of its plain version: 128 on the Hopper
     kernel (``on_sm90``), 64 on the mma.sync kernel (bf16 at head_dim
-    256), 32 on the f32 one."""
-    return 128 if on_sm90(dtype, head_dim) else block_k(dtype)
+    256), ``_f32_block_k`` on the f32 one."""
+    if dtype == torch.float32:
+        return _f32_block_k(head_dim)
+    return 128 if on_sm90(dtype, head_dim) else 64
 
 
 def flash_attention_plain(q, k, v, *, sm_scale=1.0, return_lse=False):
@@ -132,8 +152,8 @@ def flash_di(out, do):
     return (out.to(torch.float32) * do.to(torch.float32)).sum(dim=-1)
 
 
-def _bwd_tiles(q, k, v, lse, do, di, sm_scale):
-    """The backward's key tiles in K11/K12's width (``block_k``): for each,
+def _bwd_tiles(q, k, v, lse, do, di, sm_scale, bk):
+    """The backward's key tiles, ``bk`` keys wide: for each,
     (j0, j1, P, dS) in f32, P = exp(s · sm_scale - lse) under the causal
     mask and dS = (dP - di) P · sm_scale with dP = dO V_jᵀ, the
     reference's order of operations (flash_attention.py:890-914), over
@@ -144,7 +164,6 @@ def _bwd_tiles(q, k, v, lse, do, di, sm_scale):
     vf = v.to(torch.float32).repeat_interleave(n_rep, dim=1)
     qf, dof = q.to(torch.float32), do.to(torch.float32)
     rows = torch.arange(S, device=q.device)[:, None]
-    bk = block_k(q.dtype)
     for j0 in range(0, S, bk):
         j1 = min(j0 + bk, S)
         s = torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)) * sm_scale
@@ -172,7 +191,8 @@ def flash_bwd_dkv_plain(q, k, v, lse, do, di, *, sm_scale=1.0):
     dog = _by_kv_head(do.to(torch.float32), Hkv)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
-    for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale):
+    bk = dkv_block_k(q.dtype, q.shape[-1])
+    for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale, bk):
         pr = _by_kv_head(p.to(do.dtype).to(torch.float32), Hkv)
         dsr = _by_kv_head(ds.to(do.dtype).to(torch.float32), Hkv)
         dv[:, :, j0:j1] = torch.matmul(pr.transpose(-1, -2), dog)
@@ -186,7 +206,8 @@ def flash_bwd_dq_plain(q, k, v, lse, do, di, *, sm_scale=1.0):
     n_rep = q.shape[1] // k.shape[1]
     kf = k.to(torch.float32).repeat_interleave(n_rep, dim=1)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    for j0, j1, _, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale):
+    for j0, j1, _, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale,
+                                    block_k(q.dtype)):
         dq = dq + torch.matmul(ds.to(k.dtype).to(torch.float32),
                                kf[:, :, j0:j1])
     return dq.to(q.dtype)
@@ -270,7 +291,8 @@ def flash_bwd_tolerance(q, k, v, lse, do, di, dq, dk, dv, *,
     rss_dk = torch.zeros_like(sum_dv)
     sum_dq = torch.zeros(q.shape, dtype=f32, device=q.device)
     rss_dq = torch.zeros_like(sum_dq)
-    for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale):
+    for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale,
+                                    block_k(q.dtype)):
         kj, vj = ka[:, :, j0:j1], va[:, :, j0:j1]
         a = ds.abs() + sm_scale * p * (
             torch.matmul(doa, vj.transpose(-1, -2)) + di.abs()[..., None])

@@ -238,13 +238,17 @@ def test_flash_plain_gqa_matches_jax_flash_kernel(dtype, Hkv):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,Hkv,S,D", [(1, 2, 2, 384, 128),
                                          (1, 4, 1, 384, 64),
-                                         (1, 4, 2, 512, 128)])
+                                         (1, 4, 2, 512, 128),
+                                         (2, 4, 2, 256, 128),
+                                         (1, 4, 2, 256, 256)])
 def test_flash_plain_at_k10_width_matches_jax_flash_kernel(dtype, B, H, Hkv,
                                                           S, D):
-    """The plain version over several of K10's 128-key tiles (fwd_block_k
-    at bf16 head_dim 64/128: three and four tiles, so the running max moves
-    between tiles), MHA and GQA, against JAX's bundled kernel over
-    jnp.repeat'ed kv heads, with the tolerance of the cases above."""
+    """The plain version over several of K10's key tiles (fwd_block_k: at
+    bf16 head_dim 64/128 128 keys, three and four tiles; f32 64 keys, four
+    to eight tiles, and 32 at head_dim 256, eight; so the running max
+    moves between tiles and across the f32 kernel's 128-row q tiles), MHA
+    and GQA, against JAX's bundled kernel over jnp.repeat'ed kv heads,
+    with the tolerance of the cases above."""
     (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype, S + D + Hkv)
     rep = H // Hkv
     ref = _j_flash(jq, jnp.repeat(jk, rep, axis=1),
@@ -395,19 +399,26 @@ def test_flash_route_ignores_the_tpu_block_rule():
     assert not TL._flash_ok(q(2048, 96, "cuda"))
     assert TF.block_k(torch.bfloat16) == 64
     assert TF.block_k(torch.float32) == 32
+    assert [TF.dkv_block_k(torch.float32, d)
+            for d in TF.HEAD_DIMS] == [64, 64, 32]
+    assert [TF.dkv_block_k(torch.bfloat16, d)
+            for d in TF.HEAD_DIMS] == [64, 64, 64]
 
 
 def test_fwd_block_k_is_k10s_key_tile():
     """The forward plain version's key tile is K10's: 128 keys on the
     Hopper kernel (bf16 at head_dim 64 and 128, on_sm90), 64 on the
-    mma.sync kernel (bf16 at head_dim 256), 32 on the f32 kernel; the
-    backward's tile (block_k) stays 64 / 32."""
+    mma.sync kernel (bf16 at head_dim 256), 64 on the f32 kernel (32 at
+    head_dim 256); the backward's tiles: K12's (block_k) stays 64 / 32,
+    the f32 K11's (dkv_block_k) is K10's f32 tile."""
     bf, f32 = torch.bfloat16, torch.float32
     assert [TF.fwd_block_k(bf, d) for d in TF.HEAD_DIMS] == [128, 128, 64]
-    assert [TF.fwd_block_k(f32, d) for d in TF.HEAD_DIMS] == [32, 32, 32]
+    assert [TF.fwd_block_k(f32, d) for d in TF.HEAD_DIMS] == [64, 64, 32]
     assert [TF.on_sm90(bf, d) for d in TF.HEAD_DIMS] == [True, True, False]
     assert not any(TF.on_sm90(f32, d) for d in TF.HEAD_DIMS)
     assert (TF.block_k(bf), TF.block_k(f32)) == (64, 32)
+    assert [TF.dkv_block_k(f32, d) for d in TF.HEAD_DIMS] == [
+        TF.fwd_block_k(f32, d) for d in TF.HEAD_DIMS]
 
 
 # ---- K11, K12: the flash backward ---------------------------------------------
@@ -444,12 +455,16 @@ def _port_grads(tq, tk, tv, do, sm_scale):
 @pytest.mark.parametrize("dtype,B,H,Hkv,S,D", [
     (torch.bfloat16, 1, 2, 2, 128, 64), (torch.float32, 1, 2, 2, 256, 64),
     (torch.bfloat16, 1, 2, 2, 256, 128), (torch.float32, 1, 2, 2, 128, 128),
-    (torch.bfloat16, 1, 4, 2, 128, 64), (torch.float32, 1, 4, 1, 128, 64)])
+    (torch.bfloat16, 1, 4, 2, 128, 64), (torch.float32, 1, 4, 1, 128, 64),
+    (torch.float32, 1, 4, 2, 256, 128), (torch.float32, 2, 4, 2, 384, 64),
+    (torch.float32, 1, 4, 2, 128, 256)])
 def test_flash_bwd_plain_matches_jax_flash_kernels(dtype, B, H, Hkv, S, D):
     """dQ, dK, dV of the port's flash_attention (K11/K12's plain version)
-    against jax.vjp of JAX's bundled flash kernels in interpret mode, the
-    reference's kernel over repeated kv heads under GQA (its dK, dV summed
-    back through jnp.repeat's transpose)."""
+    against jax.vjp of JAX's bundled flash kernels in interpret mode, under
+    jax.jit, the reference's kernel over repeated kv heads under GQA (its
+    dK, dV summed back through jnp.repeat's transpose). The f32 GQA cases
+    span four and six of the f32 K11's 64-key blocks (dkv_block_k) and,
+    at head_dim 256, four of its 32-key blocks."""
     import jax
 
     (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype,
@@ -466,8 +481,8 @@ def test_flash_bwd_plain_matches_jax_flash_kernels(dtype, B, H, Hkv, S, D):
                        sm_scale=D ** -0.5)
 
     with pltpu.force_tpu_interpret_mode():
-        _, vjp = jax.vjp(f, jq, jk, jv)
-        ref = vjp(jdo)
+        ref = jax.jit(lambda a, b, c, g: jax.vjp(f, a, b, c)[1](g))(
+            jq, jk, jv, jdo)
     _, got = _port_grads(tq, tk, tv, do, D ** -0.5)
     assert [g.dtype for g in got] == [dtype] * 3
     assert tuple(got[1].shape) == (B, Hkv, S, D)

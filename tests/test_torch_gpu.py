@@ -859,14 +859,19 @@ def test_decode_step_scanned_planes_on_the_card_matches_the_cpu(cuda):
     (2, 4, 4, 100, 128, "bshd"), (1, 4, 4, 2047, 128, "bhsd"),
     (1, 2, 2, 1, 64, "bhsd"), (1, 32, 8, 256, 128, "bshd"),
     (2, 4, 4, 127, 128, "bshd"), (1, 4, 2, 129, 128, "bhsd"),
-    (2, 4, 4, 257, 64, "bshd")])
+    (2, 4, 4, 257, 64, "bshd"), (2, 4, 4, 63, 128, "bshd"),
+    (1, 4, 2, 65, 128, "bhsd"), (1, 32, 8, 129, 128, "bshd"),
+    (1, 32, 8, 2047, 128, "bshd"), (2, 4, 4, 127, 64, "bhsd"),
+    (1, 4, 2, 65, 256, "bshd"), (1, 4, 4, 97, 256, "bhsd")])
 def test_k10_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     """K10 against flash_attention_plain on the same operands: the
     7B-shaped head dims, ragged S (100, 2047, 1, and 127 / 129 / 257 around
-    the Hopper kernel's 128-row q and key tiles), GQA 32 -> 8, and both
-    the JAX layout and the port's (B, S, H, D) activations transposed as
-    views (read through strides, no copy); a second launch gives the same
-    bits."""
+    the Hopper kernel's 128-row q and key tiles; 63 / 65 / 127 / 129
+    around the f32 kernel's 128-row q and 64-key tiles, 65 / 97 around its
+    64-row and 32-key ones at head_dim 256), GQA 32 -> 8 (also at S =
+    2047), and both the JAX layout and the port's (B, S, H, D)
+    activations transposed as views (read through strides, no copy); a
+    second launch gives the same bits."""
     g = torch.Generator(device=cuda).manual_seed(S + D + H)
 
     def make(h):
@@ -977,12 +982,17 @@ def _bwd_operands(cuda, dtype, B, H, Hkv, S, D, layout, seed):
     (1, 2, 2, 1, 64, "bhsd"), (1, 32, 8, 256, 128, "bshd"),
     (1, 8, 2, 130, 256, "bshd"), (2, 4, 1, 77, 64, "bhsd"),
     (1, 16, 4, 1024, 128, "bshd"), (2, 4, 4, 320, 128, "bshd"),
-    (1, 4, 4, 330, 128, "bhsd")])
+    (1, 4, 4, 330, 128, "bhsd"), (2, 4, 4, 63, 128, "bshd"),
+    (1, 4, 2, 65, 128, "bhsd"), (1, 32, 8, 129, 128, "bshd"),
+    (2, 4, 4, 127, 64, "bshd"), (1, 4, 2, 65, 256, "bhsd"),
+    (1, 8, 2, 97, 256, "bshd")])
 def test_k11_k12_kernels_match_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     """K10's log-sum-exp, K11 (dK, dV) and K12 (dQ) against their plain
     versions on the same operands (the kernels' lse and di given to both):
     ragged S (100, 2047, 130, 77, 1, and 320 / 330 against the Hopper
-    kernels' 128-row q and 64-key tiles at D = 128), GQA n_rep 1/2/4/8
+    kernels' 128-row q and 64-key tiles at D = 128; 63 / 65 / 127 / 129
+    against the f32 kernels' 128-row q and 64-key tiles, 65 / 97 against
+    their 32-row ones at D = 256), GQA n_rep 1/2/4/8
     (n_rep 4 also at S = 1024, a long walk over a kv head's query heads),
     head_dim 64/128/256, f32, both layouts. Each element within its own
     bound (flash_bwd_tolerance); lse within 2^-14 (K10's m + log l against
