@@ -1095,10 +1095,14 @@ def k10_checks(cfg, record, g):
     the plain version's), the long-context record's training shape
     (LONGCTX_ATTN: f32, B=4 S=2047 H=4 hd 128) with the lse, and f32 at
     B=1 S=2048 (GPTQ's propagation through an f32 model, GPTQ_ATTN), also
-    with Hkv=8. Tolerance: each element within its own bound
-    (flash_tolerance); a second launch gives the same bits; on the first
-    case and on f32 S=512 the same bound must also reject planted faults
-    (k10_planted: every row a skipped or mis-rescaled key tile touches).
+    with Hkv=8; bf16 head_dim 256 (H = dim / 256) at S=2048, also with
+    Hkv=4, and at B=4 S=512 with the lse (the training forward whose
+    statistics K11/K12 at hd 256 read); f32 at hd 64 and 256 at S=1024.
+    Tolerance: each element within its own bound (flash_tolerance); a
+    second launch gives the same bits; on the first case, on f32 S=512
+    and on bf16 hd 256 S=1024 the same bound must also reject planted
+    faults (k10_planted: every row a skipped or mis-rescaled key tile
+    touches).
     Kernel ms (CUDA
     events), device ms (graph replay), plain ms; the library call is
     scaled_dot_product_attention (is_causal) on the same operands, timed
@@ -1110,14 +1114,19 @@ def k10_checks(cfg, record, g):
 
     dev = torch.device("cuda")
     hd0, H0 = cfg.head_dim, cfg.n_heads
+    H64, H256 = cfg.dim // 64, cfg.dim // 256
     cases = [("bf16", 1, 2048, H0, H0, hd0), ("bf16", 8, 512, H0, H0, hd0),
-             ("bf16", 1, 1024, cfg.dim // 64, cfg.dim // 64, 64),
-             ("bf16", 1, 1024, cfg.dim // 256, cfg.dim // 256, 256),
+             ("bf16", 1, 1024, H64, H64, 64),
+             ("bf16", 1, 1024, H256, H256, 256),
              ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
              ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0),
              ("bf16", 4, 512, H0, H0, hd0), ("bf16 lse", 4, 512, H0, H0, hd0),
              ("f32 lse",) + LONGCTX_ATTN, ("f32",) + GPTQ_ATTN,
-             ("f32", 1, 2048, H0, 8, hd0)]
+             ("f32", 1, 2048, H0, 8, hd0),
+             ("bf16", 1, 2048, H256, H256, 256),
+             ("bf16", 1, 2048, H256, 4, 256),
+             ("bf16 lse", 4, 512, H256, H256, 256),
+             ("f32", 1, 1024, H64, H64, 64), ("f32", 1, 1024, H256, H256, 256)]
     for kind, B, S, H, Hkv, D in cases:
         with_lse = kind.endswith(" lse")
         dt = torch.bfloat16 if kind.startswith("bf16") else torch.float32
@@ -1158,8 +1167,9 @@ def k10_checks(cfg, record, g):
         del again
         ref = ref[0]
         planted = {("bf16", 1, 2048, H0, H0): "k10_planted_faults",
-                   ("f32", 1, 512, H0, H0): "k10_planted_faults_f32"}.get(
-                       (kind, B, S, H, Hkv))
+                   ("f32", 1, 512, H0, H0): "k10_planted_faults_f32",
+                   ("bf16", 1, 1024, H256, H256):
+                       "k10_planted_faults_hd256"}.get((kind, B, S, H, Hkv))
         if planted:
             shares = k10_planted(q, k, v, ref, scale)
             print("K10 planted faults at {}: share of touched rows over the "
@@ -1313,8 +1323,9 @@ def k11_k12_checks(cfg, record, g):
     version's within 2^-14) and di given to both: bf16 H=32 hd=128 at
     B=4 S=512 (the qlora path's shape) and B=1 S=2048, hd 64 and 256 at
     S=1024, ragged S = 2047 and 100, f32 at S=512, Hkv=8 at S=2048 (bf16
-    and f32), and the long-context record's training shape
-    (LONGCTX_ATTN, f32). Tolerance: each element within its own bound
+    and f32), the long-context record's training shape (LONGCTX_ATTN,
+    f32), and f32 at hd 64 and 256 at S=1024. Tolerance: each element
+    within its own bound
     (flash_bwd_tolerance); on the first case and on f32 S=512 the same
     bounds must reject planted faults
     (bwd_planted_shares: every touched row of a skipped query tile, and
@@ -1332,12 +1343,14 @@ def k11_k12_checks(cfg, record, g):
 
     dev = torch.device("cuda")
     hd0, H0 = cfg.head_dim, cfg.n_heads
+    H64, H256 = cfg.dim // 64, cfg.dim // 256
     cases = [("bf16", 4, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, H0, hd0),
-             ("bf16", 1, 1024, cfg.dim // 64, cfg.dim // 64, 64),
-             ("bf16", 1, 1024, cfg.dim // 256, cfg.dim // 256, 256),
+             ("bf16", 1, 1024, H64, H64, 64),
+             ("bf16", 1, 1024, H256, H256, 256),
              ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
              ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0),
-             ("f32",) + LONGCTX_ATTN, ("f32", 1, 2048, H0, 8, hd0)]
+             ("f32",) + LONGCTX_ATTN, ("f32", 1, 2048, H0, 8, hd0),
+             ("f32", 1, 1024, H64, H64, 64), ("f32", 1, 1024, H256, H256, 256)]
     warm = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=dev)
     # SDPA's first capture in the process, thrown away
     sdpa_bwd_graph_ms(warm, warm, warm, warm, 0.125, False)

@@ -14,13 +14,16 @@ its own, in the order given (so parent, change, change, parent compares
 two versions within one call), builds its kernels from its own ``csrc/``
 and times, on the same seeded operands:
   - K10: ``flash_attention`` without a gradient (the serving and eval
-    paths' call) at k10_checks' first 8 shapes, at B=4 S=512 and at the
-    f32 GPTQ propagation's B=1 S=2048 H=32, and ``flash_attention_fwd``
-    (the kLse instantiation, the training forward) at B=4 S=512 and at
-    the long-context record's f32 B=4 S=2047 H=4;
+    paths' call) at k10_checks' first 8 shapes, at B=4 S=512, at the
+    f32 GPTQ propagation's B=1 S=2048 H=32 and at bf16 head_dim 256
+    B=1 S=2048 H=16 (also Hkv=4), and ``flash_attention_fwd`` (the kLse
+    instantiation, the training forward) at B=4 S=512, at the
+    long-context record's f32 B=4 S=2047 H=4 and at bf16 head_dim 256
+    B=4 S=512 H=16;
   - with ``--bwd``, also K11 (``flash_attention_dkv``) and K12
-    (``flash_attention_dq``) at k11_k12_checks' first 8 shapes and at the
-    two f32 shapes above, over the tree's own K10 log-sum-exp.
+    (``flash_attention_dq``) at k11_k12_checks' first 8 shapes, at the
+    two f32 shapes above and at f32 S=1024 head_dim 64 (H=64) and 256
+    (H=16), over the tree's own K10 log-sum-exp.
 With ``--k2k3`` it times the decode kernels of the unfused scanned route
 instead, at chip_smoke.py phase 2's shapes (K2_CASES, K3_ROWS): K2
 (``decode_attention_update``) over 8 cache layers cycled, K3
@@ -34,17 +37,18 @@ replays, the median. Prints one JSON line per tree, then the card's name
 and power limit. Needs CUDA.
 
 With ``--ptxas``, compiles ROOT's ``csrc/flash_attention.cu`` with the
-library's own nvcc flags plus ``-Xptxas -v`` (once as built, once with
-``-DSBT_FLASH_FWD_D256_PROBE``, which adds the Hopper forward at
-head_dim 256) and prints ptxas's lines for every flash kernel: registers,
-spills, and any warning (C7510 / C7520: a wgmma serialised). Needs nvcc.
+library's own nvcc flags plus ``-Xptxas -v`` and prints ptxas's lines for
+every flash kernel: registers, spills, and any warning (C7510 / C7520: a
+wgmma serialised). Needs nvcc.
 
 With ``--probe``, times ROOT beside copies of it whose Hopper forward
-(``flash_fwd_sm90_kernel``) leaves work out, to show where its time goes
+(``flash_fwd_sm90_kernel``; with a ``d256_`` name the head_dim 256 one,
+``flash_fwd_d256_kernel``) leaves work out, to show where its time goes
 (their outputs are wrong; only their times mean anything): no softmax (P
 is the raw scores), no wgmma products, neither, neither softmax nor K/V
 copies (the products alone), and no K/V copies (the ring's barriers
-still complete). The copies are written under
+still complete); the head_dim 256 one only without its wgmma products
+and without its K/V copies. The copies are written under
 ``.chip_scratch/k10_probe/`` of the working directory.
 """
 
@@ -57,9 +61,12 @@ CASES = [("bf16", 1, 2048, 32, 32, 128), ("bf16", 8, 512, 32, 32, 128),
          ("bf16", 1, 2047, 32, 32, 128), ("bf16", 1, 100, 32, 32, 128),
          ("f32", 1, 512, 32, 32, 128), ("bf16", 1, 2048, 32, 8, 128),
          ("bf16", 4, 512, 32, 32, 128), ("bf16 lse", 4, 512, 32, 32, 128),
-         ("f32 lse", 4, 2047, 4, 4, 128), ("f32", 1, 2048, 32, 32, 128)]
+         ("f32 lse", 4, 2047, 4, 4, 128), ("f32", 1, 2048, 32, 32, 128),
+         ("bf16", 1, 2048, 16, 16, 256), ("bf16", 1, 2048, 16, 4, 256),
+         ("bf16 lse", 4, 512, 16, 16, 256)]
 BWD_CASES = [("bf16", 4, 512, 32, 32, 128)] + CASES[:1] + CASES[2:8] + [
-    ("f32", 4, 2047, 4, 4, 128), ("f32", 1, 2048, 32, 32, 128)]
+    ("f32", 4, 2047, 4, 4, 128), ("f32", 1, 2048, 32, 32, 128),
+    ("f32", 1, 1024, 64, 64, 64), ("f32", 1, 1024, 16, 16, 256)]
 
 
 # K2: (B, S, H, Hkv, D, lengths); K3: rows at LLaMA-7B widths
@@ -279,36 +286,51 @@ def ptxas(root):
     from sparsebit_tpu_torch.ops import _kernels
 
     src = _kernels.CSRC / "flash_attention.cu"
-    for extra in ([], ["-DSBT_FLASH_FWD_D256_PROBE"]):
-        with tempfile.TemporaryDirectory() as tmp:
-            res = subprocess.run(
-                [_kernels._nvcc(), *_kernels.ARCH_FLAGS,
-                 *_kernels.NVCC_FLAGS, "-Xptxas", "-v", *extra, "-I",
-                 str(_kernels.CSRC), "-c", str(src), "-o", tmp + "/f.o"],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                timeout=600)
-        print("nvcc {} -> {}".format(" ".join(extra) or "(as built)",
-                                     res.returncode), flush=True)
-        name = None
-        for line in res.stdout.splitlines():
-            if "Compiling entry function" in line:
-                name = line.split("'")[1] if "'" in line else line
-            elif "warning" in line or "error" in line:
-                print(line, flush=True)
-            elif name and "flash" in name and ("Used" in line or
-                                                "spill" in line):
-                print("{}: {}".format(name, line.strip()), flush=True)
-        if res.returncode != 0:
-            return 1
-    return 0
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [_kernels._nvcc(), *_kernels.ARCH_FLAGS, *_kernels.NVCC_FLAGS,
+             "-Xptxas", "-v", "-I", str(_kernels.CSRC), "-c", str(src),
+             "-o", tmp + "/f.o"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=600)
+    print("nvcc -> {}".format(res.returncode), flush=True)
+    name = None
+    for line in res.stdout.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif "warning" in line or "error" in line:
+            print(line, flush=True)
+        elif name and "flash" in name and ("Used" in line or
+                                            "spill" in line):
+            print("{}: {}".format(name, line.strip()), flush=True)
+    return 0 if res.returncode == 0 else 1
 
 
-PROBE_SOFTMAX = (
-    "// rows g and g + 8 of the warp's 16: max across the quad's lanes",
-    "for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];\n")
-PROBE_GEMMS = ("sm::wgmma_ss_n128(sc, dqw + sm::step_k<64>(kk),",
-               "sm::wgmma_rs<D>(o, pa[kk], dvt + sm::step_mn(kk));")
-PROBE_COPIES = ("sm::tma_load_4d(sk + s * KVT", "sm::tma_load_4d(sv + s * KVT")
+# What each --probe variant takes out, for the Hopper forward at D = 64/128
+# (flash_fwd_sm90_kernel) and, with a "d256_" name, at D = 256
+# (flash_fwd_d256_kernel): the softmax (from the first string's line to the
+# end of the second; the D = 256 kernel hands its rescale over, so it has
+# no such variant), the wgmma products, and the K/V copies (each tile's
+# expect-tx arrive made a plain arrive, and the copies).
+PROBES = {
+    "": {"softmax": (
+        "// rows g and g + 8 of the warp's 16: max across the quad's lanes",
+        "for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];\n"),
+        "gemms": ("sm::wgmma_ss_n128(sc, dqw + sm::step_k<64>(kk),",
+                  "sm::wgmma_rs<D>(o, pa[kk], dvt + sm::step_mn(kk));"),
+        "arrives": ("sm::mbar_arrive_tx(k_full + s, KVT);",
+                    "sm::mbar_arrive_tx(v_full + s, KVT);"),
+        "copies": ("sm::tma_load_4d(sk + s * KVT",
+                   "sm::tma_load_4d(sv + s * KVT")},
+    "d256_": {"softmax": None,
+              "gemms": ("sm::wgmma_ss_n64(sc, dq + sm::step_k<64>(kk),",
+                        "sm::wgmma_rs<128>(o, pa[kk], dv + sm::step_mn(kk));",
+                        "sm::wgmma_ss_n128_mn(o, dp + sm::step_k<64>(kk),"),
+              "arrives": ("sm::mbar_arrive_tx(k_full + s, TL);",
+                          "sm::mbar_arrive_tx(v_full + v, TL);"),
+              "copies": ("sm::tma_load_4d(sk + s * TL",
+                         "sm::tma_load_4d(sv + v * TL")},
+}
 
 
 def probe_sources(text):
@@ -317,33 +339,39 @@ def probe_sources(text):
         if t.count(a) != 1:
             raise SystemExit("--probe: {!r} not found once".format(a[:50]))
 
-    def no_softmax(t):  # from the comment's line to the O rescale's end
-        a, b = PROBE_SOFTMAX
+    def no_softmax(t, p):  # from the comment's line to the O rescale's end
+        a, b = p["softmax"]
         once(t, a)
         once(t, b)
         return t[:t.rindex("\n", 0, t.index(a)) + 1] + \
             t[t.index(b) + len(b):]
 
-    def no_gemms(t):
-        for a in PROBE_GEMMS:
+    def no_gemms(t, p):
+        for a in p["gemms"]:
             once(t, a)
             t = t.replace(a, "if (0) " + a)
         return t
 
-    def no_copies(t):
-        for bar in ("k_full", "v_full"):
-            a = "sm::mbar_arrive_tx({} + s, KVT);".format(bar)
+    def no_copies(t, p):
+        for a in p["arrives"]:  # sm::mbar_arrive_tx(bar, bytes);
             once(t, a)
-            t = t.replace(a, "sm::mbar_arrive({} + s);".format(bar))
-        for a in PROBE_COPIES:
+            bar = a[a.index("(") + 1:a.rindex(",")]
+            t = t.replace(a, "sm::mbar_arrive({});".format(bar))
+        for a in p["copies"]:
             once(t, a)
             t = t.replace(a, "if (0) " + a)
         return t
 
-    return {"no_softmax": no_softmax(text), "no_gemms": no_gemms(text),
-            "copies_only": no_gemms(no_softmax(text)),
-            "gemms_only": no_copies(no_softmax(text)),
-            "no_copies": no_copies(text)}
+    out = {}
+    for pre, p in PROBES.items():
+        out.update({pre + "no_gemms": no_gemms(text, p),
+                    pre + "no_copies": no_copies(text, p)})
+        if p["softmax"]:
+            out.update({
+                pre + "no_softmax": no_softmax(text, p),
+                pre + "copies_only": no_gemms(no_softmax(text, p), p),
+                pre + "gemms_only": no_copies(no_softmax(text, p), p)})
+    return out
 
 
 def probe(root):

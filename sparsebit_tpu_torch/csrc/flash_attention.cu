@@ -49,15 +49,29 @@
 //     through shared memory. The warpgroups ping-pong (FA3): one issues
 //     its previous tile's PV and this tile's scores while the other
 //     forms its P;
-//   - bf16 at D = 256 (flash_bf16_kernel): FA2's shape on mma.sync. O
-//     alone is 128 f32 registers a thread at D = 256, so the Hopper
-//     kernel's scores, P and O would take the whole budget: a block per
-//     (64-row q tile, head, batch row), four warps of 16 q rows; K/V tiles
-//     of 64 rows double-buffered in shared memory by cp.async (16-byte
-//     chunks, XOR-swizzled so both the copies and the ldmatrix reads are
-//     bank-conflict-free); QKᵀ and PV on mma.sync.m16n8k16 bf16 with f32
-//     accumulators, V through ldmatrix.trans; the online softmax in
-//     registers, P converted to bf16 in registers as PV's A operand;
+//   - bf16 at D = 256 (flash_fwd_d256_kernel, the same scheme): O alone is
+//     128 f32 registers a thread at D = 256, so no warpgroup can hold it
+//     beside a score tile within the 168 registers a thread of a
+//     288-thread block. Both consumer warpgroups take one 64-row q tile
+//     and split O by columns (64 registers each): the first forms the
+//     64 x 64 score tile (32 registers) and P, hands P to the second
+//     through shared memory (bf16, one 128-byte-swizzled panel, two
+//     buffers under full/empty mbarriers, with each row's rescale) and
+//     adds P V into its columns with P in registers; the second adds P V
+//     into its columns with P read from shared memory. Ring stages of 64
+//     keys (the q tile's height: only the diagonal tile is masked); Q
+//     32 KB, K in 3 stages and V in 2 (the score warpgroup runs ahead of
+//     the second), 208 KB in all; the persistent schedule walks causal
+//     pairs of 64-row q tiles. Also built and timed on an H100 (PERF.md):
+//     FA3's split (384 threads, a producer warpgroup lowered to 40
+//     registers by setmaxnreg, two consumers raised to 232, each with all
+//     of its 64 rows' O over 128-row q tiles) kept ptxas's budget at the
+//     launch's 168 registers, spilled and ran 1.7-2.8x slower; both
+//     warpgroups forming the scores themselves (no hand-over, 3 of 2
+//     products' tensor work) ran 5 % slower; one warpgroup holding all
+//     of O spilled and ran 2x slower; three consumer warpgroups (416
+//     threads are given registers as 512, 128 a thread) spilled and ran
+//     1.25x slower;
 //   - f32 models (flash_f32_kernel): FFMA, since no tensor core takes f32
 //     (wgmma has no f32 operands, and TF32 would change what the kernel
 //     computes), so the bound is the FFMA pipes' 67 TFLOP/s. Register-
@@ -146,8 +160,18 @@
 //     and di in a two-stage cp.async ring; phase A forms Sᵀ and dPᵀ as
 //     4 x 4 register micro-tiles (2 x 2 at D = 256) and writes P and dS
 //     once (key-major), phase B sums dV and dK as 4 keys x D / 16 columns
-//     a thread (2 x D / 16) from the same ring stage. K12 keeps the first f32 kernel (32-row tiles, a
-//     lane a key).
+//     a thread (2 x D / 16) from the same ring stage. K12
+//     (flash_dq_f32_kernel) a block of 256 threads per 64-row q tile (32
+//     at D = 256) with Q and dO resident (64 KB at D <= 128) beside a
+//     two-stage cp.async ring of 64-key K/V tiles (32; 128 KB) and the
+//     dS tile (16 KB; 208 KB in all at D = 128, 196 KB at D = 256, where
+//     a 64-row tile with two stages would need 264 KB), walking the key
+//     tiles up to its diagonal; phase A forms S and dP as 4 x 4 register
+//     micro-tiles (8 FFMA a 16-byte load; at D = 256 each thread sums a
+//     quarter of d, the quarters added by two shuffles after the loop, so
+//     the 32 x 32 tile keeps 4 x 4 micro-tiles) and writes dS once, phase
+//     B adds dS K into dQ held as 4 rows x D / 16 (D / 32 at D = 256)
+//     columns a thread (10.7 FFMA a load).
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -235,181 +259,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // unmasked yet) shifts by 0, so exp(-inf - 0) = 0 and no NaN appears.
 __device__ __forceinline__ float shift_of(float m) {
   return m == -INFINITY ? 0.f : m;
-}
-
-// bf16 at D = 256 (below it flash_fwd_sm90_kernel).
-template <int D>
-struct Bf16Tile {
-  static_assert(D == 256, "bf16 below D = 256 runs flash_fwd_sm90_kernel");
-  static constexpr int BM = 64, BN = 64;
-  static constexpr size_t kSmem =
-      static_cast<size_t>(BM + 4 * BN) * D * sizeof(__nv_bfloat16);
-};
-
-// grid (ceil(S / 64), H, B), block kThreads.
-template <int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    flash_bf16_kernel(const Args a) {
-  using T = __nv_bfloat16;
-  using C = Bf16Tile<D>;
-  constexpr int BM = C::BM, BN = C::BN, NT = BN / 8, DT = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);
-  T* sk = sq + BM * D;       // [2][BN][D]
-  T* sv = sk + 2 * BN * D;   // [2][BN][D]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.n_rep;
-  const int S = a.S, q0 = qt * BM;
-  const T* qg = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
-  const T* kg = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[1];
-  const T* vg = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-  const int n_all = (S + BN - 1) / BN;
-  const int n_kt = min(qt + 1, n_all);  // BM == BN
-
-  load_tile<T, D, BM>(sq, qg, a.qs[2], q0, S);
-  load_tile<T, D, BN>(sk, kg, a.ks[2], 0, S);
-  load_tile<T, D, BN>(sv, vg, a.vs[2], 0, S);
-  sbt::cp_commit();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, mi = lane >> 3;
-  const int wrow = warp * 16;  // the warp's first row in the tile
-  float o[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kt) {
-      load_tile<T, D, BN>(sk + (buf ^ 1) * BN * D, kg, a.ks[2], (j + 1) * BN,
-                          S);
-      load_tile<T, D, BN>(sv + (buf ^ 1) * BN * D, vg, a.vs[2], (j + 1) * BN,
-                          S);
-      sbt::cp_commit();
-      sbt::cp_wait<1>();
-    } else {
-      sbt::cp_wait<0>();
-    }
-    __syncthreads();
-    const T* kt = sk + buf * BN * D;
-    const T* vt = sv + buf * BN * D;
-
-    // S = Q Kᵀ: the warp's 16 rows x BN keys
-    float s[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_x4(af, sq + swz<D, 8>(wrow + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bf[4];
-        ldsm_x4(bf, kt + swz<D, 8>(nt * 8 + (mi >> 1) * 8 + (lane & 7),
-                                   2 * kk + (mi & 1)));
-        mma_bf16(s[nt], af, bf[0], bf[1]);
-        mma_bf16(s[nt + 1], af, bf[2], bf[3]);
-      }
-    }
-
-    // scale, mask, online softmax (rows g and g + 8 of the warp)
-    const bool need_mask = j == qt || (j + 1) * BN > S;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * a.sm_scale;
-        if (need_mask) {
-          const int row = q0 + wrow + g + (e >> 1) * 8;
-          const int col = j * BN + nt * 8 + 2 * t + (e & 1);
-          if (col >= S || col > row) x = -INFINITY;
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2], sh[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      sh[r] = shift_of(mx[r]);
-      alpha[r] = expf(m[r] - sh[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - sh[e >> 1]);
-        rs[e >> 1] += p;
-        s[nt][e] = p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
-
-    // O += P V, P rounded to bf16 in registers as the A operand
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, vt + swz<D, 8>(kk * 16 + (mi & 1) * 8 + (lane & 7),
-                                     dt + (mi >> 1)));
-        mma_bf16(o[dt], pa, bf[0], bf[1]);
-        mma_bf16(o[dt + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // the buffer is refilled by the next iteration
-  }
-
-  // out = O / l (rows with l = 0 stay 0), staged through the warp's own
-  // rows of the q tile, then stored 16 bytes a lane
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(kFull, l[r], 1);
-    l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];
-    const int row = q0 + wrow + g + 8 * r;
-    if (kLse && t == 0 && row < S)
-      a.lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
-          m[r] + logf(l[r]);
-  }
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = wrow + g + 8 * r;
-      *reinterpret_cast<uint32_t*>(sq + swz<D, 8>(row, dt) + 2 * t) =
-          pack_bf16(o[dt][2 * r] * inv[r], o[dt][2 * r + 1] * inv[r]);
-    }
-  }
-  __syncwarp();
-  T* og = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1];
-  for (int i = lane; i < 16 * DT; i += 32) {
-    const int r = wrow + i / DT, c = i % DT;
-    if (q0 + r < S)
-      *reinterpret_cast<uint4*>(og + static_cast<long long>(q0 + r) *
-                                         a.os[2] + c * 8) =
-          *reinterpret_cast<const uint4*>(sq + swz<D, 8>(r, c));
-  }
 }
 
 // f32 on FFMA, register-tiled as an SGEMM is. A block of 256 threads (8
@@ -654,22 +503,10 @@ cudaError_t launch(size_t smem, dim3 grid, const A& a, cudaStream_t st,
   return cudaGetLastError();
 }
 
-// K10 on the mma.sync (bf16, D = 256) and FFMA (f32) kernels; bf16 below
-// D = 256 runs launch_fwd_sm90.
+// K10 on the FFMA kernel (f32); bf16 runs launch_fwd_sm90 or
+// launch_fwd_d256.
 template <int D>
-cudaError_t launch_d(int dtype, int B, int H, const Args& a,
-                     cudaStream_t st) {
-  if (dtype == 0) {
-    if constexpr (D == 256) {
-      const dim3 grid((a.S + Bf16Tile<D>::BM - 1) / Bf16Tile<D>::BM, H, B);
-      return a.lse == nullptr
-                 ? launch<flash_bf16_kernel<D, false>>(Bf16Tile<D>::kSmem,
-                                                       grid, a, st)
-                 : launch<flash_bf16_kernel<D, true>>(Bf16Tile<D>::kSmem,
-                                                      grid, a, st);
-    }
-    return cudaErrorInvalidValue;
-  }
+cudaError_t launch_fwd_f32(int B, int H, const Args& a, cudaStream_t st) {
   using C = F32Fwd<D>;
   const dim3 grid(static_cast<unsigned>((a.S + C::BM - 1) / C::BM) * H * B);
   return a.lse == nullptr
@@ -1269,32 +1106,55 @@ __global__ void __launch_bounds__(F32Dkv<D>::NT, 1)
   }
 }
 
-// K12, f32 on FFMA (the first f32 backward): 32-row q tiles and 32-key
-// tiles, four warps of 8 rows, one lane a key for the scores and D / 32
-// output columns a lane.
+// K12, f32 on FFMA, register-tiled as K10's and K11's f32 kernels. A block
+// of 256 threads owns a BM-row q tile of one head and batch row, its Q and
+// dO resident in shared memory and its rows' lse and di in registers, and
+// walks the key tiles 0 .. the diagonal (BN = BM keys) in order, K and V
+// arriving by cp.async in a ring of two stages. Phase A scores the tile:
+// S = Q Kᵀ and dP = dO Vᵀ as 4 x 4 register micro-tiles a thread (rows
+// ra + RA i, keys ka + 8 j), P = exp(s · sm_scale - lse) and dS = (dP - di)
+// P · sm_scale formed there, dS written once into shared memory
+// (query-major). At D = 256 the tile is 32 x 32 and a thread sums one
+// quarter of d (DS = 4, the quarter lane / 8), the quarters added by two
+// shuffles after the products. Phase B adds dS K into dQ, 4 rows x CC
+// column chunks a thread, from the ring stage phase A read.
 template <int D>
-struct F32BwdTile {
-  static constexpr int BM = 32, BN = 32;
+struct F32Dq {
+  static constexpr int NT = 256;
+  static constexpr int BM = D == 256 ? 32 : 64, BN = BM;
+  static constexpr int DS = D == 256 ? 4 : 1;  // phase A: parts of d
+  static constexpr int WR = BM / 16, WC = 8 / WR;  // phase B: warps' grid
+  static constexpr int CPW = D / 4 / WC;  // phase B: chunks a column group
+  static constexpr int CC = CPW / 8;      // phase B: chunks a thread
   static constexpr size_t kSmem =
-      static_cast<size_t>(2 * BN + 4 * BM) * D * sizeof(float) +
-      4 * BM * sizeof(float);
+      static_cast<size_t>(2 * BM + 4 * BN) * D * sizeof(float) +
+      static_cast<size_t>(BM) * BN * sizeof(float);
 };
 
+// grid (ceil(S / BM) H B): block x takes q tile n_qt - 1 - x / (H B) (the
+// heaviest tiles of every head first) of head x % H, batch row x / H % B.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Dq<D>::NT, 1)
     flash_dq_f32_kernel(const BwdArgs a) {
-  using C = F32BwdTile<D>;
-  constexpr int BM = C::BM, BN = C::BN, R = BM / kWarps, CH = D / 4,
-                NC = D / 32;
+  using C = F32Dq<D>;
+  constexpr int NT = C::NT, BM = C::BM, BN = C::BN, DS = C::DS, CC = C::CC,
+                CPW = C::CPW, CH = D / 4;
+  // phase A: a thread's rows ra + RA i; its Q rows' r & 7 is qa ^ 4 (i & 1)
+  // at DS = 1 (rows 16 wr + ky + 4 i), the warp index at DS = 4 (rows
+  // w + 8 i)
+  constexpr int RA = DS == 1 ? 4 : 8, FLIP = DS == 1 ? 4 : 0;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sq = reinterpret_cast<float*>(smem_raw);  // [BM][D]
-  float* sdo = sq + BM * D;
-  float* sk = sdo + BM * D;  // [2][BN][D]
-  float* sv = sk + 2 * BN * D;
+  float* sdo = sq + BM * D;                        // [BM][D]
+  float* sk = sdo + BM * D;  // [2][K, V][BN][D]: a stage's V at + BN D
+  float* sds = sk + 4 * BN * D;  // [BM][BN]: dS
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.n_rep;
-  const int S = a.S, q0 = qt * BM;
+  const int S = a.S, n_qt = (S + BM - 1) / BM;
+  const int H = a.Hkv * a.n_rep, HB = H * a.B;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / HB;
+  const int h = static_cast<int>(blockIdx.x) % H;
+  const int b = static_cast<int>(blockIdx.x) / H % a.B;
+  const int hk = h / a.n_rep, q0 = qt * BM, n_kt = qt + 1;
   const float* qg = static_cast<const float*>(a.q) + b * a.qs[0] +
                     h * a.qs[1];
   const float* dg = static_cast<const float*>(a.dO) + b * a.dos[0] +
@@ -1303,108 +1163,184 @@ __global__ void __launch_bounds__(kThreads)
                     hk * a.ks[1];
   const float* vg = static_cast<const float*>(a.v) + b * a.vs[0] +
                     hk * a.vs[1];
-  const int n_all = (S + BN - 1) / BN;
-  const int n_kt = min(qt + 1, n_all);
 
-  load_tile<float, D, BM>(sq, qg, a.qs[2], q0, S);
-  load_tile<float, D, BM>(sdo, dg, a.dos[2], q0, S);
-  load_tile<float, D, BN>(sk, kg, a.ks[2], 0, S);
-  load_tile<float, D, BN>(sv, vg, a.vs[2], 0, S);
+  load_tile<float, D, BM, NT>(sq, qg, a.qs[2], q0, S);
+  load_tile<float, D, BM, NT>(sdo, dg, a.dos[2], q0, S);
+  load_tile<float, D, BN, NT>(sk, kg, a.ks[2], 0, S);
+  load_tile<float, D, BN, NT>(sk + BN * D, vg, a.vs[2], 0, S);
   sbt::cp_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wrow = warp * R;
-  const long long srow = (static_cast<long long>(b) * gridDim.y + h) * S;
-  float lse[R], di[R], dq[R][NC];
+  const int ky = lane >> 3, x = lane & 7;
+  const int qa = DS == 1 ? ky : warp;
+  const int ra = DS == 1 ? (warp >> 1) * 16 + ky : warp;  // phase A rows
+  const int ka = (DS == 1 ? (warp & 1) * 32 : 0) + x;      // phase A keys
+  const int part = DS == 1 ? 0 : lane >> 3;  // phase A's quarter of d
+  const int rb = (warp / C::WC) * 16 + ky;   // phase B rows rb + 4 i
+  const int cb0 = (warp % C::WC) * CPW;      // phase B's first chunk
+  // The swizzle's chunk offsets, XORed once (as K10's f32 forward): chunk
+  // 8 c + u of row r lies at 32 c + 4 (u ^ (r & 7)) floats into it; the
+  // thread's keys (rows of K, V) have r & 7 = x, its phase B rows ky ^
+  // 4 (i & 1), and K row 4 k4 + e holds its phase B chunk cb0 + x + 8 c at
+  // 4 cb0 + 32 c + 4 (x ^ ((4 k4 + e) & 7)).
+  int oq[8], oy[8], ox[8];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = q0 + wrow + r;
-    lse[r] = row < S ? a.lse[srow + row] : 0.f;
-    di[r] = row < S ? a.di[srow + row] : 0.f;
+  for (int u = 0; u < 8; ++u) {
+    oq[u] = 4 * (u ^ qa);
+    oy[u] = 4 * (u ^ ky);
+    ox[u] = 4 * (u ^ x);
+  }
+  const long long srow = (static_cast<long long>(b) * H + h) * S;
+  float lse[4], di[4], dq[4][CC][4];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq[r][c] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + RA * i;
+    lse[i] = row < S ? a.lse[srow + row] : 0.f;
+    di[i] = row < S ? a.di[srow + row] : 0.f;
+#pragma unroll
+    for (int c = 0; c < CC; ++c)
+      dq[i][c][0] = dq[i][c][1] = dq[i][c][2] = dq[i][c][3] = 0.f;
   }
 
   for (int j = 0; j < n_kt; ++j) {
     const int buf = j & 1;
+    // tile j has landed for every thread, and every thread is done with
+    // tile j - 1 (its stage and dS), so tile j + 1's copy goes into that
+    // stage now and lands during this tile's products
+    sbt::cp_wait<0>();
+    __syncthreads();
     if (j + 1 < n_kt) {
-      load_tile<float, D, BN>(sk + (buf ^ 1) * BN * D, kg, a.ks[2],
-                              (j + 1) * BN, S);
-      load_tile<float, D, BN>(sv + (buf ^ 1) * BN * D, vg, a.vs[2],
-                              (j + 1) * BN, S);
+      float* nk = sk + (buf ^ 1) * 2 * BN * D;
+      load_tile<float, D, BN, NT>(nk, kg, a.ks[2], (j + 1) * BN, S);
+      load_tile<float, D, BN, NT>(nk + BN * D, vg, a.vs[2], (j + 1) * BN, S);
       sbt::cp_commit();
-      sbt::cp_wait<1>();
-    } else {
-      sbt::cp_wait<0>();
     }
-    __syncthreads();
-    const float* kt = sk + buf * BN * D;
-    const float* vt = sv + buf * BN * D;
+    const float* kt = sk + buf * 2 * BN * D;  // V: + BN D
 
-    float s[R], dp[R];
+    // phase A: S and dP, 4 rows x 4 keys, a float4 of d at a time
+    float s[4][4], dp[4][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = dp[r] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < CH; ++c) {
-      const float4 kv = *reinterpret_cast<const float4*>(kt +
-                                                         swz<D, 4>(lane, c));
-      const float4 vv = *reinterpret_cast<const float4*>(vt +
-                                                         swz<D, 4>(lane, c));
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(sq + swz<D, 4>(wrow + r, c));
-        const float4 ov =
-            *reinterpret_cast<const float4*>(sdo + swz<D, 4>(wrow + r, c));
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-        dp[r] = fmaf(ov.x, vv.x, dp[r]);
-        dp[r] = fmaf(ov.y, vv.y, dp[r]);
-        dp[r] = fmaf(ov.z, vv.z, dp[r]);
-        dp[r] = fmaf(ov.w, vv.w, dp[r]);
+      for (int n = 0; n < 4; ++n) s[i][n] = dp[i][n] = 0.f;
+    const float* qr = sq + ra * D + part * (D / DS);  // dO: + BM D
+    const float* kr = kt + ka * D + part * (D / DS);  // V: + BN D
+#pragma unroll 1
+    for (int cb = 0; cb < CH / 8 / DS; ++cb)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float4 qv[4], ov[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* at =
+            qr + RA * i * D + 32 * cb + oq[u ^ (FLIP * (i & 1))];
+        qv[i] = *reinterpret_cast<const float4*>(at);
+        ov[i] = *reinterpret_cast<const float4*>(at + BM * D);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float* at = kr + 8 * n * D + 32 * cb + ox[u];
+        const float4 kv = *reinterpret_cast<const float4*>(at);
+        const float4 vv = *reinterpret_cast<const float4*>(at + BN * D);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][n] = fmaf(qv[i].x, kv.x, s[i][n]);
+          s[i][n] = fmaf(qv[i].y, kv.y, s[i][n]);
+          s[i][n] = fmaf(qv[i].z, kv.z, s[i][n]);
+          s[i][n] = fmaf(qv[i].w, kv.w, s[i][n]);
+          dp[i][n] = fmaf(ov[i].x, vv.x, dp[i][n]);
+          dp[i][n] = fmaf(ov[i].y, vv.y, dp[i][n]);
+          dp[i][n] = fmaf(ov[i].z, vv.z, dp[i][n]);
+          dp[i][n] = fmaf(ov[i].w, vv.w, dp[i][n]);
+        }
       }
     }
-    const bool need_mask = j == qt || (j + 1) * BN > S;
-    const int col = j * BN + lane;
+    if constexpr (DS > 1) {  // the quarters of d, lanes 8 and 16 apart
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float p = 0.f;
-      if (!need_mask || (col < S && col <= q0 + wrow + r))
-        p = expf(s[r] * a.sm_scale - lse[r]);
-      s[r] = (dp[r] - di[r]) * p * a.sm_scale;
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          s[i][n] += __shfl_xor_sync(kFull, s[i][n], 8);
+          s[i][n] += __shfl_xor_sync(kFull, s[i][n], 16);
+          dp[i][n] += __shfl_xor_sync(kFull, dp[i][n], 8);
+          dp[i][n] += __shfl_xor_sync(kFull, dp[i][n], 16);
+        }
     }
-#pragma unroll 4
-    for (int kj = 0; kj < BN; ++kj) {
-      float kv[NC];
+    // P = exp(s · sm_scale - lse) under the causal mask (the diagonal tile:
+    // keys past a row, and so keys past S), dS = (dP - di) P · sm_scale,
+    // written once (at DS = 4 each quarter writes one of the 4 rows)
+    const bool mask = j == qt;
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        kv[c] = kt[swz<D, 4>(kj, (lane >> 2) + 8 * c) + (lane & 3)];
+    for (int i = 0; i < 4; ++i) {
+      const int r = ra + RA * i;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float d = __shfl_sync(kFull, s[r], kj);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) dq[r][c] = fmaf(d, kv[c], dq[r][c]);
+      for (int n = 0; n < 4; ++n) {
+        const int kk = ka + 8 * n;
+        float p = 0.f;
+        if (!mask || kk <= r) p = expf(s[i][n] * a.sm_scale - lse[i]);
+        if (DS == 1 || i == part)
+          sds[swz<BN, 4>(r, kk >> 2) + (kk & 3)] =
+              (dp[i][n] - di[i]) * p * a.sm_scale;
       }
     }
     __syncthreads();
+
+    // phase B: dQ += dS K, a float4 of dS (4 keys) a row, a float4 of K a
+    // chunk, the keys in order
+    const float* pr = sds + rb * BN;
+    const float* kc = kt + 4 * cb0;
+#pragma unroll 1
+    for (int kb = 0; kb < BN / 32; ++kb)
+#pragma unroll
+    for (int ku = 0; ku < 8; ++ku) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            pr + 4 * i * BN + 32 * kb + oy[ku ^ ((i & 1) << 2)]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int c = 0; c < CC; ++c) {
+          const float4 kv = *reinterpret_cast<const float4*>(
+              kc + (32 * kb + 4 * ku + e) * D + 32 * c +
+              ox[(4 * ku + e) & 7]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float d = e == 0   ? pv[i].x
+                            : e == 1 ? pv[i].y
+                            : e == 2 ? pv[i].z
+                                     : pv[i].w;
+            dq[i][c][0] = fmaf(d, kv.x, dq[i][c][0]);
+            dq[i][c][1] = fmaf(d, kv.y, dq[i][c][1]);
+            dq[i][c][2] = fmaf(d, kv.z, dq[i][c][2]);
+            dq[i][c][3] = fmaf(d, kv.w, dq[i][c][3]);
+          }
+        }
+      }
+    }
   }
 
   float* dqg = static_cast<float*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = q0 + wrow + r;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rb + 4 * i;
     if (row >= S) continue;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      dqg[static_cast<long long>(row) * a.dqs[2] + lane + 32 * c] = dq[r][c];
+    for (int c = 0; c < CC; ++c)
+      *reinterpret_cast<float4*>(dqg + static_cast<long long>(row) * a.dqs[2] +
+                                 4 * (cb0 + x + 8 * c)) =
+          make_float4(dq[i][c][0], dq[i][c][1], dq[i][c][2], dq[i][c][3]);
   }
 }
 
-// K10, K11 and K12 run on the Hopper kernels for bf16 at D = 64 and 128;
-// bf16 at D = 256 and f32 on the mma.sync and FFMA ones.
-bool on_sm90(int dtype, int D) { return dtype == 0 && D <= 128; }
+// K10 runs on a Hopper kernel for bf16 (flash_fwd_sm90_kernel at D = 64
+// and 128, flash_fwd_d256_kernel at 256), f32 on the FFMA one.
+bool fwd_on_sm90(int dtype) { return dtype == 0; }
+
+// K11 and K12 run on the Hopper kernels for bf16 at D = 64 and 128; bf16
+// at D = 256 and f32 on the mma.sync and FFMA ones.
+bool bwd_on_sm90(int dtype, int D) { return dtype == 0 && D <= 128; }
 
 // ---- K11 and K12 on Hopper: bf16, D = 64 or 128 --------------------------
 //
@@ -1903,8 +1839,9 @@ cudaError_t launch_bwd_d(bool dkv, int dtype, int B, int H, int Hkv,
                     B);
     return launch<flash_dkv_f32_kernel<D>>(C::kSmem, grid, a, st, C::NT);
   }
-  const dim3 grid((a.S + 31) / 32, H, B);
-  return launch<flash_dq_f32_kernel<D>>(F32BwdTile<D>::kSmem, grid, a, st);
+  using C = F32Dq<D>;
+  const dim3 grid(static_cast<unsigned>((a.S + C::BM - 1) / C::BM) * H * B);
+  return launch<flash_dq_f32_kernel<D>>(C::kSmem, grid, a, st, C::NT);
 }
 
 // ---- K10 on Hopper: bf16, D = 64 or 128 -----------------------------------
@@ -1924,14 +1861,15 @@ struct Sm90Fwd {
   static constexpr int kKvTile = kKeys * D * 2;      // a K or V tile
   static constexpr int kKvPanel = kKeys * 128;       // a 128-row panel
   // ring depth: as many stages as fit beside Q (225 of 227 KB at D = 128;
-  // D = 256 is only instantiated by the ptxas probe at the end)
-  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : 1;
+  // D = 256 runs flash_fwd_d256_kernel)
+  static constexpr int kStages = D == 64 ? 4 : 3;
   static constexpr int kBars = 2 + 3 * kStages;  // Q full/empty; K, V, empty
   static constexpr size_t kSmem =
       1024 + static_cast<size_t>(kWG) * kQTile +
       static_cast<size_t>(2 * kStages) * kKvTile + kBars * 8 +
       4 * sizeof(int);  // + the published jobs
   static_assert(kKeys == kRows, "the diagonal key tile is the q tile's");
+  static_assert(D <= 128, "D = 256 runs flash_fwd_d256_kernel");
   static_assert(kSmem <= 232448, "over a block's shared memory");
 };
 
@@ -2047,18 +1985,8 @@ __global__ void __launch_bounds__(Sm90Fwd<D>::kThreads, 1)
     sm::fence_regs(o);
     sm::wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < C::kKeys / 16; ++kk) {
-      if constexpr (D <= 128) {
-        sm::wgmma_rs<D>(o, pa[kk], dvt + sm::step_mn(kk));
-      } else {  // 128 columns (two panels) a product
-#pragma unroll
-        for (int n = 0; n < D / 128; ++n)
-          sm::wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(o + 64 * n),
-                            pa[kk],
-                            dvt + sm::step_mn(kk) +
-                                ((2 * n * C::kKvPanel) >> 4));
-      }
-    }
+    for (int kk = 0; kk < C::kKeys / 16; ++kk)
+      sm::wgmma_rs<D>(o, pa[kk], dvt + sm::step_mn(kk));
     sm::wg_commit();
     sm::wg_wait<0>();
     sm::fence_regs(o);
@@ -2220,6 +2148,369 @@ cudaError_t launch_fwd_sm90(int B, int H, int Hkv, const Args& a,
                           : launch_fwd_sm90_k<D, true>(tq, tk, tv, grid, a, st);
 }
 
+// ---- K10 on Hopper: bf16, D = 256 ------------------------------------------
+//
+// O of 64 rows is 128 f32 registers a thread at D = 256, so no warpgroup
+// can hold it beside a score tile within the 168 registers a thread of a
+// 288-thread block. The two consumer warpgroups take one 64-row q tile
+// and split O by columns: the first forms S = Q Kᵀ and P and hands P to
+// the second through shared memory; each adds P V into its 128 columns.
+// See the design note at the top of the file.
+
+struct Sm90FwdD256 {
+  static constexpr int D = 256;
+  static constexpr int kThreads = 2 * 128 + 32;  // + the producer warp
+  static constexpr int kRows = 64;               // q rows a job
+  static constexpr int kKeys = 64;               // keys a ring stage
+  static constexpr int kTile = 64 * D * 2;       // a Q, K or V tile
+  static constexpr int kPanel = 64 * 128;        // one of its 4 panels
+  static constexpr int kPTile = 64 * 64 * 2;     // P, bf16
+  static constexpr int kKStages = 3, kVStages = 2, kPBufs = 2;
+  // Q full/empty; K full/empty, V full/empty, P full/empty
+  static constexpr int kBars = 2 + 2 * (kKStages + kVStages + kPBufs);
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(1 + kKStages + kVStages) * kTile +
+      static_cast<size_t>(kPBufs) * kPTile +
+      static_cast<size_t>(kPBufs) * (2 * 64 + 4) * sizeof(float) +
+      kBars * 8 + 4 * sizeof(int);
+  static_assert(kKeys == kRows, "the diagonal key tile is the q tile's");
+  static_assert(kSmem <= 232448, "over a block's shared memory");
+};
+
+// K10 at D = 256, persistent as flash_fwd_sm90_kernel: one block an SM
+// walks causal pairs of 64-row q tiles, head by head. The producer's lane
+// 0 publishes each job beside Q's barrier and copies Q once the previous
+// job's last score product has read it, then K tiles into a ring of 3 and
+// V tiles into a ring of 2, 0 .. the diagonal. The score warpgroup (0)
+// forms per key tile S = Q Kᵀ (64 x 64 f32, both operands K-major from
+// shared memory), the diagonal tile masked, the running max m of the raw
+// scores, P = exp2(s c - m c) with c = sm_scale log2 e and the rescale
+// exp2(m_old c - m c), and hands P (bf16, a 128-byte-swizzled K-major
+// panel), the rescale and the tile's job over to warpgroup 1 in one of two
+// buffers (at a job's last tile also 1 / l; with kLse it writes m sm_scale
+// + log l); then it rescales its O (columns 0-127) and adds P V with P
+// rounded to bf16 in registers as the A operand. Warpgroup 1 rescales its
+// O (columns 128-255) and adds P V with P read from the buffer; both read
+// V MN-major from the same stage. Each stores O / l at the job's last tile
+// (rows with l = 0 stay 0).
+template <bool kLse>
+__global__ void __launch_bounds__(Sm90FwdD256::kThreads, 1)
+    flash_fwd_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const Args a) {
+  using T = __nv_bfloat16;
+  using C = Sm90FwdD256;
+  constexpr int KS = C::kKStages, VS = C::kVStages, TL = C::kTile,
+                PN = C::kPanel, NP = C::D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align_1k(smem_raw);  // the job's Q tile
+  unsigned char* sk = sq + TL;             // [KS] K tiles
+  unsigned char* sv = sk + KS * TL;        // [VS] V tiles
+  unsigned char* sp = sv + VS * TL;        // [2] P tiles
+  // [2][64 rescales, 64 1 / l, 4 ints: q tile, batch row and head, key
+  // tile, 0]: what goes with each P
+  float* rec = reinterpret_cast<float*>(sp + C::kPBufs * C::kPTile);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(rec + C::kPBufs * 132);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;  // [KS]
+  uint64_t* k_empty = k_full + KS;
+  uint64_t* v_full = k_empty + KS;  // [VS]
+  uint64_t* v_empty = v_full + VS;
+  uint64_t* p_full = v_empty + VS;  // [2]
+  uint64_t* p_empty = p_full + 2;
+  int* job = reinterpret_cast<int*>(p_empty + 2);  // [2][2]
+
+  const int S = a.S, H = a.H;
+  if (threadIdx.x == 0) {
+    sm::mbar_init(q_full, 1);
+    sm::mbar_init(q_empty, 128);
+    for (int s = 0; s < KS; ++s) {
+      sm::mbar_init(k_full + s, 1);
+      sm::mbar_init(k_empty + s, 128);
+    }
+    for (int s = 0; s < VS; ++s) {
+      sm::mbar_init(v_full + s, 1);
+      sm::mbar_init(v_empty + s, 2 * 128);
+    }
+    for (int s = 0; s < 2; ++s) {
+      sm::mbar_init(p_full + s, 128);
+      sm::mbar_init(p_empty + s, 128);
+    }
+    sm::mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // the producer warp; one lane issues every copy
+    if (threadIdx.x == 2 * 128) {
+      sm::tma_prefetch(&tq);
+      sm::tma_prefetch(&tk);
+      sm::tma_prefetch(&tv);
+      const int n_qt = (S + C::kRows - 1) / C::kRows, n_p = (n_qt + 1) / 2;
+      int kp = 0, vp = 0, k = 0;  // ring positions, jobs published
+      for (int u = blockIdx.x; u < n_p * H * a.B; u += gridDim.x) {
+        const int p = u % n_p, hb = u / n_p;
+        const int h = hb % H, b = hb / H, hk = h / a.n_rep;
+        for (int half = 0; half < 2; ++half) {  // the heavy tile first
+          const int qt = half == 0 ? n_qt - 1 - p : p;
+          if (half == 1 && p == n_qt - 1 - p) continue;  // odd n_qt's middle
+          if (k > 0) sm::mbar_wait(q_empty, (k - 1) & 1);
+          job[2 * (k & 1)] = qt;  // read by the score warpgroup after q_full
+          job[2 * (k & 1) + 1] = hb;
+          sm::mbar_arrive_tx(q_full, TL);
+          for (int pn = 0; pn < NP; ++pn)
+            sm::tma_load_4d(sq + pn * PN, &tq, q_full, 64 * pn,
+                            qt * C::kRows, h, b);
+          for (int j = 0; j <= qt; ++j, ++kp, ++vp) {
+            const int s = kp % KS, v = vp % VS;
+            if (kp >= KS) sm::mbar_wait(k_empty + s, (kp / KS - 1) & 1);
+            sm::mbar_arrive_tx(k_full + s, TL);
+            for (int pn = 0; pn < NP; ++pn)
+              sm::tma_load_4d(sk + s * TL + pn * PN, &tk, k_full + s,
+                              64 * pn, C::kKeys * j, hk, b);
+            if (vp >= VS) sm::mbar_wait(v_empty + v, (vp / VS - 1) & 1);
+            sm::mbar_arrive_tx(v_full + v, TL);
+            for (int pn = 0; pn < NP; ++pn)
+              sm::tma_load_4d(sv + v * TL + pn * PN, &tv, v_full + v,
+                              64 * pn, C::kKeys * j, hk, b);
+          }
+          ++k;
+        }
+      }
+      if (k > 0) sm::mbar_wait(q_empty, (k - 1) & 1);
+      job[2 * (k & 1)] = -1;  // no more jobs
+      sm::mbar_arrive(q_full);
+    }
+    return;
+  }
+
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = warp * 16 + g;  // the thread's rows row0 and row0 + 8
+  const int col0 = 128 * wg;  // the warpgroup's first column of O
+  float o[64];  // O: the thread's rows by the warpgroup's 128 columns
+  // O / l into the output's rows of q tile qt (rows past S not stored)
+  auto store_o = [&](int qt, int hb, const float (&inv)[2]) {
+    const int h = hb % H, b = hb / H;
+    T* og = static_cast<T*>(a.o) + b * a.os[0] + h * a.os[1] + col0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qt * C::kRows + row0 + 8 * r;
+      if (row >= S) continue;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<uint32_t*>(og + row * a.os[2] + 8 * i + 2 * t4) =
+            pack_bf16(o[4 * i + 2 * r] * inv[r],
+                      o[4 * i + 2 * r + 1] * inv[r]);
+    }
+  };
+  if (wg == 0) {  // the score warpgroup
+    const float c = a.sm_scale * kLog2e;
+    int kp = 0, vp = 0, pp = 0;  // ring positions, P buffers handed over
+    for (int k = 0;; ++k) {  // the jobs the producer publishes, in order
+      sm::mbar_wait(q_full, k & 1);
+      const int qt = job[2 * (k & 1)];
+      const int hb = job[2 * (k & 1) + 1];
+      if (qt < 0) {  // tell the output warpgroup
+        const int pb = pp & 1;
+        if (pp >= 2) sm::mbar_wait(p_empty + pb, ((pp >> 1) - 1) & 1);
+        if (t == 0) reinterpret_cast<int*>(rec + pb * 132 + 128)[0] = -1;
+        sm::mbar_arrive(p_full + pb);
+        break;
+      }
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      zero(o);
+      for (int j = 0; j <= qt; ++j, ++kp, ++vp, ++pp) {
+        const int s = kp % KS;
+        sm::mbar_wait(k_full + s, (kp / KS) & 1);
+        float sc[32];
+        sm::fence_regs(sc);
+        const uint64_t dq = sm::opaque(sm::desc_k(sq));
+        const uint64_t dk = sm::desc_k(sk + s * TL);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::D / 16; ++kk)  // kk = 0 overwrites sc
+          sm::wgmma_ss_n64(sc, dq + sm::step_k<64>(kk),
+                           dk + sm::step_k<C::kKeys>(kk), kk);
+        sm::wg_commit();
+        sm::wg_wait<0>();
+        sm::fence_regs(sc);
+        sm::mbar_arrive(k_empty + s);
+        if (j == qt) {  // the diagonal tile: keys above each row masked
+          sm::mbar_arrive(q_empty);
+          const int rel = sm::opaque(row0 - 2 * t4);  // row - column
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * i + (e & 1) > rel + 8 * (e >> 1))
+                sc[4 * i + e] = -INFINITY;
+        }
+        // the thread's rows, each over its quad
+        float sh[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = m[r];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+          sh[r] = shift_of(mx) * c;
+          alpha[r] = sm::exp2_ftz(m[r] * c - sh[r]);
+          m[r] = mx;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe =
+                sm::exp2_ftz(fmaf(sc[4 * i + e], c, -sh[e >> 1]));
+            rs[e >> 1] += pe;
+            sc[4 * i + e] = pe;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+
+        // hand P over: bf16 into the buffer's swizzled panel (chunk i of
+        // row r at chunk i ^ (r & 7)), with the rescale and the job
+        const int pb = pp & 1;
+        if (pp >= 2) sm::mbar_wait(p_empty + pb, ((pp >> 1) - 1) & 1);
+        unsigned char* pt = sp + pb * C::kPTile;
+        float* rc = rec + pb * 132;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            *reinterpret_cast<uint32_t*>(pt + row * 128 +
+                                         ((i ^ (row & 7)) << 4) + 4 * t4) =
+                pack_bf16(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]);
+          if (t4 == 0) rc[row] = alpha[r];
+        }
+        float inv[2];
+        if (j == qt) {  // the job's last tile: 1 / l, and the lse
+          const int h = hb % H, b = hb / H;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float lr = l[r] + __shfl_xor_sync(kFull, l[r], 1);
+            lr += __shfl_xor_sync(kFull, lr, 2);
+            inv[r] = lr == 0.f ? 1.f : 1.f / lr;
+            const int row = qt * C::kRows + row0 + 8 * r;
+            if (t4 == 0) {
+              rc[64 + row0 + 8 * r] = inv[r];
+              if (kLse && row < S)
+                a.lse[(static_cast<long long>(b) * H + h) * S + row] =
+                    m[r] * a.sm_scale + logf(lr);
+            }
+          }
+        }
+        if (t == 0) {
+          int* ri = reinterpret_cast<int*>(rc + 128);
+          ri[0] = qt;
+          ri[1] = hb;
+          ri[2] = j;
+        }
+        sm::fence_async_smem();  // P is read by warpgroup 1's wgmma
+        sm::mbar_arrive(p_full + pb);
+
+        // O += P V over the first 128 columns, P from registers
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+        uint32_t pa[C::kKeys / 16][4];
+        acc_to_a(pa, sc);
+        const int v = vp % VS;
+        sm::mbar_wait(v_full + v, (vp / VS) & 1);
+        const uint64_t dv = sm::desc_mn<C::kKeys>(sv + v * TL);
+        sm::fence_regs(o);
+        sm::fence_regs(pa);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < C::kKeys / 16; ++kk)
+          sm::wgmma_rs<128>(o, pa[kk], dv + sm::step_mn(kk));
+        sm::wg_commit();
+        sm::wg_wait<0>();
+        sm::fence_regs(o);
+        sm::mbar_arrive(v_empty + v);
+        if (j == qt) store_o(qt, hb, inv);
+      }
+    }
+    return;
+  }
+
+  // warpgroup 1: the last 128 columns of O, P from the score warpgroup
+  int vp = 0;
+  for (int pp = 0;; ++pp, ++vp) {  // the P buffers, in order
+    const int pb = pp & 1;
+    sm::mbar_wait(p_full + pb, (pp >> 1) & 1);
+    const float* rc = rec + pb * 132;
+    const int* ri = reinterpret_cast<const int*>(rc + 128);
+    const int qt = ri[0];
+    if (qt < 0) break;
+    const int hb = ri[1], j = ri[2];
+    if (j == 0) {
+      zero(o);
+    } else {
+      const float al[2] = {rc[row0], rc[row0 + 8]};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] *= al[(i >> 1) & 1];
+    }
+    const int v = vp % VS;
+    sm::mbar_wait(v_full + v, (vp / VS) & 1);
+    const uint64_t dp = sm::opaque(sm::desc_k(sp + pb * C::kPTile));
+    const uint64_t dv =
+        sm::desc_mn<C::kKeys>(sv + v * TL) + ((2 * PN) >> 4);  // panel 2
+    sm::fence_regs(o);
+    sm::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::kKeys / 16; ++kk)
+      sm::wgmma_ss_n128_mn(o, dp + sm::step_k<64>(kk), dv + sm::step_mn(kk));
+    sm::wg_commit();
+    sm::wg_wait<0>();
+    sm::fence_regs(o);
+    sm::mbar_arrive(v_empty + v);
+    if (j == qt) {
+      const float inv[2] = {rc[64 + row0], rc[64 + row0 + 8]};
+      sm::mbar_arrive(p_empty + pb);
+      store_o(qt, hb, inv);
+    } else {
+      sm::mbar_arrive(p_empty + pb);
+    }
+  }
+}
+
+// K10 at D = 256: the tensor maps in 64-row boxes, then the persistent
+// launch (the kLse instantiation where lse is given).
+cudaError_t launch_fwd_d256(int B, int H, int Hkv, const Args& a,
+                            cudaStream_t st) {
+  using C = Sm90FwdD256;
+  CUtensorMap tq, tk, tv;
+  if (!sm::tensor_map_bhsd(&tq, a.q, B, H, a.S, C::D, a.qs, C::kRows) ||
+      !sm::tensor_map_bhsd(&tk, a.k, B, Hkv, a.S, C::D, a.ks, C::kKeys) ||
+      !sm::tensor_map_bhsd(&tv, a.v, B, Hkv, a.S, C::D, a.vs, C::kKeys))
+    return cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int n_qt = (a.S + C::kRows - 1) / C::kRows;
+  const long long units = static_cast<long long>((n_qt + 1) / 2) * H * B;
+  const dim3 grid(static_cast<unsigned>(std::min<long long>(units, n_sm)));
+  if (a.lse == nullptr) {
+    if ((e = set_smem<flash_fwd_d256_kernel<false>>(C::kSmem)) != cudaSuccess)
+      return e;
+    flash_fwd_d256_kernel<false><<<grid, C::kThreads, C::kSmem, st>>>(
+        tq, tk, tv, a);
+  } else {
+    if ((e = set_smem<flash_fwd_d256_kernel<true>>(C::kSmem)) != cudaSuccess)
+      return e;
+    flash_fwd_d256_kernel<true><<<grid, C::kThreads, C::kSmem, st>>>(
+        tq, tk, tv, a);
+  }
+  return cudaGetLastError();
+}
+
 bool aligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -2259,7 +2550,7 @@ bool bwd_args(BwdArgs& a, const void* q, const void* k, const void* v,
 
 cudaError_t launch_bwd(bool dkv, int dtype, int B, int H, int Hkv, int D,
                        const BwdArgs& a, cudaStream_t st) {
-  if (on_sm90(dtype, D))
+  if (bwd_on_sm90(dtype, D))
     return D == 64 ? launch_bwd_sm90<64>(dkv, B, H, Hkv, a, st)
                    : launch_bwd_sm90<128>(dkv, B, H, Hkv, a, st);
   return D == 64    ? launch_bwd_d<64>(dkv, dtype, B, H, Hkv, a, st)
@@ -2308,13 +2599,14 @@ extern "C" int sbt_flash_attention(
   a.H = H;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (on_sm90(dtype, D))
-    e = D == 64 ? launch_fwd_sm90<64>(B, H, Hkv, a, st)
-                : launch_fwd_sm90<128>(B, H, Hkv, a, st);
+  if (fwd_on_sm90(dtype))
+    e = D == 64    ? launch_fwd_sm90<64>(B, H, Hkv, a, st)
+        : D == 128 ? launch_fwd_sm90<128>(B, H, Hkv, a, st)
+                   : launch_fwd_d256(B, H, Hkv, a, st);
   else
-    e = D == 64    ? launch_d<64>(dtype, B, H, a, st)
-        : D == 128 ? launch_d<128>(dtype, B, H, a, st)
-                   : launch_d<256>(dtype, B, H, a, st);
+    e = D == 64    ? launch_fwd_f32<64>(B, H, a, st)
+        : D == 128 ? launch_fwd_f32<128>(B, H, a, st)
+                   : launch_fwd_f32<256>(B, H, a, st);
   return static_cast<int>(e);
 }
 
@@ -2370,12 +2662,3 @@ extern "C" int sbt_flash_bwd_dq(
   return launch_bwd(false, dtype, B, H, Hkv, D, a,
                     static_cast<cudaStream_t>(stream));
 }
-
-#ifdef SBT_FLASH_FWD_D256_PROBE
-// Not in the library: the Hopper forward instantiated at D = 256, so that
-// `k10_ab.py --ptxas` prints its registers and spills (why D = 256 stays
-// on flash_bf16_kernel).
-extern "C" const void* sbt_flash_fwd_sm90_d256_probe() {
-  return reinterpret_cast<const void*>(&flash_fwd_sm90_kernel<256, false>);
-}
-#endif

@@ -31,19 +31,19 @@ The plain versions are the same arithmetic in eager torch, in the
 kernels' order: ``flash_attention_plain`` takes key tiles of K10's width
 (``fwd_block_k``), a running max and sum, P rounded to V's dtype before
 PV, the accumulator rescaled a tile and divided by l once at the end (a
-row with l = 0 stays 0). Where K10 runs on Hopper's wgmma (bf16 at
-head_dim 64 and 128, ``on_sm90``) it keeps the running max of the raw
-scores and forms P = exp2(s · c - m · c), c = sm_scale log2 e, with
-128-key tiles; the mma.sync and FFMA kernels (bf16 at head_dim 256, f32)
-form P = exp(s · sm_scale - m) over the scaled scores with 64-key tiles
-(32 for f32 at head_dim 256). The plain version repeats whichever its operands take, so
-that the two shift P by the same running max and P's bf16 rounding
-differs only at a midpoint. The kernel skips causal tiles above the
+row with l = 0 stays 0). Where K10 runs on Hopper's wgmma (bf16,
+``on_sm90``) it keeps the running max of the raw scores and forms P =
+exp2(s · c - m · c), c = sm_scale log2 e, with 128-key tiles (64 at
+head_dim 256); the FFMA kernel (f32) forms P = exp(s · sm_scale - m)
+over the scaled scores with 64-key tiles (32 at head_dim 256). The
+plain version repeats whichever its operands take, so that the two
+shift P by the same running max and P's bf16 rounding differs only at a
+midpoint. The kernel skips causal tiles above the
 diagonal; here such a tile is wholly masked, which adds exactly nothing
 (its P is 0 and its rescale 1), so the two agree to the rounding of
 their dot products. ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``
 (together ``flash_attention_bwd_plain``) walk K11's and K12's key tiles
-(``dkv_block_k``, ``block_k``) and round P and dS where the kernels do.
+(``block_k``) and round P and dS where the kernels do.
 """
 
 import torch
@@ -57,41 +57,36 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # K10's operand types
 LOG2E = 1.4426950408889634  # K10's kLog2e, rounded to f32 there
 
 
-def on_sm90(dtype, head_dim):
-    """Whether K10, K11 and K12 run on the Hopper (wgmma, TMA) kernels for
-    these operands: bf16 at head_dim 64 and 128 (the C side's on_sm90)."""
-    return dtype == torch.bfloat16 and head_dim <= 128
-
-
-def block_k(dtype):
-    """Keys a tile of K12 and of its plain version (``_bwd_tiles``): 64 on
-    the bf16 tensor-core path, 32 on the f32 path."""
-    return 64 if dtype == torch.bfloat16 else 32
+def on_sm90(dtype):
+    """Whether K10 runs on a Hopper (wgmma, TMA) kernel for these operands:
+    bf16, at every head_dim it takes (the C side's fwd_on_sm90). K11 and
+    K12 run on their Hopper kernels for bf16 at head_dim 64 and 128 only;
+    their plain versions' tiles are ``block_k``."""
+    return dtype == torch.bfloat16
 
 
 def _f32_block_k(head_dim):
-    """Keys a tile of the f32 K10 and K11 (F32Fwd / F32Dkv): 64, or 32 at
-    head_dim 256, where two ring stages of wider tiles do not fit."""
+    """Keys a tile of the f32 K10, K11 and K12 (F32Fwd / F32Dkv / F32Dq):
+    64, or 32 at head_dim 256, where two ring stages of wider tiles do not
+    fit."""
     return 32 if head_dim > 128 else 64
 
 
-def dkv_block_k(dtype, head_dim):
-    """Keys a tile of K11's plain version: the f32 kernel's key block
-    (``_f32_block_k``), 64 for bf16 (the kernels' blocks are 64 or 128
-    keys). Each key's dK and dV rows are one product over all the
-    queries, so the width orders nothing."""
-    if dtype == torch.float32:
-        return _f32_block_k(head_dim)
-    return block_k(dtype)
+def block_k(dtype, head_dim):
+    """Keys a tile of K11's and K12's plain versions (``_bwd_tiles``): the
+    f32 kernels' (``_f32_block_k``) on the f32 path, 64 for bf16 (the
+    kernels' blocks are 64 or 128 keys; each key's dK and dV rows are one
+    product over all the queries, so the width orders nothing there)."""
+    return _f32_block_k(head_dim) if dtype == torch.float32 else 64
 
 
 def fwd_block_k(dtype, head_dim):
-    """Keys a tile of K10 and of its plain version: 128 on the Hopper
-    kernel (``on_sm90``), 64 on the mma.sync kernel (bf16 at head_dim
-    256), ``_f32_block_k`` on the f32 one."""
+    """Keys a tile of K10 and of its plain version: on the Hopper kernels
+    (``on_sm90``) 128, or 64 at head_dim 256 (flash_fwd_d256_kernel);
+    ``_f32_block_k`` on the f32 one."""
     if dtype == torch.float32:
         return _f32_block_k(head_dim)
-    return 128 if on_sm90(dtype, head_dim) else 64
+    return 128 if head_dim <= 128 else 64
 
 
 def flash_attention_plain(q, k, v, *, sm_scale=1.0, return_lse=False):
@@ -108,7 +103,7 @@ def flash_attention_plain(q, k, v, *, sm_scale=1.0, return_lse=False):
         v = torch.repeat_interleave(v, n_rep, dim=1)
     qf = q.to(torch.float32)
     kf = k.to(torch.float32)
-    sm90 = on_sm90(q.dtype, D)
+    sm90 = on_sm90(q.dtype)
     bk = fwd_block_k(q.dtype, D)
     # Hopper: raw scores, P = exp2(s c - m c); else scaled, P = exp(s - m).
     # c in f32 as the kernel forms it: f32(sm_scale) * f32(log2 e)
@@ -191,7 +186,7 @@ def flash_bwd_dkv_plain(q, k, v, lse, do, di, *, sm_scale=1.0):
     dog = _by_kv_head(do.to(torch.float32), Hkv)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
-    bk = dkv_block_k(q.dtype, q.shape[-1])
+    bk = block_k(q.dtype, q.shape[-1])
     for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale, bk):
         pr = _by_kv_head(p.to(do.dtype).to(torch.float32), Hkv)
         dsr = _by_kv_head(ds.to(do.dtype).to(torch.float32), Hkv)
@@ -207,7 +202,7 @@ def flash_bwd_dq_plain(q, k, v, lse, do, di, *, sm_scale=1.0):
     kf = k.to(torch.float32).repeat_interleave(n_rep, dim=1)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for j0, j1, _, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale,
-                                    block_k(q.dtype)):
+                                    block_k(q.dtype, q.shape[-1])):
         dq = dq + torch.matmul(ds.to(k.dtype).to(torch.float32),
                                kf[:, :, j0:j1])
     return dq.to(q.dtype)
@@ -292,7 +287,7 @@ def flash_bwd_tolerance(q, k, v, lse, do, di, dq, dk, dv, *,
     sum_dq = torch.zeros(q.shape, dtype=f32, device=q.device)
     rss_dq = torch.zeros_like(sum_dq)
     for j0, j1, p, ds in _bwd_tiles(q, k, v, lse, do, di, sm_scale,
-                                    block_k(q.dtype)):
+                                    block_k(q.dtype, D)):
         kj, vj = ka[:, :, j0:j1], va[:, :, j0:j1]
         a = ds.abs() + sm_scale * p * (
             torch.matmul(doa, vj.transpose(-1, -2)) + di.abs()[..., None])

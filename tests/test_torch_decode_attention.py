@@ -240,15 +240,18 @@ def test_flash_plain_gqa_matches_jax_flash_kernel(dtype, Hkv):
                                          (1, 4, 1, 384, 64),
                                          (1, 4, 2, 512, 128),
                                          (2, 4, 2, 256, 128),
-                                         (1, 4, 2, 256, 256)])
+                                         (1, 4, 2, 256, 256),
+                                         (1, 2, 2, 384, 256),
+                                         (1, 4, 1, 256, 256)])
 def test_flash_plain_at_k10_width_matches_jax_flash_kernel(dtype, B, H, Hkv,
                                                           S, D):
     """The plain version over several of K10's key tiles (fwd_block_k: at
-    bf16 head_dim 64/128 128 keys, three and four tiles; f32 64 keys, four
-    to eight tiles, and 32 at head_dim 256, eight; so the running max
-    moves between tiles and across the f32 kernel's 128-row q tiles), MHA
-    and GQA, against JAX's bundled kernel over jnp.repeat'ed kv heads,
-    with the tolerance of the cases above."""
+    bf16 head_dim 64/128 128 keys, three and four tiles, and 64 at
+    head_dim 256, four and six; f32 64 keys, four to eight tiles, and 32
+    at head_dim 256, eight to twelve; so the running max moves between
+    tiles and across the kernels' q tiles), MHA and GQA (also 4 -> 1 at
+    head_dim 256), against JAX's bundled kernel over jnp.repeat'ed kv
+    heads, with the tolerance of the cases above."""
     (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype, S + D + Hkv)
     rep = H // Hkv
     ref = _j_flash(jq, jnp.repeat(jk, rep, axis=1),
@@ -397,27 +400,23 @@ def test_flash_route_ignores_the_tpu_block_rule():
         for hd in TF.HEAD_DIMS:
             assert TL._flash_ok(q(S, hd, "cuda"))
     assert not TL._flash_ok(q(2048, 96, "cuda"))
-    assert TF.block_k(torch.bfloat16) == 64
-    assert TF.block_k(torch.float32) == 32
-    assert [TF.dkv_block_k(torch.float32, d)
+    assert [TF.block_k(torch.bfloat16, d) for d in TF.HEAD_DIMS] == [64] * 3
+    assert [TF.block_k(torch.float32, d)
             for d in TF.HEAD_DIMS] == [64, 64, 32]
-    assert [TF.dkv_block_k(torch.bfloat16, d)
-            for d in TF.HEAD_DIMS] == [64, 64, 64]
 
 
 def test_fwd_block_k_is_k10s_key_tile():
-    """The forward plain version's key tile is K10's: 128 keys on the
-    Hopper kernel (bf16 at head_dim 64 and 128, on_sm90), 64 on the
-    mma.sync kernel (bf16 at head_dim 256), 64 on the f32 kernel (32 at
-    head_dim 256); the backward's tiles: K12's (block_k) stays 64 / 32,
-    the f32 K11's (dkv_block_k) is K10's f32 tile."""
+    """The forward plain version's key tile is K10's: on the Hopper
+    kernels (bf16 at every head_dim, on_sm90) 128 keys, 64 at head_dim
+    256 (flash_fwd_d256_kernel); 64 on the f32 kernel (32 at head_dim
+    256); the backward's tiles (block_k): 64 for bf16, the f32 K11's and
+    K12's K10's f32 tile."""
     bf, f32 = torch.bfloat16, torch.float32
     assert [TF.fwd_block_k(bf, d) for d in TF.HEAD_DIMS] == [128, 128, 64]
     assert [TF.fwd_block_k(f32, d) for d in TF.HEAD_DIMS] == [64, 64, 32]
-    assert [TF.on_sm90(bf, d) for d in TF.HEAD_DIMS] == [True, True, False]
-    assert not any(TF.on_sm90(f32, d) for d in TF.HEAD_DIMS)
-    assert (TF.block_k(bf), TF.block_k(f32)) == (64, 32)
-    assert [TF.dkv_block_k(f32, d) for d in TF.HEAD_DIMS] == [
+    assert TF.on_sm90(bf) and not TF.on_sm90(f32)
+    assert [TF.block_k(bf, d) for d in TF.HEAD_DIMS] == [64, 64, 64]
+    assert [TF.block_k(f32, d) for d in TF.HEAD_DIMS] == [
         TF.fwd_block_k(f32, d) for d in TF.HEAD_DIMS]
 
 
@@ -457,14 +456,16 @@ def _port_grads(tq, tk, tv, do, sm_scale):
     (torch.bfloat16, 1, 2, 2, 256, 128), (torch.float32, 1, 2, 2, 128, 128),
     (torch.bfloat16, 1, 4, 2, 128, 64), (torch.float32, 1, 4, 1, 128, 64),
     (torch.float32, 1, 4, 2, 256, 128), (torch.float32, 2, 4, 2, 384, 64),
-    (torch.float32, 1, 4, 2, 128, 256)])
+    (torch.float32, 1, 4, 2, 128, 256), (torch.float32, 1, 2, 2, 384, 128),
+    (torch.float32, 1, 4, 1, 256, 256)])
 def test_flash_bwd_plain_matches_jax_flash_kernels(dtype, B, H, Hkv, S, D):
     """dQ, dK, dV of the port's flash_attention (K11/K12's plain version)
     against jax.vjp of JAX's bundled flash kernels in interpret mode, under
     jax.jit, the reference's kernel over repeated kv heads under GQA (its
-    dK, dV summed back through jnp.repeat's transpose). The f32 GQA cases
-    span four and six of the f32 K11's 64-key blocks (dkv_block_k) and,
-    at head_dim 256, four of its 32-key blocks."""
+    dK, dV summed back through jnp.repeat's transpose). The f32 cases
+    span four to six of the f32 K11's and K12's 64-key tiles (block_k)
+    and, at head_dim 256, four and eight of their 32-key tiles
+    (GQA 4 -> 2 and 4 -> 1)."""
     import jax
 
     (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype,

@@ -862,16 +862,21 @@ def test_decode_step_scanned_planes_on_the_card_matches_the_cpu(cuda):
     (2, 4, 4, 257, 64, "bshd"), (2, 4, 4, 63, 128, "bshd"),
     (1, 4, 2, 65, 128, "bhsd"), (1, 32, 8, 129, 128, "bshd"),
     (1, 32, 8, 2047, 128, "bshd"), (2, 4, 4, 127, 64, "bhsd"),
-    (1, 4, 2, 65, 256, "bshd"), (1, 4, 4, 97, 256, "bhsd")])
+    (1, 4, 2, 65, 256, "bshd"), (1, 4, 4, 97, 256, "bhsd"),
+    (2, 4, 4, 63, 256, "bshd"), (1, 4, 4, 127, 256, "bhsd"),
+    (1, 4, 2, 129, 256, "bshd"), (2, 4, 4, 257, 256, "bhsd"),
+    (1, 16, 4, 1024, 256, "bshd")])
 def test_k10_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     """K10 against flash_attention_plain on the same operands: the
     7B-shaped head dims, ragged S (100, 2047, 1, and 127 / 129 / 257 around
     the Hopper kernel's 128-row q and key tiles; 63 / 65 / 127 / 129
     around the f32 kernel's 128-row q and 64-key tiles, 65 / 97 around its
-    64-row and 32-key ones at head_dim 256), GQA 32 -> 8 (also at S =
-    2047), and both the JAX layout and the port's (B, S, H, D)
-    activations transposed as views (read through strides, no copy); a
-    second launch gives the same bits."""
+    64-row and 32-key ones at head_dim 256; 63 / 65 / 127 / 129 / 257
+    around the bf16 head_dim 256 kernel's 64-row q and key tiles), GQA
+    32 -> 8 (also at S = 2047) and 16 -> 4 at head_dim 256, and both the
+    JAX layout and the port's (B, S, H, D) activations transposed as
+    views (read through strides, no copy); a second launch gives the same
+    bits."""
     g = torch.Generator(device=cuda).manual_seed(S + D + H)
 
     def make(h):
@@ -894,11 +899,14 @@ def test_k10_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, layout):
 
 @pytest.mark.parametrize("B,H,Hkv,S,D", [(4, 32, 32, 512, 128),
                                          (2, 8, 2, 129, 64),
-                                         (1, 4, 4, 257, 128)])
+                                         (1, 4, 4, 257, 128),
+                                         (4, 16, 16, 512, 256),
+                                         (2, 8, 2, 129, 256)])
 def test_k10_lse_instantiation_matches_plain(cuda, B, H, Hkv, S, D):
     """K10's kLse instantiation through flash_attention_fwd (the training
-    forward) at the qlora path's B=4 S=512 and ragged S around the
-    128-row tiles: the output within flash_tolerance of the plain
+    forward) at the qlora path's B=4 S=512, at head_dim 256 (the
+    statistics K11/K12 at hd 256 read) and ragged S around the 128- and
+    64-row tiles: the output within flash_tolerance of the plain
     version's, each row's log-sum-exp within 2^-14 of it, one launch
     counted, and a second launch bit-equal."""
     g = torch.Generator(device=cuda).manual_seed(B + S + D)
@@ -985,14 +993,18 @@ def _bwd_operands(cuda, dtype, B, H, Hkv, S, D, layout, seed):
     (1, 4, 4, 330, 128, "bhsd"), (2, 4, 4, 63, 128, "bshd"),
     (1, 4, 2, 65, 128, "bhsd"), (1, 32, 8, 129, 128, "bshd"),
     (2, 4, 4, 127, 64, "bshd"), (1, 4, 2, 65, 256, "bhsd"),
-    (1, 8, 2, 97, 256, "bshd")])
+    (1, 8, 2, 97, 256, "bshd"), (1, 4, 4, 191, 128, "bshd"),
+    (1, 8, 2, 193, 64, "bhsd"), (2, 4, 4, 33, 256, "bhsd"),
+    (1, 4, 2, 95, 256, "bshd")])
 def test_k11_k12_kernels_match_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     """K10's log-sum-exp, K11 (dK, dV) and K12 (dQ) against their plain
     versions on the same operands (the kernels' lse and di given to both):
     ragged S (100, 2047, 130, 77, 1, and 320 / 330 against the Hopper
     kernels' 128-row q and 64-key tiles at D = 128; 63 / 65 / 127 / 129
     against the f32 kernels' 128-row q and 64-key tiles, 65 / 97 against
-    their 32-row ones at D = 256), GQA n_rep 1/2/4/8
+    their 32-row ones at D = 256; 63 / 65 / 127 / 129 / 191 / 193 against
+    the f32 K12's 64-row q and key tiles, 33 / 65 / 95 / 97 against its
+    32-row ones at D = 256), GQA n_rep 1/2/4/8
     (n_rep 4 also at S = 1024, a long walk over a kv head's query heads),
     head_dim 64/128/256, f32, both layouts. Each element within its own
     bound (flash_bwd_tolerance); lse within 2^-14 (K10's m + log l against
