@@ -119,6 +119,9 @@ Phases (every failure is recorded and the script exits 1 at the end):
                 each a step, peak memory), one step's loss and adapter
                 gradients against the plain versions, the backbone
                 bit-equal after the steps;
+     qlora256   the same at llama_7b() widths with 16 heads (head_dim
+                256, the bf16 K10-K12 kernels of that width), depth 2
+                (QLORA256_LAYERS): 2 launches of each a step;
      gptq       GPTQ conversion (quantize_llama_gptq, 4-bit g128) of a
                 seeded f32 model at llama_7b() widths, depth 2, fused
                 layers, on 128 x 2048 seeded calibration tokens: s of the
@@ -1324,14 +1327,17 @@ def k11_k12_checks(cfg, record, g):
     B=4 S=512 (the qlora path's shape) and B=1 S=2048, hd 64 and 256 at
     S=1024, ragged S = 2047 and 100, f32 at S=512, Hkv=8 at S=2048 (bf16
     and f32), the long-context record's training shape (LONGCTX_ATTN,
-    f32), and f32 at hd 64 and 256 at S=1024. Tolerance: each element
-    within its own bound
-    (flash_bwd_tolerance); on the first case and on f32 S=512 the same
-    bounds must reject planted faults
+    f32), f32 at hd 64 and 256 at S=1024, and bf16 hd 256 (H = dim /
+    256) at B=1 S=2048 (also Hkv=4), B=4 S=512 (the qlora256 path's
+    shape) and S=2047 (ragged). Tolerance: each element within its own
+    bound (flash_bwd_tolerance); on the first case, on f32 S=512 and on
+    bf16 hd 256 S=1024 the same bounds must reject planted faults
     (bwd_planted_shares: every touched row of a skipped query tile, and
     at least 95 % of those of a dS without di and of a skipped diagonal
-    tile). Kernel ms (CUDA events), device ms (graph replay), plain ms;
-    the library call is SDPA's backward (is_causal: dq, dk, dv together),
+    tile; the hd-256 kernels' q and key tiles are 64 rows, as
+    bwd_planted's tiles at hd 128). Kernel ms (CUDA events), device ms
+    (graph replay), plain ms; the library call is SDPA's backward
+    (is_causal: dq, dk, dv together),
     timed as a yardstick only (sdpa_bwd_graph_ms). A second launch of
     each kernel gives the same bits. Bounds: K11 4 and K12 3 causal-half
     products of 2 B H hd S(S+1)/2 operations at the bf16 (or f32) peak,
@@ -1350,7 +1356,11 @@ def k11_k12_checks(cfg, record, g):
              ("bf16", 1, 2047, H0, H0, hd0), ("bf16", 1, 100, H0, H0, hd0),
              ("f32", 1, 512, H0, H0, hd0), ("bf16", 1, 2048, H0, 8, hd0),
              ("f32",) + LONGCTX_ATTN, ("f32", 1, 2048, H0, 8, hd0),
-             ("f32", 1, 1024, H64, H64, 64), ("f32", 1, 1024, H256, H256, 256)]
+             ("f32", 1, 1024, H64, H64, 64), ("f32", 1, 1024, H256, H256, 256),
+             ("bf16", 1, 2048, H256, H256, 256),
+             ("bf16", 1, 2048, H256, 4, 256),
+             ("bf16", 4, 512, H256, H256, 256),
+             ("bf16", 1, 2047, H256, H256, 256)]
     warm = torch.zeros((1, 2, 128, 64), dtype=torch.bfloat16, device=dev)
     # SDPA's first capture in the process, thrown away
     sdpa_bwd_graph_ms(warm, warm, warm, warm, 0.125, False)
@@ -1394,9 +1404,12 @@ def k11_k12_checks(cfg, record, g):
         if not same:
             fail("K11/K12 {}: a second launch gives other bits".format(tag))
         del again
-        planted = {(4, 512, H0, H0): "k11_k12_planted_faults",
-                   (1, 512, H0, H0): "k11_k12_planted_faults_f32"}.get(
-                       (B, S, H, Hkv))
+        planted = {("bf16", 4, 512, H0, H0, hd0): "k11_k12_planted_faults",
+                   ("f32", 1, 512, H0, H0, hd0):
+                       "k11_k12_planted_faults_f32",
+                   ("bf16", 1, 1024, H256, H256, 256):
+                       "k11_k12_planted_faults_hd256"}.get(
+                           (kind, B, S, H, Hkv, D))
         if planted:
             shares = bwd_planted_shares(q, k, v, lse, do, di,
                                         (pdq, pdk, pdv), (tq, tk, tv), scale)
@@ -2859,9 +2872,24 @@ def _lora_grads(lora):
                       sorted(lora) for n in ("lora_A", "lora_B")])
 
 
-def qlora_path(cfg):
-    """Phase 4, path qlora (this slice's main path): QLoRA training at
-    llama_7b() widths and 32 layers. The frozen backbone is random INT4-g128
+QLORA256_LAYERS = 2  # qlora256's depth
+
+
+def qlora256_cfg():
+    """llama_7b() widths with 16 query and kv heads, so head_dim 256, at
+    depth QLORA256_LAYERS: the configuration that runs K10-K12 at head_dim
+    256 (both packages' LlamaConfig derive head_dim as dim / n_heads)."""
+    import dataclasses
+    from sparsebit_tpu_torch.llm.llama import llama_7b
+
+    return dataclasses.replace(llama_7b(), n_heads=16, n_kv_heads=16,
+                               n_layers=QLORA256_LAYERS)
+
+
+def qlora_path(cfg, name="qlora"):
+    """Phase 4, path ``name`` (qlora: this slice's main path; qlora256 on
+    qlora256_cfg()): QLoRA training at cfg's widths and depth (llama_7b(),
+    32 layers, for qlora). The frozen backbone is random INT4-g128
     in the checkpoint layout (unfused column-plane linears, f32 qparams,
     impl "auto", a bf16 head; ``unit`` scales, so that activations stay
     O(1) and gradients reach through every attention), wrapped by
@@ -2871,13 +2899,13 @@ def qlora_path(cfg):
     (g @ dequant(W)^T) and prepare_train's int8 one, runs:
       1. a warm-up loss and backward with every K11/K12 call held to the
          plain versions on the operands the path gave it (bwd_held,
-         flash_bwd_tolerance), 32 each;
+         flash_bwd_tolerance), one each a layer;
       2. QLORA_STEPS timed qlora_train_steps, every kernel count set to 0
          just before each and read just after: wall s split into forward,
          backward and the optimiser step, tokens/s, K10/K11/K12 device
-         ms (CUDA events around each launch) and launches (32 each a
-         step), peak memory above the resident weights, adapters and
-         optimiser state, the loss of each step;
+         ms (CUDA events around each launch) and launches (one each a
+         layer a step), peak memory above the resident weights, adapters
+         and optimiser state, the loss of each step;
       3. the adapters' gradients at the trained state on the kernels and
          with K10/K11/K12 routed to their plain versions (plain_flash):
          loss within 1e-3 relative, gradients within QLORA_GRAD_TOL's
@@ -2900,7 +2928,7 @@ def qlora_path(cfg):
     timer = KernelEvents()
     out = {}
     for mode in ("dense", "int8"):
-        tag = "qlora {}".format(mode)
+        tag = "{} {}".format(name, mode)
         t0 = time.perf_counter()
         p = params if mode == "dense" else Q.prepare_train(params)
         torch.cuda.synchronize()
@@ -8084,6 +8112,9 @@ def main(argv):
     paths.update(qlora_path(cfg))
     print("qlora path {:.1f} s".format(time.perf_counter() - t0))
     t0 = time.perf_counter()
+    paths.update(qlora_path(qlora256_cfg(), "qlora256"))
+    print("qlora256 path {:.1f} s".format(time.perf_counter() - t0))
+    t0 = time.perf_counter()
     paths.update(gptq_path(cfg))
     print("gptq path {:.1f} s".format(time.perf_counter() - t0))
     t0 = time.perf_counter()
@@ -8120,7 +8151,8 @@ def main(argv):
     # "a8"), K2/K3 on the unfused route, K1, K4 and K9 on the K4 engine,
     # K4's plane mode on the planes path, K10 on the 2048-token cold
     # prefill, K11 and K12 on QLoRA training (the dense backward's 4 steps);
-    # the f32 rows at the long-context record's shape on path longctx
+    # the f32 rows at the long-context record's shape on path longctx, the
+    # bf16 head_dim-256 rows of K10-K12 on qlora256's dense steps
     where = {"K2": "unfused", "K3": "unfused", "K5": "generate B=8 greedy",
              "K6": "chunk", "K7": "mixed impl=auto depth 4",
              "K8": "generate B=8 greedy", "K4p": "planes B=8",
@@ -8133,6 +8165,9 @@ def main(argv):
         if r["shape"].endswith("B={} S={} H={} Hkv={} hd={}".format(
                 *LONGCTX_ATTN)):
             r["path"] = "longctx"  # the record's training attention
+        if r["kernel"] in ("K10", "K11", "K12") and r["shape"].startswith(
+                "bf16") and r["shape"].endswith("hd=256"):
+            r["path"] = "qlora256 dense"
         r["launches"] = paths[r["path"]]["launches"][r["kernel"]]
     print(json.dumps({"kernels": results, "paths": paths, "probes": probes,
                       "card": card}), flush=True)

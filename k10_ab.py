@@ -22,8 +22,9 @@ and times, on the same seeded operands:
     B=4 S=512 H=16;
   - with ``--bwd``, also K11 (``flash_attention_dkv``) and K12
     (``flash_attention_dq``) at k11_k12_checks' first 8 shapes, at the
-    two f32 shapes above and at f32 S=1024 head_dim 64 (H=64) and 256
-    (H=16), over the tree's own K10 log-sum-exp.
+    two f32 shapes above, at f32 S=1024 head_dim 64 (H=64) and 256
+    (H=16) and at bf16 head_dim 256 H=16 B=1 S=2048 (also Hkv=4), B=4
+    S=512 and S=2047, over the tree's own K10 log-sum-exp.
 With ``--k2k3`` it times the decode kernels of the unfused scanned route
 instead, at chip_smoke.py phase 2's shapes (K2_CASES, K3_ROWS): K2
 (``decode_attention_update``) over 8 cache layers cycled, K3
@@ -66,7 +67,9 @@ CASES = [("bf16", 1, 2048, 32, 32, 128), ("bf16", 8, 512, 32, 32, 128),
          ("bf16 lse", 4, 512, 16, 16, 256)]
 BWD_CASES = [("bf16", 4, 512, 32, 32, 128)] + CASES[:1] + CASES[2:8] + [
     ("f32", 4, 2047, 4, 4, 128), ("f32", 1, 2048, 32, 32, 128),
-    ("f32", 1, 1024, 64, 64, 64), ("f32", 1, 1024, 16, 16, 256)]
+    ("f32", 1, 1024, 64, 64, 64), ("f32", 1, 1024, 16, 16, 256),
+    ("bf16", 1, 2048, 16, 16, 256), ("bf16", 1, 2048, 16, 4, 256),
+    ("bf16", 4, 512, 16, 16, 256), ("bf16", 1, 2047, 16, 16, 256)]
 
 
 # K2: (B, S, H, Hkv, D, lengths); K3: rows at LLaMA-7B widths

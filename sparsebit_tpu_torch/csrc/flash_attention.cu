@@ -114,17 +114,18 @@
 // k, v, dO and the gradients read or written once: at S = 2048, D = 128
 // ~4x the bytes' time, at S = 512 near balance. So the design feeds the
 // tensor cores at Hopper's rate (sm_90a, flash_sm90.cuh):
-//   - wgmma, warp-specialised: a block is two consumer warpgroups (64
-//     rows each) and one producer warp whose lane 0 issues TMA copies of
-//     128-byte-swizzled 64-row tiles (4-D tensor maps over the strided
-//     (B, H, S, D) views; rows past S read as zeros and are not stored)
-//     into a ring of 3 stages (4 at D = 64) with full/empty mbarriers;
+//   - wgmma, warp-specialised: at D = 64 and 128 a block is two consumer
+//     warpgroups (64 rows each) and one producer warp whose lane 0 issues
+//     TMA copies of 128-byte-swizzled 64-row tiles (4-D tensor maps over
+//     the strided (B, H, S, D) views; rows past S read as zeros and are
+//     not stored) into a ring of 3 stages (4 at D = 64) with full/empty
+//     mbarriers (D = 256: below);
 //   - the score products take both operands from shared memory (K-major);
-//     the gradient products take P / dS (K11: Pᵀ / dSᵀ) from registers,
-//     rounded to bf16 straight from the score accumulators, and K, dO or
-//     Q from the same ring stage read MN-major (the descriptor's
-//     transpose bit), so no tile is copied twice and nothing the scores
-//     produce goes through shared memory;
+//     at D = 64 and 128 the gradient products take P / dS (K11: Pᵀ / dSᵀ)
+//     from registers, rounded to bf16 straight from the score
+//     accumulators, and K, dO or Q from the same ring stage read MN-major
+//     (the descriptor's transpose bit), so no tile is copied twice and
+//     nothing the scores produce goes through shared memory;
 //   - P = exp2(s · sm_scale log2 e - lse log2 e) on the special-function
 //     unit, masked only on the diagonal tile (keys past S are above the
 //     diagonal of every row that is stored); dP's product runs while P is
@@ -150,10 +151,40 @@
 //     S = 2048, about two an SM; splitting the heads across blocks, with f32 sums
 //     added by a second launch, took 6 % off there and was slower at
 //     B = 4, S = 512, so it is not done.
-//   - bf16 at D = 256 keeps the first kernels (mma.sync): K11 a block per
-//     64-key tile walking every query head in order, phase A writing Pᵀ
-//     and dSᵀ to shared memory for phase B's products (at D = 256 the two
-//     sums do not fit a warpgroup's registers).
+//   - bf16 at D = 256 (flash_dkv_d256_kernel, flash_dq_d256_kernel): a
+//     64 x 256 f32 sum is 128 registers a thread over one warpgroup, so
+//     the sums are split by columns over warpgroups, and the two score
+//     products of a 64 x 64 tile over two warpgroups: one forms S = Q Kᵀ
+//     and P (m64n64, 32 registers), the other dP = dO Vᵀ and dS = (dP -
+//     di) P · scale, P crossing in f32 through shared memory (16 KB; each
+//     thread stores its fragment where the same thread of the other
+//     warpgroup holds dP's, float4 stores and loads without conflicts).
+//     P and dS go in bf16 into [query][key] panels (one 128-byte-swizzled
+//     panel each) that the gradient products read from shared memory:
+//     K12 reads dS as A (K-major), K11 reads P and dS as Pᵀ and dSᵀ (the
+//     descriptor's transpose bit on A), so nothing is transposed by hand.
+//     Each warpgroup issues its gradient product of a tile after its next
+//     tile's score product and waits for it after that one, so the two
+//     warpgroups' products, their exp2 and dS arithmetic and the hand-over
+//     overlap. The score products read 128 KB of shared memory a tile
+//     (m64n64, 4 KB a k-step); both warpgroups scoring 32 keys each with
+//     both products (m64n32, 3 KB a k-step, Q and dO read twice: 192 KB)
+//     ran 15-20 % slower (PERF.md, PR 24). Both kernels are persistent:
+//     one block an SM walks causal pairs of tiles (n + 1 tiles of work
+//     each), so the next job's copies overlap this job's last tile and
+//     its stores instead of a block launch's start. K12: jobs are 64-row q
+//     tiles of a (head, batch row), 288 threads, Q and dO resident (64 KB)
+//     beside rings of two 64-key K and V stages that run on from job to
+//     job (V released after dP, K after both dQ products), two dS buffers
+//     and P's: 225 KB; each warpgroup adds dS K into 128 of dQ's columns
+//     (64 registers). K11: jobs are 64-key tiles of a (kv head, batch
+//     row), three consumer warpgroups and no producer warp (384 threads
+//     keep 168 registers a thread; a fourth warp would cut them to 128):
+//     K and V resident, rings of two Q and two dO stages that the third
+//     warpgroup's first thread refills, one P (bf16, f32) and one dS
+//     buffer, 225 KB; the two scoring warpgroups add Pᵀ dO into dV's
+//     halves (64 registers each), the third dSᵀ Q into all of dK
+//     (m64n256, 128 registers).
 //   - f32 (FFMA, as K10's f32 forward): K11 (flash_dkv_f32_kernel) a block
 //     of 256 threads per 64-key tile (32 at D = 256) walking the q tiles
 //     from the diagonal down over every query head in order, Q, dO, lse
@@ -183,8 +214,6 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
@@ -208,7 +237,7 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // Rows [row0, row0 + ROWS) of a (S, D) slab with row stride ss into a
 // swizzled tile by a block of NT threads; rows past S are zero-filled.
-template <typename T, int D, int ROWS, int NT = kThreads>
+template <typename T, int D, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss,
                                           int row0, int S) {
   constexpr int per = 16 / sizeof(T);
@@ -221,33 +250,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ss,
     sbt::copy_chunk(dst + swz<D, per>(r, c),
                     reinterpret_cast<const uint8_t*>(g), 16, ok);
   }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -496,7 +498,7 @@ cudaError_t set_smem(size_t smem) {
 
 template <auto Kernel, typename A>
 cudaError_t launch(size_t smem, dim3 grid, const A& a, cudaStream_t st,
-                   int threads = kThreads) {
+                   int threads) {
   const cudaError_t e = set_smem<Kernel>(smem);
   if (e != cudaSuccess) return e;
   Kernel<<<grid, threads, smem, st>>>(a);
@@ -531,341 +533,6 @@ struct BwdArgs {
   float sm_scale;
   int B, Hkv;  // read by the f32 K11's linear grid
 };
-
-// Per-row statistics of a q tile (lse, di) into shared memory; rows past S
-// read as 0 (they are masked).
-template <int ROWS, int NT>
-__device__ __forceinline__ void load_rows(float* dst_l, float* dst_d,
-                                          const float* l, const float* d,
-                                          int row0, int S) {
-  for (int i = threadIdx.x; i < ROWS; i += NT) {
-    const bool ok = row0 + i < S;
-    dst_l[i] = ok ? l[row0 + i] : 0.f;
-    dst_d[i] = ok ? d[row0 + i] : 0.f;
-  }
-}
-
-// K11, bf16 at D = 256 (below it flash_dkv_sm90_kernel). A block per
-// (64-key tile, kv head, batch row). Warp (kw, ds) of 4 x DS owns keys [16 kw, 16 kw + 16) of the tile; for each q tile
-// (64 rows) it scores queries [QW ds, QW ds + QW) against its keys (phase
-// A: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, P and dS rounded to bf16 into shared
-// memory), then, after a barrier, adds Pᵀ dO and dSᵀ Q into its keys'
-// output columns [DC ds, DC ds + DC) (phase B). dK and dV stay in
-// registers over every q tile of every query head of the kv head.
-template <int D>
-struct DkvTile {
-  static_assert(D == 256, "bf16 below D = 256 runs flash_dkv_sm90_kernel");
-  static constexpr int BN = 64, BM = 64;
-  static constexpr int DS = 2;  // column groups
-  static constexpr int DC = D / DS, QW = BM / DS;
-  static constexpr int kThreadsB = 128 * DS;
-  static constexpr size_t kSmem =
-      static_cast<size_t>(2 * BN + 4 * BM) * D * sizeof(__nv_bfloat16) +
-      static_cast<size_t>(2 * BN * BM) * sizeof(__nv_bfloat16) +
-      4 * BM * sizeof(float);
-};
-
-template <int D>
-__global__ void __launch_bounds__(DkvTile<D>::kThreadsB)
-    flash_dkv_bf16_kernel(const BwdArgs a) {
-  using T = __nv_bfloat16;
-  using C = DkvTile<D>;
-  constexpr int BN = C::BN, BM = C::BM, DC = C::DC, QW = C::QW,
-                NT = C::kThreadsB;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sk = reinterpret_cast<T*>(smem_raw);  // [BN][D]
-  T* sv = sk + BN * D;                     // [BN][D]
-  T* sq = sv + BN * D;                     // [2][BM][D]
-  T* sdo = sq + 2 * BM * D;                // [2][BM][D]
-  T* sp = sdo + 2 * BM * D;                // [BN][BM]: Pᵀ
-  T* sds = sp + BN * BM;                   // [BN][BM]: dSᵀ
-  float* sl = reinterpret_cast<float*>(sds + BN * BM);  // [2][BM]
-  float* sdi = sl + 2 * BM;                              // [2][BM]
-
-  const int jt = blockIdx.x;  // the heaviest key tiles (most q tiles) first
-  const int hk = blockIdx.y, b = blockIdx.z, H = gridDim.y * a.n_rep;
-  const int S = a.S, j0 = jt * BN;
-  const int n_qt = (S + BM - 1) / BM, per_head = n_qt - jt;
-  const int n_it = a.n_rep * per_head;
-  const T* kg = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[1];
-  const T* vg = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-
-  auto issue = [&](int it, int buf) {  // q tile `it` of the loop into buf
-    const int h = hk * a.n_rep + it / per_head;
-    const int q0 = (jt + it % per_head) * BM;
-    const T* qg = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
-    const T* dg = static_cast<const T*>(a.dO) + b * a.dos[0] + h * a.dos[1];
-    load_tile<T, D, BM, NT>(sq + buf * BM * D, qg, a.qs[2], q0, S);
-    load_tile<T, D, BM, NT>(sdo + buf * BM * D, dg, a.dos[2], q0, S);
-    const long long row = (static_cast<long long>(b) * H + h) * S;
-    load_rows<BM, NT>(sl + buf * BM, sdi + buf * BM, a.lse + row,
-                      a.di + row, q0, S);
-  };
-
-  load_tile<T, D, BN, NT>(sk, kg, a.ks[2], j0, S);
-  load_tile<T, D, BN, NT>(sv, vg, a.vs[2], j0, S);
-  issue(0, 0);
-  sbt::cp_commit();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kw = warp & 3, ds = warp >> 2;
-  const int g = lane >> 2, t = lane & 3, mi = lane >> 3;
-  const int krow = kw * 16;  // the warp's first key in the tile
-  float dk[DC / 8][4], dv[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      issue(it + 1, buf ^ 1);
-      sbt::cp_commit();
-      sbt::cp_wait<1>();
-    } else {
-      sbt::cp_wait<0>();
-    }
-    __syncthreads();
-    const int qt = jt + it % per_head, q0 = qt * BM;
-    const T* qt_s = sq + buf * BM * D;
-    const T* dt_s = sdo + buf * BM * D;
-    const float* lt = sl + buf * BM;
-    const float* dit = sdi + buf * BM;
-
-    // phase A: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ for 16 keys x QW queries
-    float s[QW / 8][4], dp[QW / 8][4];
-#pragma unroll
-    for (int i = 0; i < QW / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, sk + swz<D, 8>(krow + (lane & 15), 2 * kk + (lane >> 4)));
-      ldsm_x4(va, sv + swz<D, 8>(krow + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-      for (int nt = 0; nt < QW / 8; nt += 2) {
-        const int r = ds * QW + nt * 8 + (mi >> 1) * 8 + (lane & 7);
-        uint32_t bq[4], bd[4];
-        ldsm_x4(bq, qt_s + swz<D, 8>(r, 2 * kk + (mi & 1)));
-        ldsm_x4(bd, dt_s + swz<D, 8>(r, 2 * kk + (mi & 1)));
-        mma_bf16(s[nt], ka, bq[0], bq[1]);
-        mma_bf16(s[nt + 1], ka, bq[2], bq[3]);
-        mma_bf16(dp[nt], va, bd[0], bd[1]);
-        mma_bf16(dp[nt + 1], va, bd[2], bd[3]);
-      }
-    }
-    const bool need_mask = qt == jt || q0 + BM > S;
-#pragma unroll
-    for (int nt = 0; nt < QW / 8; ++nt) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + krow + g + (e >> 1) * 8;
-        const int col = ds * QW + nt * 8 + 2 * t + (e & 1);
-        const int qry = q0 + col;
-        float p = 0.f;
-        if (!need_mask || (key <= qry && qry < S))
-          p = expf(s[nt][e] * a.sm_scale - lt[col]);
-        pv[e] = p;
-        dsv[e] = (dp[nt][e] - dit[col]) * p * a.sm_scale;
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = krow + g + 8 * r;
-        const int c8 = ds * (QW / 8) + nt;
-        *reinterpret_cast<uint32_t*>(sp + swz<BM, 8>(row, c8) + 2 * t) =
-            pack_bf16(pv[2 * r], pv[2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(sds + swz<BM, 8>(row, c8) + 2 * t) =
-            pack_bf16(dsv[2 * r], dsv[2 * r + 1]);
-      }
-    }
-    __syncthreads();
-
-    // phase B: dV += Pᵀ dO, dK += dSᵀ Q on the warp's DC columns
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      ldsm_x4(pa, sp + swz<BM, 8>(krow + (lane & 15), 2 * kk + (lane >> 4)));
-      ldsm_x4(sa, sds + swz<BM, 8>(krow + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-      for (int dt = 0; dt < DC / 8; dt += 2) {
-        const int r = kk * 16 + (mi & 1) * 8 + (lane & 7);
-        const int c8 = ds * (DC / 8) + dt + (mi >> 1);
-        uint32_t bo[4], bq[4];
-        ldsm_x4_t(bo, dt_s + swz<D, 8>(r, c8));
-        ldsm_x4_t(bq, qt_s + swz<D, 8>(r, c8));
-        mma_bf16(dv[dt], pa, bo[0], bo[1]);
-        mma_bf16(dv[dt + 1], pa, bo[2], bo[3]);
-        mma_bf16(dk[dt], sa, bq[0], bq[1]);
-        mma_bf16(dk[dt + 1], sa, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // buf and the P/dS tiles are refilled next
-  }
-
-  T* dkg = static_cast<T*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
-  T* dvg = static_cast<T*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = j0 + krow + g + 8 * r;
-    if (key >= S) continue;
-#pragma unroll
-    for (int dt = 0; dt < DC / 8; ++dt) {
-      const int col = ds * DC + dt * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dkg + key * a.dks[2] + col) =
-          pack_bf16(dk[dt][2 * r], dk[dt][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvg + key * a.dvs[2] + col) =
-          pack_bf16(dv[dt][2 * r], dv[dt][2 * r + 1]);
-    }
-  }
-}
-
-// K12, bf16 at D = 256 (below it flash_dq_sm90_kernel): K10's shape. A
-// block per (64-row q tile, head, batch row),
-// four warps of 16 q rows; K/V tiles double-buffered; per key chunk of KN
-// keys S = Q Kᵀ and dP = dO Vᵀ, dS in registers rounded to bf16 as the A
-// operand of dQ += dS K (K through ldmatrix.trans).
-template <int D>
-struct DqTile {
-  static_assert(D == 256, "bf16 below D = 256 runs flash_dq_sm90_kernel");
-  static constexpr int BM = 64, BN = 64;
-  static constexpr int KN = 32;  // keys a register chunk
-  static constexpr size_t kSmem =
-      static_cast<size_t>(2 * BM + 4 * BN) * D * sizeof(__nv_bfloat16);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_bf16_kernel(const BwdArgs a) {
-  using T = __nv_bfloat16;
-  using C = DqTile<D>;
-  constexpr int BM = C::BM, BN = C::BN, KN = C::KN, DT = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);  // [BM][D]
-  T* sdo = sq + BM * D;                    // [BM][D]
-  T* sk = sdo + BM * D;                    // [2][BN][D]
-  T* sv = sk + 2 * BN * D;                 // [2][BN][D]
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.n_rep;
-  const int S = a.S, q0 = qt * BM;
-  const T* qg = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[1];
-  const T* dg = static_cast<const T*>(a.dO) + b * a.dos[0] + h * a.dos[1];
-  const T* kg = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[1];
-  const T* vg = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[1];
-  const int n_all = (S + BN - 1) / BN;
-  const int n_kt = min(qt + 1, n_all);
-
-  load_tile<T, D, BM>(sq, qg, a.qs[2], q0, S);
-  load_tile<T, D, BM>(sdo, dg, a.dos[2], q0, S);
-  load_tile<T, D, BN>(sk, kg, a.ks[2], 0, S);
-  load_tile<T, D, BN>(sv, vg, a.vs[2], 0, S);
-  sbt::cp_commit();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, mi = lane >> 3;
-  const int wrow = warp * 16;
-  const long long srow = (static_cast<long long>(b) * gridDim.y + h) * S;
-  float lse[2], di[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wrow + g + 8 * r;
-    lse[r] = row < S ? a.lse[srow + row] : 0.f;
-    di[r] = row < S ? a.di[srow + row] : 0.f;
-  }
-  float dq[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kt) {
-      load_tile<T, D, BN>(sk + (buf ^ 1) * BN * D, kg, a.ks[2], (j + 1) * BN,
-                          S);
-      load_tile<T, D, BN>(sv + (buf ^ 1) * BN * D, vg, a.vs[2], (j + 1) * BN,
-                          S);
-      sbt::cp_commit();
-      sbt::cp_wait<1>();
-    } else {
-      sbt::cp_wait<0>();
-    }
-    __syncthreads();
-    const T* kt = sk + buf * BN * D;
-    const T* vt = sv + buf * BN * D;
-    const bool need_mask = j == qt || (j + 1) * BN > S;
-
-#pragma unroll
-    for (int kc = 0; kc < BN; kc += KN) {
-      float s[KN / 8][4], dp[KN / 8][4];
-#pragma unroll
-      for (int i = 0; i < KN / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4], oa[4];
-        ldsm_x4(qa, sq + swz<D, 8>(wrow + (lane & 15), 2 * kk + (lane >> 4)));
-        ldsm_x4(oa, sdo + swz<D, 8>(wrow + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-        for (int nt = 0; nt < KN / 8; nt += 2) {
-          const int r = kc + nt * 8 + (mi >> 1) * 8 + (lane & 7);
-          uint32_t bk[4], bv[4];
-          ldsm_x4(bk, kt + swz<D, 8>(r, 2 * kk + (mi & 1)));
-          ldsm_x4(bv, vt + swz<D, 8>(r, 2 * kk + (mi & 1)));
-          mma_bf16(s[nt], qa, bk[0], bk[1]);
-          mma_bf16(s[nt + 1], qa, bk[2], bk[3]);
-          mma_bf16(dp[nt], oa, bv[0], bv[1]);
-          mma_bf16(dp[nt + 1], oa, bv[2], bv[3]);
-        }
-      }
-      // dS = (dP - di) P · sm_scale, P = exp(s · sm_scale - lse), masked
-#pragma unroll
-      for (int nt = 0; nt < KN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = q0 + wrow + g + (e >> 1) * 8;
-          const int col = j * BN + kc + nt * 8 + 2 * t + (e & 1);
-          float p = 0.f;
-          if (!need_mask || (col < S && col <= row))
-            p = expf(s[nt][e] * a.sm_scale - lse[e >> 1]);
-          s[nt][e] = (dp[nt][e] - di[e >> 1]) * p * a.sm_scale;
-        }
-      }
-      // dQ += dS K_chunk
-#pragma unroll
-      for (int kk = 0; kk < KN / 16; ++kk) {
-        uint32_t sa[4];
-        sa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        sa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        sa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        sa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < DT; dt += 2) {
-          uint32_t bk[4];
-          ldsm_x4_t(bk, kt + swz<D, 8>(kc + kk * 16 + (mi & 1) * 8 +
-                                           (lane & 7),
-                                       dt + (mi >> 1)));
-          mma_bf16(dq[dt], sa, bk[0], bk[1]);
-          mma_bf16(dq[dt + 1], sa, bk[2], bk[3]);
-        }
-      }
-    }
-    __syncthreads();  // the buffer is refilled by the next iteration
-  }
-
-  T* dqg = static_cast<T*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + wrow + g + 8 * r;
-    if (row >= S) continue;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(dqg + row * a.dqs[2] + dt * 8 + 2 * t) =
-          pack_bf16(dq[dt][2 * r], dq[dt][2 * r + 1]);
-  }
-}
 
 // K11, f32 on FFMA, register-tiled as K10's f32 forward. A block of 256
 // threads owns a BN-key tile of one kv head and batch row (64 keys at
@@ -1338,9 +1005,11 @@ __global__ void __launch_bounds__(F32Dq<D>::NT, 1)
 // and 128, flash_fwd_d256_kernel at 256), f32 on the FFMA one.
 bool fwd_on_sm90(int dtype) { return dtype == 0; }
 
-// K11 and K12 run on the Hopper kernels for bf16 at D = 64 and 128; bf16
-// at D = 256 and f32 on the mma.sync and FFMA ones.
-bool bwd_on_sm90(int dtype, int D) { return dtype == 0 && D <= 128; }
+// K11 and K12 run on Hopper kernels for bf16 at every head_dim
+// (flash_dkv_sm90_kernel / flash_dq_sm90_kernel at D = 64 and 128,
+// flash_dkv_d256_kernel / flash_dq_d256_kernel at 256), f32 on the FFMA
+// ones.
+bool bwd_on_sm90(int dtype) { return dtype == 0; }
 
 // ---- K11 and K12 on Hopper: bf16, D = 64 or 128 --------------------------
 //
@@ -1818,21 +1487,681 @@ cudaError_t launch_bwd_sm90(bool dkv, int B, int H, int Hkv,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bwd_d(bool dkv, int dtype, int B, int H, int Hkv,
-                         const BwdArgs& a, cudaStream_t st) {
-  if (dtype == 0) {  // bf16 below D = 256 runs launch_bwd_sm90
-    if constexpr (D == 256) {
-      if (dkv) {
-        const dim3 grid((a.S + 63) / 64, Hkv, B);
-        return launch<flash_dkv_bf16_kernel<D>>(DkvTile<D>::kSmem, grid, a,
-                                                st, DkvTile<D>::kThreadsB);
-      }
-      const dim3 grid((a.S + 63) / 64, H, B);
-      return launch<flash_dq_bf16_kernel<D>>(DqTile<D>::kSmem, grid, a, st);
+// ---- K11 and K12 on Hopper: bf16, D = 256 ---------------------------------
+//
+// A 64 x 256 f32 sum is 128 registers a thread over one warpgroup, so at
+// D = 256 the sums are split by columns over two warpgroups. One of them
+// forms S = Q Kᵀ and P, the other dP = dO Vᵀ and dS (each a 64 x 64
+// tile, 32 registers), P crossing from the first to the second in f32
+// through shared memory; P and dS are written in bf16 into [query][key]
+// panels that the gradient products read from shared memory. See the
+// design note at the top of the file.
+
+struct Sm90BwdD256 {
+  static constexpr int D = 256;
+  static constexpr int kTile = 64 * D * 2;    // 64 rows of Q, K, V or dO
+  static constexpr int kPanel = 64 * 128;     // one of its 4 panels
+  static constexpr int kPTile = 64 * 64 * 2;  // a 64 x 64 bf16 P or dS
+  static constexpr int kStages = 2;           // ring depth
+  // K12: two consumer warpgroups and the producer warp; Q and dO resident,
+  // K and V in rings, dS in two buffers, P (f32) in one
+  static constexpr int kDqThreads = 2 * 128 + 32;
+  static constexpr size_t kDqSmem =
+      1024 + static_cast<size_t>(2 + 2 * kStages) * kTile + 2 * kPTile +
+      64 * 64 * 4 + (2 + 4 * kStages + 6) * 8;
+  // K11: three consumer warpgroups (the third's first thread issues the
+  // copies); K and V resident, Q and dO in rings, P (bf16 and f32) and dS
+  // in one buffer each
+  static constexpr int kDkvThreads = 3 * 128;
+  static constexpr size_t kDkvSmem =
+      1024 + static_cast<size_t>(2 + 2 * kStages) * kTile + 2 * kPTile +
+      64 * 64 * 4 + (4 + 4 * kStages + 6) * 8;
+  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448,
+                "over a block's shared memory");
+};
+
+// P = exp2(s · scale log2 e - lse log2 e) in place over a warpgroup's
+// 64 x 64 score fragment (rows warp * 16 + g (+ 8), lse2 theirs), the keys
+// above each row zeroed on the diagonal tile, and handed over in f32 at
+// the thread's own slots of `pf`, where the same thread of the other
+// warpgroup holds dP's fragment: float4 stores and loads, no conflicts.
+__device__ __forceinline__ void d256_p(float (&sc)[32],
+                                       const float (&lse2)[2], float sl2,
+                                       bool diag) {
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int rel = warp * 16 + (lane >> 2) - 2 * (lane & 3);  // row - key
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = sm::exp2_ftz(sc[4 * i + e] * sl2 - lse2[e >> 1]);
+      if (diag && 8 * i + (e & 1) > rel + 8 * (e >> 1)) p = 0.f;
+      sc[4 * i + e] = p;
     }
-    return cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ void d256_hand(float4* pf, const float (&sc)[32]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    pf[i * 128 + t] =
+        make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+}
+
+// dS = (dP - di) P · scale in place over the dP fragment, P from `pf`.
+__device__ __forceinline__ void d256_ds(float (&dp)[32], const float4* pf,
+                                        const float (&di)[2], float scale) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 p = pf[i * 128 + t];
+    const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * i + e] = (dp[4 * i + e] - di[e >> 1]) * pe[e] * scale;
   }
+}
+
+// A warpgroup's 64 x 64 f32 tile (P or dS) rounded to bf16 into a
+// [row][key] tile: one 128-byte-swizzled panel, chunk c of row r at chunk
+// c ^ (r & 7), as wgmma reads it (K-major as A, or MN-major).
+__device__ __forceinline__ void d256_put(unsigned char* tile,
+                                         const float (&x)[32]) {
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint32_t*>(tile + row * 128 + ((i ^ (row & 7)) << 4) +
+                                   4 * t4) =
+          pack_bf16(x[4 * i + 2 * r], x[4 * i + 2 * r + 1]);
+  }
+}
+
+// A 64 x N f32 sum (N = 2 NI) of a warpgroup into rows row0 + warp * 16 +
+// g (+ 8) of `out`, columns col0 + 8 i + 2 t4, rows at or past S not
+// stored.
+template <int NI>
+__device__ __forceinline__ void d256_store(__nv_bfloat16* out, long long ss,
+                                           const float (&d)[4 * NI],
+                                           int row0, int col0, int S) {
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+      *reinterpret_cast<uint32_t*>(out + row * ss + col0 + 8 * i + 2 * t4) =
+          pack_bf16(d[4 * i + 2 * r], d[4 * i + 2 * r + 1]);
+  }
+}
+
+// K12 at D = 256, persistent: grid min(units, SMs). A job is one 64-row q
+// tile of one (head, batch row); a unit is the causal pair of q tiles
+// n_qt - 1 - p and p (the middle tile of an odd n_qt alone), n_qt + 1 key
+// tiles together, so units are of one size and block c takes units c,
+// c + gridDim.x, ..., head by head (the blocks at work share a few heads'
+// K and V in L2), the heavy tile of each first. Every role walks the same
+// jobs. The producer warp's lane 0 copies each job's Q and dO once both
+// warpgroups are done with the previous job's (its last score products),
+// and the K and V tiles 0 .. the diagonal into rings of two stages each
+// that run on from job to job (V first: a V stage is released once its
+// dP product is done, a K stage once both dQ products that read it are),
+// so the next job's copies overlap this job's last tile and its dQ
+// store. Warpgroup 0 forms S = Q Kᵀ (m64n64, A and B K-major) and P =
+// exp2(s · scale log2 e - lse log2 e), masked on the diagonal tile, and
+// hands P in f32 to warpgroup 1 through shared memory (each thread's
+// fragment where the same thread of warpgroup 1 holds dP's); warpgroup 1
+// forms dP = dO Vᵀ, then dS = (dP - di) P · scale, and writes dS (bf16,
+// one swizzled [row][key] panel, two buffers). Each adds dS K into its
+// half of dQ's columns (A: the dS buffer, K-major; B: K's panels 2 w and
+// 2 w + 1, MN-major) a tile late, issued after its next scores, so the
+// two warpgroups' products and their exp2 and dS arithmetic overlap.
+__global__ void __launch_bounds__(Sm90BwdD256::kDqThreads, 1)
+    flash_dq_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const BwdArgs a) {
+  using T = __nv_bfloat16;
+  using C = Sm90BwdD256;
+  constexpr int ST = C::kStages, TL = C::kTile, PN = C::kPanel, NP = 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sq = align_1k(smem_raw);  // Q
+  unsigned char* sdo = sq + TL;            // dO
+  unsigned char* sk = sdo + TL;            // [ST] K tiles
+  unsigned char* sv = sk + ST * TL;        // [ST] V tiles
+  unsigned char* sds = sv + ST * TL;       // [2] dS tiles
+  float4* sp = reinterpret_cast<float4*>(sds + 2 * C::kPTile);  // P, f32
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sp + 8 * 128);
+  uint64_t* q_empty = q_full + 1;     // the job's score products are done
+  uint64_t* k_full = q_empty + 1;     // [ST]: a stage's K has landed
+  uint64_t* k_empty = k_full + ST;    // [ST]: its dQ products are done
+  uint64_t* v_full = k_empty + ST;    // [ST]: a stage's V has landed
+  uint64_t* v_empty = v_full + ST;    // [ST]: its dP product is done
+  uint64_t* ds_full = v_empty + ST;   // [2]: dS written
+  uint64_t* ds_empty = ds_full + 2;   // [2]: its dQ products are done
+  uint64_t* p_full = ds_empty + 2;    // P written
+  uint64_t* p_empty = p_full + 1;     // P read
+
+  const int S = a.S, n_qt = (S + 63) / 64, n_p = (n_qt + 1) / 2;
+  const int H = a.Hkv * a.n_rep, units = n_p * H * a.B;
+  if (threadIdx.x == 0) {
+    sm::mbar_init(q_full, 1);
+    sm::mbar_init(q_empty, 2 * 128);
+    for (int s = 0; s < ST; ++s) {
+      sm::mbar_init(k_full + s, 1);
+      sm::mbar_init(k_empty + s, 2 * 128);
+      sm::mbar_init(v_full + s, 1);
+      sm::mbar_init(v_empty + s, 128);
+    }
+    for (int s = 0; s < 2; ++s) {
+      sm::mbar_init(ds_full + s, 128);
+      sm::mbar_init(ds_empty + s, 2 * 128);
+    }
+    sm::mbar_init(p_full, 128);
+    sm::mbar_init(p_empty, 128);
+    sm::mbar_fence_init();
+  }
+  __syncthreads();
+  // the block's jobs in order: f(q tile, head, batch row) for each
+  auto for_jobs = [&](auto f) {
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int p = u % n_p, hb = u / n_p;
+      f(n_qt - 1 - p, hb % H, hb / H);  // the heavy tile first
+      if (p != n_qt - 1 - p) f(p, hb % H, hb / H);
+    }
+  };
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // the producer warp; one lane issues every copy
+    if (threadIdx.x == 2 * 128) {
+      sm::tma_prefetch(&tq);
+      sm::tma_prefetch(&tdo);
+      sm::tma_prefetch(&tk);
+      sm::tma_prefetch(&tv);
+      int k = 0, r = 0;  // jobs, ring position
+      for_jobs([&](int qt, int h, int b) {
+        const int hk = h / a.n_rep;
+        if (k > 0) sm::mbar_wait(q_empty, (k - 1) & 1);
+        sm::mbar_arrive_tx(q_full, 2 * TL);
+        for (int p = 0; p < NP; ++p) {
+          sm::tma_load_4d(sq + p * PN, &tq, q_full, 64 * p, 64 * qt, h, b);
+          sm::tma_load_4d(sdo + p * PN, &tdo, q_full, 64 * p, 64 * qt, h,
+                          b);
+        }
+        for (int j = 0; j <= qt; ++j, ++r) {
+          const int s = r % ST;
+          if (r >= ST) sm::mbar_wait(v_empty + s, (r / ST - 1) & 1);
+          sm::mbar_arrive_tx(v_full + s, TL);
+          for (int p = 0; p < NP; ++p)
+            sm::tma_load_4d(sv + s * TL + p * PN, &tv, v_full + s, 64 * p,
+                            64 * j, hk, b);
+          if (r >= ST) sm::mbar_wait(k_empty + s, (r / ST - 1) & 1);
+          sm::mbar_arrive_tx(k_full + s, TL);
+          for (int p = 0; p < NP; ++p)
+            sm::tma_load_4d(sk + s * TL + p * PN, &tk, k_full + s, 64 * p,
+                            64 * j, hk, b);
+        }
+        ++k;
+      });
+    }
+    return;
+  }
+
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2;
+  float dq[64];  // dQ: the thread's rows by the warpgroup's 128 columns
+  // dQ += dS K over ring position r's dS buffer and K stage (this
+  // warpgroup's panels), issued and committed
+  auto dq_product = [&](int r) {
+    const uint64_t dsd = sm::desc_k(sds + (r & 1) * C::kPTile);
+    const uint64_t dkm = sm::desc_mn<64>(sk + (r % ST) * TL + 2 * wg * PN);
+    sm::fence_regs(dq);
+    sm::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm::wgmma_ss_n128_mn(dq, dsd + sm::step_k<64>(kk),
+                           dkm + sm::step_mn(kk));
+    sm::wg_commit();
+  };
+  // position r's dQ product is done: release its stage and buffer
+  auto dq_done = [&](int r) {
+    sm::wg_wait<0>();
+    sm::fence_regs(dq);
+    sm::mbar_arrive(k_empty + r % ST);
+    sm::mbar_arrive(ds_empty + (r & 1));
+  };
+  const float sl2 = a.sm_scale * kLog2e;
+  int k = 0, r = 0;  // jobs, ring position
+  for_jobs([&](int qt, int h, int b) {
+    const int q0 = 64 * qt, n_kt = qt + 1;
+    const long long srow = (static_cast<long long>(b) * H + h) * S;
+    float st[2];  // warpgroup 0: its rows' lse log2 e; 1: their di
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + warp * 16 + g + 8 * i;
+      st[i] = row >= S ? 0.f : wg == 0 ? a.lse[srow + row] * kLog2e
+                                       : a.di[srow + row];
+    }
+    zero(dq);
+    sm::mbar_wait(q_full, k & 1);
+    if (wg == 0) {  // S and P
+      const uint64_t dqd = sm::opaque(sm::desc_k(sq));
+      for (int j = 0; j < n_kt; ++j, ++r) {
+        const int s = r % ST;
+        sm::mbar_wait(k_full + s, (r / ST) & 1);
+        float sc[32];
+        sm::fence_regs(sc);
+        const uint64_t dkd = sm::desc_k(sk + s * TL);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk)  // kk = 0 overwrites sc
+          sm::wgmma_ss_n64(sc, dqd + sm::step_k<64>(kk),
+                           dkd + sm::step_k<64>(kk), kk);
+        sm::wg_commit();
+        if (j > 0) {
+          sm::mbar_wait(ds_full + ((r - 1) & 1), ((r - 1) >> 1) & 1);
+          dq_product(r - 1);
+          sm::wg_wait<1>();  // S is in; dQ runs on
+        } else {
+          sm::wg_wait<0>();
+        }
+        sm::fence_regs(sc);
+        if (j == qt) sm::mbar_arrive(q_empty);  // the job's last S
+        d256_p(sc, st, sl2, j == qt);
+        if (r > 0) sm::mbar_wait(p_empty, (r - 1) & 1);
+        d256_hand(sp, sc);
+        sm::mbar_arrive(p_full);
+        if (j > 0) dq_done(r - 1);
+      }
+    } else {  // dP and dS
+      const uint64_t ddo = sm::opaque(sm::desc_k(sdo));
+      for (int j = 0; j < n_kt; ++j, ++r) {
+        const int s = r % ST;
+        sm::mbar_wait(v_full + s, (r / ST) & 1);
+        float dp[32];
+        sm::fence_regs(dp);
+        const uint64_t dvd = sm::desc_k(sv + s * TL);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk)  // kk = 0 overwrites dp
+          sm::wgmma_ss_n64(dp, ddo + sm::step_k<64>(kk),
+                           dvd + sm::step_k<64>(kk), kk);
+        sm::wg_commit();
+        if (j > 0) {
+          // K of position r - 1 (landed before warpgroup 0 scored it)
+          sm::mbar_wait(k_full + (r - 1) % ST, ((r - 1) / ST) & 1);
+          dq_product(r - 1);
+          sm::wg_wait<1>();  // dP is in; dQ runs on
+        } else {
+          sm::wg_wait<0>();
+        }
+        sm::fence_regs(dp);
+        sm::mbar_arrive(v_empty + s);
+        if (j == qt) sm::mbar_arrive(q_empty);  // the job's last dP
+        sm::mbar_wait(p_full, r & 1);
+        d256_ds(dp, sp, st, a.sm_scale);
+        sm::mbar_arrive(p_empty);
+        if (r >= 2) sm::mbar_wait(ds_empty + (r & 1), ((r >> 1) - 1) & 1);
+        d256_put(sds + (r & 1) * C::kPTile, dp);
+        sm::fence_async_smem();  // dS is read by both warpgroups' wgmma
+        sm::mbar_arrive(ds_full + (r & 1));
+        if (j > 0) dq_done(r - 1);
+      }
+      sm::mbar_wait(k_full + (r - 1) % ST, ((r - 1) / ST) & 1);
+    }
+    // the job's last tile's dQ product, then dQ out
+    sm::mbar_wait(ds_full + ((r - 1) & 1), ((r - 1) >> 1) & 1);
+    dq_product(r - 1);
+    dq_done(r - 1);
+    d256_store<16>(static_cast<T*>(a.dq) + b * a.dqs[0] + h * a.dqs[1],
+                   a.dqs[2], dq, q0, 128 * wg, S);
+    ++k;
+  });
+}
+
+// K11 at D = 256, persistent: grid min(units, SMs). A job is one 64-key
+// tile of one (kv head, batch row); a unit is the pair of key tiles p and
+// n - 1 - p (the middle tile of an odd n alone), n_rep (n + 1) q tiles
+// together, so units are of one size and block c takes units c,
+// c + gridDim.x, ..., the heavy key tile of each first. A job walks the
+// kv head's query heads in order, for each the q tiles from the diagonal
+// down. The third warpgroup's first thread copies each job's K and V once
+// the previous job's last S and dP products are done, and the q tiles'
+// Q and dO into rings of two stages each (Q and dO apart) that run on
+// from job to job, a tile as soon as the stage it refills is released.
+// Warpgroup 0 forms S = Q Kᵀ (m64n64, A and B K-major) and P = exp2(s ·
+// scale log2 e - lse log2 e), masked on the diagonal tile, hands P in
+// f32 to warpgroup 1 (each thread's fragment where the same thread of
+// warpgroup 1 holds dP's) and writes it in bf16 (one swizzled [row][key]
+// panel); warpgroup 1 forms dP = dO Vᵀ and dS = (dP - di) P · scale and
+// writes dS the same way. Each of the two adds Pᵀ dO into its half of
+// dV's columns (A: the P panel, MN-major; B: dO's panels 2 w and 2 w + 1,
+// MN-major) a tile late, issued after its next scores; warpgroup 2 adds
+// dSᵀ Q into all of dK (128 registers a thread). Each row's lse and di
+// are read from global memory a tile ahead.
+__global__ void __launch_bounds__(Sm90BwdD256::kDkvThreads, 1)
+    flash_dkv_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const BwdArgs a) {
+  using T = __nv_bfloat16;
+  using C = Sm90BwdD256;
+  constexpr int ST = C::kStages, TL = C::kTile, PN = C::kPanel, NP = 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sk = align_1k(smem_raw);  // K
+  unsigned char* sv = sk + TL;             // V
+  unsigned char* sq = sv + TL;             // [ST] Q tiles
+  unsigned char* sdo = sq + ST * TL;       // [ST] dO tiles
+  unsigned char* sp = sdo + ST * TL;       // P, bf16
+  unsigned char* sds = sp + C::kPTile;     // dS, bf16
+  float4* spf = reinterpret_cast<float4*>(sds + C::kPTile);  // P, f32
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(spf + 8 * 128);
+  uint64_t* k_empty = k_full + 1;   // the job's S products are done
+  uint64_t* v_full = k_empty + 1;
+  uint64_t* v_empty = v_full + 1;   // the job's dP products are done
+  uint64_t* q_full = v_empty + 1;   // [ST]: a stage's Q has landed
+  uint64_t* q_empty = q_full + ST;  // [ST]: its S and dK products are done
+  uint64_t* o_full = q_empty + ST;  // [ST]: a stage's dO has landed
+  uint64_t* o_empty = o_full + ST;  // [ST]: its dV products are done
+  uint64_t* pf_full = o_empty + ST;  // P (f32) written
+  uint64_t* pf_empty = pf_full + 1;  // P (f32) read
+  uint64_t* p_full = pf_empty + 1;   // P (bf16) written
+  uint64_t* p_empty = p_full + 1;    // its dV products are done
+  uint64_t* ds_full = p_empty + 1;   // dS written
+  uint64_t* ds_empty = ds_full + 1;  // its dK product is done
+
+  const int S = a.S, n = (S + 63) / 64, n_p = (n + 1) / 2;
+  const int H = a.Hkv * a.n_rep, units = n_p * a.Hkv * a.B;
+  if (threadIdx.x == 0) {
+    sm::mbar_init(k_full, 1);
+    sm::mbar_init(k_empty, 128);
+    sm::mbar_init(v_full, 1);
+    sm::mbar_init(v_empty, 128);
+    for (int s = 0; s < ST; ++s) {
+      sm::mbar_init(q_full + s, 1);
+      sm::mbar_init(q_empty + s, 2 * 128);
+      sm::mbar_init(o_full + s, 1);
+      sm::mbar_init(o_empty + s, 2 * 128);
+    }
+    sm::mbar_init(pf_full, 128);
+    sm::mbar_init(pf_empty, 128);
+    sm::mbar_init(p_full, 128);
+    sm::mbar_init(p_empty, 2 * 128);
+    sm::mbar_init(ds_full, 128);
+    sm::mbar_init(ds_empty, 128);
+    sm::mbar_fence_init();
+  }
+  __syncthreads();
+  // The block's jobs: job (u, half) is key tile kt_of(u, half) of kv head
+  // u / n_p % Hkv, batch row u / n_p / Hkv, while u < units; its walk is
+  // n_rep (n - kt) q tiles, tile i of query head h0 + i / (n - kt), q
+  // tile kt + i % (n - kt).
+  auto kt_of = [&](int u, int half) {
+    return half == 0 ? u % n_p : n - 1 - u % n_p;
+  };
+  auto next_job = [&](int& u, int& half) {
+    if (half == 0 && kt_of(u, 1) != kt_of(u, 0)) {
+      half = 1;
+    } else {
+      u += gridDim.x;
+      half = 0;
+    }
+  };
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // dK += dSᵀ Q over every q tile; its first thread copies
+    const bool issuer = threadIdx.x == 2 * 128;
+    // the issuer's cursor: the next tile to copy (job (iu, ih), tile ii,
+    // ring position ir) and the jobs whose K and V it has copied
+    int iu = blockIdx.x, ih = 0, ii = 0, ir = 0, ik = 0;
+    auto issue_next = [&] {
+      if (iu >= units) return;
+      const int kt = kt_of(iu, ih), hb = iu / n_p, per = n - kt;
+      const int hk = hb % a.Hkv, b = hb / a.Hkv;
+      if (ii == 0) {  // the job's K and V, once the last one's are free
+        if (ik > 0) {
+          sm::mbar_wait(k_empty, (ik - 1) & 1);
+          sm::mbar_wait(v_empty, (ik - 1) & 1);
+        }
+        sm::mbar_arrive_tx(k_full, TL);
+        sm::mbar_arrive_tx(v_full, TL);
+        for (int p = 0; p < NP; ++p) {
+          sm::tma_load_4d(sk + p * PN, &tk, k_full, 64 * p, 64 * kt, hk, b);
+          sm::tma_load_4d(sv + p * PN, &tv, v_full, 64 * p, 64 * kt, hk, b);
+        }
+        ++ik;
+      }
+      const int s = ir % ST, h = hk * a.n_rep + ii / per;
+      const int q0 = 64 * (kt + ii % per);
+      if (ir >= ST) sm::mbar_wait(q_empty + s, (ir / ST - 1) & 1);
+      sm::mbar_arrive_tx(q_full + s, TL);
+      for (int p = 0; p < NP; ++p)
+        sm::tma_load_4d(sq + s * TL + p * PN, &tq, q_full + s, 64 * p, q0, h,
+                        b);
+      if (ir >= ST) sm::mbar_wait(o_empty + s, (ir / ST - 1) & 1);
+      sm::mbar_arrive_tx(o_full + s, TL);
+      for (int p = 0; p < NP; ++p)
+        sm::tma_load_4d(sdo + s * TL + p * PN, &tdo, o_full + s, 64 * p, q0,
+                        h, b);
+      ++ir;
+      if (++ii == a.n_rep * per) {
+        ii = 0;
+        next_job(iu, ih);
+      }
+    };
+    if (issuer) {
+      sm::tma_prefetch(&tq);
+      sm::tma_prefetch(&tdo);
+      sm::tma_prefetch(&tk);
+      sm::tma_prefetch(&tv);
+      issue_next();
+      issue_next();
+    }
+    float dk[128];
+    int r = 0;  // ring position
+    for (int u = blockIdx.x, half = 0; u < units; next_job(u, half)) {
+      const int kt = kt_of(u, half), hb = u / n_p;
+      const int n_it = a.n_rep * (n - kt);
+      zero(dk);
+      for (int it = 0; it < n_it; ++it, ++r) {
+        const int s = r % ST;
+        sm::mbar_wait(q_full + s, (r / ST) & 1);
+        sm::mbar_wait(ds_full, r & 1);
+        const uint64_t dsd = sm::desc_mn<64>(sds);
+        const uint64_t dqm = sm::desc_mn<64>(sq + s * TL);
+        sm::fence_regs(dk);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm::wgmma_ss_n256_tt(dk, dsd + sm::step_mn(kk),
+                               dqm + sm::step_mn(kk));
+        sm::wg_commit();
+        sm::wg_wait<0>();
+        sm::fence_regs(dk);
+        sm::mbar_arrive(ds_empty);
+        sm::mbar_arrive(q_empty + s);
+        if (issuer) issue_next();
+      }
+      d256_store<32>(static_cast<T*>(a.dk) + (hb / a.Hkv) * a.dks[0] +
+                         (hb % a.Hkv) * a.dks[1],
+                     a.dks[2], dk, 64 * kt, 0, S);
+    }
+    return;
+  }
+
+  // warpgroups 0 (S, P) and 1 (dP, dS): dV's columns [128 wg, 128 wg +
+  // 128)
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2;
+  float dv[64];
+  // dV += Pᵀ dO over ring position r's dO stage (this warpgroup's
+  // panels), issued and committed
+  auto dv_product = [&](int r) {
+    const uint64_t dpm = sm::desc_mn<64>(sp);
+    const uint64_t dom = sm::desc_mn<64>(sdo + (r % ST) * TL + 2 * wg * PN);
+    sm::fence_regs(dv);
+    sm::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm::wgmma_ss_n128_tt(dv, dpm + sm::step_mn(kk), dom + sm::step_mn(kk));
+    sm::wg_commit();
+  };
+  // position r's dV product is done: release its dO stage and P
+  auto dv_done = [&](int r) {
+    sm::wg_wait<0>();
+    sm::fence_regs(dv);
+    sm::mbar_arrive(o_empty + r % ST);
+    sm::mbar_arrive(p_empty);
+  };
+  const float sl2 = a.sm_scale * kLog2e;
+  int r = 0, k = 0;  // ring position, jobs
+  for (int u = blockIdx.x, half = 0; u < units; next_job(u, half), ++k) {
+    const int kt = kt_of(u, half), hb = u / n_p, per = n - kt;
+    const int hk = hb % a.Hkv, b = hb / a.Hkv, n_it = a.n_rep * per;
+    // warpgroup 0: the thread's two rows' lse log2 e in tile `it`; 1:
+    // their di
+    auto stats = [&](int it, float (&x)[2]) {
+      const long long srow =
+          (static_cast<long long>(b) * H + hk * a.n_rep + it / per) * S;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = 64 * (kt + it % per) + warp * 16 + g + 8 * i;
+        x[i] = row >= S ? 0.f : wg == 0 ? a.lse[srow + row] * kLog2e
+                                        : a.di[srow + row];
+      }
+    };
+    float st[2];
+    stats(0, st);
+    zero(dv);
+    if (wg == 0) {  // S and P
+      sm::mbar_wait(k_full, k & 1);
+      const uint64_t dkd = sm::opaque(sm::desc_k(sk));
+      for (int it = 0; it < n_it; ++it, ++r) {
+        const int s = r % ST;
+        float nst[2] = {0.f, 0.f};  // the next tile's
+        if (it + 1 < n_it) stats(it + 1, nst);
+        sm::mbar_wait(q_full + s, (r / ST) & 1);
+        float sc[32];
+        sm::fence_regs(sc);
+        const uint64_t dqd = sm::desc_k(sq + s * TL);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk)  // kk = 0 overwrites sc
+          sm::wgmma_ss_n64(sc, dqd + sm::step_k<64>(kk),
+                           dkd + sm::step_k<64>(kk), kk);
+        sm::wg_commit();
+        if (it > 0) {
+          sm::mbar_wait(o_full + (r - 1) % ST, ((r - 1) / ST) & 1);
+          dv_product(r - 1);
+          sm::wg_wait<1>();  // S is in; dV runs on
+        } else {
+          sm::wg_wait<0>();
+        }
+        sm::fence_regs(sc);
+        sm::mbar_arrive(q_empty + s);
+        if (it == n_it - 1) sm::mbar_arrive(k_empty);  // the job's last S
+        d256_p(sc, st, sl2, it % per == 0);
+        if (r > 0) sm::mbar_wait(pf_empty, (r - 1) & 1);
+        d256_hand(spf, sc);
+        sm::mbar_arrive(pf_full);
+        if (it > 0) dv_done(r - 1);
+        // both dV products of position r - 1 are done with P
+        if (r > 0) sm::mbar_wait(p_empty, (r - 1) & 1);
+        d256_put(sp, sc);
+        sm::fence_async_smem();  // P is read by both warpgroups' wgmma
+        sm::mbar_arrive(p_full);
+        st[0] = nst[0];
+        st[1] = nst[1];
+      }
+    } else {  // dP and dS
+      sm::mbar_wait(v_full, k & 1);
+      const uint64_t dvd = sm::opaque(sm::desc_k(sv));
+      for (int it = 0; it < n_it; ++it, ++r) {
+        const int s = r % ST;
+        float nst[2] = {0.f, 0.f};  // the next tile's
+        if (it + 1 < n_it) stats(it + 1, nst);
+        sm::mbar_wait(o_full + s, (r / ST) & 1);
+        float dp[32];
+        sm::fence_regs(dp);
+        const uint64_t ddo = sm::desc_k(sdo + s * TL);
+        sm::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk)  // kk = 0 overwrites dp
+          sm::wgmma_ss_n64(dp, ddo + sm::step_k<64>(kk),
+                           dvd + sm::step_k<64>(kk), kk);
+        sm::wg_commit();
+        if (it > 0) {
+          sm::mbar_wait(p_full, (r - 1) & 1);
+          dv_product(r - 1);
+        }
+        sm::wg_wait<0>();  // dP, and the previous tile's dV product
+        sm::fence_regs(dp);
+        if (it == n_it - 1) sm::mbar_arrive(v_empty);  // the job's last dP
+        if (it > 0) dv_done(r - 1);
+        sm::mbar_wait(pf_full, r & 1);
+        d256_ds(dp, spf, st, a.sm_scale);
+        sm::mbar_arrive(pf_empty);
+        if (r > 0) sm::mbar_wait(ds_empty, (r - 1) & 1);
+        d256_put(sds, dp);
+        sm::fence_async_smem();  // dS is read by warpgroup 2's wgmma
+        sm::mbar_arrive(ds_full);
+        st[0] = nst[0];
+        st[1] = nst[1];
+      }
+      sm::mbar_wait(p_full, (r - 1) & 1);
+    }
+    // the job's last tile's dV product, then dV out
+    sm::mbar_wait(o_full + (r - 1) % ST, ((r - 1) / ST) & 1);
+    dv_product(r - 1);
+    dv_done(r - 1);
+    d256_store<16>(static_cast<T*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1],
+                   a.dvs[2], dv, 64 * kt, 128 * wg, S);
+  }
+}
+
+// K11 (dkv) or K12 at D = 256 on the Hopper kernels: the four operands'
+// tensor maps (64-row boxes), then the launch on a linear grid.
+cudaError_t launch_bwd_d256(bool dkv, int B, int H, int Hkv,
+                            const BwdArgs& a, cudaStream_t st) {
+  using C = Sm90BwdD256;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!sm::tensor_map_bhsd(&tq, a.q, B, H, a.S, C::D, a.qs, 64) ||
+      !sm::tensor_map_bhsd(&tk, a.k, B, Hkv, a.S, C::D, a.ks, 64) ||
+      !sm::tensor_map_bhsd(&tv, a.v, B, Hkv, a.S, C::D, a.vs, 64) ||
+      !sm::tensor_map_bhsd(&tdo, a.dO, B, H, a.S, C::D, a.dos, 64))
+    return cudaErrorInvalidValue;
+  // one block an SM, or one a unit (a pair of tiles) where there are fewer
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long units =
+      static_cast<long long>((a.S + 127) / 128) * (dkv ? Hkv : H) * B;
+  const dim3 grid(static_cast<unsigned>(std::min<long long>(units, n_sm)));
+  if (!dkv) {
+    if ((e = set_smem<flash_dq_d256_kernel>(C::kDqSmem)) != cudaSuccess)
+      return e;
+    flash_dq_d256_kernel<<<grid, C::kDqThreads, C::kDqSmem, st>>>(
+        tq, tk, tv, tdo, a);
+    return cudaGetLastError();
+  }
+  if ((e = set_smem<flash_dkv_d256_kernel>(C::kDkvSmem)) != cudaSuccess)
+    return e;
+  flash_dkv_d256_kernel<<<grid, C::kDkvThreads, C::kDkvSmem, st>>>(
+      tq, tk, tv, tdo, a);
+  return cudaGetLastError();
+}
+
+// K11 (dkv) or K12 on the FFMA kernels (f32).
+template <int D>
+cudaError_t launch_bwd_f32(bool dkv, int B, int H, int Hkv,
+                           const BwdArgs& a, cudaStream_t st) {
   if (dkv) {
     using C = F32Dkv<D>;
     const dim3 grid(static_cast<unsigned>((a.S + C::BN - 1) / C::BN) * Hkv *
@@ -2550,12 +2879,13 @@ bool bwd_args(BwdArgs& a, const void* q, const void* k, const void* v,
 
 cudaError_t launch_bwd(bool dkv, int dtype, int B, int H, int Hkv, int D,
                        const BwdArgs& a, cudaStream_t st) {
-  if (bwd_on_sm90(dtype, D))
-    return D == 64 ? launch_bwd_sm90<64>(dkv, B, H, Hkv, a, st)
-                   : launch_bwd_sm90<128>(dkv, B, H, Hkv, a, st);
-  return D == 64    ? launch_bwd_d<64>(dkv, dtype, B, H, Hkv, a, st)
-         : D == 128 ? launch_bwd_d<128>(dkv, dtype, B, H, Hkv, a, st)
-                    : launch_bwd_d<256>(dkv, dtype, B, H, Hkv, a, st);
+  if (bwd_on_sm90(dtype))
+    return D == 64    ? launch_bwd_sm90<64>(dkv, B, H, Hkv, a, st)
+           : D == 128 ? launch_bwd_sm90<128>(dkv, B, H, Hkv, a, st)
+                      : launch_bwd_d256(dkv, B, H, Hkv, a, st);
+  return D == 64    ? launch_bwd_f32<64>(dkv, B, H, Hkv, a, st)
+         : D == 128 ? launch_bwd_f32<128>(dkv, B, H, Hkv, a, st)
+                    : launch_bwd_f32<256>(dkv, B, H, Hkv, a, st);
 }
 
 }  // namespace

@@ -58,10 +58,10 @@ LOG2E = 1.4426950408889634  # K10's kLog2e, rounded to f32 there
 
 
 def on_sm90(dtype):
-    """Whether K10 runs on a Hopper (wgmma, TMA) kernel for these operands:
-    bf16, at every head_dim it takes (the C side's fwd_on_sm90). K11 and
-    K12 run on their Hopper kernels for bf16 at head_dim 64 and 128 only;
-    their plain versions' tiles are ``block_k``."""
+    """Whether K10, K11 and K12 run on Hopper (wgmma, TMA) kernels for
+    these operands: bf16, at every head_dim they take (the C side's
+    fwd_on_sm90 and bwd_on_sm90); f32 runs the FFMA kernels. The
+    backward's plain versions' tiles are ``block_k``."""
     return dtype == torch.bfloat16
 
 
@@ -74,9 +74,10 @@ def _f32_block_k(head_dim):
 
 def block_k(dtype, head_dim):
     """Keys a tile of K11's and K12's plain versions (``_bwd_tiles``): the
-    f32 kernels' (``_f32_block_k``) on the f32 path, 64 for bf16 (the
-    kernels' blocks are 64 or 128 keys; each key's dK and dV rows are one
-    product over all the queries, so the width orders nothing there)."""
+    f32 kernels' (``_f32_block_k``) on the f32 path, 64 for bf16 (K12's
+    key tiles at every head_dim; K11's blocks are 64 or 128 keys, and each
+    key's dK and dV rows are one product over all the queries, so the
+    width orders nothing there)."""
     return _f32_block_k(head_dim) if dtype == torch.float32 else 64
 
 

@@ -457,7 +457,8 @@ def _port_grads(tq, tk, tv, do, sm_scale):
     (torch.bfloat16, 1, 4, 2, 128, 64), (torch.float32, 1, 4, 1, 128, 64),
     (torch.float32, 1, 4, 2, 256, 128), (torch.float32, 2, 4, 2, 384, 64),
     (torch.float32, 1, 4, 2, 128, 256), (torch.float32, 1, 2, 2, 384, 128),
-    (torch.float32, 1, 4, 1, 256, 256)])
+    (torch.float32, 1, 4, 1, 256, 256), (torch.bfloat16, 1, 2, 2, 128, 256),
+    (torch.bfloat16, 1, 4, 1, 256, 256), (torch.bfloat16, 1, 4, 2, 256, 256)])
 def test_flash_bwd_plain_matches_jax_flash_kernels(dtype, B, H, Hkv, S, D):
     """dQ, dK, dV of the port's flash_attention (K11/K12's plain version)
     against jax.vjp of JAX's bundled flash kernels in interpret mode, under
@@ -465,7 +466,8 @@ def test_flash_bwd_plain_matches_jax_flash_kernels(dtype, B, H, Hkv, S, D):
     dK, dV summed back through jnp.repeat's transpose). The f32 cases
     span four to six of the f32 K11's and K12's 64-key tiles (block_k)
     and, at head_dim 256, four and eight of their 32-key tiles
-    (GQA 4 -> 2 and 4 -> 1)."""
+    (GQA 4 -> 2 and 4 -> 1); the bf16 head_dim-256 cases two and four of
+    the bf16 kernels' 64-key tiles (MHA, GQA 4 -> 1 and 4 -> 2)."""
     import jax
 
     (jq, jk, jv), (tq, tk, tv) = _qkv((B, H, S, D), Hkv, dtype,

@@ -995,7 +995,9 @@ def _bwd_operands(cuda, dtype, B, H, Hkv, S, D, layout, seed):
     (2, 4, 4, 127, 64, "bshd"), (1, 4, 2, 65, 256, "bhsd"),
     (1, 8, 2, 97, 256, "bshd"), (1, 4, 4, 191, 128, "bshd"),
     (1, 8, 2, 193, 64, "bhsd"), (2, 4, 4, 33, 256, "bhsd"),
-    (1, 4, 2, 95, 256, "bshd")])
+    (1, 4, 2, 95, 256, "bshd"), (2, 4, 4, 63, 256, "bshd"),
+    (1, 4, 2, 127, 256, "bhsd"), (1, 8, 2, 129, 256, "bshd"),
+    (1, 16, 4, 1024, 256, "bshd")])
 def test_k11_k12_kernels_match_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     """K10's log-sum-exp, K11 (dK, dV) and K12 (dQ) against their plain
     versions on the same operands (the kernels' lse and di given to both):
@@ -1004,8 +1006,10 @@ def test_k11_k12_kernels_match_plain(cuda, dtype, B, H, Hkv, S, D, layout):
     against the f32 kernels' 128-row q and 64-key tiles, 65 / 97 against
     their 32-row ones at D = 256; 63 / 65 / 127 / 129 / 191 / 193 against
     the f32 K12's 64-row q and key tiles, 33 / 65 / 95 / 97 against its
-    32-row ones at D = 256), GQA n_rep 1/2/4/8
-    (n_rep 4 also at S = 1024, a long walk over a kv head's query heads),
+    32-row ones at D = 256; 63 / 65 / 127 / 129 against the bf16 D = 256
+    kernels' 64-row q and 64-key tiles), GQA n_rep 1/2/4/8
+    (n_rep 4 also at S = 1024, a long walk over a kv head's query heads,
+    at D = 128 and 256),
     head_dim 64/128/256, f32, both layouts. Each element within its own
     bound (flash_bwd_tolerance); lse within 2^-14 (K10's m + log l against
     the plain version's); outputs in the operands' layouts; each wrapper
